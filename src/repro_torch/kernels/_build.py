@@ -1,0 +1,100 @@
+"""Build the package's CUDA kernels with ``nvcc`` at first use; load with ctypes.
+
+Every ``kernels/*/csrc/*.cu`` compiles on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <name>.cu
+
+The output lands in ``build/kernels/`` at the root of the checkout.  The file
+name carries a hash of the source and the flags, so an edited source never
+loads a stale library.  All sources build in parallel, one ``nvcc`` each.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> Dict[str, Path]:
+    """Kernel name (file stem) -> its ``.cu`` source."""
+    return {p.stem: p for p in sorted(_PKG.glob("*/csrc/*.cu"))}
+
+
+def _nvcc() -> str:
+    cand = [os.environ.get("CUDA_HOME", "/usr/local/cuda") + "/bin/nvcc",
+            shutil.which("nvcc") or ""]
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(verbose: bool = False) -> Dict[str, float]:
+    """Compile every source whose library is missing, all ``nvcc`` runs at
+    once.  Returns {name: seconds} for the sources compiled now."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: s for n, s in sources().items() if not _target(s).exists()}
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for name, src in todo.items():
+        out = _target(src)
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(src)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    took, errors = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}:\n{log}")
+            continue
+        if verbose and log:
+            print(log)
+        os.replace(tmp, out)            # atomic: readers never see a partial file
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return took
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        build_all()
+        lib = _libs[name] = ctypes.CDLL(str(_target(sources()[name])))
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a C entry point; every
+    library exports ``error_string`` (``cudaGetErrorString``)."""
+    if err != 0:
+        lib.error_string.restype = ctypes.c_char_p
+        lib.error_string.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{what}: CUDA error {err} "
+                           f"({lib.error_string(err).decode()})")

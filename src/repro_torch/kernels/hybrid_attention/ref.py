@@ -1,0 +1,59 @@
+"""Plain PyTorch version of the hybrid paged-attention kernel.
+
+Counterpart of ``repro.kernels.hybrid_attention.ref`` with the two
+corrections the port's kernel makes to follow the model path: LayerNorm
+applies its bias, and the normed ACT and the recomputed K/V are rounded to
+the cache dtype (the ACT pool's) where ``_hybrid_layer_step`` rounds them.
+In float32 with a zero bias it computes what the JAX reference computes.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+PAGE = 16
+NEG_INF = -1e30
+
+
+def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,
+                               norm_bias, wk, wv, page_table, page_type,
+                               page_ntok, *, norm_type: str = "layernorm",
+                               eps: float = 1e-5):
+    """-> (B, KVH, G, D) attention of q over the typed page table.
+
+    Every page is gathered densely; ACT pages are normed, rounded, projected
+    by ``wk``/``wv`` (d_model, KVH, D) and rounded again (paper Eq. 7)."""
+    B, KVH, G, D = q.shape
+    P = page_table.shape[1]
+    if P == 0:                          # nothing to attend: zeros, as the kernel
+        return torch.zeros_like(q)
+    dt = act_pages.dtype
+    pty = page_type.long()
+    pt = page_table.long()
+    k_kv = k_pages[torch.where(pty == 0, pt, 0)].float()      # (B,P,T,KVH,D)
+    v_kv = v_pages[torch.where(pty == 0, pt, 0)].float()
+    a = act_pages[torch.where(pty == 1, pt, 0)].float()       # (B,P,T,d)
+    if norm_type == "layernorm":
+        mu = a.mean(-1, keepdim=True)
+        var = (a - mu).square().mean(-1, keepdim=True)
+        a = (a - mu) * torch.rsqrt(var + eps) * norm_scale.float() \
+            + norm_bias.float()
+    else:
+        var = a.square().mean(-1, keepdim=True)
+        a = a * torch.rsqrt(var + eps) * (1.0 + norm_scale.float())
+    a = a.to(dt).float()
+    k_act = torch.einsum("bptd,dhe->bpthe", a, wk.float()).to(dt).float()
+    v_act = torch.einsum("bptd,dhe->bpthe", a, wv.float()).to(dt).float()
+    is_act = (pty == 1)[..., None, None, None]
+    k = torch.where(is_act, k_act, k_kv).reshape(B, P * PAGE, KVH, D)
+    v = torch.where(is_act, v_act, v_kv).reshape(B, P * PAGE, KVH, D)
+    tok = torch.arange(PAGE, device=q.device)
+    valid = ((pty != 2)[..., None] & (tok < page_ntok[..., None])).reshape(B, -1)
+    v = torch.where(valid[:, :, None, None], v, 0.0)
+    s = torch.einsum("bhgd,bshd->bhgs", q.float() / math.sqrt(D), k)
+    vm = valid[:, None, None, :]
+    s = torch.where(vm, s, NEG_INF)
+    e = torch.where(vm, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    o = torch.einsum("bhgs,bshd->bhgd", e, v)
+    return (o / e.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)

@@ -1,0 +1,88 @@
+"""Layer primitives of the uniform (OPT) family, as plain functions on tensors.
+
+Counterparts of ``repro.models.layers``: the norms compute in float32 and cast
+back to the input dtype at the same point, so the port rounds where the
+reference rounds.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+# --------------------------------------------------------------------------- norms
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * (1.0 + weight.float())).to(dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = (x - mu).square().mean(-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dtype)
+
+
+#: epsilon of each norm type, as the functions above default it
+NORM_EPS = {"rmsnorm": 1e-6, "layernorm": 1e-5}
+
+
+def apply_norm(x, params, norm_type: str):
+    if norm_type == "rmsnorm":
+        return rms_norm(x, params["scale"])
+    return layer_norm(x, params["scale"], params["bias"])
+
+
+# --------------------------------------------------------------------------- attention
+
+def decode_attention(q, k_cache, v_cache, *, kv_len):
+    """Single-token attention: q (B, 1, H, D) vs cache (B, S, KVH, D).
+
+    kv_len (B,) tensor or int: number of valid cache positions (the new
+    token's K/V must already be written at kv_len-1).
+    """
+    B, _, H, D = q.shape
+    S, KVH = k_cache.shape[1], k_cache.shape[2]
+    G = H // KVH
+    qr = q.reshape(B, KVH, G, D).float()
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32,
+                             device=q.device).expand(B)
+    s = torch.einsum("bhgd,bshd->bhgs", qr, k_cache.float()) / math.sqrt(D)
+    mask = torch.arange(S, device=q.device)[None, :] < kv_len[:, None]
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# --------------------------------------------------------------------------- ffn
+
+def _act(x, kind: str):
+    if kind in ("gated_silu", "silu"):
+        return F.silu(x)
+    if kind in ("gated_gelu", "gelu"):
+        return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+    if kind == "relu":
+        return F.relu(x)
+    if kind == "relu2":
+        r = F.relu(x)
+        return r * r
+    raise ValueError(kind)
+
+
+def dense_ffn(params, x, ffn_type: str):
+    """x (..., d) -> (..., d).  Gated variants hold w1 (in), w3 (gate), w2 (out)."""
+    h = x @ params["w1"]
+    if ffn_type.startswith("gated"):
+        h = _act(h, ffn_type) * (x @ params["w3"])
+    else:
+        h = _act(h, ffn_type)
+    return h @ params["w2"]

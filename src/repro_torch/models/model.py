@@ -1,0 +1,275 @@
+"""Top-level model API of the OPT family: embed -> layers -> logits, the
+plain KV decode path (the oracle's) and the hybrid KV/ACT decode path (the
+engine's).  Counterparts of ``repro.models.model``.
+
+JAX's functions are pure and the JAX engine donates the cache into its decode
+loop; here the cache tensors are updated in place instead, and each function
+returns the (same) cache dict for symmetry with the reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.hybrid_attention.ops import hybrid_paged_attention
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.transformer import (init_params, layer_params,  # noqa: F401 (re-export)
+                                            pad_vocab, torch_dtype)
+
+Params = Dict[str, Any]
+Cache = Dict[str, Any]
+PAGE = 16
+
+
+# =============================================================================
+# embedding / unembedding
+# =============================================================================
+
+def _embed_tokens(params, cfg, tokens):
+    return params["embed"][tokens.long()]
+
+
+def embed_input(params, cfg: ModelConfig, tokens, offset: int = 0):
+    """tokens (B, S) -> x (B, S, d) with learned positions offset..offset+S."""
+    x = _embed_tokens(params, cfg, tokens)
+    return x + params["pos_embed"][offset: offset + x.shape[1]][None]
+
+
+def unembed(params, cfg: ModelConfig, h):
+    """Tied embeddings; logits in float32."""
+    return (h @ params["embed"].T.to(h.dtype)).float()
+
+
+# =============================================================================
+# plain KV cache: prefill + decode (the exactness oracle's path)
+# =============================================================================
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda") -> Cache:
+    shape = (cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim)
+    dt = torch_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "kv_len": torch.zeros((B,), dtype=torch.int32, device=device)}
+
+
+def prefill(params, cfg: ModelConfig, tokens, max_len: int):
+    """Run the prompt (B, S), build the decode cache. -> (last_logits, cache)."""
+    h = embed_input(params, cfg, tokens)
+    B, S = h.shape[:2]
+    cache = init_cache(cfg, B, max_len, device=h.device)
+    for i in range(cfg.num_layers):
+        h, (k, v) = T.layer_full(layer_params(params, i), cfg, h)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    h = L.apply_norm(h, params["final_norm"], cfg.norm_type)
+    cache["kv_len"].fill_(S)
+    return unembed(params, cfg, h[:, -1:]), cache
+
+
+def decode_step(params, cfg: ModelConfig, token, cache: Cache):
+    """token (B, 1) -> (logits (B, 1, V), cache); kv_len advances by 1."""
+    kv_len = cache["kv_len"]
+    x = _embed_tokens(params, cfg, token) + params["pos_embed"][kv_len.long()][:, None]
+    for i in range(cfg.num_layers):
+        x = T.layer_decode(layer_params(params, i), cfg, x, cache["k"][i],
+                           cache["v"][i], kv_len)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
+    cache["kv_len"] = kv_len + 1
+    return unembed(params, cfg, x), cache
+
+
+def decode_loop(params, cfg: ModelConfig, cur, cache: Cache, n_steps: int):
+    """Greedy generation over the plain cache, argmax on the device.
+
+    cur: (B,) first token to emit.  -> (tokens (B, n_steps) int32, cache)."""
+    toks = []
+    for _ in range(n_steps):
+        toks.append(cur)
+        lg, cache = decode_step(params, cfg, cur[:, None], cache)
+        cur = lg[:, -1].argmax(-1).int()
+    return _stack(toks, cur), cache
+
+
+def _stack(toks, like):
+    if not toks:
+        return torch.zeros((like.shape[0], 0), dtype=torch.int32,
+                           device=like.device)
+    return torch.stack(toks, 1)
+
+
+# =============================================================================
+# HYBRID KV/ACT cache — the paper's technique
+# =============================================================================
+
+def init_hybrid_cache(cfg: ModelConfig, B: int, kv_cap: int, act_cap: int,
+                      device="cuda") -> Cache:
+    """KV region holds the context prefix as K/V; ACT region holds the suffix
+    as layer-input activation checkpoints (paper Eq. 7 recomputes K/V).
+    Both capacities are whole pages, so each layer's region reshapes without
+    a copy into a page pool of the hybrid kernel."""
+    if kv_cap % PAGE or act_cap % PAGE:
+        raise ValueError(f"kv_cap={kv_cap}, act_cap={act_cap}: not multiples "
+                         f"of the {PAGE}-token page")
+    dt = torch_dtype(cfg)
+    kv = (cfg.num_layers, B, kv_cap, cfg.num_kv_heads, cfg.head_dim)
+    i32 = dict(dtype=torch.int32, device=device)
+    return {
+        "k": torch.zeros(kv, dtype=dt, device=device),
+        "v": torch.zeros(kv, dtype=dt, device=device),
+        "act": torch.zeros((cfg.num_layers, B, act_cap, cfg.d_model), dtype=dt,
+                           device=device),
+        "act_pos": torch.zeros((B, act_cap), **i32),
+        "kv_len": torch.zeros((B,), **i32),
+        "act_len": torch.zeros((B,), **i32),
+    }
+
+
+def hybrid_prefill_batched(params, cfg: ModelConfig, tokens, kv_cap: int,
+                           act_cap: int, kv_keep, last_pos):
+    """Group-batched hybrid prefill with PER-REQUEST KV/ACT split points.
+
+      kv region  <- K/V of positions [0, kv_keep[b])   (kv_len masks the rest)
+      act region <- checkpoints of [kv_keep[b], last_pos[b])  (gathered)
+
+    tokens (B, S); kv_keep, last_pos: (B,) int32 tensors on the same device.
+    -> (last_logits (B, 1, V), hybrid cache)."""
+    if int(kv_keep.max()) > kv_cap:
+        raise ValueError(f"kv_keep={int(kv_keep.max())} exceeds kv_cap={kv_cap}")
+    if int((last_pos - kv_keep).max()) > act_cap:
+        raise ValueError(f"ACT span {int((last_pos - kv_keep).max())} exceeds "
+                         f"act_cap={act_cap}")
+    h = embed_input(params, cfg, tokens)
+    B, S = h.shape[:2]
+    dev = h.device
+    cache = init_hybrid_cache(cfg, B, kv_cap, act_cap, device=dev)
+    kfit = min(S, kv_cap)
+    slots = torch.arange(act_cap, dtype=torch.int32, device=dev)[None]
+    # act region slot j of request b holds the checkpoint of position kv_keep[b]+j
+    act_idx = (kv_keep[:, None] + slots).clamp(0, S - 1).long()
+    act_idx = act_idx[:, :, None].expand(B, act_cap, cfg.d_model)
+    for i in range(cfg.num_layers):
+        cache["act"][i] = torch.gather(h, 1, act_idx)       # A^i, the checkpoint
+        h, (k, v) = T.layer_full(layer_params(params, i), cfg, h)
+        cache["k"][i, :, :kfit] = k[:, :kfit]
+        cache["v"][i, :, :kfit] = v[:, :kfit]
+    h = L.apply_norm(h, params["final_norm"], cfg.norm_type)
+    ar = torch.arange(B, device=dev)
+    logits = unembed(params, cfg, h[ar, (last_pos - 1).long()][:, None])
+    cache["act_pos"] = (kv_keep[:, None] + slots).int()
+    # lengths clamped to what was actually stored
+    cache["kv_len"] = torch.clamp(kv_keep, max=kfit).int()
+    cache["act_len"] = torch.clamp(last_pos - kv_keep, max=act_cap).int()
+    return logits, cache
+
+
+def hybrid_page_table(kv_tokens, act_tokens, kv_cap: int, act_cap: int,
+                      n_pages: int):
+    """Compacted page tables of one decode step, built on the device.
+
+    Request b's KV region is pages ``b*kv_cap/16 + j`` of the layer's KV pool
+    and its ACT region pages ``b*act_cap/16 + j`` of the ACT pool; its used
+    KV pages come first, then its ACT pages, then empty entries.
+    kv_tokens / act_tokens (B,): tokens each region holds, this step's new
+    token included.  -> (page_table, page_type, page_ntok), int32 (B, n_pages).
+    """
+    dev = kv_tokens.device
+    B = kv_tokens.shape[0]
+    j = torch.arange(n_pages, device=dev)[None]
+    b = torch.arange(B, device=dev)[:, None]
+    kv_t, act_t = kv_tokens.long()[:, None], act_tokens.long()[:, None]
+    n_kv = (kv_t + PAGE - 1) // PAGE
+    ja = j - n_kv
+    is_kv = j < n_kv
+    is_act = ~is_kv & (ja * PAGE < act_t)
+    table = torch.where(is_kv, b * (kv_cap // PAGE) + j,
+                        torch.where(is_act, b * (act_cap // PAGE) + ja, 0))
+    ptype = torch.where(is_kv, 0, torch.where(is_act, 1, 2))
+    ntok = torch.where(is_kv, (kv_t - PAGE * j).clamp(0, PAGE),
+                       torch.where(is_act, (act_t - PAGE * ja).clamp(0, PAGE), 0))
+    return table.int(), ptype.int(), ntok.int()
+
+
+def _hybrid_layer_step(lp, cfg, h, kc, vc, ac, kv_len, act_len, store_act,
+                       tables):
+    """One hybrid KV/ACT attention layer at decode time.  kc/vc (B, kv_cap,
+    KVH, D) and ac (B, act_cap, d) are this layer's regions, updated in place.
+
+    The new token's K/V (KV-bound) or checkpoint (ACT-bound) is written into
+    its region BEFORE the kernel runs, so an ACT-bound token's K/V are
+    recomputed from its own checkpoint inside the kernel — the same
+    norm(h) @ wk that ``_qk`` computed."""
+    B = h.shape[0]
+    KVH, D, d = cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    ar = torch.arange(B, device=h.device)
+    act_in = h[:, 0]                                           # A^i of new token
+    q, k, v = T._qk(lp["attn"], cfg, L.apply_norm(h, lp["ln1"], cfg.norm_type))
+
+    ki = kv_len.clamp(max=kc.shape[1] - 1).long()
+    ai = act_len.clamp(max=ac.shape[1] - 1).long()
+    to_act = store_act[:, None, None]
+    kc[ar, ki] = torch.where(to_act, kc[ar, ki], k[:, 0])
+    vc[ar, ki] = torch.where(to_act, vc[ar, ki], v[:, 0])
+    ac[ar, ai] = torch.where(store_act[:, None], act_in.to(ac.dtype), ac[ar, ai])
+
+    o = hybrid_paged_attention(
+        q.reshape(B, KVH, cfg.num_heads // KVH, D),
+        kc.view(-1, PAGE, KVH, D), vc.view(-1, PAGE, KVH, D),
+        ac.view(-1, PAGE, d), lp["ln1"]["scale"], lp["ln1"].get("bias"),
+        lp["attn"]["wk"].view(d, KVH, D), lp["attn"]["wv"].view(d, KVH, D),
+        *tables, norm_type=cfg.norm_type, eps=L.NORM_EPS[cfg.norm_type])
+    h = h + o.reshape(B, 1, cfg.q_dim) @ lp["attn"]["wo"]
+    return h + T.ffn_apply(lp["ffn"], cfg, L.apply_norm(h, lp["ln2"], cfg.norm_type))
+
+
+def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
+                       store_act, *, pages_bound=None):
+    """One generation step with the KV-Activation hybrid cache.
+
+    store_act (B,) bool: whether this token's checkpoint goes to the ACT
+    region (True) or its K/V to the KV region (False).
+    pages_bound: bound on any request's used pages this step (the caller
+    knows it from the store schedule); the page tables, and so the kernel's
+    page loop, are that wide.  Default: every page of both regions.
+    -> (logits (B, 1, V), cache)."""
+    B = token.shape[0]
+    kv_cap, act_cap = cache["k"].shape[2], cache["act"].shape[2]
+    kv_len, act_len = cache["kv_len"], cache["act_len"]
+    ctx = kv_len + act_len                                     # absolute position
+    ar = torch.arange(B, device=token.device)
+    ai = act_len.clamp(max=act_cap - 1).long()
+    # ACT tokens carry their recorded absolute positions (appends interleave)
+    cache["act_pos"][ar, ai] = torch.where(store_act, ctx, cache["act_pos"][ar, ai])
+
+    x = _embed_tokens(params, cfg, token) + params["pos_embed"][ctx.long()][:, None]
+    kv_new = kv_len + (~store_act).int()
+    act_new = act_len + store_act.int()
+    maxp = kv_cap // PAGE + act_cap // PAGE
+    n_pages = maxp if pages_bound is None else min(int(pages_bound), maxp)
+    tables = hybrid_page_table(kv_new, act_new, kv_cap, act_cap, n_pages)
+    for i in range(cfg.num_layers):
+        x = _hybrid_layer_step(layer_params(params, i), cfg, x, cache["k"][i],
+                               cache["v"][i], cache["act"][i], kv_len, act_len,
+                               store_act, tables)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
+    cache["kv_len"], cache["act_len"] = kv_new, act_new
+    return unembed(params, cfg, x), cache
+
+
+def hybrid_decode_loop(params, cfg: ModelConfig, cur, cache: Cache,
+                       store_sched, *, pages_bound=None):
+    """Greedy generation over the hybrid cache, argmax on the device and no
+    host sync inside the loop.
+
+    cur:         (B,) int32 — first token to emit (argmax of prefill logits).
+    store_sched: (n_steps, B) bool tensor — per-step store_act flags.
+    -> (tokens (B, n_steps) int32, cache)."""
+    toks = []
+    for s in range(store_sched.shape[0]):
+        toks.append(cur)
+        lg, cache = hybrid_decode_step(params, cfg, cur[:, None], cache,
+                                       store_sched[s], pages_bound=pages_bound)
+        cur = lg[:, -1].argmax(-1).int()
+    return _stack(toks, cur), cache

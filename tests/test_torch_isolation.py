@@ -1,0 +1,64 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and its entry
+points default to the card."""
+import inspect
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro_torch import params as P
+from repro_torch.models import model as M
+from repro_torch.serving import engine as E
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)\b(?!_))",
+                       re.MULTILINE)
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    for p in sorted(PORT.rglob("*.py")):
+        rel = p.relative_to(PORT.parent).with_suffix("")
+        yield ".".join(rel.parts[:-1] if rel.name == "__init__" else rel.parts)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_sources_import_no_jax_and_no_repro(path):
+    src = path.read_text()
+    assert not FORBIDDEN.search(src), FORBIDDEN.search(src).group(0)
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for bad in ("import jax", "from jax import numpy", "import repro.core",
+                "from repro.models import model", "  from repro import x"):
+        assert FORBIDDEN.search(bad), bad
+    for ok in ("from repro_torch.core import x", "import repro_torch",
+               "import numpy  # jax-free"):
+        assert not FORBIDDEN.search(ok), ok
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = list(_modules()) + ["chip_smoke"]
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("fn", [M.init_params, M.init_cache,
+                                M.init_hybrid_cache, P.from_numpy,
+                                E.HybridServeEngine.__init__,
+                                E.exact_reference_generate],
+                         ids=lambda f: f.__qualname__)
+def test_entry_points_default_to_cuda(fn):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
