@@ -308,7 +308,7 @@ def phase_serve(results, smi):
                max_memory_allocated=torch.cuda.max_memory_allocated())
     emit(out)
     results["serve"] = out
-    return launches, eng, reqs
+    return launches, {"hybrid": eng, "kv": kv_eng}, reqs
 
 
 def kernel_group(name: str) -> str:
@@ -316,34 +316,44 @@ def kernel_group(name: str) -> str:
         return "hybrid_paged_attention"
     if "flash_fwd_kernel" in name:
         return "flash_attention"
-    if any(w in name.lower() for w in ("gemm", "gemv", "cutlass", "xmma")):
+    if any(w in name.lower() for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul (cuBLAS)"
     return "other (norms, elementwise, indexing, argmax)"
 
 
-def phase_profile(results, smi, eng, reqs):
-    """Device time by kernel over one warm hybrid ``generate`` (torch.profiler
-    kernel events), and the device's busy share of the wall-clock window."""
+def phase_profile(results, smi, engines, reqs):
+    """Per mode: device time by kernel over one warm ``generate`` of the trace
+    (torch.profiler kernel events), the device's busy and idle share of the
+    wall-clock window, and the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.generate(reqs)
+    out = {"phase": "profile", "card": smi}
+    for mode, eng in engines.items():
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_group, n_events = {}, 0
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        n_events += 1
-        g = kernel_group(e.name)
-        by_group[g] = by_group.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
-    busy = sum(by_group.values())
-    out = {"phase": "profile", "card": smi, "wall_ms": wall * 1e3,
-           "device_events": n_events, "device_busy_ms": busy,
-           "device_idle_share": 1.0 - busy / (wall * 1e3) if n_events else None,
-           "device_ms_by_kernel": dict(sorted(by_group.items(),
-                                              key=lambda kv: -kv[1]))}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.generate(reqs)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_group, by_name = {}, {}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = e.time_range.elapsed_us() / 1e3
+            g = kernel_group(e.name)
+            by_group[g] = by_group.get(g, 0.0) + ms
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + ms)
+        busy = sum(by_group.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        out[mode] = {
+            "wall_ms": wall_ms, "device_events": sum(n for n, _ in by_name.values()),
+            "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall_ms if by_name else None,
+            "device_ms_by_kernel": dict(sorted(by_group.items(),
+                                               key=lambda kv: -kv[1])),
+            "top_kernels": [{"name": name[:90], "calls": n, "ms": t}
+                            for name, (n, t) in top]}
     emit(out)
     results["profile"] = out
 
@@ -358,8 +368,8 @@ def main() -> int:
     smi = phase_env(results)
     phase_build(results)
     phase_kernels(results)
-    launches, eng, reqs = phase_serve(results, smi)
-    phase_profile(results, smi, eng, reqs)
+    launches, engines, reqs = phase_serve(results, smi)
+    phase_profile(results, smi, engines, reqs)
     k = results["kernels"]
     rows = []
     for name, cases, src, tpu in (
