@@ -120,7 +120,7 @@ def check_flash(B, S, H=32, D=128):
     ops = 4.0 * B * H * D * S * (S + 1) / 2           # QK^T and PV, causal half
     bound_ms, by = bound(4 * q.numel() * q.element_size(), ops)
     return {"shape": [B, S, H, D], "max_abs_err": err, "tol": KERNEL_TOL,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound_ms, "bound_by": by}
 
 
@@ -159,7 +159,7 @@ def check_hybrid(B=4, KVH=32, D=128, d=4096, cap=512):
     return {"shape": {"B": B, "KVH": KVH, "G": 1, "D": D, "d_model": d,
                       "kv_cap": cap, "act_cap": cap, "kv_tokens": kv_tok.tolist(),
                       "act_tokens": act_tok.tolist(), "pages_bound": pages_bound},
-            "max_abs_err": err, "tol": KERNEL_TOL, "ms": ms,
+            "max_abs_err": err, "tol": KERNEL_TOL, "kernel_ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
             "bound_by": by}
 
@@ -383,7 +383,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": launches[name],
                      "max_abs_err": max(x["max_abs_err"] for x in cases),
-                     "ms": c["ms"], "plain_ms": c["plain_ms"],
+                     "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                      "library_ms": c["library_ms"]})
     out_dir = ROOT / "chiprun_out"
