@@ -39,7 +39,7 @@ from repro_torch.kernels.hybrid_attention.ref import hybrid_paged_attention_ref 
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serving import HybridServeEngine, exact_reference_generate  # noqa: E402
 
-# H100 SXM data sheet (the on-chip-measurement guide's table): dense fp16
+# H100 SXM data sheet: dense fp16
 # tensor-core rate and HBM3 bandwidth, at the full 700 W power limit
 PEAK_FP16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
