@@ -44,9 +44,10 @@ from repro_torch.serving import HybridServeEngine, exact_reference_generate  # n
 PEAK_FP16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 PAGE = 16
-# kernel vs plain version, both float16 out of float32 sums: a few f16 ulps
-# at |o| <= 4 (ulp 2**-8 there), from summing in another order
-KERNEL_TOL = 1e-2
+# kernel vs plain version, both rounded to the dtype out of float32 sums: a
+# few ulps at |o| <= 4 (float16's ulp is 2**-9 there), from summing in another
+# order; bfloat16 keeps 3 fewer mantissa bits, so the same ulps are 8x wider
+KERNEL_TOL = {torch.float16: 1e-2, torch.bfloat16: 8e-2}
 # teacher-forced hybrid vs oracle logits: recomputed K/V and the two attention
 # paths differ by float16 ulps (up to 2**-9 at |x| < 1) per layer; 32 residual
 # layers and a 4096-deep unembedding keep the drift of unit-scale logits
@@ -103,36 +104,44 @@ def phase_build(results):
     results["build"] = out
 
 
-def check_flash(B, S, H=32, D=128):
+def check_flash(B, S, H=32, KVH=32, D=128, dtype=torch.float16):
     g = torch.Generator(device="cuda").manual_seed(S)
-    q, k, v = (torch.randn((B, S, H, D), generator=g, device="cuda",
-                           dtype=torch.float16) for _ in range(3))
+    q = torch.randn((B, S, H, D), generator=g, device="cuda", dtype=dtype)
+    k, v = (torch.randn((B, S, KVH, D), generator=g, device="cuda",
+                        dtype=dtype) for _ in range(2))
     got = flash_attention(q, k, v)
     want = flash_attention_ref(q, k, v)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    # the library call reads (B, H, S, D) with K/V expanded to H heads, made
+    # before the timing
+    qt, kt, vt = (x.transpose(1, 2).repeat_interleave(H // x.shape[2], dim=1)
+                  .contiguous() for x in (q, k, v))
     iters = 50 if S <= 256 else 10
     ms = time_ms(lambda: flash_attention(q, k, v), iters)
     plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), iters)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), iters)
     ops = 4.0 * B * H * D * S * (S + 1) / 2           # QK^T and PV, causal half
-    bound_ms, by = bound(4 * q.numel() * q.element_size(), ops)
-    return {"shape": [B, S, H, D], "max_abs_err": err, "tol": KERNEL_TOL,
-            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": by}
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    bound_ms, by = bound(nbytes, ops)
+    return {"shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D},
+            "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
+            "tol": KERNEL_TOL[dtype], "kernel_ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by}
 
 
-def check_hybrid(B=4, KVH=32, D=128, d=4096, cap=512):
+def check_hybrid(B=4, KVH=32, G=1, D=128, d=4096, cap=512,
+                 dtype=torch.float16, norm_type="layernorm"):
     g = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *shape, s=1.0, o=0.0: (torch.randn(
-        shape, generator=g, device="cuda") * s + o).to(torch.float16)
+        shape, generator=g, device="cuda") * s + o).to(dtype)
     k_pages = rnd(B * cap // PAGE, PAGE, KVH, D, s=0.5)
     v_pages = rnd(B * cap // PAGE, PAGE, KVH, D, s=0.5)
     act_pages = rnd(B * cap // PAGE, PAGE, d, o=0.1)
-    q = rnd(B, KVH, 1, D)
-    scale, bias = rnd(d, s=0.1, o=1.0), rnd(d, s=0.2)   # non-zero LN bias
+    q = rnd(B, KVH, G, D)
+    scale = rnd(d, s=0.1, o=1.0 if norm_type == "layernorm" else 0.0)
+    bias = rnd(d, s=0.2) if norm_type == "layernorm" else None  # non-zero
     wk, wv = rnd(d, KVH, D, s=d ** -0.5), rnd(d, KVH, D, s=d ** -0.5)
     kv_tok = torch.tensor([40, 17, 96, 0], dtype=torch.int32, device="cuda")
     act_tok = torch.tensor([24, 47, 16, 70], dtype=torch.int32, device="cuda")
@@ -143,37 +152,49 @@ def check_hybrid(B=4, KVH=32, D=128, d=4096, cap=512):
                        + (act_tok + PAGE - 1) // PAGE).max())
     tables = M.hybrid_page_table(kv_tok, act_tok, cap, cap, pages_bound)
     args = (q, k_pages, v_pages, act_pages, scale, bias, wk, wv, *tables)
-    got = hybrid_paged_attention(*args)
-    want = hybrid_paged_attention_ref(*args)
+    run = lambda f: f(*args, norm_type=norm_type)
+    got = run(hybrid_paged_attention)
+    want = run(hybrid_paged_attention_ref)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    ms = time_ms(lambda: hybrid_paged_attention(*args), 50)
-    plain_ms = time_ms(lambda: hybrid_paged_attention_ref(*args), 10)
-    esz = 2
+    ms = time_ms(lambda: run(hybrid_paged_attention), 50)
+    plain_ms = time_ms(lambda: run(hybrid_paged_attention_ref), 10)
+    esz = q.element_size()
+    n_norm = 2 if bias is not None else 1
     nbytes = esz * (2 * q.numel() + n_kv * PAGE * KVH * D * 2
-                    + n_act * PAGE * d + 2 * d * KVH * D + 2 * d) \
+                    + n_act * PAGE * d + 2 * d * KVH * D + n_norm * d) \
         + 3 * 4 * B * pages_bound
     kv_t, act_t = int(kv_tok.sum()), int(act_tok.sum())
-    ops = KVH * (kv_t + act_t) * 4.0 * D + act_t * KVH * 4.0 * d * D
+    ops = KVH * G * (kv_t + act_t) * 4.0 * D + act_t * KVH * 4.0 * d * D
     bound_ms, by = bound(nbytes, ops)
-    return {"shape": {"B": B, "KVH": KVH, "G": 1, "D": D, "d_model": d,
+    return {"shape": {"B": B, "KVH": KVH, "G": G, "D": D, "d_model": d,
                       "kv_cap": cap, "act_cap": cap, "kv_tokens": kv_tok.tolist(),
                       "act_tokens": act_tok.tolist(), "pages_bound": pages_bound},
-            "max_abs_err": err, "tol": KERNEL_TOL, "kernel_ms": ms,
+            "dtype": str(dtype).removeprefix("torch."), "norm_type": norm_type,
+            "max_abs_err": err, "tol": KERNEL_TOL[dtype], "kernel_ms": ms,
             "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
             "bound_by": by}
 
 
 def phase_kernels(results):
+    """The serve path's shapes first (float16, MHA, LayerNorm, G=1), then the
+    other branches the wrappers accept: bfloat16, GQA flash, and the hybrid
+    kernel's rmsnorm with G=4 query heads per KV head."""
     out = {"phase": "kernels",
-           "flash_attention": [check_flash(4, 80), check_flash(1, 2048)],
-           "hybrid_paged_attention": [check_hybrid()]}
+           "flash_attention": [
+               check_flash(4, 80), check_flash(1, 2048),
+               check_flash(4, 80, H=32, KVH=8, dtype=torch.bfloat16)],
+           "hybrid_paged_attention": [
+               check_hybrid(),
+               check_hybrid(KVH=8, G=4, dtype=torch.bfloat16,
+                            norm_type="rmsnorm")]}
     emit(out)
     results["kernels"] = out
-    errs = [c["max_abs_err"] for c in out["flash_attention"]
-            + out["hybrid_paged_attention"]]
-    if not all(e <= KERNEL_TOL for e in errs):
-        raise AssertionError(f"kernel disagrees with its plain version: {errs}")
+    bad = [(name, c["shape"], c["dtype"], c["max_abs_err"])
+           for name in ("flash_attention", "hybrid_paged_attention")
+           for c in out[name] if not c["max_abs_err"] <= c["tol"]]
+    if bad:
+        raise AssertionError(f"kernel disagrees with its plain version: {bad}")
 
 
 def teacher_forced(eng, params, cfg, group, oracle):
@@ -382,8 +403,9 @@ def main() -> int:
         c = cases[0]                      # the serve path's own shape first
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "launches": launches[name],
-                     "max_abs_err": max(x["max_abs_err"] for x in cases),
-                     "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
+                     "max_abs_err": c["max_abs_err"], "tol": c["tol"],
+                     "ms": c["kernel_ms"], "kernel_ms": c["kernel_ms"],
+                     "plain_ms": c["plain_ms"],
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                      "library_ms": c["library_ms"]})
     out_dir = ROOT / "chiprun_out"

@@ -9,4 +9,3 @@ from repro_torch.core.pipeline import MiniBatchSpec, simulate_steps
 from repro_torch.core.policy import (HostAllocation, device_act_blocks,
                                      host_block_allocation,
                                      store_act_schedule)
-from repro_torch.core.quant import QuantConfig

@@ -1,7 +1,8 @@
 """Hybrid cache blocks: PagedAttention-style tables extended with block TYPE.
 
 A copy of ``repro.core.blocks`` without the offload, sharding, controller,
-preemption and CPU-lane hooks, which later slices of the port bring.
+preemption, quantization and CPU-lane hooks, which later slices of the port
+bring.  Blocks are priced in the config dtype.
 
 Each logical block covers BLOCK_TOKENS tokens of one request's context across
 all layers, stored either as K/V tensors (KV block) or as activation
@@ -15,7 +16,6 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import quant as Q
 
 BLOCK_TOKENS = 16           # vLLM default; MXU-friendly sublane count
 
@@ -30,18 +30,14 @@ class Location(enum.Enum):
     DEVICE = "device"
 
 
-def kv_block_bytes(cfg: ModelConfig,
-                   quant: "Q.QuantConfig | None" = None) -> int:
-    """S_KV: one KV block, all layers.  ``quant`` prices the
-    1-byte-payload + scale layout (DESIGN.md §14)."""
-    return BLOCK_TOKENS * Q.kv_bytes_per_token(cfg, quant) * cfg.num_layers
+def kv_block_bytes(cfg: ModelConfig) -> int:
+    """S_KV: one KV block, all layers."""
+    return BLOCK_TOKENS * cfg.kv_bytes_per_token() * cfg.num_layers
 
 
-def act_block_bytes(cfg: ModelConfig,
-                    quant: "Q.QuantConfig | None" = None) -> int:
-    """S_ACT: one ACT block, all layers (= S_KV/2 for MHA); ``quant`` as
-    in ``kv_block_bytes``."""
-    return BLOCK_TOKENS * Q.act_bytes_per_token(cfg, quant) * cfg.num_layers
+def act_block_bytes(cfg: ModelConfig) -> int:
+    """S_ACT: one ACT block, all layers (= S_KV/2 for MHA)."""
+    return BLOCK_TOKENS * cfg.act_bytes_per_token() * cfg.num_layers
 
 
 @dataclass
@@ -50,12 +46,6 @@ class LogicalBlock:
     location: Location
     pbn: int                 # physical block number within its (kind, location) pool
     ntokens: int = 0         # filled tokens (<= BLOCK_TOKENS)
-    # storage format metadata (DESIGN.md §14): payload dtype of this block's
-    # rows plus the absmax-scale dtype when quantized (scale_dtype=None means
-    # an unquantized block in the config dtype — today's layout, and what
-    # every block is when the manager has quant=None).
-    dtype: str = ""
-    scale_dtype: Optional[str] = None
 
     @property
     def full(self) -> bool:
@@ -94,14 +84,8 @@ class BlockManager:
 
     def __init__(self, cfg: ModelConfig, *,
                  host_kv_blocks: int, host_act_blocks: int,
-                 dev_kv_blocks: int, dev_act_blocks: int,
-                 quant: "Q.QuantConfig | None" = None):
-        """``quant``: cache-block quantization (DESIGN.md §14).  When set,
-        newly allocated blocks carry the 1-byte payload + scale dtype
-        metadata and every byte query prices the quantized layout; None
-        keeps all accounting in the config dtype, bit-for-bit."""
+                 dev_kv_blocks: int, dev_act_blocks: int):
         self.cfg = cfg
-        self.quant = quant
         self.pools: Dict[Tuple[BlockType, Location], PhysicalPool] = {
             (BlockType.KV, Location.HOST): PhysicalPool(host_kv_blocks),
             (BlockType.ACT, Location.HOST): PhysicalPool(host_act_blocks),
@@ -128,18 +112,8 @@ class BlockManager:
         for loc in order:
             pbn = self.pools[(kind, loc)].alloc()
             if pbn is not None:
-                return LogicalBlock(kind, loc, pbn, dtype=self._block_dtype(kind),
-                                    scale_dtype=self._block_scale_dtype())
+                return LogicalBlock(kind, loc, pbn)
         return None
-
-    def _block_dtype(self, kind: BlockType) -> str:
-        if self.quant is None:
-            return str(self.cfg.dtype)
-        return (self.quant.kv_dtype if kind == BlockType.KV
-                else self.quant.act_dtype)
-
-    def _block_scale_dtype(self) -> Optional[str]:
-        return None if self.quant is None else self.quant.scale_dtype
 
     def append_token(self, rid: int, kind: BlockType) -> Optional[LogicalBlock]:
         """Account one more token of the given representation; allocates a new

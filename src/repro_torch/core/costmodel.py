@@ -1,7 +1,9 @@
 """Hardware spec + cost functions + sampling-based linear regression (§4.3).
 
 A copy of ``repro.core.costmodel`` (the port imports nothing from the JAX
-package) with one addition: ``H100_SXM``, the port's default target.
+package) with one addition: ``H100_SXM``, the port's default target.  The
+inter-chip, dispatch and host-attention terms are left to the slices that
+use them, and bytes are priced in the config dtype.
 
 The paper profiles ``T_kv_gen`` and ``T_load_kv`` on the target machine and
 fits linear functions (R² = 0.99, Fig. 11).  We do the same: the "profiler"
@@ -26,7 +28,6 @@ class HardwareSpec:
     host_link_bw: float     # host <-> device interconnect, B/s
     device_mem: float       # device memory capacity, bytes
     host_mem: float         # host memory capacity, bytes
-    ici_bw: float = 0.0     # inter-chip link bandwidth (TPU), B/s per link
     mfu: float = 0.45       # achievable fraction of peak for dense matmuls
     # KV-gen runs skinny per-block (16-token) GEMMs; its achievable fraction
     # of peak is far below the batched forward's (paper Fig. 6 breakdown).
@@ -36,15 +37,6 @@ class HardwareSpec:
     # are contiguous and get the full link.  Measured fractions for pinned
     # scatter-gather DMA land near 0.4-0.6 on PCIe 4.0.
     gather_eff: float = 0.5
-    # Host-side cost of ONE dispatch plus its blocking sync (DESIGN.md §10).
-    dispatch_overhead: float = 40e-6
-    # Host-compute attention lane (DESIGN.md §15): peak host FLOP/s across
-    # all cores and host DRAM bandwidth, a mid-range server CPU.
-    host_flops: float = 2e12
-    host_dram_bw: float = 150e9
-    # Achievable fraction of host peak for the decode-attention GEMV shape
-    # (bandwidth-bound, numpy single-stream): far below the device's mfu.
-    host_mfu: float = 0.25
 
 
 # The reproduction target: one TPU v5e chip, host offload over PCIe DMA.
@@ -55,7 +47,6 @@ TPU_V5E = HardwareSpec(
     host_link_bw=32e9,
     device_mem=16 * 2**30,
     host_mem=512 * 2**30,
-    ici_bw=50e9,
     mfu=0.5,
 )
 
@@ -97,21 +88,6 @@ def attn_flops_per_token(cfg: ModelConfig, ctx: int) -> float:
     return 2.0 * 2 * ctx * cfg.q_dim
 
 
-def cpu_attend_seconds_per_token(cfg: ModelConfig, hw: HardwareSpec,
-                                 quant=None) -> float:
-    """Host-attention cost per SPILLED CONTEXT TOKEN per layer (§15).
-
-    One context token costs ``attn_flops_per_token(cfg, 1)`` MACs on the
-    host cores and one KV row read out of host DRAM; the lane runs at
-    whichever roofline binds.  Quantized arenas read fewer bytes but pay
-    the same FLOPs (dequant is fused into the streaming pass).
-    """
-    from repro_torch.core.quant import kv_bytes_per_token
-    t_flops = attn_flops_per_token(cfg, 1) / (hw.host_flops * hw.host_mfu)
-    t_bytes = kv_bytes_per_token(cfg, quant) / hw.host_dram_bw
-    return max(t_flops, t_bytes)
-
-
 def forward_flops_per_token(cfg: ModelConfig, ctx: int) -> float:
     """Per-layer per-token decode forward (QKV+proj+FFN+attention)."""
     d, f = cfg.d_model, cfg.d_ff
@@ -124,25 +100,20 @@ def forward_flops_per_token(cfg: ModelConfig, ctx: int) -> float:
     return proj + ffn + attn_flops_per_token(cfg, ctx)
 
 
-def make_cost_fns(cfg: ModelConfig, hw: HardwareSpec, quant=None):
+def make_cost_fns(cfg: ModelConfig, hw: HardwareSpec):
     """-> (t_kv_gen(n_tokens), t_load_kv(n_tokens), t_load_act(n_tokens)).
 
     Per layer, batch-aggregate token counts (matching Algorithm 1's units:
-    "#blocks" scaled by BLOCK_TOKENS happens at the caller).  ``quant``
-    (a ``core.quant.QuantConfig``) reprices the two PCIe lanes by the
-    quantized bytes/token — the load slopes drop 2-4x while the KV-Gen
-    lane is untouched, which is exactly the slope change Algorithm 1's
-    KV:ACT split re-balances around (DESIGN.md §14).
+    "#blocks" scaled by BLOCK_TOKENS happens at the caller).
     """
-    from repro_torch.core.quant import act_bytes_per_token, kv_bytes_per_token
     eff_gen = hw.flops * hw.gen_mfu
 
     def t_kv_gen(n):                     # GPU lane (skinny per-block GEMMs)
         return np.asarray(n, float) * kv_gen_flops_per_token(cfg) / eff_gen
 
     kv_bw = hw.host_link_bw * hw.gather_eff
-    kvB = kv_bytes_per_token(cfg, quant)
-    actB = act_bytes_per_token(cfg, quant)
+    kvB = cfg.kv_bytes_per_token()
+    actB = cfg.act_bytes_per_token()
 
     def t_load_kv(n):                    # PCIe lane (scattered block gather)
         return np.asarray(n, float) * kvB / kv_bw
@@ -173,10 +144,10 @@ class LinearFit:
         return max(0.0, (float(t) - self.intercept) / self.slope)
 
 
-def fit_linear(fn: Callable, ns: Sequence[float], noise: float = 0.0,
-               seed: int = 0) -> LinearFit:
-    """Least-squares fit of fn over sample points ``ns`` (optionally noisy,
-    mimicking real profiling jitter — R² then lands near the paper's 0.99)."""
+def fit_linear(fn: Callable, ns: Sequence[float], noise: float,
+               seed: int) -> LinearFit:
+    """Least-squares fit of fn over sample points ``ns`` with relative
+    noise, mimicking real profiling jitter — R² lands near the paper's 0.99."""
     ns = np.asarray(ns, float)
     ts = np.asarray([float(fn(n)) for n in ns])
     if noise > 0.0:
@@ -191,10 +162,13 @@ def fit_linear(fn: Callable, ns: Sequence[float], noise: float = 0.0,
     return LinearFit(slope=float(coef[0]), intercept=float(coef[1]), r2=r2)
 
 
-def profile_cost_fns(cfg: ModelConfig, hw: HardwareSpec,
-                     sample_tokens: Sequence[int] = (256, 1024, 4096, 16384, 65536),
-                     noise: float = 0.02, quant=None) -> Tuple[LinearFit, ...]:
+# token counts the profiler samples, and its relative jitter (R² near 0.99)
+SAMPLE_TOKENS = (256, 1024, 4096, 16384, 65536)
+PROFILE_NOISE = 0.02
+
+
+def profile_cost_fns(cfg: ModelConfig, hw: HardwareSpec) -> Tuple[LinearFit, ...]:
     """The paper's sampling step: returns (fit_kv_gen, fit_load_kv)."""
-    fns = make_cost_fns(cfg, hw, quant=quant)
-    return (fit_linear(fns[0], sample_tokens, noise, seed=1),
-            fit_linear(fns[1], sample_tokens, noise, seed=2))
+    fns = make_cost_fns(cfg, hw)
+    return (fit_linear(fns[0], SAMPLE_TOKENS, PROFILE_NOISE, seed=1),
+            fit_linear(fns[1], SAMPLE_TOKENS, PROFILE_NOISE, seed=2))

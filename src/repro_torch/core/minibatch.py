@@ -18,6 +18,8 @@ import numpy as np
 from repro_torch.core.blocks import BLOCK_TOKENS
 from repro_torch.core.costmodel import LinearFit
 
+TAU = 1.5                      # F_b a batch may always grow to
+
 
 @dataclass(frozen=True)
 class RequestBlocks:
@@ -57,15 +59,14 @@ def f_b(act_blocks: int, kv_blocks: int,
 
 def form_minibatches(requests: Sequence[RequestBlocks],
                      fit_gen: LinearFit, fit_load: LinearFit,
-                     act_max: int, kv_max: int,
-                     tau: float = 1.5) -> List[MiniBatch]:
+                     act_max: int, kv_max: int) -> List[MiniBatch]:
     """Greedy packing minimising mini-batch count then F_b (paper §4.3.3).
 
     Interpretation note: the paper accepts a request iff it "reduces F_b
     relative to the current mini-batch state", but it simultaneously claims to
     minimise the NUMBER of mini-batches — with homogeneous requests a strictly
     decreasing F_b would force one request per batch.  We therefore accept a
-    request when F_b stays within ``max(current F_b, tau)``: batches fill to
+    request when F_b stays within ``max(current F_b, TAU)``: batches fill to
     the capacity bounds while imbalance stays bounded, and each addition picks
     the candidate with the smallest resulting F_b (the paper's greedy choice).
     """
@@ -79,7 +80,7 @@ def form_minibatches(requests: Sequence[RequestBlocks],
             best_i, best_f = None, None
             cur_f = (f_b(mb.act_blocks, mb.kv_blocks, fit_gen, fit_load)
                      if mb.requests else float("inf"))
-            bound = max(cur_f * 1.05, tau)   # 5% slack packs ratio-similar tails
+            bound = max(cur_f * 1.05, TAU)   # 5% slack packs ratio-similar tails
             for i, r in enumerate(pending):
                 if (mb.act_blocks + r.act_blocks > act_max or
                         mb.kv_blocks + r.kv_blocks > kv_max):

@@ -19,22 +19,20 @@ imbalance (Fig. 9) shows up as lane idle time.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costmodel as cm
-from repro_torch.core import quant as Q
 
 
 @dataclass
 class LaneTask:
-    lane: str                 # "pcie" | "gpu"
+    lane: str                 # "pcie" | "pcie_up" | "gpu"
     dur: float
     deps: Tuple[int, ...] = ()
-    tag: str = ""
 
 
 @dataclass
@@ -43,33 +41,6 @@ class TimelineResult:
     pcie_busy: float
     gpu_busy: float
     traffic: Dict[str, float]           # bytes by category
-    # host-compute attention lane busy seconds (DESIGN.md §15).  0.0 for
-    # every pre-existing producer — the two-lane schema is a strict subset.
-    cpu_busy: float = 0.0
-    finish: List[float] = field(default_factory=list)
-    # busy seconds by task tag ("w"/"kv"/"act"/"gen"/"fwd"/"st") — the
-    # per-lane samples the adaptive controller refits the cost model from
-    # (DESIGN.md §9); simulated and measured timelines both populate it.
-    tag_busy: Dict[str, float] = field(default_factory=dict)
-    # robustness events observed during the step ("watchdog_timeout",
-    # "copy_retry", "sync_fallback", "arena_denied", ... — DESIGN.md §12),
-    # counted by name.  Simulated steps are fault-free ({}); measured steps
-    # under fault injection or real lane trouble carry them so the adaptive
-    # controller can SKIP degraded steps instead of mis-fitting the cost
-    # model to them.
-    events: Dict[str, int] = field(default_factory=dict)
-
-    @property
-    def faulted(self) -> bool:
-        return bool(self.events)
-
-    @property
-    def gpu_util(self) -> float:
-        return self.gpu_busy / self.total if self.total > 0 else 0.0
-
-    @property
-    def pcie_util(self) -> float:
-        return self.pcie_busy / self.total if self.total > 0 else 0.0
 
 
 # =============================================================================
@@ -82,30 +53,20 @@ class MiniBatchSpec:
     n_requests: int
     kv_host_tokens: int       # context tokens held as KV on host (per layer)
     act_host_tokens: int      # context tokens held as ACT on host
-    act_dev_tokens: int       # context tokens held as ACT on device
-    kv_dev_tokens: int = 0    # context tokens held as KV on device
-    tok_recompute_tokens: int = 0   # context tokens held as raw token IDs
     ctx_tokens: int = 0       # total context per request (for attention cost)
-    # context tokens whose KV stays on host and is ATTENDED there by the cpu
-    # lane (DESIGN.md §15) — no PCIe load, no GPU regen; the partial-softmax
-    # merge folds the result into the device lane's output.
-    cpu_host_tokens: int = 0
 
 
-@dataclass(frozen=True)
-class StepConfig:
-    weight_host_frac: float = 1.0    # fraction of weights streamed from host
-    prefetch_depth: int = 2          # double buffering
+# layers of weights and cache in flight ahead of compute: double buffering
+PREFETCH_DEPTH = 2
 
 
 def _run_timeline_arrays(tasks: List[LaneTask], n: int):
     """``run_timeline`` with every task duration an (n,) array — the same
     per-lane serialisation and cross-lane dep resolution, computed for n
-    independent timelines at once.  -> (total, busy, finish), all (n,)."""
-    lanes = ("pcie", "pcie_up", "gpu", "cpu")
+    independent timelines at once.  -> (total, busy by lane), all (n,)."""
+    lanes = ("pcie", "pcie_up", "gpu")
     lane_free = {ln: np.zeros(n) for ln in lanes}
     busy = {ln: np.zeros(n) for ln in lanes}
-    tag_busy: Dict[str, np.ndarray] = {}
     finish: List[np.ndarray] = [np.zeros(n)] * len(tasks)
     for i, t in enumerate(tasks):
         ready = np.zeros(n)
@@ -115,27 +76,22 @@ def _run_timeline_arrays(tasks: List[LaneTask], n: int):
         end = start + t.dur
         lane_free[t.lane] = end
         busy[t.lane] = busy[t.lane] + t.dur
-        if t.tag:
-            tag_busy[t.tag] = tag_busy.get(t.tag, np.zeros(n)) + t.dur
         finish[i] = end
     total = np.zeros(n)
     for ln in lanes:
         total = np.maximum(total, lane_free[ln])
-    return total, busy, finish, tag_busy
+    return total, busy
 
 
 def simulate_steps(cfg: ModelConfig, hw: cm.HardwareSpec,
-                   steps: List[List[MiniBatchSpec]],
-                   step_cfg: StepConfig = StepConfig(),
-                   quant=None) -> List[TimelineResult]:
+                   steps: List[List[MiniBatchSpec]]) -> List[TimelineResult]:
     """One token-generation iteration per entry of ``steps``, vectorized.
 
     All steps must share the same mini-batch count (the task graph is
     structural); per-task durations are carried as (n_steps,) arrays so the
     timeline recurrence runs once instead of once per generated token.  The
     engine calls this with the precomputed store_act schedule's per-step token
-    totals.  ``quant`` (core.quant.QuantConfig) prices KV/ACT loads and the
-    new-token store at the quantized bytes/token (DESIGN.md §14).
+    totals.
     """
     n = len(steps)
     if n == 0:
@@ -144,28 +100,24 @@ def simulate_steps(cfg: ModelConfig, hw: cm.HardwareSpec,
     assert all(len(s) == M for s in steps), "steps must share minibatch count"
     eff = hw.flops * hw.mfu
     L = cfg.num_layers
-    w_bytes = cm.layer_weight_bytes(cfg) * step_cfg.weight_host_frac
+    w_bytes = cm.layer_weight_bytes(cfg)       # every layer streams from host
     t_w = np.full((n,), w_bytes / hw.host_link_bw)
-    kvB = Q.kv_bytes_per_token(cfg, quant)
-    actB = Q.act_bytes_per_token(cfg, quant)
+    kvB = cfg.kv_bytes_per_token()
+    actB = cfg.act_bytes_per_token()
 
     # (n, M) per-step spec fields
     f = lambda attr: np.array([[getattr(mb, attr) for mb in s] for s in steps],
                               float)
     kv_host = f("kv_host_tokens")
     act_host = f("act_host_tokens")
-    act_dev = f("act_dev_tokens")
-    tok_rec = f("tok_recompute_tokens")
     n_req = f("n_requests")
     ctx = f("ctx_tokens")
-    cpu_host = f("cpu_host_tokens")
-    t_cpu_tok = cm.cpu_attend_seconds_per_token(cfg, hw, quant=quant)
 
     tasks: List[LaneTask] = []          # dur as (n,) arrays
     idx: Dict[Tuple, int] = {}
 
-    def add(key, lane, dur, deps=(), tag=""):
-        tasks.append(LaneTask(lane, dur, tuple(idx[d] for d in deps if d in idx), tag))
+    def add(key, lane, dur, deps=()):
+        tasks.append(LaneTask(lane, dur, tuple(idx[d] for d in deps if d in idx)))
         idx[key] = len(tasks) - 1
         return idx[key]
 
@@ -178,56 +130,41 @@ def simulate_steps(cfg: ModelConfig, hw: cm.HardwareSpec,
     # upstream direction and never block loads.
     for l in range(L):
         # weight prefetch for layer l (double buffered against l-depth fwd)
-        dep = [("fwd", l - step_cfg.prefetch_depth, M - 1)]
-        add(("w", l), "pcie", t_w, deps=dep, tag="w")
+        dep = [("fwd", l - PREFETCH_DEPTH, M - 1)]
+        add(("w", l), "pcie", t_w, deps=dep)
         traffic["weights"] += w_bytes
         kv_bw = hw.host_link_bw * hw.gather_eff     # scattered page gathers
         for m in range(M):
             kv_bytes = kv_host[:, m] * kvB
             act_bytes = act_host[:, m] * actB
             add(("kv", l, m), "pcie", kv_bytes / kv_bw,
-                deps=[("fwd", l - step_cfg.prefetch_depth, m)], tag="kv")
+                deps=[("fwd", l - PREFETCH_DEPTH, m)])
             add(("act", l, m), "pcie", act_bytes / kv_bw,
-                deps=[("fwd", l - step_cfg.prefetch_depth, m)], tag="act")
+                deps=[("fwd", l - PREFETCH_DEPTH, m)])
             traffic["kv_load"] += kv_bytes
             traffic["act_load"] += act_bytes
         for m in range(M):
-            # GPU: KV-gen for ACT tokens (Eq. 7) ... or full-layer forward for
-            # token-ID recomputation
-            act_tokens = act_host[:, m] + act_dev[:, m]
-            t_gen = (act_tokens * cm.kv_gen_flops_per_token(cfg)
+            # GPU: KV-gen for ACT tokens (Eq. 7)
+            t_gen = (act_host[:, m] * cm.kv_gen_flops_per_token(cfg)
                      / (hw.flops * hw.gen_mfu))
-            t_gen = t_gen + (tok_rec[:, m] * cm.forward_flops_per_token(
-                cfg, tok_rec[:, m]) / eff)
-            add(("gen", l, m), "gpu", t_gen,
-                deps=[("act", l, m)], tag="gen")
-
-            # CPU: host attention over spilled KV tokens (DESIGN.md §15).
-            # Needs the previous layer's output (the query), overlaps this
-            # layer's KV-gen / loads on the gpu and pcie lanes; the fwd
-            # below consumes its partial via the LSE merge.  No PCIe bytes.
-            add(("cpu", l, m), "cpu", cpu_host[:, m] * t_cpu_tok,
-                deps=[("fwd", l - 1, m)], tag="cpu")
+            add(("gen", l, m), "gpu", t_gen, deps=[("act", l, m)])
 
             # GPU: forward for the new token of every request in the mb
             fwd_flops = n_req[:, m] * cm.forward_flops_per_token(cfg, ctx[:, m])
             add(("fwd", l, m), "gpu", fwd_flops / eff,
-                deps=[("w", l), ("kv", l, m), ("gen", l, m), ("cpu", l, m)],
-                tag="fwd")
+                deps=[("w", l), ("kv", l, m), ("gen", l, m)])
 
             # PCIe upstream: store the new token's KV/ACT back to host
             st_bytes = n_req[:, m] * max(kvB, actB)
             add(("st", l, m), "pcie_up", st_bytes / hw.host_link_bw,
-                deps=[("fwd", l, m)], tag="st")
+                deps=[("fwd", l, m)])
             traffic["store"] += st_bytes
 
-    total, busy, finish, tag_busy = _run_timeline_arrays(tasks, n)
+    total, busy = _run_timeline_arrays(tasks, n)
     return [
         TimelineResult(
             total=float(total[s]), pcie_busy=float(busy["pcie"][s]),
-            gpu_busy=float(busy["gpu"][s]), cpu_busy=float(busy["cpu"][s]),
-            traffic={k: float(v[s]) for k, v in traffic.items()},
-            finish=[float(fi[s]) for fi in finish],
-            tag_busy={k: float(v[s]) for k, v in tag_busy.items()})
+            gpu_busy=float(busy["gpu"][s]),
+            traffic={k: float(v[s]) for k, v in traffic.items()})
         for s in range(n)
     ]

@@ -1,6 +1,8 @@
 """Cache management policy (paper §4.3, Algorithm 1 + Eq. 11).
 
-A copy of the two-way policy of ``repro.core.policy``.
+A copy of the two-way policy of ``repro.core.policy`` as the paper states
+it (the reference's ``generalized=False``), with blocks priced in the config
+dtype.
 
 Step 1  initial_cache_allocation  — blocks needed to kill pipeline idleness
 Step 2  alloc_remaining           — fill the rest of host memory balanced
@@ -14,9 +16,10 @@ from typing import Tuple
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core import quant as Q
 from repro_torch.core.blocks import BLOCK_TOKENS, act_block_bytes, kv_block_bytes
 from repro_torch.core.costmodel import HardwareSpec, LinearFit, profile_cost_fns, t_load_w
+
+DEVICE_MEM_FRAC = 0.7          # share of device memory given to ACT blocks
 
 
 @dataclass(frozen=True)
@@ -60,20 +63,11 @@ def initial_cache_allocation(cfg: ModelConfig, hw: HardwareSpec,
 
 def alloc_remaining(cfg: ModelConfig, hw: HardwareSpec,
                     fit_gen: LinearFit, fit_load: LinearFit,
-                    act_init: int, kv_init: int,
-                    generalized: bool = False, quant=None) -> Tuple[int, int]:
+                    act_init: int, kv_init: int) -> Tuple[int, int]:
     """Algorithm 1 lines 20-27: fill remaining host memory with the balanced
-    2x2 linear system  {S_ACT*a + S_KV*k = M_rem ; T_gen(a) = T_load(k)}.
-
-    ``generalized=True`` is the beyond-paper byte-ratio-aware balance
-    (DESIGN.md §7): the paper's Eq. 9 omits the PCIe cost of loading the ACT
-    blocks themselves, which cancels for MHA (ACT = KV/2) but misallocates
-    under GQA where an ACT block costs MORE link bytes than the KV block it
-    replaces.  The generalized balance moves T_load_act to the PCIe side:
-       T_gen(a) = T_load_kv(k) - T_load_act(a).
-    """
-    S_act = act_block_bytes(cfg, quant=quant)
-    S_kv = kv_block_bytes(cfg, quant=quant)
+    2x2 linear system  {S_ACT*a + S_KV*k = M_rem ; T_gen(a) = T_load(k)}."""
+    S_act = act_block_bytes(cfg)
+    S_kv = kv_block_bytes(cfg)
     S_weight = cfg.num_params() * cfg.bytes_per_param()
     M_occ = S_act * act_init + S_kv * kv_init
     M_rem = hw.host_mem - S_weight - M_occ
@@ -83,15 +77,6 @@ def alloc_remaining(cfg: ModelConfig, hw: HardwareSpec,
     ga = fit_gen.slope * BLOCK_TOKENS
     lk = fit_load.slope * BLOCK_TOKENS
     c = fit_load.intercept - fit_gen.intercept
-    if generalized:
-        # la per block: ACT bytes over the (scattered-gather) link.  Derived
-        # from the FITTED KV-load slope (same link, scaled by the ACT:KV
-        # byte ratio) rather than the analytic hw constants, so an online
-        # refit of fit_load re-prices ACT loads consistently (DESIGN.md §9).
-        la = (fit_load.slope * BLOCK_TOKENS
-              * Q.act_bytes_per_token(cfg, quant)
-              / Q.kv_bytes_per_token(cfg, quant))
-        ga = ga + la
     # solve: S_act*a + S_kv*k = M_rem ;  ga*a - lk*k = c
     A = np.array([[S_act, S_kv], [ga, -lk]], float)
     b = np.array([M_rem, c], float)
@@ -107,30 +92,22 @@ def alloc_remaining(cfg: ModelConfig, hw: HardwareSpec,
 
 
 def host_block_allocation(cfg: ModelConfig, hw: HardwareSpec,
-                          n_act_gpu_blocks: int,
-                          fits: Tuple[LinearFit, LinearFit] = None,
-                          generalized: bool = False,
-                          quant=None) -> HostAllocation:
-    """Algorithm 1 top level: -> #ACT_Host, #KV_Host.  ``quant`` reprices
-    block sizes AND the default fits by the quantized bytes (DESIGN.md §14),
-    so the KV:ACT split re-balances around the changed lane slopes."""
-    fit_gen, fit_load = fits if fits is not None else \
-        profile_cost_fns(cfg, hw, quant=quant)
+                          n_act_gpu_blocks: int) -> HostAllocation:
+    """Algorithm 1 top level: -> #ACT_Host, #KV_Host."""
+    fit_gen, fit_load = profile_cost_fns(cfg, hw)
     act_init, kv_init = initial_cache_allocation(
         cfg, hw, fit_gen, fit_load, n_act_gpu_blocks)
     act_rem, kv_rem = alloc_remaining(cfg, hw, fit_gen, fit_load, act_init,
-                                      kv_init, generalized=generalized,
-                                      quant=quant)
+                                      kv_init)
     return HostAllocation(act_blocks=act_init + act_rem,
                           kv_blocks=kv_init + kv_rem,
                           act_init=act_init, kv_init=kv_init)
 
 
-def device_act_blocks(cfg: ModelConfig, hw: HardwareSpec,
-                      frac: float = 0.7, quant=None) -> int:
+def device_act_blocks(cfg: ModelConfig, hw: HardwareSpec) -> int:
     """ACT blocks that fit the device-memory budget (weights stream)."""
-    per_block = act_block_bytes(cfg, quant=quant)
-    return int(hw.device_mem * frac / per_block)
+    per_block = act_block_bytes(cfg)
+    return int(hw.device_mem * DEVICE_MEM_FRAC / per_block)
 
 
 def store_act_schedule(alloc: HostAllocation, act_tokens0, kv_tokens0,

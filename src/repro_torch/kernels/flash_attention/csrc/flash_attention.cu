@@ -37,12 +37,10 @@ constexpr int MAX_D = 128;
 constexpr int MAX_DC = MAX_D / 16;
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half_rn(x);
 }
@@ -218,7 +216,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 extern "C" {
 
-// dtype: 0 float32, 1 float16, 2 bfloat16.  Returns a cudaError_t.
+// dtype: 1 float16, 2 bfloat16.  Returns a cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int B, int S, int H, int KVH, int D, int dtype,
                         void* stream) {
@@ -226,7 +224,6 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch<float>(q, k, v, o, B, S, H, KVH, D, st);
     case 1: return launch<__half>(q, k, v, o, B, S, H, KVH, D, st);
     case 2: return launch<__nv_bfloat16>(q, k, v, o, B, S, H, KVH, D, st);
   }

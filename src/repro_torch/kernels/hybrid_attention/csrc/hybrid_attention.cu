@@ -51,12 +51,10 @@ constexpr int MAX_G = 8;
 constexpr int CHUNK = 64;        // d_model columns per projection step
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half_rn(x);
 }
@@ -247,7 +245,7 @@ int launch(const void* q, const void* kp, const void* vp, const void* ap,
 extern "C" {
 
 // norm_type: 0 layernorm (bias required), 1 rmsnorm (bias unused).
-// dtype: 0 float32, 1 float16, 2 bfloat16.
+// dtype: 1 float16, 2 bfloat16.
 // Returns a cudaError_t.
 int hybrid_paged_attention_fwd(const void* q, const void* k_pages, const void* v_pages,
                                const void* act_pages, const void* norm_scale,
@@ -264,9 +262,6 @@ int hybrid_paged_attention_fwd(const void* q, const void* k_pages, const void* v
   const int* pn = static_cast<const int*>(page_ntok);
   const int ln = norm_type == 0;
   switch (dtype) {
-    case 0: return launch<float>(q, k_pages, v_pages, act_pages, norm_scale, norm_bias,
-                                 wk, wv, pt, pty, pn, out, B, KVH, G, D, d_model,
-                                 maxp, ln, eps, st);
     case 1: return launch<__half>(q, k_pages, v_pages, act_pages, norm_scale, norm_bias,
                                   wk, wv, pt, pty, pn, out, B, KVH, G, D, d_model,
                                   maxp, ln, eps, st);

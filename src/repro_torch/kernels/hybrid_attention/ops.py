@@ -22,7 +22,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.hybrid_attention.ref import (PAGE,
                                                       hybrid_paged_attention_ref)
 
-DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# the dtypes the kernel is built and checked on the card for
+DTYPES = {torch.float16: 1, torch.bfloat16: 2}
 NORM_TYPES = {"layernorm": 0, "rmsnorm": 1}
 MAX_D, MAX_G = 128, 8
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + \

@@ -223,7 +223,7 @@ class HybridServeEngine:
             kv_tok = int(kv_keep.sum()) + np.cumsum((~sched).sum(0))
             act_tok = int(act0.sum()) + np.cumsum(sched.sum(0))
             specs = [[MiniBatchSpec(
-                B, int(kv_tok[s]), int(act_tok[s]), 0,
+                B, int(kv_tok[s]), int(act_tok[s]),
                 ctx_tokens=int(np.mean(np.asarray(pbs) + steps_ahead[s])))]
                 for s in range(max_new)]
             for res in simulate_steps(cfg, self.hw, specs):

@@ -44,11 +44,10 @@ def test_allocation_and_schedule_match_reference(name, hw_name):
     hw, jhw = HW[hw_name], j_hw(HW[hw_name])
     dev = policy.device_act_blocks(cfg, hw)
     assert dev == j_policy.device_act_blocks(jcfg, jhw)
-    for gen in (False, True):
-        a = policy.host_block_allocation(cfg, hw, dev, generalized=gen)
-        ja = j_policy.host_block_allocation(jcfg, jhw, dev, generalized=gen)
-        assert (a.act_blocks, a.kv_blocks, a.act_init, a.kv_init) == \
-            (ja.act_blocks, ja.kv_blocks, ja.act_init, ja.kv_init)
+    a = policy.host_block_allocation(cfg, hw, dev)
+    ja = j_policy.host_block_allocation(jcfg, jhw, dev, generalized=False)
+    assert (a.act_blocks, a.kv_blocks, a.act_init, a.kv_init) == \
+        (ja.act_blocks, ja.kv_blocks, ja.act_init, ja.kv_init)
     act0, kv0 = np.array([0, 37, 64, 5]), np.array([48, 16, 0, 3])
     np.testing.assert_array_equal(
         policy.store_act_schedule(a, act0, kv0, 40),
@@ -56,6 +55,19 @@ def test_allocation_and_schedule_match_reference(name, hw_name):
     fits, jfits = cm.profile_cost_fns(cfg, hw), j_cm.profile_cost_fns(jcfg, jhw)
     for f, jf in zip(fits, jfits):
         assert (f.slope, f.intercept, f.r2) == (jf.slope, jf.intercept, jf.r2)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_cost_fns_match_reference(name):
+    """The lane costs, with bytes priced in the config dtype, equal the
+    reference's at its default (unquantized) pricing."""
+    cfg, jcfg = get_config(name), j_get_config(name)
+    ns = np.array([0, 16, 1000, 65536])
+    for f, jf in zip(cm.make_cost_fns(cfg, cm.H100_SXM),
+                     j_cm.make_cost_fns(jcfg, j_hw(cm.H100_SXM))):
+        np.testing.assert_array_equal(f(ns), jf(ns))
+    assert blocks.kv_block_bytes(cfg) == j_blocks.kv_block_bytes(jcfg)
+    assert blocks.act_block_bytes(cfg) == j_blocks.act_block_bytes(jcfg)
 
 
 def test_full_size_opt_mixes_kv_and_act_on_the_h100():
@@ -95,10 +107,10 @@ def test_form_minibatches_matches_reference():
 @pytest.mark.parametrize("name", NAMES)
 def test_simulate_steps_totals_match_reference(name):
     cfg, jcfg = get_config(name), j_get_config(name)
-    specs = [[pipeline.MiniBatchSpec(4, 100 + 16 * s, 60 + 8 * s, 0,
+    specs = [[pipeline.MiniBatchSpec(4, 100 + 16 * s, 60 + 8 * s,
                                      ctx_tokens=64 + s)] for s in range(5)]
-    jspecs = [[j_pipe.MiniBatchSpec(**dataclasses.asdict(m)) for m in st]
-              for st in specs]
+    jspecs = [[j_pipe.MiniBatchSpec(act_dev_tokens=0, **dataclasses.asdict(m))
+               for m in st] for st in specs]
     got = pipeline.simulate_steps(cfg, cm.H100_SXM, specs)
     want = j_pipe.simulate_steps(jcfg, j_hw(cm.H100_SXM), jspecs)
     for g, w in zip(got, want):
