@@ -1,10 +1,14 @@
-"""Config registry of the port: the OPT family and its ``-reduced`` variants."""
+"""Config registry of the port: OPT, yi-6b and minitron-4b, and their
+``-reduced`` variants."""
 from __future__ import annotations
 
 from repro_torch.configs import opt as _opt
 from repro_torch.configs.base import ModelConfig, reduced
+from repro_torch.configs.minitron_4b import CONFIG as MINITRON_4B
+from repro_torch.configs.yi_6b import CONFIG as YI_6B
 
-REGISTRY = dict(_opt.CONFIGS)
+REGISTRY = {c.name: c for c in (YI_6B, MINITRON_4B)}
+REGISTRY.update(_opt.CONFIGS)
 
 
 def get_config(name: str) -> ModelConfig:

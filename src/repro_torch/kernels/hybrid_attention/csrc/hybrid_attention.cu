@@ -18,6 +18,15 @@
 // rmsnorm scales by (1 + scale).  Masked scores take the finite basis -1e30,
 // so a request with no valid token yields zeros, not NaN.
 //
+// Second-pool mode (`hybrid_paged_attention_two_pool_fwd`, the RoPE models'
+// path): a type-1 entry indexes a second pair of pools act_k/act_v
+// (P, 16, KVH, D) that already hold the recomputed (and rotated) K/V, written
+// by the separate KV-Gen kernel (csrc of kernels/kv_gen), and is staged like
+// a KV page: no norm and no projection.  That is the paper's GPU design,
+// PagedAttention over two KV buffer types with KV-Gen as its own GEMM; RoPE
+// at each ACT token's recorded position cannot be applied inside the fused
+// loop's per-column accumulators.  The fused instantiation is unchanged.
+//
 // What bounds it on this card: a KV page is bound by bytes (16 rows of K and
 // V read once, two operations per element).  An ACT page costs
 // 2 * 2 * 16 * d_model * D operations per head against a 16 x d_model page
@@ -73,10 +82,11 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
+template <typename T, bool TWO_POOL>
 __global__ void __launch_bounds__(THREADS)
 hybrid_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                   const T* __restrict__ v_pages, const T* __restrict__ act_pages,
+                   const T* __restrict__ v_pages, const T* __restrict__ act_k_pages,
+                   const T* __restrict__ act_v_pages, const T* __restrict__ act_pages,
                    const T* __restrict__ norm_scale, const T* __restrict__ norm_bias,
                    const T* __restrict__ wk, const T* __restrict__ wv,
                    const int* __restrict__ page_table, const int* __restrict__ page_type,
@@ -113,12 +123,14 @@ hybrid_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const long pg = pt[p];
     const int ntok = pn[p];
     __syncthreads();                 // the previous page's tiles are consumed
-    if (ty == 0) {
+    if (ty == 0 || TWO_POOL) {
+      const T* kp = ty == 0 ? k_pages : act_k_pages;
+      const T* vp = ty == 0 ? v_pages : act_v_pages;
       for (int i = tid; i < PAGE * D; i += THREADS) {
         const int r = i / D, d = i % D;
         const long off = ((pg * PAGE + r) * KVH + h) * D + d;
-        k_s[r][d] = to_f(k_pages[off]);
-        v_s[r][d] = to_f(v_pages[off]);
+        k_s[r][d] = to_f(kp[off]);
+        v_s[r][d] = to_f(vp[off]);
       }
     } else {
       const T* a = act_pages + pg * PAGE * d_model;
@@ -224,15 +236,17 @@ hybrid_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
-template <typename T>
+template <typename T, bool TWO_POOL = false>
 int launch(const void* q, const void* kp, const void* vp, const void* ap,
            const void* scale, const void* bias, const void* wk, const void* wv,
            const int* pt, const int* pty, const int* pn, void* out, int B, int KVH,
            int G, int D, int d_model, int maxp, int layernorm,
-           float eps, cudaStream_t stream) {
+           float eps, cudaStream_t stream, const void* akp = nullptr,
+           const void* avp = nullptr) {
   const dim3 grid(KVH, B);
-  hybrid_attn_kernel<T><<<grid, THREADS, 0, stream>>>(
+  hybrid_attn_kernel<T, TWO_POOL><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
+      static_cast<const T*>(akp), static_cast<const T*>(avp),
       static_cast<const T*>(ap), static_cast<const T*>(scale),
       static_cast<const T*>(bias), static_cast<const T*>(wk),
       static_cast<const T*>(wv), pt, pty, pn, static_cast<T*>(out), KVH, G, D,
@@ -268,6 +282,31 @@ int hybrid_paged_attention_fwd(const void* q, const void* k_pages, const void* v
     case 2: return launch<__nv_bfloat16>(q, k_pages, v_pages, act_pages, norm_scale,
                                          norm_bias, wk, wv, pt, pty, pn, out, B, KVH,
                                          G, D, d_model, maxp, ln, eps, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Second-pool mode: type-1 entries index act_k_pages/act_v_pages
+// (P_act, 16, KVH, D), K/V recomputed beforehand.  dtype as above.
+int hybrid_paged_attention_two_pool_fwd(const void* q, const void* k_pages,
+                                        const void* v_pages, const void* act_k_pages,
+                                        const void* act_v_pages, const void* page_table,
+                                        const void* page_type, const void* page_ntok,
+                                        void* out, int B, int KVH, int G, int D,
+                                        int maxp, int dtype, void* stream) {
+  if (D > MAX_D || G > MAX_G || G < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pt = static_cast<const int*>(page_table);
+  const int* pty = static_cast<const int*>(page_type);
+  const int* pn = static_cast<const int*>(page_ntok);
+  switch (dtype) {
+    case 1: return launch<__half, true>(q, k_pages, v_pages, nullptr, nullptr, nullptr,
+                                        nullptr, nullptr, pt, pty, pn, out, B, KVH, G, D,
+                                        0, maxp, 0, 0.f, st, act_k_pages, act_v_pages);
+    case 2: return launch<__nv_bfloat16, true>(q, k_pages, v_pages, nullptr, nullptr,
+                                               nullptr, nullptr, nullptr, pt, pty, pn,
+                                               out, B, KVH, G, D, 0, maxp, 0, 0.f, st,
+                                               act_k_pages, act_v_pages);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,12 @@
-"""Wrapper of the hand-written CUDA hybrid paged-attention kernel (decode).
+"""Wrappers of the hand-written CUDA hybrid paged-attention kernel (decode).
 
 A CUDA tensor launches ``csrc/hybrid_attention.cu`` on PyTorch's current
 stream, or raises; a CPU tensor takes the plain version in ``ref.py``.
-``hybrid_paged_attention.launches`` counts the kernel's launches.
+``hybrid_paged_attention`` is the fused mode (ACT pages normed and projected
+in the kernel, the learned-position models' path);
+``hybrid_paged_attention_two_pool`` is the second-pool mode (type-1 entries
+read K/V that ``kv_gen`` recomputed into a second pair of pools, the RoPE
+models' path).  Each counts its launches in ``.launches``.
 
 Layout (as ``repro.kernels.hybrid_attention.kernel``):
   q            (B, KVH, G, D)     one query token per request
@@ -19,8 +23,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.hybrid_attention.ref import (PAGE,
-                                                      hybrid_paged_attention_ref)
+from repro_torch.kernels.hybrid_attention.ref import (
+    PAGE, hybrid_paged_attention_ref, hybrid_paged_attention_two_pool_ref)
 
 # the dtypes the kernel is built and checked on the card for
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
@@ -28,6 +32,8 @@ NORM_TYPES = {"layernorm": 0, "rmsnorm": 1}
 MAX_D, MAX_G = 128, 8
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_TWO_POOL_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
+    [ctypes.c_void_p]
 
 
 def _launch(lib, q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk,
@@ -46,13 +52,11 @@ def _launch(lib, q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk,
     _build.check(lib, err, "hybrid_paged_attention_fwd")
 
 
-def _validate(q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk, wv,
-              page_table, page_type, page_ntok, norm_type):
-    B, KVH, G, D = q.shape
+def _validate_fused(q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk,
+                    wv, page_table, page_type, page_ntok, norm_type):
+    _, KVH, _, D = q.shape
     d = act_pages.shape[-1]
-    shapes = {"k_pages": (k_pages, (k_pages.shape[0], PAGE, KVH, D)),
-              "v_pages": (v_pages, (v_pages.shape[0], PAGE, KVH, D)),
-              "act_pages": (act_pages, (act_pages.shape[0], PAGE, d)),
+    shapes = {"act_pages": (act_pages, (act_pages.shape[0], PAGE, d)),
               "norm_scale": (norm_scale, (d,)),
               "wk": (wk, (d, KVH, D)), "wv": (wv, (d, KVH, D))}
     if norm_type not in NORM_TYPES:
@@ -61,6 +65,16 @@ def _validate(q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk, wv,
         if norm_bias is None:
             raise ValueError("hybrid_paged_attention: layernorm needs norm_bias")
         shapes["norm_bias"] = (norm_bias, (d,))
+    _validate(q, {"k_pages": k_pages, "v_pages": v_pages}, shapes, page_table,
+              page_type, page_ntok)
+
+
+def _validate(q, kv_pools, shapes, page_table, page_type, page_ntok):
+    """Shapes, dtypes and devices of every argument; ``kv_pools`` name the
+    (P, 16, KVH, D) pools, ``shapes`` maps the rest to their shapes."""
+    B, KVH, G, D = q.shape
+    shapes = {**{name: (t, (t.shape[0], PAGE, KVH, D))
+                 for name, t in kv_pools.items()}, **shapes}
     for name, (t, want) in shapes.items():
         if tuple(t.shape) != want:
             raise ValueError(f"hybrid_paged_attention: {name} has shape "
@@ -96,8 +110,8 @@ def hybrid_paged_attention(q, k_pages, v_pages, act_pages, norm_scale,
             page_table, page_type, page_ntok, norm_type=norm_type, eps=eps)
     if q.device.type != "cuda":
         raise ValueError(f"hybrid_paged_attention: unsupported device {q.device}")
-    _validate(q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk, wv,
-              page_table, page_type, page_ntok, norm_type)
+    _validate_fused(q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk,
+                    wv, page_table, page_type, page_ntok, norm_type)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -109,3 +123,40 @@ def hybrid_paged_attention(q, k_pages, v_pages, act_pages, norm_scale,
 
 
 hybrid_paged_attention.launches = 0
+
+
+def hybrid_paged_attention_two_pool(q, k_pages, v_pages, act_k_pages,
+                                    act_v_pages, page_table, page_type,
+                                    page_ntok):
+    """-> (B, KVH, G, D) decode attention over the hybrid paged cache in the
+    second-pool mode: type-0 entries index ``k_pages``/``v_pages``, type-1
+    entries ``act_k_pages``/``act_v_pages`` (P_act, 16, KVH, D), which hold
+    K/V that ``kv_gen`` recomputed from the ACT pages this step.  Tables as
+    for ``hybrid_paged_attention``, built with the second pools' stride."""
+    if q.device.type == "cpu":
+        return hybrid_paged_attention_two_pool_ref(
+            q, k_pages, v_pages, act_k_pages, act_v_pages, page_table,
+            page_type, page_ntok)
+    if q.device.type != "cuda":
+        raise ValueError(f"hybrid_paged_attention: unsupported device {q.device}")
+    _validate(q, {"k_pages": k_pages, "v_pages": v_pages,
+                  "act_k_pages": act_k_pages, "act_v_pages": act_v_pages}, {},
+              page_table, page_type, page_ntok)
+    B, KVH, G, D = q.shape
+    out = torch.empty_like(q)
+    lib = _build.load("hybrid_attention")
+    fn = lib.hybrid_paged_attention_two_pool_fwd
+    fn.argtypes, fn.restype = _TWO_POOL_ARGTYPES, ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 act_k_pages.data_ptr(), act_v_pages.data_ptr(),
+                 page_table.data_ptr(), page_type.data_ptr(),
+                 page_ntok.data_ptr(), out.data_ptr(), B, KVH, G, D,
+                 page_table.shape[1], DTYPES[q.dtype], stream)
+    _build.check(lib, err, "hybrid_paged_attention_two_pool_fwd")
+    hybrid_paged_attention_two_pool.launches += 1
+    return out
+
+
+hybrid_paged_attention_two_pool.launches = 0

@@ -5,6 +5,10 @@ corrections the port's kernel makes to follow the model path: LayerNorm
 applies its bias, and the normed ACT and the recomputed K/V are rounded to
 the cache dtype (the ACT pool's) where ``_hybrid_layer_step`` rounds them.
 In float32 with a zero bias it computes what the JAX reference computes.
+
+``hybrid_paged_attention_two_pool_ref`` is the plain version of the second-pool
+mode: type-1 entries index a second pair of K/V pools that already hold the
+recomputed K/V (the RoPE models' path, KV-Gen run beforehand).
 """
 from __future__ import annotations
 
@@ -24,9 +28,7 @@ def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,
 
     Every page is gathered densely; ACT pages are normed, rounded, projected
     by ``wk``/``wv`` (d_model, KVH, D) and rounded again (paper Eq. 7)."""
-    B, KVH, G, D = q.shape
-    P = page_table.shape[1]
-    if P == 0:                          # nothing to attend: zeros, as the kernel
+    if page_table.shape[1] == 0:        # nothing to attend: zeros, as the kernel
         return torch.zeros_like(q)
     dt = act_pages.dtype
     pty = page_type.long()
@@ -46,8 +48,37 @@ def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,
     k_act = torch.einsum("bptd,dhe->bpthe", a, wk.float()).to(dt).float()
     v_act = torch.einsum("bptd,dhe->bpthe", a, wv.float()).to(dt).float()
     is_act = (pty == 1)[..., None, None, None]
-    k = torch.where(is_act, k_act, k_kv).reshape(B, P * PAGE, KVH, D)
-    v = torch.where(is_act, v_act, v_kv).reshape(B, P * PAGE, KVH, D)
+    k = torch.where(is_act, k_act, k_kv)
+    v = torch.where(is_act, v_act, v_kv)
+    return _attend(q, k, v, page_type, page_ntok)
+
+
+def hybrid_paged_attention_two_pool_ref(q, k_pages, v_pages, act_k_pages,
+                                        act_v_pages, page_table, page_type,
+                                        page_ntok):
+    """-> (B, KVH, G, D) attention of q over the typed page table, type-1
+    entries read from ``act_k_pages``/``act_v_pages`` (P_act, 16, KVH, D)."""
+    if page_table.shape[1] == 0:
+        return torch.zeros_like(q)
+    pty, pt = page_type.long(), page_table.long()
+    is_act = (pty == 1)[..., None, None, None]
+    kv_i, act_i = torch.where(pty == 0, pt, 0), torch.where(pty == 1, pt, 0)
+    if act_k_pages.shape[0] == 0:       # no ACT pages at all (kv mode)
+        k, v = k_pages[kv_i].float(), v_pages[kv_i].float()
+    else:
+        k = torch.where(is_act, act_k_pages[act_i].float(), k_pages[kv_i].float())
+        v = torch.where(is_act, act_v_pages[act_i].float(), v_pages[kv_i].float())
+    return _attend(q, k, v, page_type, page_ntok)
+
+
+def _attend(q, k, v, page_type, page_ntok):
+    """Masked softmax attention of q (B, KVH, G, D) over gathered pages
+    k/v (B, P, 16, KVH, D) float32."""
+    B, KVH, G, D = q.shape
+    P = k.shape[1]
+    pty = page_type.long()
+    k = k.reshape(B, P * PAGE, KVH, D)
+    v = v.reshape(B, P * PAGE, KVH, D)
     tok = torch.arange(PAGE, device=q.device)
     valid = ((pty != 2)[..., None] & (tok < page_ntok[..., None])).reshape(B, -1)
     v = torch.where(valid[:, :, None, None], v, 0.0)

@@ -1,0 +1,330 @@
+// KV-Gen for Hopper, sm_90a: ACT pages -> norm -> K, V, with a RoPE epilogue.
+//
+// Replaces the TPU kernel `kv_gen` (body `_kv_gen_kernel`) of
+// src/repro/kernels/kv_gen/kernel.py, the paper's Eq. 7 recomputation.
+//
+// What it computes: for each selected ACT page (page_index[n] of the pool
+// (P, 16, d_model)), each of its 16 rows is normed in float32 (rmsnorm with
+// `1 + scale`, or layernorm with scale and bias), rounded to the cache
+// dtype, and projected by the layer's
+// wk and wv, shaped (d_model, KVH, hd); the projected K and V are rounded to
+// the dtype, and K is then rotated in float32 with the caller's per-row
+// sin/cos tables (N, 16, hd/2; half-split layout) and rounded again.  That is
+// where the model path (`_hybrid_layer_step`) rounds, so a recomputed K/V
+// equals the one prefill stored for that token up to the order of summation.
+// Two deliberate differences from the TPU kernel, both to follow the model
+// path: LayerNorm applies its bias, and the rounding points above (the TPU
+// kernel norms and projects in float32).  The rotation multiplies and adds
+// with explicit round-to-nearest intrinsics, so it is not contracted into
+// fused multiply-adds and gives PyTorch's elementwise result bit for bit.
+//
+// What bounds it on this card: one GEMM (N*16, d_model) x (d_model,
+// 2*KVH*hd).  At the serve shape (N = 16 pages, d_model = 4096, KVH = 4,
+// hd = 128, bf16) that is 2.1 GFLOP against 8.4 MB of weights, 2.1 MB of ACT
+// and 0.5 MB of output: about 170 operations per byte, below the H100's
+// ~295, so it is bound by bytes, and mostly by the weights.
+//
+// The simple design: a GEMM-tiled grid, one block of 4 warps per (32-row
+// tile, one head of K or of V).  The whole head (hd <= 128 columns) sits in
+// one block, so the RoPE epilogue finds both halves of every pair.  The block
+// first takes its rows' statistics in float32, each warp walking 8 rows at
+// once so that 8 loads per lane are in flight.  Then d_model streams through
+// shared memory 128 columns at a time: each thread loads its share of the
+// next ACT and weight tiles into registers (16-byte loads, all issued before
+// any is used) while the warps multiply the current tiles; the ACT tile is
+// normed and rounded on its way into shared memory.  Each warp owns a 32x32
+// share of the output on the tensor cores (WMMA 16x16x16, float32
+// accumulators), which goes through shared memory (aliasing the weight
+// tile) to the epilogue.  Each block reads its head's weight slice once for
+// its 32 rows, so the weights are read N*16/32 times in all, mostly from
+// L2.  cp.async or TMA pipelines, `wgmma`, and a grid that reads each weight
+// once are later work.
+#include <cuda_runtime.h>
+#include <cuda_fp16.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int PAGE = 16;
+constexpr int BM = 32;             // rows per block (two pages)
+constexpr int BK = 128;            // d_model columns per step
+constexpr int MAX_HD = 128;        // output columns per block: one head
+constexpr int THREADS = 128;       // warp w owns output columns [32w, 32w + 32)
+constexpr int WARPS = THREADS / 32;
+constexpr int RPW = BM / WARPS;    // rows per warp in the statistics pass
+constexpr int VEC = 8;             // 16-bit elements per 16-byte load
+constexpr int LDA = BK + 8;        // padded leading dimensions (elements)
+constexpr int LDB = MAX_HD + 8;
+constexpr int LDC = MAX_HD + 4;
+constexpr int TPR = BK / VEC;      // threads per tile row (same for A and B)
+constexpr int A_VECS = BM * BK / VEC / THREADS;      // per thread and step
+constexpr int B_VECS = BK * MAX_HD / VEC / THREADS;
+constexpr int B_BYTES = BK * LDB * 2;                // weight tile, 16-bit
+constexpr int C_BYTES = BM * LDC * 4;                // accumulators, float
+static_assert(BK == MAX_HD && THREADS % TPR == 0, "tile thread mapping");
+static_assert(C_BYTES <= B_BYTES, "the accumulator tile aliases the weight tile");
+
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// round to T and back: the rounding point of the model path
+template <typename T> __device__ __forceinline__ float rnd(float x) {
+  return to_f(from_f<T>(x));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) f[i] = to_f(e[i]);
+}
+
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// norm_type: 0 layernorm, 1 rmsnorm
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+kv_gen_kernel(const T* __restrict__ act, const int* __restrict__ page_index,
+              const T* __restrict__ norm_scale, const T* __restrict__ norm_bias,
+              const T* __restrict__ wk, const T* __restrict__ wv,
+              const float* __restrict__ sin_t, const float* __restrict__ cos_t,
+              T* __restrict__ k_out, T* __restrict__ v_out, int n_rows,
+              int d_model, int KVH, int hd, int norm_type, float eps) {
+  __shared__ __align__(32) T a_s[BM * LDA];
+  __shared__ __align__(32) unsigned char bc_s[B_BYTES];   // weight tile, then C
+  __shared__ long row_off[BM];
+  __shared__ float mu_s[BM], rstd_s[BM];
+  T* b_s = reinterpret_cast<T*>(bc_s);
+  float* c_s = reinterpret_cast<float*>(bc_s);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int which = blockIdx.x / KVH, h = blockIdx.x % KVH;  // 0: K, 1: V
+  const int m0 = blockIdx.y * BM;
+  const T* w = (which ? wv : wk) + (long)h * hd;
+  const long ldw = (long)KVH * hd;
+
+  if (tid < BM) {
+    const int m = m0 + tid;
+    long off = -1;
+    if (m < n_rows) {
+      const long pg = page_index[m / PAGE];
+      off = (pg * PAGE + m % PAGE) * d_model;
+    }
+    row_off[tid] = off;
+  }
+  __syncthreads();
+
+  // row statistics in float32; warp w takes rows w, w + 4, ... all at once
+  float mu[RPW], acc_s[RPW];
+#pragma unroll
+  for (int j = 0; j < RPW; ++j) mu[j] = 0.f;
+  for (int pass = norm_type == 0 ? 0 : 1; pass < 2; ++pass) {
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) acc_s[j] = 0.f;
+    for (int c = lane * VEC; c < d_model; c += 32 * VEC) {
+      uint4 u[RPW];
+#pragma unroll
+      for (int j = 0; j < RPW; ++j) {
+        const long off = row_off[warp + j * WARPS];
+        u[j] = off >= 0 ? ld16(act + off + c) : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int j = 0; j < RPW; ++j) {
+        float f[VEC];
+        unpack8<T>(u[j], f);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          acc_s[j] += pass == 0 ? f[i] : (f[i] - mu[j]) * (f[i] - mu[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) {
+      const float tot = warp_sum(acc_s[j]) / d_model;
+      if (pass == 0) mu[j] = tot;
+      else if (lane == 0) {
+        mu_s[warp + j * WARPS] = mu[j];
+        rstd_s[warp + j * WARPS] = rsqrtf(tot + eps);
+      }
+    }
+  }
+
+  // this thread's share of a step's tiles: tile column tc, rows r0 + 8j
+  const int tc = (tid % TPR) * VEC, r0 = tid / TPR;
+  uint4 ax[A_VECS], sc4 = make_uint4(0u, 0u, 0u, 0u), bi4 = sc4, bw[B_VECS];
+  auto load = [&](int k0) {
+    const int d = k0 + tc;
+    const bool din = d < d_model;
+#pragma unroll
+    for (int j = 0; j < A_VECS; ++j) {
+      const long off = row_off[r0 + j * (THREADS / TPR)];
+      ax[j] = off >= 0 && din ? ld16(act + off + d) : make_uint4(0u, 0u, 0u, 0u);
+    }
+    sc4 = din ? ld16(norm_scale + d) : make_uint4(0u, 0u, 0u, 0u);
+    if (norm_type == 0) bi4 = din ? ld16(norm_bias + d) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int j = 0; j < B_VECS; ++j) {
+      const int r = k0 + r0 + j * (THREADS / TPR);
+      bw[j] = tc < hd && r < d_model ? ld16(w + r * ldw + tc)
+                                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto store = [&]() {
+    float s[VEC], b[VEC];
+    unpack8<T>(sc4, s);
+    unpack8<T>(bi4, b);
+#pragma unroll
+    for (int j = 0; j < A_VECS; ++j) {
+      const int r = r0 + j * (THREADS / TPR);
+      float f[VEC];
+      unpack8<T>(ax[j], f);
+      alignas(16) T y[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        float x = f[e];
+        if (norm_type == 0) x = (x - mu_s[r]) * rstd_s[r] * s[e] + b[e];
+        else x = x * rstd_s[r] * (1.f + s[e]);
+        y[e] = from_f<T>(x);
+      }
+      *reinterpret_cast<uint4*>(a_s + r * LDA + tc) = *reinterpret_cast<const uint4*>(y);
+    }
+#pragma unroll
+    for (int j = 0; j < B_VECS; ++j)
+      *reinterpret_cast<uint4*>(b_s + (r0 + j * (THREADS / TPR)) * LDB + tc) = bw[j];
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  const bool active = warp * 32 < hd;
+
+  load(0);
+  for (int k0 = 0; k0 < d_model; k0 += BK) {
+    __syncthreads();               // statistics ready, previous tiles consumed
+    store();
+    __syncthreads();
+    if (k0 + BK < d_model) load(k0 + BK);        // in flight during the MMAs
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(fa[i], a_s + i * 16 * LDA + kk, LDA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(fb[j], b_s + kk * LDB + warp * 32 + j * 16, LDB);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      }
+    }
+  }
+
+  __syncthreads();                 // the weight tile is consumed: C aliases it
+  if (active) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(c_s + i * 16 * LDC + warp * 32 + j * 16, acc[i][j],
+                                LDC, wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  T* out = which ? v_out : k_out;
+  const int half = hd / 2;
+  const bool rope = which == 0;
+  for (int i = tid; i < BM * hd; i += THREADS) {     // epilogue
+    const int r = i / hd, c = i % hd, m = m0 + r;
+    if (m >= n_rows) continue;
+    float x = rnd<T>(c_s[r * LDC + c]);
+    if (rope) {
+      const int j = c < half ? c : c - half;
+      const float sn = sin_t[(long)m * half + j], cs = cos_t[(long)m * half + j];
+      if (c < half) {            // x1 * cos - x2 * sin
+        const float x2 = rnd<T>(c_s[r * LDC + c + half]);
+        x = __fsub_rn(__fmul_rn(x, cs), __fmul_rn(x2, sn));
+      } else {                   // x2 * cos + x1 * sin
+        const float x1 = rnd<T>(c_s[r * LDC + c - half]);
+        x = __fadd_rn(__fmul_rn(x, cs), __fmul_rn(x1, sn));
+      }
+    }
+    out[((long)m * KVH + h) * hd + c] = from_f<T>(x);
+  }
+}
+
+template <typename T>
+int launch(const void* act, const int* page_index, const void* scale,
+           const void* bias, const void* wk, const void* wv, const float* sin_t,
+           const float* cos_t, void* k_out, void* v_out, int n_pages, int d_model,
+           int KVH, int hd, int norm_type, float eps, cudaStream_t stream) {
+  const int n_rows = n_pages * PAGE;
+  const dim3 grid(2 * KVH, (n_rows + BM - 1) / BM);
+  kv_gen_kernel<T><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(act), page_index, static_cast<const T*>(scale),
+      static_cast<const T*>(bias), static_cast<const T*>(wk),
+      static_cast<const T*>(wv), sin_t, cos_t, static_cast<T*>(k_out),
+      static_cast<T*>(v_out), n_rows, d_model, KVH, hd, norm_type, eps);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// page_index: int32 (n_pages,).  norm_type: 0 layernorm (scale and bias),
+// 1 rmsnorm (scale).  sin/cos: float32 (n_pages, 16, hd/2).  dtype:
+// 1 float16, 2 bfloat16.
+// d_model a multiple of 8, hd a multiple of 32 up to 128, act/weights/norm
+// parameters 16-byte aligned.  Returns a cudaError_t.
+int kv_gen_fwd(const void* act_pages, const void* page_index, const void* norm_scale,
+               const void* norm_bias, const void* wk, const void* wv, const void* sin_t,
+               const void* cos_t, void* k_out, void* v_out, int n_pages, int d_model,
+               int KVH, int hd, int norm_type, float eps, int dtype, void* stream) {
+  if (n_pages < 1 || d_model % VEC || hd % 32 || hd > MAX_HD || KVH < 1 ||
+      page_index == nullptr || norm_type < 0 || norm_type > 1 || norm_scale == nullptr ||
+      (norm_type == 0 && norm_bias == nullptr) || sin_t == nullptr || cos_t == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pi = static_cast<const int*>(page_index);
+  const float* sn = static_cast<const float*>(sin_t);
+  const float* cs = static_cast<const float*>(cos_t);
+  switch (dtype) {
+    case 1: return launch<__half>(act_pages, pi, norm_scale, norm_bias, wk, wv, sn, cs,
+                                  k_out, v_out, n_pages, d_model, KVH, hd, norm_type,
+                                  eps, st);
+    case 2: return launch<__nv_bfloat16>(act_pages, pi, norm_scale, norm_bias, wk, wv,
+                                         sn, cs, k_out, v_out, n_pages, d_model, KVH,
+                                         hd, norm_type, eps, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,4 +1,5 @@
-"""Layer primitives of the uniform (OPT) family, as plain functions on tensors.
+"""Layer primitives of the uniform family (OPT, yi, minitron), as plain
+functions on tensors.
 
 Counterparts of ``repro.models.layers``: the norms compute in float32 and cast
 back to the input dtype at the same point, so the port rounds where the
@@ -39,6 +40,28 @@ def apply_norm(x, params, norm_type: str):
     if norm_type == "rmsnorm":
         return rms_norm(x, params["scale"])
     return layer_norm(x, params["scale"], params["bias"])
+
+
+# --------------------------------------------------------------------------- rope
+
+def rope_sin_cos(positions, head_dim: int, theta: float):
+    """positions (..., S) int -> sin/cos (..., S, head_dim//2) float32."""
+    half = head_dim // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=positions.device) / half)
+    angle = positions.float()[..., None] * freq
+    return torch.sin(angle), torch.cos(angle)
+
+
+def apply_rope(x, sin, cos):
+    """x (B, S, H, D); sin/cos (B, S, D//2) -> rotated x (half-split layout),
+    computed in float32 and cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    sin, cos = sin[..., None, :], cos[..., None, :]    # broadcast over heads
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(dtype)
 
 
 # --------------------------------------------------------------------------- attention

@@ -1,6 +1,14 @@
-"""Top-level model API of the OPT family: embed -> layers -> logits, the
+"""Top-level model API of the uniform family: embed -> layers -> logits, the
 plain KV decode path (the oracle's) and the hybrid KV/ACT decode path (the
 engine's).  Counterparts of ``repro.models.model``.
+
+The hybrid decode takes one of two kernel routes per model.  Learned-position
+models (OPT) run the fused ``hybrid_paged_attention``, which recomputes each
+ACT page's K/V inside the attention loop.  RoPE models (yi, minitron) first
+recompute the ACT region's bounded prefix with ``kv_gen`` (norm, projection,
+and K rotated at each ACT token's recorded position) into a per-step scratch
+pool, then run ``hybrid_paged_attention_two_pool`` over the KV pages and that
+pool: the fused loop cannot rotate K.
 
 JAX's functions are pure and the JAX engine donates the cache into its decode
 loop; here the cache tensors are updated in place instead, and each function
@@ -8,12 +16,14 @@ returns the (same) cache dict for symmetry with the reference.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.hybrid_attention.ops import hybrid_paged_attention
+from repro_torch.kernels.hybrid_attention.ops import (
+    hybrid_paged_attention, hybrid_paged_attention_two_pool)
+from repro_torch.kernels.kv_gen.ops import kv_gen
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import (init_params, layer_params,  # noqa: F401 (re-export)
@@ -33,14 +43,22 @@ def _embed_tokens(params, cfg, tokens):
 
 
 def embed_input(params, cfg: ModelConfig, tokens, offset: int = 0):
-    """tokens (B, S) -> x (B, S, d) with learned positions offset..offset+S."""
+    """tokens (B, S) -> x (B, S, d); learned positions offset..offset+S are
+    added here, RoPE is applied inside attention."""
     x = _embed_tokens(params, cfg, tokens)
-    return x + params["pos_embed"][offset: offset + x.shape[1]][None]
+    if cfg.pos_type == "learned":
+        x = x + params["pos_embed"][offset: offset + x.shape[1]][None]
+    return x
+
+
+def _positions(S: int, device):
+    return torch.arange(S, dtype=torch.int32, device=device)[None]
 
 
 def unembed(params, cfg: ModelConfig, h):
-    """Tied embeddings; logits in float32."""
-    return (h @ params["embed"].T.to(h.dtype)).float()
+    """Tied or untied embeddings; logits in float32."""
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return (h @ w.to(h.dtype)).float()
 
 
 # =============================================================================
@@ -60,8 +78,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int):
     h = embed_input(params, cfg, tokens)
     B, S = h.shape[:2]
     cache = init_cache(cfg, B, max_len, device=h.device)
+    sincos = T._rope_for(cfg, _positions(S, h.device))
     for i in range(cfg.num_layers):
-        h, (k, v) = T.layer_full(layer_params(params, i), cfg, h)
+        h, (k, v) = T.layer_full(layer_params(params, i), cfg, h, sincos)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
     h = L.apply_norm(h, params["final_norm"], cfg.norm_type)
@@ -72,10 +91,13 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int):
 def decode_step(params, cfg: ModelConfig, token, cache: Cache):
     """token (B, 1) -> (logits (B, 1, V), cache); kv_len advances by 1."""
     kv_len = cache["kv_len"]
-    x = _embed_tokens(params, cfg, token) + params["pos_embed"][kv_len.long()][:, None]
+    x = _embed_tokens(params, cfg, token)
+    if cfg.pos_type == "learned":
+        x = x + params["pos_embed"][kv_len.long()][:, None]
+    sincos = T._rope_for(cfg, kv_len[:, None])
     for i in range(cfg.num_layers):
         x = T.layer_decode(layer_params(params, i), cfg, x, cache["k"][i],
-                           cache["v"][i], kv_len)
+                           cache["v"][i], kv_len, sincos)
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
     cache["kv_len"] = kv_len + 1
     return unembed(params, cfg, x), cache
@@ -150,9 +172,10 @@ def hybrid_prefill_batched(params, cfg: ModelConfig, tokens, kv_cap: int,
     # act region slot j of request b holds the checkpoint of position kv_keep[b]+j
     act_idx = (kv_keep[:, None] + slots).clamp(0, S - 1).long()
     act_idx = act_idx[:, :, None].expand(B, act_cap, cfg.d_model)
+    sincos = T._rope_for(cfg, _positions(S, dev))
     for i in range(cfg.num_layers):
         cache["act"][i] = torch.gather(h, 1, act_idx)       # A^i, the checkpoint
-        h, (k, v) = T.layer_full(layer_params(params, i), cfg, h)
+        h, (k, v) = T.layer_full(layer_params(params, i), cfg, h, sincos)
         cache["k"][i, :, :kfit] = k[:, :kfit]
         cache["v"][i, :, :kfit] = v[:, :kfit]
     h = L.apply_norm(h, params["final_norm"], cfg.norm_type)
@@ -170,8 +193,10 @@ def hybrid_page_table(kv_tokens, act_tokens, kv_cap: int, act_cap: int,
     """Compacted page tables of one decode step, built on the device.
 
     Request b's KV region is pages ``b*kv_cap/16 + j`` of the layer's KV pool
-    and its ACT region pages ``b*act_cap/16 + j`` of the ACT pool; its used
-    KV pages come first, then its ACT pages, then empty entries.
+    and its ACT region pages ``b*act_cap/16 + j`` of the ACT pool (the ACT
+    region, or for RoPE models the scratch pool of recomputed K/V, whose
+    per-request stride is passed as ``act_cap``); its used KV pages come
+    first, then its ACT pages, then empty entries.
     kv_tokens / act_tokens (B,): tokens each region holds, this step's new
     token included.  -> (page_table, page_type, page_ntok), int32 (B, n_pages).
     """
@@ -192,20 +217,42 @@ def hybrid_page_table(kv_tokens, act_tokens, kv_cap: int, act_cap: int,
     return table.int(), ptype.int(), ntok.int()
 
 
+class ActKV(NamedTuple):
+    """Per-step inputs of the RoPE models' route, shared by every layer.
+
+    sincos_new: (sin, cos) (B, 1, hd/2) at each request's new position.
+    sin, cos: (N, 16, hd/2) float32 at the recorded ACT positions of the
+    pages in ``page_index`` (N,) int32, the bounded prefix of each request's
+    ACT region in the layer's pool.  k, v: (N, 16, KVH, hd), the scratch
+    pool ``kv_gen`` writes and the second-pool attention reads."""
+    sincos_new: Tuple[torch.Tensor, torch.Tensor]
+    sin: torch.Tensor
+    cos: torch.Tensor
+    page_index: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+
+
 def _hybrid_layer_step(lp, cfg, h, kc, vc, ac, kv_len, act_len, store_act,
-                       tables):
+                       tables, act_kv: Optional[ActKV] = None):
     """One hybrid KV/ACT attention layer at decode time.  kc/vc (B, kv_cap,
     KVH, D) and ac (B, act_cap, d) are this layer's regions, updated in place.
 
     The new token's K/V (KV-bound) or checkpoint (ACT-bound) is written into
-    its region BEFORE the kernel runs, so an ACT-bound token's K/V are
-    recomputed from its own checkpoint inside the kernel — the same
-    norm(h) @ wk that ``_qk`` computed."""
+    its region BEFORE the kernels run, so an ACT-bound token's K/V are
+    recomputed from its own checkpoint — the same norm(h) @ wk that ``_qk``
+    computed, rotated at the same position.  ``act_kv`` given (RoPE models):
+    q and k are rotated, ``kv_gen`` recomputes the ACT pages into the
+    scratch pool, and the second-pool kernel attends; else the fused kernel
+    recomputes in its loop."""
     B = h.shape[0]
     KVH, D, d = cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     ar = torch.arange(B, device=h.device)
     act_in = h[:, 0]                                           # A^i of new token
     q, k, v = T._qk(lp["attn"], cfg, L.apply_norm(h, lp["ln1"], cfg.norm_type))
+    if act_kv is not None:
+        q = L.apply_rope(q, *act_kv.sincos_new)
+        k = L.apply_rope(k, *act_kv.sincos_new)
 
     ki = kv_len.clamp(max=kc.shape[1] - 1).long()
     ai = act_len.clamp(max=ac.shape[1] - 1).long()
@@ -214,18 +261,29 @@ def _hybrid_layer_step(lp, cfg, h, kc, vc, ac, kv_len, act_len, store_act,
     vc[ar, ki] = torch.where(to_act, vc[ar, ki], v[:, 0])
     ac[ar, ai] = torch.where(store_act[:, None], act_in.to(ac.dtype), ac[ar, ai])
 
-    o = hybrid_paged_attention(
-        q.reshape(B, KVH, cfg.num_heads // KVH, D),
-        kc.view(-1, PAGE, KVH, D), vc.view(-1, PAGE, KVH, D),
-        ac.view(-1, PAGE, d), lp["ln1"]["scale"], lp["ln1"].get("bias"),
-        lp["attn"]["wk"].view(d, KVH, D), lp["attn"]["wv"].view(d, KVH, D),
-        *tables, norm_type=cfg.norm_type, eps=L.NORM_EPS[cfg.norm_type])
+    qg = q.reshape(B, KVH, cfg.num_heads // KVH, D)
+    pools = (kc.view(-1, PAGE, KVH, D), vc.view(-1, PAGE, KVH, D))
+    norm = (lp["ln1"]["scale"], lp["ln1"].get("bias"))
+    wkv = (lp["attn"]["wk"].view(d, KVH, D), lp["attn"]["wv"].view(d, KVH, D))
+    eps = L.NORM_EPS[cfg.norm_type]
+    if act_kv is None:
+        o = hybrid_paged_attention(qg, *pools, ac.view(-1, PAGE, d), *norm,
+                                   *wkv, *tables, norm_type=cfg.norm_type,
+                                   eps=eps)
+    else:
+        if act_kv.page_index.numel():
+            kv_gen(ac.view(-1, PAGE, d), *norm, *wkv,
+                   page_index=act_kv.page_index, sin=act_kv.sin,
+                   cos=act_kv.cos, norm_type=cfg.norm_type, eps=eps,
+                   out=(act_kv.k, act_kv.v))
+        o = hybrid_paged_attention_two_pool(qg, *pools, act_kv.k, act_kv.v,
+                                            *tables)
     h = h + o.reshape(B, 1, cfg.q_dim) @ lp["attn"]["wo"]
     return h + T.ffn_apply(lp["ffn"], cfg, L.apply_norm(h, lp["ln2"], cfg.norm_type))
 
 
 def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
-                       store_act, *, pages_bound=None):
+                       store_act, *, pages_bound=None, act_pages_bound=None):
     """One generation step with the KV-Activation hybrid cache.
 
     store_act (B,) bool: whether this token's checkpoint goes to the ACT
@@ -233,6 +291,11 @@ def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
     pages_bound: bound on any request's used pages this step (the caller
     knows it from the store schedule); the page tables, and so the kernel's
     page loop, are that wide.  Default: every page of both regions.
+    act_pages_bound (RoPE models): bound on any request's used ACT pages this
+    step; ``kv_gen`` recomputes that many pages of each request, and none
+    when it is 0.  Default: every ACT page.  A bound that is too small drops
+    the ACT tokens past it from attention, as the reference's ``act_bound``
+    does.
     -> (logits (B, 1, V), cache)."""
     B = token.shape[0]
     kv_cap, act_cap = cache["k"].shape[2], cache["act"].shape[2]
@@ -243,23 +306,52 @@ def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
     # ACT tokens carry their recorded absolute positions (appends interleave)
     cache["act_pos"][ar, ai] = torch.where(store_act, ctx, cache["act_pos"][ar, ai])
 
-    x = _embed_tokens(params, cfg, token) + params["pos_embed"][ctx.long()][:, None]
+    x = _embed_tokens(params, cfg, token)
+    if cfg.pos_type == "learned":
+        x = x + params["pos_embed"][ctx.long()][:, None]
     kv_new = kv_len + (~store_act).int()
     act_new = act_len + store_act.int()
     maxp = kv_cap // PAGE + act_cap // PAGE
     n_pages = maxp if pages_bound is None else min(int(pages_bound), maxp)
-    tables = hybrid_page_table(kv_new, act_new, kv_cap, act_cap, n_pages)
+    act_kv, act_stride, act_read = None, act_cap, act_new
+    if cfg.pos_type == "rope":
+        n_act = act_cap // PAGE if act_pages_bound is None \
+            else min(int(act_pages_bound), act_cap // PAGE)
+        act_kv = _act_kv(cfg, cache, ctx, n_act)
+        act_stride = n_act * PAGE        # ACT entries index the scratch pool
+        # tokens past the bound have no recomputed K/V: attention drops them
+        act_read = act_new.clamp(max=act_stride)
+    tables = hybrid_page_table(kv_new, act_read, kv_cap, act_stride, n_pages)
     for i in range(cfg.num_layers):
         x = _hybrid_layer_step(layer_params(params, i), cfg, x, cache["k"][i],
                                cache["v"][i], cache["act"][i], kv_len, act_len,
-                               store_act, tables)
+                               store_act, tables, act_kv)
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
     cache["kv_len"], cache["act_len"] = kv_new, act_new
     return unembed(params, cfg, x), cache
 
 
+def _act_kv(cfg, cache, ctx, n_act: int) -> ActKV:
+    """The RoPE route's per-step inputs, computed once for all layers: RoPE
+    at the new positions ``ctx`` and at the recorded positions of the first
+    ``n_act`` ACT pages of each request, those pages' indices in a layer's
+    pool, and the scratch pool."""
+    B, act_cap = cache["act_pos"].shape
+    dev, dt = ctx.device, cache["act"].dtype
+    sin, cos = T._rope_for(cfg, cache["act_pos"][:, :n_act * PAGE])
+    page_index = (torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+                  * (act_cap // PAGE)
+                  + torch.arange(n_act, dtype=torch.int32, device=dev)[None])
+    shape = (B * n_act, PAGE, cfg.num_kv_heads, cfg.head_dim)
+    half = (B * n_act, PAGE, cfg.head_dim // 2)
+    return ActKV(T._rope_for(cfg, ctx[:, None]), sin.reshape(half),
+                 cos.reshape(half), page_index.reshape(-1),
+                 torch.empty(shape, dtype=dt, device=dev),
+                 torch.empty(shape, dtype=dt, device=dev))
+
+
 def hybrid_decode_loop(params, cfg: ModelConfig, cur, cache: Cache,
-                       store_sched, *, pages_bound=None):
+                       store_sched, *, pages_bound=None, act_pages_bound=None):
     """Greedy generation over the hybrid cache, argmax on the device and no
     host sync inside the loop.
 
@@ -270,6 +362,7 @@ def hybrid_decode_loop(params, cfg: ModelConfig, cur, cache: Cache,
     for s in range(store_sched.shape[0]):
         toks.append(cur)
         lg, cache = hybrid_decode_step(params, cfg, cur[:, None], cache,
-                                       store_sched[s], pages_bound=pages_bound)
+                                       store_sched[s], pages_bound=pages_bound,
+                                       act_pages_bound=act_pages_bound)
         cur = lg[:, -1].argmax(-1).int()
     return _stack(toks, cur), cache

@@ -1,4 +1,6 @@
-"""Parameter init and the per-layer forwards of the OPT family.
+"""Parameter init and the per-layer forwards of the uniform family (every
+layer attention + FFN): OPT (learned positions, tied embeddings), yi and
+minitron (RoPE, untied embeddings).
 
 Counterparts of ``repro.models.transformer``.  Parameters are a plain dict laid
 out like the JAX pytree: layers stacked on dim 0, weights stored
@@ -56,34 +58,59 @@ def _norm_p(cfg, device, n=None):
             "bias": torch.zeros(shape, dtype=dt, device=device)}
 
 
+#: position encodings the port serves
+POS_TYPES = ("learned", "rope")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise unless the port serves ``cfg``: a dense decoder of the uniform
+    family (no MoE, windows, SSM, encoder or frontend) with an FFN, learned
+    or RoPE positions, and no q/k norm."""
+    uniform = (cfg.arch_type == "dense" and not cfg.is_encoder_decoder
+               and cfg.window_period == 0 and cfg.moe_num_experts == 0
+               and cfg.frontend == "none")
+    if not uniform or cfg.d_ff == 0 or cfg.pos_type not in POS_TYPES \
+            or cfg.qk_norm:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves dense uniform-family decoders with "
+            f"{' or '.join(POS_TYPES)} positions and no q/k norm")
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Random parameters of an OPT-family model (dense, learned positions,
-    tied embeddings, ungated FFN), made on ``device`` from a seeded
+    """Random parameters of a uniform-family model (the JAX pytree's keys:
+    ``unembed`` when embeddings are untied, ``pos_embed`` for learned
+    positions, ``w3`` for gated FFNs), made on ``device`` from a seeded
     ``torch.Generator``."""
-    if (cfg.arch_type, cfg.pos_type, cfg.tie_embeddings) != ("dense", "learned", True) \
-            or cfg.ffn_type.startswith("gated") or cfg.d_ff == 0:
-        raise NotImplementedError(f"{cfg.name}: the port serves the OPT family")
+    check_supported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     Lyr, d, qd, kvd, f = (cfg.num_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim,
                           cfg.d_ff)
     V = pad_vocab(cfg.vocab_size)
     o_scale = 1.0 / math.sqrt(qd) / math.sqrt(2 * Lyr)
     f_scale = 1.0 / math.sqrt(f) / math.sqrt(2 * Lyr)
-    return {
-        "embed": _dense(gen, (V, d), cfg, device, scale=0.02),
-        "final_norm": _norm_p(cfg, device),
-        "pos_embed": _dense(gen, (cfg.max_seq_len, d), cfg, device, scale=0.02),
-        "layers": {
-            "ln1": _norm_p(cfg, device, Lyr),
-            "attn": {"wq": _dense(gen, (d, qd), cfg, device, n=Lyr),
-                     "wk": _dense(gen, (d, kvd), cfg, device, n=Lyr),
-                     "wv": _dense(gen, (d, kvd), cfg, device, n=Lyr),
-                     "wo": _dense(gen, (qd, d), cfg, device, scale=o_scale, n=Lyr)},
-            "ln2": _norm_p(cfg, device, Lyr),
-            "ffn": {"w1": _dense(gen, (d, f), cfg, device, n=Lyr),
-                    "w2": _dense(gen, (f, d), cfg, device, scale=f_scale, n=Lyr)},
-        },
+    params = {"embed": _dense(gen, (V, d), cfg, device, scale=0.02),
+              "final_norm": _norm_p(cfg, device)}
+    if not cfg.tie_embeddings:
+        params["unembed"] = _dense(gen, (d, V), cfg, device)
+    if cfg.pos_type == "learned":
+        params["pos_embed"] = _dense(gen, (cfg.max_seq_len, d), cfg, device,
+                                     scale=0.02)
+    # the draw order is part of what a seed means: the optional leaves come
+    # after the ones every model has, so adding them changes no other weight
+    layers = {
+        "ln1": _norm_p(cfg, device, Lyr),
+        "attn": {"wq": _dense(gen, (d, qd), cfg, device, n=Lyr),
+                 "wk": _dense(gen, (d, kvd), cfg, device, n=Lyr),
+                 "wv": _dense(gen, (d, kvd), cfg, device, n=Lyr),
+                 "wo": _dense(gen, (qd, d), cfg, device, scale=o_scale, n=Lyr)},
+        "ln2": _norm_p(cfg, device, Lyr),
+        "ffn": {"w1": _dense(gen, (d, f), cfg, device, n=Lyr),
+                "w2": _dense(gen, (f, d), cfg, device, scale=f_scale, n=Lyr)},
     }
+    if cfg.ffn_type.startswith("gated"):
+        layers["ffn"]["w3"] = _dense(gen, (d, f), cfg, device, n=Lyr)
+    params["layers"] = layers
+    return params
 
 
 def layer_params(params: Params, i: int) -> Params:
@@ -98,6 +125,13 @@ def layer_params(params: Params, i: int) -> Params:
 # block applications
 # =============================================================================
 
+def _rope_for(cfg: ModelConfig, positions):
+    """-> (sin, cos) (..., S, head_dim/2) for RoPE models, else None."""
+    if cfg.pos_type == "rope":
+        return L.rope_sin_cos(positions, cfg.head_dim, cfg.rope_theta)
+    return None
+
+
 def _qk(p, cfg, x):
     B, S, _ = x.shape
     q = (x @ p["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
@@ -106,18 +140,27 @@ def _qk(p, cfg, x):
     return q, k, v
 
 
-def attn_full(p, cfg: ModelConfig, x):
-    """Causal full-sequence attention (prefill). Returns (out, (k, v))."""
+def _qk_roped(p, cfg, x, sincos):
     q, k, v = _qk(p, cfg, x)
+    if sincos is not None:
+        q, k = L.apply_rope(q, *sincos), L.apply_rope(k, *sincos)
+    return q, k, v
+
+
+def attn_full(p, cfg: ModelConfig, x, sincos=None):
+    """Causal full-sequence attention (prefill); q and k rotated by
+    ``sincos`` when given. Returns (out, (k, v))."""
+    q, k, v = _qk_roped(p, cfg, x, sincos)
     o = flash_attention(q, k, v)
     return o.reshape(x.shape[0], x.shape[1], cfg.q_dim) @ p["wo"], (k, v)
 
 
-def attn_decode(p, cfg: ModelConfig, x, k_cache, v_cache, kv_len):
+def attn_decode(p, cfg: ModelConfig, x, k_cache, v_cache, kv_len, sincos=None):
     """One-token attention against a cache (B, S, KVH, D).  The new token's
-    K/V are written in place at ``kv_len``, then attended."""
+    K/V (k rotated by ``sincos`` when given) are written in place at
+    ``kv_len``, then attended."""
     B = x.shape[0]
-    q, k, v = _qk(p, cfg, x)
+    q, k, v = _qk_roped(p, cfg, x, sincos)
     ar = torch.arange(B, device=x.device)
     k_cache[ar, kv_len.long()] = k[:, 0]
     v_cache[ar, kv_len.long()] = v[:, 0]
@@ -131,15 +174,16 @@ def ffn_apply(p, cfg: ModelConfig, x):
 
 # --- single transformer layer (pre-norm residual) -----------------------------
 
-def layer_full(p, cfg, x):
+def layer_full(p, cfg, x, sincos=None):
     """-> (x', (k, v)) over the whole sequence."""
-    a, kv = attn_full(p["attn"], cfg, L.apply_norm(x, p["ln1"], cfg.norm_type))
+    a, kv = attn_full(p["attn"], cfg, L.apply_norm(x, p["ln1"], cfg.norm_type),
+                      sincos)
     x = x + a
     return x + ffn_apply(p["ffn"], cfg, L.apply_norm(x, p["ln2"], cfg.norm_type)), kv
 
 
-def layer_decode(p, cfg, x, k_cache, v_cache, kv_len):
+def layer_decode(p, cfg, x, k_cache, v_cache, kv_len, sincos=None):
     """-> x' for one token; the caches are updated in place."""
     h = L.apply_norm(x, p["ln1"], cfg.norm_type)
-    x = x + attn_decode(p["attn"], cfg, h, k_cache, v_cache, kv_len)
+    x = x + attn_decode(p["attn"], cfg, h, k_cache, v_cache, kv_len, sincos)
     return x + ffn_apply(p["ffn"], cfg, L.apply_norm(x, p["ln2"], cfg.norm_type))

@@ -9,7 +9,9 @@ The policy stack is the reference's, copied into ``repro_torch.core``:
      store_act schedule.
   3. Mini-batches are formed by the F_b bin packer; each group runs ONE
      batched prefill (flash-attention kernel) and ONE greedy decode loop
-     (hybrid paged-attention kernel, KV-Gen fused), argmax on the device.
+     (hybrid paged-attention kernel, KV-Gen fused for learned positions, or
+     the KV-Gen kernel then the second-pool attention for RoPE models),
+     argmax on the device.
   4. The BlockManager accounts physical blocks; the pipeline simulator
      reports what the schedule would cost on the target hardware.
 
@@ -35,6 +37,7 @@ from repro_torch.core.policy import (device_act_blocks, host_block_allocation,
 from repro_torch.core.costmodel import profile_cost_fns
 from repro_torch.data.pipeline import Request
 from repro_torch.models import model as M
+from repro_torch.models import transformer as T
 from repro_torch.serving.util import bucket, pack_group
 
 
@@ -85,6 +88,7 @@ class HybridServeEngine:
         the paper states it (the reference's ``generalized=False``)."""
         if mode not in ("hybrid", "kv", "act"):
             raise ValueError(f"mode={mode!r}: one of hybrid, kv, act")
+        T.check_supported(cfg)
         self.cfg, self.params, self.hw, self.mode = cfg, params, hw, mode
         self.device = torch.device(device)
         self.max_minibatch = max_minibatch
@@ -145,10 +149,12 @@ class HybridServeEngine:
         """Host-side plan of one group, as ``_run_group`` runs it.
 
         -> (tokens (B, Smax) int32, kv_keep (B,), buckets, store schedule
-        (B, max_new) bool, pages_bound): ``pages_bound`` is the most pages
-        any request uses at any decode step (lengths only grow, so the last
-        step's), the width of every step's page table.  Raises
-        ``CapacityError`` when a decode would outgrow a region."""
+        (B, max_new) bool, pages_bound, act_pages_bound): ``pages_bound`` is
+        the most pages any request uses at any decode step (lengths only
+        grow, so the last step's), the width of every step's page table;
+        ``act_pages_bound`` the most ACT pages, the prefix ``kv_gen``
+        recomputes per request for RoPE models.  Raises ``CapacityError``
+        when a decode would outgrow a region."""
         toks, kv_keep, pbs = pack_group(group, self.act_frac, self.kv_cap,
                                         self.act_cap, mode=self.mode)
         max_new = max(r.max_new_tokens for r in group)
@@ -163,8 +169,10 @@ class HybridServeEngine:
                 f"ACT slots, regions hold {self.kv_cap} and {self.act_cap}",
                 rids=[r.rid for r in group], resource="region slots",
                 hint="raise kv_cap/act_cap or lower max_new_tokens")
-        pages = -(-kv_end // BLOCK_TOKENS) - (-act_end // BLOCK_TOKENS)
-        return toks, kv_keep, pbs, sched, max(int(pages.max()), 1)
+        act_pages = -(-act_end // BLOCK_TOKENS)
+        pages = -(-kv_end // BLOCK_TOKENS) + act_pages
+        return (toks, kv_keep, pbs, sched, max(int(pages.max()), 1),
+                int(act_pages.max()))
 
     # --- one group of requests ----------------------------------------------
     def _run_group(self, group: List[Request]) -> Tuple[Dict[int, np.ndarray], GenStats]:
@@ -173,7 +181,8 @@ class HybridServeEngine:
         cfg, dev = self.cfg, self.device
         stats = GenStats()
         B = len(group)
-        toks, kv_keep, pbs, sched, pages_bound = self.group_schedule(group)
+        toks, kv_keep, pbs, sched, pages_bound, act_bound = \
+            self.group_schedule(group)
         max_new = sched.shape[1]
         as_dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
         lg, cache = M.hybrid_prefill_batched(
@@ -197,7 +206,8 @@ class HybridServeEngine:
                 sched_dev = torch.from_numpy(np.ascontiguousarray(sched.T)).to(dev)
                 gen_dev, _ = M.hybrid_decode_loop(self.params, cfg, cur, cache,
                                                   sched_dev,
-                                                  pages_bound=pages_bound)
+                                                  pages_bound=pages_bound,
+                                                  act_pages_bound=act_bound)
                 gen = gen_dev.cpu().numpy()
                 stats.device_calls += 1
             else:

@@ -70,7 +70,7 @@ def test_engine_matches_jax_engine_and_oracle(setup, case):
     assert stats.sim_time == pytest.approx(j_stats.sim_time, rel=1e-12)
     assert all(p.allocated == 0 for p in eng.blockman.pools.values())
     if case == "hybrid-mixed":       # both page types on the decode path
-        _, kv_keep, pbs, _, _ = eng.group_schedule(groups[0])
+        _, kv_keep, pbs, *_ = eng.group_schedule(groups[0])
         assert ((kv_keep > 0) & (kv_keep < np.asarray(pbs))).any()
 
 

@@ -182,6 +182,7 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_build_covers_both_sources_for_sm90a():
-    assert set(_build.sources()) == {"flash_attention", "hybrid_attention"}
+    assert set(_build.sources()) == {"flash_attention", "hybrid_attention",
+                                     "kv_gen"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")
