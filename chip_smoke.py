@@ -9,12 +9,18 @@ through ``HybridServeEngine`` in hybrid and kv modes and checks the tokens
 against ``exact_reference_generate``: opt-6.7b (learned positions; the fused
 hybrid kernel recomputes ACT pages' K/V) and then yi-6b (RoPE, GQA, SwiGLU;
 the ``kv_gen`` kernel recomputes them, the hybrid kernel's second-pool mode
-attends).  Each path runs with the launch counts set to 0 just before it and
-read just after.  One JSON line per phase; the line before the last lists
-every kernel with its launches on its serve path, error, times and bound; the
-last line is the device summary.  Any failure raises and the exit code is
-non-zero.  Without a CUDA device, or outside a checkout of the repo, it fails
-before printing any result.  Details also go to ``chiprun_out/chip_smoke.json``.
+attends).  After each model's device-resident serve has freed its weights, an
+offload phase serves it again with its layer weights in pinned host memory,
+streamed to the card over a CUDA copy stream (``HybridServeEngine(offload=
+True)``): prefetch depth 1 and 0, the KV region resident or spilled to the
+host arena, and spilled with the CPU attention lane, whose device partial is
+the hybrid kernel's ``return_lse`` mode.  Each path runs with the launch
+counts set to 0 just before it and read just after.  One JSON line per
+phase; the line before the last lists every kernel with its launches on its
+path, error, times and bound; the last line is the device summary.  Any
+failure raises and the exit code is non-zero.  Without a CUDA device, or
+outside a checkout of the repo, it fails before printing any result.
+Details also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.offload import OffloadBudget, _tight  # noqa: E402
 from repro_torch.core.costmodel import H100_SXM  # noqa: E402
 from repro_torch.data.pipeline import request_trace  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -46,6 +53,8 @@ from repro_torch.kernels.kv_gen.ops import kv_gen  # noqa: E402
 from repro_torch.kernels.kv_gen.ref import kv_gen_ref  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.offload import (HostWeightPool, host_flash_attention,  # noqa: E402
+                                 merge_partials_torch)
 from repro_torch.serving import HybridServeEngine, exact_reference_generate  # noqa: E402
 from repro_torch.serving.util import bucket  # noqa: E402
 
@@ -76,6 +85,13 @@ LOGIT_TOL = 0.1
 # gap with the ACT keys left unrotated and rotated one position late, and
 # fails unless both readings exceed the limit.
 LOGIT_TOL_BY_DTYPE = {"float16": LOGIT_TOL, "bfloat16": 0.25}
+# return_lse's (m, l) against the plain version, float32: m is a max of
+# scores and l a sum of exp(s - m), each score a float32 dot product of q
+# with a key the fused kernel recomputes and rounds to the cache dtype in
+# another summation order than the plain version (a float16 ulp flip moves a
+# unit-scale score by ~1e-4).  The limit is 2**-10 relative (absolute below
+# 1); dropping one ACT page moves l by several percent and must fail it.
+LSE_RTOL = 2.0 ** -10
 TRACE = dict(n_requests=4, prompt_mean=48, gen_tokens=12, seed=7)
 # kernel -> (its source, the TPU kernel it replaces)
 _HYBRID = ("src/repro_torch/kernels/hybrid_attention/csrc/hybrid_attention.cu",
@@ -88,12 +104,20 @@ KERNELS = {
     "hybrid_paged_attention_two_pool": _HYBRID,
     "kv_gen": ("src/repro_torch/kernels/kv_gen/csrc/kv_gen.cu",
                "src/repro/kernels/kv_gen/kernel.py:46"),
+    "hybrid_paged_attention_return_lse": _HYBRID,
+    "hybrid_paged_attention_two_pool_return_lse": _HYBRID,
 }
-# the launch counters, one per kernel wrapper
-COUNTERS = {"flash_attention": flash_attention,
-            "hybrid_paged_attention": hybrid_paged_attention,
-            "hybrid_paged_attention_two_pool": hybrid_paged_attention_two_pool,
-            "kv_gen": kv_gen}
+# the launch counters: (kernel wrapper, its counter); the return_lse rows
+# count the launches of that mode on the same wrappers
+COUNTERS = {"flash_attention": (flash_attention, "launches"),
+            "hybrid_paged_attention": (hybrid_paged_attention, "launches"),
+            "hybrid_paged_attention_two_pool": (
+                hybrid_paged_attention_two_pool, "launches"),
+            "kv_gen": (kv_gen, "launches"),
+            "hybrid_paged_attention_return_lse": (
+                hybrid_paged_attention, "lse_launches"),
+            "hybrid_paged_attention_two_pool_return_lse": (
+                hybrid_paged_attention_two_pool, "lse_launches")}
 
 
 def emit(obj) -> None:
@@ -365,6 +389,148 @@ def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16):
             "bound_by": by}
 
 
+def lse_err(got, want) -> float:
+    """max |got - want| / max(1, |want|): relative, absolute below 1."""
+    return ((got.float() - want.float()).abs()
+            / want.float().abs().clamp_min(1.0)).max().item()
+
+
+def check_lse(mode, shape, KVH, G, D=128, d=4096, dtype=torch.float16):
+    """The hybrid kernel's return_lse mode (``mode`` "fused" or
+    "two_pool") against the plain version, in two cases built from a serve
+    path's last-step tables: first the CPU lane's device partial, the
+    tables the host-attend path launches it with (the new token's own row
+    as a one-token KV page of a small pool, then the ACT pages; odd
+    requests' new token is ACT-bound, even ones' KV-bound: the last row of
+    its KV region), then the same attention over all pages.  In each, o
+    within the 4-ulp limit, m and l within LSE_RTOL, and l must fail
+    LSE_RTOL with each request's last ACT page dropped.  Then the CPU lane's
+    merge: the first case's partial merged with ``host_flash_attention``
+    over the other KV rows equals the second case's output, within the
+    4-ulp limit.  -> [the device partial's case, the all-pages case]."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    rnd = lambda *sh, s=0.5, o=0.0: (torch.randn(
+        sh, generator=g, device="cuda") * s + o).to(dtype)
+    fused = mode == "fused"
+    B, cap, n_act = shape["B"], shape["kv_cap"], shape["act_pages_bound"]
+    act_stride = shape["act_cap"] if fused else n_act * PAGE
+    k_pages, v_pages = (rnd(B * cap // PAGE, PAGE, KVH, D) for _ in range(2))
+    q = rnd(B, KVH, G, D, s=1.0)
+    if fused:
+        ap = rnd(B * act_stride // PAGE, PAGE, d, s=1.0, o=0.1)
+        scale, bias = rnd(d, s=0.1, o=1.0), rnd(d, s=0.2)    # bias non-zero
+        wk, wv = rnd(d, KVH, D, s=d ** -0.5), rnd(d, KVH, D, s=d ** -0.5)
+        run = lambda f, kp, vp, tabs, **kw: f(
+            q, kp, vp, ap, scale, bias, wk, wv, *tabs,
+            norm_type="layernorm", **kw)
+        kernel, plain = hybrid_paged_attention, hybrid_paged_attention_ref
+    else:
+        ak, av = rnd(B * n_act, PAGE, KVH, D), rnd(B * n_act, PAGE, KVH, D)
+        run = lambda f, kp, vp, tabs, **kw: f(q, kp, vp, ak, av, *tabs, **kw)
+        kernel = hybrid_paged_attention_two_pool
+        plain = hybrid_paged_attention_two_pool_ref
+    kv_tok, act_tok = (torch.tensor(shape[k], dtype=torch.int32, device="cuda")
+                       for k in ("kv_tokens", "act_tokens"))
+    # the CPU lane's split of the same attention
+    store = torch.arange(B, device="cuda") % 2 == 1
+    own = (~store & (kv_tok > 0)).int()
+    ar, last = torch.arange(B, device="cuda"), (kv_tok - 1).clamp(min=0).long()
+    region_k, region_v = (x.view(B, cap, KVH, D) for x in (k_pages, v_pages))
+    own_k, own_v = (torch.zeros((B, PAGE, KVH, D), dtype=dtype, device="cuda")
+                    for _ in range(2))
+    own_k[:, 0], own_v[:, 0] = region_k[ar, last], region_v[ar, last]
+    n_act_req = int(((act_tok + PAGE - 1) // PAGE).max())
+    cases = {"cpu_lane_device_partial": (own_k, own_v, own, PAGE, 1 + n_act_req),
+             "all_pages": (k_pages, v_pages, kv_tok, cap, shape["pages_bound"])}
+    out, outputs = [], []
+    esz = q.element_size()
+    stats = 2 * 4 * B * KVH * G                        # m and l, float32
+    for case, (kp, vp, kv_t, kv_cap, width) in cases.items():
+        table = lambda act: M.hybrid_page_table(kv_t, act, kv_cap, act_stride,
+                                                width)
+        tabs = table(act_tok)
+        got = run(kernel, kp, vp, tabs, return_lse=True)
+        want = run(plain, kp, vp, tabs, return_lse=True)
+        faulty = run(kernel, kp, vp, table(drop_last_page(act_tok)),
+                     return_lse=True)
+        torch.cuda.synchronize()
+        outputs.append(got)
+        tol, top = kernel_tol(want[0])
+        c = {"case": case,
+             "shape": dict(shape, KVH=KVH, G=G, D=D, mode=mode,
+                           kv_tokens=kv_t.tolist(), kv_cap=kv_cap,
+                           pages_bound=width, **({"d_model": d} if fused else {})),
+             "dtype": str(dtype).removeprefix("torch."),
+             "max_abs_err": (got[0].float() - want[0].float()).abs().max().item(),
+             "tol": tol, "max_abs_out": top,
+             "m_err": lse_err(got[1], want[1]), "l_err": lse_err(got[2], want[2]),
+             "lse_tol": LSE_RTOL,
+             "m_range": [want[1].min().item(), want[1].max().item()],
+             "l_range": [want[2].min().item(), want[2].max().item()],
+             "fault_l_err_last_act_page_dropped": lse_err(faulty[2], want[2])}
+        c["kernel_ms"] = time_ms(lambda: run(kernel, kp, vp, tabs,
+                                             return_lse=True), 50)
+        c["plain_ms"] = time_ms(lambda: run(plain, kp, vp, tabs,
+                                            return_lse=True), 10)
+        c["library_ms"], c["library"] = None, \
+            "none: no one PyTorch call norms, projects and attends"
+        if not fused:
+            c["library_ms"], c["library"] = lse_library(
+                q, kp.view(B, kv_cap, KVH, D), vp.view(B, kv_cap, KVH, D),
+                ak, av, kv_t, act_tok)
+        kv_n, act_n = int(kv_t.sum()), int(act_tok.sum())
+        tables = 3 * 4 * B * width
+        if fused:    # each valid token's K/V or checkpoint read once
+            nbytes = esz * (2 * q.numel() + kv_n * KVH * D * 2 + act_n * d
+                            + 2 * d * KVH * D + 2 * d) + tables + stats
+            ops = KVH * G * (kv_n + act_n) * 4.0 * D + act_n * KVH * 4.0 * d * D
+        else:
+            nbytes = esz * (2 * q.numel() + (kv_n + act_n) * KVH * D * 2) \
+                + tables + stats
+            ops = KVH * G * (kv_n + act_n) * 4.0 * D
+        c["bound_ms"], c["bound_by"] = bound(nbytes, ops)
+        out.append(c)
+    (o_d, m_d, l_d), full = outputs
+    o_h, m_h, l_h = host_flash_attention(
+        q.float().cpu().numpy(), region_k.cpu(), region_v.cpu(),
+        (kv_tok - own).cpu().numpy())[:3]
+    merged = merge_partials_torch(o_d.float(), m_d, l_d, *(
+        torch.from_numpy(a).cuda() for a in (o_h, m_h, l_h)))[0].to(dtype)
+    out[1].update(merge_err=(merged.float() - full[0].float()).abs().max().item(),
+                  merge_store_act=store.tolist())
+    return out
+
+
+def lse_library(q, region_k, region_v, ak, av, kv_tok, act_tok):
+    """-> (ms, what): one PyTorch call that returns attention and its
+    log-sum-exp over the same K/V, gathered dense (expanded to the query
+    heads, padded to 16 tokens, masked by an additive bias), made before
+    the timing; (None, why) if this build has none that takes them."""
+    B, KVH, G, D = q.shape
+    S = -(-int((kv_tok + act_tok).max()) // PAGE) * PAGE
+    kd = torch.zeros((B, S, KVH, D), dtype=q.dtype, device="cuda")
+    vd = torch.zeros_like(kd)
+    for b in range(B):
+        nk, na = int(kv_tok[b]), int(act_tok[b])
+        kd[b, :nk], vd[b, :nk] = region_k[b, :nk], region_v[b, :nk]
+        kd[b, nk:nk + na] = ak.view(B, -1, KVH, D)[b, :na]
+        vd[b, nk:nk + na] = av.view(B, -1, KVH, D)[b, :na]
+    valid = torch.arange(S, device="cuda")[None] < (kv_tok + act_tok)[:, None]
+    bias = torch.zeros((B, KVH * G, 1, S), dtype=q.dtype, device="cuda")
+    bias.masked_fill_(~valid[:, None, None, :], float("-inf"))
+    qt = q.reshape(B, KVH * G, 1, D)
+    kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
+              for x in (kd, vd))
+    call = lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        qt, kt, vt, bias, True)
+    try:
+        call()
+        return time_ms(call, 50), ("torch.ops.aten._scaled_dot_product_"
+                                   "efficient_attention, compute_log_sumexp")
+    except Exception as e:                      # noqa: BLE001
+        return None, f"none: {type(e).__name__}: {str(e)[:160]}"
+
+
 def phase_kernels(results):
     """Per kernel, the serve path's shapes first: opt-6.7b's (float16, MHA,
     LayerNorm, G=1), then yi-6b's (bfloat16, G=8: flash prefill, kv_gen and
@@ -373,6 +539,7 @@ def phase_kernels(results):
     rmsnorm, and kv_gen at minitron-4b's widths with a LayerNorm bias."""
     yi = get_config("yi-6b")
     shape = serve_shape(yi)
+    opt_shape = serve_shape(get_config("opt-6.7b"))
     bf16 = torch.bfloat16
     out = {"phase": "kernels", "yi_serve_shape": shape,
            "flash_attention": [
@@ -389,7 +556,12 @@ def phase_kernels(results):
                             yi.num_kv_heads),
                check_kv_gen(shape["B"], shape["act_pages_bound"], 3072, 8,
                             dtype=torch.float16, norm_type="layernorm",
-                            theta=1e4)]}
+                            theta=1e4)],
+           "hybrid_paged_attention_return_lse":
+               check_lse("fused", opt_shape, KVH=32, G=1),
+           "hybrid_paged_attention_two_pool_return_lse":
+               check_lse("two_pool", shape, KVH=4, G=8, dtype=bf16),
+           "opt_serve_shape": opt_shape}
     emit(out)
     results["kernels"] = out
     bad = [(name, c["shape"], c["dtype"], c["max_abs_err"], c["tol"])
@@ -405,6 +577,20 @@ def phase_kernels(results):
              if not c["fault_err_last_act_page_dropped"] > c["tol"]]
     if blind:
         raise AssertionError(f"the limit passes a dropped ACT page: {blind}")
+    lse = [c for name in KERNELS if name.endswith("return_lse")
+           for c in out[name]]
+    bad = [(c["case"], c["shape"], c["m_err"], c["l_err"]) for c in lse
+           if not (c["m_err"] <= LSE_RTOL and c["l_err"] <= LSE_RTOL)]
+    bad += [(c["case"], c["shape"], c["merge_err"], c["tol"]) for c in lse
+            if c["case"] == "all_pages" and not c["merge_err"] <= c["tol"]]
+    if bad:
+        raise AssertionError(f"return_lse disagrees with its plain version "
+                             f"or the merge: {bad}")
+    blind = [(c["case"], c["shape"], c["fault_l_err_last_act_page_dropped"])
+             for c in lse
+             if not c["fault_l_err_last_act_page_dropped"] > LSE_RTOL]
+    if blind:
+        raise AssertionError(f"the l limit passes a dropped ACT page: {blind}")
 
 
 def forced_logits(eng, params, cfg, group, gold):
@@ -422,6 +608,42 @@ def forced_logits(eng, params, cfg, group, gold):
                                          act_pages_bound=act_bound)
         out.append(lg[:, -1])
     return torch.stack(out, 1)
+
+
+def offload_step_gaps(eng, reqs, gold, ora) -> dict:
+    """Teacher-forced logit gaps of an offload engine's own path (for the
+    host-attend engine, the CPU lane's merge included): one ``generate``
+    with the model's prefill and decode end stages wrapped, so that each
+    records its logits and hands the executor the oracle's next token in
+    place of its argmax.  -> {rid: per-step max |logit - oracle's|}."""
+    real_pre, real_end = M.hybrid_prefill_end, M.hybrid_decode_end
+    plan = eng.plan_groups(reqs)
+    feed = [torch.stack([gold[r.rid] for r in g]) for g in plan]
+    seen = []                      # per group, the logits of each step
+
+    def forced(lg):
+        steps, want = seen[-1], feed[len(seen) - 1]
+        steps.append(lg[:, -1].float())
+        nxt = want[:, min(len(steps), want.shape[1]) - 1]
+        return F.one_hot(nxt.long(), lg.shape[-1]).to(lg.dtype)[:, None]
+
+    def prefill_end(*a, **kw):
+        lg, cache = real_pre(*a, **kw)
+        seen.append([])
+        return forced(lg), cache
+
+    M.hybrid_prefill_end = prefill_end
+    M.hybrid_decode_end = lambda *a, **kw: forced(real_end(*a, **kw))
+    try:
+        eng.generate(reqs)
+    finally:
+        M.hybrid_prefill_end, M.hybrid_decode_end = real_pre, real_end
+    gaps = {}
+    for g, want, steps in zip(plan, feed, seen):
+        lg = torch.stack(steps[:want.shape[1]], 1)
+        for i, r in enumerate(g):
+            gaps[r.rid] = (lg[i] - ora[r.rid]).abs().amax(-1).cpu().numpy()
+    return gaps
 
 
 def oracle_logits(params, cfg, prompt, gold):
@@ -454,29 +676,42 @@ def check_tokens(engines, outs, params, cfg, reqs, logit_tol):
         top2 = lg.topk(2, dim=-1).values
         margin[rid] = (top2[:, 0] - top2[:, 1]).cpu().numpy()
     out = {"min_oracle_margin": float(min(m.min() for m in margin.values()))}
+    rule = {"oracle": oracle, "margin": margin, "logit_tol": logit_tol}
     for mode, eng in engines.items():
-        gap, exact, diverged = 0.0, 0, []
+        gap, step_gaps = 0.0, {}
         for g in eng.plan_groups(reqs):
             lg = forced_logits(eng, params, cfg, g,
                                torch.stack([gold[r.rid] for r in g]))
             for i, r in enumerate(g):
-                step_gap = (lg[i] - ora[r.rid]).abs().amax(-1).cpu().numpy()
-                gap = max(gap, float(step_gap.max()))
-                diff = np.nonzero(outs[mode][r.rid] != oracle[r.rid])[0]
-                if not diff.size:
-                    exact += 1
-                    continue
-                s, m = int(diff[0]), float(margin[r.rid][diff[0]])
-                diverged.append({"rid": r.rid, "step": s, "oracle_margin": m,
-                                 "step_gap": float(step_gap[s])})
-                if not (m <= logit_tol and m <= 2 * step_gap[s]):
-                    raise AssertionError(f"{mode} request {r.rid} diverges: "
-                                         f"{diverged[-1]}")
+                step_gaps[r.rid] = (lg[i] - ora[r.rid]).abs().amax(-1).cpu().numpy()
+                gap = max(gap, float(step_gaps[r.rid].max()))
         if gap > logit_tol:
             raise AssertionError(f"{mode} teacher-forced logits differ by {gap}")
-        out[mode] = {"exact_requests": exact, "max_teacher_forced_dlogit": gap,
-                     "diverged": diverged}
-    return out, gold, ora
+        rule[mode] = step_gaps
+        out[mode] = dict(exactness(rule, mode, outs[mode], reqs),
+                         max_teacher_forced_dlogit=gap)
+    return out, gold, ora, rule
+
+
+def exactness(rule, mode, outs, reqs) -> dict:
+    """The exactness rule for ``outs``, a run of ``mode``'s path: a request
+    may leave the oracle's tokens only at a step where the oracle's top-2
+    margin is within the logit limit and within twice that mode's own
+    teacher-forced gap at that step."""
+    exact, diverged = 0, []
+    for r in reqs:
+        diff = np.nonzero(outs[r.rid] != rule["oracle"][r.rid])[0]
+        if not diff.size:
+            exact += 1
+            continue
+        s, m = int(diff[0]), float(rule["margin"][r.rid][diff[0]])
+        step_gap = float(rule[mode][r.rid][s])
+        diverged.append({"rid": r.rid, "step": s, "oracle_margin": m,
+                         "step_gap": step_gap})
+        if not (m <= rule["logit_tol"] and m <= 2 * step_gap):
+            raise AssertionError(f"{mode} request {r.rid} diverges: "
+                                 f"{diverged[-1]}")
+    return {"exact_requests": exact, "diverged": diverged}
 
 
 def fault_gaps(eng, params, cfg, group, gold, ora, logit_tol):
@@ -519,12 +754,12 @@ def _leaves(tree):
 
 
 def reset_counts() -> None:
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in COUNTERS.items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
 def phase_serve(results, smi, name):
@@ -630,9 +865,9 @@ def phase_serve(results, smi, name):
             raise AssertionError(f"request {r.rid}: sync-checked loop differs")
     out["decode_loop_host_syncs"] = 0
 
-    tokens, gold, ora = check_tokens({"hybrid": eng, "kv": kv_eng},
-                                     {"hybrid": hyb, "kv": kv_out},
-                                     params, cfg, reqs, logit_tol)
+    tokens, gold, ora, rule = check_tokens({"hybrid": eng, "kv": kv_eng},
+                                           {"hybrid": hyb, "kv": kv_out},
+                                           params, cfg, reqs, logit_tol)
     out.update(tokens, n_requests=len(reqs), logit_tol=logit_tol,
                exact_requests=tokens["hybrid"]["exact_requests"],
                kv_exact_requests=tokens["kv"]["exact_requests"],
@@ -643,7 +878,193 @@ def phase_serve(results, smi, name):
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(out)
     results[f"serve {name}"] = out
-    return launches, {"hybrid": eng, "kv": kv_eng}, reqs
+    outs = {"hybrid": hyb, "kv": kv_out}
+    return launches, {"hybrid": eng, "kv": kv_eng}, reqs, outs, (rule, gold, ora)
+
+
+def mem_available() -> int:
+    """The host's MemAvailable, bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    return -1
+
+
+def spills(eng, group) -> bool:
+    """Whether the offload engine spills ``group``'s KV region: its KV
+    blocks at the end of its decode exceed the device KV pool."""
+    _, kv_keep, _, sched, *_ = eng.group_schedule(group)
+    need = int(np.sum(-(-(kv_keep + (~sched).sum(1)) // PAGE)))
+    return need > eng.budget.dev_kv_blocks(eng.cfg)
+
+
+def phase_offload(results, smi, name, reqs, resident_outs, oracle):
+    """Serve ``name`` again with its layer weights in pinned host memory
+    (the same seed's weights), streamed over the copy stream: hybrid at
+    prefetch depth 1, 0, 0 and 1 again (an A-B-B-A order, so that a drift
+    of the link's rate within the call falls on both depths alike) and kv
+    at depth 1 under the default 16 GiB budget (KV resident), hybrid under
+    the tight budget (two layers of weights and two KV blocks: the KV
+    region spills to the host arena), and spilled with the CPU attention
+    lane.  Checks tokens (the non-host-attend runs equal the
+    device-resident engine's; the host-attend run keeps the oracle rule
+    with its own teacher-forced gap), uploads against the schedule, slots
+    in use, peak device memory below the layer weights' bytes, leaks,
+    launches, and the overlap: depth 1 steps spend less than half as long
+    beyond their weight copies as depth 0 steps, and are faster where the
+    compute to hide exceeds the link's spread.
+    -> the host-attend run's launch counts."""
+    rule, gold, ora = oracle
+    cfg = get_config(name)
+    L = cfg.num_layers
+    rope = cfg.pos_type == "rope"
+    hybrid_kernel = "hybrid_paged_attention_two_pool" if rope \
+        else "hybrid_paged_attention"
+    out = {"phase": "offload", "card": smi, "model": cfg.name,
+           "host_mem_available_before_pinning": mem_available()}
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    pool = HostWeightPool(cfg, params, device="cuda")
+    torch.cuda.synchronize()
+    out["init_and_pin_s"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    layer_bytes = pool.layer_nbytes[0]
+    out.update(pinned=pool.pinned, layer_weight_bytes=layer_bytes,
+               layer_weights_total_bytes=L * layer_bytes,
+               host_mem_available_after_pinning=mem_available(),
+               resident_tree_bytes=sum(t.numel() * t.element_size()
+                                       for t in _leaves(pool.resident)))
+    if not pool.pinned:
+        raise AssertionError("layer weights are not in pinned host memory")
+    roomy = lambda mode, depth: dict(mode=mode,
+                                     budget=OffloadBudget(16 * 2**30, depth))
+    runs = {"hybrid_d1": roomy("hybrid", 1), "hybrid_d0": roomy("hybrid", 0),
+            "hybrid_d0_again": roomy("hybrid", 0),
+            "hybrid_d1_again": roomy("hybrid", 1), "kv_d1": roomy("kv", 1),
+            "hybrid_spill": dict(mode="hybrid", budget=_tight(cfg)),
+            "hybrid_spill_host_attn": dict(mode="hybrid", budget=_tight(cfg),
+                                           host_attn=True)}
+    ha_launches = None
+    for label, kw in runs.items():
+        eng = HybridServeEngine(cfg, pool, hw=H100_SXM, offload=True, **kw)
+        mode, host_attn = kw["mode"], kw.get("host_attn", False)
+        depth = kw["budget"].prefetch_depth
+        plan = eng.plan_groups(reqs)
+        n_new = [max(r.max_new_tokens for r in g) for g in plan]
+        steps = sum(n_new)
+        want = {k: 0 for k in COUNTERS}
+        want["flash_attention"] = L * len(plan)
+        want[hybrid_kernel] = L * steps
+        if rope and mode == "hybrid":
+            want["kv_gen"] = L * steps
+        if host_attn:       # only a group that spills attends on the host
+            want[hybrid_kernel + "_return_lse"] = L * sum(
+                n for g, n in zip(plan, n_new) if spills(eng, g))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        toks, stats = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        st, ms = eng.executor.streamer, eng.measured_steps
+        spilled = sum(m.traffic["kv_load"] for m in ms) > 0
+        w_s = sum(m.tag_busy.get("w", 0.0) for m in ms)
+        run = {"groups": len(plan), "decode_steps": steps, "wall_s": wall,
+               "spilled_groups": sum(spills(eng, g) for g in plan),
+               "tokens_per_s": stats.generated_tokens / wall,
+               "launches": launches, "uploads": st.uploads,
+               "bytes_uploaded": st.bytes_uploaded,
+               "peak_resident_slots": st.peak_resident,
+               "max_memory_allocated": peak,
+               "step_s_mean": float(np.mean([m.total for m in ms])),
+               "pcie_busy_s_mean": float(np.mean([m.pcie_busy for m in ms])),
+               "gpu_busy_s_mean": float(np.mean([m.gpu_busy for m in ms])),
+               "cpu_busy_s_mean": float(np.mean([m.cpu_busy for m in ms])),
+               "kv_upload_s_mean": float(np.mean([m.tag_busy.get("kv", 0.0)
+                                                  for m in ms])),
+               "store_s_mean": float(np.mean([m.tag_busy.get("st", 0.0)
+                                              for m in ms])),
+               "weights_h2d_GBps": sum(m.traffic["weights"] for m in ms)
+               / w_s / 1e9,
+               "gpu_idle_share": 1.0 - sum(m.gpu_busy for m in ms)
+               / sum(m.total for m in ms),
+               "measured_time_s": stats.measured_time,
+               "spilled": spilled, "arena_denials": eng.arena_denials,
+               "blocking_syncs": eng.executor.blocking_syncs,
+               "device_calls": stats.device_calls}
+        checks = {
+            "launches": launches == want,
+            "uploads": st.uploads == L * sum(1 + max(r.max_new_tokens
+                                                     for r in g) for g in plan),
+            "bytes_uploaded": st.bytes_uploaded == st.uploads * layer_bytes,
+            "peak_resident": st.peak_resident <= depth + 1,
+            "weights_never_resident": peak < L * layer_bytes,
+            "spill": spilled == ("spill" in label and not host_attn),
+            "host_lane_ran": (stats.measured_cpu_busy > 0) == host_attn,
+            "no_leaked_blocks": not any(p.allocated for p in
+                                        eng.blockman.pools.values()),
+            "no_arena_blocks": eng.spill_kv_pool.allocated_blocks == 0,
+            "lane_healthy": eng.executor.lane_health == "healthy"}
+        if not host_attn:
+            same = [r.rid for r in reqs
+                    if np.array_equal(toks[r.rid], resident_outs[mode][r.rid])]
+            run["equal_to_device_resident"] = len(same)
+            if len(same) != len(reqs):
+                raise AssertionError(f"offload {label}: tokens differ from the "
+                                     f"device-resident {mode} engine's")
+            run.update(exactness(rule, mode, toks, reqs))
+        else:   # the CPU lane's merge is its own path: read its own gap
+            rule = dict(rule, **{label: offload_step_gaps(eng, reqs, gold, ora)})
+            gap = max(float(g.max()) for g in rule[label].values())
+            run.update(exactness(rule, label, toks, reqs),
+                       max_teacher_forced_dlogit=gap)
+            if gap > rule["logit_tol"]:
+                raise AssertionError(f"offload {label}: teacher-forced logits "
+                                     f"differ by {gap}")
+        run["checks"] = checks
+        out[label] = run
+        eng.close()
+        del eng
+        if not all(checks.values()):
+            raise AssertionError(f"offload {label} failed {checks}: {run}, "
+                                 f"expected launches {want}")
+        if host_attn:
+            ha_launches = launches
+    # depth 1 against depth 0, each the mean of its two runs: a step's time
+    # beyond its own weight copies (step - pcie busy) is the compute the
+    # copy stream failed to hide, which the link's rate does not set; a
+    # stream that overlaps nothing exposes all of its compute at both
+    # depths and fails the factor of 2.  Whole step times also carry the
+    # link's rate, which moved by up to 10% between runs of one call
+    # (PERF.md section 5), so they are held only where the compute to hide
+    # is more than that: OPT's ~0.115 s of a ~0.37 s step, not yi's ~17 ms
+    step = {d: float(np.mean([out[f"hybrid_{d}{x}"]["step_s_mean"]
+                              for x in ("", "_again")])) for d in ("d1", "d0")}
+    exposed = {d: float(np.mean([out[f"hybrid_{d}{x}"]["step_s_mean"]
+                                 - out[f"hybrid_{d}{x}"]["pcie_busy_s_mean"]
+                                 for x in ("", "_again")])) for d in ("d1", "d0")}
+    whole = exposed["d0"] > 0.1 * step["d0"]
+    out.update(step_s=step, depth1_over_depth0_step=step["d1"] / step["d0"],
+               step_beyond_copies_s=exposed,
+               depth1_over_depth0_beyond_copies=exposed["d1"] / exposed["d0"],
+               whole_step_checked=whole)
+    emit(out)
+    results[f"offload {name}"] = out
+    del pool
+    if whole and not step["d1"] < step["d0"]:
+        raise AssertionError(f"depth 1 steps take {step['d1']} s, depth 0 "
+                             f"steps {step['d0']} s: the copy stream does not "
+                             "overlap compute")
+    if not exposed["d1"] < 0.5 * exposed["d0"]:
+        raise AssertionError(f"depth 1 steps spend {exposed['d1']} s beyond "
+                             f"their copies, depth 0 steps {exposed['d0']} s: "
+                             "the copy stream hides less than half the compute")
+    return ha_launches
 
 
 def kernel_group(name: str) -> str:
@@ -695,15 +1116,19 @@ def phase_profile(results, smi, name, engines, reqs):
     results[f"profile {name}"] = out
 
 
-def serve_path(results, smi, name) -> dict:
-    """Serve and profile one model, then free its weights, so that peak
-    device memory is one model's.  -> its hybrid run's launch counts."""
-    launches, engines, reqs = phase_serve(results, smi, name)
+def serve_path(results, smi, name):
+    """Serve and profile one model, free its weights, so that peak device
+    memory is one model's, then serve it from host memory.  -> the launch
+    counts of its device-resident hybrid run and of its host-attend run."""
+    launches, engines, reqs, outs, oracle = phase_serve(results, smi, name)
     phase_profile(results, smi, name, engines, reqs)
     del engines
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    ha_launches = phase_offload(results, smi, name, reqs, outs, oracle)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, ha_launches
 
 
 def main() -> int:
@@ -716,22 +1141,29 @@ def main() -> int:
     smi = phase_env(results)
     phase_build(results)
     phase_kernels(results)
-    by_path = {name: serve_path(results, smi, name)
-               for name in ("opt-6.7b", "yi-6b")}
-    # each kernel's launches on the serve path that carries it: the fused
-    # hybrid kernel on OPT's, the second-pool mode and kv_gen on yi's;
+    by_path, ha_path = {}, {}
+    for name in ("opt-6.7b", "yi-6b"):
+        by_path[name], ha_path[name] = serve_path(results, smi, name)
+    # each kernel's launches on the path that carries it: the fused hybrid
+    # kernel on OPT's serve, the second-pool mode and kv_gen on yi's, the
+    # return_lse mode of each on that model's host-attend offload run;
     # flash_attention runs on both and reports OPT's, with both beside it
     path_of = {"flash_attention": "opt-6.7b",
                "hybrid_paged_attention": "opt-6.7b",
-               "hybrid_paged_attention_two_pool": "yi-6b", "kv_gen": "yi-6b"}
+               "hybrid_paged_attention_two_pool": "yi-6b", "kv_gen": "yi-6b",
+               "hybrid_paged_attention_return_lse": "opt-6.7b",
+               "hybrid_paged_attention_two_pool_return_lse": "yi-6b"}
     k = results["kernels"]
     rows = []
     for name, (src, tpu) in KERNELS.items():
         c = k[name][0]                    # the serve path's own shape first
+        lse = name.endswith("return_lse")
+        counts = ha_path if lse else by_path
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu, "path": path_of[name],
-                     "launches": by_path[path_of[name]][name],
-                     "launches_by_path": {p: n[name] for p, n in by_path.items()},
+                     "replaces": tpu,
+                     "path": path_of[name] + (" offload host_attn" if lse else ""),
+                     "launches": counts[path_of[name]][name],
+                     "launches_by_path": {p: n[name] for p, n in counts.items()},
                      "max_abs_err": c["max_abs_err"], "tol": c["tol"],
                      "ms": c["kernel_ms"], "kernel_ms": c["kernel_ms"],
                      "plain_ms": c["plain_ms"],

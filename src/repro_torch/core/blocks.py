@@ -1,8 +1,9 @@
 """Hybrid cache blocks: PagedAttention-style tables extended with block TYPE.
 
-A copy of ``repro.core.blocks`` without the offload, sharding, controller,
-preemption, quantization and CPU-lane hooks, which later slices of the port
-bring.  Blocks are priced in the config dtype.
+A copy of ``repro.core.blocks`` with the offload runtime's residency moves
+and the CPU lane's ``host_attend`` tag, without the sharding, controller,
+preemption and quantization hooks, which later slices of the port bring.
+Blocks are priced in the config dtype.
 
 Each logical block covers BLOCK_TOKENS tokens of one request's context across
 all layers, stored either as K/V tensors (KV block) or as activation
@@ -46,6 +47,11 @@ class LogicalBlock:
     location: Location
     pbn: int                 # physical block number within its (kind, location) pool
     ntokens: int = 0         # filled tokens (<= BLOCK_TOKENS)
+    # host-attend residency tag: a HOST KV block placed on the cpu lane —
+    # attended in place by the host executor, never loaded over PCIe and
+    # never regenerated.  Only meaningful for KV@HOST; a migration to DEVICE
+    # clears it.
+    host_attend: bool = False
 
     @property
     def full(self) -> bool:
@@ -93,6 +99,10 @@ class BlockManager:
             (BlockType.ACT, Location.DEVICE): PhysicalPool(dev_act_blocks),
         }
         self.tables: Dict[int, List[LogicalBlock]] = {}
+        # HOST<->DEVICE residency transitions, counted per (kind, from, to):
+        # the offload runtime migrates blocks when its memory budget allows
+        # device residency and spills them back when it doesn't.
+        self.transitions: Dict[Tuple[BlockType, Location, Location], int] = {}
 
     # -- allocation ----------------------------------------------------------
     def new_request(self, rid: int) -> None:
@@ -129,6 +139,53 @@ class BlockManager:
         last.ntokens += 1
         return last
 
+    # -- residency transitions (offload runtime) ------------------------------
+    def move_block(self, rid: int, index: int, new_loc: Location) -> bool:
+        """Migrate one block to the other tier.  Allocates in the target pool
+        first — on exhaustion the block stays put and False is returned, so a
+        failed migration never loses accounting.  Transitions are counted in
+        ``self.transitions``; the offload executor's physical pools
+        (``offload.host_pool``) are the data-plane mirror of these moves."""
+        blk = self.tables[rid][index]
+        if blk.location == new_loc:
+            return True
+        pbn = self.pools[(blk.kind, new_loc)].alloc()
+        if pbn is None:
+            return False
+        self.pools[(blk.kind, blk.location)].free(blk.pbn)
+        key = (blk.kind, blk.location, new_loc)
+        self.transitions[key] = self.transitions.get(key, 0) + 1
+        blk.location, blk.pbn = new_loc, pbn
+        if new_loc == Location.DEVICE:
+            blk.host_attend = False     # cpu-lane tag is host-only residency
+        return True
+
+    def migrate(self, rid: int, kind: BlockType, new_loc: Location) -> int:
+        """Best-effort migration of every ``kind`` block of a request;
+        returns how many moved (stops counting failures, keeps going so a
+        mixed-residency table still converges toward the target tier)."""
+        moved = 0
+        for i, blk in enumerate(self.tables[rid]):
+            if blk.kind == kind and blk.location != new_loc:
+                moved += self.move_block(rid, i, new_loc)
+        return moved
+
+    # -- cpu-attend lane residency --------------------------------------------
+    def tag_host_attend(self, rid: int, on: bool = True) -> int:
+        """Set the cpu-lane residency tag on every HOST KV block of a
+        request (the engine routes a whole spilled KV region to the host
+        executor at once).  Only KV@HOST blocks are eligible; returns how
+        many blocks changed state."""
+        changed = 0
+        for blk in self.tables[rid]:
+            eligible = (blk.kind == BlockType.KV
+                        and blk.location == Location.HOST)
+            target = bool(on) and eligible
+            if blk.host_attend != target:
+                blk.host_attend = target
+                changed += 1
+        return changed
+
     # -- queries --------------------------------------------------------------
     def counts(self, rid: int) -> Dict[str, int]:
         t = self.tables[rid]
@@ -139,4 +196,5 @@ class BlockManager:
             "act_tokens": sum(b.ntokens for b in t if b.kind == BlockType.ACT),
             "host_blocks": sum(1 for b in t if b.location == Location.HOST),
             "dev_blocks": sum(1 for b in t if b.location == Location.DEVICE),
+            "host_attend_blocks": sum(1 for b in t if b.host_attend),
         }

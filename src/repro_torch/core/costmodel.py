@@ -2,8 +2,8 @@
 
 A copy of ``repro.core.costmodel`` (the port imports nothing from the JAX
 package) with one addition: ``H100_SXM``, the port's default target.  The
-inter-chip, dispatch and host-attention terms are left to the slices that
-use them, and bytes are priced in the config dtype.
+inter-chip and dispatch terms are left to the slices that use them, and
+bytes are priced in the config dtype.
 
 The paper profiles ``T_kv_gen`` and ``T_load_kv`` on the target machine and
 fits linear functions (R² = 0.99, Fig. 11).  We do the same: the "profiler"
@@ -37,6 +37,14 @@ class HardwareSpec:
     # are contiguous and get the full link.  Measured fractions for pinned
     # scatter-gather DMA land near 0.4-0.6 on PCIe 4.0.
     gather_eff: float = 0.5
+    # Host-compute attention lane: peak host FLOP/s across all cores and host
+    # DRAM bandwidth.  Like ``host_mem`` these describe the ONE shared host.
+    # Defaults are a mid-range server CPU (~32 cores AVX-512, 8-ch DDR).
+    host_flops: float = 2e12
+    host_dram_bw: float = 150e9
+    # Achievable fraction of host peak for the decode-attention GEMV shape
+    # (bandwidth-bound, numpy single-stream): far below the device's mfu.
+    host_mfu: float = 0.25
 
 
 # The reproduction target: one TPU v5e chip, host offload over PCIe DMA.
@@ -52,7 +60,9 @@ TPU_V5E = HardwareSpec(
 
 # The port's target: one NVIDIA H100 SXM (NVIDIA data sheet: 989 TFLOP/s
 # dense fp16, 3.35 TB/s HBM3, 80 GB, PCIe Gen5 x16 at 64 GB/s each way).
-# ``host_mem`` is an assumption (a 512 GiB-DRAM host), not a measured value.
+# ``host_mem`` is an assumption (a 512 GiB-DRAM host), not a measured value,
+# and so are the host-lane terms: the data sheet names no host, so they keep
+# the defaults' mid-range server CPU (2 TFLOP/s, 150 GB/s DRAM, 0.25 of peak).
 H100_SXM = HardwareSpec(
     name="h100-sxm",
     flops=989e12,
@@ -61,6 +71,9 @@ H100_SXM = HardwareSpec(
     device_mem=80 * 2**30,
     host_mem=512 * 2**30,
     mfu=0.5,
+    host_flops=2e12,
+    host_dram_bw=150e9,
+    host_mfu=0.25,
 )
 
 # =============================================================================
@@ -86,6 +99,18 @@ def kv_gen_flops_per_token(cfg: ModelConfig) -> float:
 def attn_flops_per_token(cfg: ModelConfig, ctx: int) -> float:
     """Decode-attention FLOPs per layer for one new token over ctx keys."""
     return 2.0 * 2 * ctx * cfg.q_dim
+
+
+def cpu_attend_seconds_per_token(cfg: ModelConfig, hw: HardwareSpec) -> float:
+    """Host-attention cost per SPILLED CONTEXT TOKEN per layer.
+
+    One context token costs ``attn_flops_per_token(cfg, 1)`` MACs on the
+    host cores and one KV row read out of host DRAM; the lane runs at
+    whichever roofline binds.
+    """
+    t_flops = attn_flops_per_token(cfg, 1) / (hw.host_flops * hw.host_mfu)
+    t_bytes = cfg.kv_bytes_per_token() / hw.host_dram_bw
+    return max(t_flops, t_bytes)
 
 
 def forward_flops_per_token(cfg: ModelConfig, ctx: int) -> float:

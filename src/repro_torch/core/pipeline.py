@@ -1,7 +1,9 @@
 """Two-lane asynchronous pipeline model (paper Fig. 8/9).
 
 A copy of ``simulate_steps`` and its types from ``repro.core.pipeline``; the
-engine reports what each decode step would cost on the target hardware.
+engine reports what each decode step would cost on the target hardware, and
+the offload runtime's measured timelines share ``TimelineResult``.  The
+"cpu" lane prices host attention over spilled KV (the CPU attention lane).
 
 The machine is modelled as two serialised lanes with double-buffered
 hand-offs, exactly the structure HybridServe's engine schedules:
@@ -19,7 +21,7 @@ imbalance (Fig. 9) shows up as lane idle time.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -30,9 +32,10 @@ from repro_torch.core import costmodel as cm
 
 @dataclass
 class LaneTask:
-    lane: str                 # "pcie" | "pcie_up" | "gpu"
+    lane: str                 # "pcie" | "pcie_up" | "gpu" | "cpu"
     dur: float
     deps: Tuple[int, ...] = ()
+    tag: str = ""
 
 
 @dataclass
@@ -41,6 +44,28 @@ class TimelineResult:
     pcie_busy: float
     gpu_busy: float
     traffic: Dict[str, float]           # bytes by category
+    # host-compute attention lane busy seconds; 0.0 when no token is
+    # host-attended
+    cpu_busy: float = 0.0
+    finish: List[float] = field(default_factory=list)
+    # busy seconds by task tag ("w"/"kv"/"act"/"gen"/"fwd"/"st"/"cpu")
+    tag_busy: Dict[str, float] = field(default_factory=dict)
+    # robustness events observed during the step ("watchdog_timeout",
+    # "copy_retry", "sync_fallback", "arena_denied", ...), counted by name;
+    # simulated steps are fault-free ({})
+    events: Dict[str, int] = field(default_factory=dict)
+
+    @property
+    def faulted(self) -> bool:
+        return bool(self.events)
+
+    @property
+    def gpu_util(self) -> float:
+        return self.gpu_busy / self.total if self.total > 0 else 0.0
+
+    @property
+    def pcie_util(self) -> float:
+        return self.pcie_busy / self.total if self.total > 0 else 0.0
 
 
 # =============================================================================
@@ -54,6 +79,10 @@ class MiniBatchSpec:
     kv_host_tokens: int       # context tokens held as KV on host (per layer)
     act_host_tokens: int      # context tokens held as ACT on host
     ctx_tokens: int = 0       # total context per request (for attention cost)
+    # context tokens whose KV stays on host and is ATTENDED there by the cpu
+    # lane — no PCIe load, no GPU regen; the partial-softmax merge folds the
+    # result into the device lane's output.
+    cpu_host_tokens: int = 0
 
 
 # layers of weights and cache in flight ahead of compute: double buffering
@@ -63,10 +92,12 @@ PREFETCH_DEPTH = 2
 def _run_timeline_arrays(tasks: List[LaneTask], n: int):
     """``run_timeline`` with every task duration an (n,) array — the same
     per-lane serialisation and cross-lane dep resolution, computed for n
-    independent timelines at once.  -> (total, busy by lane), all (n,)."""
-    lanes = ("pcie", "pcie_up", "gpu")
+    independent timelines at once.  -> (total, busy by lane, finish by task,
+    busy by tag), all (n,)."""
+    lanes = ("pcie", "pcie_up", "gpu", "cpu")
     lane_free = {ln: np.zeros(n) for ln in lanes}
     busy = {ln: np.zeros(n) for ln in lanes}
+    tag_busy: Dict[str, np.ndarray] = {}
     finish: List[np.ndarray] = [np.zeros(n)] * len(tasks)
     for i, t in enumerate(tasks):
         ready = np.zeros(n)
@@ -76,11 +107,13 @@ def _run_timeline_arrays(tasks: List[LaneTask], n: int):
         end = start + t.dur
         lane_free[t.lane] = end
         busy[t.lane] = busy[t.lane] + t.dur
+        if t.tag:
+            tag_busy[t.tag] = tag_busy.get(t.tag, np.zeros(n)) + t.dur
         finish[i] = end
     total = np.zeros(n)
     for ln in lanes:
         total = np.maximum(total, lane_free[ln])
-    return total, busy
+    return total, busy, finish, tag_busy
 
 
 def simulate_steps(cfg: ModelConfig, hw: cm.HardwareSpec,
@@ -112,12 +145,15 @@ def simulate_steps(cfg: ModelConfig, hw: cm.HardwareSpec,
     act_host = f("act_host_tokens")
     n_req = f("n_requests")
     ctx = f("ctx_tokens")
+    cpu_host = f("cpu_host_tokens")
+    t_cpu_tok = cm.cpu_attend_seconds_per_token(cfg, hw)
 
     tasks: List[LaneTask] = []          # dur as (n,) arrays
     idx: Dict[Tuple, int] = {}
 
-    def add(key, lane, dur, deps=()):
-        tasks.append(LaneTask(lane, dur, tuple(idx[d] for d in deps if d in idx)))
+    def add(key, lane, dur, deps=(), tag=""):
+        tasks.append(LaneTask(lane, dur, tuple(idx[d] for d in deps if d in idx),
+                              tag))
         idx[key] = len(tasks) - 1
         return idx[key]
 
@@ -131,40 +167,50 @@ def simulate_steps(cfg: ModelConfig, hw: cm.HardwareSpec,
     for l in range(L):
         # weight prefetch for layer l (double buffered against l-depth fwd)
         dep = [("fwd", l - PREFETCH_DEPTH, M - 1)]
-        add(("w", l), "pcie", t_w, deps=dep)
+        add(("w", l), "pcie", t_w, deps=dep, tag="w")
         traffic["weights"] += w_bytes
         kv_bw = hw.host_link_bw * hw.gather_eff     # scattered page gathers
         for m in range(M):
             kv_bytes = kv_host[:, m] * kvB
             act_bytes = act_host[:, m] * actB
             add(("kv", l, m), "pcie", kv_bytes / kv_bw,
-                deps=[("fwd", l - PREFETCH_DEPTH, m)])
+                deps=[("fwd", l - PREFETCH_DEPTH, m)], tag="kv")
             add(("act", l, m), "pcie", act_bytes / kv_bw,
-                deps=[("fwd", l - PREFETCH_DEPTH, m)])
+                deps=[("fwd", l - PREFETCH_DEPTH, m)], tag="act")
             traffic["kv_load"] += kv_bytes
             traffic["act_load"] += act_bytes
         for m in range(M):
             # GPU: KV-gen for ACT tokens (Eq. 7)
             t_gen = (act_host[:, m] * cm.kv_gen_flops_per_token(cfg)
                      / (hw.flops * hw.gen_mfu))
-            add(("gen", l, m), "gpu", t_gen, deps=[("act", l, m)])
+            add(("gen", l, m), "gpu", t_gen, deps=[("act", l, m)], tag="gen")
+
+            # CPU: host attention over spilled KV tokens.  Needs the previous
+            # layer's output (the query), overlaps this layer's KV-gen and
+            # loads; the fwd below consumes its partial via the LSE merge.
+            # No PCIe bytes.
+            add(("cpu", l, m), "cpu", cpu_host[:, m] * t_cpu_tok,
+                deps=[("fwd", l - 1, m)], tag="cpu")
 
             # GPU: forward for the new token of every request in the mb
             fwd_flops = n_req[:, m] * cm.forward_flops_per_token(cfg, ctx[:, m])
             add(("fwd", l, m), "gpu", fwd_flops / eff,
-                deps=[("w", l), ("kv", l, m), ("gen", l, m)])
+                deps=[("w", l), ("kv", l, m), ("gen", l, m), ("cpu", l, m)],
+                tag="fwd")
 
             # PCIe upstream: store the new token's KV/ACT back to host
             st_bytes = n_req[:, m] * max(kvB, actB)
             add(("st", l, m), "pcie_up", st_bytes / hw.host_link_bw,
-                deps=[("fwd", l, m)])
+                deps=[("fwd", l, m)], tag="st")
             traffic["store"] += st_bytes
 
-    total, busy = _run_timeline_arrays(tasks, n)
+    total, busy, finish, tag_busy = _run_timeline_arrays(tasks, n)
     return [
         TimelineResult(
             total=float(total[s]), pcie_busy=float(busy["pcie"][s]),
-            gpu_busy=float(busy["gpu"][s]),
-            traffic={k: float(v[s]) for k, v in traffic.items()})
+            gpu_busy=float(busy["gpu"][s]), cpu_busy=float(busy["cpu"][s]),
+            traffic={k: float(v[s]) for k, v in traffic.items()},
+            finish=[float(fi[s]) for fi in finish],
+            tag_busy={k: float(v[s]) for k, v in tag_busy.items()})
         for s in range(n)
     ]

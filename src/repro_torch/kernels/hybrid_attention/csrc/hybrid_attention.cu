@@ -27,6 +27,15 @@
 // at each ACT token's recorded position cannot be applied inside the fused
 // loop's per-column accumulators.  The fused instantiation is unchanged.
 //
+// return_lse mode (both entry points, the TPU kernel's `return_lse`): given
+// non-null m_out/l_out (B, KVH, G, 1) float32, the block also writes each
+// query row's final online-softmax state: m the running masked max of the
+// sm_scale'd scores (-1e30 when the row attended over no token), l the sum of
+// exp(s - m).  The CPU attention lane merges this partial with the host's
+// partial over the spilled KV rows.  Every thread of the block holds the same
+// (m, l) (each is a reduction over the same shared scores), so thread 0
+// writes them; the output and its masking are untouched.
+//
 // What bounds it on this card: a KV page is bound by bytes (16 rows of K and
 // V read once, two operations per element).  An ACT page costs
 // 2 * 2 * 16 * d_model * D operations per head against a 16 x d_model page
@@ -91,6 +100,7 @@ hybrid_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                    const T* __restrict__ wk, const T* __restrict__ wv,
                    const int* __restrict__ page_table, const int* __restrict__ page_type,
                    const int* __restrict__ page_ntok, T* __restrict__ out,
+                   float* __restrict__ m_out, float* __restrict__ l_out,
                    int KVH, int G, int D, int d_model, int maxp,
                    int layernorm, float eps, float sm_scale) {
   __shared__ float q_s[MAX_G][MAX_D];
@@ -234,14 +244,23 @@ hybrid_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       ob[g * D + tid] = from_f<T>(acc[g] / fmaxf(l[g], 1e-30f));
     }
   }
+  if (m_out != nullptr && tid == 0) {
+    const long base = ((long)b * KVH + h) * G;
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) {
+      if (g >= G) break;
+      m_out[base + g] = m[g];
+      l_out[base + g] = l[g];
+    }
+  }
 }
 
 template <typename T, bool TWO_POOL = false>
 int launch(const void* q, const void* kp, const void* vp, const void* ap,
            const void* scale, const void* bias, const void* wk, const void* wv,
-           const int* pt, const int* pty, const int* pn, void* out, int B, int KVH,
-           int G, int D, int d_model, int maxp, int layernorm,
-           float eps, cudaStream_t stream, const void* akp = nullptr,
+           const int* pt, const int* pty, const int* pn, void* out, float* m_out,
+           float* l_out, int B, int KVH, int G, int D, int d_model, int maxp,
+           int layernorm, float eps, cudaStream_t stream, const void* akp = nullptr,
            const void* avp = nullptr) {
   const dim3 grid(KVH, B);
   hybrid_attn_kernel<T, TWO_POOL><<<grid, THREADS, 0, stream>>>(
@@ -249,8 +268,8 @@ int launch(const void* q, const void* kp, const void* vp, const void* ap,
       static_cast<const T*>(akp), static_cast<const T*>(avp),
       static_cast<const T*>(ap), static_cast<const T*>(scale),
       static_cast<const T*>(bias), static_cast<const T*>(wk),
-      static_cast<const T*>(wv), pt, pty, pn, static_cast<T*>(out), KVH, G, D,
-      d_model, maxp, layernorm, eps, 1.f / sqrtf((float)D));
+      static_cast<const T*>(wv), pt, pty, pn, static_cast<T*>(out), m_out, l_out,
+      KVH, G, D, d_model, maxp, layernorm, eps, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -260,16 +279,21 @@ extern "C" {
 
 // norm_type: 0 layernorm (bias required), 1 rmsnorm (bias unused).
 // dtype: 1 float16, 2 bfloat16.
+// m_out, l_out: both null, or both (B, KVH, G, 1) float32 (return_lse mode).
 // Returns a cudaError_t.
 int hybrid_paged_attention_fwd(const void* q, const void* k_pages, const void* v_pages,
                                const void* act_pages, const void* norm_scale,
                                const void* norm_bias, const void* wk, const void* wv,
                                const void* page_table, const void* page_type,
-                               const void* page_ntok, void* out, int B, int KVH,
-                               int G, int D, int d_model, int maxp,
-                               int norm_type, float eps, int dtype, void* stream) {
-  if (D > MAX_D || G > MAX_G || G < 1 || (norm_type == 0 && norm_bias == nullptr))
+                               const void* page_ntok, void* out, void* m_out,
+                               void* l_out, int B, int KVH, int G, int D, int d_model,
+                               int maxp, int norm_type, float eps, int dtype,
+                               void* stream) {
+  if (D > MAX_D || G > MAX_G || G < 1 || (norm_type == 0 && norm_bias == nullptr) ||
+      ((m_out == nullptr) != (l_out == nullptr)))
     return (int)cudaErrorInvalidValue;
+  float* mo = static_cast<float*>(m_out);
+  float* lo = static_cast<float*>(l_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pt = static_cast<const int*>(page_table);
   const int* pty = static_cast<const int*>(page_type);
@@ -277,36 +301,42 @@ int hybrid_paged_attention_fwd(const void* q, const void* k_pages, const void* v
   const int ln = norm_type == 0;
   switch (dtype) {
     case 1: return launch<__half>(q, k_pages, v_pages, act_pages, norm_scale, norm_bias,
-                                  wk, wv, pt, pty, pn, out, B, KVH, G, D, d_model,
-                                  maxp, ln, eps, st);
+                                  wk, wv, pt, pty, pn, out, mo, lo, B, KVH, G, D,
+                                  d_model, maxp, ln, eps, st);
     case 2: return launch<__nv_bfloat16>(q, k_pages, v_pages, act_pages, norm_scale,
-                                         norm_bias, wk, wv, pt, pty, pn, out, B, KVH,
-                                         G, D, d_model, maxp, ln, eps, st);
+                                         norm_bias, wk, wv, pt, pty, pn, out, mo, lo, B,
+                                         KVH, G, D, d_model, maxp, ln, eps, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // Second-pool mode: type-1 entries index act_k_pages/act_v_pages
-// (P_act, 16, KVH, D), K/V recomputed beforehand.  dtype as above.
+// (P_act, 16, KVH, D), K/V recomputed beforehand.  dtype, m_out, l_out as
+// above.
 int hybrid_paged_attention_two_pool_fwd(const void* q, const void* k_pages,
                                         const void* v_pages, const void* act_k_pages,
                                         const void* act_v_pages, const void* page_table,
                                         const void* page_type, const void* page_ntok,
-                                        void* out, int B, int KVH, int G, int D,
-                                        int maxp, int dtype, void* stream) {
-  if (D > MAX_D || G > MAX_G || G < 1) return (int)cudaErrorInvalidValue;
+                                        void* out, void* m_out, void* l_out, int B,
+                                        int KVH, int G, int D, int maxp, int dtype,
+                                        void* stream) {
+  if (D > MAX_D || G > MAX_G || G < 1 || ((m_out == nullptr) != (l_out == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  float* mo = static_cast<float*>(m_out);
+  float* lo = static_cast<float*>(l_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pt = static_cast<const int*>(page_table);
   const int* pty = static_cast<const int*>(page_type);
   const int* pn = static_cast<const int*>(page_ntok);
   switch (dtype) {
     case 1: return launch<__half, true>(q, k_pages, v_pages, nullptr, nullptr, nullptr,
-                                        nullptr, nullptr, pt, pty, pn, out, B, KVH, G, D,
-                                        0, maxp, 0, 0.f, st, act_k_pages, act_v_pages);
+                                        nullptr, nullptr, pt, pty, pn, out, mo, lo, B,
+                                        KVH, G, D, 0, maxp, 0, 0.f, st, act_k_pages,
+                                        act_v_pages);
     case 2: return launch<__nv_bfloat16, true>(q, k_pages, v_pages, nullptr, nullptr,
                                                nullptr, nullptr, nullptr, pt, pty, pn,
-                                               out, B, KVH, G, D, 0, maxp, 0, 0.f, st,
-                                               act_k_pages, act_v_pages);
+                                               out, mo, lo, B, KVH, G, D, 0, maxp, 0,
+                                               0.f, st, act_k_pages, act_v_pages);
   }
   return (int)cudaErrorInvalidValue;
 }

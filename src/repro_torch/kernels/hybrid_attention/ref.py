@@ -9,6 +9,12 @@ In float32 with a zero bias it computes what the JAX reference computes.
 ``hybrid_paged_attention_two_pool_ref`` is the plain version of the second-pool
 mode: type-1 entries index a second pair of K/V pools that already hold the
 recomputed K/V (the RoPE models' path, KV-Gen run beforehand).
+
+``return_lse=True`` (both modes) also returns the partial-softmax statistics
+``(m, l)``, each (B, KVH, G, 1) float32 in the ``1/sqrt(D)``-scaled score
+basis: m the masked score max (NEG_INF when the request attends over no
+token), l the sum of exp(s - m) — what a disjoint partition's partial needs
+to merge with this one (the CPU attention lane).
 """
 from __future__ import annotations
 
@@ -23,13 +29,14 @@ NEG_INF = -1e30
 def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,
                                norm_bias, wk, wv, page_table, page_type,
                                page_ntok, *, norm_type: str = "layernorm",
-                               eps: float = 1e-5):
-    """-> (B, KVH, G, D) attention of q over the typed page table.
+                               eps: float = 1e-5, return_lse: bool = False):
+    """-> (B, KVH, G, D) attention of q over the typed page table, and
+    ``(m, l)`` with ``return_lse``.
 
     Every page is gathered densely; ACT pages are normed, rounded, projected
     by ``wk``/``wv`` (d_model, KVH, D) and rounded again (paper Eq. 7)."""
     if page_table.shape[1] == 0:        # nothing to attend: zeros, as the kernel
-        return torch.zeros_like(q)
+        return _empty(q, return_lse)
     dt = act_pages.dtype
     pty = page_type.long()
     pt = page_table.long()
@@ -50,16 +57,17 @@ def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,
     is_act = (pty == 1)[..., None, None, None]
     k = torch.where(is_act, k_act, k_kv)
     v = torch.where(is_act, v_act, v_kv)
-    return _attend(q, k, v, page_type, page_ntok)
+    return _attend(q, k, v, page_type, page_ntok, return_lse)
 
 
 def hybrid_paged_attention_two_pool_ref(q, k_pages, v_pages, act_k_pages,
                                         act_v_pages, page_table, page_type,
-                                        page_ntok):
+                                        page_ntok, *, return_lse: bool = False):
     """-> (B, KVH, G, D) attention of q over the typed page table, type-1
-    entries read from ``act_k_pages``/``act_v_pages`` (P_act, 16, KVH, D)."""
+    entries read from ``act_k_pages``/``act_v_pages`` (P_act, 16, KVH, D);
+    and ``(m, l)`` with ``return_lse``."""
     if page_table.shape[1] == 0:
-        return torch.zeros_like(q)
+        return _empty(q, return_lse)
     pty, pt = page_type.long(), page_table.long()
     is_act = (pty == 1)[..., None, None, None]
     kv_i, act_i = torch.where(pty == 0, pt, 0), torch.where(pty == 1, pt, 0)
@@ -68,10 +76,19 @@ def hybrid_paged_attention_two_pool_ref(q, k_pages, v_pages, act_k_pages,
     else:
         k = torch.where(is_act, act_k_pages[act_i].float(), k_pages[kv_i].float())
         v = torch.where(is_act, act_v_pages[act_i].float(), v_pages[kv_i].float())
-    return _attend(q, k, v, page_type, page_ntok)
+    return _attend(q, k, v, page_type, page_ntok, return_lse)
 
 
-def _attend(q, k, v, page_type, page_ntok):
+def _empty(q, return_lse: bool):
+    """A table with no entry: zeros, and the empty partition's statistics."""
+    o = torch.zeros_like(q)
+    if not return_lse:
+        return o
+    stat = q.new_zeros(q.shape[:-1] + (1,), dtype=torch.float32)
+    return o, stat + NEG_INF, stat
+
+
+def _attend(q, k, v, page_type, page_ntok, return_lse: bool = False):
     """Masked softmax attention of q (B, KVH, G, D) over gathered pages
     k/v (B, P, 16, KVH, D) float32."""
     B, KVH, G, D = q.shape
@@ -85,6 +102,9 @@ def _attend(q, k, v, page_type, page_ntok):
     s = torch.einsum("bhgd,bshd->bhgs", q.float() / math.sqrt(D), k)
     vm = valid[:, None, None, :]
     s = torch.where(vm, s, NEG_INF)
-    e = torch.where(vm, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    m = s.amax(-1, keepdim=True)
+    e = torch.where(vm, torch.exp(s - m), 0.0)
     o = torch.einsum("bhgs,bshd->bhgd", e, v)
-    return (o / e.sum(-1, keepdim=True).clamp_min(1e-30)).to(q.dtype)
+    l = e.sum(-1, keepdim=True)
+    o = (o / l.clamp_min(1e-30)).to(q.dtype)
+    return (o, m, l) if return_lse else o

@@ -157,7 +157,30 @@ def hybrid_prefill_batched(params, cfg: ModelConfig, tokens, kv_cap: int,
       act region <- checkpoints of [kv_keep[b], last_pos[b])  (gathered)
 
     tokens (B, S); kv_keep, last_pos: (B,) int32 tensors on the same device.
-    -> (last_logits (B, 1, V), hybrid cache)."""
+    -> (last_logits (B, 1, V), hybrid cache).  Its three stages are the
+    offload executor's too, which runs the layers with streamed weights."""
+    pre = hybrid_prefill_begin(params, cfg, tokens, kv_cap, act_cap, kv_keep,
+                               last_pos)
+    h = pre.h
+    for i in range(cfg.num_layers):
+        h = hybrid_prefill_layer(layer_params(params, i), cfg, h, pre, i)
+    return hybrid_prefill_end(params, cfg, h, pre, kv_keep, last_pos)
+
+
+class PrefillPlan(NamedTuple):
+    """What every layer of one hybrid prefill shares: the embedded input
+    ``h``, the cache it fills, RoPE at positions 0..S-1 (or None), the
+    ACT-region gather index (B, act_cap, d) and the KV rows each layer keeps."""
+    h: torch.Tensor
+    cache: Cache
+    sincos: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    act_idx: torch.Tensor
+    kfit: int
+
+
+def hybrid_prefill_begin(params, cfg: ModelConfig, tokens, kv_cap: int,
+                         act_cap: int, kv_keep, last_pos) -> PrefillPlan:
+    """Check the split against the capacities, embed, allocate the cache."""
     if int(kv_keep.max()) > kv_cap:
         raise ValueError(f"kv_keep={int(kv_keep.max())} exceeds kv_cap={kv_cap}")
     if int((last_pos - kv_keep).max()) > act_cap:
@@ -167,23 +190,38 @@ def hybrid_prefill_batched(params, cfg: ModelConfig, tokens, kv_cap: int,
     B, S = h.shape[:2]
     dev = h.device
     cache = init_hybrid_cache(cfg, B, kv_cap, act_cap, device=dev)
-    kfit = min(S, kv_cap)
     slots = torch.arange(act_cap, dtype=torch.int32, device=dev)[None]
     # act region slot j of request b holds the checkpoint of position kv_keep[b]+j
     act_idx = (kv_keep[:, None] + slots).clamp(0, S - 1).long()
     act_idx = act_idx[:, :, None].expand(B, act_cap, cfg.d_model)
-    sincos = T._rope_for(cfg, _positions(S, dev))
-    for i in range(cfg.num_layers):
-        cache["act"][i] = torch.gather(h, 1, act_idx)       # A^i, the checkpoint
-        h, (k, v) = T.layer_full(layer_params(params, i), cfg, h, sincos)
-        cache["k"][i, :, :kfit] = k[:, :kfit]
-        cache["v"][i, :, :kfit] = v[:, :kfit]
+    return PrefillPlan(h, cache, T._rope_for(cfg, _positions(S, dev)), act_idx,
+                       min(S, kv_cap))
+
+
+def hybrid_prefill_layer(lp, cfg: ModelConfig, h, pre: PrefillPlan, i: int):
+    """Layer ``i`` of the hybrid prefill: store its input as the ACT
+    checkpoint, run it, keep its first ``kfit`` K/V rows.  -> its output."""
+    cache = pre.cache
+    cache["act"][i] = torch.gather(h, 1, pre.act_idx)       # A^i, the checkpoint
+    h, (k, v) = T.layer_full(lp, cfg, h, pre.sincos)
+    cache["k"][i, :, :pre.kfit] = k[:, :pre.kfit]
+    cache["v"][i, :, :pre.kfit] = v[:, :pre.kfit]
+    return h
+
+
+def hybrid_prefill_end(params, cfg: ModelConfig, h, pre: PrefillPlan, kv_keep,
+                       last_pos):
+    """Final norm, logits at each request's last prompt position, lengths.
+    -> (last_logits (B, 1, V), cache)."""
+    cache = pre.cache
     h = L.apply_norm(h, params["final_norm"], cfg.norm_type)
-    ar = torch.arange(B, device=dev)
+    B, act_cap = h.shape[0], cache["act"].shape[2]
+    ar = torch.arange(B, device=h.device)
     logits = unembed(params, cfg, h[ar, (last_pos - 1).long()][:, None])
+    slots = torch.arange(act_cap, dtype=torch.int32, device=h.device)[None]
     cache["act_pos"] = (kv_keep[:, None] + slots).int()
     # lengths clamped to what was actually stored
-    cache["kv_len"] = torch.clamp(kv_keep, max=kfit).int()
+    cache["kv_len"] = torch.clamp(kv_keep, max=pre.kfit).int()
     cache["act_len"] = torch.clamp(last_pos - kv_keep, max=act_cap).int()
     return logits, cache
 
@@ -233,6 +271,63 @@ class ActKV(NamedTuple):
     v: torch.Tensor
 
 
+def _layer_qkv(lp, cfg, h, act_kv: Optional[ActKV] = None):
+    """The new token's q, k, v (B, 1, heads, D) from the layer input h
+    (B, 1, d); q and k rotated at the new position for RoPE models."""
+    q, k, v = T._qk(lp["attn"], cfg, L.apply_norm(h, lp["ln1"], cfg.norm_type))
+    if act_kv is not None:
+        q = L.apply_rope(q, *act_kv.sincos_new)
+        k = L.apply_rope(k, *act_kv.sincos_new)
+    return q, k, v
+
+
+def _write_new(kc, vc, ac, k, v, act_in, kv_len, act_len, store_act):
+    """Write the new token's K/V row (KV-bound) at ``kv_len`` of kc/vc
+    (B, cap, KVH, D), or its checkpoint ``act_in`` (ACT-bound) at
+    ``act_len`` of ac (B, act_cap, d), in place."""
+    ar = torch.arange(kc.shape[0], device=kc.device)
+    ki = kv_len.clamp(max=kc.shape[1] - 1).long()
+    ai = act_len.clamp(max=ac.shape[1] - 1).long()
+    to_act = store_act[:, None, None]
+    kc[ar, ki] = torch.where(to_act, kc[ar, ki], k[:, 0])
+    vc[ar, ki] = torch.where(to_act, vc[ar, ki], v[:, 0])
+    ac[ar, ai] = torch.where(store_act[:, None], act_in.to(ac.dtype), ac[ar, ai])
+
+
+def _hybrid_attend(lp, cfg, q, kc, vc, ac, tables,
+                   act_kv: Optional[ActKV] = None, return_lse: bool = False):
+    """The new token's attention over the typed page tables: KV pages of
+    kc/vc (B, cap, KVH, D), ACT pages of ac (B, act_cap, d).  ``act_kv``
+    given (RoPE models): ``kv_gen`` recomputes the ACT pages into the
+    scratch pool and the second-pool kernel attends; else the fused kernel
+    recomputes in its loop.  -> (B, KVH, G, D), and (m, l) with
+    ``return_lse``."""
+    B = q.shape[0]
+    KVH, D, d = cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    qg = q.reshape(B, KVH, cfg.num_heads // KVH, D)
+    pools = (kc.view(-1, PAGE, KVH, D), vc.view(-1, PAGE, KVH, D))
+    norm = (lp["ln1"]["scale"], lp["ln1"].get("bias"))
+    wkv = (lp["attn"]["wk"].view(d, KVH, D), lp["attn"]["wv"].view(d, KVH, D))
+    eps = L.NORM_EPS[cfg.norm_type]
+    if act_kv is None:
+        return hybrid_paged_attention(qg, *pools, ac.view(-1, PAGE, d), *norm,
+                                      *wkv, *tables, norm_type=cfg.norm_type,
+                                      eps=eps, return_lse=return_lse)
+    if act_kv.page_index.numel():
+        kv_gen(ac.view(-1, PAGE, d), *norm, *wkv,
+               page_index=act_kv.page_index, sin=act_kv.sin,
+               cos=act_kv.cos, norm_type=cfg.norm_type, eps=eps,
+               out=(act_kv.k, act_kv.v))
+    return hybrid_paged_attention_two_pool(qg, *pools, act_kv.k, act_kv.v,
+                                           *tables, return_lse=return_lse)
+
+
+def _layer_out(lp, cfg, h, o):
+    """Output projection of the attention ``o`` and the FFN, both residual."""
+    h = h + o.reshape(h.shape[0], 1, cfg.q_dim) @ lp["attn"]["wo"]
+    return h + T.ffn_apply(lp["ffn"], cfg, L.apply_norm(h, lp["ln2"], cfg.norm_type))
+
+
 def _hybrid_layer_step(lp, cfg, h, kc, vc, ac, kv_len, act_len, store_act,
                        tables, act_kv: Optional[ActKV] = None):
     """One hybrid KV/ACT attention layer at decode time.  kc/vc (B, kv_cap,
@@ -241,62 +336,32 @@ def _hybrid_layer_step(lp, cfg, h, kc, vc, ac, kv_len, act_len, store_act,
     The new token's K/V (KV-bound) or checkpoint (ACT-bound) is written into
     its region BEFORE the kernels run, so an ACT-bound token's K/V are
     recomputed from its own checkpoint — the same norm(h) @ wk that ``_qk``
-    computed, rotated at the same position.  ``act_kv`` given (RoPE models):
-    q and k are rotated, ``kv_gen`` recomputes the ACT pages into the
-    scratch pool, and the second-pool kernel attends; else the fused kernel
-    recomputes in its loop."""
-    B = h.shape[0]
-    KVH, D, d = cfg.num_kv_heads, cfg.head_dim, cfg.d_model
-    ar = torch.arange(B, device=h.device)
-    act_in = h[:, 0]                                           # A^i of new token
-    q, k, v = T._qk(lp["attn"], cfg, L.apply_norm(h, lp["ln1"], cfg.norm_type))
-    if act_kv is not None:
-        q = L.apply_rope(q, *act_kv.sincos_new)
-        k = L.apply_rope(k, *act_kv.sincos_new)
-
-    ki = kv_len.clamp(max=kc.shape[1] - 1).long()
-    ai = act_len.clamp(max=ac.shape[1] - 1).long()
-    to_act = store_act[:, None, None]
-    kc[ar, ki] = torch.where(to_act, kc[ar, ki], k[:, 0])
-    vc[ar, ki] = torch.where(to_act, vc[ar, ki], v[:, 0])
-    ac[ar, ai] = torch.where(store_act[:, None], act_in.to(ac.dtype), ac[ar, ai])
-
-    qg = q.reshape(B, KVH, cfg.num_heads // KVH, D)
-    pools = (kc.view(-1, PAGE, KVH, D), vc.view(-1, PAGE, KVH, D))
-    norm = (lp["ln1"]["scale"], lp["ln1"].get("bias"))
-    wkv = (lp["attn"]["wk"].view(d, KVH, D), lp["attn"]["wv"].view(d, KVH, D))
-    eps = L.NORM_EPS[cfg.norm_type]
-    if act_kv is None:
-        o = hybrid_paged_attention(qg, *pools, ac.view(-1, PAGE, d), *norm,
-                                   *wkv, *tables, norm_type=cfg.norm_type,
-                                   eps=eps)
-    else:
-        if act_kv.page_index.numel():
-            kv_gen(ac.view(-1, PAGE, d), *norm, *wkv,
-                   page_index=act_kv.page_index, sin=act_kv.sin,
-                   cos=act_kv.cos, norm_type=cfg.norm_type, eps=eps,
-                   out=(act_kv.k, act_kv.v))
-        o = hybrid_paged_attention_two_pool(qg, *pools, act_kv.k, act_kv.v,
-                                            *tables)
-    h = h + o.reshape(B, 1, cfg.q_dim) @ lp["attn"]["wo"]
-    return h + T.ffn_apply(lp["ffn"], cfg, L.apply_norm(h, lp["ln2"], cfg.norm_type))
+    computed, rotated at the same position."""
+    q, k, v = _layer_qkv(lp, cfg, h, act_kv)
+    _write_new(kc, vc, ac, k, v, h[:, 0], kv_len, act_len, store_act)
+    o = _hybrid_attend(lp, cfg, q, kc, vc, ac, tables, act_kv)
+    return _layer_out(lp, cfg, h, o)
 
 
-def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
-                       store_act, *, pages_bound=None, act_pages_bound=None):
-    """One generation step with the KV-Activation hybrid cache.
+class DecodePlan(NamedTuple):
+    """What every layer of one hybrid decode step shares: the embedded new
+    token ``x`` (B, 1, d), the page tables, the RoPE route's inputs (None
+    for learned positions), and the ACT side of the tables: the stride of a
+    request's ACT entries in the pool they index (the ACT region, or the
+    scratch pool) and the ACT tokens each request attends over."""
+    x: torch.Tensor
+    tables: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    act_kv: Optional[ActKV]
+    act_stride: int
+    act_read: torch.Tensor
 
-    store_act (B,) bool: whether this token's checkpoint goes to the ACT
-    region (True) or its K/V to the KV region (False).
-    pages_bound: bound on any request's used pages this step (the caller
-    knows it from the store schedule); the page tables, and so the kernel's
-    page loop, are that wide.  Default: every page of both regions.
-    act_pages_bound (RoPE models): bound on any request's used ACT pages this
-    step; ``kv_gen`` recomputes that many pages of each request, and none
-    when it is 0.  Default: every ACT page.  A bound that is too small drops
-    the ACT tokens past it from attention, as the reference's ``act_bound``
-    does.
-    -> (logits (B, 1, V), cache)."""
+
+def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
+                        store_act, *, pages_bound=None,
+                        act_pages_bound=None) -> DecodePlan:
+    """Record the new token's ACT position, embed it, and build the step's
+    page tables (and, for RoPE models, the ``kv_gen`` inputs) once for all
+    layers.  Bounds as for ``hybrid_decode_step``."""
     B = token.shape[0]
     kv_cap, act_cap = cache["k"].shape[2], cache["act"].shape[2]
     kv_len, act_len = cache["kv_len"], cache["act_len"]
@@ -322,13 +387,43 @@ def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
         # tokens past the bound have no recomputed K/V: attention drops them
         act_read = act_new.clamp(max=act_stride)
     tables = hybrid_page_table(kv_new, act_read, kv_cap, act_stride, n_pages)
+    return DecodePlan(x, tables, act_kv, act_stride, act_read)
+
+
+def hybrid_decode_end(params, cfg: ModelConfig, x, cache: Cache, store_act):
+    """Final norm and logits of the step's last layer output; the lengths
+    advance.  -> logits (B, 1, V)."""
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
+    cache["kv_len"] = cache["kv_len"] + (~store_act).int()
+    cache["act_len"] = cache["act_len"] + store_act.int()
+    return unembed(params, cfg, x)
+
+
+def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
+                       store_act, *, pages_bound=None, act_pages_bound=None):
+    """One generation step with the KV-Activation hybrid cache.
+
+    store_act (B,) bool: whether this token's checkpoint goes to the ACT
+    region (True) or its K/V to the KV region (False).
+    pages_bound: bound on any request's used pages this step (the caller
+    knows it from the store schedule); the page tables, and so the kernel's
+    page loop, are that wide.  Default: every page of both regions.
+    act_pages_bound (RoPE models): bound on any request's used ACT pages this
+    step; ``kv_gen`` recomputes that many pages of each request, and none
+    when it is 0.  Default: every ACT page.  A bound that is too small drops
+    the ACT tokens past it from attention, as the reference's ``act_bound``
+    does.
+    -> (logits (B, 1, V), cache)."""
+    plan = hybrid_decode_begin(params, cfg, token, cache, store_act,
+                               pages_bound=pages_bound,
+                               act_pages_bound=act_pages_bound)
+    x = plan.x
     for i in range(cfg.num_layers):
         x = _hybrid_layer_step(layer_params(params, i), cfg, x, cache["k"][i],
-                               cache["v"][i], cache["act"][i], kv_len, act_len,
-                               store_act, tables, act_kv)
-    x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
-    cache["kv_len"], cache["act_len"] = kv_new, act_new
-    return unembed(params, cfg, x), cache
+                               cache["v"][i], cache["act"][i], cache["kv_len"],
+                               cache["act_len"], store_act, plan.tables,
+                               plan.act_kv)
+    return hybrid_decode_end(params, cfg, x, cache, store_act), cache
 
 
 def _act_kv(cfg, cache, ctx, n_act: int) -> ActKV:

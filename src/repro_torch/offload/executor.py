@@ -1,0 +1,380 @@
+"""Layer-granular offload executor for one device: weight streaming
+overlapped with KV Gen.  Counterpart of ``repro.offload.executor``.
+
+The device-resident engine keeps every weight on the card.  When the weights
+do not fit — HybridServe's actual regime — each layer's weights cross the
+host link every step, and the schedulable unit is the layer.  This executor
+is that regime: a Python loop at layer granularity where
+
+  * the ``WeightStreamer`` copies layer ``l+1``'s weights on the copy stream
+    while layer ``l``'s kernels (KV Gen from ACT checkpoints, attention, FFN)
+    run on the compute stream,
+  * an optionally *spilled* KV region lives in the pinned ``HostBlockPool``
+    between steps: each layer's region rides the same copy stream up, and
+    the new token's K/V row is copied back down into the arena,
+  * with the CPU lane (``host_attn``) a spilled region never crosses the
+    link: the host attends over it in place while the device attends over
+    [recomputed ACT ; the new token's own row] with the hybrid kernel's
+    ``return_lse`` mode, and the two partials merge,
+  * every task is timed into a ``MeasuredTimeline`` whose per-step results
+    share ``simulate_steps``'s schema; on the card the spans are CUDA events,
+    so timing adds no host sync.
+
+Exactness: each layer runs the functions the device-resident path runs
+(``models.model``'s prefill and decode stages and ``_hybrid_layer_step``),
+so the same kernels launch and the tokens equal the device-resident path's
+at any prefetch depth, with or without spill.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import model as M
+from repro_torch.models import transformer as T
+from repro_torch.offload.host_attn import HostAttnExecutor, merge_partials_torch
+from repro_torch.offload.host_pool import HostWeightPool, Region
+from repro_torch.offload.streamer import WeightStreamer, timing_event
+from repro_torch.offload.timeline import MeasuredTimeline
+
+Cache = Dict[str, Any]
+PAGE = M.PAGE
+
+
+class OffloadExecutor:
+    """Executes hybrid-cache inference with host-streamed layer weights.
+
+    ``params``: the port's params dict (any device), or a ``HostWeightPool``
+    already built from it, which several executors may share."""
+
+    def __init__(self, cfg: ModelConfig, params, *, prefetch_depth: int = 1,
+                 faults=None, watchdog_s: Optional[float] = None,
+                 device="cuda"):
+        T.check_supported(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.timeline = MeasuredTimeline()
+        self.faults = faults
+        self._watchdog_s = watchdog_s
+        # cpu attention lane: created on the first host-attend decode
+        self.host_lane: Optional[HostAttnExecutor] = None
+        self.pool = params if isinstance(params, HostWeightPool) else \
+            HostWeightPool(cfg, params, device=self.device)
+        if self.pool.device != self.device:
+            raise ValueError(f"weight pool serves {self.pool.device}, "
+                             f"executor runs on {self.device}")
+        self.streamer = WeightStreamer(
+            self.pool, prefetch_depth=prefetch_depth, timeline=self.timeline,
+            faults=faults, watchdog_s=watchdog_s)
+        self.resident = self.pool.resident
+        self.dispatches = 0                     # stages issued (as the reference)
+        # blocking host waits on the device: the final tokens, a spill-out,
+        # and the query of each host-attended layer
+        self.blocking_syncs = 0
+
+    def _now(self):
+        """A timeline stamp: an event on the compute stream, or host time."""
+        return timing_event() if self.cuda else time.perf_counter()
+
+    def _as_dev(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.int32)).to(self.device)
+
+    # ================================================================ prefill
+    def prefill_batched(self, tokens, kv_keep, last_pos, *, kv_cap: int,
+                        act_cap: int) -> Tuple[torch.Tensor, Cache]:
+        """Layer-streamed batched hybrid prefill: ``M.hybrid_prefill_batched``
+        with each layer's weights arriving over the copy stream; the full
+        parameter set is never device-resident.  -> (first token (B,), cache)."""
+        cfg = self.cfg
+        kv_keep, last_pos = self._as_dev(kv_keep), self._as_dev(last_pos)
+        self.timeline.begin_step("prefill", now=self._now())
+        pre = M.hybrid_prefill_begin(self.resident, cfg, self._as_dev(tokens),
+                                     kv_cap, act_cap, kv_keep, last_pos)
+        self.dispatches += 1
+        h = pre.h
+        self.streamer.begin(range(cfg.num_layers))
+        for l in range(cfg.num_layers):
+            lp = self.streamer.acquire(l)
+            t0 = self._now()
+            h = M.hybrid_prefill_layer(lp, cfg, h, pre, l)
+            self.timeline.record("gpu", "fwd", t0, self._now())
+            self.dispatches += 1
+            self.streamer.release(l)
+        lg, cache = M.hybrid_prefill_end(self.resident, cfg, h, pre, kv_keep,
+                                         last_pos)
+        self.dispatches += 1
+        self.timeline.end_step(now=self._now())
+        return lg[:, -1].argmax(-1).int(), cache
+
+    # ============================================================ spill lane
+    def _spill_out(self, cache: Cache, region: Region):
+        """Move the whole KV region device→host into the arena and free the
+        device copy.  -> (hk, hv) arena views (L, B, kv_cap, KVH, D), and
+        the KV lengths on the host."""
+        k = cache["k"]
+        arr = region.view((2,) + tuple(k.shape), k.dtype)
+        t0 = self._now()
+        arr[0].copy_(k, non_blocking=True)
+        arr[1].copy_(cache["v"], non_blocking=True)
+        self.timeline.record("pcie_up", "st", t0, self._now(),
+                             2 * k.numel() * k.element_size())
+        kv_len = cache["kv_len"].cpu().numpy().copy()   # waits for the copies
+        self.blocking_syncs += 1
+        cache["k"] = cache["v"] = None
+        return arr[0], arr[1], kv_len
+
+    def _kv_bufs(self, slot: Optional[int]):
+        """The device KV pair of a weight slot (None: the degraded spare)."""
+        key = "spare" if slot is None else slot
+        if key not in self._kv_dev:
+            self._kv_dev[key] = tuple(torch.empty_like(self._hk[0], device=self.device)
+                                      for _ in range(2))
+        return self._kv_dev[key]
+
+    def _kv_stage(self, i: int, slot: Optional[int]) -> None:
+        """The streamer's side copy for schedule position ``i``, issued on
+        the copy stream just before its weights.  Skipped when the previous
+        step's store-back of that layer is not issued yet (prefetch deeper
+        than a step); ``_kv_for`` then uploads it in order."""
+        if i - self.cfg.num_layers <= self._stored_upto:
+            self._kv_upload(i, slot)
+
+    def _kv_upload(self, i: int, slot: Optional[int]) -> None:
+        """Layer ``i % L``'s spilled region into the slot's KV pair, on the
+        current stream, after the layer's last store-back."""
+        l = i % self.cfg.num_layers
+        kc, vc = self._kv_bufs(slot)
+        if self.cuda and self._stored_ev[l] is not None:
+            torch.cuda.current_stream().wait_event(self._stored_ev[l])
+        t0 = self._now()
+        kc.copy_(self._hk[l], non_blocking=True)
+        vc.copy_(self._hv[l], non_blocking=True)
+        self.timeline.record("pcie", "kv", t0, self._now(),
+                             2 * kc.numel() * kc.element_size())
+        self._kv_staged[i] = slot
+
+    def _kv_for(self, i: int):
+        """Position ``i``'s uploaded KV pair; uploads it now, ordered on the
+        compute stream, when the side copy was skipped."""
+        if i not in self._kv_staged:
+            self._kv_upload(i, self.streamer._live[i])
+        return self._kv_bufs(self._kv_staged.pop(i))
+
+    def _store_back(self, rows_k, rows_v, l: int, kv_idx: np.ndarray,
+                    store_np: np.ndarray) -> None:
+        """Copy each KV-bound request's new K/V row (``rows_*[b]``, device
+        (KVH, D)) into its arena slot: the per-step store traffic, D2H,
+        asynchronous into pinned memory.  The event after it is what the
+        next step's upload or host job of the layer waits on."""
+        hk_l, hv_l = self._hk[l], self._hv[l]
+        cap = hk_l.shape[1]
+        t0 = self._now()
+        nbytes = 0
+        for b in range(len(store_np)):
+            if not store_np[b]:                 # KV-bound token: row is new
+                row = min(int(kv_idx[b]), cap - 1)
+                hk_l[b, row].copy_(rows_k[b], non_blocking=True)
+                hv_l[b, row].copy_(rows_v[b], non_blocking=True)
+                nbytes += 2 * rows_k[b].numel() * rows_k[b].element_size()
+        end = self._now()
+        self.timeline.record("pcie_up", "st", t0, end, nbytes)
+        self._stored_ev[l] = end if self.cuda else None
+
+    # ------------------------------------------------- host-attend layer path
+    def _ensure_host_lane(self) -> HostAttnExecutor:
+        """Create (once) and re-arm the cpu attention lane, sharing the
+        executor's timeline, fault plan and watchdog."""
+        if self.host_lane is None:
+            self.host_lane = HostAttnExecutor(
+                timeline=self.timeline, faults=self.faults,
+                watchdog_s=self._watchdog_s)
+        self.host_lane.begin()
+        return self.host_lane
+
+    def _ha_layer(self, lane, lp, x, ac, act_len, store, store_np, plan,
+                  ha_tables, own, l: int, kv_len_np):
+        """One host-attend layer against the spilled arena.  The region
+        never crosses the link: the query goes D2H, the host partial's
+        statistics H2D, the new row D2H.  The device partial attends over
+        [the new token's own row ; the ACT region] — the own row is a
+        one-token KV page valid only for a KV-bound token, the ACT region
+        holds the checkpoint of an ACT-bound one — so with the host's rows
+        [0, kv_len) the two partitions are exactly the one-pool valid set."""
+        cfg = self.cfg
+        B = x.shape[0]
+        t0 = self._now()
+        q, k, v = M._layer_qkv(lp, cfg, x, plan.act_kv)
+        if self.cuda:
+            self._q_host.copy_(q, non_blocking=True)
+            q_ready = timing_event()
+        M._write_new(own[0], own[1], ac, k, v, x[:, 0], self._zeros_b, act_len,
+                     store)
+        o_d, m_d, l_d = M._hybrid_attend(lp, cfg, q, own[0], own[1], ac,
+                                         ha_tables, plan.act_kv, return_lse=True)
+        self.timeline.record("gpu", "fwd", t0, self._now())
+        self.dispatches += 2                    # projections, device partial
+        if self.cuda:
+            q_ready.synchronize()               # the partial runs on meanwhile
+            q_np = self._q_host.float().numpy()
+        else:
+            q_np = q.float().numpy()
+        self.blocking_syncs += 1
+        G = cfg.num_heads // cfg.num_kv_heads
+        job = lane.submit(q_np.reshape(B, cfg.num_kv_heads, G, cfg.head_dim),
+                          self._hk[l], self._hv[l], kv_len_np,
+                          after=self._stored_ev[l])
+        o_h, m_h, l_h = (torch.from_numpy(a).to(self.device)
+                         for a in lane.collect(job))
+        t0 = self._now()
+        o, _, _ = merge_partials_torch(o_d.float(), m_d, l_d, o_h, m_h, l_h)
+        x = M._layer_out(lp, cfg, x, o.to(x.dtype))
+        self.timeline.record("gpu", "fwd", t0, self._now())
+        self.dispatches += 1
+        self._store_back(k[:, 0], v[:, 0], l, kv_len_np, store_np)
+        return x
+
+    # ================================================================= decode
+    def decode_loop(self, cur, cache: Cache, store_sched, *,
+                    spill_region: Optional[Region] = None,
+                    host_attn: bool = False, pages_bound=None,
+                    act_pages_bound=None) -> Tuple[np.ndarray, Cache]:
+        """Layer-streamed greedy generation, token-exact vs
+        ``M.hybrid_decode_loop``.
+
+        cur:          (B,) int32 — first token to emit.
+        store_sched:  (n_steps, B) bool — per-step store_act flags.
+        spill_region: when given, the KV region lives in this pinned host
+                      region between steps: every layer's region is uploaded
+                      per step and the new token's row stored back.
+        host_attn:    spill mode only — instead of uploading the region
+                      every step, the cpu lane attends over it in place:
+                      only softmax statistics and the new row cross the link.
+        pages_bound, act_pages_bound: as for ``M.hybrid_decode_step``.
+
+        The cache is updated in place (its KV region is freed in spill
+        mode).  Returns ``(tokens (B, n_steps) int32 numpy, final cache)``.
+        """
+        cfg = self.cfg
+        L = cfg.num_layers
+        sched = np.asarray(store_sched, bool)
+        n_steps, B = sched.shape
+        spill = spill_region is not None
+        if host_attn and not spill:
+            raise ValueError("host_attn requires a spilled KV region")
+        lane = self._ensure_host_lane() if host_attn else None
+        sched_dev = torch.from_numpy(np.ascontiguousarray(sched)).to(self.device)
+        kv_len_np = None
+        self._stored_ev: List[Optional[object]] = [None] * L
+        self._stored_upto = -1
+        self._kv_staged: Dict[int, Optional[int]] = {}
+        self._kv_dev: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
+        side = None
+        if spill:
+            self._hk, self._hv, kv_len_np = self._spill_out(cache, spill_region)
+            # the arena stands in for the region (its shape sizes the tables)
+            cache = dict(cache, k=self._hk, v=self._hv)
+            if not host_attn:
+                side = self._kv_stage
+        if host_attn:
+            dt = cache["act"].dtype
+            own = tuple(torch.zeros((B, PAGE, cfg.num_kv_heads, cfg.head_dim),
+                                    dtype=dt, device=self.device)
+                        for _ in range(2))
+            self._zeros_b = torch.zeros((B,), dtype=torch.int32,
+                                        device=self.device)
+            if self.cuda:
+                self._q_host = torch.empty((B, 1, cfg.num_heads, cfg.head_dim),
+                                           dtype=dt, pin_memory=True)
+            act_cap = cache["act"].shape[2]
+        toks: List[torch.Tensor] = []
+        self.streamer.begin([l for _ in range(n_steps) for l in range(L)],
+                            side=side)
+        seq = 0
+        for s in range(n_steps):
+            self.timeline.begin_step("decode", now=self._now())
+            store = sched_dev[s]
+            plan = M.hybrid_decode_begin(self.resident, cfg, cur[:, None],
+                                         cache, store, pages_bound=pages_bound,
+                                         act_pages_bound=act_pages_bound)
+            self.dispatches += 1
+            if host_attn:
+                n_act = plan.act_stride // PAGE if plan.act_kv is not None \
+                    else act_cap // PAGE if act_pages_bound is None \
+                    else min(int(act_pages_bound), act_cap // PAGE)
+                ha_tables = M.hybrid_page_table((~store).int(), plan.act_read,
+                                                PAGE, plan.act_stride, 1 + n_act)
+            x = plan.x
+            for l in range(L):
+                lp = self.streamer.acquire(seq)
+                ac = cache["act"][l]
+                if host_attn:
+                    x = self._ha_layer(lane, lp, x, ac, cache["act_len"], store,
+                                       sched[s], plan, ha_tables, own, l,
+                                       kv_len_np)
+                else:
+                    kc, vc = self._kv_for(seq) if spill else \
+                        (cache["k"][l], cache["v"][l])
+                    t0 = self._now()
+                    x = M._hybrid_layer_step(lp, cfg, x, kc, vc, ac,
+                                             cache["kv_len"], cache["act_len"],
+                                             store, plan.tables, plan.act_kv)
+                    self.timeline.record("gpu", "fwd", t0, self._now())
+                    self.dispatches += 1
+                    if spill:
+                        ar = torch.arange(B, device=self.device)
+                        ki = cache["kv_len"].clamp(max=kc.shape[1] - 1).long()
+                        self._store_back(kc[ar, ki], vc[ar, ki], l, kv_len_np,
+                                         sched[s])
+                if spill:
+                    self._stored_upto = seq
+                self.streamer.release(seq)
+                seq += 1
+            toks.append(cur)
+            lg = M.hybrid_decode_end(self.resident, cfg, x, cache, store)
+            cur = lg[:, -1].argmax(-1).int()
+            self.dispatches += 1
+            if spill:
+                kv_len_np = kv_len_np + (~sched[s]).astype(kv_len_np.dtype)
+            self.timeline.end_step(now=self._now())
+        out = (torch.stack(toks, 1).cpu().numpy() if toks
+               else np.zeros((B, 0), np.int32))
+        self.blocking_syncs += 1
+        if spill:
+            cache = dict(cache, k=None, v=None)
+            self._hk = self._hv = None
+        self._kv_dev = {}
+        return out, dict(cache, spilled=spill)
+
+    # ================================================================== misc
+    def drain_timeline(self, tag: Optional[str] = "decode"):
+        """Collect-and-reset the measured per-step ``TimelineResult``s."""
+        return self.timeline.drain(tag)
+
+    def close(self) -> None:
+        """Deterministic teardown: drains the copy stream and joins the cpu
+        attention lane's worker.  Also the context-manager exit."""
+        self.streamer.close()
+        if self.host_lane is not None:
+            self.host_lane.close()
+
+    def __enter__(self) -> "OffloadExecutor":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+    @property
+    def lane_health(self) -> str:
+        """"healthy" | "degraded" — the weight lane's current state."""
+        return self.streamer.lane_health
+
+    @property
+    def fault_counters(self) -> Dict[str, int]:
+        """Cumulative robustness counters of the weight lane."""
+        return self.streamer.fault_counters

@@ -1,5 +1,5 @@
 """HybridServe engine of the port: end-to-end serving with the KV/ACT hybrid
-cache, device-resident (counterpart of ``repro.serving.engine``).
+cache (counterpart of ``repro.serving.engine``).
 
 The policy stack is the reference's, copied into ``repro_torch.core``:
 
@@ -15,23 +15,34 @@ The policy stack is the reference's, copied into ``repro_torch.core``:
   4. The BlockManager accounts physical blocks; the pipeline simulator
      reports what the schedule would cost on the target hardware.
 
-Baselines: mode="kv" and mode="act" pin the ratio.  Offload, the adaptive
-controller, sharding, cache quantization and the CPU attention lane are not
-part of this engine yet.
+Baselines: mode="kv" and mode="act" pin the ratio.
+
+Two executors share the policy stack: the default device-resident path (one
+batched prefill + one decode loop per group, every weight on the card), and
+the ``offload=True`` host-offload runtime, which streams layer weights from
+pinned host memory over a copy stream, spills KV regions to a pinned host
+arena when the config-driven budget demands, optionally attends over a
+spilled region on the CPU (``host_attn=True``), and reports MEASURED lane
+timelines next to the simulated predictions — token-exact against each other.
+The adaptive controller, sharding and cache quantization are not part of
+this engine yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.offload import OffloadBudget, offload_budget
 from repro_torch.core import costmodel as cm
-from repro_torch.core.blocks import BLOCK_TOKENS, BlockManager, BlockType
+from repro_torch.core.blocks import (BLOCK_TOKENS, BlockManager, BlockType,
+                                     Location)
 from repro_torch.core.minibatch import RequestBlocks, form_minibatches
-from repro_torch.core.pipeline import MiniBatchSpec, simulate_steps
+from repro_torch.core.pipeline import (MiniBatchSpec, TimelineResult,
+                                       simulate_steps)
 from repro_torch.core.policy import (device_act_blocks, host_block_allocation,
                                      store_act_schedule)
 from repro_torch.core.costmodel import profile_cost_fns
@@ -69,6 +80,10 @@ class GenStats:
     sim_gpu_busy: float = 0.0
     device_calls: int = 0        # prefill + decode dispatches (2 per group)
     traffic: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # measured (offload runtime; zero device-resident)
+    measured_time: float = 0.0
+    measured_gpu_busy: float = 0.0
+    measured_cpu_busy: float = 0.0    # cpu attention lane
 
     @property
     def sim_throughput(self) -> float:
@@ -83,13 +98,37 @@ class HybridServeEngine:
     def __init__(self, cfg: ModelConfig, params, *,
                  hw: cm.HardwareSpec = cm.H100_SXM, mode: str = "hybrid",
                  max_minibatch: int = 4, kv_cap: int = 512, act_cap: int = 512,
-                 device="cuda"):
-        """``params`` must already live on ``device``.  Algorithm 1 runs as
-        the paper states it (the reference's ``generalized=False``)."""
+                 offload: bool = False, budget: Optional[OffloadBudget] = None,
+                 host_attn: bool = False, faults=None,
+                 watchdog_s: Optional[float] = None, device="cuda"):
+        """``params`` must already live on ``device`` (under ``offload`` they
+        may live anywhere, or be a ``HostWeightPool`` shared between
+        engines).  Algorithm 1 runs as the paper states it (the reference's
+        ``generalized=False``).
+
+        offload=True runs the host-offload runtime: layer weights stream from
+        pinned host memory through the copy stream, and a group's KV region
+        spills to the host arena whenever the config-driven ``budget`` can't
+        hold its KV blocks device-side.  The engine then keeps no device copy
+        of the layer weights.  Stats additionally carry measured lane times.
+
+        host_attn=True (offload only) enables the cpu attention lane: groups
+        that physically spill attend over their KV region ON THE HOST, over
+        the pinned arena, while the device attends over the rest; only
+        softmax statistics and the new row cross the link.
+
+        faults / watchdog_s: a ``FaultPlan`` and the lanes' watchdog
+        deadline; an arena denial (real or injected) serves the group
+        device-resident instead of failing it."""
         if mode not in ("hybrid", "kv", "act"):
             raise ValueError(f"mode={mode!r}: one of hybrid, kv, act")
+        if host_attn and not offload:
+            raise ValueError("host_attn rides the offload runtime's spill arena")
         T.check_supported(cfg)
         self.cfg, self.params, self.hw, self.mode = cfg, params, hw, mode
+        self.host_attn = bool(host_attn)
+        self.offload = offload
+        self.budget = budget if budget is not None else offload_budget(cfg)
         self.device = torch.device(device)
         self.max_minibatch = max_minibatch
         self.kv_cap, self.act_cap = kv_cap, act_cap
@@ -103,10 +142,40 @@ class HybridServeEngine:
             self.alloc = dataclasses.replace(self.alloc, kv_blocks=0, act_blocks=max(
                 self.alloc.act_blocks, 1))
         self.act_frac = self.alloc.act_fraction
+        # device KV pool: generous when device-resident; budget-derived under
+        # offload, so tight budgets force real spill to the host arena
         self.blockman = BlockManager(
             cfg, host_kv_blocks=max(self.alloc.kv_blocks, 1),
             host_act_blocks=max(self.alloc.act_blocks, 1),
-            dev_kv_blocks=64, dev_act_blocks=dev_act)
+            dev_kv_blocks=self.budget.dev_kv_blocks(cfg) if offload else 64,
+            dev_act_blocks=dev_act)
+        self.executor = None
+        self.measured_steps: List[TimelineResult] = []
+        self.faults = faults
+        self.arena_denials = 0
+        if offload:
+            from repro_torch.offload import OffloadExecutor, make_spill_pool
+            self.executor = OffloadExecutor(
+                cfg, params, prefetch_depth=self.budget.prefetch_depth,
+                faults=faults, watchdog_s=watchdog_s, device=device)
+            self.spill_kv_pool = make_spill_pool(
+                cfg, max_requests=max_minibatch, kv_cap=kv_cap, device=device)
+            # the executor owns the host copy of the layer weights and the
+            # resident tree; the engine holds no reference to the caller's
+            # parameters, so they can be freed from the device
+            self.params = None
+
+    def close(self) -> None:
+        """Drain the offload executor's copy stream and join its cpu-lane
+        worker (no-op for the device-resident engine)."""
+        if self.executor is not None:
+            self.executor.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     # --- public API ----------------------------------------------------------
     def plan_groups(self, requests: List[Request]) -> List[List[Request]]:
@@ -141,6 +210,9 @@ class HybridServeEngine:
             stats.sim_time += st.sim_time
             stats.sim_gpu_busy += st.sim_gpu_busy
             stats.device_calls += st.device_calls
+            stats.measured_time += st.measured_time
+            stats.measured_gpu_busy += st.measured_gpu_busy
+            stats.measured_cpu_busy += st.measured_cpu_busy
             for k, v in st.traffic.items():
                 stats.traffic[k] = stats.traffic.get(k, 0.0) + v
         return outputs, stats
@@ -177,7 +249,9 @@ class HybridServeEngine:
     # --- one group of requests ----------------------------------------------
     def _run_group(self, group: List[Request]) -> Tuple[Dict[int, np.ndarray], GenStats]:
         """ONE batched prefill + ONE greedy decode loop; tokens reach the host
-        once, at the end.  Block accounting replays the schedule afterwards."""
+        once, at the end.  Block accounting replays the schedule afterwards.
+        Under offload both run layer by layer with streamed weights, and the
+        group's KV region stays on the device or spills to the host arena."""
         cfg, dev = self.cfg, self.device
         stats = GenStats()
         B = len(group)
@@ -185,11 +259,18 @@ class HybridServeEngine:
             self.group_schedule(group)
         max_new = sched.shape[1]
         as_dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
-        lg, cache = M.hybrid_prefill_batched(
-            self.params, cfg, as_dev(toks), self.kv_cap, self.act_cap,
-            as_dev(kv_keep), as_dev(pbs))
-        cur = lg[:, -1].argmax(-1).int()
-        stats.device_calls += 1
+        if self.executor is not None:
+            d0 = self.executor.dispatches
+            cur, cache = self.executor.prefill_batched(
+                toks, kv_keep, pbs, kv_cap=self.kv_cap, act_cap=self.act_cap)
+            stats.device_calls += self.executor.dispatches - d0
+        else:
+            lg, cache = M.hybrid_prefill_batched(
+                self.params, cfg, as_dev(toks), self.kv_cap, self.act_cap,
+                as_dev(kv_keep), as_dev(pbs))
+            cur = lg[:, -1].argmax(-1).int()
+            stats.device_calls += 1
+        region = None
         try:
             for i, r in enumerate(group):
                 self.blockman.new_request(r.rid)
@@ -202,7 +283,60 @@ class HybridServeEngine:
                             rids=[rr.rid for rr in group],
                             resource=f"{kind.value} blocks",
                             hint="grow the host pools or shrink the group")
-            if max_new:
+
+            measured: List[TimelineResult] = []
+            # offload: decide residency for the group's KV blocks up front.
+            # If the device pool (sized by the budget) can hold the group's
+            # final KV block count, migrate prefill blocks to DEVICE;
+            # otherwise the region physically spills to the pinned host
+            # arena and every block stays HOST.
+            spilled = False
+            if self.executor is not None and max_new:
+                from repro_torch.offload import kv_region_blocks
+                kv_end = kv_keep + (~sched).sum(1)
+                need = int(np.sum(-(-kv_end // BLOCK_TOKENS)))
+                free = self.blockman.pools[
+                    (BlockType.KV, Location.DEVICE)].free_blocks
+                spilled = need > free
+                if spilled:
+                    # fault site "arena": an injected deny models transient
+                    # host-arena exhaustion; a real None is the same for real
+                    deny = (self.faults is not None and
+                            self.faults.draw("arena", kinds=("deny",))
+                            is not None)
+                    region = None if deny else self.spill_kv_pool.alloc(
+                        kv_region_blocks(B, self.kv_cap))
+                    if region is None:
+                        # degraded mode: serve the group device-resident
+                        # (tokens are exact either way) instead of failing
+                        spilled = False
+                        self.arena_denials += 1
+                        self.executor.timeline.record_event("arena_denied")
+                if not spilled:
+                    for r in group:
+                        self.blockman.migrate(r.rid, BlockType.KV,
+                                              Location.DEVICE)
+
+            # the cpu lane engages only for groups that physically spilled:
+            # their arena KV blocks are attended in place
+            use_cpu = self.host_attn and region is not None
+            if use_cpu:
+                for r in group:
+                    self.blockman.tag_host_attend(r.rid, True)
+
+            if max_new and self.executor is not None:
+                d0 = self.executor.dispatches
+                gen, _ = self.executor.decode_loop(
+                    cur, cache, sched.T, spill_region=region,
+                    host_attn=use_cpu, pages_bound=pages_bound,
+                    act_pages_bound=act_bound)
+                stats.device_calls += self.executor.dispatches - d0
+                measured = self.executor.drain_timeline("decode")
+                self.measured_steps += measured
+                stats.measured_time += sum(m.total for m in measured)
+                stats.measured_gpu_busy += sum(m.gpu_busy for m in measured)
+                stats.measured_cpu_busy += sum(m.cpu_busy for m in measured)
+            elif max_new:
                 sched_dev = torch.from_numpy(np.ascontiguousarray(sched.T)).to(dev)
                 gen_dev, _ = M.hybrid_decode_loop(self.params, cfg, cur, cache,
                                                   sched_dev,
@@ -218,7 +352,8 @@ class HybridServeEngine:
             for step in range(max_new):
                 for bi, r in enumerate(group):
                     kind = BlockType.ACT if sched[bi, step] else BlockType.KV
-                    if self.blockman.append_token(r.rid, kind) is None:
+                    blk = self.blockman.append_token(r.rid, kind)
+                    if blk is None:
                         raise CapacityError(
                             f"{kind.value} block pool exhausted at decode "
                             f"step {step} of request {r.rid}; the precomputed "
@@ -226,15 +361,25 @@ class HybridServeEngine:
                             rids=[rr.rid for rr in group],
                             resource=f"{kind.value} blocks",
                             hint="grow the host pools or shrink the group")
+                    if (self.executor is not None and not spilled
+                            and kind == BlockType.KV
+                            and blk.location == Location.HOST):
+                        # device-resident group: keep appended KV on device
+                        self.blockman.move_block(
+                            r.rid, self.blockman.tables[r.rid].index(blk),
+                            Location.DEVICE)
 
-            # cost of every step on the target hardware (vectorized reporting)
+            # cost of every step on the target hardware (vectorized
+            # reporting); host-attended groups move their KV tokens off the
+            # pcie lane and onto the cpu lane
             steps_ahead = np.arange(1, max_new + 1)
             act0 = np.asarray(pbs) - kv_keep
             kv_tok = int(kv_keep.sum()) + np.cumsum((~sched).sum(0))
             act_tok = int(act0.sum()) + np.cumsum(sched.sum(0))
             specs = [[MiniBatchSpec(
-                B, int(kv_tok[s]), int(act_tok[s]),
-                ctx_tokens=int(np.mean(np.asarray(pbs) + steps_ahead[s])))]
+                B, 0 if use_cpu else int(kv_tok[s]), int(act_tok[s]),
+                ctx_tokens=int(np.mean(np.asarray(pbs) + steps_ahead[s])),
+                cpu_host_tokens=int(kv_tok[s]) if use_cpu else 0)]
                 for s in range(max_new)]
             for res in simulate_steps(cfg, self.hw, specs):
                 stats.sim_time += res.total
@@ -244,6 +389,8 @@ class HybridServeEngine:
             return {r.rid: gen[bi, : r.max_new_tokens]
                     for bi, r in enumerate(group)}, stats
         finally:
+            if region is not None:
+                region.free()               # the staging arena is reused per group
             for r in group:
                 self.blockman.free_request(r.rid)
 

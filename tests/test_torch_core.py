@@ -118,6 +118,51 @@ def test_simulate_steps_totals_match_reference(name):
             (w.total, w.gpu_busy, w.pcie_busy, w.traffic)
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_cpu_lane_pricing_matches_reference(name):
+    """The CPU attention lane's pricing and its lane in the simulator equal
+    the reference's, every field of every step."""
+    cfg, jcfg = get_config(name), j_get_config(name)
+    hw, jhw = cm.H100_SXM, j_hw(cm.H100_SXM)
+    assert (hw.host_flops, hw.host_dram_bw, hw.host_mfu) == \
+        (jhw.host_flops, jhw.host_dram_bw, jhw.host_mfu)
+    assert cm.cpu_attend_seconds_per_token(cfg, hw) == \
+        j_cm.cpu_attend_seconds_per_token(jcfg, jhw)
+    specs = [[pipeline.MiniBatchSpec(4, 0, 60 + 8 * s, ctx_tokens=64 + s,
+                                     cpu_host_tokens=100 + 16 * s)]
+             for s in range(5)]
+    jspecs = [[j_pipe.MiniBatchSpec(act_dev_tokens=0, **dataclasses.asdict(m))
+               for m in st] for st in specs]
+    got = pipeline.simulate_steps(cfg, hw, specs)
+    want = j_pipe.simulate_steps(jcfg, jhw, jspecs)
+    for g, w in zip(got, want):
+        assert g.cpu_busy > 0
+        assert dataclasses.asdict(g) == dataclasses.asdict(w)
+
+
+def test_block_manager_residency_moves_match_reference():
+    """Migration to the device, the host-attend tag, and their counters."""
+    cfg, jcfg = get_config("opt-6.7b-reduced"), j_get_config("opt-6.7b-reduced")
+    kw = dict(host_kv_blocks=4, host_act_blocks=2, dev_kv_blocks=2,
+              dev_act_blocks=1)
+    bm, jbm = blocks.BlockManager(cfg, **kw), j_blocks.BlockManager(jcfg, **kw)
+    for m, T in ((bm, blocks.BlockType), (jbm, j_blocks.BlockType)):
+        for rid in (1, 2):
+            m.new_request(rid)
+            for i in range(70):
+                m.append_token(rid, T.ACT if i % 3 == 0 else T.KV)
+    assert bm.migrate(1, blocks.BlockType.KV, blocks.Location.DEVICE) == \
+        jbm.migrate(1, j_blocks.BlockType.KV, j_blocks.Location.DEVICE)
+    assert bm.tag_host_attend(2) == jbm.tag_host_attend(2)
+    assert bm.tag_host_attend(1) == jbm.tag_host_attend(1)
+    for rid in (1, 2):
+        assert bm.counts(rid) == jbm.counts(rid)
+    assert {(k.value, a.value, b.value): n
+            for (k, a, b), n in bm.transitions.items()} == \
+        {(k.value, a.value, b.value): n
+         for (k, a, b), n in jbm.transitions.items()}
+
+
 def test_block_manager_accounting_matches_reference():
     cfg, jcfg = get_config("opt-6.7b-reduced"), j_get_config("opt-6.7b-reduced")
     kw = dict(host_kv_blocks=3, host_act_blocks=2, dev_kv_blocks=1,
@@ -131,8 +176,7 @@ def test_block_manager_accounting_matches_reference():
         want = jbm.append_token(7, j_blocks.BlockType.ACT if act
                                 else j_blocks.BlockType.KV)
         assert (got is None) == (want is None)
-    assert bm.counts(7) == {k: v for k, v in jbm.counts(7).items()
-                            if k != "host_attend_blocks"}
+    assert bm.counts(7) == jbm.counts(7)
     for m in (bm, jbm):
         m.free_request(7)
     assert [p.allocated for p in bm.pools.values()] == [0, 0, 0, 0]

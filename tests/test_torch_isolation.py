@@ -11,6 +11,8 @@ import pytest
 
 from repro_torch import params as P
 from repro_torch.models import model as M
+from repro_torch.offload import host_pool as HP
+from repro_torch.offload.executor import OffloadExecutor
 from repro_torch.serving import engine as E
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,7 +60,10 @@ def test_importing_every_port_module_loads_no_jax():
 @pytest.mark.parametrize("fn", [M.init_params, M.init_cache,
                                 M.init_hybrid_cache, P.from_numpy,
                                 E.HybridServeEngine.__init__,
-                                E.exact_reference_generate],
+                                E.exact_reference_generate,
+                                HP.HostWeightPool.__init__,
+                                HP.HostBlockPool.__init__, HP.make_spill_pool,
+                                OffloadExecutor.__init__],
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
