@@ -14,8 +14,12 @@ offload phase serves it again with its layer weights in pinned host memory,
 streamed to the card over a CUDA copy stream (``HybridServeEngine(offload=
 True)``): prefetch depth 1 and 0, the KV region resident or spilled to the
 host arena, and spilled with the CPU attention lane, whose device partial is
-the hybrid kernel's ``return_lse`` mode.  Each path runs with the launch
-counts set to 0 just before it and read just after.  One JSON line per
+the hybrid kernel's ``return_lse`` mode.  The int8 cache
+(``QuantConfig()``) runs beside each: its kernel modes held against their
+plain versions (with planted faults), the device-resident serve in hybrid
+and kv modes against the q8 oracle, and the spilled and CPU-lane offload
+runs.  Each path runs with the launch counts set to 0 just before it and
+read just after.  One JSON line per
 phase; the line before the last lists every kernel with its launches on its
 path, error, times and bound; the last line is the device summary.  Any
 failure raises and the exit code is non-zero.  Without a CUDA device, or
@@ -41,6 +45,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.offload import OffloadBudget, _tight  # noqa: E402
 from repro_torch.core.costmodel import H100_SXM  # noqa: E402
+from repro_torch.core.quant import QuantConfig  # noqa: E402
 from repro_torch.data.pipeline import request_trace  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
@@ -53,8 +58,11 @@ from repro_torch.kernels.kv_gen.ops import kv_gen  # noqa: E402
 from repro_torch.kernels.kv_gen.ref import kv_gen_ref  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models import quantized_cache as QC  # noqa: E402
+from repro_torch.models.quant_ops import dequantize, quantize  # noqa: E402
 from repro_torch.offload import (HostWeightPool, host_flash_attention,  # noqa: E402
                                  merge_partials_torch)
+from repro_torch.offload.host_attn import QuantPlane  # noqa: E402
 from repro_torch.serving import HybridServeEngine, exact_reference_generate  # noqa: E402
 from repro_torch.serving.util import bucket  # noqa: E402
 
@@ -92,6 +100,24 @@ LOGIT_TOL_BY_DTYPE = {"float16": LOGIT_TOL, "bfloat16": 0.25}
 # unit-scale score by ~1e-4).  The limit is 2**-10 relative (absolute below
 # 1); dropping one ACT page moves l by several percent and must fail it.
 LSE_RTOL = 2.0 ** -10
+# int8 cache, hybrid mode, teacher-forced against the q8 oracle (the plain
+# int8 KV cache, models/quantized_cache.py): both carry int8 error of one
+# kind, absmax codes with one float16 scale per row (the oracle on K/V rows;
+# the hybrid cache on K/V rows and on ACT rows, whose error reaches K/V
+# through the norm and projection at the same relative size).  So the hybrid
+# path's gap to the fp oracle is about the q8 oracle's own gap to it, and by
+# the triangle inequality its gap to the q8 oracle is within about twice the
+# q8 oracle's gap to the fp oracle (measured in the same run, fed the fp
+# oracle's tokens), plus the kernels' rounding drift, which the fp limit
+# bounds: limit = QUANT_GAP_FACTOR * gap(q8, fp) + LOGIT_TOL_BY_DTYPE.  On an
+# NVIDIA H100 80GB HBM3 at 700 W the hybrid gap read 1.06 (opt-6.7b) and 1.00
+# (yi-6b) times gap(q8, fp).  The K/V scales read one token row off must exceed the limit.  The ACT
+# scales ignored cannot, and are read but not held to it: a per-row factor in
+# front of the norm cancels but for eps and rounding.
+QUANT_GAP_FACTOR = 2.0
+# the reference's documented bound on per-token agreement of quant decode with
+# the fp oracle (tests/test_quant.py MIN_AGREEMENT)
+MIN_AGREEMENT = 0.6
 TRACE = dict(n_requests=4, prompt_mean=48, gen_tokens=12, seed=7)
 # kernel -> (its source, the TPU kernel it replaces)
 _HYBRID = ("src/repro_torch/kernels/hybrid_attention/csrc/hybrid_attention.cu",
@@ -106,9 +132,17 @@ KERNELS = {
                "src/repro/kernels/kv_gen/kernel.py:46"),
     "hybrid_paged_attention_return_lse": _HYBRID,
     "hybrid_paged_attention_two_pool_return_lse": _HYBRID,
+    # the int8 modes (kernel.py:100-103 and :121-124 dequantize; kv_gen takes
+    # the ACT dequant of the norm hoist on the RoPE route)
+    "hybrid_paged_attention_q8": _HYBRID,
+    "hybrid_paged_attention_two_pool_q8": _HYBRID,
+    "kv_gen_q8": ("src/repro_torch/kernels/kv_gen/csrc/kv_gen.cu",
+                  "src/repro/kernels/hybrid_attention/kernel.py:100"),
+    "hybrid_paged_attention_return_lse_q8": _HYBRID,
+    "hybrid_paged_attention_two_pool_return_lse_q8": _HYBRID,
 }
-# the launch counters: (kernel wrapper, its counter); the return_lse rows
-# count the launches of that mode on the same wrappers
+# the launch counters: (kernel wrapper, its counter); the return_lse and
+# int8 rows count the launches of that mode on the same wrappers
 COUNTERS = {"flash_attention": (flash_attention, "launches"),
             "hybrid_paged_attention": (hybrid_paged_attention, "launches"),
             "hybrid_paged_attention_two_pool": (
@@ -117,7 +151,15 @@ COUNTERS = {"flash_attention": (flash_attention, "launches"),
             "hybrid_paged_attention_return_lse": (
                 hybrid_paged_attention, "lse_launches"),
             "hybrid_paged_attention_two_pool_return_lse": (
-                hybrid_paged_attention_two_pool, "lse_launches")}
+                hybrid_paged_attention_two_pool, "lse_launches"),
+            "hybrid_paged_attention_q8": (hybrid_paged_attention, "q8_launches"),
+            "hybrid_paged_attention_two_pool_q8": (
+                hybrid_paged_attention_two_pool, "q8_launches"),
+            "kv_gen_q8": (kv_gen, "q8_launches"),
+            "hybrid_paged_attention_return_lse_q8": (
+                hybrid_paged_attention, "lse_q8_launches"),
+            "hybrid_paged_attention_two_pool_return_lse_q8": (
+                hybrid_paged_attention_two_pool, "lse_q8_launches")}
 
 
 def emit(obj) -> None:
@@ -150,6 +192,30 @@ def kernel_tol(*want) -> tuple[float, float]:
 def drop_last_page(act_tok):
     """A planted fault: each request's ACT tokens without its last page."""
     return torch.where(act_tok > 0, (act_tok - 1) // PAGE * PAGE, 0).int()
+
+
+def scales_row_off(sc: dict) -> dict:
+    """A planted fault of the int8 modes: every scale sidecar read one token
+    row off (row r takes row r-1's scale)."""
+    return {k: torch.roll(s.view(-1, *s.shape[2:]), 1, 0).view_as(s)
+            for k, s in sc.items()}
+
+
+def q8_pools(**pools):
+    """int8 codes and float16 scales of each named pool ("k_pages", ...),
+    quantized as the cache stores them.  -> ([codes, in order], {"k_scales":
+    scales, ...})."""
+    codes, scales = [], {}
+    for name, t in pools.items():
+        c, scales[name.removesuffix("_pages") + "_scales"] = quantize(t)
+        codes.append(c)
+    return codes, scales
+
+
+def q8_bytes(n_kv_rows: int, n_act_rows: int, KVH: int, D: int, d: int) -> int:
+    """Bytes of int8 cache rows with their float16 scales: K and V rows of
+    KVH x D codes and KVH scales each, ACT rows of d codes and one scale."""
+    return n_kv_rows * 2 * KVH * (D + 2) + n_act_rows * (d + 2)
 
 
 def bound(bytes_moved: float, ops: float):
@@ -212,7 +278,9 @@ def check_flash(B, S, H=32, KVH=32, D=128, dtype=torch.float16):
 
 
 def check_hybrid(B=4, KVH=32, G=1, D=128, d=4096, cap=512,
-                 dtype=torch.float16, norm_type="layernorm"):
+                 dtype=torch.float16, norm_type="layernorm", q8=False):
+    """The fused mode at a serve path's shape; ``q8``: its int8 mode, the
+    pools quantized as the cache stores them."""
     g = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *shape, s=1.0, o=0.0: (torch.randn(
         shape, generator=g, device="cuda") * s + o).to(dtype)
@@ -231,15 +299,25 @@ def check_hybrid(B=4, KVH=32, G=1, D=128, d=4096, cap=512,
     pages_bound = int(((kv_tok + PAGE - 1) // PAGE
                        + (act_tok + PAGE - 1) // PAGE).max())
     tables = M.hybrid_page_table(kv_tok, act_tok, cap, cap, pages_bound)
+    sc = {}
+    if q8:
+        (k_pages, v_pages, act_pages), sc = q8_pools(
+            k_pages=k_pages, v_pages=v_pages, act_pages=act_pages)
     args = (q, k_pages, v_pages, act_pages, scale, bias, wk, wv)
-    run = lambda f, tabs=tables: f(*args, *tabs, norm_type=norm_type)
+    run = lambda f, tabs=tables, sc=sc: f(*args, *tabs, norm_type=norm_type,
+                                          **sc)
     got = run(hybrid_paged_attention)
     want = run(hybrid_paged_attention_ref)
     faulty = run(hybrid_paged_attention, M.hybrid_page_table(
         kv_tok, drop_last_page(act_tok), cap, cap, pages_bound))
+    faults = {"fault_err_last_act_page_dropped":
+              (faulty.float() - want.float()).abs().max().item()}
+    if q8:
+        faulty = run(hybrid_paged_attention, sc=scales_row_off(sc))
+        faults["fault_err_scales_row_off"] = \
+            (faulty.float() - want.float()).abs().max().item()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    fault_err = (faulty.float() - want.float()).abs().max().item()
     tol, top = kernel_tol(want)
     ms = time_ms(lambda: run(hybrid_paged_attention), 50)
     plain_ms = time_ms(lambda: run(hybrid_paged_attention_ref), 10)
@@ -247,18 +325,20 @@ def check_hybrid(B=4, KVH=32, G=1, D=128, d=4096, cap=512,
     n_norm = 2 if bias is not None else 1
     kv_t, act_t = int(kv_tok.sum()), int(act_tok.sum())
     # each valid token's K/V or checkpoint read once (not whole pages)
-    nbytes = esz * (2 * q.numel() + kv_t * KVH * D * 2 + act_t * d
-                    + 2 * d * KVH * D + n_norm * d) + 3 * 4 * B * pages_bound
+    rows = q8_bytes(kv_t, act_t, KVH, D, d) if q8 \
+        else esz * (kv_t * KVH * D * 2 + act_t * d)
+    nbytes = rows + esz * (2 * q.numel() + 2 * d * KVH * D + n_norm * d) \
+        + 3 * 4 * B * pages_bound
     ops = KVH * G * (kv_t + act_t) * 4.0 * D + act_t * KVH * 4.0 * d * D
     bound_ms, by = bound(nbytes, ops)
     return {"shape": {"B": B, "KVH": KVH, "G": G, "D": D, "d_model": d,
                       "kv_cap": cap, "act_cap": cap, "kv_tokens": kv_tok.tolist(),
                       "act_tokens": act_tok.tolist(), "pages_bound": pages_bound},
             "dtype": str(dtype).removeprefix("torch."), "norm_type": norm_type,
-            "max_abs_err": err, "tol": tol, "max_abs_out": top,
-            "fault_err_last_act_page_dropped": fault_err, "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-            "bound_by": by}
+            "int8": q8, "max_abs_err": err, "tol": tol, "max_abs_out": top,
+            **faults, "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no one PyTorch call norms, projects and attends",
+            "bound_ms": bound_ms, "bound_by": by}
 
 
 def serve_shape(cfg) -> dict:
@@ -276,10 +356,16 @@ def serve_shape(cfg) -> dict:
 
 
 def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
-                 norm_type="rmsnorm", theta=5e6):
+                 norm_type="rmsnorm", theta=5e6, q8=False):
     """kv_gen over each of B requests' first ``n_act`` ACT pages, read in
     place from a pool of ``act_cap`` tokens per request, with RoPE at
-    scattered positions."""
+    scattered positions; ``q8``: its int8 mode over the pool quantized as
+    the cache stores it, with two planted faults: each request's last page
+    index pointing at the page before it, and the codes one token row off
+    (their scales in place).  A scale one row off is read but not held to
+    the limit: a per-row factor in front of the norm cancels but for eps and
+    rounding, so no limit on the output can see it, and it changes the
+    answer by no more than rounding does."""
     g = torch.Generator(device="cuda").manual_seed(2)
     rnd = lambda *shape, s=1.0, o=0.0: (torch.randn(
         shape, generator=g, device="cuda") * s + o).to(dtype)
@@ -294,41 +380,65 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
     pos = torch.randint(0, 4096, (N, PAGE), generator=g, device="cuda")
     sin, cos = L.rope_sin_cos(pos, hd, theta)
     eps = L.NORM_EPS[norm_type]
-    run = lambda f: f(pool, scale, bias, wk, wv, page_index=idx, sin=sin,
-                      cos=cos, norm_type=norm_type, eps=eps)
+    sc = {}
+    if q8:
+        (pool,), sc = q8_pools(act_pages=pool)
+    run = lambda f, ix=idx, sc=sc, pages=pool: f(
+        pages, scale, bias, wk, wv, page_index=ix, sin=sin, cos=cos,
+        norm_type=norm_type, eps=eps, **sc)
     got, want = run(kv_gen), run(kv_gen_ref)
+    faults = {}
+    if q8:
+        last = idx.view(B, n_act).clone()
+        last[:, -1] -= 1 if n_act > 1 else -1
+        shifted = torch.roll(pool.view(-1, d), 1, 0).view_as(pool)
+        for name, out in (("fault_err_last_page_dropped",
+                           run(kv_gen, ix=last.view(-1))),
+                          ("fault_err_codes_row_off", run(kv_gen, pages=shifted)),
+                          ("scales_row_off_err_cancelled_by_norm",
+                           run(kv_gen, sc=scales_row_off(sc)))):
+            faults[name] = max((a.float() - b.float()).abs().max().item()
+                               for a, b in zip(out, want))
     torch.cuda.synchronize()
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(got, want))
     tol, top = kernel_tol(*want)
     # the library call: one GEMM of the normed rows against [wk | wv],
-    # normed and gathered before the timing ("GEMM only")
-    a = L.layer_norm(pool[idx.long()], scale, bias, eps) if ln \
-        else L.rms_norm(pool[idx.long()], scale, eps)
+    # dequantized (int8), normed and gathered before the timing ("GEMM only")
+    rows = pool[idx.long()]
+    deq = (lambda: dequantize(rows, sc["act_scales"][idx.long()], dtype)) \
+        if q8 else None
+    if q8:
+        rows = deq()
+    a = L.layer_norm(rows, scale, bias, eps) if ln else L.rms_norm(rows, scale, eps)
     a = a.reshape(N * PAGE, d)
     w = torch.cat([wk.reshape(d, -1), wv.reshape(d, -1)], 1)
     ms = time_ms(lambda: run(kv_gen), 50)
     plain_ms = time_ms(lambda: run(kv_gen_ref), 10)
     lib_ms = time_ms(lambda: torch.matmul(a, w), 50)
-    esz, M = pool.element_size(), N * PAGE
-    nbytes = esz * (M * d + 2 * d * KVH * hd + (2 if ln else 1) * d
-                    + 2 * M * KVH * hd) + 4 * (N + 2 * M * hd // 2)
+    dequant_ms = time_ms(deq, 50) if q8 else None
+    esz, M = wk.element_size(), N * PAGE
+    act_bytes = M * (d + 2) if q8 else esz * M * d
+    nbytes = act_bytes + esz * (2 * d * KVH * hd + (2 if ln else 1) * d
+                                + 2 * M * KVH * hd) + 4 * (N + 2 * M * hd // 2)
     ops = 4.0 * M * d * KVH * hd + 5.0 * M * d + 3.0 * M * KVH * hd
     bound_ms, by = bound(nbytes, ops)
     return {"shape": {"pages": N, "B": B, "act_pages_per_request": n_act,
                       "d_model": d, "KVH": KVH, "hd": hd, "act_cap": act_cap,
                       "rope_theta": theta},
             "dtype": str(dtype).removeprefix("torch."), "norm_type": norm_type,
-            "max_abs_err": err, "tol": tol, "max_abs_out": top, "kernel_ms": ms,
+            "int8": q8, "max_abs_err": err, "tol": tol, "max_abs_out": top,
+            **faults, "kernel_ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "torch.matmul of the normed rows against [wk|wv], "
-                       "GEMM only", "bound_ms": bound_ms, "bound_by": by}
+                       "GEMM only" + (", rows dequantized beforehand" if q8 else ""),
+            "dequant_ms": dequant_ms, "bound_ms": bound_ms, "bound_by": by}
 
 
-def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16):
+def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16, q8=False):
     """The hybrid kernel's second-pool mode at the yi serve path's last-step
     tables: KV pages of (B, kv_cap) regions, ACT entries in a scratch pool of
-    ``act_pages_bound`` pages per request."""
+    ``act_pages_bound`` pages per request; ``q8``: the KV pools in int8."""
     g = torch.Generator(device="cuda").manual_seed(3)
     B, kv_cap, n_act = shape["B"], shape["kv_cap"], shape["act_pages_bound"]
     rnd = lambda *sh: (torch.randn(sh, generator=g, device="cuda") * 0.5).to(dtype)
@@ -336,30 +446,42 @@ def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16):
         rnd(B * kv_cap // PAGE, PAGE, KVH, D)
     ak, av = rnd(B * n_act, PAGE, KVH, D), rnd(B * n_act, PAGE, KVH, D)
     q = rnd(B, KVH, G, D)
+    sc, deq = {}, None
+    if q8:
+        (k_pages, v_pages), sc = q8_pools(k_pages=k_pages, v_pages=v_pages)
+        deq = lambda: (dequantize(k_pages, sc["k_scales"], dtype),
+                       dequantize(v_pages, sc["v_scales"], dtype))
     kv_tok, act_tok = (torch.tensor(shape[k], dtype=torch.int32, device="cuda")
                        for k in ("kv_tokens", "act_tokens"))
     table = lambda act: M.hybrid_page_table(kv_tok, act, kv_cap, n_act * PAGE,
                                             shape["pages_bound"])
     args = (q, k_pages, v_pages, ak, av, *table(act_tok))
-    got = hybrid_paged_attention_two_pool(*args)
-    want = hybrid_paged_attention_two_pool_ref(*args)
+    got = hybrid_paged_attention_two_pool(*args, **sc)
+    want = hybrid_paged_attention_two_pool_ref(*args, **sc)
     faulty = hybrid_paged_attention_two_pool(*args[:5],
-                                             *table(drop_last_page(act_tok)))
+                                             *table(drop_last_page(act_tok)), **sc)
+    faults = {"fault_err_last_act_page_dropped":
+              (faulty.float() - want.float()).abs().max().item()}
+    if q8:
+        faulty = hybrid_paged_attention_two_pool(*args, **scales_row_off(sc))
+        faults["fault_err_scales_row_off"] = \
+            (faulty.float() - want.float()).abs().max().item()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    fault_err = (faulty.float() - want.float()).abs().max().item()
     tol, top = kernel_tol(want)
-    # the library call: scaled_dot_product_attention over the same K/V,
-    # gathered into (B, H, S, D) with K/V expanded to the H query heads and
-    # a mask of the valid tokens, made before the timing
+    # the library call: scaled_dot_product_attention over the same K/V
+    # (int8: dequantized beforehand, that time beside it), gathered into
+    # (B, H, S, D) with K/V expanded to the H query heads and a mask of the
+    # valid tokens, made before the timing
     kv_t, act_t = kv_tok.long(), act_tok.long()
     S = int((kv_t + act_t).max())
     kd = torch.zeros((B, S, KVH, D), dtype=dtype, device="cuda")
     vd = torch.zeros_like(kd)
+    kf, vf = deq() if q8 else (k_pages, v_pages)
     for b in range(B):
         nk, na = int(kv_t[b]), int(act_t[b])
-        pk = k_pages.view(B, -1, KVH, D)[b, :nk]
-        pv = v_pages.view(B, -1, KVH, D)[b, :nk]
+        pk = kf.view(B, -1, KVH, D)[b, :nk]
+        pv = vf.view(B, -1, KVH, D)[b, :nk]
         kd[b, :nk], vd[b, :nk] = pk, pv
         kd[b, nk:nk + na] = ak.view(B, -1, KVH, D)[b, :na]
         vd[b, nk:nk + na] = av.view(B, -1, KVH, D)[b, :na]
@@ -370,23 +492,27 @@ def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16):
               for x in (kd, vd))
     lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     lib_err = (lib.reshape(B, KVH, G, D).float() - want.float()).abs().max().item()
-    ms = time_ms(lambda: hybrid_paged_attention_two_pool(*args), 50)
-    plain_ms = time_ms(lambda: hybrid_paged_attention_two_pool_ref(*args), 10)
+    ms = time_ms(lambda: hybrid_paged_attention_two_pool(*args, **sc), 50)
+    plain_ms = time_ms(lambda: hybrid_paged_attention_two_pool_ref(*args, **sc),
+                       10)
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask), 50)
     esz = q.element_size()
-    n_tok = int((kv_t + act_t).sum())     # each valid token's K/V read once
-    nbytes = esz * (2 * q.numel() + n_tok * KVH * D * 2) \
+    n_kv, n_act_t = int(kv_t.sum()), int(act_t.sum())  # each valid K/V read once
+    rows = q8_bytes(n_kv, 0, KVH, D, 0) if q8 else esz * n_kv * KVH * D * 2
+    nbytes = rows + esz * (2 * q.numel() + n_act_t * KVH * D * 2) \
         + 3 * 4 * B * shape["pages_bound"]
-    ops = KVH * G * n_tok * 4.0 * D
+    ops = KVH * G * (n_kv + n_act_t) * 4.0 * D
     bound_ms, by = bound(nbytes, ops)
     return {"shape": dict(shape, KVH=KVH, G=G, D=D),
-            "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
-            "tol": tol, "max_abs_out": top,
-            "fault_err_last_act_page_dropped": fault_err,
+            "dtype": str(dtype).removeprefix("torch."), "int8": q8,
+            "max_abs_err": err, "tol": tol, "max_abs_out": top, **faults,
             "library_err": lib_err, "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-            "bound_by": by}
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "F.scaled_dot_product_attention"
+                       + (", K/V dequantized beforehand" if q8 else ""),
+            "dequant_ms": time_ms(deq, 50) if q8 else None,
+            "bound_ms": bound_ms, "bound_by": by}
 
 
 def lse_err(got, want) -> float:
@@ -395,7 +521,8 @@ def lse_err(got, want) -> float:
             / want.float().abs().clamp_min(1.0)).max().item()
 
 
-def check_lse(mode, shape, KVH, G, D=128, d=4096, dtype=torch.float16):
+def check_lse(mode, shape, KVH, G, D=128, d=4096, dtype=torch.float16,
+              q8=False):
     """The hybrid kernel's return_lse mode (``mode`` "fused" or
     "two_pool") against the plain version, in two cases built from a serve
     path's last-step tables: first the CPU lane's device partial, the
@@ -407,7 +534,10 @@ def check_lse(mode, shape, KVH, G, D=128, d=4096, dtype=torch.float16):
     LSE_RTOL with each request's last ACT page dropped.  Then the CPU lane's
     merge: the first case's partial merged with ``host_flash_attention``
     over the other KV rows equals the second case's output, within the
-    4-ulp limit.  -> [the device partial's case, the all-pages case]."""
+    4-ulp limit.  ``q8``: the int8 mode, the KV pools (and the fused mode's
+    ACT pool) quantized as the cache stores them, the host partial over the
+    int8 arena; l must also fail LSE_RTOL with the scales one row off.
+    -> [the device partial's case, the all-pages case]."""
     g = torch.Generator(device="cuda").manual_seed(4)
     rnd = lambda *sh, s=0.5, o=0.0: (torch.randn(
         sh, generator=g, device="cuda") * s + o).to(dtype)
@@ -416,8 +546,13 @@ def check_lse(mode, shape, KVH, G, D=128, d=4096, dtype=torch.float16):
     act_stride = shape["act_cap"] if fused else n_act * PAGE
     k_pages, v_pages = (rnd(B * cap // PAGE, PAGE, KVH, D) for _ in range(2))
     q = rnd(B, KVH, G, D, s=1.0)
+    if q8:
+        (k_pages, v_pages), region_sc = q8_pools(k_pages=k_pages, v_pages=v_pages)
     if fused:
         ap = rnd(B * act_stride // PAGE, PAGE, d, s=1.0, o=0.1)
+        act_sc = {}
+        if q8:
+            (ap,), act_sc = q8_pools(act_pages=ap)
         scale, bias = rnd(d, s=0.1, o=1.0), rnd(d, s=0.2)    # bias non-zero
         wk, wv = rnd(d, KVH, D, s=d ** -0.5), rnd(d, KVH, D, s=d ** -0.5)
         run = lambda f, kp, vp, tabs, **kw: f(
@@ -426,6 +561,7 @@ def check_lse(mode, shape, KVH, G, D=128, d=4096, dtype=torch.float16):
         kernel, plain = hybrid_paged_attention, hybrid_paged_attention_ref
     else:
         ak, av = rnd(B * n_act, PAGE, KVH, D), rnd(B * n_act, PAGE, KVH, D)
+        act_sc = {}
         run = lambda f, kp, vp, tabs, **kw: f(q, kp, vp, ak, av, *tabs, **kw)
         kernel = hybrid_paged_attention_two_pool
         plain = hybrid_paged_attention_two_pool_ref
@@ -436,23 +572,37 @@ def check_lse(mode, shape, KVH, G, D=128, d=4096, dtype=torch.float16):
     own = (~store & (kv_tok > 0)).int()
     ar, last = torch.arange(B, device="cuda"), (kv_tok - 1).clamp(min=0).long()
     region_k, region_v = (x.view(B, cap, KVH, D) for x in (k_pages, v_pages))
-    own_k, own_v = (torch.zeros((B, PAGE, KVH, D), dtype=dtype, device="cuda")
-                    for _ in range(2))
+    own_k, own_v = (torch.zeros((B, PAGE, KVH, D), dtype=k_pages.dtype,
+                                device="cuda") for _ in range(2))
     own_k[:, 0], own_v[:, 0] = region_k[ar, last], region_v[ar, last]
+    own_sc = {}
+    if q8:                  # the own row's scales, copied as its codes are
+        for key, t in region_sc.items():
+            own_sc[key] = torch.zeros((B, PAGE, KVH, 1), dtype=t.dtype,
+                                      device="cuda")
+            own_sc[key][:, 0] = t.view(B, cap, KVH, 1)[ar, last]
     n_act_req = int(((act_tok + PAGE - 1) // PAGE).max())
-    cases = {"cpu_lane_device_partial": (own_k, own_v, own, PAGE, 1 + n_act_req),
-             "all_pages": (k_pages, v_pages, kv_tok, cap, shape["pages_bound"])}
+    cases = {"cpu_lane_device_partial": (own_k, own_v, own, PAGE, 1 + n_act_req,
+                                         own_sc),
+             "all_pages": (k_pages, v_pages, kv_tok, cap, shape["pages_bound"],
+                           region_sc if q8 else {})}
     out, outputs = [], []
     esz = q.element_size()
     stats = 2 * 4 * B * KVH * G                        # m and l, float32
-    for case, (kp, vp, kv_t, kv_cap, width) in cases.items():
+    for case, (kp, vp, kv_t, kv_cap, width, kv_sc) in cases.items():
         table = lambda act: M.hybrid_page_table(kv_t, act, kv_cap, act_stride,
                                                 width)
         tabs = table(act_tok)
-        got = run(kernel, kp, vp, tabs, return_lse=True)
-        want = run(plain, kp, vp, tabs, return_lse=True)
+        sc = dict(kv_sc, **act_sc)
+        got = run(kernel, kp, vp, tabs, return_lse=True, **sc)
+        want = run(plain, kp, vp, tabs, return_lse=True, **sc)
         faulty = run(kernel, kp, vp, table(drop_last_page(act_tok)),
-                     return_lse=True)
+                     return_lse=True, **sc)
+        faults = {"fault_l_err_last_act_page_dropped": lse_err(faulty[2], want[2])}
+        if q8:
+            faulty = run(kernel, kp, vp, tabs, return_lse=True,
+                         **scales_row_off(sc))
+            faults["fault_l_err_scales_row_off"] = lse_err(faulty[2], want[2])
         torch.cuda.synchronize()
         outputs.append(got)
         tol, top = kernel_tol(want[0])
@@ -460,40 +610,53 @@ def check_lse(mode, shape, KVH, G, D=128, d=4096, dtype=torch.float16):
              "shape": dict(shape, KVH=KVH, G=G, D=D, mode=mode,
                            kv_tokens=kv_t.tolist(), kv_cap=kv_cap,
                            pages_bound=width, **({"d_model": d} if fused else {})),
-             "dtype": str(dtype).removeprefix("torch."),
+             "dtype": str(dtype).removeprefix("torch."), "int8": q8,
              "max_abs_err": (got[0].float() - want[0].float()).abs().max().item(),
              "tol": tol, "max_abs_out": top,
              "m_err": lse_err(got[1], want[1]), "l_err": lse_err(got[2], want[2]),
              "lse_tol": LSE_RTOL,
              "m_range": [want[1].min().item(), want[1].max().item()],
-             "l_range": [want[2].min().item(), want[2].max().item()],
-             "fault_l_err_last_act_page_dropped": lse_err(faulty[2], want[2])}
+             "l_range": [want[2].min().item(), want[2].max().item()], **faults}
         c["kernel_ms"] = time_ms(lambda: run(kernel, kp, vp, tabs,
-                                             return_lse=True), 50)
+                                             return_lse=True, **sc), 50)
         c["plain_ms"] = time_ms(lambda: run(plain, kp, vp, tabs,
-                                            return_lse=True), 10)
+                                            return_lse=True, **sc), 10)
         c["library_ms"], c["library"] = None, \
             "none: no one PyTorch call norms, projects and attends"
         if not fused:
+            kf, vf = (dequantize(x, kv_sc[n], dtype) if q8 else x
+                      for x, n in ((kp, "k_scales"), (vp, "v_scales")))
             c["library_ms"], c["library"] = lse_library(
-                q, kp.view(B, kv_cap, KVH, D), vp.view(B, kv_cap, KVH, D),
+                q, kf.view(B, kv_cap, KVH, D), vf.view(B, kv_cap, KVH, D),
                 ak, av, kv_t, act_tok)
+            if q8:
+                c["library"] += ", K/V dequantized beforehand"
+                c["dequant_ms"] = time_ms(lambda: [dequantize(
+                    x, kv_sc[n], dtype) for x, n in ((kp, "k_scales"),
+                                                     (vp, "v_scales"))], 50)
         kv_n, act_n = int(kv_t.sum()), int(act_tok.sum())
         tables = 3 * 4 * B * width
         if fused:    # each valid token's K/V or checkpoint read once
-            nbytes = esz * (2 * q.numel() + kv_n * KVH * D * 2 + act_n * d
-                            + 2 * d * KVH * D + 2 * d) + tables + stats
+            rows = q8_bytes(kv_n, act_n, KVH, D, d) if q8 \
+                else esz * (kv_n * KVH * D * 2 + act_n * d)
+            nbytes = rows + esz * (2 * q.numel() + 2 * d * KVH * D + 2 * d) \
+                + tables + stats
             ops = KVH * G * (kv_n + act_n) * 4.0 * D + act_n * KVH * 4.0 * d * D
         else:
-            nbytes = esz * (2 * q.numel() + (kv_n + act_n) * KVH * D * 2) \
+            rows = q8_bytes(kv_n, 0, KVH, D, 0) if q8 \
+                else esz * kv_n * KVH * D * 2
+            nbytes = rows + esz * (2 * q.numel() + act_n * KVH * D * 2) \
                 + tables + stats
             ops = KVH * G * (kv_n + act_n) * 4.0 * D
         c["bound_ms"], c["bound_by"] = bound(nbytes, ops)
         out.append(c)
     (o_d, m_d, l_d), full = outputs
+    hk, hv = region_k.cpu(), region_v.cpu()
+    if q8:                  # the CPU lane reads the int8 arena
+        hk, hv = (QuantPlane(x, region_sc[n].view(B, cap, KVH, 1).cpu(), dtype)
+                  for x, n in ((hk, "k_scales"), (hv, "v_scales")))
     o_h, m_h, l_h = host_flash_attention(
-        q.float().cpu().numpy(), region_k.cpu(), region_v.cpu(),
-        (kv_tok - own).cpu().numpy())[:3]
+        q.float().cpu().numpy(), hk, hv, (kv_tok - own).cpu().numpy())[:3]
     merged = merge_partials_torch(o_d.float(), m_d, l_d, *(
         torch.from_numpy(a).cuda() for a in (o_h, m_h, l_h)))[0].to(dtype)
     out[1].update(merge_err=(merged.float() - full[0].float()).abs().max().item(),
@@ -561,6 +724,17 @@ def phase_kernels(results):
                check_lse("fused", opt_shape, KVH=32, G=1),
            "hybrid_paged_attention_two_pool_return_lse":
                check_lse("two_pool", shape, KVH=4, G=8, dtype=bf16),
+           "hybrid_paged_attention_q8": [
+               check_hybrid(q8=True),
+               check_hybrid(KVH=8, G=4, dtype=bf16, norm_type="rmsnorm",
+                            q8=True)],
+           "hybrid_paged_attention_two_pool_q8": [check_two_pool(shape, q8=True)],
+           "kv_gen_q8": [check_kv_gen(shape["B"], shape["act_pages_bound"],
+                                      yi.d_model, yi.num_kv_heads, q8=True)],
+           "hybrid_paged_attention_return_lse_q8":
+               check_lse("fused", opt_shape, KVH=32, G=1, q8=True),
+           "hybrid_paged_attention_two_pool_return_lse_q8":
+               check_lse("two_pool", shape, KVH=4, G=8, dtype=bf16, q8=True),
            "opt_serve_shape": opt_shape}
     emit(out)
     results["kernels"] = out
@@ -569,16 +743,16 @@ def phase_kernels(results):
            if not c["max_abs_err"] <= c["tol"]]
     if bad:
         raise AssertionError(f"kernel disagrees with its plain version: {bad}")
-    # the limit must catch a planted fault: the hybrid kernels given tables
-    # that leave out each request's last ACT page
-    blind = [(name, c["shape"], c["fault_err_last_act_page_dropped"], c["tol"])
-             for name in ("hybrid_paged_attention",
-                          "hybrid_paged_attention_two_pool") for c in out[name]
-             if not c["fault_err_last_act_page_dropped"] > c["tol"]]
+    # the limit must catch each planted fault: the hybrid kernels given
+    # tables that leave out each request's last ACT page, kv_gen given each
+    # request's page before its last in place of its last, and the int8
+    # modes given their scales one token row off
+    blind = [(name, c["shape"], key, c[key], c["tol"])
+             for name in KERNELS for c in out[name] for key in c
+             if key.startswith("fault_err_") and not c[key] > c["tol"]]
     if blind:
-        raise AssertionError(f"the limit passes a dropped ACT page: {blind}")
-    lse = [c for name in KERNELS if name.endswith("return_lse")
-           for c in out[name]]
+        raise AssertionError(f"the limit passes a planted fault: {blind}")
+    lse = [c for name in KERNELS if "return_lse" in name for c in out[name]]
     bad = [(c["case"], c["shape"], c["m_err"], c["l_err"]) for c in lse
            if not (c["m_err"] <= LSE_RTOL and c["l_err"] <= LSE_RTOL)]
     bad += [(c["case"], c["shape"], c["merge_err"], c["tol"]) for c in lse
@@ -586,11 +760,10 @@ def phase_kernels(results):
     if bad:
         raise AssertionError(f"return_lse disagrees with its plain version "
                              f"or the merge: {bad}")
-    blind = [(c["case"], c["shape"], c["fault_l_err_last_act_page_dropped"])
-             for c in lse
-             if not c["fault_l_err_last_act_page_dropped"] > LSE_RTOL]
+    blind = [(c["case"], c["shape"], key, c[key]) for c in lse for key in c
+             if key.startswith("fault_l_err_") and not c[key] > LSE_RTOL]
     if blind:
-        raise AssertionError(f"the l limit passes a dropped ACT page: {blind}")
+        raise AssertionError(f"the l limit passes a planted fault: {blind}")
 
 
 def forced_logits(eng, params, cfg, group, gold):
@@ -599,13 +772,15 @@ def forced_logits(eng, params, cfg, group, gold):
     toks, kv_keep, pbs, sched, bound_, act_bound = eng.group_schedule(group)
     dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()
     lg, cache = M.hybrid_prefill_batched(params, cfg, dev(toks), eng.kv_cap,
-                                         eng.act_cap, dev(kv_keep), dev(pbs))
+                                         eng.act_cap, dev(kv_keep), dev(pbs),
+                                         quant=eng.quant)
     out = [lg[:, -1]]
     s_dev = torch.from_numpy(sched).cuda()
     for s in range(gold.shape[1] - 1):
         lg, cache = M.hybrid_decode_step(params, cfg, gold[:, s:s + 1].int(),
                                          cache, s_dev[:, s], pages_bound=bound_,
-                                         act_pages_bound=act_bound)
+                                         act_pages_bound=act_bound,
+                                         quant=eng.quant)
         out.append(lg[:, -1])
     return torch.stack(out, 1)
 
@@ -762,14 +937,259 @@ def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
+def expected_launches(eng, reqs) -> dict:
+    """Launches of one ``generate`` of ``eng``: a flash launch per layer and
+    prefill (one per group); per layer and decode step a hybrid launch, and
+    a kv_gen launch in a RoPE model's hybrid mode.  Under quant each of
+    those is an int8 launch too, and the fused route's launches are
+    return_lse launches (the ACT-bound row's merge).  A host-attend run
+    launches return_lse for the groups that spill.  Each engine plans its
+    own groups."""
+    cfg = eng.cfg
+    L, rope = cfg.num_layers, cfg.pos_type == "rope"
+    hk = "hybrid_paged_attention_two_pool" if rope else "hybrid_paged_attention"
+    plan = eng.plan_groups(reqs)
+    n_new = [max(r.max_new_tokens for r in g) for g in plan]
+    steps = sum(n_new)
+    want = {k: 0 for k in COUNTERS}
+    want["flash_attention"] = L * len(plan)
+    want[hk] = L * steps
+    kv_gen_runs = rope and eng.mode == "hybrid"
+    want["kv_gen"] = L * steps if kv_gen_runs else 0
+    lse = L * sum(n for g, n in zip(plan, n_new) if spills(eng, g)) \
+        if eng.host_attn else 0
+    if eng.quant is not None:
+        want[hk + "_q8"] = L * steps
+        want["kv_gen_q8"] = want["kv_gen"]
+        lse = lse if rope else L * steps
+        want[hk + "_return_lse_q8"] = lse
+    want[hk + "_return_lse"] = lse
+    return want
+
+
+def q8_generate(params, cfg, prompt, n: int, gold=None):
+    """The q8 oracle over one request, its prompt padded as
+    ``exact_reference_generate`` pads it: greedy, or fed the tokens ``gold``
+    (n,).  -> (tokens (n,) numpy, per-step logits (n, V))."""
+    padded = np.full(bucket(len(prompt)), prompt[-1], np.int32)
+    padded[:len(prompt)] = prompt
+    toks = torch.from_numpy(padded).cuda()[None]
+    S = toks.shape[1]
+    lg, cache = QC.prefill_q8(params, cfg, toks, S + n + 8)
+    out, steps = [], [lg[:, -1]]
+    for s in range(n):
+        cur = lg[:, -1].argmax(-1).int() if gold is None else gold[s:s + 1].int()
+        out.append(cur)
+        if s < n - 1:
+            lg, cache = QC.decode_step_q8(params, cfg, cur[:, None], cache,
+                                          bound=S + s + 1)
+            steps.append(lg[:, -1])
+    return torch.cat(out).cpu().numpy(), torch.cat(steps, 0)
+
+
+def step_gaps(eng, params, cfg, reqs, gold, want) -> dict:
+    """{rid: per-step max |logit - want's|} of ``eng``'s decode path fed
+    ``gold``'s tokens, over all of its groups."""
+    gaps = {}
+    for g in eng.plan_groups(reqs):
+        lg = forced_logits(eng, params, cfg, g,
+                           torch.stack([gold[r.rid] for r in g]))
+        for i, r in enumerate(g):
+            gaps[r.rid] = (lg[i] - want[r.rid]).abs().amax(-1).cpu().numpy()
+    return gaps
+
+
+def agreement(outs, oracle, reqs) -> float:
+    """Mean per-token agreement of ``outs`` with ``oracle`` over requests."""
+    return float(np.mean([np.mean(outs[r.rid] == oracle[r.rid]) for r in reqs]))
+
+
+def decode_launches(params, cfg, eng, group, quant) -> int:
+    """CUDA kernels launched by one hybrid decode step of ``group`` (the
+    profiler's count), with the cache in ``quant``'s format."""
+    from torch.profiler import ProfilerActivity, profile
+    toks, kv_keep, pbs, sched, bound_, act_bound = eng.group_schedule(group)
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()
+    lg, cache = M.hybrid_prefill_batched(params, cfg, dev(toks), eng.kv_cap,
+                                         eng.act_cap, dev(kv_keep), dev(pbs),
+                                         quant=quant)
+    tok = lg[:, -1].argmax(-1).int()[:, None]
+    store = torch.from_numpy(sched[:, 0].copy()).cuda()
+    step = lambda: M.hybrid_decode_step(params, cfg, tok, cache, store,
+                                        pages_bound=bound_,
+                                        act_pages_bound=act_bound, quant=quant)
+    step()                                                # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
+def phase_serve_quant(results, smi, cfg, params, reqs, fp):
+    """Serve the trace again with the int8 cache (``QuantConfig()``) in
+    hybrid and kv modes: launches (the int8 modes counted), leaks, host
+    syncs in the decode loop, the cache regions' device bytes against fp,
+    the kv mode's tokens against the q8 oracle under the fp exactness rule,
+    the hybrid mode's agreement with the fp oracle and its teacher-forced
+    gap to the q8 oracle under the derived limit, and the planted faults.
+    ``fp``: the fp oracle's rule, tokens and logits.  -> (the hybrid run's
+    launch counts, {mode: tokens}, the q8 oracle's rule and the limit)."""
+    rule, gold, ora = fp
+    q = QuantConfig()
+    logit_tol = LOGIT_TOL_BY_DTYPE[cfg.dtype]
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()
+    out = {"phase": "serve_quant", "card": smi, "model": cfg.name,
+           "quant": str(q), "logit_tol": logit_tol}
+    engines = {m: HybridServeEngine(cfg, params, mode=m, hw=H100_SXM, quant=q)
+               for m in ("hybrid", "kv")}
+    outs, launches = {}, {}
+    for mode, eng in engines.items():
+        want = expected_launches(eng, reqs)
+        eng.generate(reqs)                               # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        outs[mode], stats = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[mode] = read_counts()
+        if launches[mode] != want:
+            raise AssertionError(f"quant {mode} launches {launches[mode]}, "
+                                 f"expected {want}")
+        if any(p.allocated for p in eng.blockman.pools.values()):
+            raise AssertionError(f"leaked blocks after the quant {mode} run")
+        splits = []
+        for g in eng.plan_groups(reqs):
+            _, kv_keep, pbs, sched, *_ = eng.group_schedule(g)
+            splits += [{"rid": r.rid, "kv": int(k), "act": int(p - k),
+                        "act_bound_steps": int(n)}
+                       for r, k, p, n in zip(g, kv_keep, pbs, sched.sum(1))]
+        out[mode] = {"launches": launches[mode], "wall_s": wall,
+                     "tokens_per_s": stats.generated_tokens / wall,
+                     "act_frac": eng.act_frac, "splits": splits,
+                     "groups": len(eng.plan_groups(reqs)),
+                     "blocks": eng.blockman.explain()}
+
+    # no host sync inside the quantized decode loop; the cache's device bytes
+    eng = engines["hybrid"]
+    g0 = eng.plan_groups(reqs)[0]
+    toks, kv_keep, pbs, sched, bound_, act_bound = eng.group_schedule(g0)
+    region_bytes = {}
+    for label, quant in (("fp", None), ("int8", q)):
+        lg, cache = M.hybrid_prefill_batched(params, cfg, dev(toks), eng.kv_cap,
+                                             eng.act_cap, dev(kv_keep), dev(pbs),
+                                             quant=quant)
+        region_bytes[label] = sum(cache[k].numel() * cache[k].element_size()
+                                  for k in ("k", "v", "act", "k_s", "v_s", "act_s")
+                                  if k in cache)
+    cur = lg[:, -1].argmax(-1).int()
+    sched_dev = torch.from_numpy(np.ascontiguousarray(sched.T)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loop_toks, _ = M.hybrid_decode_loop(params, cfg, cur, cache, sched_dev,
+                                            pages_bound=bound_,
+                                            act_pages_bound=act_bound, quant=q)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    loop_toks = loop_toks.cpu().numpy()
+    for i, r in enumerate(g0):
+        if not np.array_equal(loop_toks[i, :r.max_new_tokens], outs["hybrid"][r.rid]):
+            raise AssertionError(f"request {r.rid}: sync-checked quant loop differs")
+    del cache
+    ratio = region_bytes["fp"] / region_bytes["int8"]
+    out.update(decode_loop_host_syncs=0, region_bytes=region_bytes,
+               region_bytes_fp_over_int8=ratio)
+    if ratio < 1.8:
+        raise AssertionError(f"the int8 cache is only {ratio}x smaller")
+    # the device launches one decode step adds under quant (the quantize
+    # ops at the cache writes, the ACT-bound row's merge or scratch write)
+    out["decode_step_launches"] = {
+        label: decode_launches(params, cfg, eng, g0, quant)
+        for label, quant in (("fp", None), ("int8", q))}
+
+    # the q8 oracle: greedy, and fed the fp oracle's tokens
+    q8 = {r.rid: q8_generate(params, cfg, r.prompt, r.max_new_tokens)
+          for r in reqs}
+    q8_gold = {rid: torch.from_numpy(t).cuda() for rid, (t, _) in q8.items()}
+    q8_lg = {rid: lg for rid, (_, lg) in q8.items()}
+    gap_q8_fp = max((q8_generate(params, cfg, r.prompt, r.max_new_tokens,
+                                 gold[r.rid])[1] - ora[r.rid]).abs().max().item()
+                    for r in reqs)
+    margin = {}
+    for rid, lg in q8_lg.items():
+        top2 = lg.topk(2, dim=-1).values
+        margin[rid] = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    q8_rule = {"oracle": {rid: t for rid, (t, _) in q8.items()},
+               "margin": margin, "logit_tol": logit_tol}
+    limit = QUANT_GAP_FACTOR * gap_q8_fp + logit_tol
+    out.update(q8_agreement_with_fp_oracle=agreement(q8_rule["oracle"],
+                                                     rule["oracle"], reqs),
+               gap_q8_oracle_vs_fp_oracle=gap_q8_fp, hybrid_gap_limit=limit)
+
+    # kv mode: the q8 oracle's tokens under the fp exactness rule
+    q8_rule["kv"] = step_gaps(engines["kv"], params, cfg, reqs, q8_gold, q8_lg)
+    gap = max(float(g.max()) for g in q8_rule["kv"].values())
+    out["kv"].update(exactness(q8_rule, "kv", outs["kv"], reqs),
+                     max_teacher_forced_dlogit_vs_q8=gap)
+    if gap > logit_tol:
+        raise AssertionError(f"quant kv teacher-forced logits differ from the "
+                             f"q8 oracle's by {gap}")
+
+    # hybrid mode: agreement with the fp oracle, gap to the q8 oracle
+    q8_rule["hybrid"] = step_gaps(eng, params, cfg, reqs, q8_gold, q8_lg)
+    gap = max(float(g.max()) for g in q8_rule["hybrid"].values())
+    agree = agreement(outs["hybrid"], rule["oracle"], reqs)
+    out["hybrid"].update(agreement_with_fp_oracle=agree,
+                         max_teacher_forced_dlogit_vs_q8=gap,
+                         equal_to_q8_oracle=sum(np.array_equal(
+                             outs["hybrid"][r.rid], q8_rule["oracle"][r.rid])
+                             for r in reqs))
+    if agree < MIN_AGREEMENT:
+        raise AssertionError(f"quant hybrid agrees with the fp oracle on "
+                             f"{agree} of its tokens")
+    if gap > limit:
+        raise AssertionError(f"quant hybrid teacher-forced logits differ from "
+                             f"the q8 oracle's by {gap}, limit {limit}")
+
+    # planted faults in the regions' scale sidecars, read by the same gap
+    real = M.region_scales
+
+    def kv_row_off(cache, i):
+        ks, vs, as_ = real(cache, i)
+        return torch.roll(ks, 1, 1), torch.roll(vs, 1, 1), as_
+
+    def act_ignored(cache, i):
+        ks, vs, as_ = real(cache, i)
+        return ks, vs, torch.ones_like(as_)
+
+    faults = {}
+    for label, fault in (("kv_scales_row_off", kv_row_off),
+                         ("act_scales_ignored", act_ignored)):
+        M.region_scales = fault
+        try:
+            faults[label] = max(float(g.max()) for g in step_gaps(
+                eng, params, cfg, g0, q8_gold, q8_lg).values())
+        finally:
+            M.region_scales = real
+    out["hybrid"]["fault_dlogit_vs_q8"] = faults
+    emit(out)
+    results[f"serve_quant {cfg.name}"] = out
+    if not faults["kv_scales_row_off"] > limit:
+        raise AssertionError(f"the limit {limit} passes K/V scales one row "
+                             f"off: {faults}")
+    return launches["hybrid"], engines["hybrid"], outs, \
+        (q8_rule, q8_gold, q8_lg, limit)
+
+
 def phase_serve(results, smi, name):
     """Serve the trace at full width and depth in hybrid and kv modes; check
     launches per prefill and per decode step, host syncs in the decode loop,
     leaked blocks and tokens against the oracle."""
     cfg = get_config(name)
     rope = cfg.pos_type == "rope"
-    hybrid_kernel = "hybrid_paged_attention_two_pool" if rope \
-        else "hybrid_paged_attention"
     logit_tol = LOGIT_TOL_BY_DTYPE[cfg.dtype]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -796,20 +1216,7 @@ def phase_serve(results, smi, name):
     if not all(s["kv"] > 0 and s["act"] > 0 for s in splits):
         raise AssertionError(f"a request lacks KV or ACT tokens: {splits}")
 
-    def expected(engine, act: bool) -> dict:
-        """Launches of one generate: a flash launch per layer and prefill
-        (one per group), a hybrid (and, for RoPE with ACT pages, a kv_gen)
-        launch per layer and decode step.  Each mode plans its own groups."""
-        plan = engine.plan_groups(reqs)
-        steps = sum(max(r.max_new_tokens for r in g) for g in plan)
-        want = {k: 0 for k in COUNTERS}
-        want["flash_attention"] = cfg.num_layers * len(plan)
-        want[hybrid_kernel] = cfg.num_layers * steps
-        if rope and act:
-            want["kv_gen"] = cfg.num_layers * steps
-        return want
-
-    want = expected(eng, act=True)
+    want = expected_launches(eng, reqs)
     eng.generate(reqs)                                   # warm-up
     torch.cuda.synchronize()
     reset_counts()               # the counted main-path run: counts start at 0
@@ -834,7 +1241,7 @@ def phase_serve(results, smi, name):
     torch.cuda.synchronize()
     kv_wall = time.perf_counter() - t0
     kv_launches = read_counts()
-    want_kv = expected(kv_eng, act=False)   # no ACT page: kv_gen never runs
+    want_kv = expected_launches(kv_eng, reqs)  # no ACT page: no kv_gen
     if kv_launches != want_kv:
         raise AssertionError(f"kv launches {kv_launches}, expected {want_kv}")
     out.update(kv_launches=kv_launches, kv_groups=len(kv_eng.plan_groups(reqs)),
@@ -878,8 +1285,12 @@ def phase_serve(results, smi, name):
     out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     emit(out)
     results[f"serve {name}"] = out
-    outs = {"hybrid": hyb, "kv": kv_out}
-    return launches, {"hybrid": eng, "kv": kv_eng}, reqs, outs, (rule, gold, ora)
+    q8_launches, q8_eng, q8_outs, q8_oracle = phase_serve_quant(
+        results, smi, cfg, params, reqs, (rule, gold, ora))
+    outs = {"hybrid": hyb, "kv": kv_out, "hybrid_q8": q8_outs["hybrid"]}
+    return ({"fp": launches, "int8": q8_launches},
+            {"hybrid": eng, "kv": kv_eng, "hybrid_q8": q8_eng}, reqs, outs,
+            (rule, gold, ora), q8_oracle)
 
 
 def mem_available() -> int:
@@ -898,7 +1309,7 @@ def spills(eng, group) -> bool:
     return need > eng.budget.dev_kv_blocks(eng.cfg)
 
 
-def phase_offload(results, smi, name, reqs, resident_outs, oracle):
+def phase_offload(results, smi, name, reqs, resident_outs, oracle, q8_oracle):
     """Serve ``name`` again with its layer weights in pinned host memory
     (the same seed's weights), streamed over the copy stream: hybrid at
     prefetch depth 1, 0, 0 and 1 again (an A-B-B-A order, so that a drift
@@ -912,14 +1323,16 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle):
     in use, peak device memory below the layer weights' bytes, leaks,
     launches, and the overlap: depth 1 steps spend less than half as long
     beyond their weight copies as depth 0 steps, and are faster where the
-    compute to hide exceeds the link's spread.
-    -> the host-attend run's launch counts."""
+    compute to hide exceeds the link's spread.  Then the int8 cache, hybrid
+    under the tight budget: spilled (its tokens equal the device-resident
+    quant engine's, its KV uploads per request and step at least 1.8x
+    smaller than the fp spilled run's) and with the CPU lane (agreement with
+    the fp oracle, and its own teacher-forced gap to the q8 oracle under the
+    quant limit).  -> the host-attend runs' launch counts, fp and int8."""
     rule, gold, ora = oracle
+    q8_rule, q8_gold, q8_lg, q8_limit = q8_oracle
     cfg = get_config(name)
     L = cfg.num_layers
-    rope = cfg.pos_type == "rope"
-    hybrid_kernel = "hybrid_paged_attention_two_pool" if rope \
-        else "hybrid_paged_attention"
     out = {"phase": "offload", "card": smi, "model": cfg.name,
            "host_mem_available_before_pinning": mem_available()}
     t0 = time.perf_counter()
@@ -945,23 +1358,21 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle):
             "hybrid_d1_again": roomy("hybrid", 1), "kv_d1": roomy("kv", 1),
             "hybrid_spill": dict(mode="hybrid", budget=_tight(cfg)),
             "hybrid_spill_host_attn": dict(mode="hybrid", budget=_tight(cfg),
-                                           host_attn=True)}
-    ha_launches = None
+                                           host_attn=True),
+            "hybrid_spill_q8": dict(mode="hybrid", budget=_tight(cfg),
+                                    quant=QuantConfig()),
+            "hybrid_spill_host_attn_q8": dict(mode="hybrid", budget=_tight(cfg),
+                                              host_attn=True,
+                                              quant=QuantConfig())}
+    ha_launches = {}
     for label, kw in runs.items():
         eng = HybridServeEngine(cfg, pool, hw=H100_SXM, offload=True, **kw)
         mode, host_attn = kw["mode"], kw.get("host_attn", False)
+        q8 = kw.get("quant") is not None
         depth = kw["budget"].prefetch_depth
         plan = eng.plan_groups(reqs)
-        n_new = [max(r.max_new_tokens for r in g) for g in plan]
-        steps = sum(n_new)
-        want = {k: 0 for k in COUNTERS}
-        want["flash_attention"] = L * len(plan)
-        want[hybrid_kernel] = L * steps
-        if rope and mode == "hybrid":
-            want["kv_gen"] = L * steps
-        if host_attn:       # only a group that spills attends on the host
-            want[hybrid_kernel + "_return_lse"] = L * sum(
-                n for g, n in zip(plan, n_new) if spills(eng, g))
+        steps = sum(max(r.max_new_tokens for r in g) for g in plan)
+        want = expected_launches(eng, reqs)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
@@ -996,7 +1407,13 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle):
                "measured_time_s": stats.measured_time,
                "spilled": spilled, "arena_denials": eng.arena_denials,
                "blocking_syncs": eng.executor.blocking_syncs,
-               "device_calls": stats.device_calls}
+               "device_calls": stats.device_calls,
+               # KV bytes uploaded per request and decode step of the groups
+               # that spill (each uploads its region every step)
+               "kv_upload_bytes_per_request_step": sum(
+                   m.traffic["kv_load"] for m in ms) / max(1, sum(
+                       len(g) * max(r.max_new_tokens for r in g)
+                       for g in plan if spills(eng, g)))}
         checks = {
             "launches": launches == want,
             "uploads": st.uploads == L * sum(1 + max(r.max_new_tokens
@@ -1010,14 +1427,26 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle):
                                         eng.blockman.pools.values()),
             "no_arena_blocks": eng.spill_kv_pool.allocated_blocks == 0,
             "lane_healthy": eng.executor.lane_health == "healthy"}
+        if q8:
+            run["agreement_with_fp_oracle"] = agreement(toks, rule["oracle"], reqs)
+            checks["agreement"] = run["agreement_with_fp_oracle"] >= MIN_AGREEMENT
         if not host_attn:
+            resident = resident_outs[mode + ("_q8" if q8 else "")]
             same = [r.rid for r in reqs
-                    if np.array_equal(toks[r.rid], resident_outs[mode][r.rid])]
+                    if np.array_equal(toks[r.rid], resident[r.rid])]
             run["equal_to_device_resident"] = len(same)
             if len(same) != len(reqs):
                 raise AssertionError(f"offload {label}: tokens differ from the "
                                      f"device-resident {mode} engine's")
-            run.update(exactness(rule, mode, toks, reqs))
+            if not q8:
+                run.update(exactness(rule, mode, toks, reqs))
+        elif q8:    # the CPU lane over the int8 arena: its own gap to q8
+            gaps = offload_step_gaps(eng, reqs, q8_gold, q8_lg)
+            gap = max(float(g.max()) for g in gaps.values())
+            run.update(max_teacher_forced_dlogit_vs_q8=gap, limit=q8_limit)
+            if gap > q8_limit:
+                raise AssertionError(f"offload {label}: teacher-forced logits "
+                                     f"differ from the q8 oracle's by {gap}")
         else:   # the CPU lane's merge is its own path: read its own gap
             rule = dict(rule, **{label: offload_step_gaps(eng, reqs, gold, ora)})
             gap = max(float(g.max()) for g in rule[label].values())
@@ -1034,7 +1463,7 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle):
             raise AssertionError(f"offload {label} failed {checks}: {run}, "
                                  f"expected launches {want}")
         if host_attn:
-            ha_launches = launches
+            ha_launches["int8" if q8 else "fp"] = launches
     # depth 1 against depth 0, each the mean of its two runs: a step's time
     # beyond its own weight copies (step - pcie busy) is the compute the
     # copy stream failed to hide, which the link's rate does not set; a
@@ -1049,13 +1478,19 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle):
                                  - out[f"hybrid_{d}{x}"]["pcie_busy_s_mean"]
                                  for x in ("", "_again")])) for d in ("d1", "d0")}
     whole = exposed["d0"] > 0.1 * step["d0"]
+    per_row = {k: out[f"hybrid_spill{k}"]["kv_upload_bytes_per_request_step"]
+               for k in ("", "_q8")}
     out.update(step_s=step, depth1_over_depth0_step=step["d1"] / step["d0"],
                step_beyond_copies_s=exposed,
                depth1_over_depth0_beyond_copies=exposed["d1"] / exposed["d0"],
-               whole_step_checked=whole)
+               whole_step_checked=whole,
+               kv_upload_fp_over_int8=per_row[""] / per_row["_q8"])
     emit(out)
     results[f"offload {name}"] = out
     del pool
+    if not out["kv_upload_fp_over_int8"] >= 1.8:
+        raise AssertionError(f"the int8 spill uploads only "
+                             f"{out['kv_upload_fp_over_int8']}x fewer KV bytes")
     if whole and not step["d1"] < step["d0"]:
         raise AssertionError(f"depth 1 steps take {step['d1']} s, depth 0 "
                              f"steps {step['d0']} s: the copy stream does not "
@@ -1119,13 +1554,16 @@ def phase_profile(results, smi, name, engines, reqs):
 def serve_path(results, smi, name):
     """Serve and profile one model, free its weights, so that peak device
     memory is one model's, then serve it from host memory.  -> the launch
-    counts of its device-resident hybrid run and of its host-attend run."""
-    launches, engines, reqs, outs, oracle = phase_serve(results, smi, name)
+    counts of its device-resident hybrid runs and of its host-attend runs,
+    each {"fp": ..., "int8": ...}."""
+    launches, engines, reqs, outs, oracle, q8_oracle = phase_serve(
+        results, smi, name)
     phase_profile(results, smi, name, engines, reqs)
     del engines
     gc.collect()
     torch.cuda.empty_cache()
-    ha_launches = phase_offload(results, smi, name, reqs, outs, oracle)
+    ha_launches = phase_offload(results, smi, name, reqs, outs, oracle,
+                                q8_oracle)
     gc.collect()
     torch.cuda.empty_cache()
     return launches, ha_launches
@@ -1146,24 +1584,36 @@ def main() -> int:
         by_path[name], ha_path[name] = serve_path(results, smi, name)
     # each kernel's launches on the path that carries it: the fused hybrid
     # kernel on OPT's serve, the second-pool mode and kv_gen on yi's, the
-    # return_lse mode of each on that model's host-attend offload run;
-    # flash_attention runs on both and reports OPT's, with both beside it
-    path_of = {"flash_attention": "opt-6.7b",
-               "hybrid_paged_attention": "opt-6.7b",
-               "hybrid_paged_attention_two_pool": "yi-6b", "kv_gen": "yi-6b",
-               "hybrid_paged_attention_return_lse": "opt-6.7b",
-               "hybrid_paged_attention_two_pool_return_lse": "yi-6b"}
+    # return_lse mode of each on that model's host-attend offload run, the
+    # int8 modes on the int8 serves (the fused route's return_lse, the
+    # ACT-bound row's merge, on every int8 OPT step) and the second-pool
+    # int8 return_lse on yi's int8 host-attend run; flash_attention runs on
+    # every path and reports OPT's, with the others beside it
+    serve, ha = "serve", "offload host_attn"
+    path_of = {"flash_attention": ("opt-6.7b", serve, "fp"),
+               "hybrid_paged_attention": ("opt-6.7b", serve, "fp"),
+               "hybrid_paged_attention_two_pool": ("yi-6b", serve, "fp"),
+               "kv_gen": ("yi-6b", serve, "fp"),
+               "hybrid_paged_attention_return_lse": ("opt-6.7b", ha, "fp"),
+               "hybrid_paged_attention_two_pool_return_lse": ("yi-6b", ha, "fp"),
+               "hybrid_paged_attention_q8": ("opt-6.7b", serve, "int8"),
+               "hybrid_paged_attention_two_pool_q8": ("yi-6b", serve, "int8"),
+               "kv_gen_q8": ("yi-6b", serve, "int8"),
+               "hybrid_paged_attention_return_lse_q8": ("opt-6.7b", serve, "int8"),
+               "hybrid_paged_attention_two_pool_return_lse_q8": ("yi-6b", ha,
+                                                                 "int8")}
+    counts = {serve: by_path, ha: ha_path}
     k = results["kernels"]
     rows = []
     for name, (src, tpu) in KERNELS.items():
         c = k[name][0]                    # the serve path's own shape first
-        lse = name.endswith("return_lse")
-        counts = ha_path if lse else by_path
+        model, where, fmt = path_of[name]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu,
-                     "path": path_of[name] + (" offload host_attn" if lse else ""),
-                     "launches": counts[path_of[name]][name],
-                     "launches_by_path": {p: n[name] for p, n in counts.items()},
+                     "replaces": tpu, "path": f"{model} {where} {fmt}",
+                     "launches": counts[where][model][fmt][name],
+                     "launches_by_path": {
+                         f"{m} {w} {f}": n[name] for w, per in counts.items()
+                         for m, fmts in per.items() for f, n in fmts.items()},
                      "max_abs_err": c["max_abs_err"], "tol": c["tol"],
                      "ms": c["kernel_ms"], "kernel_ms": c["kernel_ms"],
                      "plain_ms": c["plain_ms"],

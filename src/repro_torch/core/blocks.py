@@ -1,9 +1,9 @@
 """Hybrid cache blocks: PagedAttention-style tables extended with block TYPE.
 
-A copy of ``repro.core.blocks`` with the offload runtime's residency moves
-and the CPU lane's ``host_attend`` tag, without the sharding, controller,
-preemption and quantization hooks, which later slices of the port bring.
-Blocks are priced in the config dtype.
+A copy of ``repro.core.blocks`` with the offload runtime's residency moves,
+the CPU lane's ``host_attend`` tag and the quantized block layout
+(``quant=``: int8 payloads with float16 scales, priced by ``core.quant``),
+without the sharding, controller and preemption hooks.
 
 Each logical block covers BLOCK_TOKENS tokens of one request's context across
 all layers, stored either as K/V tensors (KV block) or as activation
@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant as Q
 
 BLOCK_TOKENS = 16           # vLLM default; MXU-friendly sublane count
 
@@ -31,14 +32,18 @@ class Location(enum.Enum):
     DEVICE = "device"
 
 
-def kv_block_bytes(cfg: ModelConfig) -> int:
-    """S_KV: one KV block, all layers."""
-    return BLOCK_TOKENS * cfg.kv_bytes_per_token() * cfg.num_layers
+def kv_block_bytes(cfg: ModelConfig,
+                   quant: "Q.QuantConfig | None" = None) -> int:
+    """S_KV: one KV block, all layers; ``quant`` prices the 1-byte payload
+    and its scales."""
+    return BLOCK_TOKENS * Q.kv_bytes_per_token(cfg, quant) * cfg.num_layers
 
 
-def act_block_bytes(cfg: ModelConfig) -> int:
-    """S_ACT: one ACT block, all layers (= S_KV/2 for MHA)."""
-    return BLOCK_TOKENS * cfg.act_bytes_per_token() * cfg.num_layers
+def act_block_bytes(cfg: ModelConfig,
+                    quant: "Q.QuantConfig | None" = None) -> int:
+    """S_ACT: one ACT block, all layers (= S_KV/2 for MHA); ``quant`` as in
+    ``kv_block_bytes``."""
+    return BLOCK_TOKENS * Q.act_bytes_per_token(cfg, quant) * cfg.num_layers
 
 
 @dataclass
@@ -47,6 +52,10 @@ class LogicalBlock:
     location: Location
     pbn: int                 # physical block number within its (kind, location) pool
     ntokens: int = 0         # filled tokens (<= BLOCK_TOKENS)
+    # storage format: payload dtype of the block's rows, and the absmax-scale
+    # dtype when quantized (None: an unquantized block in the config dtype)
+    dtype: str = ""
+    scale_dtype: Optional[str] = None
     # host-attend residency tag: a HOST KV block placed on the cpu lane —
     # attended in place by the host executor, never loaded over PCIe and
     # never regenerated.  Only meaningful for KV@HOST; a migration to DEVICE
@@ -86,12 +95,16 @@ class BlockManager:
 
     Pool capacities come from the Algorithm-1 host allocation and the GPU
     buffer budget; the engine asks for blocks in ratio (Eq. 11) order.
+    ``quant``: new blocks carry the quantized payload and scale dtypes, and
+    byte queries price the quantized layout; None keeps the config dtype.
     """
 
     def __init__(self, cfg: ModelConfig, *,
                  host_kv_blocks: int, host_act_blocks: int,
-                 dev_kv_blocks: int, dev_act_blocks: int):
+                 dev_kv_blocks: int, dev_act_blocks: int,
+                 quant: "Q.QuantConfig | None" = None):
         self.cfg = cfg
+        self.quant = quant
         self.pools: Dict[Tuple[BlockType, Location], PhysicalPool] = {
             (BlockType.KV, Location.HOST): PhysicalPool(host_kv_blocks),
             (BlockType.ACT, Location.HOST): PhysicalPool(host_act_blocks),
@@ -122,8 +135,16 @@ class BlockManager:
         for loc in order:
             pbn = self.pools[(kind, loc)].alloc()
             if pbn is not None:
-                return LogicalBlock(kind, loc, pbn)
+                return LogicalBlock(kind, loc, pbn, dtype=self._block_dtype(kind),
+                                    scale_dtype=None if self.quant is None
+                                    else self.quant.scale_dtype)
         return None
+
+    def _block_dtype(self, kind: BlockType) -> str:
+        if self.quant is None:
+            return str(self.cfg.dtype)
+        return (self.quant.kv_dtype if kind == BlockType.KV
+                else self.quant.act_dtype)
 
     def append_token(self, rid: int, kind: BlockType) -> Optional[LogicalBlock]:
         """Account one more token of the given representation; allocates a new
@@ -185,6 +206,32 @@ class BlockManager:
                 blk.host_attend = target
                 changed += 1
         return changed
+
+    # -- byte accounting ------------------------------------------------------
+    def block_bytes(self, kind: BlockType) -> int:
+        """Bytes of one block: under ``quant`` the 1-byte payload and its
+        scales, the bytes the spill arena and the host link carry."""
+        f = kv_block_bytes if kind == BlockType.KV else act_block_bytes
+        return f(self.cfg, quant=self.quant)
+
+    def explain(self) -> str:
+        """Report of the pool capacities and the block byte math (the
+        reference's, without its per-shard column)."""
+        qdesc = ("off (config dtype)" if self.quant is None else
+                 f"kv={self.quant.kv_dtype} act={self.quant.act_dtype} "
+                 f"scales={self.quant.scale_dtype}")
+        lines = [f"BlockManager quant={qdesc}"]
+        for (kind, loc), pool in self.pools.items():
+            tot = self.block_bytes(kind)
+            extra = ""
+            if self.quant is not None:
+                raw = (kv_block_bytes if kind == BlockType.KV
+                       else act_block_bytes)(self.cfg)
+                extra = f" [{raw / tot:.2f}x vs {self.cfg.dtype}]"
+            lines.append(
+                f"  {loc.value:6s} {kind.value:3s}: capacity={pool.capacity} "
+                f"blocks x {tot} B{extra}, allocated={pool.allocated}")
+        return "\n".join(lines)
 
     # -- queries --------------------------------------------------------------
     def counts(self, rid: int) -> Dict[str, int]:

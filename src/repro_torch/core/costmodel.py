@@ -2,8 +2,9 @@
 
 A copy of ``repro.core.costmodel`` (the port imports nothing from the JAX
 package) with one addition: ``H100_SXM``, the port's default target.  The
-inter-chip and dispatch terms are left to the slices that use them, and
-bytes are priced in the config dtype.
+inter-chip and dispatch terms are left to the slices that use them.
+``quant=`` prices the host link's and the host lane's bytes by the quantized
+block layout (``core.quant``).
 
 The paper profiles ``T_kv_gen`` and ``T_load_kv`` on the target machine and
 fits linear functions (R² = 0.99, Fig. 11).  We do the same: the "profiler"
@@ -18,6 +19,7 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import act_bytes_per_token, kv_bytes_per_token
 
 
 @dataclass(frozen=True)
@@ -101,15 +103,17 @@ def attn_flops_per_token(cfg: ModelConfig, ctx: int) -> float:
     return 2.0 * 2 * ctx * cfg.q_dim
 
 
-def cpu_attend_seconds_per_token(cfg: ModelConfig, hw: HardwareSpec) -> float:
+def cpu_attend_seconds_per_token(cfg: ModelConfig, hw: HardwareSpec,
+                                 quant=None) -> float:
     """Host-attention cost per SPILLED CONTEXT TOKEN per layer.
 
     One context token costs ``attn_flops_per_token(cfg, 1)`` MACs on the
     host cores and one KV row read out of host DRAM; the lane runs at
-    whichever roofline binds.
+    whichever roofline binds.  Quantized arenas read fewer bytes but pay
+    the same FLOPs.
     """
     t_flops = attn_flops_per_token(cfg, 1) / (hw.host_flops * hw.host_mfu)
-    t_bytes = cfg.kv_bytes_per_token() / hw.host_dram_bw
+    t_bytes = kv_bytes_per_token(cfg, quant) / hw.host_dram_bw
     return max(t_flops, t_bytes)
 
 
@@ -125,11 +129,13 @@ def forward_flops_per_token(cfg: ModelConfig, ctx: int) -> float:
     return proj + ffn + attn_flops_per_token(cfg, ctx)
 
 
-def make_cost_fns(cfg: ModelConfig, hw: HardwareSpec):
+def make_cost_fns(cfg: ModelConfig, hw: HardwareSpec, quant=None):
     """-> (t_kv_gen(n_tokens), t_load_kv(n_tokens), t_load_act(n_tokens)).
 
     Per layer, batch-aggregate token counts (matching Algorithm 1's units:
-    "#blocks" scaled by BLOCK_TOKENS happens at the caller).
+    "#blocks" scaled by BLOCK_TOKENS happens at the caller).  ``quant``
+    reprices the two link lanes by the quantized bytes per token; the
+    KV-Gen lane is untouched, so Algorithm 1's split re-balances.
     """
     eff_gen = hw.flops * hw.gen_mfu
 
@@ -137,8 +143,8 @@ def make_cost_fns(cfg: ModelConfig, hw: HardwareSpec):
         return np.asarray(n, float) * kv_gen_flops_per_token(cfg) / eff_gen
 
     kv_bw = hw.host_link_bw * hw.gather_eff
-    kvB = cfg.kv_bytes_per_token()
-    actB = cfg.act_bytes_per_token()
+    kvB = kv_bytes_per_token(cfg, quant)
+    actB = act_bytes_per_token(cfg, quant)
 
     def t_load_kv(n):                    # PCIe lane (scattered block gather)
         return np.asarray(n, float) * kvB / kv_bw
@@ -192,8 +198,9 @@ SAMPLE_TOKENS = (256, 1024, 4096, 16384, 65536)
 PROFILE_NOISE = 0.02
 
 
-def profile_cost_fns(cfg: ModelConfig, hw: HardwareSpec) -> Tuple[LinearFit, ...]:
+def profile_cost_fns(cfg: ModelConfig, hw: HardwareSpec,
+                     quant=None) -> Tuple[LinearFit, ...]:
     """The paper's sampling step: returns (fit_kv_gen, fit_load_kv)."""
-    fns = make_cost_fns(cfg, hw)
+    fns = make_cost_fns(cfg, hw, quant=quant)
     return (fit_linear(fns[0], SAMPLE_TOKENS, PROFILE_NOISE, seed=1),
             fit_linear(fns[1], SAMPLE_TOKENS, PROFILE_NOISE, seed=2))

@@ -28,6 +28,7 @@ import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costmodel as cm
+from repro_torch.core import quant as Q
 
 
 @dataclass
@@ -117,14 +118,16 @@ def _run_timeline_arrays(tasks: List[LaneTask], n: int):
 
 
 def simulate_steps(cfg: ModelConfig, hw: cm.HardwareSpec,
-                   steps: List[List[MiniBatchSpec]]) -> List[TimelineResult]:
+                   steps: List[List[MiniBatchSpec]],
+                   quant=None) -> List[TimelineResult]:
     """One token-generation iteration per entry of ``steps``, vectorized.
 
     All steps must share the same mini-batch count (the task graph is
     structural); per-task durations are carried as (n_steps,) arrays so the
     timeline recurrence runs once instead of once per generated token.  The
     engine calls this with the precomputed store_act schedule's per-step token
-    totals.
+    totals.  ``quant`` prices KV/ACT loads, the host lane and the new-token
+    store at the quantized bytes per token.
     """
     n = len(steps)
     if n == 0:
@@ -135,8 +138,8 @@ def simulate_steps(cfg: ModelConfig, hw: cm.HardwareSpec,
     L = cfg.num_layers
     w_bytes = cm.layer_weight_bytes(cfg)       # every layer streams from host
     t_w = np.full((n,), w_bytes / hw.host_link_bw)
-    kvB = cfg.kv_bytes_per_token()
-    actB = cfg.act_bytes_per_token()
+    kvB = Q.kv_bytes_per_token(cfg, quant)
+    actB = Q.act_bytes_per_token(cfg, quant)
 
     # (n, M) per-step spec fields
     f = lambda attr: np.array([[getattr(mb, attr) for mb in s] for s in steps],
@@ -146,7 +149,7 @@ def simulate_steps(cfg: ModelConfig, hw: cm.HardwareSpec,
     n_req = f("n_requests")
     ctx = f("ctx_tokens")
     cpu_host = f("cpu_host_tokens")
-    t_cpu_tok = cm.cpu_attend_seconds_per_token(cfg, hw)
+    t_cpu_tok = cm.cpu_attend_seconds_per_token(cfg, hw, quant=quant)
 
     tasks: List[LaneTask] = []          # dur as (n,) arrays
     idx: Dict[Tuple, int] = {}

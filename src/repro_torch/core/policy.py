@@ -1,8 +1,8 @@
 """Cache management policy (paper §4.3, Algorithm 1 + Eq. 11).
 
 A copy of the two-way policy of ``repro.core.policy`` as the paper states
-it (the reference's ``generalized=False``), with blocks priced in the config
-dtype.
+it (the reference's ``generalized=False``); ``quant=`` prices blocks and
+the lane fits by the quantized layout.
 
 Step 1  initial_cache_allocation  — blocks needed to kill pipeline idleness
 Step 2  alloc_remaining           — fill the rest of host memory balanced
@@ -63,11 +63,11 @@ def initial_cache_allocation(cfg: ModelConfig, hw: HardwareSpec,
 
 def alloc_remaining(cfg: ModelConfig, hw: HardwareSpec,
                     fit_gen: LinearFit, fit_load: LinearFit,
-                    act_init: int, kv_init: int) -> Tuple[int, int]:
+                    act_init: int, kv_init: int, quant=None) -> Tuple[int, int]:
     """Algorithm 1 lines 20-27: fill remaining host memory with the balanced
     2x2 linear system  {S_ACT*a + S_KV*k = M_rem ; T_gen(a) = T_load(k)}."""
-    S_act = act_block_bytes(cfg)
-    S_kv = kv_block_bytes(cfg)
+    S_act = act_block_bytes(cfg, quant=quant)
+    S_kv = kv_block_bytes(cfg, quant=quant)
     S_weight = cfg.num_params() * cfg.bytes_per_param()
     M_occ = S_act * act_init + S_kv * kv_init
     M_rem = hw.host_mem - S_weight - M_occ
@@ -92,21 +92,23 @@ def alloc_remaining(cfg: ModelConfig, hw: HardwareSpec,
 
 
 def host_block_allocation(cfg: ModelConfig, hw: HardwareSpec,
-                          n_act_gpu_blocks: int) -> HostAllocation:
-    """Algorithm 1 top level: -> #ACT_Host, #KV_Host."""
-    fit_gen, fit_load = profile_cost_fns(cfg, hw)
+                          n_act_gpu_blocks: int,
+                          quant=None) -> HostAllocation:
+    """Algorithm 1 top level: -> #ACT_Host, #KV_Host.  ``quant`` reprices
+    block sizes and the fits, so the KV:ACT split re-balances."""
+    fit_gen, fit_load = profile_cost_fns(cfg, hw, quant=quant)
     act_init, kv_init = initial_cache_allocation(
         cfg, hw, fit_gen, fit_load, n_act_gpu_blocks)
     act_rem, kv_rem = alloc_remaining(cfg, hw, fit_gen, fit_load, act_init,
-                                      kv_init)
+                                      kv_init, quant=quant)
     return HostAllocation(act_blocks=act_init + act_rem,
                           kv_blocks=kv_init + kv_rem,
                           act_init=act_init, kv_init=kv_init)
 
 
-def device_act_blocks(cfg: ModelConfig, hw: HardwareSpec) -> int:
+def device_act_blocks(cfg: ModelConfig, hw: HardwareSpec, quant=None) -> int:
     """ACT blocks that fit the device-memory budget (weights stream)."""
-    per_block = act_block_bytes(cfg)
+    per_block = act_block_bytes(cfg, quant=quant)
     return int(hw.device_mem * DEVICE_MEM_FRAC / per_block)
 
 

@@ -1,7 +1,8 @@
 // Hybrid paged decode attention with KV-Gen fused in, for Hopper, sm_90a.
 //
 // Replaces the TPU kernel `hybrid_paged_attention` (body `_hybrid_attn_kernel`)
-// of src/repro/kernels/hybrid_attention/kernel.py: its floating-point path.
+// of src/repro/kernels/hybrid_attention/kernel.py: its floating-point path and
+// its int8 mode.
 //
 // What it computes: one query token per request (q (B, KVH, G, D), GQA
 // grouped) attends over a typed page table (B, MAXP): type 0 is a KV page of
@@ -55,9 +56,24 @@
 // chunks of 64 columns that are normalised, rounded, and multiplied into 2 x 16
 // register accumulators against the matching rows of wk/wv.  Splitting pages
 // across blocks (flash-decoding), TMA and `wgmma` are later work.
+//
+// int8 mode (both entry points, the TPU kernel's `k_scales`/`v_scales`/
+// `act_scales`): given non-null scale pointers, the KV pools hold int8 codes
+// with float16 scales (P, 16, KVH, 1), one per (token, head), and in the fused
+// entry the ACT pool holds int8 codes with float16 scales (P, 16, 1), one per
+// token.  Each value is dequantized on the tile as rnd<T>(code * scale): the
+// product in float32, rounded to the cache dtype, which is the value the
+// model path's fake quantization stores (the TPU kernel keeps it in float32).
+// KV pages dequantize where they are staged into k_s/v_s; ACT rows dequantize
+// in both the statistics pass and the chunk pass, so the norm sees the same
+// values twice.  The second-pool entry's act_k/act_v pools stay in the cache
+// dtype (KV-Gen writes them).  Each K/V element then costs one byte and a
+// scale read per 16..128 elements instead of two bytes.
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -85,17 +101,33 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
   return to_f(from_f<T>(x));
 }
 
+// one stored element as float: a cache-dtype value, or an int8 code times
+// its float16 scale, rounded to the cache dtype T (the int8 mode)
+template <typename T>
+__device__ __forceinline__ float load_el(const T* p, long i, const __half*, long) {
+  return to_f(p[i]);
+}
+template <typename T>
+__device__ __forceinline__ float load_el(const int8_t* p, long i, const __half* s,
+                                         long si) {
+  return rnd<T>(__fmul_rn((float)p[i], __half2float(s[si])));
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
   return x;
 }
 
-template <typename T, bool TWO_POOL>
+// P: the payload type of the KV pools and the ACT pool, T or int8_t
+template <typename T, typename P, bool TWO_POOL>
 __global__ void __launch_bounds__(THREADS)
-hybrid_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
-                   const T* __restrict__ v_pages, const T* __restrict__ act_k_pages,
-                   const T* __restrict__ act_v_pages, const T* __restrict__ act_pages,
+hybrid_attn_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
+                   const P* __restrict__ v_pages, const __half* __restrict__ k_scales,
+                   const __half* __restrict__ v_scales,
+                   const T* __restrict__ act_k_pages,
+                   const T* __restrict__ act_v_pages, const P* __restrict__ act_pages,
+                   const __half* __restrict__ act_scales,
                    const T* __restrict__ norm_scale, const T* __restrict__ norm_bias,
                    const T* __restrict__ wk, const T* __restrict__ wv,
                    const int* __restrict__ page_table, const int* __restrict__ page_type,
@@ -133,28 +165,35 @@ hybrid_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     const long pg = pt[p];
     const int ntok = pn[p];
     __syncthreads();                 // the previous page's tiles are consumed
-    if (ty == 0 || TWO_POOL) {
-      const T* kp = ty == 0 ? k_pages : act_k_pages;
-      const T* vp = ty == 0 ? v_pages : act_v_pages;
+    if (ty == 0) {
+      for (int i = tid; i < PAGE * D; i += THREADS) {
+        const int r = i / D, d = i % D;
+        const long row = (pg * PAGE + r) * KVH + h;
+        k_s[r][d] = load_el<T>(k_pages, row * D + d, k_scales, row);
+        v_s[r][d] = load_el<T>(v_pages, row * D + d, v_scales, row);
+      }
+    } else if (TWO_POOL) {
       for (int i = tid; i < PAGE * D; i += THREADS) {
         const int r = i / D, d = i % D;
         const long off = ((pg * PAGE + r) * KVH + h) * D + d;
-        k_s[r][d] = to_f(kp[off]);
-        v_s[r][d] = to_f(vp[off]);
+        k_s[r][d] = to_f(act_k_pages[off]);
+        v_s[r][d] = to_f(act_v_pages[off]);
       }
     } else {
-      const T* a = act_pages + pg * PAGE * d_model;
+      const P* a = act_pages + pg * PAGE * d_model;
       for (int r = warp; r < PAGE; r += WARPS) {     // row statistics, fp32
-        const T* row = a + (long)r * d_model;
+        const P* row = a + (long)r * d_model;
+        const long sr = pg * PAGE + r;               // the row's scale
         float mu = 0.f;
         if (layernorm) {
           float sum = 0.f;
-          for (int d = lane; d < d_model; d += 32) sum += to_f(row[d]);
+          for (int d = lane; d < d_model; d += 32)
+            sum += load_el<T>(row, d, act_scales, sr);
           mu = warp_sum(sum) / d_model;
         }
         float sq = 0.f;
         for (int d = lane; d < d_model; d += 32) {
-          const float x = to_f(row[d]) - mu;
+          const float x = load_el<T>(row, d, act_scales, sr) - mu;
           sq += x * x;
         }
         sq = warp_sum(sq);
@@ -175,7 +214,8 @@ hybrid_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
           const int r = i / CHUNK, c = i % CHUNK, d = c0 + c;
           float y = 0.f;
           if (d < d_model) {
-            const float x = (to_f(a[(long)r * d_model + d]) - mu_s[r]) * rstd_s[r];
+            const float x = (load_el<T>(a, (long)r * d_model + d, act_scales,
+                                        pg * PAGE + r) - mu_s[r]) * rstd_s[r];
             y = layernorm ? x * to_f(norm_scale[d]) + to_f(norm_bias[d])
                           : x * (1.f + to_f(norm_scale[d]));
             y = rnd<T>(y);
@@ -255,22 +295,48 @@ hybrid_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
+// the scale pointers: all three null (cache-dtype pools) or set (int8 pools;
+// the second-pool entry passes no act_scales)
+struct Scales {
+  const void* k;
+  const void* v;
+  const void* act;
+};
+
+template <typename T, typename P, bool TWO_POOL>
+int launch_as(const void* q, const void* kp, const void* vp, const void* ap,
+              const void* scale, const void* bias, const void* wk, const void* wv,
+              const int* pt, const int* pty, const int* pn, void* out, float* m_out,
+              float* l_out, int B, int KVH, int G, int D, int d_model, int maxp,
+              int layernorm, float eps, cudaStream_t stream, Scales sc,
+              const void* akp, const void* avp) {
+  const dim3 grid(KVH, B);
+  hybrid_attn_kernel<T, P, TWO_POOL><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(kp), static_cast<const P*>(vp),
+      static_cast<const __half*>(sc.k), static_cast<const __half*>(sc.v),
+      static_cast<const T*>(akp), static_cast<const T*>(avp),
+      static_cast<const P*>(ap), static_cast<const __half*>(sc.act),
+      static_cast<const T*>(scale),
+      static_cast<const T*>(bias), static_cast<const T*>(wk),
+      static_cast<const T*>(wv), pt, pty, pn, static_cast<T*>(out), m_out, l_out,
+      KVH, G, D, d_model, maxp, layernorm, eps, 1.f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool TWO_POOL = false>
 int launch(const void* q, const void* kp, const void* vp, const void* ap,
            const void* scale, const void* bias, const void* wk, const void* wv,
            const int* pt, const int* pty, const int* pn, void* out, float* m_out,
            float* l_out, int B, int KVH, int G, int D, int d_model, int maxp,
-           int layernorm, float eps, cudaStream_t stream, const void* akp = nullptr,
-           const void* avp = nullptr) {
-  const dim3 grid(KVH, B);
-  hybrid_attn_kernel<T, TWO_POOL><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      static_cast<const T*>(akp), static_cast<const T*>(avp),
-      static_cast<const T*>(ap), static_cast<const T*>(scale),
-      static_cast<const T*>(bias), static_cast<const T*>(wk),
-      static_cast<const T*>(wv), pt, pty, pn, static_cast<T*>(out), m_out, l_out,
-      KVH, G, D, d_model, maxp, layernorm, eps, 1.f / sqrtf((float)D));
-  return (int)cudaGetLastError();
+           int layernorm, float eps, cudaStream_t stream, Scales sc,
+           const void* akp = nullptr, const void* avp = nullptr) {
+  if (sc.k != nullptr)
+    return launch_as<T, int8_t, TWO_POOL>(q, kp, vp, ap, scale, bias, wk, wv, pt, pty,
+                                          pn, out, m_out, l_out, B, KVH, G, D, d_model,
+                                          maxp, layernorm, eps, stream, sc, akp, avp);
+  return launch_as<T, T, TWO_POOL>(q, kp, vp, ap, scale, bias, wk, wv, pt, pty, pn,
+                                   out, m_out, l_out, B, KVH, G, D, d_model, maxp,
+                                   layernorm, eps, stream, sc, akp, avp);
 }
 
 }  // namespace
@@ -280,18 +346,24 @@ extern "C" {
 // norm_type: 0 layernorm (bias required), 1 rmsnorm (bias unused).
 // dtype: 1 float16, 2 bfloat16.
 // m_out, l_out: both null, or both (B, KVH, G, 1) float32 (return_lse mode).
-// Returns a cudaError_t.
+// k_scales, v_scales, act_scales: all null, or all float16 with int8 pools
+// (int8 mode).  Returns a cudaError_t.
 int hybrid_paged_attention_fwd(const void* q, const void* k_pages, const void* v_pages,
-                               const void* act_pages, const void* norm_scale,
+                               const void* act_pages, const void* k_scales,
+                               const void* v_scales, const void* act_scales,
+                               const void* norm_scale,
                                const void* norm_bias, const void* wk, const void* wv,
                                const void* page_table, const void* page_type,
                                const void* page_ntok, void* out, void* m_out,
                                void* l_out, int B, int KVH, int G, int D, int d_model,
                                int maxp, int norm_type, float eps, int dtype,
                                void* stream) {
+  const int n_scales = (k_scales != nullptr) + (v_scales != nullptr) +
+                       (act_scales != nullptr);
   if (D > MAX_D || G > MAX_G || G < 1 || (norm_type == 0 && norm_bias == nullptr) ||
-      ((m_out == nullptr) != (l_out == nullptr)))
+      ((m_out == nullptr) != (l_out == nullptr)) || (n_scales != 0 && n_scales != 3))
     return (int)cudaErrorInvalidValue;
+  const Scales sc{k_scales, v_scales, act_scales};
   float* mo = static_cast<float*>(m_out);
   float* lo = static_cast<float*>(l_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -302,26 +374,30 @@ int hybrid_paged_attention_fwd(const void* q, const void* k_pages, const void* v
   switch (dtype) {
     case 1: return launch<__half>(q, k_pages, v_pages, act_pages, norm_scale, norm_bias,
                                   wk, wv, pt, pty, pn, out, mo, lo, B, KVH, G, D,
-                                  d_model, maxp, ln, eps, st);
+                                  d_model, maxp, ln, eps, st, sc);
     case 2: return launch<__nv_bfloat16>(q, k_pages, v_pages, act_pages, norm_scale,
                                          norm_bias, wk, wv, pt, pty, pn, out, mo, lo, B,
-                                         KVH, G, D, d_model, maxp, ln, eps, st);
+                                         KVH, G, D, d_model, maxp, ln, eps, st, sc);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // Second-pool mode: type-1 entries index act_k_pages/act_v_pages
-// (P_act, 16, KVH, D), K/V recomputed beforehand.  dtype, m_out, l_out as
-// above.
+// (P_act, 16, KVH, D), K/V recomputed beforehand, in the cache dtype.  dtype,
+// m_out, l_out as above; k_scales, v_scales both null or both set (int8 KV
+// pools).
 int hybrid_paged_attention_two_pool_fwd(const void* q, const void* k_pages,
-                                        const void* v_pages, const void* act_k_pages,
+                                        const void* v_pages, const void* k_scales,
+                                        const void* v_scales, const void* act_k_pages,
                                         const void* act_v_pages, const void* page_table,
                                         const void* page_type, const void* page_ntok,
                                         void* out, void* m_out, void* l_out, int B,
                                         int KVH, int G, int D, int maxp, int dtype,
                                         void* stream) {
-  if (D > MAX_D || G > MAX_G || G < 1 || ((m_out == nullptr) != (l_out == nullptr)))
+  if (D > MAX_D || G > MAX_G || G < 1 || ((m_out == nullptr) != (l_out == nullptr)) ||
+      ((k_scales == nullptr) != (v_scales == nullptr)))
     return (int)cudaErrorInvalidValue;
+  const Scales sc{k_scales, v_scales, nullptr};
   float* mo = static_cast<float*>(m_out);
   float* lo = static_cast<float*>(l_out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -331,12 +407,12 @@ int hybrid_paged_attention_two_pool_fwd(const void* q, const void* k_pages,
   switch (dtype) {
     case 1: return launch<__half, true>(q, k_pages, v_pages, nullptr, nullptr, nullptr,
                                         nullptr, nullptr, pt, pty, pn, out, mo, lo, B,
-                                        KVH, G, D, 0, maxp, 0, 0.f, st, act_k_pages,
+                                        KVH, G, D, 0, maxp, 0, 0.f, st, sc, act_k_pages,
                                         act_v_pages);
     case 2: return launch<__nv_bfloat16, true>(q, k_pages, v_pages, nullptr, nullptr,
                                                nullptr, nullptr, nullptr, pt, pty, pn,
                                                out, mo, lo, B, KVH, G, D, 0, maxp, 0,
-                                               0.f, st, act_k_pages, act_v_pages);
+                                               0.f, st, sc, act_k_pages, act_v_pages);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,9 +6,11 @@ stream, or raises; a CPU tensor takes the plain version in ``ref.py``.
 in the kernel, the learned-position models' path);
 ``hybrid_paged_attention_two_pool`` is the second-pool mode (type-1 entries
 read K/V that ``kv_gen`` recomputed into a second pair of pools, the RoPE
-models' path).  Each counts its launches in ``.launches``, and those made with
+models' path).  Each counts its launches in ``.launches``, those made with
 ``return_lse=True`` (the CPU attention lane's device partial, which also
-returns the softmax statistics ``(m, l)``) again in ``.lse_launches``.
+returns the softmax statistics ``(m, l)``) again in ``.lse_launches``,
+those of the int8 mode (scale sidecars given) again in ``.q8_launches``, and
+those of both again in ``.lse_q8_launches``.
 
 Layout (as ``repro.kernels.hybrid_attention.kernel``):
   q            (B, KVH, G, D)     one query token per request
@@ -17,6 +19,12 @@ Layout (as ``repro.kernels.hybrid_attention.kernel``):
   norm_scale/norm_bias (d,)       the layer's ln1 (bias None for rmsnorm)
   wk, wv       (d, KVH, D)        the layer's K/V projections
   page_table, page_type, page_ntok  int32 (B, MAXP); type 0 KV, 1 ACT, 2 empty
+int8 mode (as the reference's ``k_scales``/``v_scales``/``act_scales``, all
+or none): k/v_pages and act_pages hold int8 codes, and
+  k/v_scales   (P_kv, 16, KVH, 1) float16, one per (token, head)
+  act_scales   (P_act, 16, 1)     float16, one per token
+The second-pool mode takes ``k_scales``/``v_scales`` only: its second pools
+hold recomputed K/V in the cache dtype.
 """
 from __future__ import annotations
 
@@ -32,10 +40,23 @@ from repro_torch.kernels.hybrid_attention.ref import (
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
 NORM_TYPES = {"layernorm": 0, "rmsnorm": 1}
 MAX_D, MAX_G = 128, 8
-_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + \
+_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_TWO_POOL_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + \
+_TWO_POOL_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + \
     [ctypes.c_void_p]
+
+
+def _scales(names, scales):
+    """The int8 mode's scale sidecars: all of ``names`` given, or none."""
+    given = [s is not None for s in scales]
+    if any(given) and not all(given):
+        raise ValueError(f"hybrid_paged_attention: pass all of {names} "
+                         "(int8 mode) or none")
+    return all(given)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _lse_out(q, return_lse: bool):
@@ -48,15 +69,15 @@ def _lse_out(q, return_lse: bool):
     return (m, l), (m.data_ptr(), l.data_ptr())
 
 
-def _launch(lib, q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk,
-            wv, page_table, page_type, page_ntok, out, lse_ptrs,
+def _launch(lib, q, k_pages, v_pages, act_pages, scales, norm_scale,
+            norm_bias, wk, wv, page_table, page_type, page_ntok, out, lse_ptrs,
             norm_type: str, eps: float, stream) -> None:
     fn = lib.hybrid_paged_attention_fwd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     B, KVH, G, D = q.shape
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             act_pages.data_ptr(), norm_scale.data_ptr(),
-             None if norm_bias is None else norm_bias.data_ptr(),
+             act_pages.data_ptr(), *map(_ptr, scales), norm_scale.data_ptr(),
+             _ptr(norm_bias),
              wk.data_ptr(), wv.data_ptr(), page_table.data_ptr(),
              page_type.data_ptr(), page_ntok.data_ptr(), out.data_ptr(),
              *lse_ptrs, B, KVH, G, D, act_pages.shape[-1], page_table.shape[1],
@@ -64,36 +85,51 @@ def _launch(lib, q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk,
     _build.check(lib, err, "hybrid_paged_attention_fwd")
 
 
-def _validate_fused(q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk,
-                    wv, page_table, page_type, page_ntok, norm_type):
+def _validate_fused(q, k_pages, v_pages, act_pages, scales, norm_scale,
+                    norm_bias, wk, wv, page_table, page_type, page_ntok,
+                    norm_type):
     _, KVH, _, D = q.shape
     d = act_pages.shape[-1]
-    shapes = {"act_pages": (act_pages, (act_pages.shape[0], PAGE, d)),
-              "norm_scale": (norm_scale, (d,)),
-              "wk": (wk, (d, KVH, D)), "wv": (wv, (d, KVH, D))}
+    q8 = scales[0] is not None
+    pay = torch.int8 if q8 else q.dtype
+    shapes = {"act_pages": (act_pages, (act_pages.shape[0], PAGE, d), pay),
+              "norm_scale": (norm_scale, (d,), q.dtype),
+              "wk": (wk, (d, KVH, D), q.dtype), "wv": (wv, (d, KVH, D), q.dtype)}
+    if q8:
+        shapes["act_scales"] = (scales[2], (act_pages.shape[0], PAGE, 1),
+                                torch.float16)
     if norm_type not in NORM_TYPES:
         raise ValueError(f"hybrid_paged_attention: norm_type {norm_type!r}")
     if norm_type == "layernorm":
         if norm_bias is None:
             raise ValueError("hybrid_paged_attention: layernorm needs norm_bias")
-        shapes["norm_bias"] = (norm_bias, (d,))
-    _validate(q, {"k_pages": k_pages, "v_pages": v_pages}, shapes, page_table,
-              page_type, page_ntok)
+        shapes["norm_bias"] = (norm_bias, (d,), q.dtype)
+    _validate(q, {"k_pages": k_pages, "v_pages": v_pages}, scales[:2], shapes,
+              page_table, page_type, page_ntok)
 
 
-def _validate(q, kv_pools, shapes, page_table, page_type, page_ntok):
+def _validate(q, kv_pools, kv_scales, shapes, page_table, page_type,
+              page_ntok):
     """Shapes, dtypes and devices of every argument; ``kv_pools`` name the
-    (P, 16, KVH, D) pools, ``shapes`` maps the rest to their shapes."""
+    (P, 16, KVH, D) pools of type-0 pages (int8 with ``kv_scales`` (P, 16,
+    KVH, 1) in the int8 mode), ``shapes`` maps the rest to their shapes and
+    dtypes."""
     B, KVH, G, D = q.shape
-    shapes = {**{name: (t, (t.shape[0], PAGE, KVH, D))
+    q8 = kv_scales[0] is not None
+    shapes = {**{name: (t, (t.shape[0], PAGE, KVH, D),
+                        torch.int8 if q8 else q.dtype)
                  for name, t in kv_pools.items()}, **shapes}
-    for name, (t, want) in shapes.items():
+    if q8:
+        for name, s in zip(("k_scales", "v_scales"), kv_scales):
+            shapes[name] = (s, (kv_pools["k_pages"].shape[0], PAGE, KVH, 1),
+                            torch.float16)
+    for name, (t, want, dt) in shapes.items():
         if tuple(t.shape) != want:
             raise ValueError(f"hybrid_paged_attention: {name} has shape "
                              f"{tuple(t.shape)}, expected {want}")
-        if t.dtype != q.dtype or t.device != q.device or not t.is_contiguous():
+        if t.dtype != dt or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"hybrid_paged_attention: {name} must be a "
-                             f"contiguous {q.dtype} tensor on {q.device}")
+                             f"contiguous {dt} tensor on {q.device}")
     for t in (page_table, page_type, page_ntok):
         if t.dim() != 2 or t.shape[0] != B or t.shape != page_table.shape \
                 or t.dtype != torch.int32 or t.device != q.device \
@@ -109,57 +145,74 @@ def _validate(q, kv_pools, shapes, page_table, page_type, page_ntok):
 
 def hybrid_paged_attention(q, k_pages, v_pages, act_pages, norm_scale,
                            norm_bias, wk, wv, page_table, page_type,
-                           page_ntok, *, norm_type: str = "layernorm",
+                           page_ntok, *, k_scales=None, v_scales=None,
+                           act_scales=None, norm_type: str = "layernorm",
                            eps: float = 1e-5, return_lse: bool = False):
     """-> (B, KVH, G, D) decode attention over the hybrid paged cache, with
     each ACT page's K/V recomputed inside the kernel (Eq. 7 fused); with
     ``return_lse`` -> (out, m, l).  The kernel walks every entry of each
     table row, so a caller that knows a bound on the pages in use passes
-    tables that wide (the TPU kernel's ``pages_bound``)."""
+    tables that wide (the TPU kernel's ``pages_bound``).  The three scale
+    sidecars select the int8 mode."""
+    scales = (k_scales, v_scales, act_scales)
+    q8 = _scales(("k_scales", "v_scales", "act_scales"), scales)
     if q.device.type == "cpu":
         return hybrid_paged_attention_ref(
             q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk, wv,
-            page_table, page_type, page_ntok, norm_type=norm_type, eps=eps,
-            return_lse=return_lse)
+            page_table, page_type, page_ntok, k_scales=k_scales,
+            v_scales=v_scales, act_scales=act_scales, norm_type=norm_type,
+            eps=eps, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"hybrid_paged_attention: unsupported device {q.device}")
-    _validate_fused(q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk,
-                    wv, page_table, page_type, page_ntok, norm_type)
+    _validate_fused(q, k_pages, v_pages, act_pages, scales, norm_scale,
+                    norm_bias, wk, wv, page_table, page_type, page_ntok,
+                    norm_type)
     out = torch.empty_like(q)
     lse, lse_ptrs = _lse_out(q, return_lse)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(_build.load("hybrid_attention"), q, k_pages, v_pages,
-                act_pages, norm_scale, norm_bias, wk, wv, page_table,
+                act_pages, scales, norm_scale, norm_bias, wk, wv, page_table,
                 page_type, page_ntok, out, lse_ptrs, norm_type, eps, stream)
     hybrid_paged_attention.launches += 1
     hybrid_paged_attention.lse_launches += bool(return_lse)
+    hybrid_paged_attention.q8_launches += q8
+    hybrid_paged_attention.lse_q8_launches += q8 and return_lse
     return (out, *lse) if return_lse else out
 
 
 hybrid_paged_attention.launches = 0
 hybrid_paged_attention.lse_launches = 0
+hybrid_paged_attention.q8_launches = 0
+hybrid_paged_attention.lse_q8_launches = 0
 
 
 def hybrid_paged_attention_two_pool(q, k_pages, v_pages, act_k_pages,
                                     act_v_pages, page_table, page_type,
-                                    page_ntok, *, return_lse: bool = False):
+                                    page_ntok, *, k_scales=None, v_scales=None,
+                                    return_lse: bool = False):
     """-> (B, KVH, G, D) decode attention over the hybrid paged cache in the
     second-pool mode: type-0 entries index ``k_pages``/``v_pages``, type-1
     entries ``act_k_pages``/``act_v_pages`` (P_act, 16, KVH, D), which hold
     K/V that ``kv_gen`` recomputed from the ACT pages this step.  Tables as
     for ``hybrid_paged_attention``, built with the second pools' stride.
-    With ``return_lse`` -> (out, m, l)."""
+    With ``return_lse`` -> (out, m, l).  ``k_scales``/``v_scales`` select
+    the int8 mode of the KV pools."""
+    q8 = _scales(("k_scales", "v_scales"), (k_scales, v_scales))
     if q.device.type == "cpu":
         return hybrid_paged_attention_two_pool_ref(
             q, k_pages, v_pages, act_k_pages, act_v_pages, page_table,
-            page_type, page_ntok, return_lse=return_lse)
+            page_type, page_ntok, k_scales=k_scales, v_scales=v_scales,
+            return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"hybrid_paged_attention: unsupported device {q.device}")
-    _validate(q, {"k_pages": k_pages, "v_pages": v_pages,
-                  "act_k_pages": act_k_pages, "act_v_pages": act_v_pages}, {},
-              page_table, page_type, page_ntok)
     B, KVH, G, D = q.shape
+    _validate(q, {"k_pages": k_pages, "v_pages": v_pages},
+              (k_scales, v_scales),
+              {name: (t, (t.shape[0], PAGE, KVH, D), q.dtype)
+               for name, t in (("act_k_pages", act_k_pages),
+                               ("act_v_pages", act_v_pages))},
+              page_table, page_type, page_ntok)
     out = torch.empty_like(q)
     lse, lse_ptrs = _lse_out(q, return_lse)
     lib = _build.load("hybrid_attention")
@@ -168,6 +221,7 @@ def hybrid_paged_attention_two_pool(q, k_pages, v_pages, act_k_pages,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 _ptr(k_scales), _ptr(v_scales),
                  act_k_pages.data_ptr(), act_v_pages.data_ptr(),
                  page_table.data_ptr(), page_type.data_ptr(),
                  page_ntok.data_ptr(), out.data_ptr(), *lse_ptrs, B, KVH, G,
@@ -175,8 +229,12 @@ def hybrid_paged_attention_two_pool(q, k_pages, v_pages, act_k_pages,
     _build.check(lib, err, "hybrid_paged_attention_two_pool_fwd")
     hybrid_paged_attention_two_pool.launches += 1
     hybrid_paged_attention_two_pool.lse_launches += bool(return_lse)
+    hybrid_paged_attention_two_pool.q8_launches += q8
+    hybrid_paged_attention_two_pool.lse_q8_launches += q8 and return_lse
     return (out, *lse) if return_lse else out
 
 
 hybrid_paged_attention_two_pool.launches = 0
 hybrid_paged_attention_two_pool.lse_launches = 0
+hybrid_paged_attention_two_pool.q8_launches = 0
+hybrid_paged_attention_two_pool.lse_q8_launches = 0

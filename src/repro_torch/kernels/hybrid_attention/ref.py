@@ -10,6 +10,11 @@ In float32 with a zero bias it computes what the JAX reference computes.
 mode: type-1 entries index a second pair of K/V pools that already hold the
 recomputed K/V (the RoPE models' path, KV-Gen run beforehand).
 
+int8 mode (both): given scale sidecars, the gathered int8 pages are
+dequantized densely before anything else, as the reference's ``ref.py``
+dequantizes its pools, but each value is rounded to the cache dtype (q's), as the model path's fake quantization
+rounds it; the second-pool mode's second pools stay in the cache dtype.
+
 ``return_lse=True`` (both modes) also returns the partial-softmax statistics
 ``(m, l)``, each (B, KVH, G, 1) float32 in the ``1/sqrt(D)``-scaled score
 basis: m the masked score max (NEG_INF when the request attends over no
@@ -22,13 +27,16 @@ import math
 
 import torch
 
+from repro_torch.models.quant_ops import dequantize
+
 PAGE = 16
 NEG_INF = -1e30
 
 
 def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,
                                norm_bias, wk, wv, page_table, page_type,
-                               page_ntok, *, norm_type: str = "layernorm",
+                               page_ntok, *, k_scales=None, v_scales=None,
+                               act_scales=None, norm_type: str = "layernorm",
                                eps: float = 1e-5, return_lse: bool = False):
     """-> (B, KVH, G, D) attention of q over the typed page table, and
     ``(m, l)`` with ``return_lse``.
@@ -37,12 +45,13 @@ def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,
     by ``wk``/``wv`` (d_model, KVH, D) and rounded again (paper Eq. 7)."""
     if page_table.shape[1] == 0:        # nothing to attend: zeros, as the kernel
         return _empty(q, return_lse)
-    dt = act_pages.dtype
+    dt = act_pages.dtype if act_scales is None else q.dtype   # the cache dtype
     pty = page_type.long()
     pt = page_table.long()
-    k_kv = k_pages[torch.where(pty == 0, pt, 0)].float()      # (B,P,T,KVH,D)
-    v_kv = v_pages[torch.where(pty == 0, pt, 0)].float()
-    a = act_pages[torch.where(pty == 1, pt, 0)].float()       # (B,P,T,d)
+    kv_i, act_i = torch.where(pty == 0, pt, 0), torch.where(pty == 1, pt, 0)
+    k_kv = _pages(k_pages, k_scales, kv_i, dt)                # (B,P,T,KVH,D)
+    v_kv = _pages(v_pages, v_scales, kv_i, dt)
+    a = _pages(act_pages, act_scales, act_i, dt)              # (B,P,T,d)
     if norm_type == "layernorm":
         mu = a.mean(-1, keepdim=True)
         var = (a - mu).square().mean(-1, keepdim=True)
@@ -62,7 +71,8 @@ def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,
 
 def hybrid_paged_attention_two_pool_ref(q, k_pages, v_pages, act_k_pages,
                                         act_v_pages, page_table, page_type,
-                                        page_ntok, *, return_lse: bool = False):
+                                        page_ntok, *, k_scales=None,
+                                        v_scales=None, return_lse: bool = False):
     """-> (B, KVH, G, D) attention of q over the typed page table, type-1
     entries read from ``act_k_pages``/``act_v_pages`` (P_act, 16, KVH, D);
     and ``(m, l)`` with ``return_lse``."""
@@ -71,12 +81,20 @@ def hybrid_paged_attention_two_pool_ref(q, k_pages, v_pages, act_k_pages,
     pty, pt = page_type.long(), page_table.long()
     is_act = (pty == 1)[..., None, None, None]
     kv_i, act_i = torch.where(pty == 0, pt, 0), torch.where(pty == 1, pt, 0)
-    if act_k_pages.shape[0] == 0:       # no ACT pages at all (kv mode)
-        k, v = k_pages[kv_i].float(), v_pages[kv_i].float()
-    else:
-        k = torch.where(is_act, act_k_pages[act_i].float(), k_pages[kv_i].float())
-        v = torch.where(is_act, act_v_pages[act_i].float(), v_pages[kv_i].float())
+    k = _pages(k_pages, k_scales, kv_i, q.dtype)
+    v = _pages(v_pages, v_scales, kv_i, q.dtype)
+    if act_k_pages.shape[0]:            # else no ACT pages at all (kv mode)
+        k = torch.where(is_act, act_k_pages[act_i].float(), k)
+        v = torch.where(is_act, act_v_pages[act_i].float(), v)
     return _attend(q, k, v, page_type, page_ntok, return_lse)
+
+
+def _pages(pool, scales, idx, dtype):
+    """Pages ``idx`` of a pool as float32; an int8 pool's codes times their
+    scales, rounded to the cache ``dtype`` first."""
+    if scales is None:
+        return pool[idx].float()
+    return dequantize(pool[idx], scales[idx], dtype).float()
 
 
 def _empty(q, return_lse: bool):

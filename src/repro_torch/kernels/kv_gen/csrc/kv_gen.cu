@@ -39,10 +39,22 @@
 // its 32 rows, so the weights are read N*16/32 times in all, mostly from
 // L2.  cp.async or TMA pipelines, `wgmma`, and a grid that reads each weight
 // once are later work.
+//
+// int8 mode (a non-null `act_scales`): the ACT pool holds int8 codes with one
+// float16 scale per token (P, 16, 1), the quantized cache's ACT region.  The
+// norm prologue dequantizes each value as rnd<T>(code * scale), the product in
+// float32 rounded to the cache dtype T, which is the value the model path's
+// fake quantization stores; the statistics pass and the tile loads read the
+// same values.  This is the ACT dequant of the TPU hybrid kernel's norm hoist
+// (src/repro/kernels/hybrid_attention/kernel.py:100-103), which the RoPE route
+// runs here.  Outputs stay in the cache dtype.  The ACT bytes halve; the
+// weights, which dominate, do not change.
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
 #include <mma.h>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -89,21 +101,38 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T>
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const T* e = reinterpret_cast<const T*>(&u);
+// VEC elements of a payload type P in one load: 16 bytes of a 16-bit type,
+// 8 bytes of int8 codes
+template <typename P> struct Vec8 { using type = uint4; };
+template <> struct Vec8<int8_t> { using type = uint2; };
+
+template <typename P>
+__device__ __forceinline__ typename Vec8<P>::type ldv(const P* p) {
+  return *reinterpret_cast<const typename Vec8<P>::type*>(p);
+}
+
+// VEC payload elements as float: cache-dtype values, or int8 codes times the
+// row's scale `sc`, rounded to the cache dtype T
+template <typename T, typename P>
+__device__ __forceinline__ void unpack8(const typename Vec8<P>::type& u, float* f,
+                                        float sc) {
+  const P* e = reinterpret_cast<const P*>(&u);
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) f[i] = to_f(e[i]);
+  for (int i = 0; i < VEC; ++i) {
+    if constexpr (std::is_same<P, int8_t>::value) f[i] = rnd<T>(__fmul_rn((float)e[i], sc));
+    else f[i] = to_f(e[i]);
+  }
 }
 
 __device__ __forceinline__ uint4 ld16(const void* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-// norm_type: 0 layernorm, 1 rmsnorm
-template <typename T>
+// norm_type: 0 layernorm, 1 rmsnorm.  P: the ACT payload type, T or int8_t.
+template <typename T, typename P>
 __global__ void __launch_bounds__(THREADS)
-kv_gen_kernel(const T* __restrict__ act, const int* __restrict__ page_index,
+kv_gen_kernel(const P* __restrict__ act, const __half* __restrict__ act_scales,
+              const int* __restrict__ page_index,
               const T* __restrict__ norm_scale, const T* __restrict__ norm_bias,
               const T* __restrict__ wk, const T* __restrict__ wv,
               const float* __restrict__ sin_t, const float* __restrict__ cos_t,
@@ -112,6 +141,7 @@ kv_gen_kernel(const T* __restrict__ act, const int* __restrict__ page_index,
   __shared__ __align__(32) T a_s[BM * LDA];
   __shared__ __align__(32) unsigned char bc_s[B_BYTES];   // weight tile, then C
   __shared__ long row_off[BM];
+  __shared__ float row_sc[BM];       // int8 mode: each row's scale
   __shared__ float mu_s[BM], rstd_s[BM];
   T* b_s = reinterpret_cast<T*>(bc_s);
   float* c_s = reinterpret_cast<float*>(bc_s);
@@ -125,11 +155,14 @@ kv_gen_kernel(const T* __restrict__ act, const int* __restrict__ page_index,
   if (tid < BM) {
     const int m = m0 + tid;
     long off = -1;
+    float sc = 1.f;
     if (m < n_rows) {
       const long pg = page_index[m / PAGE];
       off = (pg * PAGE + m % PAGE) * d_model;
+      if (act_scales != nullptr) sc = __half2float(act_scales[pg * PAGE + m % PAGE]);
     }
     row_off[tid] = off;
+    row_sc[tid] = sc;
   }
   __syncthreads();
 
@@ -141,16 +174,16 @@ kv_gen_kernel(const T* __restrict__ act, const int* __restrict__ page_index,
 #pragma unroll
     for (int j = 0; j < RPW; ++j) acc_s[j] = 0.f;
     for (int c = lane * VEC; c < d_model; c += 32 * VEC) {
-      uint4 u[RPW];
+      typename Vec8<P>::type u[RPW];
 #pragma unroll
       for (int j = 0; j < RPW; ++j) {
         const long off = row_off[warp + j * WARPS];
-        u[j] = off >= 0 ? ld16(act + off + c) : make_uint4(0u, 0u, 0u, 0u);
+        u[j] = off >= 0 ? ldv(act + off + c) : typename Vec8<P>::type{};
       }
 #pragma unroll
       for (int j = 0; j < RPW; ++j) {
         float f[VEC];
-        unpack8<T>(u[j], f);
+        unpack8<T, P>(u[j], f, row_sc[warp + j * WARPS]);
 #pragma unroll
         for (int i = 0; i < VEC; ++i)
           acc_s[j] += pass == 0 ? f[i] : (f[i] - mu[j]) * (f[i] - mu[j]);
@@ -169,14 +202,15 @@ kv_gen_kernel(const T* __restrict__ act, const int* __restrict__ page_index,
 
   // this thread's share of a step's tiles: tile column tc, rows r0 + 8j
   const int tc = (tid % TPR) * VEC, r0 = tid / TPR;
-  uint4 ax[A_VECS], sc4 = make_uint4(0u, 0u, 0u, 0u), bi4 = sc4, bw[B_VECS];
+  typename Vec8<P>::type ax[A_VECS];
+  uint4 sc4 = make_uint4(0u, 0u, 0u, 0u), bi4 = sc4, bw[B_VECS];
   auto load = [&](int k0) {
     const int d = k0 + tc;
     const bool din = d < d_model;
 #pragma unroll
     for (int j = 0; j < A_VECS; ++j) {
       const long off = row_off[r0 + j * (THREADS / TPR)];
-      ax[j] = off >= 0 && din ? ld16(act + off + d) : make_uint4(0u, 0u, 0u, 0u);
+      ax[j] = off >= 0 && din ? ldv(act + off + d) : typename Vec8<P>::type{};
     }
     sc4 = din ? ld16(norm_scale + d) : make_uint4(0u, 0u, 0u, 0u);
     if (norm_type == 0) bi4 = din ? ld16(norm_bias + d) : make_uint4(0u, 0u, 0u, 0u);
@@ -189,13 +223,13 @@ kv_gen_kernel(const T* __restrict__ act, const int* __restrict__ page_index,
   };
   auto store = [&]() {
     float s[VEC], b[VEC];
-    unpack8<T>(sc4, s);
-    unpack8<T>(bi4, b);
+    unpack8<T, T>(sc4, s, 1.f);
+    unpack8<T, T>(bi4, b, 1.f);
 #pragma unroll
     for (int j = 0; j < A_VECS; ++j) {
       const int r = r0 + j * (THREADS / TPR);
       float f[VEC];
-      unpack8<T>(ax[j], f);
+      unpack8<T, P>(ax[j], f, row_sc[r]);
       alignas(16) T y[VEC];
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
@@ -276,19 +310,36 @@ kv_gen_kernel(const T* __restrict__ act, const int* __restrict__ page_index,
   }
 }
 
-template <typename T>
-int launch(const void* act, const int* page_index, const void* scale,
-           const void* bias, const void* wk, const void* wv, const float* sin_t,
-           const float* cos_t, void* k_out, void* v_out, int n_pages, int d_model,
-           int KVH, int hd, int norm_type, float eps, cudaStream_t stream) {
+template <typename T, typename P>
+int launch_as(const void* act, const void* act_scales, const int* page_index,
+              const void* scale, const void* bias, const void* wk, const void* wv,
+              const float* sin_t, const float* cos_t, void* k_out, void* v_out,
+              int n_pages, int d_model, int KVH, int hd, int norm_type, float eps,
+              cudaStream_t stream) {
   const int n_rows = n_pages * PAGE;
   const dim3 grid(2 * KVH, (n_rows + BM - 1) / BM);
-  kv_gen_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(act), page_index, static_cast<const T*>(scale),
+  kv_gen_kernel<T, P><<<grid, THREADS, 0, stream>>>(
+      static_cast<const P*>(act), static_cast<const __half*>(act_scales), page_index,
+      static_cast<const T*>(scale),
       static_cast<const T*>(bias), static_cast<const T*>(wk),
       static_cast<const T*>(wv), sin_t, cos_t, static_cast<T*>(k_out),
       static_cast<T*>(v_out), n_rows, d_model, KVH, hd, norm_type, eps);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* act, const void* act_scales, const int* page_index,
+           const void* scale, const void* bias, const void* wk, const void* wv,
+           const float* sin_t, const float* cos_t, void* k_out, void* v_out,
+           int n_pages, int d_model, int KVH, int hd, int norm_type, float eps,
+           cudaStream_t stream) {
+  if (act_scales != nullptr)
+    return launch_as<T, int8_t>(act, act_scales, page_index, scale, bias, wk, wv,
+                                sin_t, cos_t, k_out, v_out, n_pages, d_model, KVH,
+                                hd, norm_type, eps, stream);
+  return launch_as<T, T>(act, nullptr, page_index, scale, bias, wk, wv, sin_t, cos_t,
+                         k_out, v_out, n_pages, d_model, KVH, hd, norm_type, eps,
+                         stream);
 }
 
 }  // namespace
@@ -297,10 +348,12 @@ extern "C" {
 
 // page_index: int32 (n_pages,).  norm_type: 0 layernorm (scale and bias),
 // 1 rmsnorm (scale).  sin/cos: float32 (n_pages, 16, hd/2).  dtype:
-// 1 float16, 2 bfloat16.
+// 1 float16, 2 bfloat16.  act_scales: null, or float16 (P, 16, 1) with an
+// int8 act_pages (int8 mode).
 // d_model a multiple of 8, hd a multiple of 32 up to 128, act/weights/norm
 // parameters 16-byte aligned.  Returns a cudaError_t.
-int kv_gen_fwd(const void* act_pages, const void* page_index, const void* norm_scale,
+int kv_gen_fwd(const void* act_pages, const void* act_scales, const void* page_index,
+               const void* norm_scale,
                const void* norm_bias, const void* wk, const void* wv, const void* sin_t,
                const void* cos_t, void* k_out, void* v_out, int n_pages, int d_model,
                int KVH, int hd, int norm_type, float eps, int dtype, void* stream) {
@@ -313,12 +366,13 @@ int kv_gen_fwd(const void* act_pages, const void* page_index, const void* norm_s
   const float* sn = static_cast<const float*>(sin_t);
   const float* cs = static_cast<const float*>(cos_t);
   switch (dtype) {
-    case 1: return launch<__half>(act_pages, pi, norm_scale, norm_bias, wk, wv, sn, cs,
-                                  k_out, v_out, n_pages, d_model, KVH, hd, norm_type,
-                                  eps, st);
-    case 2: return launch<__nv_bfloat16>(act_pages, pi, norm_scale, norm_bias, wk, wv,
-                                         sn, cs, k_out, v_out, n_pages, d_model, KVH,
-                                         hd, norm_type, eps, st);
+    case 1: return launch<__half>(act_pages, act_scales, pi, norm_scale, norm_bias, wk,
+                                  wv, sn, cs, k_out, v_out, n_pages, d_model, KVH, hd,
+                                  norm_type, eps, st);
+    case 2: return launch<__nv_bfloat16>(act_pages, act_scales, pi, norm_scale,
+                                         norm_bias, wk, wv, sn, cs, k_out, v_out,
+                                         n_pages, d_model, KVH, hd, norm_type, eps,
+                                         st);
   }
   return (int)cudaErrorInvalidValue;
 }

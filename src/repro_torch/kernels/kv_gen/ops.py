@@ -2,13 +2,17 @@
 
 A CUDA tensor launches ``csrc/kv_gen.cu`` on PyTorch's current stream, or
 raises; a CPU tensor takes the plain version in ``ref.py``.
-``kv_gen.launches`` counts the kernel's launches.  The kernel takes what the
+``kv_gen.launches`` counts the kernel's launches, and ``kv_gen.q8_launches``
+again those of its int8 mode (``act_scales`` given: an int8 ACT pool with one
+float16 scale per token, dequantized in the norm prologue).  The kernel takes
+what the
 RoPE models' decode path gives it: a page index, RoPE tables, and rmsnorm or
 layernorm; the plain version also takes no index, no RoPE and no norm, the
 cases the reference's Pallas kernel is compared in.
 
 Layout (as ``repro.kernels.kv_gen.kernel``):
   act_pages    (P, 16, d)        ACT page pool (layer-input checkpoints)
+  act_scales   (P, 16, 1) f16    int8 mode: the pool's per-token scales
   page_index   (N,) int32        pages to recompute, in output order
                                  (plain version: None for all)
   norm_scale/norm_bias (d,)      the layer's ln1 (bias only for layernorm)
@@ -30,26 +34,28 @@ from repro_torch.kernels.kv_gen.ref import PAGE, kv_gen_ref
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
 NORM_TYPES = {"layernorm": 0, "rmsnorm": 1}
 MAX_HD = 128
-_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + \
+_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
-def _launch(lib, act_pages, page_index, norm_scale, norm_bias, wk, wv, sin,
-            cos, k, v, norm_type: str, eps: float, stream) -> None:
+def _launch(lib, act_pages, act_scales, page_index, norm_scale, norm_bias, wk,
+            wv, sin, cos, k, v, norm_type: str, eps: float, stream) -> None:
     fn = lib.kv_gen_fwd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     _, KVH, hd = wk.shape
-    err = fn(act_pages.data_ptr(), page_index.data_ptr(), norm_scale.data_ptr(),
+    err = fn(act_pages.data_ptr(),
+             None if act_scales is None else act_scales.data_ptr(),
+             page_index.data_ptr(), norm_scale.data_ptr(),
              None if norm_bias is None else norm_bias.data_ptr(), wk.data_ptr(),
              wv.data_ptr(), sin.data_ptr(), cos.data_ptr(),
              k.data_ptr(), v.data_ptr(), k.shape[0], act_pages.shape[-1], KVH,
-             hd, NORM_TYPES[norm_type], eps, DTYPES[act_pages.dtype], stream)
+             hd, NORM_TYPES[norm_type], eps, DTYPES[wk.dtype], stream)
     _build.check(lib, err, "kv_gen_fwd")
 
 
 def _validate(act_pages, page_index, norm_scale, norm_bias, wk, wv, sin, cos,
-              out, norm_type, n):
-    dt, dev = act_pages.dtype, act_pages.device
+              out, norm_type, n, act_scales=None):
+    dt, dev = wk.dtype, act_pages.device
     if dt not in DTYPES:
         raise ValueError(f"kv_gen: dtype {dt} (the kernel takes "
                          f"{sorted(map(str, DTYPES))})")
@@ -66,7 +72,8 @@ def _validate(act_pages, page_index, norm_scale, norm_bias, wk, wv, sin, cos,
                          f"{sorted(NORM_TYPES)})")
     if page_index is None or sin is None or cos is None:
         raise ValueError("kv_gen: the kernel needs page_index, sin and cos")
-    shapes = {"act_pages": (act_pages, tuple(act_pages.shape), dt),
+    shapes = {"act_pages": (act_pages, tuple(act_pages.shape),
+                            dt if act_scales is None else torch.int8),
               "wk": (wk, (d, KVH, hd), dt), "wv": (wv, (d, KVH, hd), dt),
               "k out": (out[0], (n, PAGE, KVH, hd), dt),
               "v out": (out[1], (n, PAGE, KVH, hd), dt),
@@ -74,6 +81,9 @@ def _validate(act_pages, page_index, norm_scale, norm_bias, wk, wv, sin, cos,
               "page_index": (page_index, (n,), torch.int32),
               "sin": (sin, (n, PAGE, hd // 2), torch.float32),
               "cos": (cos, (n, PAGE, hd // 2), torch.float32)}
+    if act_scales is not None:
+        shapes["act_scales"] = (act_scales, (act_pages.shape[0], PAGE, 1),
+                                torch.float16)
     if norm_type == "layernorm":
         if norm_bias is None:
             raise ValueError("kv_gen: layernorm needs norm_bias")
@@ -92,18 +102,19 @@ def _validate(act_pages, page_index, norm_scale, norm_bias, wk, wv, sin, cos,
 
 
 def kv_gen(act_pages, norm_scale, norm_bias, wk, wv, *, page_index=None,
-           sin=None, cos=None, norm_type: str = "rmsnorm", eps: float = 1e-6,
-           out=None):
-    """-> (k, v) (N, 16, KVH, hd): each selected ACT page normed, rounded,
-    projected by ``wk``/``wv``, rounded, and K rotated by the RoPE tables
-    (paper Eq. 7 as one GEMM).  ``out`` = (k, v) preallocated buffers to
-    write into (the decode step's scratch pool).  Page indices are not
+           sin=None, cos=None, act_scales=None, norm_type: str = "rmsnorm",
+           eps: float = 1e-6, out=None):
+    """-> (k, v) (N, 16, KVH, hd) in the weights' dtype: each selected ACT
+    page (int8 codes times ``act_scales``, rounded, in the int8 mode) normed,
+    rounded, projected by ``wk``/``wv``, rounded, and K rotated by the RoPE
+    tables (paper Eq. 7 as one GEMM).  ``out`` = (k, v) preallocated buffers
+    to write into (the decode step's scratch pool).  Page indices are not
     range-checked on the card (that would sync with the host)."""
     n = act_pages.shape[0] if page_index is None else page_index.shape[0]
     if act_pages.device.type == "cpu":
         k, v = kv_gen_ref(act_pages, norm_scale, norm_bias, wk, wv,
                           page_index=page_index, sin=sin, cos=cos,
-                          norm_type=norm_type, eps=eps)
+                          act_scales=act_scales, norm_type=norm_type, eps=eps)
         if out is None:
             return k, v
         out[0].copy_(k)
@@ -113,19 +124,22 @@ def kv_gen(act_pages, norm_scale, norm_bias, wk, wv, *, page_index=None,
         raise ValueError(f"kv_gen: unsupported device {act_pages.device}")
     if out is None:
         shape = (n, PAGE) + tuple(wk.shape[1:])
-        out = tuple(torch.empty(shape, dtype=act_pages.dtype,
+        out = tuple(torch.empty(shape, dtype=wk.dtype,
                                 device=act_pages.device) for _ in range(2))
     _validate(act_pages, page_index, norm_scale, norm_bias, wk, wv, sin, cos,
-              out, norm_type, n)
+              out, norm_type, n, act_scales)
     if n == 0:
         return out
     with torch.cuda.device(act_pages.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch(_build.load("kv_gen"), act_pages, page_index, norm_scale,
+        _launch(_build.load("kv_gen"), act_pages, act_scales, page_index,
+                norm_scale,
                 norm_bias if norm_type == "layernorm" else None, wk, wv, sin,
                 cos, out[0], out[1], norm_type, eps, stream)
     kv_gen.launches += 1
+    kv_gen.q8_launches += act_scales is not None
     return out
 
 
 kv_gen.launches = 0
+kv_gen.q8_launches = 0

@@ -13,19 +13,34 @@ pool: the fused loop cannot rotate K.
 JAX's functions are pure and the JAX engine donates the cache into its decode
 loop; here the cache tensors are updated in place instead, and each function
 returns the (same) cache dict for symmetry with the reference.
+
+Quantized cache (``quant=QuantConfig()``): the reference fake-quantizes every
+cache write and keeps the regions in the model dtype; here the regions hold
+what that stands for, int8 codes with float16 scale sidecars (``k_s``,
+``v_s`` per (token, head), ``act_s`` per token), and the kernels' int8 modes
+dequantize them on the tile.  As in the reference, an ACT-bound token
+attends to its own EXACT K/V on the step it is produced (only its checkpoint
+is stored quantized), while a KV-bound token's row is read back dequantized.
+The fused route leaves that token's ACT row out of the kernel's tables and
+folds its exact (k, v) into the kernel's ``return_lse`` partial; the RoPE
+route writes the exact rotated (k, v) into the token's row of the scratch
+pool after ``kv_gen``, the reference's ``ka.at[act_len].set(k)``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels.hybrid_attention.ops import (
     hybrid_paged_attention, hybrid_paged_attention_two_pool)
 from repro_torch.kernels.kv_gen.ops import kv_gen
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.quant_ops import check_supported, quantize, quantize_rows
 from repro_torch.models.transformer import (init_params, layer_params,  # noqa: F401 (re-export)
                                             pad_vocab, torch_dtype)
 
@@ -127,30 +142,64 @@ def _stack(toks, like):
 # =============================================================================
 
 def init_hybrid_cache(cfg: ModelConfig, B: int, kv_cap: int, act_cap: int,
-                      device="cuda") -> Cache:
+                      device="cuda", quant: Optional[QuantConfig] = None) -> Cache:
     """KV region holds the context prefix as K/V; ACT region holds the suffix
     as layer-input activation checkpoints (paper Eq. 7 recomputes K/V).
     Both capacities are whole pages, so each layer's region reshapes without
-    a copy into a page pool of the hybrid kernel."""
+    a copy into a page pool of the hybrid kernel.  Under ``quant`` the
+    regions hold int8 codes, and ``k_s``/``v_s`` (L, B, kv_cap, KVH, 1) and
+    ``act_s`` (L, B, act_cap, 1) their float16 scales, pools of (P, 16, ...)
+    alike."""
     if kv_cap % PAGE or act_cap % PAGE:
         raise ValueError(f"kv_cap={kv_cap}, act_cap={act_cap}: not multiples "
                          f"of the {PAGE}-token page")
-    dt = torch_dtype(cfg)
+    check_supported(quant)
+    dt = torch_dtype(cfg) if quant is None else torch.int8
     kv = (cfg.num_layers, B, kv_cap, cfg.num_kv_heads, cfg.head_dim)
+    act = (cfg.num_layers, B, act_cap, cfg.d_model)
     i32 = dict(dtype=torch.int32, device=device)
-    return {
+    cache = {
         "k": torch.zeros(kv, dtype=dt, device=device),
         "v": torch.zeros(kv, dtype=dt, device=device),
-        "act": torch.zeros((cfg.num_layers, B, act_cap, cfg.d_model), dtype=dt,
-                           device=device),
+        "act": torch.zeros(act, dtype=dt, device=device),
         "act_pos": torch.zeros((B, act_cap), **i32),
         "kv_len": torch.zeros((B,), **i32),
         "act_len": torch.zeros((B,), **i32),
     }
+    if quant is not None:
+        f16 = dict(dtype=torch.float16, device=device)
+        cache.update(k_s=torch.zeros(kv[:-1] + (1,), **f16),
+                     v_s=torch.zeros(kv[:-1] + (1,), **f16),
+                     act_s=torch.zeros(act[:-1] + (1,), **f16))
+    return cache
+
+
+def _check_cache(cache: Cache, quant: Optional[QuantConfig]) -> None:
+    if ("k_s" in cache) != (quant is not None):
+        raise ValueError(f"quant={quant} does not match the cache's format "
+                         f"({'int8' if 'k_s' in cache else 'unquantized'})")
+
+
+def region_scales(cache: Cache, i: int):
+    """Layer ``i``'s scale sidecars (k_s, v_s, act_s) of a quantized cache,
+    None for an unquantized one."""
+    if "k_s" not in cache:
+        return None
+    return cache["k_s"][i], cache["v_s"][i], cache["act_s"][i]
+
+
+def _store(cache: Cache, key: str, index, rows, quant) -> None:
+    """Write ``rows`` into ``cache[key][index]``: as codes, with their scales
+    into ``cache[key + "_s"][index]``, under ``quant``."""
+    codes, scales = quantize_rows(rows, quant, cache[key].dtype)
+    cache[key][index] = codes
+    if scales is not None:
+        cache[key + "_s"][index] = scales
 
 
 def hybrid_prefill_batched(params, cfg: ModelConfig, tokens, kv_cap: int,
-                           act_cap: int, kv_keep, last_pos):
+                           act_cap: int, kv_keep, last_pos,
+                           quant: Optional[QuantConfig] = None):
     """Group-batched hybrid prefill with PER-REQUEST KV/ACT split points.
 
       kv region  <- K/V of positions [0, kv_keep[b])   (kv_len masks the rest)
@@ -158,9 +207,10 @@ def hybrid_prefill_batched(params, cfg: ModelConfig, tokens, kv_cap: int,
 
     tokens (B, S); kv_keep, last_pos: (B,) int32 tensors on the same device.
     -> (last_logits (B, 1, V), hybrid cache).  Its three stages are the
-    offload executor's too, which runs the layers with streamed weights."""
+    offload executor's too, which runs the layers with streamed weights.
+    ``quant`` stores both regions as int8 codes with their scales."""
     pre = hybrid_prefill_begin(params, cfg, tokens, kv_cap, act_cap, kv_keep,
-                               last_pos)
+                               last_pos, quant)
     h = pre.h
     for i in range(cfg.num_layers):
         h = hybrid_prefill_layer(layer_params(params, i), cfg, h, pre, i)
@@ -170,16 +220,19 @@ def hybrid_prefill_batched(params, cfg: ModelConfig, tokens, kv_cap: int,
 class PrefillPlan(NamedTuple):
     """What every layer of one hybrid prefill shares: the embedded input
     ``h``, the cache it fills, RoPE at positions 0..S-1 (or None), the
-    ACT-region gather index (B, act_cap, d) and the KV rows each layer keeps."""
+    ACT-region gather index (B, act_cap, d), the KV rows each layer keeps,
+    and the cache's quantization."""
     h: torch.Tensor
     cache: Cache
     sincos: Optional[Tuple[torch.Tensor, torch.Tensor]]
     act_idx: torch.Tensor
     kfit: int
+    quant: Optional[QuantConfig] = None
 
 
 def hybrid_prefill_begin(params, cfg: ModelConfig, tokens, kv_cap: int,
-                         act_cap: int, kv_keep, last_pos) -> PrefillPlan:
+                         act_cap: int, kv_keep, last_pos,
+                         quant: Optional[QuantConfig] = None) -> PrefillPlan:
     """Check the split against the capacities, embed, allocate the cache."""
     if int(kv_keep.max()) > kv_cap:
         raise ValueError(f"kv_keep={int(kv_keep.max())} exceeds kv_cap={kv_cap}")
@@ -189,23 +242,24 @@ def hybrid_prefill_begin(params, cfg: ModelConfig, tokens, kv_cap: int,
     h = embed_input(params, cfg, tokens)
     B, S = h.shape[:2]
     dev = h.device
-    cache = init_hybrid_cache(cfg, B, kv_cap, act_cap, device=dev)
+    cache = init_hybrid_cache(cfg, B, kv_cap, act_cap, device=dev, quant=quant)
     slots = torch.arange(act_cap, dtype=torch.int32, device=dev)[None]
     # act region slot j of request b holds the checkpoint of position kv_keep[b]+j
     act_idx = (kv_keep[:, None] + slots).clamp(0, S - 1).long()
     act_idx = act_idx[:, :, None].expand(B, act_cap, cfg.d_model)
     return PrefillPlan(h, cache, T._rope_for(cfg, _positions(S, dev)), act_idx,
-                       min(S, kv_cap))
+                       min(S, kv_cap), quant)
 
 
 def hybrid_prefill_layer(lp, cfg: ModelConfig, h, pre: PrefillPlan, i: int):
     """Layer ``i`` of the hybrid prefill: store its input as the ACT
-    checkpoint, run it, keep its first ``kfit`` K/V rows.  -> its output."""
-    cache = pre.cache
-    cache["act"][i] = torch.gather(h, 1, pre.act_idx)       # A^i, the checkpoint
+    checkpoint, run it, keep its first ``kfit`` K/V rows (each stored as
+    codes and scales under the plan's ``quant``).  -> its output."""
+    cache, kept = pre.cache, (i, slice(None), slice(None, pre.kfit))
+    _store(cache, "act", i, torch.gather(h, 1, pre.act_idx), pre.quant)  # A^i
     h, (k, v) = T.layer_full(lp, cfg, h, pre.sincos)
-    cache["k"][i, :, :pre.kfit] = k[:, :pre.kfit]
-    cache["v"][i, :, :pre.kfit] = v[:, :pre.kfit]
+    _store(cache, "k", kept, k[:, :pre.kfit], pre.quant)
+    _store(cache, "v", kept, v[:, :pre.kfit], pre.quant)
     return h
 
 
@@ -281,27 +335,51 @@ def _layer_qkv(lp, cfg, h, act_kv: Optional[ActKV] = None):
     return q, k, v
 
 
-def _write_new(kc, vc, ac, k, v, act_in, kv_len, act_len, store_act):
+def _write_new(kc, vc, ac, k, v, act_in, kv_len, act_len, store_act,
+               scales=None):
     """Write the new token's K/V row (KV-bound) at ``kv_len`` of kc/vc
     (B, cap, KVH, D), or its checkpoint ``act_in`` (ACT-bound) at
-    ``act_len`` of ac (B, act_cap, d), in place."""
+    ``act_len`` of ac (B, act_cap, d), in place.  ``scales`` (ks, vs, as),
+    the regions' sidecars of a quantized cache: the row is written as
+    codes, and its scale beside it."""
     ar = torch.arange(kc.shape[0], device=kc.device)
     ki = kv_len.clamp(max=kc.shape[1] - 1).long()
     ai = act_len.clamp(max=ac.shape[1] - 1).long()
     to_act = store_act[:, None, None]
-    kc[ar, ki] = torch.where(to_act, kc[ar, ki], k[:, 0])
-    vc[ar, ki] = torch.where(to_act, vc[ar, ki], v[:, 0])
-    ac[ar, ai] = torch.where(store_act[:, None], act_in.to(ac.dtype), ac[ar, ai])
+    k_new, v_new, a_new = k[:, 0], v[:, 0], act_in
+    if scales is not None:
+        ks, vs, as_ = scales
+        (k_new, k_sc), (v_new, v_sc), (a_new, a_sc) = \
+            quantize(k_new), quantize(v_new), quantize(act_in)
+        ks[ar, ki] = torch.where(to_act, ks[ar, ki], k_sc)
+        vs[ar, ki] = torch.where(to_act, vs[ar, ki], v_sc)
+        as_[ar, ai] = torch.where(store_act[:, None], a_sc, as_[ar, ai])
+    kc[ar, ki] = torch.where(to_act, kc[ar, ki], k_new)
+    vc[ar, ki] = torch.where(to_act, vc[ar, ki], v_new)
+    ac[ar, ai] = torch.where(store_act[:, None], a_new.to(ac.dtype), ac[ar, ai])
+
+
+class OwnRow(NamedTuple):
+    """The new token's exact K/V (B, 1, KVH, D), its slot in the ACT region
+    (B,), and whether it is ACT-bound (B,): what a quantized step attends to
+    in place of the K/V its int8 checkpoint would give."""
+    k: torch.Tensor
+    v: torch.Tensor
+    act_len: torch.Tensor
+    store_act: torch.Tensor
 
 
 def _hybrid_attend(lp, cfg, q, kc, vc, ac, tables,
-                   act_kv: Optional[ActKV] = None, return_lse: bool = False):
+                   act_kv: Optional[ActKV] = None, return_lse: bool = False,
+                   scales=None, own: Optional[OwnRow] = None):
     """The new token's attention over the typed page tables: KV pages of
     kc/vc (B, cap, KVH, D), ACT pages of ac (B, act_cap, d).  ``act_kv``
     given (RoPE models): ``kv_gen`` recomputes the ACT pages into the
     scratch pool and the second-pool kernel attends; else the fused kernel
-    recomputes in its loop.  -> (B, KVH, G, D), and (m, l) with
-    ``return_lse``."""
+    recomputes in its loop.  ``scales`` (ks, vs, as) select the kernels'
+    int8 modes; ``own`` then carries the ACT-bound token's exact K/V, which
+    the tables leave out on the fused route.  -> (B, KVH, G, D), and (m, l)
+    with ``return_lse``."""
     B = q.shape[0]
     KVH, D, d = cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     qg = q.reshape(B, KVH, cfg.num_heads // KVH, D)
@@ -309,17 +387,61 @@ def _hybrid_attend(lp, cfg, q, kc, vc, ac, tables,
     norm = (lp["ln1"]["scale"], lp["ln1"].get("bias"))
     wkv = (lp["attn"]["wk"].view(d, KVH, D), lp["attn"]["wv"].view(d, KVH, D))
     eps = L.NORM_EPS[cfg.norm_type]
+    kv_s, act_s = {}, None
+    if scales is not None:
+        kv_s = dict(k_scales=scales[0].view(-1, PAGE, KVH, 1),
+                    v_scales=scales[1].view(-1, PAGE, KVH, 1))
+        act_s = scales[2].view(-1, PAGE, 1)
     if act_kv is None:
-        return hybrid_paged_attention(qg, *pools, ac.view(-1, PAGE, d), *norm,
-                                      *wkv, *tables, norm_type=cfg.norm_type,
-                                      eps=eps, return_lse=return_lse)
+        fused = lambda lse: hybrid_paged_attention(
+            qg, *pools, ac.view(-1, PAGE, d), *norm, *wkv, *tables,
+            act_scales=act_s, norm_type=cfg.norm_type, eps=eps,
+            return_lse=lse, **kv_s)
+        if own is None:
+            return fused(return_lse)
+        o, m, l = _merge_own(qg, *fused(True), own)
+        return (o, m, l) if return_lse else o
     if act_kv.page_index.numel():
         kv_gen(ac.view(-1, PAGE, d), *norm, *wkv,
                page_index=act_kv.page_index, sin=act_kv.sin,
-               cos=act_kv.cos, norm_type=cfg.norm_type, eps=eps,
-               out=(act_kv.k, act_kv.v))
+               cos=act_kv.cos, act_scales=act_s, norm_type=cfg.norm_type,
+               eps=eps, out=(act_kv.k, act_kv.v))
+        if own is not None:
+            _own_rows(act_kv, own)
     return hybrid_paged_attention_two_pool(qg, *pools, act_kv.k, act_kv.v,
-                                           *tables, return_lse=return_lse)
+                                           *tables, return_lse=return_lse,
+                                           **kv_s)
+
+
+def _merge_own(qg, o, m, l, own: OwnRow):
+    """Fold each ACT-bound token's exact (k, v) into the kernel's partial
+    (o, m, l) over the stored pages, as a one-token partition (the CPU
+    lane's merge); a KV-bound token's partition is empty.  -> (o in q's
+    dtype, m, l)."""
+    # the offload package imports this module: import its merge on use
+    from repro_torch.offload.host_attn import NEG_INF, merge_partials_torch
+    s = torch.einsum("bhgd,bhd->bhg", qg.float(), own.k[:, 0].float())
+    s = s[..., None] / math.sqrt(qg.shape[-1])
+    on = own.store_act[:, None, None, None]
+    m_own = torch.where(on, s, NEG_INF)
+    l_own = on.float().expand_as(s)
+    o, m, l = merge_partials_torch(o.float(), m, l, own.v[:, 0, :, None].float(),
+                                   m_own, l_own)
+    return o.to(qg.dtype), m, l
+
+
+def _own_rows(act_kv: ActKV, own: OwnRow) -> None:
+    """Write each ACT-bound token's exact rotated (k, v) into its row of the
+    scratch pool, over what ``kv_gen`` recomputed from its int8
+    checkpoint."""
+    B = own.k.shape[0]
+    rows = act_kv.k.shape[0] // B * PAGE         # scratch rows per request
+    kf, vf = (x.view(B, rows, *x.shape[2:]) for x in (act_kv.k, act_kv.v))
+    ar = torch.arange(B, device=kf.device)
+    slot = own.act_len.clamp(max=rows - 1).long()
+    on = (own.store_act & (own.act_len < rows))[:, None, None]
+    kf[ar, slot] = torch.where(on, own.k[:, 0].to(kf.dtype), kf[ar, slot])
+    vf[ar, slot] = torch.where(on, own.v[:, 0].to(vf.dtype), vf[ar, slot])
 
 
 def _layer_out(lp, cfg, h, o):
@@ -329,17 +451,23 @@ def _layer_out(lp, cfg, h, o):
 
 
 def _hybrid_layer_step(lp, cfg, h, kc, vc, ac, kv_len, act_len, store_act,
-                       tables, act_kv: Optional[ActKV] = None):
+                       tables, act_kv: Optional[ActKV] = None, scales=None):
     """One hybrid KV/ACT attention layer at decode time.  kc/vc (B, kv_cap,
-    KVH, D) and ac (B, act_cap, d) are this layer's regions, updated in place.
+    KVH, D) and ac (B, act_cap, d) are this layer's regions, updated in place
+    (int8 codes, with ``scales`` (ks, vs, as) their sidecars, in a quantized
+    cache).
 
     The new token's K/V (KV-bound) or checkpoint (ACT-bound) is written into
-    its region BEFORE the kernels run, so an ACT-bound token's K/V are
-    recomputed from its own checkpoint — the same norm(h) @ wk that ``_qk``
-    computed, rotated at the same position."""
+    its region BEFORE the kernels run.  Unquantized, an ACT-bound token's K/V
+    are then recomputed from its own checkpoint — the same norm(h) @ wk that
+    ``_qk`` computed, rotated at the same position.  Quantized, the
+    checkpoint is not what the token attends to: its exact K/V are (see the
+    module docstring)."""
     q, k, v = _layer_qkv(lp, cfg, h, act_kv)
-    _write_new(kc, vc, ac, k, v, h[:, 0], kv_len, act_len, store_act)
-    o = _hybrid_attend(lp, cfg, q, kc, vc, ac, tables, act_kv)
+    _write_new(kc, vc, ac, k, v, h[:, 0], kv_len, act_len, store_act, scales)
+    own = None if scales is None else OwnRow(k, v, act_len, store_act)
+    o = _hybrid_attend(lp, cfg, q, kc, vc, ac, tables, act_kv, scales=scales,
+                       own=own)
     return _layer_out(lp, cfg, h, o)
 
 
@@ -357,11 +485,14 @@ class DecodePlan(NamedTuple):
 
 
 def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
-                        store_act, *, pages_bound=None,
-                        act_pages_bound=None) -> DecodePlan:
+                        store_act, *, pages_bound=None, act_pages_bound=None,
+                        quant: Optional[QuantConfig] = None) -> DecodePlan:
     """Record the new token's ACT position, embed it, and build the step's
     page tables (and, for RoPE models, the ``kv_gen`` inputs) once for all
-    layers.  Bounds as for ``hybrid_decode_step``."""
+    layers.  Bounds as for ``hybrid_decode_step``.  Quantized, the fused
+    route's tables leave out an ACT-bound token's own row (its exact K/V are
+    merged in after the kernel)."""
+    _check_cache(cache, quant)
     B = token.shape[0]
     kv_cap, act_cap = cache["k"].shape[2], cache["act"].shape[2]
     kv_len, act_len = cache["kv_len"], cache["act_len"]
@@ -378,7 +509,8 @@ def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
     act_new = act_len + store_act.int()
     maxp = kv_cap // PAGE + act_cap // PAGE
     n_pages = maxp if pages_bound is None else min(int(pages_bound), maxp)
-    act_kv, act_stride, act_read = None, act_cap, act_new
+    act_kv, act_stride = None, act_cap
+    act_read = act_new if quant is None else act_len
     if cfg.pos_type == "rope":
         n_act = act_cap // PAGE if act_pages_bound is None \
             else min(int(act_pages_bound), act_cap // PAGE)
@@ -400,7 +532,8 @@ def hybrid_decode_end(params, cfg: ModelConfig, x, cache: Cache, store_act):
 
 
 def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
-                       store_act, *, pages_bound=None, act_pages_bound=None):
+                       store_act, *, pages_bound=None, act_pages_bound=None,
+                       quant: Optional[QuantConfig] = None):
     """One generation step with the KV-Activation hybrid cache.
 
     store_act (B,) bool: whether this token's checkpoint goes to the ACT
@@ -413,16 +546,18 @@ def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
     when it is 0.  Default: every ACT page.  A bound that is too small drops
     the ACT tokens past it from attention, as the reference's ``act_bound``
     does.
+    quant: the cache's ``QuantConfig`` (None: unquantized); it must match
+    the format ``init_hybrid_cache`` gave the cache.
     -> (logits (B, 1, V), cache)."""
     plan = hybrid_decode_begin(params, cfg, token, cache, store_act,
                                pages_bound=pages_bound,
-                               act_pages_bound=act_pages_bound)
+                               act_pages_bound=act_pages_bound, quant=quant)
     x = plan.x
     for i in range(cfg.num_layers):
         x = _hybrid_layer_step(layer_params(params, i), cfg, x, cache["k"][i],
                                cache["v"][i], cache["act"][i], cache["kv_len"],
                                cache["act_len"], store_act, plan.tables,
-                               plan.act_kv)
+                               plan.act_kv, region_scales(cache, i))
     return hybrid_decode_end(params, cfg, x, cache, store_act), cache
 
 
@@ -432,7 +567,7 @@ def _act_kv(cfg, cache, ctx, n_act: int) -> ActKV:
     ``n_act`` ACT pages of each request, those pages' indices in a layer's
     pool, and the scratch pool."""
     B, act_cap = cache["act_pos"].shape
-    dev, dt = ctx.device, cache["act"].dtype
+    dev, dt = ctx.device, torch_dtype(cfg)
     sin, cos = T._rope_for(cfg, cache["act_pos"][:, :n_act * PAGE])
     page_index = (torch.arange(B, dtype=torch.int32, device=dev)[:, None]
                   * (act_cap // PAGE)
@@ -446,7 +581,8 @@ def _act_kv(cfg, cache, ctx, n_act: int) -> ActKV:
 
 
 def hybrid_decode_loop(params, cfg: ModelConfig, cur, cache: Cache,
-                       store_sched, *, pages_bound=None, act_pages_bound=None):
+                       store_sched, *, pages_bound=None, act_pages_bound=None,
+                       quant: Optional[QuantConfig] = None):
     """Greedy generation over the hybrid cache, argmax on the device and no
     host sync inside the loop.
 
@@ -458,6 +594,7 @@ def hybrid_decode_loop(params, cfg: ModelConfig, cur, cache: Cache,
         toks.append(cur)
         lg, cache = hybrid_decode_step(params, cfg, cur[:, None], cache,
                                        store_sched[s], pages_bound=pages_bound,
-                                       act_pages_bound=act_pages_bound)
+                                       act_pages_bound=act_pages_bound,
+                                       quant=quant)
         cur = lg[:, -1].argmax(-1).int()
     return _stack(toks, cur), cache

@@ -24,6 +24,14 @@ Exactness: each layer runs the functions the device-resident path runs
 (``models.model``'s prefill and decode stages and ``_hybrid_layer_step``),
 so the same kernels launch and the tokens equal the device-resident path's
 at any prefetch depth, with or without spill.
+
+Quantized cache (``quant``): the regions already hold int8 codes and float16
+scales on the device, so the spill, the per-step upload and the store-back
+move those bytes as they are, and the uploaded slot feeds the kernels' int8
+modes directly.  Unlike the reference, which keeps fake-quantized values on
+the device, no host requantization (its ``np_quantize`` store-back) and no
+dequantization on upload are needed; the CPU lane dequantizes the arena's
+rows through the cache dtype, as the kernels do.
 """
 from __future__ import annotations
 
@@ -36,13 +44,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
-from repro_torch.offload.host_attn import HostAttnExecutor, merge_partials_torch
+from repro_torch.offload.host_attn import (HostAttnExecutor, QuantPlane,
+                                           merge_partials_torch)
 from repro_torch.offload.host_pool import HostWeightPool, Region
 from repro_torch.offload.streamer import WeightStreamer, timing_event
 from repro_torch.offload.timeline import MeasuredTimeline
 
 Cache = Dict[str, Any]
 PAGE = M.PAGE
+#: the KV region's planes, in arena order: codes (or values), then the
+#: scales of a quantized cache
+REGION_KEYS = ("k", "v", "k_s", "v_s")
 
 
 class OffloadExecutor:
@@ -53,9 +65,10 @@ class OffloadExecutor:
 
     def __init__(self, cfg: ModelConfig, params, *, prefetch_depth: int = 1,
                  faults=None, watchdog_s: Optional[float] = None,
-                 device="cuda"):
+                 quant=None, device="cuda"):
         T.check_supported(cfg)
         self.cfg = cfg
+        self.quant = quant
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.timeline = MeasuredTimeline()
@@ -94,7 +107,8 @@ class OffloadExecutor:
         kv_keep, last_pos = self._as_dev(kv_keep), self._as_dev(last_pos)
         self.timeline.begin_step("prefill", now=self._now())
         pre = M.hybrid_prefill_begin(self.resident, cfg, self._as_dev(tokens),
-                                     kv_cap, act_cap, kv_keep, last_pos)
+                                     kv_cap, act_cap, kv_keep, last_pos,
+                                     self.quant)
         self.dispatches += 1
         h = pre.h
         self.streamer.begin(range(cfg.num_layers))
@@ -114,26 +128,30 @@ class OffloadExecutor:
     # ============================================================ spill lane
     def _spill_out(self, cache: Cache, region: Region):
         """Move the whole KV region device→host into the arena and free the
-        device copy.  -> (hk, hv) arena views (L, B, kv_cap, KVH, D), and
-        the KV lengths on the host."""
-        k = cache["k"]
-        arr = region.view((2,) + tuple(k.shape), k.dtype)
-        t0 = self._now()
-        arr[0].copy_(k, non_blocking=True)
-        arr[1].copy_(cache["v"], non_blocking=True)
-        self.timeline.record("pcie_up", "st", t0, self._now(),
-                             2 * k.numel() * k.element_size())
+        device copy.  -> the arena's planes [hk, hv] (L, B, kv_cap, KVH, D),
+        with [hk_s, hv_s] (L, B, kv_cap, KVH, 1) after them for a quantized
+        cache (codes first, then scales, in one region), and the KV lengths
+        on the host."""
+        planes, at, t0 = [], 0, self._now()
+        for key in (k for k in REGION_KEYS if k in cache):
+            t = cache[key]
+            plane = region.view(tuple(t.shape), t.dtype, at)
+            plane.copy_(t, non_blocking=True)
+            planes.append(plane)
+            at += t.numel() * t.element_size()
+            cache[key] = None
+        self.timeline.record("pcie_up", "st", t0, self._now(), at)
         kv_len = cache["kv_len"].cpu().numpy().copy()   # waits for the copies
         self.blocking_syncs += 1
-        cache["k"] = cache["v"] = None
-        return arr[0], arr[1], kv_len
+        return planes, kv_len
 
     def _kv_bufs(self, slot: Optional[int]):
-        """The device KV pair of a weight slot (None: the degraded spare)."""
+        """The device copies of one layer's arena planes for a weight slot
+        (None: the degraded spare)."""
         key = "spare" if slot is None else slot
         if key not in self._kv_dev:
-            self._kv_dev[key] = tuple(torch.empty_like(self._hk[0], device=self.device)
-                                      for _ in range(2))
+            self._kv_dev[key] = [torch.empty_like(p[0], device=self.device)
+                                 for p in self._planes]
         return self._kv_dev[key]
 
     def _kv_stage(self, i: int, slot: Optional[int]) -> None:
@@ -145,17 +163,18 @@ class OffloadExecutor:
             self._kv_upload(i, slot)
 
     def _kv_upload(self, i: int, slot: Optional[int]) -> None:
-        """Layer ``i % L``'s spilled region into the slot's KV pair, on the
-        current stream, after the layer's last store-back."""
+        """Layer ``i % L``'s spilled region (codes and scales when quantized)
+        into the slot's buffers, on the current stream, after the layer's
+        last store-back."""
         l = i % self.cfg.num_layers
-        kc, vc = self._kv_bufs(slot)
+        bufs = self._kv_bufs(slot)
         if self.cuda and self._stored_ev[l] is not None:
             torch.cuda.current_stream().wait_event(self._stored_ev[l])
         t0 = self._now()
-        kc.copy_(self._hk[l], non_blocking=True)
-        vc.copy_(self._hv[l], non_blocking=True)
+        for buf, plane in zip(bufs, self._planes):
+            buf.copy_(plane[l], non_blocking=True)
         self.timeline.record("pcie", "kv", t0, self._now(),
-                             2 * kc.numel() * kc.element_size())
+                             sum(b.numel() * b.element_size() for b in bufs))
         self._kv_staged[i] = slot
 
     def _kv_for(self, i: int):
@@ -165,22 +184,22 @@ class OffloadExecutor:
             self._kv_upload(i, self.streamer._live[i])
         return self._kv_bufs(self._kv_staged.pop(i))
 
-    def _store_back(self, rows_k, rows_v, l: int, kv_idx: np.ndarray,
+    def _store_back(self, rows, l: int, kv_idx: np.ndarray,
                     store_np: np.ndarray) -> None:
-        """Copy each KV-bound request's new K/V row (``rows_*[b]``, device
-        (KVH, D)) into its arena slot: the per-step store traffic, D2H,
-        asynchronous into pinned memory.  The event after it is what the
-        next step's upload or host job of the layer waits on."""
-        hk_l, hv_l = self._hk[l], self._hv[l]
-        cap = hk_l.shape[1]
+        """Copy each KV-bound request's new row of every arena plane
+        (``rows[p][b]``, device (KVH, D), or (KVH, 1) scales) into its arena
+        slot: the per-step store traffic, D2H, asynchronous into pinned
+        memory.  The event after it is what the next step's upload or host
+        job of the layer waits on."""
+        cap = self._planes[0].shape[2]
         t0 = self._now()
         nbytes = 0
         for b in range(len(store_np)):
             if not store_np[b]:                 # KV-bound token: row is new
                 row = min(int(kv_idx[b]), cap - 1)
-                hk_l[b, row].copy_(rows_k[b], non_blocking=True)
-                hv_l[b, row].copy_(rows_v[b], non_blocking=True)
-                nbytes += 2 * rows_k[b].numel() * rows_k[b].element_size()
+                for plane, r in zip(self._planes, rows):
+                    plane[l, b, row].copy_(r[b], non_blocking=True)
+                    nbytes += r[b].numel() * r[b].element_size()
         end = self._now()
         self.timeline.record("pcie_up", "st", t0, end, nbytes)
         self._stored_ev[l] = end if self.cuda else None
@@ -196,15 +215,26 @@ class OffloadExecutor:
         self.host_lane.begin()
         return self.host_lane
 
-    def _ha_layer(self, lane, lp, x, ac, act_len, store, store_np, plan,
-                  ha_tables, own, l: int, kv_len_np):
+    def _host_planes(self, l: int):
+        """Layer ``l``'s K and V arena planes as the host lane reads them."""
+        if len(self._planes) == 2:
+            return self._planes[0][l], self._planes[1][l]
+        dt = T.torch_dtype(self.cfg)
+        return (QuantPlane(self._planes[0][l], self._planes[2][l], dt),
+                QuantPlane(self._planes[1][l], self._planes[3][l], dt))
+
+    def _ha_layer(self, lane, lp, x, ac, act_s, act_len, store, store_np,
+                  plan, ha_tables, own, l: int, kv_len_np):
         """One host-attend layer against the spilled arena.  The region
         never crosses the link: the query goes D2H, the host partial's
         statistics H2D, the new row D2H.  The device partial attends over
         [the new token's own row ; the ACT region] — the own row is a
         one-token KV page valid only for a KV-bound token, the ACT region
         holds the checkpoint of an ACT-bound one — so with the host's rows
-        [0, kv_len) the two partitions are exactly the one-pool valid set."""
+        [0, kv_len) the two partitions are exactly the one-pool valid set.
+        Quantized, ``own`` holds codes and scales (the KV-bound row is read
+        back dequantized), and the ACT-bound token attends to its exact K/V
+        as on the device-resident path."""
         cfg = self.cfg
         B = x.shape[0]
         t0 = self._now()
@@ -212,10 +242,13 @@ class OffloadExecutor:
         if self.cuda:
             self._q_host.copy_(q, non_blocking=True)
             q_ready = timing_event()
+        scales = None if act_s is None else (own[2], own[3], act_s)
         M._write_new(own[0], own[1], ac, k, v, x[:, 0], self._zeros_b, act_len,
-                     store)
+                     store, scales)
+        exact = None if scales is None else M.OwnRow(k, v, act_len, store)
         o_d, m_d, l_d = M._hybrid_attend(lp, cfg, q, own[0], own[1], ac,
-                                         ha_tables, plan.act_kv, return_lse=True)
+                                         ha_tables, plan.act_kv, return_lse=True,
+                                         scales=scales, own=exact)
         self.timeline.record("gpu", "fwd", t0, self._now())
         self.dispatches += 2                    # projections, device partial
         if self.cuda:
@@ -226,7 +259,7 @@ class OffloadExecutor:
         self.blocking_syncs += 1
         G = cfg.num_heads // cfg.num_kv_heads
         job = lane.submit(q_np.reshape(B, cfg.num_kv_heads, G, cfg.head_dim),
-                          self._hk[l], self._hv[l], kv_len_np,
+                          *self._host_planes(l), kv_len_np,
                           after=self._stored_ev[l])
         o_h, m_h, l_h = (torch.from_numpy(a).to(self.device)
                          for a in lane.collect(job))
@@ -235,7 +268,7 @@ class OffloadExecutor:
         x = M._layer_out(lp, cfg, x, o.to(x.dtype))
         self.timeline.record("gpu", "fwd", t0, self._now())
         self.dispatches += 1
-        self._store_back(k[:, 0], v[:, 0], l, kv_len_np, store_np)
+        self._store_back([p[:, 0] for p in own], l, kv_len_np, store_np)
         return x
 
     # ================================================================= decode
@@ -272,24 +305,30 @@ class OffloadExecutor:
         self._stored_ev: List[Optional[object]] = [None] * L
         self._stored_upto = -1
         self._kv_staged: Dict[int, Optional[int]] = {}
-        self._kv_dev: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._kv_dev: Dict[Any, List[torch.Tensor]] = {}
+        quant = self.quant is not None
         side = None
         if spill:
-            self._hk, self._hv, kv_len_np = self._spill_out(cache, spill_region)
+            self._planes, kv_len_np = self._spill_out(cache, spill_region)
             # the arena stands in for the region (its shape sizes the tables)
-            cache = dict(cache, k=self._hk, v=self._hv)
+            cache = dict(cache, **dict(zip(REGION_KEYS, self._planes)))
             if not host_attn:
                 side = self._kv_stage
         if host_attn:
-            dt = cache["act"].dtype
-            own = tuple(torch.zeros((B, PAGE, cfg.num_kv_heads, cfg.head_dim),
-                                    dtype=dt, device=self.device)
-                        for _ in range(2))
+            # the new token's own KV page, in the cache's format
+            dt = torch.int8 if quant else T.torch_dtype(cfg)
+            kv_row = (B, PAGE, cfg.num_kv_heads)
+            own = [torch.zeros(kv_row + (cfg.head_dim,), dtype=dt,
+                               device=self.device) for _ in range(2)]
+            if quant:
+                own += [torch.zeros(kv_row + (1,), dtype=torch.float16,
+                                    device=self.device) for _ in range(2)]
             self._zeros_b = torch.zeros((B,), dtype=torch.int32,
                                         device=self.device)
             if self.cuda:
                 self._q_host = torch.empty((B, 1, cfg.num_heads, cfg.head_dim),
-                                           dtype=dt, pin_memory=True)
+                                           dtype=T.torch_dtype(cfg),
+                                           pin_memory=True)
             act_cap = cache["act"].shape[2]
         toks: List[torch.Tensor] = []
         self.streamer.begin([l for _ in range(n_steps) for l in range(L)],
@@ -300,7 +339,8 @@ class OffloadExecutor:
             store = sched_dev[s]
             plan = M.hybrid_decode_begin(self.resident, cfg, cur[:, None],
                                          cache, store, pages_bound=pages_bound,
-                                         act_pages_bound=act_pages_bound)
+                                         act_pages_bound=act_pages_bound,
+                                         quant=self.quant)
             self.dispatches += 1
             if host_attn:
                 n_act = plan.act_stride // PAGE if plan.act_kv is not None \
@@ -312,23 +352,26 @@ class OffloadExecutor:
             for l in range(L):
                 lp = self.streamer.acquire(seq)
                 ac = cache["act"][l]
+                act_s = cache["act_s"][l] if quant else None
                 if host_attn:
-                    x = self._ha_layer(lane, lp, x, ac, cache["act_len"], store,
-                                       sched[s], plan, ha_tables, own, l,
+                    x = self._ha_layer(lane, lp, x, ac, act_s, cache["act_len"],
+                                       store, sched[s], plan, ha_tables, own, l,
                                        kv_len_np)
                 else:
-                    kc, vc = self._kv_for(seq) if spill else \
-                        (cache["k"][l], cache["v"][l])
+                    bufs = self._kv_for(seq) if spill else \
+                        [cache[key][l] for key in REGION_KEYS if key in cache]
+                    scales = (bufs[2], bufs[3], act_s) if quant else None
                     t0 = self._now()
-                    x = M._hybrid_layer_step(lp, cfg, x, kc, vc, ac,
+                    x = M._hybrid_layer_step(lp, cfg, x, bufs[0], bufs[1], ac,
                                              cache["kv_len"], cache["act_len"],
-                                             store, plan.tables, plan.act_kv)
+                                             store, plan.tables, plan.act_kv,
+                                             scales)
                     self.timeline.record("gpu", "fwd", t0, self._now())
                     self.dispatches += 1
                     if spill:
                         ar = torch.arange(B, device=self.device)
-                        ki = cache["kv_len"].clamp(max=kc.shape[1] - 1).long()
-                        self._store_back(kc[ar, ki], vc[ar, ki], l, kv_len_np,
+                        ki = cache["kv_len"].clamp(max=bufs[0].shape[1] - 1).long()
+                        self._store_back([b[ar, ki] for b in bufs], l, kv_len_np,
                                          sched[s])
                 if spill:
                     self._stored_upto = seq
@@ -345,8 +388,9 @@ class OffloadExecutor:
                else np.zeros((B, 0), np.int32))
         self.blocking_syncs += 1
         if spill:
-            cache = dict(cache, k=None, v=None)
-            self._hk = self._hv = None
+            cache = dict(cache, **{key: None for key in REGION_KEYS
+                                   if key in cache})
+            self._planes = None
         self._kv_dev = {}
         return out, dict(cache, spilled=spill)
 

@@ -1,5 +1,5 @@
 """CPU-compute attention lane: host flash attention over spilled KV blocks
-(a copy of ``repro.offload.host_attn`` without the quantized-arena branch).
+(a copy of ``repro.offload.host_attn``).
 
 The two placements for a KV block under memory pressure both pay a link
 cost: keep it on device, or spill it and either re-upload it every step
@@ -26,6 +26,11 @@ valid set a hybrid layer step attends over.  The device partial's ``(m, l)``
 come from the hybrid kernel's ``return_lse`` mode.  An empty host partition
 is the identity element (m = NEG_INF, l = 0).
 
+A quantized arena's planes are ``QuantPlane``s: int8 codes and float16
+scales, read as ``code * scale`` rounded to the cache dtype, then widened to
+float32 (the reference's ``_dequant_rows``), so the host reads the values the
+device kernels read.
+
 ``HostAttnExecutor`` runs the host partition on a dedicated worker thread:
 submit right after the query reaches the host, overlap with the device
 partial, collect at the merge point — with the fault/watchdog ladder
@@ -39,11 +44,12 @@ import math
 import time
 from concurrent.futures import ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FuturesTimeout
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.models.quant_ops import dequantize
 from repro_torch.offload.faults import (MAX_COPY_RETRIES, FaultPlan,
                                         TransientCopyError)
 from repro_torch.offload.streamer import FAULT_COUNTER_KEYS
@@ -86,9 +92,23 @@ def merge_partials_torch(o_a, m_a, l_a, o_b, m_b, l_b):
     return o, m_new, tot
 
 
+class QuantPlane(NamedTuple):
+    """One layer's spilled K or V plane of a quantized arena: codes (B, cap,
+    KVH, D) int8, scales (B, cap, KVH, 1) float16, and the cache dtype the
+    codes dequantize to."""
+    codes: torch.Tensor
+    scales: torch.Tensor
+    dtype: torch.dtype
+
+
 def _rows(plane, bound: int) -> Tuple[np.ndarray, int]:
     """First ``bound`` rows of one arena plane (B, cap, KVH, D) as float32
-    numpy, plus the bytes read.  A float32 plane is read in place."""
+    numpy, plus the bytes read.  A float32 plane is read in place; a
+    ``QuantPlane`` is dequantized through its cache dtype."""
+    if isinstance(plane, QuantPlane):
+        q, s = plane.codes[:, :bound], plane.scales[:, :bound]
+        return (dequantize(q, s, plane.dtype).float().numpy(),
+                q.numel() * q.element_size() + s.numel() * s.element_size())
     if isinstance(plane, torch.Tensor):
         rows = plane[:, :bound]
         return rows.float().numpy(), rows.numel() * rows.element_size()
@@ -102,7 +122,8 @@ def host_flash_attention(q: np.ndarray, hk, hv, kv_len: np.ndarray, *,
     """Flash-style masked attention over host-arena KV rows ``[0, kv_len)``.
 
     q:      (B, KVH, G, D) f32 — roped query, grouped per KV head.
-    hk/hv:  arena planes, (B, cap, KVH, D) each (torch CPU tensor or numpy).
+    hk/hv:  arena planes, (B, cap, KVH, D) each (torch CPU tensor, numpy, or
+            ``QuantPlane``).
     kv_len: (B,) int — valid host rows per request (0 = empty partition).
     -> (o (B,KVH,G,D) f32 normalised, m (B,KVH,G,1) f32, l (B,KVH,G,1) f32,
         bytes read from the arena).

@@ -142,13 +142,15 @@ class Region:
     def nbytes(self) -> int:
         return self.n_blocks * self.pool.block_bytes
 
-    def view(self, shape: Tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
-        """Reinterpret the region's bytes as a tensor (in-place view)."""
+    def view(self, shape: Tuple[int, ...], dtype: torch.dtype,
+             at: int = 0) -> torch.Tensor:
+        """Reinterpret the region's bytes from byte ``at`` on as a tensor
+        (in-place view); ``at`` a multiple of the dtype's size."""
         need = int(torch.Size(shape).numel()) * dtype.itemsize
-        if need > self.nbytes:
-            raise ValueError(f"view of {need} B exceeds region of "
-                             f"{self.nbytes} B")
-        start = self.offset * self.pool.block_bytes
+        if at + need > self.nbytes or at % dtype.itemsize:
+            raise ValueError(f"view of {need} B at {at} does not fit a region "
+                             f"of {self.nbytes} B")
+        start = self.offset * self.pool.block_bytes + at
         return self.pool.arena[start: start + need].view(dtype).view(shape)
 
     def free(self) -> None:
@@ -242,11 +244,13 @@ def kv_region_blocks(B: int, kv_cap: int) -> int:
 
 
 def make_spill_pool(cfg: ModelConfig, *, max_requests: int, kv_cap: int,
-                    device="cuda") -> HostBlockPool:
+                    quant=None, device="cuda") -> HostBlockPool:
     """The engine's once-allocated KV staging pool: enough host blocks to
     back the largest group's KV region, plus one group of slack.  This is
     the *staging* arena the executor spills into, not the full Algorithm-1
     host cache.  (ACT blocks prefer device residency and are never spilled,
-    so no ACT arena exists.)"""
+    so no ACT arena exists.)  ``quant`` sizes each block by the quantized
+    layout, int8 codes and float16 scales: the arena shrinks with it."""
     kv_blocks = 2 * kv_region_blocks(max_requests, kv_cap)
-    return HostBlockPool(kv_blocks, kv_block_bytes(cfg), device=device)
+    return HostBlockPool(kv_blocks, kv_block_bytes(cfg, quant=quant),
+                         device=device)

@@ -24,8 +24,12 @@ pinned host memory over a copy stream, spills KV regions to a pinned host
 arena when the config-driven budget demands, optionally attends over a
 spilled region on the CPU (``host_attn=True``), and reports MEASURED lane
 timelines next to the simulated predictions — token-exact against each other.
-The adaptive controller, sharding and cache quantization are not part of
-this engine yet.
+
+``quant=QuantConfig()`` stores both cache regions as int8 codes with float16
+scales on the device, read by the kernels' int8 modes; Algorithm 1, the block
+manager, the spill arena and the simulator price the quantized bytes, so the
+split re-balances as the reference's does.  The adaptive controller and
+sharding are not part of this engine yet.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.core.blocks import (BLOCK_TOKENS, BlockManager, BlockType,
 from repro_torch.core.minibatch import RequestBlocks, form_minibatches
 from repro_torch.core.pipeline import (MiniBatchSpec, TimelineResult,
                                        simulate_steps)
+from repro_torch.core.quant import QuantConfig
 from repro_torch.core.policy import (device_act_blocks, host_block_allocation,
                                      store_act_schedule)
 from repro_torch.core.costmodel import profile_cost_fns
@@ -100,7 +105,8 @@ class HybridServeEngine:
                  max_minibatch: int = 4, kv_cap: int = 512, act_cap: int = 512,
                  offload: bool = False, budget: Optional[OffloadBudget] = None,
                  host_attn: bool = False, faults=None,
-                 watchdog_s: Optional[float] = None, device="cuda"):
+                 watchdog_s: Optional[float] = None,
+                 quant: Optional[QuantConfig] = None, device="cuda"):
         """``params`` must already live on ``device`` (under ``offload`` they
         may live anywhere, or be a ``HostWeightPool`` shared between
         engines).  Algorithm 1 runs as the paper states it (the reference's
@@ -119,22 +125,28 @@ class HybridServeEngine:
 
         faults / watchdog_s: a ``FaultPlan`` and the lanes' watchdog
         deadline; an arena denial (real or injected) serves the group
-        device-resident instead of failing it."""
+        device-resident instead of failing it.
+
+        quant=QuantConfig() keeps both cache regions as int8 codes with
+        float16 scales, on the device and in the spill arena; the policy,
+        block manager and simulator price those bytes.  None: the config
+        dtype."""
         if mode not in ("hybrid", "kv", "act"):
             raise ValueError(f"mode={mode!r}: one of hybrid, kv, act")
         if host_attn and not offload:
             raise ValueError("host_attn rides the offload runtime's spill arena")
         T.check_supported(cfg)
         self.cfg, self.params, self.hw, self.mode = cfg, params, hw, mode
+        self.quant = quant
         self.host_attn = bool(host_attn)
         self.offload = offload
         self.budget = budget if budget is not None else offload_budget(cfg)
         self.device = torch.device(device)
         self.max_minibatch = max_minibatch
         self.kv_cap, self.act_cap = kv_cap, act_cap
-        self.fits = profile_cost_fns(cfg, hw)
-        dev_act = device_act_blocks(cfg, hw)
-        self.alloc = host_block_allocation(cfg, hw, dev_act)
+        self.fits = profile_cost_fns(cfg, hw, quant=quant)
+        dev_act = device_act_blocks(cfg, hw, quant=quant)
+        self.alloc = host_block_allocation(cfg, hw, dev_act, quant=quant)
         if mode == "kv":
             self.alloc = dataclasses.replace(self.alloc, act_blocks=0, kv_blocks=max(
                 self.alloc.kv_blocks, 1))
@@ -148,7 +160,7 @@ class HybridServeEngine:
             cfg, host_kv_blocks=max(self.alloc.kv_blocks, 1),
             host_act_blocks=max(self.alloc.act_blocks, 1),
             dev_kv_blocks=self.budget.dev_kv_blocks(cfg) if offload else 64,
-            dev_act_blocks=dev_act)
+            dev_act_blocks=dev_act, quant=quant)
         self.executor = None
         self.measured_steps: List[TimelineResult] = []
         self.faults = faults
@@ -157,9 +169,11 @@ class HybridServeEngine:
             from repro_torch.offload import OffloadExecutor, make_spill_pool
             self.executor = OffloadExecutor(
                 cfg, params, prefetch_depth=self.budget.prefetch_depth,
-                faults=faults, watchdog_s=watchdog_s, device=device)
+                faults=faults, watchdog_s=watchdog_s, quant=quant,
+                device=device)
             self.spill_kv_pool = make_spill_pool(
-                cfg, max_requests=max_minibatch, kv_cap=kv_cap, device=device)
+                cfg, max_requests=max_minibatch, kv_cap=kv_cap, quant=quant,
+                device=device)
             # the executor owns the host copy of the layer weights and the
             # resident tree; the engine holds no reference to the caller's
             # parameters, so they can be freed from the device
@@ -267,7 +281,7 @@ class HybridServeEngine:
         else:
             lg, cache = M.hybrid_prefill_batched(
                 self.params, cfg, as_dev(toks), self.kv_cap, self.act_cap,
-                as_dev(kv_keep), as_dev(pbs))
+                as_dev(kv_keep), as_dev(pbs), quant=self.quant)
             cur = lg[:, -1].argmax(-1).int()
             stats.device_calls += 1
         region = None
@@ -341,7 +355,8 @@ class HybridServeEngine:
                 gen_dev, _ = M.hybrid_decode_loop(self.params, cfg, cur, cache,
                                                   sched_dev,
                                                   pages_bound=pages_bound,
-                                                  act_pages_bound=act_bound)
+                                                  act_pages_bound=act_bound,
+                                                  quant=self.quant)
                 gen = gen_dev.cpu().numpy()
                 stats.device_calls += 1
             else:
@@ -381,7 +396,7 @@ class HybridServeEngine:
                 ctx_tokens=int(np.mean(np.asarray(pbs) + steps_ahead[s])),
                 cpu_host_tokens=int(kv_tok[s]) if use_cpu else 0)]
                 for s in range(max_new)]
-            for res in simulate_steps(cfg, self.hw, specs):
+            for res in simulate_steps(cfg, self.hw, specs, quant=self.quant):
                 stats.sim_time += res.total
                 stats.sim_gpu_busy += res.gpu_busy
                 for k, v in res.traffic.items():

@@ -11,6 +11,7 @@ import pytest
 
 from repro_torch import params as P
 from repro_torch.models import model as M
+from repro_torch.models import quantized_cache as QC
 from repro_torch.offload import host_pool as HP
 from repro_torch.offload.executor import OffloadExecutor
 from repro_torch.serving import engine as E
@@ -63,7 +64,7 @@ def test_importing_every_port_module_loads_no_jax():
                                 E.exact_reference_generate,
                                 HP.HostWeightPool.__init__,
                                 HP.HostBlockPool.__init__, HP.make_spill_pool,
-                                OffloadExecutor.__init__],
+                                OffloadExecutor.__init__, QC.init_cache_q8],
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
