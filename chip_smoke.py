@@ -277,28 +277,36 @@ def check_flash(B, S, H=32, KVH=32, D=128, dtype=torch.float16):
             "bound_by": by}
 
 
-def check_hybrid(B=4, KVH=32, G=1, D=128, d=4096, cap=512,
+# the fused mode's hand-picked tables (uneven splits, an empty KV region),
+# kept for its fp rows and the rmsnorm branch; pages_bound is the most pages
+# a request uses (6 KV + 1 ACT), as the engine sizes its tables
+HAND_SHAPE = {"B": 4, "kv_cap": 512, "act_cap": 512,
+              "kv_tokens": [40, 17, 96, 0], "act_tokens": [24, 47, 16, 70],
+              "pages_bound": 7}
+
+
+def check_hybrid(shape=HAND_SHAPE, KVH=32, G=1, D=128, d=4096,
                  dtype=torch.float16, norm_type="layernorm", q8=False):
-    """The fused mode at a serve path's shape; ``q8``: its int8 mode, the
-    pools quantized as the cache stores them."""
+    """The fused mode at ``shape``'s tables (a serve path's, see
+    ``serve_shape``); ``q8``: its int8 mode, the pools quantized as the
+    cache stores them, and the fp mode over the same values timed beside
+    it."""
     g = torch.Generator(device="cuda").manual_seed(1)
     rnd = lambda *shape, s=1.0, o=0.0: (torch.randn(
         shape, generator=g, device="cuda") * s + o).to(dtype)
-    k_pages = rnd(B * cap // PAGE, PAGE, KVH, D, s=0.5)
-    v_pages = rnd(B * cap // PAGE, PAGE, KVH, D, s=0.5)
-    act_pages = rnd(B * cap // PAGE, PAGE, d, o=0.1)
+    B, kv_cap, act_cap = shape["B"], shape["kv_cap"], shape["act_cap"]
+    pages_bound = shape["pages_bound"]
+    k_pages = rnd(B * kv_cap // PAGE, PAGE, KVH, D, s=0.5)
+    v_pages = rnd(B * kv_cap // PAGE, PAGE, KVH, D, s=0.5)
+    act_pages = rnd(B * act_cap // PAGE, PAGE, d, o=0.1)
     q = rnd(B, KVH, G, D)
     scale = rnd(d, s=0.1, o=1.0 if norm_type == "layernorm" else 0.0)
     bias = rnd(d, s=0.2) if norm_type == "layernorm" else None  # non-zero
     wk, wv = rnd(d, KVH, D, s=d ** -0.5), rnd(d, KVH, D, s=d ** -0.5)
-    kv_tok = torch.tensor([40, 17, 96, 0], dtype=torch.int32, device="cuda")
-    act_tok = torch.tensor([24, 47, 16, 70], dtype=torch.int32, device="cuda")
-    n_kv = int(((kv_tok + PAGE - 1) // PAGE).sum())
-    n_act = int(((act_tok + PAGE - 1) // PAGE).sum())
-    # tables as wide as the most pages a request uses, as the engine sizes them
-    pages_bound = int(((kv_tok + PAGE - 1) // PAGE
-                       + (act_tok + PAGE - 1) // PAGE).max())
-    tables = M.hybrid_page_table(kv_tok, act_tok, cap, cap, pages_bound)
+    kv_tok, act_tok = (torch.tensor(shape[k], dtype=torch.int32, device="cuda")
+                       for k in ("kv_tokens", "act_tokens"))
+    tables = M.hybrid_page_table(kv_tok, act_tok, kv_cap, act_cap, pages_bound)
+    fp_args = (q, k_pages, v_pages, act_pages, scale, bias, wk, wv)
     sc = {}
     if q8:
         (k_pages, v_pages, act_pages), sc = q8_pools(
@@ -309,7 +317,7 @@ def check_hybrid(B=4, KVH=32, G=1, D=128, d=4096, cap=512,
     got = run(hybrid_paged_attention)
     want = run(hybrid_paged_attention_ref)
     faulty = run(hybrid_paged_attention, M.hybrid_page_table(
-        kv_tok, drop_last_page(act_tok), cap, cap, pages_bound))
+        kv_tok, drop_last_page(act_tok), kv_cap, act_cap, pages_bound))
     faults = {"fault_err_last_act_page_dropped":
               (faulty.float() - want.float()).abs().max().item()}
     if q8:
@@ -321,6 +329,8 @@ def check_hybrid(B=4, KVH=32, G=1, D=128, d=4096, cap=512,
     tol, top = kernel_tol(want)
     ms = time_ms(lambda: run(hybrid_paged_attention), 50)
     plain_ms = time_ms(lambda: run(hybrid_paged_attention_ref), 10)
+    fp_ms = time_ms(lambda: hybrid_paged_attention(
+        *fp_args, *tables, norm_type=norm_type), 50) if q8 else None
     esz = q.element_size()
     n_norm = 2 if bias is not None else 1
     kv_t, act_t = int(kv_tok.sum()), int(act_tok.sum())
@@ -331,28 +341,33 @@ def check_hybrid(B=4, KVH=32, G=1, D=128, d=4096, cap=512,
         + 3 * 4 * B * pages_bound
     ops = KVH * G * (kv_t + act_t) * 4.0 * D + act_t * KVH * 4.0 * d * D
     bound_ms, by = bound(nbytes, ops)
-    return {"shape": {"B": B, "KVH": KVH, "G": G, "D": D, "d_model": d,
-                      "kv_cap": cap, "act_cap": cap, "kv_tokens": kv_tok.tolist(),
-                      "act_tokens": act_tok.tolist(), "pages_bound": pages_bound},
+    return {"shape": dict(shape, KVH=KVH, G=G, D=D, d_model=d),
             "dtype": str(dtype).removeprefix("torch."), "norm_type": norm_type,
             "int8": q8, "max_abs_err": err, "tol": tol, "max_abs_out": top,
-            **faults, "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            **faults, "kernel_ms": ms, "fp_kernel_ms_same_values": fp_ms,
+            "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no one PyTorch call norms, projects and attends",
             "bound_ms": bound_ms, "bound_by": by}
 
 
-def serve_shape(cfg) -> dict:
-    """The shapes the yi serve path gives its decode kernels: the engine's
-    plan of the trace's first group at its last decode step (the widest),
-    computed on the host without weights."""
-    eng = HybridServeEngine(cfg, None, mode="hybrid", hw=H100_SXM)
+def serve_shape(cfg, quant=None) -> dict:
+    """The shapes a serve path gives its decode kernels: the hybrid engine's
+    plan (``quant``: the int8 engine's, whose Algorithm 1 splits otherwise)
+    of the trace's first group at its last decode step (the widest),
+    computed on the host without weights.  On the fused route of an int8
+    cache the tables leave out that step's ACT-bound tokens' own rows (their
+    exact K/V are merged after the kernel)."""
+    eng = HybridServeEngine(cfg, None, mode="hybrid", hw=H100_SXM, quant=quant)
     reqs = request_trace(cfg.vocab_size, **TRACE)
     _, kv_keep, pbs, sched, pages_bound, act_bound = \
         eng.group_schedule(eng.plan_groups(reqs)[0])
+    act = np.asarray(pbs) - kv_keep + sched.sum(1)
+    if quant is not None and cfg.pos_type != "rope":
+        act = act - sched[:, -1]
     return {"B": len(pbs), "act_cap": eng.act_cap, "kv_cap": eng.kv_cap,
             "kv_tokens": (kv_keep + (~sched).sum(1)).tolist(),
-            "act_tokens": (np.asarray(pbs) - kv_keep + sched.sum(1)).tolist(),
-            "pages_bound": pages_bound, "act_pages_bound": act_bound}
+            "act_tokens": act.tolist(), "pages_bound": pages_bound,
+            "act_pages_bound": act_bound, "int8_plan": quant is not None}
 
 
 def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
@@ -380,7 +395,7 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
     pos = torch.randint(0, 4096, (N, PAGE), generator=g, device="cuda")
     sin, cos = L.rope_sin_cos(pos, hd, theta)
     eps = L.NORM_EPS[norm_type]
-    sc = {}
+    sc, fp_pool = {}, pool
     if q8:
         (pool,), sc = q8_pools(act_pages=pool)
     run = lambda f, ix=idx, sc=sc, pages=pool: f(
@@ -415,6 +430,7 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
     w = torch.cat([wk.reshape(d, -1), wv.reshape(d, -1)], 1)
     ms = time_ms(lambda: run(kv_gen), 50)
     plain_ms = time_ms(lambda: run(kv_gen_ref), 10)
+    fp_ms = time_ms(lambda: run(kv_gen, sc={}, pages=fp_pool), 50) if q8 else None
     lib_ms = time_ms(lambda: torch.matmul(a, w), 50)
     dequant_ms = time_ms(deq, 50) if q8 else None
     esz, M = wk.element_size(), N * PAGE
@@ -428,7 +444,7 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
                       "rope_theta": theta},
             "dtype": str(dtype).removeprefix("torch."), "norm_type": norm_type,
             "int8": q8, "max_abs_err": err, "tol": tol, "max_abs_out": top,
-            **faults, "kernel_ms": ms,
+            **faults, "kernel_ms": ms, "fp_kernel_ms_same_values": fp_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "torch.matmul of the normed rows against [wk|wv], "
                        "GEMM only" + (", rows dequantized beforehand" if q8 else ""),
@@ -446,7 +462,7 @@ def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16, q8=False):
         rnd(B * kv_cap // PAGE, PAGE, KVH, D)
     ak, av = rnd(B * n_act, PAGE, KVH, D), rnd(B * n_act, PAGE, KVH, D)
     q = rnd(B, KVH, G, D)
-    sc, deq = {}, None
+    sc, deq, fp_kv = {}, None, (k_pages, v_pages)
     if q8:
         (k_pages, v_pages), sc = q8_pools(k_pages=k_pages, v_pages=v_pages)
         deq = lambda: (dequantize(k_pages, sc["k_scales"], dtype),
@@ -495,6 +511,8 @@ def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16, q8=False):
     ms = time_ms(lambda: hybrid_paged_attention_two_pool(*args, **sc), 50)
     plain_ms = time_ms(lambda: hybrid_paged_attention_two_pool_ref(*args, **sc),
                        10)
+    fp_ms = time_ms(lambda: hybrid_paged_attention_two_pool(
+        q, *fp_kv, *args[3:]), 50) if q8 else None
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask), 50)
     esz = q.element_size()
@@ -508,6 +526,7 @@ def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16, q8=False):
             "dtype": str(dtype).removeprefix("torch."), "int8": q8,
             "max_abs_err": err, "tol": tol, "max_abs_out": top, **faults,
             "library_err": lib_err, "kernel_ms": ms,
+            "fp_kernel_ms_same_values": fp_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "F.scaled_dot_product_attention"
                        + (", K/V dequantized beforehand" if q8 else ""),
@@ -699,12 +718,14 @@ def phase_kernels(results):
     LayerNorm, G=1), then yi-6b's (bfloat16, G=8: flash prefill, kv_gen and
     the second-pool mode at the engine's planned shapes), then other
     branches the wrappers accept: GQA flash at G=4, the fused kernel's
-    rmsnorm, and kv_gen at minitron-4b's widths with a LayerNorm bias."""
-    yi = get_config("yi-6b")
-    shape = serve_shape(yi)
-    opt_shape = serve_shape(get_config("opt-6.7b"))
+    rmsnorm, and kv_gen at minitron-4b's widths with a LayerNorm bias.  The
+    int8 modes run at the int8 engine's plans, which split otherwise."""
+    yi, opt = get_config("yi-6b"), get_config("opt-6.7b")
+    shape, opt_shape = serve_shape(yi), serve_shape(opt)
+    yi_q8, opt_q8 = serve_shape(yi, QuantConfig()), serve_shape(opt, QuantConfig())
     bf16 = torch.bfloat16
     out = {"phase": "kernels", "yi_serve_shape": shape,
+           "yi_serve_shape_q8": yi_q8, "opt_serve_shape_q8": opt_q8,
            "flash_attention": [
                check_flash(4, 80), check_flash(1, 2048),
                check_flash(4, 80, H=32, KVH=8, dtype=bf16),
@@ -725,16 +746,16 @@ def phase_kernels(results):
            "hybrid_paged_attention_two_pool_return_lse":
                check_lse("two_pool", shape, KVH=4, G=8, dtype=bf16),
            "hybrid_paged_attention_q8": [
-               check_hybrid(q8=True),
+               check_hybrid(opt_q8, q8=True),
                check_hybrid(KVH=8, G=4, dtype=bf16, norm_type="rmsnorm",
                             q8=True)],
-           "hybrid_paged_attention_two_pool_q8": [check_two_pool(shape, q8=True)],
-           "kv_gen_q8": [check_kv_gen(shape["B"], shape["act_pages_bound"],
+           "hybrid_paged_attention_two_pool_q8": [check_two_pool(yi_q8, q8=True)],
+           "kv_gen_q8": [check_kv_gen(yi_q8["B"], yi_q8["act_pages_bound"],
                                       yi.d_model, yi.num_kv_heads, q8=True)],
            "hybrid_paged_attention_return_lse_q8":
-               check_lse("fused", opt_shape, KVH=32, G=1, q8=True),
+               check_lse("fused", opt_q8, KVH=32, G=1, q8=True),
            "hybrid_paged_attention_two_pool_return_lse_q8":
-               check_lse("two_pool", shape, KVH=4, G=8, dtype=bf16, q8=True),
+               check_lse("two_pool", yi_q8, KVH=4, G=8, dtype=bf16, q8=True),
            "opt_serve_shape": opt_shape}
     emit(out)
     results["kernels"] = out
@@ -780,7 +801,8 @@ def forced_logits(eng, params, cfg, group, gold):
         lg, cache = M.hybrid_decode_step(params, cfg, gold[:, s:s + 1].int(),
                                          cache, s_dev[:, s], pages_bound=bound_,
                                          act_pages_bound=act_bound,
-                                         quant=eng.quant)
+                                         quant=eng.quant,
+                                         any_act=bool(sched[:, s].any()))
         out.append(lg[:, -1])
     return torch.stack(out, 1)
 
@@ -940,30 +962,34 @@ def read_counts() -> dict:
 def expected_launches(eng, reqs) -> dict:
     """Launches of one ``generate`` of ``eng``: a flash launch per layer and
     prefill (one per group); per layer and decode step a hybrid launch, and
-    a kv_gen launch in a RoPE model's hybrid mode.  Under quant each of
-    those is an int8 launch too, and the fused route's launches are
-    return_lse launches (the ACT-bound row's merge).  A host-attend run
-    launches return_lse for the groups that spill.  Each engine plans its
-    own groups."""
+    a kv_gen launch in a RoPE model's hybrid mode.  A host-attend run
+    launches return_lse on every step of the groups that spill.  Under
+    quant each of those is an int8 launch too, and the fused route's other
+    steps are return_lse launches where the schedule binds a token to the
+    ACT region (its exact row's merge), plain ones elsewhere.  Each engine
+    plans its own groups."""
     cfg = eng.cfg
     L, rope = cfg.num_layers, cfg.pos_type == "rope"
     hk = "hybrid_paged_attention_two_pool" if rope else "hybrid_paged_attention"
     plan = eng.plan_groups(reqs)
-    n_new = [max(r.max_new_tokens for r in g) for g in plan]
-    steps = sum(n_new)
+    steps = lse = 0
+    for g in plan:
+        sched = eng.group_schedule(g)[3]
+        steps += sched.shape[1]
+        if eng.host_attn and spills(eng, g):
+            lse += sched.shape[1]
+        elif eng.quant is not None and not rope:
+            lse += int(sched.any(0).sum())
     want = {k: 0 for k in COUNTERS}
     want["flash_attention"] = L * len(plan)
     want[hk] = L * steps
     kv_gen_runs = rope and eng.mode == "hybrid"
     want["kv_gen"] = L * steps if kv_gen_runs else 0
-    lse = L * sum(n for g, n in zip(plan, n_new) if spills(eng, g)) \
-        if eng.host_attn else 0
+    want[hk + "_return_lse"] = L * lse
     if eng.quant is not None:
         want[hk + "_q8"] = L * steps
         want["kv_gen_q8"] = want["kv_gen"]
-        lse = lse if rope else L * steps
-        want[hk + "_return_lse_q8"] = lse
-    want[hk + "_return_lse"] = lse
+        want[hk + "_return_lse_q8"] = L * lse
     return want
 
 
@@ -1004,9 +1030,11 @@ def agreement(outs, oracle, reqs) -> float:
     return float(np.mean([np.mean(outs[r.rid] == oracle[r.rid]) for r in reqs]))
 
 
-def decode_launches(params, cfg, eng, group, quant) -> int:
-    """CUDA kernels launched by one hybrid decode step of ``group`` (the
-    profiler's count), with the cache in ``quant``'s format."""
+def decode_launches(params, cfg, eng, group, quant, all_kv=False) -> int:
+    """CUDA kernels launched by the first hybrid decode step of ``group``
+    (the profiler's count), with the cache in ``quant``'s format;
+    ``all_kv``: every token of the step KV-bound instead (a step of kv mode,
+    or of hybrid mode with no ACT-bound token)."""
     from torch.profiler import ProfilerActivity, profile
     toks, kv_keep, pbs, sched, bound_, act_bound = eng.group_schedule(group)
     dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()
@@ -1014,10 +1042,12 @@ def decode_launches(params, cfg, eng, group, quant) -> int:
                                          eng.act_cap, dev(kv_keep), dev(pbs),
                                          quant=quant)
     tok = lg[:, -1].argmax(-1).int()[:, None]
-    store = torch.from_numpy(sched[:, 0].copy()).cuda()
+    store_np = np.zeros_like(sched[:, 0]) if all_kv else sched[:, 0].copy()
+    store = torch.from_numpy(store_np).cuda()
     step = lambda: M.hybrid_decode_step(params, cfg, tok, cache, store,
                                         pages_bound=bound_,
-                                        act_pages_bound=act_bound, quant=quant)
+                                        act_pages_bound=act_bound, quant=quant,
+                                        any_act=bool(store_np.any()))
     step()                                                # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1082,8 +1112,7 @@ def phase_serve_quant(results, smi, cfg, params, reqs, fp):
                                              eng.act_cap, dev(kv_keep), dev(pbs),
                                              quant=quant)
         region_bytes[label] = sum(cache[k].numel() * cache[k].element_size()
-                                  for k in ("k", "v", "act", "k_s", "v_s", "act_s")
-                                  if k in cache)
+                                  for k in M.region_planes(cache))
     cur = lg[:, -1].argmax(-1).int()
     sched_dev = torch.from_numpy(np.ascontiguousarray(sched.T)).cuda()
     torch.cuda.synchronize()
@@ -1091,7 +1120,8 @@ def phase_serve_quant(results, smi, cfg, params, reqs, fp):
     try:
         loop_toks, _ = M.hybrid_decode_loop(params, cfg, cur, cache, sched_dev,
                                             pages_bound=bound_,
-                                            act_pages_bound=act_bound, quant=q)
+                                            act_pages_bound=act_bound, quant=q,
+                                            any_act=sched.any(0))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     loop_toks = loop_toks.cpu().numpy()
@@ -1105,10 +1135,12 @@ def phase_serve_quant(results, smi, cfg, params, reqs, fp):
     if ratio < 1.8:
         raise AssertionError(f"the int8 cache is only {ratio}x smaller")
     # the device launches one decode step adds under quant (the quantize
-    # ops at the cache writes, the ACT-bound row's merge or scratch write)
+    # ops at the cache writes, the ACT-bound row's merge or scratch write),
+    # with the first step's schedule and with every token KV-bound
     out["decode_step_launches"] = {
-        label: decode_launches(params, cfg, eng, g0, quant)
-        for label, quant in (("fp", None), ("int8", q))}
+        label + ("_all_kv_bound" if all_kv else ""):
+            decode_launches(params, cfg, eng, g0, quant, all_kv)
+        for all_kv in (False, True) for label, quant in (("fp", None), ("int8", q))}
 
     # the q8 oracle: greedy, and fed the fp oracle's tokens
     q8 = {r.rid: q8_generate(params, cfg, r.prompt, r.max_new_tokens)
@@ -1585,10 +1617,10 @@ def main() -> int:
     # each kernel's launches on the path that carries it: the fused hybrid
     # kernel on OPT's serve, the second-pool mode and kv_gen on yi's, the
     # return_lse mode of each on that model's host-attend offload run, the
-    # int8 modes on the int8 serves (the fused route's return_lse, the
-    # ACT-bound row's merge, on every int8 OPT step) and the second-pool
-    # int8 return_lse on yi's int8 host-attend run; flash_attention runs on
-    # every path and reports OPT's, with the others beside it
+    # int8 modes on the int8 serves and the int8 return_lse of each on that
+    # model's int8 host-attend run (the int8 OPT serve also launches it on
+    # the steps with an ACT-bound token, for its exact row's merge: listed
+    # beside it); flash_attention runs on every path and reports OPT's
     serve, ha = "serve", "offload host_attn"
     path_of = {"flash_attention": ("opt-6.7b", serve, "fp"),
                "hybrid_paged_attention": ("opt-6.7b", serve, "fp"),
@@ -1599,7 +1631,7 @@ def main() -> int:
                "hybrid_paged_attention_q8": ("opt-6.7b", serve, "int8"),
                "hybrid_paged_attention_two_pool_q8": ("yi-6b", serve, "int8"),
                "kv_gen_q8": ("yi-6b", serve, "int8"),
-               "hybrid_paged_attention_return_lse_q8": ("opt-6.7b", serve, "int8"),
+               "hybrid_paged_attention_return_lse_q8": ("opt-6.7b", ha, "int8"),
                "hybrid_paged_attention_two_pool_return_lse_q8": ("yi-6b", ha,
                                                                  "int8")}
     counts = {serve: by_path, ha: ha_path}

@@ -68,26 +68,34 @@ class LogicalBlock:
 
 
 class PhysicalPool:
-    """Allocator for one (kind, location) pool of fixed capacity."""
+    """Allocator for one (kind, location) pool of fixed capacity.  Block
+    numbers go out in the reference's order: the last freed first, else the
+    lowest never handed out.  Those are counted, not listed: a host pool
+    priced for int8 holds tens of millions of blocks."""
 
     def __init__(self, capacity_blocks: int):
         self.capacity = int(capacity_blocks)
-        self._free = list(range(self.capacity - 1, -1, -1))
+        self._fresh = 0                 # blocks [0, _fresh) were handed out
+        self._freed: list = []
         self.allocated = 0
 
     def alloc(self) -> Optional[int]:
-        if not self._free:
+        if self._freed:
+            pbn = self._freed.pop()
+        elif self._fresh < self.capacity:
+            pbn, self._fresh = self._fresh, self._fresh + 1
+        else:
             return None
         self.allocated += 1
-        return self._free.pop()
+        return pbn
 
     def free(self, pbn: int) -> None:
         self.allocated -= 1
-        self._free.append(pbn)
+        self._freed.append(pbn)
 
     @property
     def free_blocks(self) -> int:
-        return len(self._free)
+        return len(self._freed) + self.capacity - self._fresh
 
 
 class BlockManager:

@@ -19,7 +19,8 @@ rounds it; the second-pool mode's second pools stay in the cache dtype.
 ``(m, l)``, each (B, KVH, G, 1) float32 in the ``1/sqrt(D)``-scaled score
 basis: m the masked score max (NEG_INF when the request attends over no
 token), l the sum of exp(s - m) — what a disjoint partition's partial needs
-to merge with this one (the CPU attention lane).
+to merge with this one (the CPU attention lane, and on the fused route the
+int8 cache's ACT-bound token): ``merge_partials_torch``.
 """
 from __future__ import annotations
 
@@ -30,7 +31,25 @@ import torch
 from repro_torch.models.quant_ops import dequantize
 
 PAGE = 16
+#: masked-score basis shared with the kernel (finite, so an empty partition
+#: merges without nan: exp(NEG_INF - NEG_INF) = 1, l = 0)
 NEG_INF = -1e30
+
+
+def merge_partials_torch(o_a, m_a, l_a, o_b, m_b, l_b):
+    """Fold two flash-attention partials into one (associative, exact).
+
+    ``o_*`` are NORMALISED partition outputs (..., D); ``m_*``/``l_*`` are
+    broadcastable against them with a trailing singleton (..., 1).  A
+    partition with l = 0 (empty: m = NEG_INF) contributes weight 0 and
+    drops out of the sum.  The host lane's numpy ``merge_partials`` runs
+    the same operations in the same order."""
+    m_new = torch.maximum(m_a, m_b)
+    w_a = l_a * torch.exp(m_a - m_new)
+    w_b = l_b * torch.exp(m_b - m_new)
+    tot = w_a + w_b
+    o = (w_a * o_a + w_b * o_b) / tot.clamp_min(1e-30)
+    return o, m_new, tot
 
 
 def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,

@@ -24,7 +24,13 @@ is stored quantized), while a KV-bound token's row is read back dequantized.
 The fused route leaves that token's ACT row out of the kernel's tables and
 folds its exact (k, v) into the kernel's ``return_lse`` partial; the RoPE
 route writes the exact rotated (k, v) into the token's row of the scratch
-pool after ``kv_gen``, the reference's ``ka.at[act_len].set(k)``.
+pool after ``kv_gen``, the reference's ``ka.at[act_len].set(k)``.  A step
+whose schedule binds no token to the ACT region (every step in kv mode)
+needs neither: the caller says so (``any_act``) from its host schedule.
+
+The int8 format lives here: ``kv_planes`` names a cache's KV planes in
+storage order (the offload arena's too), ``plane_scales`` makes a layer's
+scale operands of them, and ``_encode`` is every region write's.
 """
 from __future__ import annotations
 
@@ -37,10 +43,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import QuantConfig
 from repro_torch.kernels.hybrid_attention.ops import (
     hybrid_paged_attention, hybrid_paged_attention_two_pool)
+from repro_torch.kernels.hybrid_attention.ref import (NEG_INF,
+                                                      merge_partials_torch)
 from repro_torch.kernels.kv_gen.ops import kv_gen
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.quant_ops import check_supported, quantize, quantize_rows
+from repro_torch.models.quant_ops import check_supported, quantize
 from repro_torch.models.transformer import (init_params, layer_params,  # noqa: F401 (re-export)
                                             pad_vocab, torch_dtype)
 
@@ -180,6 +188,25 @@ def _check_cache(cache: Cache, quant: Optional[QuantConfig]) -> None:
                          f"({'int8' if 'k_s' in cache else 'unquantized'})")
 
 
+def kv_planes(cache: Cache) -> Tuple[str, ...]:
+    """The keys of a cache's KV region planes in storage order: K and V
+    (codes in a quantized cache), then a quantized cache's K and V scales."""
+    return ("k", "v", "k_s", "v_s") if "k_s" in cache else ("k", "v")
+
+
+def region_planes(cache: Cache) -> Tuple[str, ...]:
+    """The keys of every region plane of a cache: the KV planes, then the
+    ACT region and a quantized cache's ACT scales."""
+    return kv_planes(cache) + (("act", "act_s") if "act_s" in cache else ("act",))
+
+
+def plane_scales(kv, act_s):
+    """A layer's scale operands (k_s, v_s, act_s) from its KV planes ``kv``
+    (in ``kv_planes`` order) and its ACT scales; None for an unquantized
+    layer (two planes)."""
+    return None if len(kv) == 2 else (kv[2], kv[3], act_s)
+
+
 def region_scales(cache: Cache, i: int):
     """Layer ``i``'s scale sidecars (k_s, v_s, act_s) of a quantized cache,
     None for an unquantized one."""
@@ -188,10 +215,17 @@ def region_scales(cache: Cache, i: int):
     return cache["k_s"][i], cache["v_s"][i], cache["act_s"][i]
 
 
-def _store(cache: Cache, key: str, index, rows, quant) -> None:
-    """Write ``rows`` into ``cache[key][index]``: as codes, with their scales
-    into ``cache[key + "_s"][index]``, under ``quant``."""
-    codes, scales = quantize_rows(rows, quant, cache[key].dtype)
+def _encode(rows, dtype: torch.dtype):
+    """What a region of ``dtype`` stores for ``rows`` (..., D): int8 codes
+    and their float16 scales (..., 1), or the rows in the cache dtype and
+    None."""
+    return quantize(rows) if dtype == torch.int8 else (rows.to(dtype), None)
+
+
+def _store(cache: Cache, key: str, index, rows) -> None:
+    """Write ``rows`` into ``cache[key][index]`` in the region's format (as
+    codes, with their scales into ``cache[key + "_s"][index]``, when int8)."""
+    codes, scales = _encode(rows, cache[key].dtype)
     cache[key][index] = codes
     if scales is not None:
         cache[key + "_s"][index] = scales
@@ -220,14 +254,13 @@ def hybrid_prefill_batched(params, cfg: ModelConfig, tokens, kv_cap: int,
 class PrefillPlan(NamedTuple):
     """What every layer of one hybrid prefill shares: the embedded input
     ``h``, the cache it fills, RoPE at positions 0..S-1 (or None), the
-    ACT-region gather index (B, act_cap, d), the KV rows each layer keeps,
-    and the cache's quantization."""
+    ACT-region gather index (B, act_cap, d) and the KV rows each layer
+    keeps."""
     h: torch.Tensor
     cache: Cache
     sincos: Optional[Tuple[torch.Tensor, torch.Tensor]]
     act_idx: torch.Tensor
     kfit: int
-    quant: Optional[QuantConfig] = None
 
 
 def hybrid_prefill_begin(params, cfg: ModelConfig, tokens, kv_cap: int,
@@ -248,18 +281,18 @@ def hybrid_prefill_begin(params, cfg: ModelConfig, tokens, kv_cap: int,
     act_idx = (kv_keep[:, None] + slots).clamp(0, S - 1).long()
     act_idx = act_idx[:, :, None].expand(B, act_cap, cfg.d_model)
     return PrefillPlan(h, cache, T._rope_for(cfg, _positions(S, dev)), act_idx,
-                       min(S, kv_cap), quant)
+                       min(S, kv_cap))
 
 
 def hybrid_prefill_layer(lp, cfg: ModelConfig, h, pre: PrefillPlan, i: int):
     """Layer ``i`` of the hybrid prefill: store its input as the ACT
-    checkpoint, run it, keep its first ``kfit`` K/V rows (each stored as
-    codes and scales under the plan's ``quant``).  -> its output."""
+    checkpoint, run it, keep its first ``kfit`` K/V rows (each stored in
+    the cache's format).  -> its output."""
     cache, kept = pre.cache, (i, slice(None), slice(None, pre.kfit))
-    _store(cache, "act", i, torch.gather(h, 1, pre.act_idx), pre.quant)  # A^i
+    _store(cache, "act", i, torch.gather(h, 1, pre.act_idx))      # A^i
     h, (k, v) = T.layer_full(lp, cfg, h, pre.sincos)
-    _store(cache, "k", kept, k[:, :pre.kfit], pre.quant)
-    _store(cache, "v", kept, v[:, :pre.kfit], pre.quant)
+    _store(cache, "k", kept, k[:, :pre.kfit])
+    _store(cache, "v", kept, v[:, :pre.kfit])
     return h
 
 
@@ -345,18 +378,23 @@ def _write_new(kc, vc, ac, k, v, act_in, kv_len, act_len, store_act,
     ar = torch.arange(kc.shape[0], device=kc.device)
     ki = kv_len.clamp(max=kc.shape[1] - 1).long()
     ai = act_len.clamp(max=ac.shape[1] - 1).long()
-    to_act = store_act[:, None, None]
-    k_new, v_new, a_new = k[:, 0], v[:, 0], act_in
-    if scales is not None:
-        ks, vs, as_ = scales
-        (k_new, k_sc), (v_new, v_sc), (a_new, a_sc) = \
-            quantize(k_new), quantize(v_new), quantize(act_in)
-        ks[ar, ki] = torch.where(to_act, ks[ar, ki], k_sc)
-        vs[ar, ki] = torch.where(to_act, vs[ar, ki], v_sc)
-        as_[ar, ai] = torch.where(store_act[:, None], a_sc, as_[ar, ai])
-    kc[ar, ki] = torch.where(to_act, kc[ar, ki], k_new)
-    vc[ar, ki] = torch.where(to_act, vc[ar, ki], v_new)
-    ac[ar, ai] = torch.where(store_act[:, None], a_new.to(ac.dtype), ac[ar, ai])
+    ks, vs, as_ = scales if scales is not None else (None,) * 3
+    _put(kc, ks, ar, ki, k[:, 0], store_act, act=False)
+    _put(vc, vs, ar, ki, v[:, 0], store_act, act=False)
+    _put(ac, as_, ar, ai, act_in, store_act, act=True)
+
+
+def _put(region, scales, ar, idx, row, store_act, act: bool) -> None:
+    """Write ``row`` (B, ...) at ``idx`` of ``region`` (B, cap, ...) for the
+    requests whose token is bound to it (ACT-bound: the ACT region, else
+    K/V), in the region's format: int8 codes with their scales written into
+    ``scales``."""
+    m = store_act.view(-1, *(1,) * (row.dim() - 1))
+    for plane, new in zip((region, scales), _encode(row, region.dtype)):
+        if new is not None:
+            old = plane[ar, idx]
+            plane[ar, idx] = torch.where(m, new, old) if act else \
+                torch.where(m, old, new)
 
 
 class OwnRow(NamedTuple):
@@ -418,8 +456,6 @@ def _merge_own(qg, o, m, l, own: OwnRow):
     (o, m, l) over the stored pages, as a one-token partition (the CPU
     lane's merge); a KV-bound token's partition is empty.  -> (o in q's
     dtype, m, l)."""
-    # the offload package imports this module: import its merge on use
-    from repro_torch.offload.host_attn import NEG_INF, merge_partials_torch
     s = torch.einsum("bhgd,bhd->bhg", qg.float(), own.k[:, 0].float())
     s = s[..., None] / math.sqrt(qg.shape[-1])
     on = own.store_act[:, None, None, None]
@@ -451,11 +487,13 @@ def _layer_out(lp, cfg, h, o):
 
 
 def _hybrid_layer_step(lp, cfg, h, kc, vc, ac, kv_len, act_len, store_act,
-                       tables, act_kv: Optional[ActKV] = None, scales=None):
+                       tables, act_kv: Optional[ActKV] = None, scales=None,
+                       exact_own: bool = True):
     """One hybrid KV/ACT attention layer at decode time.  kc/vc (B, kv_cap,
     KVH, D) and ac (B, act_cap, d) are this layer's regions, updated in place
     (int8 codes, with ``scales`` (ks, vs, as) their sidecars, in a quantized
-    cache).
+    cache).  ``exact_own``: the plan's, whether a quantized step has an
+    ACT-bound token to attend to its exact K/V.
 
     The new token's K/V (KV-bound) or checkpoint (ACT-bound) is written into
     its region BEFORE the kernels run.  Unquantized, an ACT-bound token's K/V
@@ -465,7 +503,8 @@ def _hybrid_layer_step(lp, cfg, h, kc, vc, ac, kv_len, act_len, store_act,
     module docstring)."""
     q, k, v = _layer_qkv(lp, cfg, h, act_kv)
     _write_new(kc, vc, ac, k, v, h[:, 0], kv_len, act_len, store_act, scales)
-    own = None if scales is None else OwnRow(k, v, act_len, store_act)
+    own = OwnRow(k, v, act_len, store_act) \
+        if scales is not None and exact_own else None
     o = _hybrid_attend(lp, cfg, q, kc, vc, ac, tables, act_kv, scales=scales,
                        own=own)
     return _layer_out(lp, cfg, h, o)
@@ -476,22 +515,26 @@ class DecodePlan(NamedTuple):
     token ``x`` (B, 1, d), the page tables, the RoPE route's inputs (None
     for learned positions), and the ACT side of the tables: the stride of a
     request's ACT entries in the pool they index (the ACT region, or the
-    scratch pool) and the ACT tokens each request attends over."""
+    scratch pool) and the ACT tokens each request attends over; and whether
+    ACT-bound tokens attend to their exact K/V after the kernels (a
+    quantized step with an ACT-bound token)."""
     x: torch.Tensor
     tables: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
     act_kv: Optional[ActKV]
     act_stride: int
     act_read: torch.Tensor
+    exact_own: bool
 
 
 def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
                         store_act, *, pages_bound=None, act_pages_bound=None,
-                        quant: Optional[QuantConfig] = None) -> DecodePlan:
+                        quant: Optional[QuantConfig] = None,
+                        any_act: bool = True) -> DecodePlan:
     """Record the new token's ACT position, embed it, and build the step's
     page tables (and, for RoPE models, the ``kv_gen`` inputs) once for all
-    layers.  Bounds as for ``hybrid_decode_step``.  Quantized, the fused
-    route's tables leave out an ACT-bound token's own row (its exact K/V are
-    merged in after the kernel)."""
+    layers.  Bounds and ``any_act`` as for ``hybrid_decode_step``.
+    Quantized, the fused route's tables leave out an ACT-bound token's own
+    row (its exact K/V are merged in after the kernel)."""
     _check_cache(cache, quant)
     B = token.shape[0]
     kv_cap, act_cap = cache["k"].shape[2], cache["act"].shape[2]
@@ -510,7 +553,8 @@ def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
     maxp = kv_cap // PAGE + act_cap // PAGE
     n_pages = maxp if pages_bound is None else min(int(pages_bound), maxp)
     act_kv, act_stride = None, act_cap
-    act_read = act_new if quant is None else act_len
+    exact_own = quant is not None and bool(any_act)
+    act_read = act_len if exact_own else act_new
     if cfg.pos_type == "rope":
         n_act = act_cap // PAGE if act_pages_bound is None \
             else min(int(act_pages_bound), act_cap // PAGE)
@@ -519,7 +563,7 @@ def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
         # tokens past the bound have no recomputed K/V: attention drops them
         act_read = act_new.clamp(max=act_stride)
     tables = hybrid_page_table(kv_new, act_read, kv_cap, act_stride, n_pages)
-    return DecodePlan(x, tables, act_kv, act_stride, act_read)
+    return DecodePlan(x, tables, act_kv, act_stride, act_read, exact_own)
 
 
 def hybrid_decode_end(params, cfg: ModelConfig, x, cache: Cache, store_act):
@@ -533,7 +577,8 @@ def hybrid_decode_end(params, cfg: ModelConfig, x, cache: Cache, store_act):
 
 def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
                        store_act, *, pages_bound=None, act_pages_bound=None,
-                       quant: Optional[QuantConfig] = None):
+                       quant: Optional[QuantConfig] = None,
+                       any_act: bool = True):
     """One generation step with the KV-Activation hybrid cache.
 
     store_act (B,) bool: whether this token's checkpoint goes to the ACT
@@ -548,16 +593,22 @@ def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
     does.
     quant: the cache's ``QuantConfig`` (None: unquantized); it must match
     the format ``init_hybrid_cache`` gave the cache.
+    any_act: whether ``store_act`` may hold a True, from the caller's host
+    schedule (no host sync).  False spares a quantized step the ACT-bound
+    tokens' exact K/V (the fused route's merge, the RoPE route's scratch
+    write); a step with an ACT-bound token needs True.
     -> (logits (B, 1, V), cache)."""
     plan = hybrid_decode_begin(params, cfg, token, cache, store_act,
                                pages_bound=pages_bound,
-                               act_pages_bound=act_pages_bound, quant=quant)
+                               act_pages_bound=act_pages_bound, quant=quant,
+                               any_act=any_act)
     x = plan.x
     for i in range(cfg.num_layers):
         x = _hybrid_layer_step(layer_params(params, i), cfg, x, cache["k"][i],
                                cache["v"][i], cache["act"][i], cache["kv_len"],
                                cache["act_len"], store_act, plan.tables,
-                               plan.act_kv, region_scales(cache, i))
+                               plan.act_kv, region_scales(cache, i),
+                               plan.exact_own)
     return hybrid_decode_end(params, cfg, x, cache, store_act), cache
 
 
@@ -582,12 +633,14 @@ def _act_kv(cfg, cache, ctx, n_act: int) -> ActKV:
 
 def hybrid_decode_loop(params, cfg: ModelConfig, cur, cache: Cache,
                        store_sched, *, pages_bound=None, act_pages_bound=None,
-                       quant: Optional[QuantConfig] = None):
+                       quant: Optional[QuantConfig] = None, any_act=None):
     """Greedy generation over the hybrid cache, argmax on the device and no
     host sync inside the loop.
 
     cur:         (B,) int32 — first token to emit (argmax of prefill logits).
     store_sched: (n_steps, B) bool tensor — per-step store_act flags.
+    any_act:     (n_steps,) host bools, whether step s binds a token to the
+                 ACT region (``hybrid_decode_step``); None: every step may.
     -> (tokens (B, n_steps) int32, cache)."""
     toks = []
     for s in range(store_sched.shape[0]):
@@ -595,6 +648,8 @@ def hybrid_decode_loop(params, cfg: ModelConfig, cur, cache: Cache,
         lg, cache = hybrid_decode_step(params, cfg, cur[:, None], cache,
                                        store_sched[s], pages_bound=pages_bound,
                                        act_pages_bound=act_pages_bound,
-                                       quant=quant)
+                                       quant=quant,
+                                       any_act=True if any_act is None
+                                       else bool(any_act[s]))
         cur = lg[:, -1].argmax(-1).int()
     return _stack(toks, cur), cache

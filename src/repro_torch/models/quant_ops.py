@@ -9,8 +9,8 @@ rounds it to the cache dtype: the value ``fake_quant`` stands for, and the
 one the kernels' int8 modes read on the tile.
 
 The reference keeps fake-quantized values in a cache of the model dtype; the
-port stores the codes and scales themselves (``quantize_rows`` at every
-region write), so the cache's device bytes are the quantized bytes.
+port stores the codes and scales themselves (``quantize`` at every region
+write), so the cache's device bytes are the quantized bytes.
 """
 from __future__ import annotations
 
@@ -50,10 +50,3 @@ def check_supported(quant: Optional[QuantConfig]) -> None:
         raise ValueError(f"{quant}: the cache stores int8 codes with float16 "
                          "scales only (other formats are priced, not served)")
 
-
-def quantize_rows(x, quant: Optional[QuantConfig], dtype: torch.dtype):
-    """What a region write stores for rows ``x`` (..., D): (codes, scales)
-    under ``quant``, else (x in the cache ``dtype``, None)."""
-    if quant is None:
-        return x.to(dtype), None
-    return quantize(x)

@@ -44,17 +44,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
-from repro_torch.offload.host_attn import (HostAttnExecutor, QuantPlane,
-                                           merge_partials_torch)
+from repro_torch.kernels.hybrid_attention.ref import merge_partials_torch
+from repro_torch.offload.host_attn import HostAttnExecutor, QuantPlane
 from repro_torch.offload.host_pool import HostWeightPool, Region
 from repro_torch.offload.streamer import WeightStreamer, timing_event
 from repro_torch.offload.timeline import MeasuredTimeline
 
 Cache = Dict[str, Any]
 PAGE = M.PAGE
-#: the KV region's planes, in arena order: codes (or values), then the
-#: scales of a quantized cache
-REGION_KEYS = ("k", "v", "k_s", "v_s")
 
 
 class OffloadExecutor:
@@ -133,7 +130,7 @@ class OffloadExecutor:
         cache (codes first, then scales, in one region), and the KV lengths
         on the host."""
         planes, at, t0 = [], 0, self._now()
-        for key in (k for k in REGION_KEYS if k in cache):
+        for key in M.kv_planes(cache):
             t = cache[key]
             plane = region.view(tuple(t.shape), t.dtype, at)
             plane.copy_(t, non_blocking=True)
@@ -242,10 +239,11 @@ class OffloadExecutor:
         if self.cuda:
             self._q_host.copy_(q, non_blocking=True)
             q_ready = timing_event()
-        scales = None if act_s is None else (own[2], own[3], act_s)
+        scales = M.plane_scales(own, act_s)
         M._write_new(own[0], own[1], ac, k, v, x[:, 0], self._zeros_b, act_len,
                      store, scales)
-        exact = None if scales is None else M.OwnRow(k, v, act_len, store)
+        exact = M.OwnRow(k, v, act_len, store) \
+            if scales is not None and plan.exact_own else None
         o_d, m_d, l_d = M._hybrid_attend(lp, cfg, q, own[0], own[1], ac,
                                          ha_tables, plan.act_kv, return_lse=True,
                                          scales=scales, own=exact)
@@ -307,22 +305,19 @@ class OffloadExecutor:
         self._kv_staged: Dict[int, Optional[int]] = {}
         self._kv_dev: Dict[Any, List[torch.Tensor]] = {}
         quant = self.quant is not None
+        keys = M.kv_planes(cache)
         side = None
         if spill:
             self._planes, kv_len_np = self._spill_out(cache, spill_region)
             # the arena stands in for the region (its shape sizes the tables)
-            cache = dict(cache, **dict(zip(REGION_KEYS, self._planes)))
+            cache = dict(cache, **dict(zip(keys, self._planes)))
             if not host_attn:
                 side = self._kv_stage
         if host_attn:
-            # the new token's own KV page, in the cache's format
-            dt = torch.int8 if quant else T.torch_dtype(cfg)
-            kv_row = (B, PAGE, cfg.num_kv_heads)
-            own = [torch.zeros(kv_row + (cfg.head_dim,), dtype=dt,
-                               device=self.device) for _ in range(2)]
-            if quant:
-                own += [torch.zeros(kv_row + (1,), dtype=torch.float16,
-                                    device=self.device) for _ in range(2)]
+            # the new token's own KV page of each KV plane, in its format
+            own = [torch.zeros((B, PAGE) + cache[k].shape[3:],
+                               dtype=cache[k].dtype, device=self.device)
+                   for k in keys]
             self._zeros_b = torch.zeros((B,), dtype=torch.int32,
                                         device=self.device)
             if self.cuda:
@@ -340,7 +335,8 @@ class OffloadExecutor:
             plan = M.hybrid_decode_begin(self.resident, cfg, cur[:, None],
                                          cache, store, pages_bound=pages_bound,
                                          act_pages_bound=act_pages_bound,
-                                         quant=self.quant)
+                                         quant=self.quant,
+                                         any_act=bool(sched[s].any()))
             self.dispatches += 1
             if host_attn:
                 n_act = plan.act_stride // PAGE if plan.act_kv is not None \
@@ -359,13 +355,13 @@ class OffloadExecutor:
                                        kv_len_np)
                 else:
                     bufs = self._kv_for(seq) if spill else \
-                        [cache[key][l] for key in REGION_KEYS if key in cache]
-                    scales = (bufs[2], bufs[3], act_s) if quant else None
+                        [cache[key][l] for key in keys]
                     t0 = self._now()
                     x = M._hybrid_layer_step(lp, cfg, x, bufs[0], bufs[1], ac,
                                              cache["kv_len"], cache["act_len"],
                                              store, plan.tables, plan.act_kv,
-                                             scales)
+                                             M.plane_scales(bufs, act_s),
+                                             plan.exact_own)
                     self.timeline.record("gpu", "fwd", t0, self._now())
                     self.dispatches += 1
                     if spill:
@@ -388,8 +384,7 @@ class OffloadExecutor:
                else np.zeros((B, 0), np.int32))
         self.blocking_syncs += 1
         if spill:
-            cache = dict(cache, **{key: None for key in REGION_KEYS
-                                   if key in cache})
+            cache = dict(cache, **{key: None for key in keys})
             self._planes = None
         self._kv_dev = {}
         return out, dict(cache, spilled=spill)

@@ -49,15 +49,15 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+# the device merge lives beside the kernel's plain version, below the model
+# layer that also merges; re-exported here for the lane's callers
+from repro_torch.kernels.hybrid_attention.ref import (  # noqa: F401
+    NEG_INF, merge_partials_torch)
 from repro_torch.models.quant_ops import dequantize
 from repro_torch.offload.faults import (MAX_COPY_RETRIES, FaultPlan,
                                         TransientCopyError)
 from repro_torch.offload.streamer import FAULT_COUNTER_KEYS
 from repro_torch.offload.timeline import MeasuredTimeline
-
-#: masked-score basis shared with the kernel (finite, so the identity
-#: partition merges without nan: exp(NEG_INF - NEG_INF) = 1, l = 0)
-NEG_INF = -1e30
 
 #: fault-injection site consulted once per submitted job
 HOST_ATTN_SITE = "host_attn"
@@ -78,17 +78,6 @@ def merge_partials(o_a, m_a, l_a, o_b, m_b, l_b, *, xp=np):
     w_b = l_b * xp.exp(m_b - m_new)
     tot = w_a + w_b
     o = (w_a * o_a + w_b * o_b) / xp.maximum(tot, 1e-30)
-    return o, m_new, tot
-
-
-def merge_partials_torch(o_a, m_a, l_a, o_b, m_b, l_b):
-    """``merge_partials`` on torch tensors (the executor's device merge):
-    the same operations in the same order."""
-    m_new = torch.maximum(m_a, m_b)
-    w_a = l_a * torch.exp(m_a - m_new)
-    w_b = l_b * torch.exp(m_b - m_new)
-    tot = w_a + w_b
-    o = (w_a * o_a + w_b * o_b) / tot.clamp_min(1e-30)
     return o, m_new, tot
 
 

@@ -356,7 +356,8 @@ class HybridServeEngine:
                                                   sched_dev,
                                                   pages_bound=pages_bound,
                                                   act_pages_bound=act_bound,
-                                                  quant=self.quant)
+                                                  quant=self.quant,
+                                                  any_act=sched.any(0))
                 gen = gen_dev.cpu().numpy()
                 stats.device_calls += 1
             else:

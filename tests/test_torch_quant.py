@@ -315,21 +315,36 @@ def model(request):
     return get_config(name), tp, jcfg, jp
 
 
-def _prefill(model, B=3, S=40, cap=64):
-    cfg, tp, jcfg, jp = model
+PREFILL_CAP = 64
+
+
+def _prefill_batch(cfg, B=3, S=40):
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                              (B, S)).astype(np.int32)
-    kv_keep, last = np.array([16, 0, 32], np.int32), np.array([40, 37, 40], np.int32)
-    lg, c = M.hybrid_prefill_batched(tp, cfg, t(toks), cap, cap, t(kv_keep),
-                                     t(last), quant=QuantConfig())
-    jlg, jc = JM.hybrid_prefill_batched(
-        jp, jcfg, {"tokens": jnp.asarray(toks)}, cap, cap, jnp.asarray(kv_keep),
-        jnp.asarray(last), quant=JQuant())
-    return lg, c, jlg, jc
+    return toks, np.array([16, 0, 32], np.int32), np.array([40, 37, 40], np.int32)
 
 
-def test_prefill_stores_the_references_codes(model):
-    lg, c, jlg, jc = _prefill(model)
+@pytest.fixture(scope="module")
+def jax_prefill(model):
+    """The reference's quantized prefill of ``_prefill_batch``, run once per
+    model (its arrays are immutable)."""
+    cfg, _, jcfg, jp = model
+    toks, kv_keep, last = _prefill_batch(cfg)
+    return JM.hybrid_prefill_batched(
+        jp, jcfg, {"tokens": jnp.asarray(toks)}, PREFILL_CAP, PREFILL_CAP,
+        jnp.asarray(kv_keep), jnp.asarray(last), quant=JQuant())
+
+
+def _prefill(model, jax_prefill):
+    cfg, tp, *_ = model
+    toks, kv_keep, last = _prefill_batch(cfg)
+    lg, c = M.hybrid_prefill_batched(tp, cfg, t(toks), PREFILL_CAP, PREFILL_CAP,
+                                     t(kv_keep), t(last), quant=QuantConfig())
+    return (lg, c) + tuple(jax_prefill)
+
+
+def test_prefill_stores_the_references_codes(model, jax_prefill):
+    lg, c, jlg, jc = _prefill(model, jax_prefill)
     np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=LOGIT_TOL)
     for key in ("k", "v", "act"):
         assert c[key].dtype == torch.int8 and c[key + "_s"].dtype == torch.float16
@@ -338,7 +353,7 @@ def test_prefill_stores_the_references_codes(model):
         np.testing.assert_array_equal(c[key].numpy(), np.asarray(jc[key]))
 
 
-def test_decode_with_act_bound_rows_matches_jax(model):
+def test_decode_with_act_bound_rows_matches_jax(model, jax_prefill):
     """Two quantized decode steps from the same int8 cache (the reference's
     prefill, its fake-quantized values requantized: the same codes), with
     ACT-bound and KV-bound tokens.  The reference attends an ACT-bound
@@ -348,7 +363,7 @@ def test_decode_with_act_bound_rows_matches_jax(model):
     of the port measured logit gaps of 1.6e-3 (opt-6.7b-reduced) and
     4.4e-3 (yi-6b-reduced)."""
     cfg, tp, jcfg, jp = model
-    _, c, jlg, jc = _prefill(model)
+    _, c, jlg, jc = _prefill(model, jax_prefill)
     for key in ("k", "v", "act"):              # the reference's exact state
         c[key], c[key + "_s"] = quantize(t(np.array(jc[key])))
     tok = np.asarray(jnp.argmax(jlg[:, -1], -1)).astype(np.int32)
@@ -362,6 +377,35 @@ def test_decode_with_act_bound_rows_matches_jax(model):
         for key in ("k", "v", "act"):
             _codes_close(c[key], c[key + "_s"], jc[key], key)
         tok = np.asarray(jnp.argmax(jlg2[:, -1], -1)).astype(np.int32)
+
+
+def test_step_without_act_bound_tokens_skips_the_exact_rows(model, jax_prefill,
+                                                           monkeypatch):
+    """A quantized step whose schedule binds no token to the ACT region
+    (``any_act=False``, what the engine passes in kv mode) runs the fused
+    kernel without ``return_lse`` and writes no scratch row, and gives the
+    reference's logits and cache as the merging step does."""
+    cfg, tp, jcfg, jp = model
+    _, c, jlg, jc = _prefill(model, jax_prefill)
+    for key in ("k", "v", "act"):
+        c[key], c[key + "_s"] = quantize(t(np.array(jc[key])))
+    tok = np.asarray(jnp.argmax(jlg[:, -1], -1)).astype(np.int32)
+    store = np.zeros(3, bool)
+    seen = []
+    real_fused, real_rows = M.hybrid_paged_attention, M._own_rows
+    monkeypatch.setattr(M, "hybrid_paged_attention", lambda *a, **kw: (
+        seen.append(("lse", kw["return_lse"])), real_fused(*a, **kw))[1])
+    monkeypatch.setattr(M, "_own_rows", lambda *a: (
+        seen.append(("rows", True)), real_rows(*a))[1])
+    lg, c = M.hybrid_decode_step(tp, cfg, t(tok)[:, None], c, t(store),
+                                 quant=QuantConfig(), any_act=False)
+    assert seen == ([] if cfg.pos_type == "rope"
+                    else [("lse", False)] * cfg.num_layers)
+    jlg2, jc = JM.hybrid_decode_step(jp, jcfg, jnp.asarray(tok)[:, None], jc,
+                                     jnp.asarray(store), quant=JQuant())
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jlg2), atol=LOGIT_TOL)
+    for key in ("k", "v", "act"):
+        _codes_close(c[key], c[key + "_s"], jc[key], key)
 
 
 def test_cache_format_must_match_quant(model):

@@ -7,6 +7,7 @@ without the CPU attention lane, EQUAL the device-resident quant engine's and
 the JAX offload quant engine's (same numpy weights, same hardware numbers).
 The link moves the quantized bytes (the reference's test_quant.py recipe)."""
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -35,7 +36,10 @@ Q_MIXED = dataclasses.replace(cm.H100_SXM, name="h100-20tflops-16GBps",
 CAPS = dict(kv_cap=128, act_cap=128)
 
 
+@functools.cache
 def _setup(name):
+    """The model's weights (the reference's, shared by both sides) and the
+    trace, made once per model."""
     jcfg = j_get_config(name)
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
     tp = P.from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
