@@ -9,7 +9,11 @@ through ``HybridServeEngine`` in hybrid and kv modes and checks the tokens
 against ``exact_reference_generate``: opt-6.7b (learned positions; the fused
 hybrid kernel recomputes ACT pages' K/V) and then yi-6b (RoPE, GQA, SwiGLU;
 the ``kv_gen`` kernel recomputes them, the hybrid kernel's second-pool mode
-attends).  After each model's device-resident serve has freed its weights, an
+attends).  Last, gemma3-1b (5:1 sliding window, q/k norm, head_dim 256, MQA)
+runs its windowed hybrid path, ``hybrid_prefill`` -> ``hybrid_decode_loop``:
+the flash kernel's window mode in prefill, rings and global layers through
+the second-pool mode at head_dim 256, ``kv_gen`` with the K norm, checked
+against the plain ``prefill`` + ``decode_loop`` with three planted faults.  After each model's device-resident serve has freed its weights, an
 offload phase serves it again with its layer weights in pinned host memory,
 streamed to the card over a CUDA copy stream (``HybridServeEngine(offload=
 True)``): prefetch depth 1 and 0, the KV region resident or spilled to the
@@ -35,6 +39,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -140,6 +145,15 @@ KERNELS = {
                   "src/repro/kernels/hybrid_attention/kernel.py:100"),
     "hybrid_paged_attention_return_lse_q8": _HYBRID,
     "hybrid_paged_attention_two_pool_return_lse_q8": _HYBRID,
+    # the gemma3 path's modes: the flash kernel's sliding window (kernel.py
+    # :47-48 skip, :62-63 mask), the second-pool mode at head_dim 256, and
+    # kv_gen at head_dim 256 with the K norm epilogue
+    "flash_attention_window": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:84"),
+    "hybrid_paged_attention_two_pool_hd256": _HYBRID,
+    "kv_gen_qk_norm": ("src/repro_torch/kernels/kv_gen/csrc/kv_gen.cu",
+                       "src/repro/kernels/kv_gen/kernel.py:46"),
 }
 # the launch counters: (kernel wrapper, its counter); the return_lse and
 # int8 rows count the launches of that mode on the same wrappers
@@ -159,7 +173,24 @@ COUNTERS = {"flash_attention": (flash_attention, "launches"),
             "hybrid_paged_attention_return_lse_q8": (
                 hybrid_paged_attention, "lse_q8_launches"),
             "hybrid_paged_attention_two_pool_return_lse_q8": (
-                hybrid_paged_attention_two_pool, "lse_q8_launches")}
+                hybrid_paged_attention_two_pool, "lse_q8_launches"),
+            "flash_attention_window": (flash_attention, "window_launches"),
+            "hybrid_paged_attention_two_pool_hd256": (
+                hybrid_paged_attention_two_pool, "hd256_launches"),
+            "kv_gen_qk_norm": (kv_gen, "knorm_launches")}
+GEMMA = "gemma3-1b"
+# the gemma path's groups (requests, prompt length): group 1's prompt is no
+# page multiple, longer than the window, so the window mask and the rings'
+# wrap act in prefill; group 2's rings wrap at its 8th decode step
+GEMMA_GROUPS = ((4, 1000), (2, 505))
+GEMMA_STEPS = 12
+# gemma's checkpoints carry trained, non-zero q/k norm scales; the random
+# weights draw them N(0, GEMMA_QK_NORM_STD) so that the K norm weighs on the
+# keys as it does there (at its zero init it only divides by an RMS near 1).
+# At 0.5 the K norm left out of kv_gen moved the logits by 0.19, under the
+# 0.25 limit, so no limit could have told it apart; at 1.0 it moves them by
+# ~1.2 (NVIDIA H100 80GB HBM3, 700 W)
+GEMMA_QK_NORM_STD = 1.0
 
 
 def emit(obj) -> None:
@@ -248,33 +279,49 @@ def phase_build(results):
     results["build"] = out
 
 
-def check_flash(B, S, H=32, KVH=32, D=128, dtype=torch.float16):
+def check_flash(B, S, H=32, KVH=32, D=128, dtype=torch.float16, window=0):
+    """The flash kernel, causal or (``window`` > 0) sliding-window, against
+    its plain version; the window mode's planted fault is the kernel run
+    without its window."""
     g = torch.Generator(device="cuda").manual_seed(S)
     q = torch.randn((B, S, H, D), generator=g, device="cuda", dtype=dtype)
     k, v = (torch.randn((B, S, KVH, D), generator=g, device="cuda",
                         dtype=dtype) for _ in range(2))
-    got = flash_attention(q, k, v)
-    want = flash_attention_ref(q, k, v)
+    got = flash_attention(q, k, v, window=window)
+    want = flash_attention_ref(q, k, v, window)
+    faults = {}
+    if window:
+        faults["fault_err_no_window"] = (flash_attention(q, k, v).float()
+                                         - want.float()).abs().max().item()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol, top = kernel_tol(want)
-    # the library call reads (B, H, S, D) with K/V expanded to H heads, made
-    # before the timing
+    # the library call reads (B, H, S, D) with K/V expanded to H heads, and
+    # in the window mode a boolean band mask, made before the timing
     qt, kt, vt = (x.transpose(1, 2).repeat_interleave(H // x.shape[2], dim=1)
                   .contiguous() for x in (q, k, v))
+    i = torch.arange(S, device="cuda")
+    band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+    lib = (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)) \
+        if window else (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
     iters = 50 if S <= 256 else 10
-    ms = time_ms(lambda: flash_attention(q, k, v), iters)
-    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), iters)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), iters)
-    ops = 4.0 * B * H * D * S * (S + 1) / 2           # QK^T and PV, causal half
+    ms = time_ms(lambda: flash_attention(q, k, v, window=window), iters)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, window), iters)
+    lib_ms = time_ms(lib, iters)
+    # QK^T and PV over the (query, key) pairs the mask keeps
+    pairs = sum(min(n + 1, window) if window else n + 1 for n in range(S))
+    ops = 4.0 * B * H * D * pairs
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     bound_ms, by = bound(nbytes, ops)
-    return {"shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D},
+    return {"shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
+                      "window": window},
             "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
-            "tol": tol, "max_abs_out": top, "kernel_ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-            "bound_by": by}
+            "tol": tol, "max_abs_out": top, **faults, "kernel_ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "F.scaled_dot_product_attention"
+                       + (", boolean band mask" if window else ", is_causal"),
+            "bound_ms": bound_ms, "bound_by": by}
 
 
 # the fused mode's hand-picked tables (uneven splits, an empty KV region),
@@ -371,7 +418,7 @@ def serve_shape(cfg, quant=None) -> dict:
 
 
 def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
-                 norm_type="rmsnorm", theta=5e6, q8=False):
+                 norm_type="rmsnorm", theta=5e6, q8=False, knorm=False):
     """kv_gen over each of B requests' first ``n_act`` ACT pages, read in
     place from a pool of ``act_cap`` tokens per request, with RoPE at
     scattered positions; ``q8``: its int8 mode over the pool quantized as
@@ -380,7 +427,9 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
     (their scales in place).  A scale one row off is read but not held to
     the limit: a per-row factor in front of the norm cancels but for eps and
     rounding, so no limit on the output can see it, and it changes the
-    answer by no more than rounding does."""
+    answer by no more than rounding does.  ``knorm``: the K norm epilogue
+    (gemma3) with a non-zero scale, and the kernel run without it as the
+    planted fault."""
     g = torch.Generator(device="cuda").manual_seed(2)
     rnd = lambda *shape, s=1.0, o=0.0: (torch.randn(
         shape, generator=g, device="cuda") * s + o).to(dtype)
@@ -398,11 +447,16 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
     sc, fp_pool = {}, pool
     if q8:
         (pool,), sc = q8_pools(act_pages=pool)
-    run = lambda f, ix=idx, sc=sc, pages=pool: f(
+    kn = {"knorm": rnd(hd, s=0.3)} if knorm else {}
+    run = lambda f, ix=idx, sc=sc, pages=pool, kn=kn: f(
         pages, scale, bias, wk, wv, page_index=ix, sin=sin, cos=cos,
-        norm_type=norm_type, eps=eps, **sc)
+        norm_type=norm_type, eps=eps, **sc, **kn)
     got, want = run(kv_gen), run(kv_gen_ref)
     faults = {}
+    if knorm:
+        faults["fault_err_no_knorm"] = max(
+            (a.float() - b.float()).abs().max().item()
+            for a, b in zip(run(kv_gen, kn={}), want))
     if q8:
         last = idx.view(B, n_act).clone()
         last[:, -1] -= 1 if n_act > 1 else -1
@@ -426,6 +480,7 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
     if q8:
         rows = deq()
     a = L.layer_norm(rows, scale, bias, eps) if ln else L.rms_norm(rows, scale, eps)
+    # (the K norm, like RoPE, is an epilogue the GEMM-only call leaves out)
     a = a.reshape(N * PAGE, d)
     w = torch.cat([wk.reshape(d, -1), wv.reshape(d, -1)], 1)
     ms = time_ms(lambda: run(kv_gen), 50)
@@ -437,11 +492,13 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
     act_bytes = M * (d + 2) if q8 else esz * M * d
     nbytes = act_bytes + esz * (2 * d * KVH * hd + (2 if ln else 1) * d
                                 + 2 * M * KVH * hd) + 4 * (N + 2 * M * hd // 2)
-    ops = 4.0 * M * d * KVH * hd + 5.0 * M * d + 3.0 * M * KVH * hd
+    ops = 4.0 * M * d * KVH * hd + 5.0 * M * d + (6.0 if knorm else 3.0) \
+        * M * KVH * hd
+    nbytes += esz * hd if knorm else 0
     bound_ms, by = bound(nbytes, ops)
     return {"shape": {"pages": N, "B": B, "act_pages_per_request": n_act,
                       "d_model": d, "KVH": KVH, "hd": hd, "act_cap": act_cap,
-                      "rope_theta": theta},
+                      "rope_theta": theta, "knorm": knorm},
             "dtype": str(dtype).removeprefix("torch."), "norm_type": norm_type,
             "int8": q8, "max_abs_err": err, "tol": tol, "max_abs_out": top,
             **faults, "kernel_ms": ms, "fp_kernel_ms_same_values": fp_ms,
@@ -452,9 +509,10 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
 
 
 def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16, q8=False):
-    """The hybrid kernel's second-pool mode at the yi serve path's last-step
+    """The hybrid kernel's second-pool mode at a serve path's last-step
     tables: KV pages of (B, kv_cap) regions, ACT entries in a scratch pool of
-    ``act_pages_bound`` pages per request; ``q8``: the KV pools in int8."""
+    ``act_pages_bound`` pages per request (none: a local layer's rings, W =
+    kv_cap); ``q8``: the KV pools in int8."""
     g = torch.Generator(device="cuda").manual_seed(3)
     B, kv_cap, n_act = shape["B"], shape["kv_cap"], shape["act_pages_bound"]
     rnd = lambda *sh: (torch.randn(sh, generator=g, device="cuda") * 0.5).to(dtype)
@@ -474,10 +532,16 @@ def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16, q8=False):
     args = (q, k_pages, v_pages, ak, av, *table(act_tok))
     got = hybrid_paged_attention_two_pool(*args, **sc)
     want = hybrid_paged_attention_two_pool_ref(*args, **sc)
-    faulty = hybrid_paged_attention_two_pool(*args[:5],
-                                             *table(drop_last_page(act_tok)), **sc)
-    faults = {"fault_err_last_act_page_dropped":
-              (faulty.float() - want.float()).abs().max().item()}
+    if n_act:
+        faulty = hybrid_paged_attention_two_pool(
+            *args[:5], *table(drop_last_page(act_tok)), **sc)
+        fault = "fault_err_last_act_page_dropped"
+    else:           # KV pages only (a ring): drop each request's last page
+        faulty = hybrid_paged_attention_two_pool(*args[:5], *M.hybrid_page_table(
+            drop_last_page(kv_tok), act_tok, kv_cap, 0, shape["pages_bound"]),
+            **sc)
+        fault = "fault_err_last_kv_page_dropped"
+    faults = {fault: (faulty.float() - want.float()).abs().max().item()}
     if q8:
         faulty = hybrid_paged_attention_two_pool(*args, **scales_row_off(sc))
         faults["fault_err_scales_row_off"] = \
@@ -499,8 +563,8 @@ def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16, q8=False):
         pk = kf.view(B, -1, KVH, D)[b, :nk]
         pv = vf.view(B, -1, KVH, D)[b, :nk]
         kd[b, :nk], vd[b, :nk] = pk, pv
-        kd[b, nk:nk + na] = ak.view(B, -1, KVH, D)[b, :na]
-        vd[b, nk:nk + na] = av.view(B, -1, KVH, D)[b, :na]
+        kd[b, nk:nk + na] = ak.view(B, n_act * PAGE, KVH, D)[b, :na]
+        vd[b, nk:nk + na] = av.view(B, n_act * PAGE, KVH, D)[b, :na]
     mask = (torch.arange(S, device="cuda")[None] < (kv_t + act_t)[:, None])
     mask = mask[:, None, None, :]
     qt = q.reshape(B, KVH * G, 1, D)
@@ -713,14 +777,56 @@ def lse_library(q, region_k, region_v, ak, av, kv_tok, act_tok):
         return None, f"none: {type(e).__name__}: {str(e)[:160]}"
 
 
+def gemma_plan(B: int, S: int, n: int = GEMMA_STEPS) -> dict:
+    """One gemma group's hybrid plan: kv_keep = S // 2; store_act alternating
+    over the requests (even ones ACT-bound) at every step, as the
+    reference's windowed hybrid test has it (no Algorithm-1 pricing exists
+    for this family); both regions the page multiple that covers S + n; the
+    page bounds of the last step, the widest."""
+    sched = np.tile(np.arange(B) % 2 == 0, (n, 1))             # (steps, B)
+    kv_keep = S // 2
+    cap = -(-(S + n) // PAGE) * PAGE
+    kv_tok = kv_keep + (~sched).sum(0)
+    act_tok = S - kv_keep + sched.sum(0)
+    act_pages = -(-act_tok // PAGE)
+    return {"B": B, "S": S, "kv_keep": kv_keep, "sched": sched,
+            "kv_cap": cap, "act_cap": cap, "kv_tokens": kv_tok.tolist(),
+            "act_tokens": act_tok.tolist(),
+            "pages_bound": int((-(-kv_tok // PAGE) + act_pages).max()),
+            "act_pages_bound": int(act_pages.max())}
+
+
+def gemma_shapes():
+    """The gemma path's decode kernel shapes: a global layer's second-pool
+    tables at group 1's last step, and a local layer's rings (W tokens, all
+    live: KV pages only)."""
+    cfg = get_config(GEMMA)
+    plan = gemma_plan(*GEMMA_GROUPS[0])
+    W = cfg.sliding_window
+    B = plan["B"]
+    ring = {"B": B, "kv_cap": W, "act_cap": 0, "kv_tokens": [W] * B,
+            "act_tokens": [0] * B, "pages_bound": W // PAGE,
+            "act_pages_bound": 0}
+    return {k: v for k, v in plan.items() if k != "sched"}, ring
+
+
 def phase_kernels(results):
     """Per kernel, the serve path's shapes first: opt-6.7b's (float16, MHA,
     LayerNorm, G=1), then yi-6b's (bfloat16, G=8: flash prefill, kv_gen and
     the second-pool mode at the engine's planned shapes), then other
     branches the wrappers accept: GQA flash at G=4, the fused kernel's
     rmsnorm, and kv_gen at minitron-4b's widths with a LayerNorm bias.  The
-    int8 modes run at the int8 engine's plans, which split otherwise."""
+    int8 modes run at the int8 engine's plans, which split otherwise.  Then
+    gemma3-1b's (bfloat16, MQA with G = 4, head_dim 256): the flash kernel
+    causal and in its window mode at group 1's prompt, the second-pool mode
+    at a global layer's tables and at a local layer's rings, and kv_gen with
+    the K norm."""
     yi, opt = get_config("yi-6b"), get_config("opt-6.7b")
+    gemma = get_config(GEMMA)
+    g_global, g_ring = gemma_shapes()
+    gB, gS = GEMMA_GROUPS[0]
+    gw = dict(H=gemma.num_heads, KVH=gemma.num_kv_heads, D=gemma.head_dim,
+              dtype=torch.bfloat16)
     shape, opt_shape = serve_shape(yi), serve_shape(opt)
     yi_q8, opt_q8 = serve_shape(yi, QuantConfig()), serve_shape(opt, QuantConfig())
     bf16 = torch.bfloat16
@@ -730,7 +836,8 @@ def phase_kernels(results):
                check_flash(4, 80), check_flash(1, 2048),
                check_flash(4, 80, H=32, KVH=8, dtype=bf16),
                check_flash(4, 80, H=32, KVH=4, dtype=bf16),
-               check_flash(1, 2048, H=32, KVH=4, dtype=bf16)],
+               check_flash(1, 2048, H=32, KVH=4, dtype=bf16),
+               check_flash(gB, gS, **gw)],
            "hybrid_paged_attention": [
                check_hybrid(),
                check_hybrid(KVH=8, G=4, dtype=bf16, norm_type="rmsnorm")],
@@ -756,6 +863,18 @@ def phase_kernels(results):
                check_lse("fused", opt_q8, KVH=32, G=1, q8=True),
            "hybrid_paged_attention_two_pool_return_lse_q8":
                check_lse("two_pool", yi_q8, KVH=4, G=8, dtype=bf16, q8=True),
+           "flash_attention_window": [
+               check_flash(gB, gS, window=gemma.sliding_window, **gw)],
+           "hybrid_paged_attention_two_pool_hd256": [
+               check_two_pool(g, KVH=gemma.num_kv_heads,
+                              G=gemma.num_heads // gemma.num_kv_heads,
+                              D=gemma.head_dim) for g in (g_global, g_ring)],
+           "kv_gen_qk_norm": [
+               check_kv_gen(g_global["B"], g_global["act_pages_bound"],
+                            gemma.d_model, gemma.num_kv_heads, hd=gemma.head_dim,
+                            act_cap=g_global["act_cap"], theta=gemma.rope_theta,
+                            knorm=True)],
+           "gemma_serve_shapes": {"global": g_global, "ring": g_ring},
            "opt_serve_shape": opt_shape}
     emit(out)
     results["kernels"] = out
@@ -1546,18 +1665,22 @@ def kernel_group(name: str) -> str:
     return "other (norms, elementwise, indexing, argmax)"
 
 
-def phase_profile(results, smi, name, engines, reqs):
+def phase_profile(results, smi, name, engines, reqs, runs=None):
     """Per mode: device time by kernel over one warm ``generate`` of the trace
     (torch.profiler kernel events), the device's busy and idle share of the
-    wall-clock window, and the kernels that took the most device time."""
+    wall-clock window, and the kernels that took the most device time.
+    ``runs``: {mode: callable} to profile in place of the engines' runs."""
     from torch.profiler import ProfilerActivity, profile
     out = {"phase": "profile", "card": smi, "model": name}
-    for mode, eng in engines.items():
+    if runs is None:
+        runs = {mode: (lambda e=eng: e.generate(reqs))
+                for mode, eng in engines.items()}
+    for mode, run in runs.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            eng.generate(reqs)
+            run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         by_group, by_name = {}, {}
@@ -1581,6 +1704,211 @@ def phase_profile(results, smi, name, engines, reqs):
                             for n_, (n, t) in top]}
     emit(out)
     results[f"profile {name}"] = out
+
+
+def gemma_oracle(params, cfg, toks, n: int, gold=None):
+    """The plain path over one group: ``prefill`` then greedy ``decode_loop``
+    (``gold`` None), or fed ``gold`` (B, n) to read its per-step logits.
+    -> (tokens (B, n), logits (B, n, V) or None)."""
+    B, S = toks.shape
+    lg, cache = M.prefill(params, cfg, toks, max_len=S + n)
+    if gold is None:
+        return M.decode_loop(params, cfg, lg[:, -1].argmax(-1).int(), cache,
+                             n)[0], None
+    steps = [lg[:, -1]]
+    for s in range(n - 1):
+        lg, cache = M.decode_step(params, cfg, gold[:, s:s + 1].int(), cache)
+        steps.append(lg[:, -1])
+    return gold, torch.stack(steps, 1)
+
+
+def gemma_hybrid(params, cfg, toks, plan, gold=None, marks=None):
+    """The hybrid path over one group: ``hybrid_prefill`` then
+    ``hybrid_decode_loop`` (``gold`` None; no host sync allowed inside the
+    loop), or ``hybrid_decode_step`` fed ``gold`` (B, n) to read its
+    per-step logits.  ``marks``: a list to append (time, launch counts,
+    logits) to when the prefill has run.  -> (tokens (B, n), logits
+    (B, n, V) or None)."""
+    lg, cache = M.hybrid_prefill(params, cfg, toks, plan["kv_cap"],
+                                 plan["act_cap"], plan["kv_keep"])
+    if marks is not None:
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), read_counts(), lg))
+    sched = torch.from_numpy(np.ascontiguousarray(plan["sched"])).cuda()
+    bounds = dict(pages_bound=plan["pages_bound"],
+                  act_pages_bound=plan["act_pages_bound"])
+    if gold is None:
+        cur = lg[:, -1].argmax(-1).int()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return M.hybrid_decode_loop(params, cfg, cur, cache, sched,
+                                        **bounds)[0], None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    steps = [lg[:, -1]]
+    for s in range(gold.shape[1] - 1):
+        lg, cache = M.hybrid_decode_step(params, cfg, gold[:, s:s + 1].int(),
+                                         cache, sched[s], **bounds)
+        steps.append(lg[:, -1])
+    return gold, torch.stack(steps, 1)
+
+
+_real_ring, _real_flash, _real_kv_gen = (M.ring_page_table,
+                                         M.T.flash_attention, M.kv_gen)
+
+
+def gemma_ring_one_slot_short(ctx, W):
+    """A planted fault: the local layers' ring tables one live slot short
+    (below W the new token's own slot, from W on the last slot)."""
+    table, _, ntok = _real_ring(ctx, W)
+    j = torch.arange(ntok.shape[1], device=ctx.device)[None]
+    live = (ctx.long()[:, None] + 1).clamp(max=W) - 1
+    ntok = (live - PAGE * j).clamp(0, PAGE).int()
+    return table, torch.where(ntok > 0, 0, 2).int(), ntok
+
+
+# the gemma path's planted faults: (module, attribute, stand-in)
+GEMMA_FAULTS = {
+    "local_layers_without_window": (
+        M.T, "flash_attention", lambda q, k, v, window=0: _real_flash(q, k, v)),
+    "ring_page_ntok_one_slot_short": (M, "ring_page_table",
+                                      gemma_ring_one_slot_short),
+    "kv_gen_without_knorm": (
+        M, "kv_gen", lambda *a, knorm=None, **kw: _real_kv_gen(*a, **kw)),
+}
+
+
+def phase_serve_gemma(results, smi):
+    """gemma3-1b at full width and depth (26 layers: 4 periods of 5 local
+    layers and a global one, 2 local tail layers; bfloat16, random weights
+    from seed 0) through ``hybrid_prefill`` -> ``hybrid_decode_loop``, two
+    groups of ``GEMMA_GROUPS``, ``GEMMA_STEPS`` tokens each.  Checks the
+    launches per prefill (flash: one per layer, the local layers' in the
+    window mode) and per decode step (the second-pool mode at head_dim 256
+    per layer, kv_gen with the K norm per global layer), no host sync in the
+    decode loop, finite logits, and the tokens against the plain ``prefill``
+    + ``decode_loop`` under the bfloat16 rule; each planted fault must fail
+    the logit limit.  -> the launch counts of the path's run."""
+    cfg = get_config(GEMMA)
+    period, n_per, tail = M._window_split(cfg)
+    n_global, n_local = n_per, cfg.num_layers - n_per
+    logit_tol = LOGIT_TOL_BY_DTYPE[cfg.dtype]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for stack in (params["periods"]["local"], params["periods"]["global"],
+                  params["tail"]):
+        for key in ("qnorm", "knorm"):
+            t = stack["attn"][key]
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda")
+                    * GEMMA_QK_NORM_STD)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = GEMMA_STEPS
+    rng = np.random.default_rng(0)
+    groups = []
+    for B, S in GEMMA_GROUPS:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                .astype(np.int32)).cuda()
+        groups.append((toks, gemma_plan(B, S)))
+    out = {"phase": "serve_gemma", "card": smi, "model": cfg.name,
+           "layers": cfg.num_layers, "local_layers": n_local,
+           "global_layers": n_global, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.head_dim, "window": cfg.sliding_window,
+           "vocab_padded": M.pad_vocab(cfg.vocab_size), "dtype": cfg.dtype,
+           "params": sum(t.numel() for t in _leaves(params)), "init_s": init_s,
+           "qk_norm_std": GEMMA_QK_NORM_STD, "logit_tol": logit_tol,
+           "groups": [{k: v for k, v in p.items() if k != "sched"}
+                      for _, p in groups]}
+
+    for toks, plan in groups:                            # warm-up
+        gemma_hybrid(params, cfg, toks, plan)
+    torch.cuda.synchronize()
+    # the counted main-path run: counts start at 0, each stage's read apart
+    reset_counts()
+    hyb, stages, prev = [], [], read_counts()
+    for toks, plan in groups:
+        marks = []
+        t0 = time.perf_counter()
+        toks_out, _ = gemma_hybrid(params, cfg, toks, plan, marks=marks)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        after = read_counts()
+        (t1, after_prefill, lg), = marks
+        if not (torch.isfinite(lg).all() and lg.shape == (
+                plan["B"], 1, M.pad_vocab(cfg.vocab_size))):
+            raise AssertionError(f"prefill logits {tuple(lg.shape)} not finite")
+        hyb.append(toks_out.cpu().numpy())
+        stages.append({
+            "prefill_s": t1 - t0, "decode_s": t2 - t1,
+            "decode_tokens_per_s": plan["B"] * n / (t2 - t1),
+            "prefill_launches": {k: after_prefill[k] - prev[k] for k in prev},
+            "decode_launches_per_step": {
+                k: (after[k] - after_prefill[k]) / n for k in prev}})
+        prev = after
+    launches = read_counts()
+    want_prefill = {k: 0 for k in COUNTERS}
+    want_prefill.update(flash_attention=cfg.num_layers,
+                        flash_attention_window=n_local)
+    want_step = {k: 0 for k in COUNTERS}
+    want_step.update(hybrid_paged_attention_two_pool=cfg.num_layers,
+                     hybrid_paged_attention_two_pool_hd256=cfg.num_layers,
+                     kv_gen=n_global, kv_gen_qk_norm=n_global)
+    for st in stages:
+        if st["prefill_launches"] != want_prefill or \
+                st["decode_launches_per_step"] != want_step:
+            raise AssertionError(f"gemma launches {st}, expected "
+                                 f"{want_prefill} / {want_step} a step")
+    out.update(launches=launches, stages=stages, decode_loop_host_syncs=0,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    # tokens against the plain path, under the bfloat16 rule, and the
+    # teacher-forced logit gap; then the planted faults read the same gap
+    rule = {"oracle": {}, "margin": {}, "logit_tol": logit_tol, "hybrid": {}}
+    outs, rids, forced = {}, [], []
+    for gi, ((toks, plan), got) in enumerate(zip(groups, hyb)):
+        gold, _ = gemma_oracle(params, cfg, toks, n)
+        _, ora = gemma_oracle(params, cfg, toks, n, gold)
+        _, lg = gemma_hybrid(params, cfg, toks, plan, gold)
+        forced.append((toks, plan, gold, ora))
+        top2 = ora.topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+        gaps = (lg - ora).abs().amax(-1).cpu().numpy()
+        gold_np = gold.cpu().numpy()
+        for b in range(plan["B"]):
+            rid = f"group{gi}/request{b}"
+            rids.append(SimpleNamespace(rid=rid))
+            rule["oracle"][rid], rule["margin"][rid] = gold_np[b], margin[b]
+            rule["hybrid"][rid], outs[rid] = gaps[b], got[b]
+    gap = max(float(g_.max()) for g_ in rule["hybrid"].values())
+    out.update(exactness(rule, "hybrid", outs, rids),
+               min_oracle_margin=float(min(m.min() for m in rule["margin"]
+                                           .values())),
+               max_teacher_forced_dlogit=gap)
+    if gap > logit_tol:
+        raise AssertionError(f"gemma hybrid teacher-forced logits differ by {gap}")
+    faults = {}
+    for name, (mod, attr, fault) in GEMMA_FAULTS.items():
+        real = getattr(mod, attr)
+        setattr(mod, attr, fault)
+        try:
+            faults[name] = max(
+                (gemma_hybrid(params, cfg, toks, plan, gold)[1] - ora)
+                .abs().max().item() for toks, plan, gold, ora in forced)
+        finally:
+            setattr(mod, attr, real)
+    out["fault_dlogit"] = faults
+    emit(out)
+    results[f"serve {GEMMA}"] = out
+    if not all(f > logit_tol for f in faults.values()):
+        raise AssertionError(f"the logit limit {logit_tol} passes a planted "
+                             f"fault: {faults}")
+    runs = {"hybrid": lambda: [gemma_hybrid(params, cfg, toks, plan)
+                               for toks, plan in groups]}
+    phase_profile(results, smi, GEMMA, None, None, runs)
+    return launches
 
 
 def serve_path(results, smi, name):
@@ -1614,8 +1942,12 @@ def main() -> int:
     by_path, ha_path = {}, {}
     for name in ("opt-6.7b", "yi-6b"):
         by_path[name], ha_path[name] = serve_path(results, smi, name)
+    by_path[GEMMA] = {"fp": phase_serve_gemma(results, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
     # each kernel's launches on the path that carries it: the fused hybrid
-    # kernel on OPT's serve, the second-pool mode and kv_gen on yi's, the
+    # kernel on OPT's serve, the second-pool mode and kv_gen on yi's, their
+    # gemma modes (the flash window, head_dim 256, the K norm) on gemma's, the
     # return_lse mode of each on that model's host-attend offload run, the
     # int8 modes on the int8 serves and the int8 return_lse of each on that
     # model's int8 host-attend run (the int8 OPT serve also launches it on
@@ -1633,7 +1965,10 @@ def main() -> int:
                "kv_gen_q8": ("yi-6b", serve, "int8"),
                "hybrid_paged_attention_return_lse_q8": ("opt-6.7b", ha, "int8"),
                "hybrid_paged_attention_two_pool_return_lse_q8": ("yi-6b", ha,
-                                                                 "int8")}
+                                                                 "int8"),
+               "flash_attention_window": (GEMMA, serve, "fp"),
+               "hybrid_paged_attention_two_pool_hd256": (GEMMA, serve, "fp"),
+               "kv_gen_qk_norm": (GEMMA, serve, "fp")}
     counts = {serve: by_path, ha: ha_path}
     k = results["kernels"]
     rows = []

@@ -1,20 +1,23 @@
-// Causal GQA flash-attention forward (prefill) for Hopper, sm_90a.
+// Causal and sliding-window GQA flash-attention forward (prefill) for
+// Hopper, sm_90a.
 //
 // Replaces the TPU kernel `flash_attention` (body `_flash_kernel`) of
-// src/repro/kernels/flash_attention/kernel.py.
+// src/repro/kernels/flash_attention/kernel.py, in both of its modes.
 //
 // What it computes: o[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h/G] / sqrt(D))
-// . v[b, j, h/G] over keys j <= i (causal) and j < S, for q (B, S, H, D) and
-// k/v (B, S, KVH, D) read in place, without a transpose.  Online softmax with
-// a float32 accumulator, running max and running sum; scores never reach
-// device memory.
+// . v[b, j, h/G] over keys j <= i (causal) and j < S, and with a window W > 0
+// also j > i - W (sliding window, the windowed family's local layers), for
+// q (B, S, H, D) and k/v (B, S, KVH, D) read in place, without a transpose.
+// Online softmax with a float32 accumulator, running max and running sum;
+// scores never reach device memory.
 //
 // What bounds it on this card: at prefill lengths the work is
-// 4 * S^2/2 * H * D operations against (3 + 1) * S * H * D * 2 bytes, far
-// above the H100's ~295 operations per byte, so it is bound by operations.
-// This first kernel runs them on the CUDA cores in float32, not on the tensor
-// cores: it is simple and right, and its time sits far above the tensor-core
-// bound.  `wgmma` tiles fed by TMA are the follow-up.
+// 4 * S^2/2 * H * D operations (4 * S * W * H * D in the window mode)
+// against (3 + 1) * S * H * D * 2 bytes, far above the H100's ~295
+// operations per byte, so it is bound by operations.  This first kernel runs
+// them on the CUDA cores in float32, not on the tensor cores: it is simple
+// and right, and its time sits far above the tensor-core bound.  `wgmma`
+// tiles fed by TMA are the follow-up.
 //
 // The simple design: one block of 256 threads per (64-query tile, head,
 // request).  Key/value tiles of 64 rows are staged in shared memory (float32,
@@ -22,8 +25,13 @@
 // are computed as 4x4 register micro-tiles, then each row's online-softmax
 // update runs on four threads and the P.V product on 4x(D/16) register
 // accumulators.  Key tiles past the last live query are skipped (fully masked
-// under causality); the ragged tail (S not a multiple of 64) is masked.
-// Masked scores take the finite basis -1e30 and contribute exactly zero.
+// under causality), and in the window mode so are the tiles wholly before
+// the first query's window (the TPU kernel's tile skip): a query tile then
+// reads at most W/64 + 1 key tiles.  The ragged tail (S not a multiple of 64)
+// is masked.  Masked scores take the finite basis -1e30 and contribute
+// exactly zero.  Two instantiations: D <= 128 keeps 4x8 accumulators a
+// thread; D <= 256 (gemma3's head_dim) 4x16, with 214,784 bytes of dynamic
+// shared memory at D = 256, one block per SM.
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
@@ -33,8 +41,7 @@ namespace {
 constexpr int BQ = 64;          // queries per block
 constexpr int BK = 64;          // keys per staged tile
 constexpr int THREADS = 256;
-constexpr int MAX_D = 128;
-constexpr int MAX_DC = MAX_D / 16;
+constexpr int MAX_D = 256;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
@@ -53,11 +60,12 @@ size_t smem_bytes(int D) {
   return sizeof(float) * (size_t)(BQ * ld + 2 * BK * ld + BQ * (BK + 1) + 3 * BQ);
 }
 
-template <typename T>
+// MAX_DC: accumulator columns a thread keeps, D / 16 at most
+template <typename T, int MAX_DC>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int S, int H, int KVH, int D, float sm_scale) {
+                 int S, int H, int KVH, int D, int window, float sm_scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* qs = smem;                    // [BQ][ld]  query tile, pre-scaled
@@ -98,9 +106,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < MAX_DC; ++c) acc[i][c] = 0.f;
 
-  // keys past the tile's last live query are masked for every row: skip them
+  // keys past the tile's last live query are masked for every row, and with
+  // a window so are keys before the first query's window: skip those tiles
   const int k_end = min(q0 + BQ, S);
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();                   // the previous tile is fully consumed
     for (int i = tid; i < BK * D; i += THREADS) {
       const int r = i / D, d = i % D, kj = k0 + r;
@@ -133,7 +143,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int qi = q0 + sr * 4 + i, kj = k0 + sc * 4 + j;
-          const bool ok = kj < S && kj <= qi;
+          const bool ok = kj < S && kj <= qi && (window <= 0 || kj > qi - window);
           ps[(sr * 4 + i) * (BK + 1) + sc * 4 + j] = ok ? s[i][j] : NEG_INF;
         }
     }
@@ -198,34 +208,43 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KVH, int D, cudaStream_t stream) {
+template <typename T, int MAX_DC>
+int launch_dc(const void* q, const void* k, const void* v, void* o, int B, int S,
+              int H, int KVH, int D, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, MAX_DC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, MAX_DC><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, H, KVH, D, 1.f / sqrtf((float)D));
+      static_cast<T*>(o), S, H, KVH, D, window, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+           int H, int KVH, int D, int window, cudaStream_t stream) {
+  if (D <= 128) return launch_dc<T, 8>(q, k, v, o, B, S, H, KVH, D, window, stream);
+  return launch_dc<T, 16>(q, k, v, o, B, S, H, KVH, D, window, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 1 float16, 2 bfloat16.  Returns a cudaError_t.
+// window: 0 causal, > 0 sliding window of that many keys (the query's own
+// included).  dtype: 1 float16, 2 bfloat16.  Returns a cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int KVH, int D, int dtype,
+                        int B, int S, int H, int KVH, int D, int window, int dtype,
                         void* stream) {
-  if (D > MAX_D || D % 16 != 0 || KVH <= 0 || H % KVH != 0 || S <= 0)
+  if (D > MAX_D || D % 16 != 0 || KVH <= 0 || H % KVH != 0 || S <= 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 1: return launch<__half>(q, k, v, o, B, S, H, KVH, D, st);
-    case 2: return launch<__nv_bfloat16>(q, k, v, o, B, S, H, KVH, D, st);
+    case 1: return launch<__half>(q, k, v, o, B, S, H, KVH, D, window, st);
+    case 2: return launch<__nv_bfloat16>(q, k, v, o, B, S, H, KVH, D, window, st);
   }
   return (int)cudaErrorInvalidValue;
 }

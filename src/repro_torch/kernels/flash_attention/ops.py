@@ -2,7 +2,8 @@
 
 A CUDA tensor launches ``csrc/flash_attention.cu`` on PyTorch's current
 stream, or raises; a CPU tensor takes the plain version in ``ref.py``.
-``flash_attention.launches`` counts the kernel's launches.
+``flash_attention.launches`` counts the kernel's launches, and
+``flash_attention.window_launches`` again those of its sliding-window mode.
 """
 from __future__ import annotations
 
@@ -15,24 +16,29 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 # the dtypes the kernel is built and checked on the card for
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
-MAX_D = 128
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+MAX_D = 256
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def _launch(lib, q, k, v, out, stream) -> None:
+def _launch(lib, q, k, v, out, window: int, stream) -> None:
     fn = lib.flash_attention_fwd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     B, S, H, D = q.shape
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             B, S, H, k.shape[2], D, DTYPES[q.dtype], stream)
+             B, S, H, k.shape[2], D, window, DTYPES[q.dtype], stream)
     _build.check(lib, err, "flash_attention_fwd")
 
 
-def flash_attention(q, k, v):
+def flash_attention(q, k, v, *, window: int = 0):
     """Causal GQA attention forward: q (B,S,H,D), k/v (B,S,KVH,D) ->
-    (B,S,H,D) in q.dtype.  Any S (the ragged tail is masked in-kernel)."""
+    (B,S,H,D) in q.dtype.  Any S (the ragged tail is masked in-kernel).
+    ``window`` > 0: sliding window, query i sees keys i - window < j <= i
+    (the local layers of the windowed family); ``.window_launches`` counts
+    those launches again."""
+    if window < 0:
+        raise ValueError(f"flash_attention: window={window}")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v)
+        return flash_attention_ref(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, S, H, D = q.shape
@@ -52,9 +58,11 @@ def flash_attention(q, k, v):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch(_build.load("flash_attention"), q, k, v, out, stream)
+        _launch(_build.load("flash_attention"), q, k, v, out, window, stream)
     flash_attention.launches += 1
+    flash_attention.window_launches += window > 0
     return out
 
 
 flash_attention.launches = 0
+flash_attention.window_launches = 0

@@ -8,8 +8,9 @@ import math
 import torch
 
 
-def flash_attention_ref(q, k, v):
-    """Causal: q (B,S,H,D); k,v (B,S,KVH,D) -> (B,S,H,D) in q.dtype."""
+def flash_attention_ref(q, k, v, window: int = 0):
+    """Causal: q (B,S,H,D); k,v (B,S,KVH,D) -> (B,S,H,D) in q.dtype.
+    ``window`` > 0 (sliding window): query i sees keys i - window < j <= i."""
     B, S, H, D = q.shape
     KVH = k.shape[2]
     G = H // KVH
@@ -17,6 +18,8 @@ def flash_attention_ref(q, k, v):
     s = torch.einsum("bqhgd,bkhd->bqhgk", qr, k.float()) / math.sqrt(D)
     i = torch.arange(S, device=q.device)
     mask = i[None, :] <= i[:, None]
+    if window > 0:
+        mask &= i[None, :] > i[:, None] - window
     s = s.masked_fill(~mask[None, :, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqhgk,bkhd->bqhgd", p, v.float())

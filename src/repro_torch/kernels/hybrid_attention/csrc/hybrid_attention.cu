@@ -49,7 +49,11 @@
 // The simple design: one block of 128 threads per (KV head, request); the
 // block walks the request's row of the page table in order (the caller sizes
 // the table to the pages in use), with an online softmax kept in registers,
-// thread t owning output column t.  A KV
+// thread t owning output column t.  The second-pool mode at D <= 256
+// (gemma3's head_dim 256, MQA with G = 4) instantiates the same loop with 256
+// threads, so each thread still owns one column; its static shared memory is
+// 45,888 bytes, under the 48 KB limit.  The 128-thread instantiation, which
+// every D <= 128 takes, is unchanged.  A KV
 // page is staged in shared memory.  An ACT page is never staged whole (16 x
 // 4096 in f16 is 128 KB): a first pass takes each row's mean and variance in
 // float32 (one warp per row), then d_model streams through shared memory in
@@ -78,9 +82,7 @@
 namespace {
 
 constexpr int PAGE = 16;
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;       // the second-pool mode's; the fused mode's is 128
 constexpr int MAX_G = 8;
 constexpr int CHUNK = 64;        // d_model columns per projection step
 constexpr float NEG_INF = -1e30f;
@@ -119,9 +121,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// P: the payload type of the KV pools and the ACT pool, T or int8_t
-template <typename T, typename P, bool TWO_POOL>
-__global__ void __launch_bounds__(THREADS)
+// P: the payload type of the KV pools and the ACT pool, T or int8_t.
+// MD: the block's width, 128 or 256 threads, one output column each (D <= MD)
+template <typename T, typename P, bool TWO_POOL, int MD>
+__global__ void __launch_bounds__(MD)
 hybrid_attn_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                    const P* __restrict__ v_pages, const __half* __restrict__ k_scales,
                    const __half* __restrict__ v_scales,
@@ -135,9 +138,10 @@ hybrid_attn_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
                    float* __restrict__ m_out, float* __restrict__ l_out,
                    int KVH, int G, int D, int d_model, int maxp,
                    int layernorm, float eps, float sm_scale) {
-  __shared__ float q_s[MAX_G][MAX_D];
-  __shared__ float k_s[PAGE][MAX_D + 1];
-  __shared__ float v_s[PAGE][MAX_D + 1];
+  constexpr int THREADS = MD, WARPS = MD / 32;
+  __shared__ float q_s[MAX_G][MD];
+  __shared__ float k_s[PAGE][MD + 1];
+  __shared__ float v_s[PAGE][MD + 1];
   __shared__ float s_s[MAX_G][PAGE];
   __shared__ float a_s[PAGE][CHUNK + 1];
   __shared__ float mu_s[PAGE];
@@ -303,15 +307,15 @@ struct Scales {
   const void* act;
 };
 
-template <typename T, typename P, bool TWO_POOL>
-int launch_as(const void* q, const void* kp, const void* vp, const void* ap,
+template <typename T, typename P, bool TWO_POOL, int MD>
+int launch_md(const void* q, const void* kp, const void* vp, const void* ap,
               const void* scale, const void* bias, const void* wk, const void* wv,
               const int* pt, const int* pty, const int* pn, void* out, float* m_out,
               float* l_out, int B, int KVH, int G, int D, int d_model, int maxp,
               int layernorm, float eps, cudaStream_t stream, Scales sc,
               const void* akp, const void* avp) {
   const dim3 grid(KVH, B);
-  hybrid_attn_kernel<T, P, TWO_POOL><<<grid, THREADS, 0, stream>>>(
+  hybrid_attn_kernel<T, P, TWO_POOL, MD><<<grid, MD, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const P*>(kp), static_cast<const P*>(vp),
       static_cast<const __half*>(sc.k), static_cast<const __half*>(sc.v),
       static_cast<const T*>(akp), static_cast<const T*>(avp),
@@ -321,6 +325,26 @@ int launch_as(const void* q, const void* kp, const void* vp, const void* ap,
       static_cast<const T*>(wv), pt, pty, pn, static_cast<T*>(out), m_out, l_out,
       KVH, G, D, d_model, maxp, layernorm, eps, 1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
+}
+
+// D <= 128: the 128-thread block; D <= 256 (gemma3's head_dim, second-pool
+// mode only): the 256-thread block, 45,888 bytes of static shared memory
+template <typename T, typename P, bool TWO_POOL>
+int launch_as(const void* q, const void* kp, const void* vp, const void* ap,
+              const void* scale, const void* bias, const void* wk, const void* wv,
+              const int* pt, const int* pty, const int* pn, void* out, float* m_out,
+              float* l_out, int B, int KVH, int G, int D, int d_model, int maxp,
+              int layernorm, float eps, cudaStream_t stream, Scales sc,
+              const void* akp, const void* avp) {
+  if (D <= 128)
+    return launch_md<T, P, TWO_POOL, 128>(q, kp, vp, ap, scale, bias, wk, wv, pt, pty,
+                                          pn, out, m_out, l_out, B, KVH, G, D, d_model,
+                                          maxp, layernorm, eps, stream, sc, akp, avp);
+  if constexpr (TWO_POOL)
+    return launch_md<T, P, TWO_POOL, 256>(q, kp, vp, ap, scale, bias, wk, wv, pt, pty,
+                                          pn, out, m_out, l_out, B, KVH, G, D, d_model,
+                                          maxp, layernorm, eps, stream, sc, akp, avp);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, bool TWO_POOL = false>
@@ -360,7 +384,7 @@ int hybrid_paged_attention_fwd(const void* q, const void* k_pages, const void* v
                                void* stream) {
   const int n_scales = (k_scales != nullptr) + (v_scales != nullptr) +
                        (act_scales != nullptr);
-  if (D > MAX_D || G > MAX_G || G < 1 || (norm_type == 0 && norm_bias == nullptr) ||
+  if (D > 128 || G > MAX_G || G < 1 || (norm_type == 0 && norm_bias == nullptr) ||
       ((m_out == nullptr) != (l_out == nullptr)) || (n_scales != 0 && n_scales != 3))
     return (int)cudaErrorInvalidValue;
   const Scales sc{k_scales, v_scales, act_scales};

@@ -10,7 +10,8 @@ models' path).  Each counts its launches in ``.launches``, those made with
 ``return_lse=True`` (the CPU attention lane's device partial, which also
 returns the softmax statistics ``(m, l)``) again in ``.lse_launches``,
 those of the int8 mode (scale sidecars given) again in ``.q8_launches``, and
-those of both again in ``.lse_q8_launches``.
+those of both again in ``.lse_q8_launches``; the second-pool mode's launches
+at a head_dim over 128 (the 256-thread block) again in ``.hd256_launches``.
 
 Layout (as ``repro.kernels.hybrid_attention.kernel``):
   q            (B, KVH, G, D)     one query token per request
@@ -39,7 +40,8 @@ from repro_torch.kernels.hybrid_attention.ref import (
 # the dtypes the kernel is built and checked on the card for
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
 NORM_TYPES = {"layernorm": 0, "rmsnorm": 1}
-MAX_D, MAX_G = 128, 8
+# head_dim up to 128 in the fused mode, 256 in the second-pool mode
+MAX_D, MAX_D_TWO_POOL, MAX_G = 128, 256, 8
 _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _TWO_POOL_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + \
@@ -109,7 +111,7 @@ def _validate_fused(q, k_pages, v_pages, act_pages, scales, norm_scale,
 
 
 def _validate(q, kv_pools, kv_scales, shapes, page_table, page_type,
-              page_ntok):
+              page_ntok, max_d: int = MAX_D):
     """Shapes, dtypes and devices of every argument; ``kv_pools`` name the
     (P, 16, KVH, D) pools of type-0 pages (int8 with ``kv_scales`` (P, 16,
     KVH, 1) in the int8 mode), ``shapes`` maps the rest to their shapes and
@@ -138,8 +140,8 @@ def _validate(q, kv_pools, kv_scales, shapes, page_table, page_type,
                              f"contiguous int32 (B, MAXP) on {q.device}")
     if q.dtype not in DTYPES or not q.is_contiguous():
         raise ValueError(f"hybrid_paged_attention: q dtype {q.dtype}")
-    if D > MAX_D or G > MAX_G:
-        raise ValueError(f"hybrid_paged_attention: D={D} (max {MAX_D}), "
+    if D > max_d or G > MAX_G:
+        raise ValueError(f"hybrid_paged_attention: D={D} (max {max_d}), "
                          f"G={G} (max {MAX_G})")
 
 
@@ -212,7 +214,7 @@ def hybrid_paged_attention_two_pool(q, k_pages, v_pages, act_k_pages,
               {name: (t, (t.shape[0], PAGE, KVH, D), q.dtype)
                for name, t in (("act_k_pages", act_k_pages),
                                ("act_v_pages", act_v_pages))},
-              page_table, page_type, page_ntok)
+              page_table, page_type, page_ntok, MAX_D_TWO_POOL)
     out = torch.empty_like(q)
     lse, lse_ptrs = _lse_out(q, return_lse)
     lib = _build.load("hybrid_attention")
@@ -231,10 +233,12 @@ def hybrid_paged_attention_two_pool(q, k_pages, v_pages, act_k_pages,
     hybrid_paged_attention_two_pool.lse_launches += bool(return_lse)
     hybrid_paged_attention_two_pool.q8_launches += q8
     hybrid_paged_attention_two_pool.lse_q8_launches += q8 and return_lse
+    hybrid_paged_attention_two_pool.hd256_launches += D > MAX_D
     return (out, *lse) if return_lse else out
 
 
 hybrid_paged_attention_two_pool.launches = 0
+hybrid_paged_attention_two_pool.hd256_launches = 0
 hybrid_paged_attention_two_pool.lse_launches = 0
 hybrid_paged_attention_two_pool.q8_launches = 0
 hybrid_paged_attention_two_pool.lse_q8_launches = 0

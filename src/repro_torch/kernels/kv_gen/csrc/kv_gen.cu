@@ -8,8 +8,11 @@
 // `1 + scale`, or layernorm with scale and bias), rounded to the cache
 // dtype, and projected by the layer's
 // wk and wv, shaped (d_model, KVH, hd); the projected K and V are rounded to
-// the dtype, and K is then rotated in float32 with the caller's per-row
-// sin/cos tables (N, 16, hd/2; half-split layout) and rounded again.  That is
+// the dtype; with a `knorm` (the q/k-norm models, gemma3) K is then normed
+// per (row, head) over its hd columns in float32, rmsnorm with `1 + knorm`
+// and eps 1e-6, and rounded; and K is then rotated in float32 with the
+// caller's per-row sin/cos tables (N, 16, hd/2; half-split layout) and
+// rounded again.  That is
 // where the model path (`_hybrid_layer_step`) rounds, so a recomputed K/V
 // equals the one prefill stored for that token up to the order of summation.
 // Two deliberate differences from the TPU kernel, both to follow the model
@@ -24,9 +27,10 @@
 // and 0.5 MB of output: about 170 operations per byte, below the H100's
 // ~295, so it is bound by bytes, and mostly by the weights.
 //
-// The simple design: a GEMM-tiled grid, one block of 4 warps per (32-row
-// tile, one head of K or of V).  The whole head (hd <= 128 columns) sits in
-// one block, so the RoPE epilogue finds both halves of every pair.  The block
+// The simple design: a GEMM-tiled grid, one block per (32-row tile, one head
+// of K or of V), one warp per 32 output columns: 4 warps for hd <= 128, 8 for
+// hd <= 256 (gemma3).  The whole head sits in one block, so the RoPE epilogue
+// finds both halves of every pair and the K norm its whole row.  The block
 // first takes its rows' statistics in float32, each warp walking 8 rows at
 // once so that 8 loads per lane are in flight.  Then d_model streams through
 // shared memory 128 columns at a time: each thread loads its share of the
@@ -35,7 +39,9 @@
 // normed and rounded on its way into shared memory.  Each warp owns a 32x32
 // share of the output on the tensor cores (WMMA 16x16x16, float32
 // accumulators), which goes through shared memory (aliasing the weight
-// tile) to the epilogue.  Each block reads its head's weight slice once for
+// tile) to the epilogue.  A step takes 128 columns of d_model at hd <= 128
+// and 64 at hd <= 256, so that the weight tile (64 x 264 x 2 = 33,792 bytes)
+// and the whole block stay under the 48 KB of static shared memory.  Each block reads its head's weight slice once for
 // its 32 rows, so the weights are read N*16/32 times in all, mostly from
 // L2.  cp.async or TMA pipelines, `wgmma`, and a grid that reads each weight
 // once are later work.
@@ -62,22 +68,31 @@ using namespace nvcuda;
 
 constexpr int PAGE = 16;
 constexpr int BM = 32;             // rows per block (two pages)
-constexpr int BK = 128;            // d_model columns per step
-constexpr int MAX_HD = 128;        // output columns per block: one head
-constexpr int THREADS = 128;       // warp w owns output columns [32w, 32w + 32)
-constexpr int WARPS = THREADS / 32;
-constexpr int RPW = BM / WARPS;    // rows per warp in the statistics pass
+constexpr int MAX_HD = 256;        // the widest head a block takes
 constexpr int VEC = 8;             // 16-bit elements per 16-byte load
-constexpr int LDA = BK + 8;        // padded leading dimensions (elements)
-constexpr int LDB = MAX_HD + 8;
-constexpr int LDC = MAX_HD + 4;
-constexpr int TPR = BK / VEC;      // threads per tile row (same for A and B)
-constexpr int A_VECS = BM * BK / VEC / THREADS;      // per thread and step
-constexpr int B_VECS = BK * MAX_HD / VEC / THREADS;
-constexpr int B_BYTES = BK * LDB * 2;                // weight tile, 16-bit
-constexpr int C_BYTES = BM * LDC * 4;                // accumulators, float
-static_assert(BK == MAX_HD && THREADS % TPR == 0, "tile thread mapping");
-static_assert(C_BYTES <= B_BYTES, "the accumulator tile aliases the weight tile");
+constexpr float KNORM_EPS = 1e-6f; // the K norm's eps (rms_norm's default)
+
+// The tiling of a block whose head is up to HDB columns wide (128 or 256).
+template <int HDB> struct Tile {
+  static constexpr int THREADS = HDB;      // warp w owns output columns [32w, 32w + 32)
+  static constexpr int WARPS = THREADS / 32;
+  static constexpr int BK = HDB == 128 ? 128 : 64;   // d_model columns per step
+  static constexpr int RPW = BM / WARPS;   // rows per warp in the statistics pass
+  static constexpr int LDA = BK + 8;       // padded leading dimensions (elements)
+  static constexpr int LDB = HDB + 8;
+  static constexpr int LDC = HDB + 4;
+  static constexpr int TPRA = BK / VEC;    // threads per ACT tile row
+  static constexpr int TPRB = HDB / VEC;   // threads per weight tile row
+  static constexpr int A_VECS = BM * BK / VEC / THREADS;   // per thread and step
+  static constexpr int B_VECS = BK * HDB / VEC / THREADS;
+  static constexpr int B_BYTES = BK * LDB * 2;             // weight tile, 16-bit
+  static constexpr int C_BYTES = BM * LDC * 4;             // accumulators, float
+  static_assert(THREADS % TPRA == 0 && THREADS % TPRB == 0 &&
+                    A_VECS * THREADS * VEC == BM * BK &&
+                    B_VECS * THREADS * VEC == BK * HDB && BM % WARPS == 0,
+                "tile thread mapping");
+  static_assert(C_BYTES <= B_BYTES, "the accumulator tile aliases the weight tile");
+};
 
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -129,20 +144,27 @@ __device__ __forceinline__ uint4 ld16(const void* p) {
 }
 
 // norm_type: 0 layernorm, 1 rmsnorm.  P: the ACT payload type, T or int8_t.
-template <typename T, typename P>
-__global__ void __launch_bounds__(THREADS)
+// HDB: the block's head width (Tile).  knorm: null, or the K norm's (hd,).
+template <typename T, typename P, int HDB>
+__global__ void __launch_bounds__(HDB)
 kv_gen_kernel(const P* __restrict__ act, const __half* __restrict__ act_scales,
               const int* __restrict__ page_index,
               const T* __restrict__ norm_scale, const T* __restrict__ norm_bias,
               const T* __restrict__ wk, const T* __restrict__ wv,
+              const T* __restrict__ knorm,
               const float* __restrict__ sin_t, const float* __restrict__ cos_t,
               T* __restrict__ k_out, T* __restrict__ v_out, int n_rows,
               int d_model, int KVH, int hd, int norm_type, float eps) {
+  using Tl = Tile<HDB>;
+  constexpr int THREADS = Tl::THREADS, WARPS = Tl::WARPS, BK = Tl::BK;
+  constexpr int RPW = Tl::RPW, LDA = Tl::LDA, LDB = Tl::LDB, LDC = Tl::LDC;
+  constexpr int A_VECS = Tl::A_VECS, B_VECS = Tl::B_VECS;
   __shared__ __align__(32) T a_s[BM * LDA];
-  __shared__ __align__(32) unsigned char bc_s[B_BYTES];   // weight tile, then C
+  __shared__ __align__(32) unsigned char bc_s[Tl::B_BYTES];   // weight tile, then C
   __shared__ long row_off[BM];
   __shared__ float row_sc[BM];       // int8 mode: each row's scale
   __shared__ float mu_s[BM], rstd_s[BM];
+  __shared__ float kn_rstd[BM];      // the K norm's per-row factor
   T* b_s = reinterpret_cast<T*>(bc_s);
   float* c_s = reinterpret_cast<float*>(bc_s);
 
@@ -200,24 +222,27 @@ kv_gen_kernel(const P* __restrict__ act, const __half* __restrict__ act_scales,
     }
   }
 
-  // this thread's share of a step's tiles: tile column tc, rows r0 + 8j
-  const int tc = (tid % TPR) * VEC, r0 = tid / TPR;
+  // this thread's share of a step's tiles: ACT tile column ta, rows
+  // ra0 + RA*j; weight tile column tb, rows rb0 + RB*j
+  constexpr int RA = THREADS / Tl::TPRA, RB = THREADS / Tl::TPRB;
+  const int ta = (tid % Tl::TPRA) * VEC, ra0 = tid / Tl::TPRA;
+  const int tb = (tid % Tl::TPRB) * VEC, rb0 = tid / Tl::TPRB;
   typename Vec8<P>::type ax[A_VECS];
   uint4 sc4 = make_uint4(0u, 0u, 0u, 0u), bi4 = sc4, bw[B_VECS];
   auto load = [&](int k0) {
-    const int d = k0 + tc;
+    const int d = k0 + ta;
     const bool din = d < d_model;
 #pragma unroll
     for (int j = 0; j < A_VECS; ++j) {
-      const long off = row_off[r0 + j * (THREADS / TPR)];
+      const long off = row_off[ra0 + j * RA];
       ax[j] = off >= 0 && din ? ldv(act + off + d) : typename Vec8<P>::type{};
     }
     sc4 = din ? ld16(norm_scale + d) : make_uint4(0u, 0u, 0u, 0u);
     if (norm_type == 0) bi4 = din ? ld16(norm_bias + d) : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
     for (int j = 0; j < B_VECS; ++j) {
-      const int r = k0 + r0 + j * (THREADS / TPR);
-      bw[j] = tc < hd && r < d_model ? ld16(w + r * ldw + tc)
+      const int r = k0 + rb0 + j * RB;
+      bw[j] = tb < hd && r < d_model ? ld16(w + r * ldw + tb)
                                      : make_uint4(0u, 0u, 0u, 0u);
     }
   };
@@ -227,7 +252,7 @@ kv_gen_kernel(const P* __restrict__ act, const __half* __restrict__ act_scales,
     unpack8<T, T>(bi4, b, 1.f);
 #pragma unroll
     for (int j = 0; j < A_VECS; ++j) {
-      const int r = r0 + j * (THREADS / TPR);
+      const int r = ra0 + j * RA;
       float f[VEC];
       unpack8<T, P>(ax[j], f, row_sc[r]);
       alignas(16) T y[VEC];
@@ -238,11 +263,11 @@ kv_gen_kernel(const P* __restrict__ act, const __half* __restrict__ act_scales,
         else x = x * rstd_s[r] * (1.f + s[e]);
         y[e] = from_f<T>(x);
       }
-      *reinterpret_cast<uint4*>(a_s + r * LDA + tc) = *reinterpret_cast<const uint4*>(y);
+      *reinterpret_cast<uint4*>(a_s + r * LDA + ta) = *reinterpret_cast<const uint4*>(y);
     }
 #pragma unroll
     for (int j = 0; j < B_VECS; ++j)
-      *reinterpret_cast<uint4*>(b_s + (r0 + j * (THREADS / TPR)) * LDB + tc) = bw[j];
+      *reinterpret_cast<uint4*>(b_s + (rb0 + j * RB) * LDB + tb) = bw[j];
   };
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
@@ -288,6 +313,25 @@ kv_gen_kernel(const P* __restrict__ act, const __half* __restrict__ act_scales,
   }
   __syncthreads();
 
+  if (which == 0 && knorm != nullptr) {    // the K norm of the rounded projection
+    for (int r = warp; r < BM; r += WARPS) {
+      float sq = 0.f;
+      for (int c = lane; c < hd; c += 32) {
+        const float x = rnd<T>(c_s[r * LDC + c]);
+        sq += x * x;
+      }
+      sq = warp_sum(sq);
+      if (lane == 0) kn_rstd[r] = rsqrtf(sq / hd + KNORM_EPS);
+    }
+    __syncthreads();
+    for (int i = tid; i < BM * hd; i += THREADS) {
+      const int r = i / hd, c = i % hd;
+      c_s[r * LDC + c] =
+          rnd<T>(rnd<T>(c_s[r * LDC + c]) * kn_rstd[r] * (1.f + to_f(knorm[c])));
+    }
+    __syncthreads();
+  }
+
   T* out = which ? v_out : k_out;
   const int half = hd / 2;
   const bool rope = which == 0;
@@ -310,36 +354,52 @@ kv_gen_kernel(const P* __restrict__ act, const __half* __restrict__ act_scales,
   }
 }
 
-template <typename T, typename P>
+template <typename T, typename P, int HDB>
 int launch_as(const void* act, const void* act_scales, const int* page_index,
               const void* scale, const void* bias, const void* wk, const void* wv,
-              const float* sin_t, const float* cos_t, void* k_out, void* v_out,
-              int n_pages, int d_model, int KVH, int hd, int norm_type, float eps,
-              cudaStream_t stream) {
+              const void* knorm, const float* sin_t, const float* cos_t, void* k_out,
+              void* v_out, int n_pages, int d_model, int KVH, int hd, int norm_type,
+              float eps, cudaStream_t stream) {
   const int n_rows = n_pages * PAGE;
   const dim3 grid(2 * KVH, (n_rows + BM - 1) / BM);
-  kv_gen_kernel<T, P><<<grid, THREADS, 0, stream>>>(
+  kv_gen_kernel<T, P, HDB><<<grid, Tile<HDB>::THREADS, 0, stream>>>(
       static_cast<const P*>(act), static_cast<const __half*>(act_scales), page_index,
       static_cast<const T*>(scale),
       static_cast<const T*>(bias), static_cast<const T*>(wk),
-      static_cast<const T*>(wv), sin_t, cos_t, static_cast<T*>(k_out),
-      static_cast<T*>(v_out), n_rows, d_model, KVH, hd, norm_type, eps);
+      static_cast<const T*>(wv), static_cast<const T*>(knorm), sin_t, cos_t,
+      static_cast<T*>(k_out), static_cast<T*>(v_out), n_rows, d_model, KVH, hd,
+      norm_type, eps);
   return (int)cudaGetLastError();
+}
+
+template <typename T, typename P>
+int launch_hd(const void* act, const void* act_scales, const int* page_index,
+              const void* scale, const void* bias, const void* wk, const void* wv,
+              const void* knorm, const float* sin_t, const float* cos_t, void* k_out,
+              void* v_out, int n_pages, int d_model, int KVH, int hd, int norm_type,
+              float eps, cudaStream_t stream) {
+  if (hd <= 128)
+    return launch_as<T, P, 128>(act, act_scales, page_index, scale, bias, wk, wv,
+                                knorm, sin_t, cos_t, k_out, v_out, n_pages, d_model,
+                                KVH, hd, norm_type, eps, stream);
+  return launch_as<T, P, 256>(act, act_scales, page_index, scale, bias, wk, wv, knorm,
+                              sin_t, cos_t, k_out, v_out, n_pages, d_model, KVH, hd,
+                              norm_type, eps, stream);
 }
 
 template <typename T>
 int launch(const void* act, const void* act_scales, const int* page_index,
            const void* scale, const void* bias, const void* wk, const void* wv,
-           const float* sin_t, const float* cos_t, void* k_out, void* v_out,
-           int n_pages, int d_model, int KVH, int hd, int norm_type, float eps,
-           cudaStream_t stream) {
+           const void* knorm, const float* sin_t, const float* cos_t, void* k_out,
+           void* v_out, int n_pages, int d_model, int KVH, int hd, int norm_type,
+           float eps, cudaStream_t stream) {
   if (act_scales != nullptr)
-    return launch_as<T, int8_t>(act, act_scales, page_index, scale, bias, wk, wv,
-                                sin_t, cos_t, k_out, v_out, n_pages, d_model, KVH,
-                                hd, norm_type, eps, stream);
-  return launch_as<T, T>(act, nullptr, page_index, scale, bias, wk, wv, sin_t, cos_t,
-                         k_out, v_out, n_pages, d_model, KVH, hd, norm_type, eps,
-                         stream);
+    return launch_hd<T, int8_t>(act, act_scales, page_index, scale, bias, wk, wv,
+                                knorm, sin_t, cos_t, k_out, v_out, n_pages, d_model,
+                                KVH, hd, norm_type, eps, stream);
+  return launch_hd<T, T>(act, nullptr, page_index, scale, bias, wk, wv, knorm, sin_t,
+                         cos_t, k_out, v_out, n_pages, d_model, KVH, hd, norm_type,
+                         eps, stream);
 }
 
 }  // namespace
@@ -347,16 +407,17 @@ int launch(const void* act, const void* act_scales, const int* page_index,
 extern "C" {
 
 // page_index: int32 (n_pages,).  norm_type: 0 layernorm (scale and bias),
-// 1 rmsnorm (scale).  sin/cos: float32 (n_pages, 16, hd/2).  dtype:
-// 1 float16, 2 bfloat16.  act_scales: null, or float16 (P, 16, 1) with an
-// int8 act_pages (int8 mode).
-// d_model a multiple of 8, hd a multiple of 32 up to 128, act/weights/norm
+// 1 rmsnorm (scale).  knorm: null, or the K norm's scale (hd,) in the dtype.
+// sin/cos: float32 (n_pages, 16, hd/2).  dtype: 1 float16, 2 bfloat16.
+// act_scales: null, or float16 (P, 16, 1) with an int8 act_pages (int8 mode).
+// d_model a multiple of 8, hd a multiple of 32 up to 256, act/weights/norm
 // parameters 16-byte aligned.  Returns a cudaError_t.
 int kv_gen_fwd(const void* act_pages, const void* act_scales, const void* page_index,
                const void* norm_scale,
-               const void* norm_bias, const void* wk, const void* wv, const void* sin_t,
-               const void* cos_t, void* k_out, void* v_out, int n_pages, int d_model,
-               int KVH, int hd, int norm_type, float eps, int dtype, void* stream) {
+               const void* norm_bias, const void* wk, const void* wv, const void* knorm,
+               const void* sin_t, const void* cos_t, void* k_out, void* v_out,
+               int n_pages, int d_model, int KVH, int hd, int norm_type, float eps,
+               int dtype, void* stream) {
   if (n_pages < 1 || d_model % VEC || hd % 32 || hd > MAX_HD || KVH < 1 ||
       page_index == nullptr || norm_type < 0 || norm_type > 1 || norm_scale == nullptr ||
       (norm_type == 0 && norm_bias == nullptr) || sin_t == nullptr || cos_t == nullptr)
@@ -367,10 +428,10 @@ int kv_gen_fwd(const void* act_pages, const void* act_scales, const void* page_i
   const float* cs = static_cast<const float*>(cos_t);
   switch (dtype) {
     case 1: return launch<__half>(act_pages, act_scales, pi, norm_scale, norm_bias, wk,
-                                  wv, sn, cs, k_out, v_out, n_pages, d_model, KVH, hd,
-                                  norm_type, eps, st);
+                                  wv, knorm, sn, cs, k_out, v_out, n_pages, d_model,
+                                  KVH, hd, norm_type, eps, st);
     case 2: return launch<__nv_bfloat16>(act_pages, act_scales, pi, norm_scale,
-                                         norm_bias, wk, wv, sn, cs, k_out, v_out,
+                                         norm_bias, wk, wv, knorm, sn, cs, k_out, v_out,
                                          n_pages, d_model, KVH, hd, norm_type, eps,
                                          st);
   }

@@ -2,9 +2,10 @@
 
 A CUDA tensor launches ``csrc/kv_gen.cu`` on PyTorch's current stream, or
 raises; a CPU tensor takes the plain version in ``ref.py``.
-``kv_gen.launches`` counts the kernel's launches, and ``kv_gen.q8_launches``
+``kv_gen.launches`` counts the kernel's launches, ``kv_gen.q8_launches``
 again those of its int8 mode (``act_scales`` given: an int8 ACT pool with one
-float16 scale per token, dequantized in the norm prologue).  The kernel takes
+float16 scale per token, dequantized in the norm prologue), and
+``kv_gen.knorm_launches`` those with the K norm epilogue (``knorm`` given).  The kernel takes
 what the
 RoPE models' decode path gives it: a page index, RoPE tables, and rmsnorm or
 layernorm; the plain version also takes no index, no RoPE and no norm, the
@@ -17,6 +18,7 @@ Layout (as ``repro.kernels.kv_gen.kernel``):
                                  (plain version: None for all)
   norm_scale/norm_bias (d,)      the layer's ln1 (bias only for layernorm)
   wk, wv       (d, KVH, hd)      the layer's K/V projections
+  knorm        (hd,)             the q/k-norm models' K norm (None: none)
   sin, cos     (N, 16, hd/2) f32 per-row RoPE tables for K
                                  (plain version: None for no RoPE)
   -> k, v      (N, 16, KVH, hd)
@@ -33,13 +35,14 @@ from repro_torch.kernels.kv_gen.ref import PAGE, kv_gen_ref
 # the dtypes the kernel is built and checked on the card for
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
 NORM_TYPES = {"layernorm": 0, "rmsnorm": 1}
-MAX_HD = 128
-_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + \
+MAX_HD = 256
+_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def _launch(lib, act_pages, act_scales, page_index, norm_scale, norm_bias, wk,
-            wv, sin, cos, k, v, norm_type: str, eps: float, stream) -> None:
+            wv, knorm, sin, cos, k, v, norm_type: str, eps: float,
+            stream) -> None:
     fn = lib.kv_gen_fwd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     _, KVH, hd = wk.shape
@@ -47,14 +50,15 @@ def _launch(lib, act_pages, act_scales, page_index, norm_scale, norm_bias, wk,
              None if act_scales is None else act_scales.data_ptr(),
              page_index.data_ptr(), norm_scale.data_ptr(),
              None if norm_bias is None else norm_bias.data_ptr(), wk.data_ptr(),
-             wv.data_ptr(), sin.data_ptr(), cos.data_ptr(),
+             wv.data_ptr(), None if knorm is None else knorm.data_ptr(),
+             sin.data_ptr(), cos.data_ptr(),
              k.data_ptr(), v.data_ptr(), k.shape[0], act_pages.shape[-1], KVH,
              hd, NORM_TYPES[norm_type], eps, DTYPES[wk.dtype], stream)
     _build.check(lib, err, "kv_gen_fwd")
 
 
 def _validate(act_pages, page_index, norm_scale, norm_bias, wk, wv, sin, cos,
-              out, norm_type, n, act_scales=None):
+              out, norm_type, n, act_scales=None, knorm=None):
     dt, dev = wk.dtype, act_pages.device
     if dt not in DTYPES:
         raise ValueError(f"kv_gen: dtype {dt} (the kernel takes "
@@ -84,6 +88,8 @@ def _validate(act_pages, page_index, norm_scale, norm_bias, wk, wv, sin, cos,
     if act_scales is not None:
         shapes["act_scales"] = (act_scales, (act_pages.shape[0], PAGE, 1),
                                 torch.float16)
+    if knorm is not None:
+        shapes["knorm"] = (knorm, (hd,), dt)
     if norm_type == "layernorm":
         if norm_bias is None:
             raise ValueError("kv_gen: layernorm needs norm_bias")
@@ -102,19 +108,21 @@ def _validate(act_pages, page_index, norm_scale, norm_bias, wk, wv, sin, cos,
 
 
 def kv_gen(act_pages, norm_scale, norm_bias, wk, wv, *, page_index=None,
-           sin=None, cos=None, act_scales=None, norm_type: str = "rmsnorm",
-           eps: float = 1e-6, out=None):
+           sin=None, cos=None, act_scales=None, knorm=None,
+           norm_type: str = "rmsnorm", eps: float = 1e-6, out=None):
     """-> (k, v) (N, 16, KVH, hd) in the weights' dtype: each selected ACT
     page (int8 codes times ``act_scales``, rounded, in the int8 mode) normed,
-    rounded, projected by ``wk``/``wv``, rounded, and K rotated by the RoPE
-    tables (paper Eq. 7 as one GEMM).  ``out`` = (k, v) preallocated buffers
+    rounded, projected by ``wk``/``wv``, rounded, K normed by ``knorm``
+    (rmsnorm over each head's hd columns, rounded) when given, and K rotated
+    by the RoPE tables (paper Eq. 7 as one GEMM).  ``out`` = (k, v) preallocated buffers
     to write into (the decode step's scratch pool).  Page indices are not
     range-checked on the card (that would sync with the host)."""
     n = act_pages.shape[0] if page_index is None else page_index.shape[0]
     if act_pages.device.type == "cpu":
         k, v = kv_gen_ref(act_pages, norm_scale, norm_bias, wk, wv,
                           page_index=page_index, sin=sin, cos=cos,
-                          act_scales=act_scales, norm_type=norm_type, eps=eps)
+                          act_scales=act_scales, knorm=knorm,
+                          norm_type=norm_type, eps=eps)
         if out is None:
             return k, v
         out[0].copy_(k)
@@ -127,19 +135,21 @@ def kv_gen(act_pages, norm_scale, norm_bias, wk, wv, *, page_index=None,
         out = tuple(torch.empty(shape, dtype=wk.dtype,
                                 device=act_pages.device) for _ in range(2))
     _validate(act_pages, page_index, norm_scale, norm_bias, wk, wv, sin, cos,
-              out, norm_type, n, act_scales)
+              out, norm_type, n, act_scales, knorm)
     if n == 0:
         return out
     with torch.cuda.device(act_pages.device):
         stream = torch.cuda.current_stream().cuda_stream
         _launch(_build.load("kv_gen"), act_pages, act_scales, page_index,
                 norm_scale,
-                norm_bias if norm_type == "layernorm" else None, wk, wv, sin,
-                cos, out[0], out[1], norm_type, eps, stream)
+                norm_bias if norm_type == "layernorm" else None, wk, wv, knorm,
+                sin, cos, out[0], out[1], norm_type, eps, stream)
     kv_gen.launches += 1
     kv_gen.q8_launches += act_scales is not None
+    kv_gen.knorm_launches += knorm is not None
     return out
 
 
 kv_gen.launches = 0
 kv_gen.q8_launches = 0
+kv_gen.knorm_launches = 0

@@ -1,6 +1,13 @@
-"""Top-level model API of the uniform family: embed -> layers -> logits, the
-plain KV decode path (the oracle's) and the hybrid KV/ACT decode path (the
-engine's).  Counterparts of ``repro.models.model``.
+"""Top-level model API of the uniform and windowed families: embed -> layers
+-> logits, the plain KV decode path (the oracle's) and the hybrid KV/ACT
+decode path (the engine's).  Counterparts of ``repro.models.model``.
+
+The windowed family (gemma3) keeps the hybrid cache on its GLOBAL layers
+only; its local layers keep ring buffers of ``sliding_window`` slots, as the
+reference does (DESIGN.md §7).  On the card a ring reshapes without a copy
+into W/16 KV pages per request, and the second-pool kernel attends over them
+with no ACT page: the ring's live slots are always its prefix
+``[0, min(ctx + 1, W))``, so ``page_ntok`` masks it.
 
 The hybrid decode takes one of two kernel routes per model.  Learned-position
 models (OPT) run the fused ``hybrid_paged_attention``, which recomputes each
@@ -49,8 +56,10 @@ from repro_torch.kernels.kv_gen.ops import kv_gen
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.quant_ops import check_supported, quantize
-from repro_torch.models.transformer import (init_params, layer_params,  # noqa: F401 (re-export)
-                                            pad_vocab, torch_dtype)
+from repro_torch.models.transformer import (_window_split, family,  # noqa: F401 (re-export)
+                                            init_params, layer_params,
+                                            pad_vocab, torch_dtype,
+                                            window_walk)
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -89,11 +98,56 @@ def unembed(params, cfg: ModelConfig, h):
 # =============================================================================
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda") -> Cache:
-    shape = (cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim)
+    """The plain decode cache: K/V (L, B, max_len, KVH, D); windowed family:
+    ``local_k/v`` rings (n_per, period - 1, B, W, KVH, D), ``global_k/v``
+    (n_per, B, max_len, KVH, D) and ``tail_k/v`` rings (tail, B, W, KVH, D)."""
     dt = torch_dtype(cfg)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "kv_len": torch.zeros((B,), dtype=torch.int32, device=device)}
+    kv = lambda *shape: torch.zeros(shape, dtype=dt, device=device)
+    head = (cfg.num_kv_heads, cfg.head_dim)
+    kv_len = torch.zeros((B,), dtype=torch.int32, device=device)
+    if family(cfg) != "windowed":
+        return {"k": kv(cfg.num_layers, B, max_len, *head),
+                "v": kv(cfg.num_layers, B, max_len, *head), "kv_len": kv_len}
+    period, n_per, tail = _window_split(cfg)
+    W = cfg.sliding_window
+    cache = {"kv_len": kv_len}
+    for key in ("k", "v"):
+        cache["local_" + key] = kv(n_per, period - 1, B, W, *head)
+        cache["global_" + key] = kv(n_per, B, max_len, *head)
+        if tail:
+            cache["tail_" + key] = kv(tail, B, W, *head)
+    return cache
+
+
+def _to_ring(k_full, W: int):
+    """(B, S, KVH, D) K or V of positions 0..S-1 -> (B, W, KVH, D) ring for
+    ctx_len = S: slot j holds position S - 1 - ((S - 1 - j) mod W), zeros
+    where S < W leaves a slot empty."""
+    S = k_full.shape[1]
+    if S < W:
+        ring = k_full.new_zeros((k_full.shape[0], W) + tuple(k_full.shape[2:]))
+        ring[:, :S] = k_full
+        return ring
+    j = torch.arange(W, device=k_full.device)
+    return k_full[:, S - 1 - (S - 1 - j) % W]
+
+
+def _ring(cache: Cache, stack: str, i: int, j: Optional[int]):
+    """The (k, v) ring buffers (B, W, KVH, D) of a windowed model's local
+    layer: local layer j of period i, or tail layer i."""
+    if stack == "local":
+        return cache["local_k"][i, j], cache["local_v"][i, j]
+    return cache["tail_k"][i], cache["tail_v"][i]
+
+
+def _local_full(lp, cfg, h, sincos, rings):
+    """A local layer over the whole prompt, its K/V placed in its ``rings``
+    (k, v) as they stand after the prompt.  -> the layer's output."""
+    W = cfg.sliding_window
+    h, (k, v) = T.layer_full(lp, cfg, h, sincos, window=W)
+    for ring, x in zip(rings, (k, v)):
+        ring.copy_(_to_ring(x, W))
+    return h
 
 
 def prefill(params, cfg: ModelConfig, tokens, max_len: int):
@@ -102,25 +156,49 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int):
     B, S = h.shape[:2]
     cache = init_cache(cfg, B, max_len, device=h.device)
     sincos = T._rope_for(cfg, _positions(S, h.device))
-    for i in range(cfg.num_layers):
-        h, (k, v) = T.layer_full(layer_params(params, i), cfg, h, sincos)
-        cache["k"][i, :, :S] = k
-        cache["v"][i, :, :S] = v
+    if family(cfg) == "windowed":
+        for stack, i, j in window_walk(cfg):
+            lp = layer_params(params, i, j, stack)
+            if stack == "global":
+                h, (k, v) = T.layer_full(lp, cfg, h, sincos)
+                cache["global_k"][i, :, :S] = k
+                cache["global_v"][i, :, :S] = v
+            else:
+                h = _local_full(lp, cfg, h, sincos, _ring(cache, stack, i, j))
+    else:
+        for i in range(cfg.num_layers):
+            h, (k, v) = T.layer_full(layer_params(params, i), cfg, h, sincos)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
     h = L.apply_norm(h, params["final_norm"], cfg.norm_type)
     cache["kv_len"].fill_(S)
     return unembed(params, cfg, h[:, -1:]), cache
 
 
 def decode_step(params, cfg: ModelConfig, token, cache: Cache):
-    """token (B, 1) -> (logits (B, 1, V), cache); kv_len advances by 1."""
+    """token (B, 1) -> (logits (B, 1, V), cache); kv_len advances by 1.
+    The windowed family's local layers attend over their rings in the
+    torch formulation (``T._masked_decode_attn``), as the uniform layers do
+    over their caches: the oracle stays independent of the kernels."""
     kv_len = cache["kv_len"]
     x = _embed_tokens(params, cfg, token)
     if cfg.pos_type == "learned":
         x = x + params["pos_embed"][kv_len.long()][:, None]
     sincos = T._rope_for(cfg, kv_len[:, None])
-    for i in range(cfg.num_layers):
-        x = T.layer_decode(layer_params(params, i), cfg, x, cache["k"][i],
-                           cache["v"][i], kv_len, sincos)
+    if family(cfg) == "windowed":
+        W = cfg.sliding_window
+        for stack, i, j in window_walk(cfg):
+            lp = layer_params(params, i, j, stack)
+            if stack == "global":
+                x = T.layer_decode(lp, cfg, x, cache["global_k"][i],
+                                   cache["global_v"][i], kv_len, sincos)
+            else:
+                x = T.layer_decode(lp, cfg, x, *_ring(cache, stack, i, j),
+                                   kv_len, sincos, window=W, ring=True)
+    else:
+        for i in range(cfg.num_layers):
+            x = T.layer_decode(layer_params(params, i), cfg, x, cache["k"][i],
+                               cache["v"][i], kv_len, sincos)
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
     cache["kv_len"] = kv_len + 1
     return unembed(params, cfg, x), cache
@@ -157,14 +235,31 @@ def init_hybrid_cache(cfg: ModelConfig, B: int, kv_cap: int, act_cap: int,
     a copy into a page pool of the hybrid kernel.  Under ``quant`` the
     regions hold int8 codes, and ``k_s``/``v_s`` (L, B, kv_cap, KVH, 1) and
     ``act_s`` (L, B, act_cap, 1) their float16 scales, pools of (P, 16, ...)
-    alike."""
+    alike.
+
+    Windowed family (gemma3): only the GLOBAL layers carry the hybrid cache,
+    ``k``/``v``/``act`` stacked over the n_per periods; the local layers keep
+    their rings ``local_k/v`` (n_per, period - 1, B, W, KVH, D) and
+    ``tail_k/v`` (tail, B, W, KVH, D), W a whole number of pages.  As in the
+    reference, no ``quant`` for this family."""
     if kv_cap % PAGE or act_cap % PAGE:
         raise ValueError(f"kv_cap={kv_cap}, act_cap={act_cap}: not multiples "
                          f"of the {PAGE}-token page")
     check_supported(quant)
     dt = torch_dtype(cfg) if quant is None else torch.int8
-    kv = (cfg.num_layers, B, kv_cap, cfg.num_kv_heads, cfg.head_dim)
-    act = (cfg.num_layers, B, act_cap, cfg.d_model)
+    n_hyb = cfg.num_layers
+    windowed = family(cfg) == "windowed"
+    if windowed:
+        if quant is not None:
+            raise NotImplementedError(
+                "QuantConfig is wired for the uniform hybrid family only")
+        period, n_hyb, tail = _window_split(cfg)
+        W = cfg.sliding_window
+        if W % PAGE:
+            raise ValueError(f"sliding_window={W}: not a multiple of the "
+                             f"{PAGE}-token page")
+    kv = (n_hyb, B, kv_cap, cfg.num_kv_heads, cfg.head_dim)
+    act = (n_hyb, B, act_cap, cfg.d_model)
     i32 = dict(dtype=torch.int32, device=device)
     cache = {
         "k": torch.zeros(kv, dtype=dt, device=device),
@@ -179,6 +274,14 @@ def init_hybrid_cache(cfg: ModelConfig, B: int, kv_cap: int, act_cap: int,
         cache.update(k_s=torch.zeros(kv[:-1] + (1,), **f16),
                      v_s=torch.zeros(kv[:-1] + (1,), **f16),
                      act_s=torch.zeros(act[:-1] + (1,), **f16))
+    if windowed:
+        head = (cfg.num_kv_heads, cfg.head_dim)
+        for key in ("k", "v"):
+            cache["local_" + key] = torch.zeros((n_hyb, period - 1, B, W) + head,
+                                                dtype=dt, device=device)
+            if tail:
+                cache["tail_" + key] = torch.zeros((tail, B, W) + head,
+                                                   dtype=dt, device=device)
     return cache
 
 
@@ -229,6 +332,59 @@ def _store(cache: Cache, key: str, index, rows) -> None:
     cache[key][index] = codes
     if scales is not None:
         cache[key + "_s"][index] = scales
+
+
+def hybrid_prefill(params, cfg: ModelConfig, tokens, kv_cap: int,
+                   act_cap: int, kv_keep: int,
+                   quant: Optional[QuantConfig] = None):
+    """Prefill storing the first ``kv_keep`` tokens as K/V and the remaining
+    prompt tokens as activation checkpoints, one split for every request of
+    ``tokens`` (B, S).  -> (last_logits (B, 1, V), hybrid cache).  Windowed
+    family: the global layers' regions (their inputs are the checkpoints),
+    the local layers' rings; no ``quant``.  Uniform family: the batched
+    prefill with that split for every request."""
+    B, S = tokens.shape
+    kfit = min(int(kv_keep), S)
+    if family(cfg) == "windowed":
+        if quant is not None:
+            raise NotImplementedError(
+                "QuantConfig is wired for the uniform hybrid family only")
+        return _hybrid_prefill_windowed(params, cfg, tokens, kv_cap, act_cap,
+                                        kfit)
+    split = lambda n: torch.full((B,), n, dtype=torch.int32,
+                                 device=tokens.device)
+    return hybrid_prefill_batched(params, cfg, tokens, kv_cap, act_cap,
+                                  split(kfit), split(S), quant)
+
+
+def _hybrid_prefill_windowed(params, cfg: ModelConfig, tokens, kv_cap: int,
+                             act_cap: int, kfit: int):
+    """The windowed family's hybrid prefill: each global layer's input is
+    its ACT checkpoint, of which positions [kfit, S) go to its ACT region and
+    the K/V of [0, kfit) to its KV region; each local layer's K/V go to its
+    ring, as ``prefill`` places them."""
+    h = embed_input(params, cfg, tokens)
+    B, S = h.shape[:2]
+    if kfit > kv_cap or S - kfit > act_cap:
+        raise ValueError(f"split {kfit} + {S - kfit} exceeds kv_cap={kv_cap} "
+                         f"or act_cap={act_cap}")
+    cache = init_hybrid_cache(cfg, B, kv_cap, act_cap, device=h.device)
+    sincos = T._rope_for(cfg, _positions(S, h.device))
+    for stack, i, j in window_walk(cfg):
+        lp = layer_params(params, i, j, stack)
+        if stack == "global":
+            cache["act"][i, :, :S - kfit] = h[:, kfit:]          # A^i
+            h, (k, v) = T.layer_full(lp, cfg, h, sincos)
+            cache["k"][i, :, :kfit] = k[:, :kfit]
+            cache["v"][i, :, :kfit] = v[:, :kfit]
+        else:
+            h = _local_full(lp, cfg, h, sincos, _ring(cache, stack, i, j))
+    h = L.apply_norm(h, params["final_norm"], cfg.norm_type)
+    slots = torch.arange(act_cap, dtype=torch.int32, device=h.device)
+    cache["act_pos"] = (kfit + slots)[None].expand(B, act_cap).contiguous()
+    cache["kv_len"].fill_(kfit)
+    cache["act_len"].fill_(S - kfit)
+    return unembed(params, cfg, h[:, -1:]), cache
 
 
 def hybrid_prefill_batched(params, cfg: ModelConfig, tokens, kv_cap: int,
@@ -442,7 +598,8 @@ def _hybrid_attend(lp, cfg, q, kc, vc, ac, tables,
     if act_kv.page_index.numel():
         kv_gen(ac.view(-1, PAGE, d), *norm, *wkv,
                page_index=act_kv.page_index, sin=act_kv.sin,
-               cos=act_kv.cos, act_scales=act_s, norm_type=cfg.norm_type,
+               cos=act_kv.cos, act_scales=act_s,
+               knorm=lp["attn"].get("knorm"), norm_type=cfg.norm_type,
                eps=eps, out=(act_kv.k, act_kv.v))
         if own is not None:
             _own_rows(act_kv, own)
@@ -597,11 +754,16 @@ def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
     schedule (no host sync).  False spares a quantized step the ACT-bound
     tokens' exact K/V (the fused route's merge, the RoPE route's scratch
     write); a step with an ACT-bound token needs True.
+    Windowed family: the global layers take the hybrid route, the local
+    layers attend over their rings (``_ring_layer_step``); its caches hold
+    no ``quant`` format.
     -> (logits (B, 1, V), cache)."""
     plan = hybrid_decode_begin(params, cfg, token, cache, store_act,
                                pages_bound=pages_bound,
                                act_pages_bound=act_pages_bound, quant=quant,
                                any_act=any_act)
+    if family(cfg) == "windowed":
+        return _hybrid_decode_windowed(params, cfg, cache, store_act, plan)
     x = plan.x
     for i in range(cfg.num_layers):
         x = _hybrid_layer_step(layer_params(params, i), cfg, x, cache["k"][i],
@@ -609,6 +771,66 @@ def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
                                cache["act_len"], store_act, plan.tables,
                                plan.act_kv, region_scales(cache, i),
                                plan.exact_own)
+    return hybrid_decode_end(params, cfg, x, cache, store_act), cache
+
+
+def ring_page_table(ctx, W: int):
+    """Page tables of the local layers' rings at this step: request b's ring
+    is pages ``b*W/16 + j`` of its layer's ring pool, all KV pages, and its
+    live slots are the prefix [0, min(ctx + 1, W)) (slot j holds position
+    ctx - (ctx - j) mod W, which is > ctx - W; below W only j <= ctx is
+    filled).  ctx (B,): the new token's position, its row included.
+    -> (page_table, page_type, page_ntok), int32 (B, W/16)."""
+    n = W // PAGE
+    j = torch.arange(n, device=ctx.device)[None]
+    b = torch.arange(ctx.shape[0], device=ctx.device)[:, None]
+    live = (ctx.long()[:, None] + 1).clamp(max=W)
+    ntok = (live - PAGE * j).clamp(0, PAGE)
+    return ((b * n + j).int(), torch.where(ntok > 0, 0, 2).int(), ntok.int())
+
+
+def _ring_layer_step(lp, cfg, h, k_ring, v_ring, ctx, sincos, tables, no_act):
+    """One local (sliding-window) layer at decode time: the new token's
+    K/V written at slot ``ctx % W`` of the rings (B, W, KVH, D), in place,
+    then the second-pool kernel over the rings' pages (``tables``, no ACT
+    page: ``no_act`` are empty pools), then the FFN."""
+    B, W = k_ring.shape[:2]
+    KVH, D = cfg.num_kv_heads, cfg.head_dim
+    q, k, v = T._qk_roped(lp["attn"], cfg,
+                          L.apply_norm(h, lp["ln1"], cfg.norm_type), sincos)
+    ar = torch.arange(B, device=h.device)
+    slot = (ctx % W).long()
+    k_ring[ar, slot] = k[:, 0]
+    v_ring[ar, slot] = v[:, 0]
+    o = hybrid_paged_attention_two_pool(
+        q.reshape(B, KVH, cfg.num_heads // KVH, D),
+        k_ring.view(-1, PAGE, KVH, D), v_ring.view(-1, PAGE, KVH, D),
+        no_act, no_act, *tables)
+    return _layer_out(lp, cfg, h, o)
+
+
+def _hybrid_decode_windowed(params, cfg: ModelConfig, cache: Cache, store_act,
+                            plan: DecodePlan):
+    """The windowed family's hybrid decode step after ``hybrid_decode_begin``:
+    each period's local layers over their rings, then its global layer over
+    the hybrid regions (``kv_gen`` with the K norm, then the second-pool
+    kernel), then the tail's local layers.  -> (logits (B, 1, V), cache)."""
+    ctx = cache["kv_len"] + cache["act_len"]
+    W = cfg.sliding_window
+    tables = ring_page_table(ctx, W)
+    no_act = torch.empty((0, PAGE, cfg.num_kv_heads, cfg.head_dim),
+                         dtype=torch_dtype(cfg), device=ctx.device)
+    x = plan.x
+    for stack, i, j in window_walk(cfg):
+        lp = layer_params(params, i, j, stack)
+        if stack == "global":
+            x = _hybrid_layer_step(lp, cfg, x, cache["k"][i], cache["v"][i],
+                                   cache["act"][i], cache["kv_len"],
+                                   cache["act_len"], store_act, plan.tables,
+                                   plan.act_kv)
+        else:
+            x = _ring_layer_step(lp, cfg, x, *_ring(cache, stack, i, j), ctx,
+                                 plan.act_kv.sincos_new, tables, no_act)
     return hybrid_decode_end(params, cfg, x, cache, store_act), cache
 
 

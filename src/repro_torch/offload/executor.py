@@ -63,7 +63,7 @@ class OffloadExecutor:
     def __init__(self, cfg: ModelConfig, params, *, prefetch_depth: int = 1,
                  faults=None, watchdog_s: Optional[float] = None,
                  quant=None, device="cuda"):
-        T.check_supported(cfg)
+        T.check_supported(cfg, families=("uniform",), qk_norm=False)
         self.cfg = cfg
         self.quant = quant
         self.device = torch.device(device)
@@ -155,8 +155,11 @@ class OffloadExecutor:
         """The streamer's side copy for schedule position ``i``, issued on
         the copy stream just before its weights.  Skipped when the previous
         step's store-back of that layer is not issued yet (prefetch deeper
-        than a step); ``_kv_for`` then uploads it in order."""
-        if i - self.cfg.num_layers <= self._stored_upto:
+        than a step), and for the copies the streamer arms before the first
+        decode step opens, so that every upload falls inside a step of the
+        timeline, as the reference's do; ``_kv_for`` then uploads it in
+        order."""
+        if self._in_step and i - self.cfg.num_layers <= self._stored_upto:
             self._kv_upload(i, slot)
 
     def _kv_upload(self, i: int, slot: Optional[int]) -> None:
@@ -326,11 +329,13 @@ class OffloadExecutor:
                                            pin_memory=True)
             act_cap = cache["act"].shape[2]
         toks: List[torch.Tensor] = []
+        self._in_step = False
         self.streamer.begin([l for _ in range(n_steps) for l in range(L)],
                             side=side)
         seq = 0
         for s in range(n_steps):
             self.timeline.begin_step("decode", now=self._now())
+            self._in_step = True
             store = sched_dev[s]
             plan = M.hybrid_decode_begin(self.resident, cfg, cur[:, None],
                                          cache, store, pages_bound=pages_bound,

@@ -135,7 +135,7 @@ class HybridServeEngine:
             raise ValueError(f"mode={mode!r}: one of hybrid, kv, act")
         if host_attn and not offload:
             raise ValueError("host_attn rides the offload runtime's spill arena")
-        T.check_supported(cfg)
+        T.check_supported(cfg, families=("uniform",), qk_norm=False)
         self.cfg, self.params, self.hw, self.mode = cfg, params, hw, mode
         self.quant = quant
         self.host_attn = bool(host_attn)

@@ -16,7 +16,7 @@ from repro.core import minibatch as j_mb
 from repro.core import pipeline as j_pipe
 from repro.core import policy as j_policy
 from repro.serving import util as j_util
-from repro_torch.configs import get_config
+from repro_torch.configs import REGISTRY, get_config
 from repro_torch.core import blocks, costmodel as cm, minibatch, pipeline, policy
 from repro_torch.data.pipeline import request_trace
 from repro_torch.serving import util
@@ -30,6 +30,15 @@ HW = {"tpu-v5e": cm.TPU_V5E, "h100-sxm": cm.H100_SXM}
 def j_hw(hw):
     """The reference's HardwareSpec with the port's numbers."""
     return j_cm.HardwareSpec(**dataclasses.asdict(hw))
+
+
+@pytest.mark.parametrize("name", sorted(REGISTRY) + [
+    n + "-reduced" for n in sorted(REGISTRY)])
+def test_config_copies_equal_the_reference(name):
+    """Each config the port copied is the reference's, field for field, and
+    so is its ``-reduced`` variant."""
+    assert dataclasses.asdict(get_config(name)) == \
+        dataclasses.asdict(j_get_config(name))
 
 
 def test_h100_spec_is_the_data_sheet():

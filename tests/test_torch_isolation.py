@@ -8,8 +8,10 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch import params as P
+from repro_torch.configs import get_config
 from repro_torch.models import model as M
 from repro_torch.models import quantized_cache as QC
 from repro_torch.offload import host_pool as HP
@@ -68,3 +70,29 @@ def test_importing_every_port_module_loads_no_jax():
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("make", [
+    lambda cfg: M.init_params(cfg),
+    lambda cfg: M.init_cache(cfg, 1, 16),
+    lambda cfg: M.init_hybrid_cache(cfg, 1, 16, 16)],
+    ids=["init_params", "init_cache", "init_hybrid_cache"])
+def test_windowed_entry_points_default_to_cuda(make):
+    """The windowed family's branches allocate on the card by default: every
+    tensor lies on it, or, where this build has no CUDA, the call raises
+    instead of falling back to the CPU.  ``hybrid_prefill`` takes no device:
+    it follows its tokens', as ``hybrid_prefill_batched`` does."""
+    cfg = get_config("gemma3-1b-reduced")
+    assert "device" not in inspect.signature(M.hybrid_prefill).parameters
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            make(cfg)
+        return
+    tree = make(cfg)
+    leaves = [tree]
+    while leaves:
+        t = leaves.pop()
+        if isinstance(t, dict):
+            leaves += list(t.values())
+        else:
+            assert t.device.type == "cuda"

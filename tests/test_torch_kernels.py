@@ -13,6 +13,7 @@ import torch
 
 from repro.configs import get_config as j_get_config
 from repro.kernels.flash_attention.kernel import flash_attention as j_flash
+from repro.kernels.flash_attention.ref import flash_attention_ref as j_flash_ref
 from repro.kernels.hybrid_attention.kernel import hybrid_paged_attention as j_hybrid
 from repro.kernels.hybrid_attention.ref import hybrid_paged_attention_ref as j_hybrid_ref
 from repro.models import layers as JL
@@ -57,6 +58,34 @@ def test_flash_plain_ragged_length_matches_blockwise():
                                   k_chunk=32)
     np.testing.assert_allclose(flash_attention(t(q), t(k), t(v)).numpy(),
                                np.asarray(want), atol=TOL)
+
+
+@pytest.mark.parametrize("S,W,D", [(64, 16, 32), (96, 40, 32), (64, 24, 256)])
+def test_flash_plain_window_matches_pallas_and_ref(S, W, D):
+    """The sliding-window mode (gemma3's local layers: MQA, G = 4) against
+    the Pallas kernel's window mode in interpret mode and its ``ref.py``, at
+    head_dim 32 and 256; tiles wholly before a query tile's window are the
+    ones the kernels skip."""
+    rng = np.random.default_rng(S + W)
+    q = rng.standard_normal((2, S, 4, D)).astype(np.float32)
+    k, v = (rng.standard_normal((2, S, 1, D)).astype(np.float32)
+            for _ in range(2))
+    got = flash_attention(t(q), t(k), t(v), window=W).numpy()
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    pallas = j_flash(jq, jk, jv, causal=True, window=W, q_chunk=32, k_chunk=32,
+                     interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=TOL)
+    np.testing.assert_allclose(got, np.asarray(j_flash_ref(jq, jk, jv, window=W)),
+                               atol=TOL)
+    causal = flash_attention(t(q), t(k), t(v)).numpy()
+    assert np.abs(got[:, W:] - causal[:, W:]).max() > 1e-2      # the window bites
+    np.testing.assert_array_equal(got[:, :W], causal[:, :W])
+
+
+def test_flash_refuses_a_negative_window():
+    x = torch.zeros((1, 16, 1, 16))
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(x, x, x, window=-1)
 
 
 def _hybrid_inputs(rng, kvh=2, g=3, d_model=64, D=32, B=2, bias=0.0):

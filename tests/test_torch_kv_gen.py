@@ -130,6 +130,45 @@ def test_kv_gen_plain_matches_model_path_with_bias_and_rope(name):
         assert np.abs(k0.numpy() - np.asarray(jk)).max() > 1e-2
 
 
+@pytest.mark.parametrize("hd", [32, 256])
+def test_kv_gen_knorm_matches_model_path(hd):
+    """The K norm epilogue (q/k-norm models, gemma3): the reference model
+    path's KV-Gen lines with ``qk_norm`` (``model.py:679-686``: norm,
+    projection, ``rms_norm(ka, knorm)``, RoPE at the recorded positions),
+    with a perturbed non-zero ``knorm``, at head_dim 32 and 256; MQA."""
+    rng = np.random.default_rng(hd)
+    B, act_cap, n_act, d, KVH = 2, 48, 2, 64, 1
+    ap, sc, _, wk, wv = _pages(rng, n=B * act_cap // 16, d=d, kvh=KVH, hd=hd)
+    knorm = (0.3 * rng.standard_normal(hd)).astype(np.float32)
+    ac = ap.reshape(B, act_cap, d)
+    act_pos = np.sort(rng.choice(3000, (B, act_cap), replace=False), 1) \
+        .astype(np.int32)
+    rows = n_act * 16
+    an = JL.rms_norm(jnp.asarray(ac[:, :rows]), jnp.asarray(sc))
+    ka = (an @ jnp.asarray(wk.reshape(d, -1))).reshape(B, rows, KVH, hd)
+    va = (an @ jnp.asarray(wv.reshape(d, -1))).reshape(B, rows, KVH, hd)
+    ka = JL.rms_norm(ka, jnp.asarray(knorm))
+    # one pair of RoPE tables for both sides: at hd 256 and positions in
+    # the thousands the two frameworks' float32 tables differ by ~3e-5
+    jsin, jcos = JL.rope_sin_cos(jnp.asarray(act_pos[:, :rows]), hd, 1e6)
+    ka = JL.apply_rope(ka, jsin, jcos)
+
+    sin, cos = t(np.array(jsin)), t(np.array(jcos))
+    idx = (np.arange(B)[:, None] * (act_cap // 16) + np.arange(n_act)).astype(np.int32)
+    launches = kv_gen.knorm_launches
+    k, v = kv_gen(t(ap), t(sc), None, t(wk), t(wv), page_index=t(idx.reshape(-1)),
+                  sin=sin.reshape(-1, 16, hd // 2), cos=cos.reshape(-1, 16, hd // 2),
+                  knorm=t(knorm))
+    assert kv_gen.knorm_launches == launches          # CPU tensor: plain version
+    np.testing.assert_allclose(k.reshape(B, -1, KVH, hd).numpy(), np.asarray(ka),
+                               atol=TOL)
+    np.testing.assert_allclose(v.reshape(B, -1, KVH, hd).numpy(), np.asarray(va),
+                               atol=TOL)
+    k0, _ = kv_gen(t(ap), t(sc), None, t(wk), t(wv), page_index=t(idx.reshape(-1)),
+                   sin=sin.reshape(-1, 16, hd // 2), cos=cos.reshape(-1, 16, hd // 2))
+    assert np.abs(k0.reshape(B, -1, KVH, hd).numpy() - np.asarray(ka)).max() > 1e-2
+
+
 def test_rope_layer_step_matches_model_path_with_layernorm_bias():
     """The port's RoPE decode layer (``kv_gen`` into the scratch pool, then
     the second-pool mode; plain versions on the CPU) against the reference's

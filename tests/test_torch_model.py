@@ -68,6 +68,26 @@ def test_plain_prefill_and_decode_match(models):
         nxt = np.array(jnp.argmax(jlg[:, -1], -1), np.int32)[:, None]
 
 
+@pytest.mark.parametrize("kv_keep", [0, 20, 48])
+def test_hybrid_prefill_one_split_matches(models, kv_keep):
+    """``hybrid_prefill`` (one split for every request, the reference's
+    entry point) on the uniform family: the reference's logits, and its
+    regions over the tokens each holds."""
+    cfg, tp, jcfg, jp = models
+    toks = _tokens(cfg, 2, 48, seed=2)
+    lg, cache = M.hybrid_prefill(tp, cfg, torch.from_numpy(toks), KV_CAP,
+                                 ACT_CAP, kv_keep)
+    jlg, jc = JM.hybrid_prefill(jp, jcfg, {"tokens": jnp.asarray(toks)},
+                                KV_CAP, ACT_CAP, kv_keep)
+    _close(lg, jlg, LOGIT_TOL, "prefill logits")
+    n_act = 48 - kv_keep
+    for key in ("kv_len", "act_len"):
+        _close(cache[key], jc[key], 0, key)
+    for key, n in (("k", kv_keep), ("v", kv_keep), ("act", n_act)):
+        _close(cache[key][:, :, :n], jc[key][:, :, :n], CACHE_TOL, key)
+    _close(cache["act_pos"][:, :n_act], jc["act_pos"][:, :n_act], 0, "act_pos")
+
+
 SPLITS = {"zero": [0, 0, 0], "mixed": [16, 32, 16], "full": [48, 32, 48]}
 # per-step store_act flags of the three requests (True: ACT region)
 SCHED = np.array([[True, False, True], [False, False, True],

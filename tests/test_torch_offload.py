@@ -18,6 +18,7 @@ from repro.configs import get_config as j_get_config
 from repro.configs import offload as j_offload
 from repro.core import costmodel as j_cm
 from repro.core import pipeline as j_pipe
+from repro.core.quant import QuantConfig as JQuant
 from repro.models import model as JM
 from repro.offload import HostBlockPool as JHostBlockPool
 from repro.offload import HostWeightPool as JHostWeightPool
@@ -30,6 +31,7 @@ from repro_torch.configs.offload import OffloadBudget, _tight, offload_budget
 from repro_torch.core import costmodel as cm
 from repro_torch.core.blocks import BlockType, Location
 from repro_torch.core.pipeline import TimelineResult
+from repro_torch.core.quant import QuantConfig
 from repro_torch.data.pipeline import request_trace
 from repro_torch.offload import (FaultPlan, HostBlockPool, HostWeightPool,
                                  MeasuredTimeline, WeightStreamer)
@@ -119,6 +121,29 @@ def test_offload_tokens_match_resident_and_jax_offload(setup_opt, setup_yi,
     if not spill:       # device-resident groups migrate their KV blocks
         assert eng.blockman.transitions.get(
             (BlockType.KV, Location.HOST, Location.DEVICE), 0) > 0
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_spilled_kv_upload_bytes_match_jax_offload(setup_opt, quant):
+    """The measured KV upload bytes of a spilled run equal the JAX offload
+    engine's, fp and int8 (both sides move the int8 codes and float16
+    scales): every decode step uploads each layer's spilled region once, the
+    first layer of the first step included (the streamer arms its weights
+    before that step opens; its KV region is uploaded inside the step)."""
+    cfg, tp, jcfg, jp, reqs, *_ = setup_opt
+    q = dict(quant=QuantConfig()) if quant else {}
+    jq = dict(quant=JQuant()) if quant else {}
+    with JEngine(jcfg, jp, hw=J_MIXED, offload=True, **CAPS,
+                 budget=j_offload._tight(jcfg), **jq) as j_eng:
+        j_out, _ = j_eng.generate(reqs)
+    with HybridServeEngine(cfg, tp, hw=MIXED, device="cpu", offload=True,
+                           budget=_tight(cfg), **CAPS, **q) as eng:
+        out, _ = eng.generate(reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(out[r.rid], j_out[r.rid])
+    got, want = (sum(m.traffic["kv_load"] for m in e.measured_steps)
+                 for e in (eng, j_eng))
+    assert got > 0 and got == want
 
 
 def test_layer_weight_bytes_are_the_pool_shards(setup_opt):

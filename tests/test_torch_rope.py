@@ -291,9 +291,15 @@ def test_engine_matches_jax_engine_and_oracle(case):
                                     {"arch_type": "moe", "moe_num_experts": 4}],
                          ids=lambda c: "-".join(c))
 def test_engine_and_init_refuse_unsupported_configs(change):
+    """The engine serves the uniform family without q/k norm; the model
+    functions also serve q/k norm (with RoPE) and the windowed family, and
+    refuse the rest."""
     cfg = dataclasses.replace(get_config("yi-6b-reduced"), **change)
     tp = _models("yi-6b-reduced")[1]
     with pytest.raises(NotImplementedError, match="uniform-family"):
         HybridServeEngine(cfg, tp, device="cpu")
+    if "qk_norm" in change or "window_period" in change:
+        assert "periods" in M.init_params(cfg, device="cpu") or cfg.qk_norm
+        return
     with pytest.raises(NotImplementedError, match="uniform-family"):
         M.init_params(cfg, device="cpu")
