@@ -9,13 +9,17 @@ through ``HybridServeEngine`` in hybrid and kv modes and checks the tokens
 against ``exact_reference_generate``: opt-6.7b (learned positions; the fused
 hybrid kernel recomputes ACT pages' K/V) and then yi-6b (RoPE, GQA, SwiGLU;
 the ``kv_gen`` kernel recomputes them, the hybrid kernel's second-pool mode
-attends).  Last, gemma3-1b (5:1 sliding window, q/k norm, head_dim 256, MQA)
+attends).  Then gemma3-1b (5:1 sliding window, q/k norm, head_dim 256, MQA)
 runs its windowed hybrid path, ``hybrid_prefill`` -> ``hybrid_decode_loop``:
 the flash kernel's window mode in prefill, rings and global layers through
 the second-pool mode at head_dim 256, ``kv_gen`` with the K norm, checked
-against the plain ``prefill`` + ``decode_loop`` with three planted faults.  After each model's device-resident serve has freed its weights, an
-offload phase serves it again with its layer weights in pinned host memory,
-streamed to the card over a CUDA copy stream (``HybridServeEngine(offload=
+against the plain ``prefill`` + ``decode_loop`` with three planted faults.
+Last, mamba2-2.7b (64 SSD layers, no attention) runs ``prefill`` ->
+``decode_loop``: each layer's prefill scan through the ``ssd_scan`` kernel,
+decode in plain torch, checked against the same path with the plain scan,
+with three planted faults.  After each of OPT's and yi's device-resident
+serves has freed its weights, an offload phase serves it again with its
+layer weights in pinned host memory, streamed to the card over a CUDA copy stream (``HybridServeEngine(offload=
 True)``): prefetch depth 1 and 0, the KV region resident or spilled to the
 host arena, and spilled with the CPU attention lane, whose device partial is
 the hybrid kernel's ``return_lse`` mode.  The int8 cache
@@ -32,6 +36,7 @@ Details also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -61,6 +66,8 @@ from repro_torch.kernels.hybrid_attention.ref import (  # noqa: E402
     hybrid_paged_attention_ref, hybrid_paged_attention_two_pool_ref)
 from repro_torch.kernels.kv_gen.ops import kv_gen  # noqa: E402
 from repro_torch.kernels.kv_gen.ref import kv_gen_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import quantized_cache as QC  # noqa: E402
@@ -154,6 +161,10 @@ KERNELS = {
     "hybrid_paged_attention_two_pool_hd256": _HYBRID,
     "kv_gen_qk_norm": ("src/repro_torch/kernels/kv_gen/csrc/kv_gen.cu",
                        "src/repro/kernels/kv_gen/kernel.py:46"),
+    # mamba2's prefill: the chunked SSD scan, with the final state it hands
+    # to decode
+    "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:61"),
 }
 # the launch counters: (kernel wrapper, its counter); the return_lse and
 # int8 rows count the launches of that mode on the same wrappers
@@ -177,7 +188,8 @@ COUNTERS = {"flash_attention": (flash_attention, "launches"),
             "flash_attention_window": (flash_attention, "window_launches"),
             "hybrid_paged_attention_two_pool_hd256": (
                 hybrid_paged_attention_two_pool, "hd256_launches"),
-            "kv_gen_qk_norm": (kv_gen, "knorm_launches")}
+            "kv_gen_qk_norm": (kv_gen, "knorm_launches"),
+            "ssd_scan": (ssd_scan, "launches")}
 GEMMA = "gemma3-1b"
 # the gemma path's groups (requests, prompt length): group 1's prompt is no
 # page multiple, longer than the window, so the window mask and the rings'
@@ -191,6 +203,37 @@ GEMMA_STEPS = 12
 # 0.25 limit, so no limit could have told it apart; at 1.0 it moves them by
 # ~1.2 (NVIDIA H100 80GB HBM3, 700 W)
 GEMMA_QK_NORM_STD = 1.0
+MAMBA = "mamba2-2.7b"
+# the mamba2 path's groups (requests, prompt length), one length each, as the
+# reference's prefill takes: group 1's last chunk is ragged (1000 = 15 x 64
+# + 40), group 2's prompt is a chunk multiple
+MAMBA_GROUPS = ((4, 1000), (2, 512))
+MAMBA_STEPS = 12
+# ssd_scan's final state against the plain version's, relative to the
+# largest plain state entry: both sum a chunk's 64 float32 products in
+# another order and take exp() of the same cumulative sums (CUDA's expf
+# against torch's, within 2 ulps), a relative difference of a few 1e-7 that
+# the 16 chunks' decay does not grow.  The limit, 2**-13, leaves two orders
+# of headroom; the state taken before the last chunk moves it by O(1)
+SSD_STATE_RTOL = 2.0 ** -13
+# mamba2's checkpoints carry trained dt biases; Mamba-2's own init
+# (arXiv:2405.21060, as its reference code draws them) sets softplus(dt_bias)
+# log-uniform in [1e-3, 1e-1], so that heads remember hundreds of tokens.
+# The random weights draw them so.  At the reference's init (dt_bias 0, dt
+# ~ 0.7, a memory of a few tokens) the plain path's own spread (below) is
+# as large as the gap of a state not carried across chunks, so no limit
+# could tell that fault apart (tools/mamba2_dt_init.py reads both)
+MAMBA_DT_RANGE = (1e-3, 1e-1)
+# mamba2's logit limit.  The bfloat16 rule's 0.25 was derived for 32 layers
+# of attention; mamba2 rounds 64 layers' outputs to bfloat16, each from a
+# 1000-token scan whose state sums long runs of products.  On the card the
+# plain path itself at chunk 32 against chunk 64 (the same function, its
+# float32 sums in another order) differs by about as much as the kernel
+# does, ~0.27: 0.25 sits at the floor any second float32 order reaches.  So
+# the limit is the larger of 0.25 and twice that spread, read in the same
+# run; the planted faults (a state not carried, a conv cache one token late,
+# a zero state) read 5-7, far above it
+MAMBA_SPREAD_CHUNK = 32
 
 
 def emit(obj) -> None:
@@ -810,6 +853,92 @@ def gemma_shapes():
     return {k: v for k, v in plan.items() if k != "sched"}, ring
 
 
+def mamba_dt_bias(shape, g):
+    """dt biases as Mamba-2 inits them: softplus^-1 of a log-uniform draw
+    in ``MAMBA_DT_RANGE``."""
+    lo, hi = (math.log(v) for v in MAMBA_DT_RANGE)
+    dt0 = torch.exp(torch.rand(shape, generator=g, device="cuda") * (hi - lo)
+                    + lo)
+    return dt0 + torch.log(-torch.expm1(-dt0))
+
+
+def ssd_inputs(B, S, cfg, seed=0):
+    """ssd_scan's inputs as mamba2's prefill gives them: x, B and C slices of
+    one SiLU'd conv output (bfloat16; x read through its strides), dt
+    softplus'ed in float32 around the path's biases, A = -linspace(1, 16) as
+    the model inits it."""
+    h, p, n = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_size
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xbc = F.silu(torch.randn((B, S, h * p + 2 * n), generator=g,
+                             device="cuda")).to(torch.bfloat16)
+    x, Bc, Cc = torch.split(xbc, [h * p, n, n], dim=-1)
+    dt = F.softplus(torch.randn((B, S, h), generator=g, device="cuda")
+                    + mamba_dt_bias((h,), g))
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    return x.reshape(B, S, h, p), dt, A, Bc, Cc
+
+
+def ssd_chunks(x, dt, A, Bc, Cc, *, chunk: int):
+    """A planted fault: ssd_scan called on each chunk apart, from a zero
+    state each (the state not carried).  -> (y, the last chunk's state)."""
+    ys, state = [], None
+    for c0 in range(0, x.shape[1], chunk):
+        c1 = c0 + chunk
+        y, state = ssd_scan(x[:, c0:c1], dt[:, c0:c1].contiguous(), A,
+                            Bc[:, c0:c1], Cc[:, c0:c1], chunk=chunk)
+        ys.append(y)
+    return torch.cat(ys, 1), state
+
+
+def rel_err(got, want) -> float:
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def check_ssd_scan(B, S, cfg):
+    """ssd_scan against its plain version at one of mamba2's prefill shapes:
+    y under the 4-ulp limit, the final state under ``SSD_STATE_RTOL``.
+    Planted faults: the kernel called one chunk at a time (the state not
+    carried; read on y), and the final state taken before the last chunk
+    (the ragged one where S is no chunk multiple; read on the state)."""
+    chunk = cfg.ssm_chunk
+    x, dt, A, Bc, Cc = ssd_inputs(B, S, cfg, seed=S)
+    y, state = ssd_scan(x, dt, A, Bc, Cc, chunk=chunk)
+    want_y, want_state = ssd_chunked_ref(x, dt, A, Bc, Cc, chunk=chunk)
+    y_nc, _ = ssd_chunks(x, dt, A, Bc, Cc, chunk=chunk)
+    last = (S - 1) // chunk * chunk
+    _, state_early = ssd_scan(x[:, :last], dt[:, :last].contiguous(), A,
+                              Bc[:, :last], Cc[:, :last], chunk=chunk)
+    torch.cuda.synchronize()
+    tol, top = kernel_tol(want_y)
+    ms = time_ms(lambda: ssd_scan(x, dt, A, Bc, Cc, chunk=chunk), 10)
+    plain_ms = time_ms(lambda: ssd_chunked_ref(x, dt, A, Bc, Cc, chunk=chunk), 10)
+    h, p, n = x.shape[2], x.shape[3], Bc.shape[-1]
+    # the chunk products over each chunk's real rows c: C B^T (c x c x n),
+    # its product with x (c x c x p), C state^T and the state update
+    # (c x n x p each), per (request, head)
+    rows = [min(chunk, S - c0) for c0 in range(0, S, chunk)]
+    ops = 2.0 * B * h * sum(c * c * n + c * c * p + 2 * c * n * p for c in rows)
+    nbytes = (2 * x.numel() * x.element_size() + dt.numel() * 4 + A.numel() * 4
+              + 2 * B * S * n * Bc.element_size() + state.numel() * 4)
+    bound_ms, by = bound(nbytes, ops)
+    return {"shape": {"B": B, "S": S, "h": h, "p": p, "n": n, "chunk": chunk},
+            "dtype": "bfloat16", "max_abs_err": (y.float() - want_y.float())
+            .abs().max().item(), "tol": tol, "max_abs_out": top,
+            "state_rel_err": rel_err(state, want_state),
+            "state_rtol": SSD_STATE_RTOL,
+            "fault_err_state_not_carried": (y_nc.float() - want_y.float())
+            .abs().max().item(),
+            "fault_state_rel_err_before_last_chunk": rel_err(state_early,
+                                                             want_state),
+            "finite": bool(torch.isfinite(y).all() and torch.isfinite(state)
+                           .all()),
+            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no single PyTorch call computes the chunked "
+                       "scan with its carried state",
+            "bound_ms": bound_ms, "bound_by": by, "ops": ops, "bytes": nbytes}
+
+
 def phase_kernels(results):
     """Per kernel, the serve path's shapes first: opt-6.7b's (float16, MHA,
     LayerNorm, G=1), then yi-6b's (bfloat16, G=8: flash prefill, kv_gen and
@@ -820,8 +949,10 @@ def phase_kernels(results):
     gemma3-1b's (bfloat16, MQA with G = 4, head_dim 256): the flash kernel
     causal and in its window mode at group 1's prompt, the second-pool mode
     at a global layer's tables and at a local layer's rings, and kv_gen with
-    the K norm."""
+    the K norm.  Last, ssd_scan at both of mamba2's prefill shapes
+    (bfloat16, h = 80, P = 64, N = 128), the ragged one first."""
     yi, opt = get_config("yi-6b"), get_config("opt-6.7b")
+    mamba = get_config(MAMBA)
     gemma = get_config(GEMMA)
     g_global, g_ring = gemma_shapes()
     gB, gS = GEMMA_GROUPS[0]
@@ -874,6 +1005,7 @@ def phase_kernels(results):
                             gemma.d_model, gemma.num_kv_heads, hd=gemma.head_dim,
                             act_cap=g_global["act_cap"], theta=gemma.rope_theta,
                             knorm=True)],
+           "ssd_scan": [check_ssd_scan(B, S, mamba) for B, S in MAMBA_GROUPS],
            "gemma_serve_shapes": {"global": g_global, "ring": g_ring},
            "opt_serve_shape": opt_shape}
     emit(out)
@@ -892,6 +1024,17 @@ def phase_kernels(results):
              if key.startswith("fault_err_") and not c[key] > c["tol"]]
     if blind:
         raise AssertionError(f"the limit passes a planted fault: {blind}")
+    ssd = out["ssd_scan"]
+    bad = [(c["shape"], c["state_rel_err"], c["finite"]) for c in ssd
+           if not (c["state_rel_err"] <= SSD_STATE_RTOL and c["finite"])]
+    if bad:
+        raise AssertionError(f"ssd_scan's final state disagrees with its "
+                             f"plain version: {bad}")
+    blind = [(c["shape"], c["fault_state_rel_err_before_last_chunk"])
+             for c in ssd if not c["fault_state_rel_err_before_last_chunk"]
+             > SSD_STATE_RTOL]
+    if blind:
+        raise AssertionError(f"the state limit passes a planted fault: {blind}")
     lse = [c for name in KERNELS if "return_lse" in name for c in out[name]]
     bad = [(c["case"], c["shape"], c["m_err"], c["l_err"]) for c in lse
            if not (c["m_err"] <= LSE_RTOL and c["l_err"] <= LSE_RTOL)]
@@ -1660,6 +1803,8 @@ def kernel_group(name: str) -> str:
         return "flash_attention"
     if "kv_gen_kernel" in name:
         return "kv_gen"
+    if "ssd_scan_kernel" in name:
+        return "ssd_scan"
     if any(w in name.lower() for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul (cuBLAS)"
     return "other (norms, elementwise, indexing, argmax)"
@@ -1911,6 +2056,196 @@ def phase_serve_gemma(results, smi):
     return launches
 
 
+def mamba_run(params, cfg, toks, n: int, gold=None, marks=None):
+    """The mamba2 path over one group: ``prefill`` then greedy
+    ``decode_loop`` (``gold`` None; no host sync allowed inside the loop), or
+    ``decode_step`` fed ``gold`` (B, n) to read its per-step logits.
+    ``marks``: a list to append (time, launch counts, logits) to when the
+    prefill has run.  -> (tokens (B, n), logits (B, n, V) or None)."""
+    B, S = toks.shape
+    lg, cache = M.prefill(params, cfg, toks, max_len=S + n)
+    if marks is not None:
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), read_counts(), lg))
+    if gold is None:
+        cur = lg[:, -1].argmax(-1).int()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return M.decode_loop(params, cfg, cur, cache, n)[0], None
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    steps = [lg[:, -1]]
+    for s in range(n - 1):
+        lg, cache = M.decode_step(params, cfg, gold[:, s:s + 1].int(), cache)
+        steps.append(lg[:, -1])
+    return gold, torch.stack(steps, 1)
+
+
+_real_ssd_scan, _real_conv, _real_prefill = (L.ssd_scan, L.causal_conv1d,
+                                             M.prefill)
+
+
+def conv_one_step_late(x, w, cache=None):
+    """A planted fault: decode's conv reads its cache one token late (each
+    cache row takes the row before it, the newest prior token dropped)."""
+    if cache is not None:
+        cache = torch.cat([cache[:, :1], cache[:, :-1]], 1)
+    return _real_conv(x, w, cache)
+
+
+def prefill_zero_state(params, cfg, toks, max_len):
+    """A planted fault: decode starts from a zero SSD state, not the
+    prefill's."""
+    lg, cache = _real_prefill(params, cfg, toks, max_len)
+    cache["state"].zero_()
+    return lg, cache
+
+
+# the mamba2 path's planted faults: (module, attribute, stand-in)
+MAMBA_FAULTS = {
+    "ssd_state_not_carried_across_chunks": (L, "ssd_scan", ssd_chunks),
+    "conv_cache_one_step_late": (L, "causal_conv1d", conv_one_step_late),
+    "decode_from_zero_state": (M, "prefill", prefill_zero_state),
+}
+
+
+def phase_serve_mamba2(results, smi):
+    """mamba2-2.7b at full width and depth (64 SSD layers, bfloat16, random
+    weights from seed 0) through ``prefill`` -> ``decode_loop``, two groups
+    of ``MAMBA_GROUPS``, ``MAMBA_STEPS`` tokens each.  Checks the launches
+    (ssd_scan once per layer and prefill, nothing in decode), no host sync
+    in the decode loop, finite logits, and the tokens against the plain path
+    (the same functions with the layers' ``ssd_scan`` swapped for its plain
+    version) under the bfloat16 rule, its limit the larger of 0.25 and twice
+    the plain path's own spread (``MAMBA_SPREAD_CHUNK``); each planted fault
+    must fail the limit.  -> the launch counts of the path's run."""
+    cfg = get_config(MAMBA)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    bias = params["layers"]["ssd"]["dt_bias"]
+    bias.copy_(mamba_dt_bias(bias.shape,
+                             torch.Generator(device="cuda").manual_seed(0)))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    n = MAMBA_STEPS
+    rng = np.random.default_rng(0)
+    groups = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                               .astype(np.int32)).cuda()
+              for B, S in MAMBA_GROUPS]
+    V = M.pad_vocab(cfg.vocab_size)
+    out = {"phase": "serve_mamba2", "card": smi, "model": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "ssm_heads": cfg.ssm_num_heads, "ssm_head_dim": cfg.ssm_head_dim,
+           "ssm_state": cfg.ssm_state_size, "conv_width": cfg.ssm_conv_width,
+           "chunk": cfg.ssm_chunk, "vocab_padded": V, "dtype": cfg.dtype,
+           "params": sum(t.numel() for t in _leaves(params)), "init_s": init_s,
+           "dt_range": MAMBA_DT_RANGE,
+           "groups": [list(g_) for g_ in MAMBA_GROUPS]}
+
+    for toks in groups:                                  # warm-up
+        mamba_run(params, cfg, toks, n)
+    torch.cuda.synchronize()
+    # the counted main-path run: counts start at 0, each stage's read apart
+    reset_counts()
+    outs_k, stages, prev = [], [], read_counts()
+    for toks in groups:
+        marks = []
+        t0 = time.perf_counter()
+        toks_out, _ = mamba_run(params, cfg, toks, n, marks=marks)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        after = read_counts()
+        (t1, after_prefill, lg), = marks
+        if not (torch.isfinite(lg).all() and lg.shape == (toks.shape[0], 1, V)):
+            raise AssertionError(f"prefill logits {tuple(lg.shape)} not finite")
+        outs_k.append(toks_out.cpu().numpy())
+        stages.append({
+            "prefill_ms": (t1 - t0) * 1e3, "decode_s": t2 - t1,
+            "decode_tokens_per_s": toks.shape[0] * n / (t2 - t1),
+            "prefill_launches": {k: after_prefill[k] - prev[k] for k in prev},
+            "decode_launches_per_step": {
+                k: (after[k] - after_prefill[k]) / n for k in prev}})
+        prev = after
+    launches = read_counts()
+    want_prefill = {k: 0 for k in COUNTERS}
+    want_prefill["ssd_scan"] = cfg.num_layers
+    want_step = {k: 0 for k in COUNTERS}
+    for st in stages:
+        if st["prefill_launches"] != want_prefill or \
+                st["decode_launches_per_step"] != want_step:
+            raise AssertionError(f"mamba2 launches {st}, expected "
+                                 f"{want_prefill} / none a decode step")
+    out.update(launches=launches, stages=stages, decode_loop_host_syncs=0,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+
+    # tokens against the plain path, under the bfloat16 rule with the limit
+    # derived from the plain path's own spread (MAMBA_SPREAD_CHUNK), and the
+    # teacher-forced logit gap; then the planted faults read the same gap
+    L.ssd_scan = ssd_chunked_ref
+    other = dataclasses.replace(cfg, ssm_chunk=MAMBA_SPREAD_CHUNK)
+    try:
+        plain, spread = [], 0.0
+        for toks in groups:
+            gold, _ = mamba_run(params, cfg, toks, n)
+            ora = mamba_run(params, cfg, toks, n, gold)[1]
+            plain.append((toks, gold, ora))
+            spread = max(spread, (mamba_run(params, other, toks, n, gold)[1]
+                                  - ora).abs().max().item())
+    finally:
+        L.ssd_scan = _real_ssd_scan
+    logit_tol = max(LOGIT_TOL_BY_DTYPE[cfg.dtype], 2 * spread)
+    out.update(plain_spread_dlogit=spread, logit_tol=logit_tol)
+    rule = {"oracle": {}, "margin": {}, "logit_tol": logit_tol, "kernel": {}}
+    outs, rids = {}, []
+    for gi, ((toks, gold, ora), got) in enumerate(zip(plain, outs_k)):
+        _, lg = mamba_run(params, cfg, toks, n, gold)
+        top2 = ora.topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+        gaps = (lg - ora).abs().amax(-1).cpu().numpy()
+        gold_np = gold.cpu().numpy()
+        for b in range(toks.shape[0]):
+            rid = f"group{gi}/request{b}"
+            rids.append(SimpleNamespace(rid=rid))
+            rule["oracle"][rid], rule["margin"][rid] = gold_np[b], margin[b]
+            rule["kernel"][rid], outs[rid] = gaps[b], got[b]
+    gap = max(float(g_.max()) for g_ in rule["kernel"].values())
+    try:                    # every reading is emitted before a check fails
+        out.update(exactness(rule, "kernel", outs, rids))
+        diverged = None
+    except AssertionError as e:
+        diverged = e
+    out.update(min_oracle_margin=float(min(m.min() for m in rule["margin"]
+                                           .values())),
+               max_teacher_forced_dlogit=gap,
+               dlogit_by_step=np.max(list(rule["kernel"].values()), 0).tolist())
+    faults = {}
+    for name, (mod, attr, fault) in MAMBA_FAULTS.items():
+        real = getattr(mod, attr)
+        setattr(mod, attr, fault)
+        try:
+            faults[name] = max(
+                (mamba_run(params, cfg, toks, n, gold)[1] - ora)
+                .abs().max().item() for toks, gold, ora in plain)
+        finally:
+            setattr(mod, attr, real)
+    out["fault_dlogit"] = faults
+    runs = {"serve": lambda: [mamba_run(params, cfg, toks, n)
+                              for toks in groups]}
+    phase_profile(results, smi, MAMBA, None, None, runs)
+    out["seconds"] = time.perf_counter() - t_phase        # profile included
+    emit(out)
+    results[f"serve {MAMBA}"] = out
+    if diverged is not None:
+        raise diverged
+    if gap > logit_tol:
+        raise AssertionError(f"mamba2 teacher-forced logits differ by {gap}")
+    if not all(f > logit_tol for f in faults.values()):
+        raise AssertionError(f"the logit limit {logit_tol} passes a planted "
+                             f"fault: {faults}")
+    return launches
+
+
 def serve_path(results, smi, name):
     """Serve and profile one model, free its weights, so that peak device
     memory is one model's, then serve it from host memory.  -> the launch
@@ -1945,6 +2280,9 @@ def main() -> int:
     by_path[GEMMA] = {"fp": phase_serve_gemma(results, smi)}
     gc.collect()
     torch.cuda.empty_cache()
+    by_path[MAMBA] = {"fp": phase_serve_mamba2(results, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
     # each kernel's launches on the path that carries it: the fused hybrid
     # kernel on OPT's serve, the second-pool mode and kv_gen on yi's, their
     # gemma modes (the flash window, head_dim 256, the K norm) on gemma's, the
@@ -1952,7 +2290,8 @@ def main() -> int:
     # int8 modes on the int8 serves and the int8 return_lse of each on that
     # model's int8 host-attend run (the int8 OPT serve also launches it on
     # the steps with an ACT-bound token, for its exact row's merge: listed
-    # beside it); flash_attention runs on every path and reports OPT's
+    # beside it), ssd_scan on mamba2's; flash_attention runs on every
+    # attention path and reports OPT's
     serve, ha = "serve", "offload host_attn"
     path_of = {"flash_attention": ("opt-6.7b", serve, "fp"),
                "hybrid_paged_attention": ("opt-6.7b", serve, "fp"),
@@ -1968,7 +2307,8 @@ def main() -> int:
                                                                  "int8"),
                "flash_attention_window": (GEMMA, serve, "fp"),
                "hybrid_paged_attention_two_pool_hd256": (GEMMA, serve, "fp"),
-               "kv_gen_qk_norm": (GEMMA, serve, "fp")}
+               "kv_gen_qk_norm": (GEMMA, serve, "fp"),
+               "ssd_scan": (MAMBA, serve, "fp")}
     counts = {serve: by_path, ha: ha_path}
     k = results["kernels"]
     rows = []

@@ -1,9 +1,11 @@
-"""Layer primitives of the uniform family (OPT, yi, minitron), as plain
-functions on tensors.
+"""Layer primitives of the attention families (OPT, yi, minitron, gemma3)
+and of the SSM family (mamba2), as plain functions on tensors.
 
 Counterparts of ``repro.models.layers``: the norms compute in float32 and cast
 back to the input dtype at the same point, so the port rounds where the
-reference rounds.
+reference rounds.  The SSD scan of prefill goes through the hand-written
+kernel's wrapper; the one-token SSD step and the causal conv are plain torch,
+as the reference has no kernel for them.
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
 
 # --------------------------------------------------------------------------- norms
@@ -47,8 +51,11 @@ def apply_norm(x, params, norm_type: str):
 def rope_sin_cos(positions, head_dim: int, theta: float):
     """positions (..., S) int -> sin/cos (..., S, head_dim//2) float32."""
     half = head_dim // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=positions.device) / half)
+    # the frequencies in float64, rounded once: torch's float32 pow is an ulp
+    # off the reference's in some of them, an error the angle multiplies by
+    # the position (~1e-4 in sin at position 1e5)
+    freq = (theta ** (-torch.arange(0, half, dtype=torch.float64,
+                                    device=positions.device) / half)).float()
     angle = positions.float()[..., None] * freq
     return torch.sin(angle), torch.cos(angle)
 
@@ -109,3 +116,49 @@ def dense_ffn(params, x, ffn_type: str):
     else:
         h = _act(h, ffn_type)
     return h @ params["w2"]
+
+
+# --------------------------------------------------------------------------- mamba2 SSD
+
+def ssd_chunked(x, dt, A, B, C, *, chunk: int):
+    """Mamba-2 SSD forward over a whole sequence, from a zero state (every
+    caller's): x (b, s, h, p); dt (b, s, h) float32, already softplus'ed; A
+    (h,) negative; B, C (b, s, n), one group.  -> (y (b, s, h, p) in x's
+    dtype, final state (b, h, p, n) float32).  The ``ssd_scan`` kernel on
+    the card, its plain version on the CPU."""
+    return ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
+    """One-token SSD recurrence: state (b, h, p, n); x_t (b, h, p); dt_t
+    (b, h); B_t, C_t (b, g, n).  -> (y (b, h, p) in x_t's dtype, new state
+    in state's dtype)."""
+    b, h, _, n = state.shape
+    g = B_t.shape[1]
+    # each group's row repeated over its h / g heads (jnp.repeat), by a view
+    per_head = lambda t: t.float()[:, :, None].expand(b, g, h // g, n) \
+        .reshape(b, h, n)
+    Bh, Ch = per_head(B_t), per_head(C_t)                       # (b, h, n)
+    dA = torch.exp(dt_t.float() * A.float())                    # (b, h)
+    upd = (dt_t[..., None].float() * x_t.float())[..., None] \
+        * Bh[:, :, None, :]
+    new_state = state.float() * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    return y.to(x_t.dtype), new_state.to(state.dtype)
+
+
+def causal_conv1d(x, w, cache=None):
+    """Depthwise causal conv: x (b, s, ch), w (ch, width), as a float32 sum
+    of ``width`` shifted products in order.  With ``cache`` (b, width - 1,
+    ch), the rows before x, the conv is streaming (decode).  -> (y in x's
+    dtype, new cache: the last width - 1 input rows, before any activation)."""
+    width = w.shape[-1]
+    pad = x.new_zeros((x.shape[0], width - 1, x.shape[2])) if cache is None \
+        else cache
+    xp = torch.cat([pad, x], 1)                                 # (b, s+w-1, ch)
+    s = x.shape[1]
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(width):
+        y = y + xp[:, i: i + s].float() * w[:, i].float()[None, None, :]
+    new_cache = xp[:, -(width - 1):] if width > 1 else pad
+    return y.to(x.dtype), new_cache

@@ -1,6 +1,11 @@
-"""Top-level model API of the uniform and windowed families: embed -> layers
--> logits, the plain KV decode path (the oracle's) and the hybrid KV/ACT
+"""Top-level model API of the uniform, windowed and ssm families: embed ->
+layers -> logits, the plain decode path (the oracle's) and the hybrid KV/ACT
 decode path (the engine's).  Counterparts of ``repro.models.model``.
+
+The ssm family (mamba2) has no KV cache to trade for activations, so it has
+the plain path only, as in the reference: ``prefill`` runs each SSD layer's
+scan through the ``ssd_scan`` kernel and keeps its final state and conv
+tail; ``decode_step`` advances both one token in plain torch.
 
 The windowed family (gemma3) keeps the hybrid cache on its GLOBAL layers
 only; its local layers keep ring buffers of ``sliding_window`` slots, as the
@@ -100,11 +105,19 @@ def unembed(params, cfg: ModelConfig, h):
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda") -> Cache:
     """The plain decode cache: K/V (L, B, max_len, KVH, D); windowed family:
     ``local_k/v`` rings (n_per, period - 1, B, W, KVH, D), ``global_k/v``
-    (n_per, B, max_len, KVH, D) and ``tail_k/v`` rings (tail, B, W, KVH, D)."""
+    (n_per, B, max_len, KVH, D) and ``tail_k/v`` rings (tail, B, W, KVH, D);
+    ssm family: the SSD ``state`` (L, B, h, p, n) and the conv tail ``conv``
+    (L, B, width - 1, inner + 2n), whatever ``max_len``."""
     dt = torch_dtype(cfg)
     kv = lambda *shape: torch.zeros(shape, dtype=dt, device=device)
     head = (cfg.num_kv_heads, cfg.head_dim)
     kv_len = torch.zeros((B,), dtype=torch.int32, device=device)
+    if family(cfg) == "ssm":
+        return {"state": kv(cfg.num_layers, B, cfg.ssm_num_heads,
+                            cfg.ssm_head_dim, cfg.ssm_state_size),
+                "conv": kv(cfg.num_layers, B, cfg.ssm_conv_width - 1,
+                           cfg.ssm_inner + 2 * cfg.ssm_state_size),
+                "kv_len": kv_len}
     if family(cfg) != "windowed":
         return {"k": kv(cfg.num_layers, B, max_len, *head),
                 "v": kv(cfg.num_layers, B, max_len, *head), "kv_len": kv_len}
@@ -165,6 +178,12 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int):
                 cache["global_v"][i, :, :S] = v
             else:
                 h = _local_full(lp, cfg, h, sincos, _ring(cache, stack, i, j))
+    elif family(cfg) == "ssm":
+        for i in range(cfg.num_layers):
+            h, (state, conv) = T.layer_full(layer_params(params, i), cfg, h,
+                                            kind="ssd")
+            cache["state"][i] = state
+            cache["conv"][i] = conv
     else:
         for i in range(cfg.num_layers):
             h, (k, v) = T.layer_full(layer_params(params, i), cfg, h, sincos)
@@ -195,6 +214,11 @@ def decode_step(params, cfg: ModelConfig, token, cache: Cache):
             else:
                 x = T.layer_decode(lp, cfg, x, *_ring(cache, stack, i, j),
                                    kv_len, sincos, window=W, ring=True)
+    elif family(cfg) == "ssm":
+        for i in range(cfg.num_layers):
+            x = T.layer_decode(layer_params(params, i), cfg, x,
+                               cache["state"][i], cache["conv"][i], kv_len,
+                               kind="ssd")
     else:
         for i in range(cfg.num_layers):
             x = T.layer_decode(layer_params(params, i), cfg, x, cache["k"][i],
@@ -241,7 +265,9 @@ def init_hybrid_cache(cfg: ModelConfig, B: int, kv_cap: int, act_cap: int,
     ``k``/``v``/``act`` stacked over the n_per periods; the local layers keep
     their rings ``local_k/v`` (n_per, period - 1, B, W, KVH, D) and
     ``tail_k/v`` (tail, B, W, KVH, D), W a whole number of pages.  As in the
-    reference, no ``quant`` for this family."""
+    reference, no ``quant`` for this family.  The ssm family has no KV to
+    trade (the reference's hybrid cache is for attention): refused."""
+    T.check_supported(cfg, families=("uniform", "windowed"))
     if kv_cap % PAGE or act_cap % PAGE:
         raise ValueError(f"kv_cap={kv_cap}, act_cap={act_cap}: not multiples "
                          f"of the {PAGE}-token page")

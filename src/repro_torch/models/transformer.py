@@ -1,17 +1,20 @@
-"""Parameter init and the per-layer forwards of two families:
+"""Parameter init and the per-layer forwards of three families:
 
   uniform   every layer attention + FFN: OPT (learned positions, tied
             embeddings), yi and minitron (RoPE, untied embeddings);
   windowed  gemma3: periods of ``window_period - 1`` sliding-window (local)
             layers and one global layer, then a tail of local layers; q/k
-            norm, MQA, tied embeddings.
+            norm, MQA, tied embeddings;
+  ssm       mamba2: every layer a Mamba-2 SSD mixer, no FFN, no positions,
+            tied embeddings.
 
 Counterparts of ``repro.models.transformer``.  Parameters are a plain dict laid
 out like the JAX pytree: layers stacked on dim 0 (``layers``; windowed:
 ``periods.local`` stacked (n_per, period - 1, ...), ``periods.global``
 (n_per, ...) and ``tail``), weights stored ``(d_in, d_out)``.  Prefill
 attention goes through the hand-written flash kernel's wrapper, the local
-layers' through its sliding-window mode.
+layers' through its sliding-window mode; the SSD layers' prefill scan through
+the ``ssd_scan`` kernel's.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import math
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -67,7 +71,7 @@ def _norm_p(cfg, device, n=None):
 #: position encodings the port serves
 POS_TYPES = ("learned", "rope")
 #: the architecture families the port serves (``family``)
-FAMILIES = ("uniform", "windowed")
+FAMILIES = ("uniform", "windowed", "ssm")
 
 
 def family(cfg: ModelConfig) -> str:
@@ -92,25 +96,33 @@ def _window_split(cfg) -> Tuple[int, int, int]:
 def check_supported(cfg: ModelConfig, families=FAMILIES,
                     qk_norm: bool = True) -> None:
     """Raise unless the port serves ``cfg`` in one of ``families``: a dense
-    decoder (no MoE, SSM, encoder or frontend) with an FFN, learned or RoPE
+    decoder (no MoE, encoder or frontend) with an FFN, learned or RoPE
     positions; q/k norm (where ``qk_norm`` allows it) and the windowed
     family only with RoPE, the route that recomputes K outside the fused
-    kernel.  The serving engine and the offload executor take the uniform
-    family without q/k norm, as far as the reference's engine is held
-    against."""
-    dense = (cfg.arch_type == "dense" and not cfg.is_encoder_decoder
-             and cfg.moe_num_experts == 0 and cfg.frontend == "none")
-    rope_only = cfg.qk_norm or family(cfg) == "windowed"
-    if not dense or family(cfg) not in families or cfg.d_ff == 0 \
-            or cfg.pos_type not in POS_TYPES \
-            or (rope_only and cfg.pos_type != "rope") \
-            or (cfg.qk_norm and not qk_norm):
+    kernel; or (the ssm family) a stack of SSD mixers with no FFN and no
+    positions.  The serving engine and the offload executor take the
+    uniform family without q/k norm, as far as the reference's engine is
+    held against."""
+    plain = (not cfg.is_encoder_decoder and cfg.moe_num_experts == 0
+             and cfg.frontend == "none")
+    if family(cfg) == "ssm":
+        ok = cfg.d_ff == 0 and cfg.pos_type == "none" \
+            and cfg.ssm_state_size > 0
+    else:
+        rope_only = cfg.qk_norm or family(cfg) == "windowed"
+        ok = cfg.arch_type == "dense" and cfg.d_ff > 0 \
+            and cfg.pos_type in POS_TYPES \
+            and not (rope_only and cfg.pos_type != "rope") \
+            and not (cfg.qk_norm and not qk_norm)
+    if not (plain and ok and family(cfg) in families):
         raise NotImplementedError(
             f"{cfg.name}: the port serves dense "
-            f"{' and '.join(f + '-family' for f in families)} decoders with "
-            f"{' or '.join(POS_TYPES)} positions"
+            f"{' and '.join(f + '-family' for f in families if f != 'ssm')} "
+            f"decoders with {' or '.join(POS_TYPES)} positions"
             + (" (q/k norm and windows with RoPE only)" if qk_norm
-               else " and no q/k norm"))
+               else " and no q/k norm")
+            + (", and SSD stacks with no FFN and no positions"
+               if "ssm" in families else ""))
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
@@ -124,8 +136,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     Lyr, d, qd, kvd, f = (cfg.num_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim,
                           cfg.d_ff)
     V = pad_vocab(cfg.vocab_size)
-    o_scale = 1.0 / math.sqrt(qd) / math.sqrt(2 * Lyr)
-    f_scale = 1.0 / math.sqrt(f) / math.sqrt(2 * Lyr)
     params = {"embed": _dense(gen, (V, d), cfg, device, scale=0.02),
               "final_norm": _norm_p(cfg, device)}
     if not cfg.tie_embeddings:
@@ -136,6 +146,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     # the draw order is part of what a seed means: the optional leaves come
     # after the ones every model has, so adding them changes no other weight
     def stack(n):
+        o_scale = 1.0 / math.sqrt(qd) / math.sqrt(2 * Lyr)
+        f_scale = 1.0 / math.sqrt(f) / math.sqrt(2 * Lyr)
         layers = {
             "ln1": _norm_p(cfg, device, n),
             "attn": {"wq": _dense(gen, (d, qd), cfg, device, n=n),
@@ -155,6 +167,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                                                   device=device)
         return layers
 
+    if family(cfg) == "ssm":
+        params["layers"] = {"ln1": _norm_p(cfg, device, Lyr),
+                            "ssd": _ssd_p(gen, cfg, device, Lyr)}
+        return params
     if family(cfg) == "uniform":
         params["layers"] = stack(Lyr)
         return params
@@ -165,6 +181,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     if tail:
         params["tail"] = stack(tail)
     return params
+
+
+def _ssd_p(gen, cfg, device, n):
+    """``n`` stacked SSD mixers (the reference's ``init_ssd``): in_proj
+    makes z, x, B, C and dt; x, B and C go through the depthwise conv."""
+    d, inner = cfg.d_model, cfg.ssm_inner
+    h, ns, w = cfg.ssm_num_heads, cfg.ssm_state_size, cfg.ssm_conv_width
+    f32 = dict(dtype=torch.float32, device=device)
+    a_log = torch.linspace(1.0, 16.0, h, **f32).log()
+    return {
+        "in_proj": _dense(gen, (d, 2 * inner + 2 * ns + h), cfg, device, n=n),
+        "conv_w": _dense(gen, (inner + 2 * ns, w), cfg, device,
+                         scale=1.0 / math.sqrt(w), n=n),
+        "A_log": a_log.expand(n, h).clone(),
+        "D": torch.ones((n, h), **f32),
+        "dt_bias": torch.zeros((n, h), **f32),
+        "norm": torch.zeros((n, inner), dtype=torch_dtype(cfg), device=device),
+        "out_proj": _dense(gen, (inner, d), cfg, device,
+                           scale=1.0 / math.sqrt(inner)
+                           / math.sqrt(2 * cfg.num_layers), n=n)}
 
 
 def _map(tree, fn):
@@ -287,22 +323,87 @@ def ffn_apply(p, cfg: ModelConfig, x):
     return L.dense_ffn(p, x, cfg.ffn_type)
 
 
+def _ssd_in(p, cfg, x, conv_cache):
+    """The SSD mixer's input side: in_proj, the causal conv over x, B, C and
+    its SiLU, softplus'ed dt.  -> (z, xs, Bc, Cc, dt, A, new conv cache);
+    xs, Bc and Cc are slices of one tensor, passed on without a copy."""
+    inner, ns = cfg.ssm_inner, cfg.ssm_state_size
+    proj = x @ p["in_proj"]                                  # (B, S, 2i+2n+h)
+    z, xbc, dt_raw = torch.split(proj, [inner, inner + 2 * ns,
+                                        cfg.ssm_num_heads], dim=-1)
+    xbc, new_conv = L.causal_conv1d(xbc, p["conv_w"], conv_cache)
+    xbc = F.silu(xbc)
+    xs, Bc, Cc = torch.split(xbc, [inner, ns, ns], dim=-1)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    return z, xs, Bc, Cc, dt, A, new_conv
+
+
+def _ssd_out(p, cfg, x, y, xs, z):
+    """The skip term, the SiLU(z) gate, the gated RMSNorm and out_proj."""
+    B, S = x.shape[:2]
+    h, hp = cfg.ssm_num_heads, cfg.ssm_head_dim
+    y = y + xs.reshape(B, S, h, hp) * p["D"][None, None, :, None]
+    y = (y.reshape(B, S, cfg.ssm_inner) * F.silu(z)).to(x.dtype)
+    return L.rms_norm(y, p["norm"]) @ p["out_proj"]
+
+
+def ssd_full(p, cfg: ModelConfig, x):
+    """The SSD mixer over the whole sequence (prefill), from a zero state.
+    -> (out, (final state in the config dtype, conv cache))."""
+    B, S, _ = x.shape
+    z, xs, Bc, Cc, dt, A, new_conv = _ssd_in(p, cfg, x, None)
+    y, final = L.ssd_chunked(
+        xs.reshape(B, S, cfg.ssm_num_heads, cfg.ssm_head_dim), dt, A, Bc, Cc,
+        chunk=cfg.ssm_chunk)
+    return _ssd_out(p, cfg, x, y, xs, z), (final.to(torch_dtype(cfg)), new_conv)
+
+
+def ssd_decode(p, cfg: ModelConfig, x, state, conv_cache):
+    """One-token SSD step, x (B, 1, d).  -> (out, new state in the config
+    dtype, new conv cache)."""
+    B = x.shape[0]
+    h, hp = cfg.ssm_num_heads, cfg.ssm_head_dim
+    z, xs, Bc, Cc, dt, A, new_conv = _ssd_in(p, cfg, x, conv_cache)
+    y, new_state = L.ssd_decode_step(
+        state.float(), xs[:, 0].reshape(B, h, hp), dt[:, 0], A,
+        Bc[:, 0].reshape(B, 1, -1), Cc[:, 0].reshape(B, 1, -1))
+    return (_ssd_out(p, cfg, x, y[:, None], xs, z),
+            new_state.to(torch_dtype(cfg)), new_conv)
+
+
 # --- single transformer layer (pre-norm residual) -----------------------------
 
-def layer_full(p, cfg, x, sincos=None, window: int = 0):
-    """-> (x', (k, v)) over the whole sequence (sliding-window attention
-    when ``window`` > 0)."""
-    a, kv = attn_full(p["attn"], cfg, L.apply_norm(x, p["ln1"], cfg.norm_type),
-                      sincos, window)
+def layer_full(p, cfg, x, sincos=None, window: int = 0, *, kind: str = "attn"):
+    """-> (x', cache) over the whole sequence: attention's (k, v)
+    (sliding-window when ``window`` > 0), or with ``kind="ssd"`` the SSD
+    mixer's (final state, conv cache).  No FFN where the config has none."""
+    h = L.apply_norm(x, p["ln1"], cfg.norm_type)
+    if kind == "ssd":
+        a, cache = ssd_full(p["ssd"], cfg, h)
+    else:
+        a, cache = attn_full(p["attn"], cfg, h, sincos, window)
     x = x + a
-    return x + ffn_apply(p["ffn"], cfg, L.apply_norm(x, p["ln2"], cfg.norm_type)), kv
+    if cfg.d_ff > 0:
+        x = x + ffn_apply(p["ffn"], cfg, L.apply_norm(x, p["ln2"], cfg.norm_type))
+    return x, cache
 
 
 def layer_decode(p, cfg, x, k_cache, v_cache, kv_len, sincos=None, *,
-                 window: int = 0, ring: bool = False):
+                 window: int = 0, ring: bool = False, kind: str = "attn"):
     """-> x' for one token; the caches are updated in place (a ring buffer
-    with ``ring``, see ``attn_decode``)."""
+    with ``ring``, see ``attn_decode``).  With ``kind="ssd"`` the two caches
+    are the layer's SSD state (B, h, p, n) and conv cache (B, width - 1,
+    inner + 2n), and ``kv_len`` is not read."""
     h = L.apply_norm(x, p["ln1"], cfg.norm_type)
-    x = x + attn_decode(p["attn"], cfg, h, k_cache, v_cache, kv_len, sincos,
+    if kind == "ssd":
+        a, state, conv = ssd_decode(p["ssd"], cfg, h, k_cache, v_cache)
+        k_cache.copy_(state)
+        v_cache.copy_(conv)
+    else:
+        a = attn_decode(p["attn"], cfg, h, k_cache, v_cache, kv_len, sincos,
                         window=window, ring=ring)
-    return x + ffn_apply(p["ffn"], cfg, L.apply_norm(x, p["ln2"], cfg.norm_type))
+    x = x + a
+    if cfg.d_ff > 0:
+        x = x + ffn_apply(p["ffn"], cfg, L.apply_norm(x, p["ln2"], cfg.norm_type))
+    return x

@@ -96,3 +96,24 @@ def test_windowed_entry_points_default_to_cuda(make):
             leaves += list(t.values())
         else:
             assert t.device.type == "cuda"
+
+
+@pytest.mark.parametrize("make", [
+    lambda cfg: M.init_params(cfg),
+    lambda cfg: M.init_cache(cfg, 1, 16)], ids=["init_params", "init_cache"])
+def test_ssm_entry_points_default_to_cuda(make):
+    """The ssm family's branches (mamba2) allocate on the card by default,
+    or raise where this build has no CUDA."""
+    cfg = get_config("mamba2-2.7b-reduced")
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            make(cfg)
+        return
+    tree = make(cfg)
+    leaves = [tree]
+    while leaves:
+        t = leaves.pop()
+        if isinstance(t, dict):
+            leaves += list(t.values())
+        else:
+            assert t.device.type == "cuda"

@@ -23,6 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.hybrid_attention.ops import hybrid_paged_attention
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.models import model as M
 
 torch.set_num_threads(1)
@@ -208,10 +209,12 @@ def test_wrappers_refuse_other_devices():
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
         hybrid_paged_attention(q, *([q] * 10))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ssd_scan(q, q[..., 0], q[0, 0, :, 0], q[:, :, 0], q[:, :, 0])
 
 
 def test_build_covers_both_sources_for_sm90a():
     assert set(_build.sources()) == {"flash_attention", "hybrid_attention",
-                                     "kv_gen"}
+                                     "kv_gen", "ssd_scan"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert _build.BUILD_DIR.parts[-2:] == ("build", "kernels")

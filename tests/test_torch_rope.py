@@ -70,6 +70,27 @@ def test_rope_tables_and_rotation_match(theta):
     assert got.dtype == torch.float32
 
 
+# (head_dim, theta) of each RoPE config the port serves: gemma3-1b, yi-6b,
+# minitron-4b
+ROPE_CONFIGS = [(256, 1e6), (128, 5e6), (128, 1e4)]
+TABLE_TOL = 1e-7
+
+
+@pytest.mark.parametrize("head_dim,theta", ROPE_CONFIGS)
+def test_rope_tables_match_jax_at_long_positions(head_dim, theta):
+    """The port's own tables against the reference's up to position 131,072:
+    the angle multiplies any error in a frequency by the position, so a
+    one-ulp frequency shows here as ~1e-4 in sin (float32 ``pow``; the
+    frequencies are computed in float64 and rounded once)."""
+    rng = np.random.default_rng(int(theta))
+    pos = np.concatenate([np.arange(64), rng.integers(0, 131_073, 4096),
+                          np.arange(131_073 - 64, 131_073)]).astype(np.int32)
+    sin, cos = L.rope_sin_cos(torch.from_numpy(pos)[None], head_dim, theta)
+    jsin, jcos = JL.rope_sin_cos(jnp.asarray(pos)[None], head_dim, theta)
+    _close(sin, jsin, TABLE_TOL, "sin")
+    _close(cos, jcos, TABLE_TOL, "cos")
+
+
 def test_apply_rope_rounds_back_to_the_input_dtype():
     x = torch.randn(2, 5, 3, 16, generator=torch.Generator().manual_seed(0))
     sin, cos = L.rope_sin_cos(torch.arange(5)[None], 16, 1e4)
