@@ -2,14 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from this checkout (``nvcc``, sm_90a), holds
-each kernel against its plain PyTorch version at the main paths' shapes, then
-serves two models at full width and full depth (random weights from a seed)
-through ``HybridServeEngine`` in hybrid and kv modes and checks the tokens
-against ``exact_reference_generate``: opt-6.7b (learned positions; the fused
-hybrid kernel recomputes ACT pages' K/V) and then yi-6b (RoPE, GQA, SwiGLU;
-the ``kv_gen`` kernel recomputes them, the hybrid kernel's second-pool mode
-attends).  Then gemma3-1b (5:1 sliding window, q/k norm, head_dim 256, MQA)
+Builds the port's CUDA kernels from this checkout (``nvcc``, sm_90a; the
+flash kernel's machine code must hold Hopper's tensor-core ``HGMMA``),
+holds each kernel against its plain PyTorch version at the main paths'
+shapes, then serves two models at full width and full depth (random weights
+from a seed) through ``HybridServeEngine`` in hybrid and kv modes and checks
+the tokens against ``exact_reference_generate``: opt-6.7b (learned
+positions; the fused hybrid kernel recomputes ACT pages' K/V) and then yi-6b
+(RoPE, GQA, SwiGLU; the ``kv_gen`` kernel recomputes them, the hybrid
+kernel's second-pool mode attends).  Then gemma3-1b (5:1 sliding window, q/k norm, head_dim 256, MQA)
 runs its windowed hybrid path, ``hybrid_prefill`` -> ``hybrid_decode_loop``:
 the flash kernel's window mode in prefill, rings and global layers through
 the second-pool mode at head_dim 256, ``kv_gen`` with the K norm, checked
@@ -36,10 +37,13 @@ Details also go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -255,6 +259,36 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 200) -> float:
+    """Mean host microseconds per call, without waiting for the card: where
+    it is above the card's time, back-to-back calls are bound by the host
+    and ``time_ms`` reads the host's rate."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    took = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return took
+
+
+def device_us(fn, iters: int = 20) -> float:
+    """Mean device microseconds per call: the kernels one call runs, summed
+    from torch.profiler's device events over ``iters`` calls, whatever the
+    host's rate of calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / iters
+
+
 def kernel_tol(*want) -> tuple[float, float]:
     """-> (limit, max|want|): TOL_ULPS ulps of the dtype at the largest
     output of the plain version."""
@@ -312,14 +346,53 @@ def phase_env(results):
     return smi
 
 
+def tensor_cores(lib: str) -> bool:
+    """Whether a built library's machine code holds Hopper's warpgroup
+    tensor-core product (``HGMMA`` in ``cuobjdump -sass``)."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    return "HGMMA" in sass
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes per kernel instantiation, from the
+    ``-Xptxas -v`` lines of the build log."""
+    short = (("13__nv_bfloat16", "bf16,"), ("6__half", "f16,"), ("S1_", "T,"),
+             ("Li", ""), ("E", ""), ("a", "int8,"))
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"\d([a-z_]+_kernel)(I.*?E)Ev", line)
+        if m and ("Compiling entry" in line or "Function properties" in line):
+            args = m.group(2)[1:]
+            for a, b in short:
+                args = args.replace(a, b)
+            name = f"{m.group(1)}<{args.rstrip(',')}>"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out.setdefault(name, {})["spill_store_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build(results):
     t0 = time.perf_counter()
-    per_kernel = _build.build_all(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        per_kernel = _build.build_all(verbose=True)
+    print(log.getvalue(), flush=True)
     libs = {name: str(_build.load(name)._name) for name in _build.sources()}
     out = {"phase": "build", "seconds": time.perf_counter() - t0,
-           "compiled": per_kernel, "libraries": libs}
+           "compiled": per_kernel, "libraries": libs,
+           "tensor_cores": {name: tensor_cores(lib) for name, lib in libs.items()},
+           "ptxas": ptxas_report(log.getvalue())}
     emit(out)
     results["build"] = out
+    if not out["tensor_cores"]["flash_attention"]:
+        raise AssertionError("flash_attention's library holds no HGMMA: it "
+                             "does not run on the tensor cores")
 
 
 def check_flash(B, S, H=32, KVH=32, D=128, dtype=torch.float16, window=0):
@@ -614,7 +687,9 @@ def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16, q8=False):
     kt, vt = (x.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
               for x in (kd, vd))
     lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-    lib_err = (lib.reshape(B, KVH, G, D).float() - want.float()).abs().max().item()
+    live = (kv_t + act_t > 0)[:, None, None, None]      # SDPA: NaN on no key
+    lib_err = torch.where(live, lib.reshape(B, KVH, G, D).float() - want.float(),
+                          0.0).abs().max().item()
     ms = time_ms(lambda: hybrid_paged_attention_two_pool(*args, **sc), 50)
     plain_ms = time_ms(lambda: hybrid_paged_attention_two_pool_ref(*args, **sc),
                        10)
@@ -622,6 +697,11 @@ def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16, q8=False):
         q, *fp_kv, *args[3:]), 50) if q8 else None
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask), 50)
+    kernel = lambda: hybrid_paged_attention_two_pool(*args, **sc)
+    library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    host = {"kernel_host_us": host_us(kernel), "library_host_us": host_us(library),
+            "kernel_device_us": device_us(kernel),
+            "library_device_us": device_us(library)}
     esz = q.element_size()
     n_kv, n_act_t = int(kv_t.sum()), int(act_t.sum())  # each valid K/V read once
     rows = q8_bytes(n_kv, 0, KVH, D, 0) if q8 else esz * n_kv * KVH * D * 2
@@ -632,7 +712,7 @@ def check_two_pool(shape, KVH=4, G=8, D=128, dtype=torch.bfloat16, q8=False):
     return {"shape": dict(shape, KVH=KVH, G=G, D=D),
             "dtype": str(dtype).removeprefix("torch."), "int8": q8,
             "max_abs_err": err, "tol": tol, "max_abs_out": top, **faults,
-            "library_err": lib_err, "kernel_ms": ms,
+            "library_err": lib_err, "kernel_ms": ms, **host,
             "fp_kernel_ms_same_values": fp_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "F.scaled_dot_product_attention"
@@ -745,6 +825,10 @@ def check_lse(mode, shape, KVH, G, D=128, d=4096, dtype=torch.float16,
              "l_range": [want[2].min().item(), want[2].max().item()], **faults}
         c["kernel_ms"] = time_ms(lambda: run(kernel, kp, vp, tabs,
                                              return_lse=True, **sc), 50)
+        c["kernel_host_us"] = host_us(lambda: run(kernel, kp, vp, tabs,
+                                                  return_lse=True, **sc))
+        c["kernel_device_us"] = device_us(lambda: run(kernel, kp, vp, tabs,
+                                                      return_lse=True, **sc))
         c["plain_ms"] = time_ms(lambda: run(plain, kp, vp, tabs,
                                             return_lse=True, **sc), 10)
         c["library_ms"], c["library"] = None, \
@@ -752,9 +836,9 @@ def check_lse(mode, shape, KVH, G, D=128, d=4096, dtype=torch.float16,
         if not fused:
             kf, vf = (dequantize(x, kv_sc[n], dtype) if q8 else x
                       for x, n in ((kp, "k_scales"), (vp, "v_scales")))
-            c["library_ms"], c["library"] = lse_library(
-                q, kf.view(B, kv_cap, KVH, D), vf.view(B, kv_cap, KVH, D),
-                ak, av, kv_t, act_tok)
+            c["library_ms"], c["library"], c["library_device_us"] = \
+                lse_library(q, kf.view(B, kv_cap, KVH, D),
+                            vf.view(B, kv_cap, KVH, D), ak, av, kv_t, act_tok)
             if q8:
                 c["library"] += ", K/V dequantized beforehand"
                 c["dequant_ms"] = time_ms(lambda: [dequantize(
@@ -791,10 +875,11 @@ def check_lse(mode, shape, KVH, G, D=128, d=4096, dtype=torch.float16,
 
 
 def lse_library(q, region_k, region_v, ak, av, kv_tok, act_tok):
-    """-> (ms, what): one PyTorch call that returns attention and its
-    log-sum-exp over the same K/V, gathered dense (expanded to the query
+    """-> (ms, what, device us): one PyTorch call that returns attention and
+    its log-sum-exp over the same K/V, gathered dense (expanded to the query
     heads, padded to 16 tokens, masked by an additive bias), made before
-    the timing; (None, why) if this build has none that takes them."""
+    the timing; (None, why, None) if this build has none that takes
+    them."""
     B, KVH, G, D = q.shape
     S = -(-int((kv_tok + act_tok).max()) // PAGE) * PAGE
     kd = torch.zeros((B, S, KVH, D), dtype=q.dtype, device="cuda")
@@ -815,9 +900,10 @@ def lse_library(q, region_k, region_v, ak, av, kv_tok, act_tok):
     try:
         call()
         return time_ms(call, 50), ("torch.ops.aten._scaled_dot_product_"
-                                   "efficient_attention, compute_log_sumexp")
+                                   "efficient_attention, compute_log_sumexp"), \
+            device_us(call)
     except Exception as e:                      # noqa: BLE001
-        return None, f"none: {type(e).__name__}: {str(e)[:160]}"
+        return None, f"none: {type(e).__name__}: {str(e)[:160]}", None
 
 
 def gemma_plan(B: int, S: int, n: int = GEMMA_STEPS) -> dict:
@@ -851,6 +937,24 @@ def gemma_shapes():
             "act_tokens": [0] * B, "pages_bound": W // PAGE,
             "act_pages_bound": 0}
     return {k: v for k, v in plan.items() if k != "sched"}, ring
+
+
+def two_pool_edges(yi_shape):
+    """Second-pool tables at the split plan's edges: yi's serve shape with
+    request 1 holding no token yet; every live page inside one split
+    (B * KVH = 128 gives three splits of 8 entries, and each request's 7 KV
+    pages and 1 ACT page fill the first); gemma's global table of short
+    contexts, 64 entries wide and mostly empty (type 2)."""
+    empty = dict(yi_shape, **{k: [0 if b == 1 else n
+                                  for b, n in enumerate(yi_shape[k])]
+                              for k in ("kv_tokens", "act_tokens")})
+    one_split = {"B": 8, "kv_cap": 128, "act_cap": 16, "kv_tokens": [100] * 8,
+                 "act_tokens": [10] * 8, "pages_bound": 24,
+                 "act_pages_bound": 1}
+    gemma_short = {"B": 4, "kv_cap": 1024, "act_cap": 1024,
+                   "kv_tokens": [100, 17, 260, 33], "act_tokens": [20, 40, 0, 16],
+                   "pages_bound": 64, "act_pages_bound": 32}
+    return empty, one_split, gemma_short
 
 
 def mamba_dt_bias(shape, g):
@@ -950,7 +1054,12 @@ def phase_kernels(results):
     causal and in its window mode at group 1's prompt, the second-pool mode
     at a global layer's tables and at a local layer's rings, and kv_gen with
     the K norm.  Last, ssd_scan at both of mamba2's prefill shapes
-    (bfloat16, h = 80, P = 64, N = 128), the ragged one first."""
+    (bfloat16, h = 80, P = 64, N = 128), the ragged one first.  Beyond the
+    serve shapes: flash at a ragged GQA length (2 x 777, H = 8, KVH = 2,
+    causal and window 100) and at D = 64, and the second-pool mode at the
+    split plan's edges (``two_pool_edges``).  The second-pool rows also
+    record the wrapper's host time per call and the kernels' device time, each
+    beside the library call's."""
     yi, opt = get_config("yi-6b"), get_config("opt-6.7b")
     mamba = get_config(MAMBA)
     gemma = get_config(GEMMA)
@@ -959,6 +1068,7 @@ def phase_kernels(results):
     gw = dict(H=gemma.num_heads, KVH=gemma.num_kv_heads, D=gemma.head_dim,
               dtype=torch.bfloat16)
     shape, opt_shape = serve_shape(yi), serve_shape(opt)
+    tp_empty, tp_one_split, g_short = two_pool_edges(shape)
     yi_q8, opt_q8 = serve_shape(yi, QuantConfig()), serve_shape(opt, QuantConfig())
     bf16 = torch.bfloat16
     out = {"phase": "kernels", "yi_serve_shape": shape,
@@ -968,11 +1078,15 @@ def phase_kernels(results):
                check_flash(4, 80, H=32, KVH=8, dtype=bf16),
                check_flash(4, 80, H=32, KVH=4, dtype=bf16),
                check_flash(1, 2048, H=32, KVH=4, dtype=bf16),
-               check_flash(gB, gS, **gw)],
+               check_flash(gB, gS, **gw),
+               check_flash(2, 777, H=8, KVH=2, dtype=bf16),
+               check_flash(4, 512, H=8, KVH=8, D=64)],
            "hybrid_paged_attention": [
                check_hybrid(),
                check_hybrid(KVH=8, G=4, dtype=bf16, norm_type="rmsnorm")],
-           "hybrid_paged_attention_two_pool": [check_two_pool(shape)],
+           "hybrid_paged_attention_two_pool": [
+               check_two_pool(shape), check_two_pool(tp_empty),
+               check_two_pool(tp_one_split, KVH=16, G=2)],
            "kv_gen": [
                check_kv_gen(shape["B"], shape["act_pages_bound"], yi.d_model,
                             yi.num_kv_heads),
@@ -995,11 +1109,13 @@ def phase_kernels(results):
            "hybrid_paged_attention_two_pool_return_lse_q8":
                check_lse("two_pool", yi_q8, KVH=4, G=8, dtype=bf16, q8=True),
            "flash_attention_window": [
-               check_flash(gB, gS, window=gemma.sliding_window, **gw)],
+               check_flash(gB, gS, window=gemma.sliding_window, **gw),
+               check_flash(2, 777, H=8, KVH=2, dtype=bf16, window=100)],
            "hybrid_paged_attention_two_pool_hd256": [
                check_two_pool(g, KVH=gemma.num_kv_heads,
                               G=gemma.num_heads // gemma.num_kv_heads,
-                              D=gemma.head_dim) for g in (g_global, g_ring)],
+                              D=gemma.head_dim)
+               for g in (g_global, g_ring, g_short)],
            "kv_gen_qk_norm": [
                check_kv_gen(g_global["B"], g_global["act_pages_bound"],
                             gemma.d_model, gemma.num_kv_heads, hd=gemma.head_dim,
@@ -1799,6 +1915,8 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle, q8_oracle):
 def kernel_group(name: str) -> str:
     if "hybrid_attn_kernel" in name:
         return "hybrid_paged_attention"
+    if "split_attn_kernel" in name or "split_combine_kernel" in name:
+        return "hybrid_paged_attention_two_pool"
     if "flash_fwd_kernel" in name:
         return "flash_attention"
     if "kv_gen_kernel" in name:

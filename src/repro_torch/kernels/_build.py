@@ -12,6 +12,7 @@ loads a stale library.  All sources build in parallel, one ``nvcc`` each.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,12 +22,16 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[tuple, tuple] = {}
+_SAME_DEVICE = contextlib.nullcontext()
 
 
 def sources() -> Dict[str, Path]:
@@ -88,6 +93,32 @@ def load(name: str) -> ctypes.CDLL:
         build_all()
         lib = _libs[name] = ctypes.CDLL(str(_target(sources()[name])))
     return lib
+
+
+def entry(name: str, fn_name: str, argtypes) -> tuple:
+    """(library, C entry point) of kernel ``name``, its argument types set
+    once: a wrapper on every layer of every decode step pays for no more."""
+    key = (name, fn_name)
+    got = _entries.get(key)
+    if got is None:
+        lib = load(name)
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        got = _entries[key] = (lib, fn)
+    return got
+
+
+def on_device(index: int):
+    """A context in which launches land on CUDA device ``index``; nothing to
+    switch when it is the current one."""
+    return _SAME_DEVICE if index == torch.cuda.current_device() \
+        else torch.cuda.device(index)
+
+
+def current_stream(index: int) -> int:
+    """The raw handle of device ``index``'s current stream, without the
+    Stream object that ``torch.cuda.current_stream()`` builds per call."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

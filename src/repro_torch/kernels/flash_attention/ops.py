@@ -20,12 +20,14 @@ MAX_D = 256
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
-def _launch(lib, q, k, v, out, window: int, stream) -> None:
-    fn = lib.flash_attention_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+def _launch(q, k, v, out, window: int) -> None:
+    lib, fn = _build.entry("flash_attention", "flash_attention_fwd", _ARGTYPES)
     B, S, H, D = q.shape
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             B, S, H, k.shape[2], D, window, DTYPES[q.dtype], stream)
+    dev = q.device.index
+    with _build.on_device(dev):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, S, H, k.shape[2], D, window, DTYPES[q.dtype],
+                 _build.current_stream(dev))
     _build.check(lib, err, "flash_attention_fwd")
 
 
@@ -52,13 +54,11 @@ def flash_attention(q, k, v, *, window: int = 0):
         raise ValueError(f"flash_attention: head_dim {D} not a multiple of 16 "
                          f"up to {MAX_D}")
     for t in (q, k, v):
-        if t.device != q.device or not t.is_contiguous():
-            raise ValueError("flash_attention: q, k, v must be contiguous on "
-                             "one device")
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("flash_attention: q, k, v must be contiguous and "
+                             "16-byte aligned on one device (TMA reads them)")
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(_build.load("flash_attention"), q, k, v, out, window, stream)
+    _launch(q, k, v, out, window)
     flash_attention.launches += 1
     flash_attention.window_launches += window > 0
     return out

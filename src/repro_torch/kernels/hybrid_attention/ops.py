@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written CUDA hybrid paged-attention kernel (decode).
+"""Wrappers of the hand-written CUDA hybrid paged-attention kernels (decode).
 
 A CUDA tensor launches ``csrc/hybrid_attention.cu`` on PyTorch's current
 stream, or raises; a CPU tensor takes the plain version in ``ref.py``.
@@ -6,12 +6,14 @@ stream, or raises; a CPU tensor takes the plain version in ``ref.py``.
 in the kernel, the learned-position models' path);
 ``hybrid_paged_attention_two_pool`` is the second-pool mode (type-1 entries
 read K/V that ``kv_gen`` recomputed into a second pair of pools, the RoPE
-models' path).  Each counts its launches in ``.launches``, those made with
+models' path), split across blocks: a split pass over ``split_plan``'s
+ranges of each table row, then a combine pass (two CUDA kernels, one call).
+Each wrapper counts its calls in ``.launches``, those made with
 ``return_lse=True`` (the CPU attention lane's device partial, which also
 returns the softmax statistics ``(m, l)``) again in ``.lse_launches``,
 those of the int8 mode (scale sidecars given) again in ``.q8_launches``, and
-those of both again in ``.lse_q8_launches``; the second-pool mode's launches
-at a head_dim over 128 (the 256-thread block) again in ``.hd256_launches``.
+those of both again in ``.lse_q8_launches``; the second-pool mode's calls
+at a head_dim over 128 (gemma3's 256) again in ``.hd256_launches``.
 
 Layout (as ``repro.kernels.hybrid_attention.kernel``):
   q            (B, KVH, G, D)     one query token per request
@@ -35,16 +37,18 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.hybrid_attention.ref import (
-    PAGE, hybrid_paged_attention_ref, hybrid_paged_attention_two_pool_ref)
+    PAGE, hybrid_paged_attention_ref, hybrid_paged_attention_two_pool_ref,
+    split_plan)
 
 # the dtypes the kernel is built and checked on the card for
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
 NORM_TYPES = {"layernorm": 0, "rmsnorm": 1}
-# head_dim up to 128 in the fused mode, 256 in the second-pool mode
+# head_dim up to 128 in the fused mode; in the second-pool mode a multiple
+# of 16 (its 16-byte page loads) up to 256
 MAX_D, MAX_D_TWO_POOL, MAX_G = 128, 256, 8
 _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_TWO_POOL_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + \
+_TWO_POOL_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + \
     [ctypes.c_void_p]
 
 
@@ -111,7 +115,7 @@ def _validate_fused(q, k_pages, v_pages, act_pages, scales, norm_scale,
 
 
 def _validate(q, kv_pools, kv_scales, shapes, page_table, page_type,
-              page_ntok, max_d: int = MAX_D):
+              page_ntok):
     """Shapes, dtypes and devices of every argument; ``kv_pools`` name the
     (P, 16, KVH, D) pools of type-0 pages (int8 with ``kv_scales`` (P, 16,
     KVH, 1) in the int8 mode), ``shapes`` maps the rest to their shapes and
@@ -140,8 +144,8 @@ def _validate(q, kv_pools, kv_scales, shapes, page_table, page_type,
                              f"contiguous int32 (B, MAXP) on {q.device}")
     if q.dtype not in DTYPES or not q.is_contiguous():
         raise ValueError(f"hybrid_paged_attention: q dtype {q.dtype}")
-    if D > max_d or G > MAX_G:
-        raise ValueError(f"hybrid_paged_attention: D={D} (max {max_d}), "
+    if D > MAX_D or G > MAX_G:
+        raise ValueError(f"hybrid_paged_attention: D={D} (max {MAX_D}), "
                          f"G={G} (max {MAX_G})")
 
 
@@ -189,6 +193,43 @@ hybrid_paged_attention.q8_launches = 0
 hybrid_paged_attention.lse_q8_launches = 0
 
 
+def _check_two_pool(q, k_pages, v_pages, act_k_pages, act_v_pages, scales,
+                    tables):
+    """What the second-pool kernels take: every tensor contiguous on q's
+    device, pools (P, 16, KVH, D) (the KV pools int8 with (P, 16, KVH, 1)
+    float16 scales in the int8 mode), int32 (B, MAXP) tables.  Kept lean:
+    it runs on every decode step of every layer."""
+    B, KVH, G, D = q.shape
+    if q.dtype not in DTYPES or not q.is_contiguous():
+        raise ValueError(f"hybrid_paged_attention_two_pool: q must be a "
+                         f"contiguous float16/bfloat16 tensor, got {q.dtype}")
+    if D > MAX_D_TWO_POOL or D % 16 or not 1 <= G <= MAX_G:
+        raise ValueError(f"hybrid_paged_attention_two_pool: D={D} (a multiple "
+                         f"of 16 up to {MAX_D_TWO_POOL}), G={G} (max {MAX_G})")
+    row, dev = (PAGE, KVH, D), q.device
+    kv_dt = q.dtype if scales[0] is None else torch.int8
+    named = [("k_pages", k_pages, kv_dt, (k_pages.shape[0],) + row),
+             ("v_pages", v_pages, kv_dt, (k_pages.shape[0],) + row),
+             ("act_k_pages", act_k_pages, q.dtype, (act_k_pages.shape[0],) + row),
+             ("act_v_pages", act_v_pages, q.dtype, (act_k_pages.shape[0],) + row)]
+    if scales[0] is not None:
+        sc = (k_pages.shape[0], PAGE, KVH, 1)
+        named += [("k_scales", scales[0], torch.float16, sc),
+                  ("v_scales", scales[1], torch.float16, sc)]
+    for name, t, dt, shape in named:
+        if t.shape != shape or t.dtype != dt or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"hybrid_paged_attention_two_pool: {name} must be "
+                             f"a contiguous {dt} tensor of shape {shape} on "
+                             f"{dev}, got {tuple(t.shape)} {t.dtype} {t.device}")
+    maxp = tables[0].shape[-1]
+    for t in tables:
+        if t.shape != (B, maxp) or t.dtype != torch.int32 or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError("hybrid_paged_attention_two_pool: page tables must "
+                             f"be contiguous int32 (B, MAXP) on {dev}")
+
+
 def hybrid_paged_attention_two_pool(q, k_pages, v_pages, act_k_pages,
                                     act_v_pages, page_table, page_type,
                                     page_ntok, *, k_scales=None, v_scales=None,
@@ -199,7 +240,9 @@ def hybrid_paged_attention_two_pool(q, k_pages, v_pages, act_k_pages,
     K/V that ``kv_gen`` recomputed from the ACT pages this step.  Tables as
     for ``hybrid_paged_attention``, built with the second pools' stride.
     With ``return_lse`` -> (out, m, l).  ``k_scales``/``v_scales`` select
-    the int8 mode of the KV pools."""
+    the int8 mode of the KV pools.  On the card each table row is split by
+    ``split_plan`` and the partials merged by a second kernel; float32
+    scratch of B * KVH * n_split * G * (D + 2) values holds them."""
     q8 = _scales(("k_scales", "v_scales"), (k_scales, v_scales))
     if q.device.type == "cpu":
         return hybrid_paged_attention_two_pool_ref(
@@ -208,26 +251,28 @@ def hybrid_paged_attention_two_pool(q, k_pages, v_pages, act_k_pages,
             return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"hybrid_paged_attention: unsupported device {q.device}")
+    tables = (page_table, page_type, page_ntok)
+    _check_two_pool(q, k_pages, v_pages, act_k_pages, act_v_pages,
+                    (k_scales, v_scales), tables)
     B, KVH, G, D = q.shape
-    _validate(q, {"k_pages": k_pages, "v_pages": v_pages},
-              (k_scales, v_scales),
-              {name: (t, (t.shape[0], PAGE, KVH, D), q.dtype)
-               for name, t in (("act_k_pages", act_k_pages),
-                               ("act_v_pages", act_v_pages))},
-              page_table, page_type, page_ntok, MAX_D_TWO_POOL)
+    maxp = page_table.shape[1]
+    n_split, pps = split_plan(B, KVH, maxp)
     out = torch.empty_like(q)
     lse, lse_ptrs = _lse_out(q, return_lse)
-    lib = _build.load("hybrid_attention")
-    fn = lib.hybrid_paged_attention_two_pool_fwd
-    fn.argtypes, fn.restype = _TWO_POOL_ARGTYPES, ctypes.c_int
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    scratch = torch.empty(B * KVH * n_split * G * (D + 2), dtype=torch.float32,
+                          device=q.device)
+    lib, fn = _build.entry("hybrid_attention",
+                           "hybrid_paged_attention_two_pool_fwd",
+                           _TWO_POOL_ARGTYPES)
+    dev = q.device.index
+    with _build.on_device(dev):
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  _ptr(k_scales), _ptr(v_scales),
                  act_k_pages.data_ptr(), act_v_pages.data_ptr(),
                  page_table.data_ptr(), page_type.data_ptr(),
-                 page_ntok.data_ptr(), out.data_ptr(), *lse_ptrs, B, KVH, G,
-                 D, page_table.shape[1], DTYPES[q.dtype], stream)
+                 page_ntok.data_ptr(), out.data_ptr(), *lse_ptrs,
+                 scratch.data_ptr(), B, KVH, G, D, maxp, n_split, pps,
+                 DTYPES[q.dtype], _build.current_stream(dev))
     _build.check(lib, err, "hybrid_paged_attention_two_pool_fwd")
     hybrid_paged_attention_two_pool.launches += 1
     hybrid_paged_attention_two_pool.lse_launches += bool(return_lse)

@@ -21,6 +21,11 @@ basis: m the masked score max (NEG_INF when the request attends over no
 token), l the sum of exp(s - m) — what a disjoint partition's partial needs
 to merge with this one (the CPU attention lane, and on the fused route the
 int8 cache's ACT-bound token): ``merge_partials_torch``.
+
+``split_plan`` is how the second-pool kernels cut each table row across
+blocks, and ``hybrid_paged_attention_two_pool_split_ref`` their algorithm in
+plain PyTorch (each range attended on its own, the partials merged), which
+the tests hold to ``hybrid_paged_attention_two_pool_ref``.
 """
 from __future__ import annotations
 
@@ -31,6 +36,11 @@ import torch
 from repro_torch.models.quant_ops import dequantize
 
 PAGE = 16
+#: the second-pool split pass aims at about two blocks per SM of the H100;
+#: a split holds at most MAX_PAGES_PER_SPLIT entries (the kernel reads its
+#: range of the table into shared memory)
+SPLIT_TARGET = 264
+MAX_PAGES_PER_SPLIT = 128
 #: masked-score basis shared with the kernel (finite, so an empty partition
 #: merges without nan: exp(NEG_INF - NEG_INF) = 1, l = 0)
 NEG_INF = -1e30
@@ -50,6 +60,20 @@ def merge_partials_torch(o_a, m_a, l_a, o_b, m_b, l_b):
     tot = w_a + w_b
     o = (w_a * o_a + w_b * o_b) / tot.clamp_min(1e-30)
     return o, m_new, tot
+
+
+def split_plan(B: int, KVH: int, maxp: int) -> tuple[int, int]:
+    """The second-pool kernels' split of each table row, from host-known
+    shapes alone (no tensor is read, so no sync): -> (n_split,
+    pages_per_split).  Split s takes entries [s * pps, min((s + 1) * pps,
+    maxp)); together the splits cover the row once, none is past its end,
+    and n_split * B * KVH is about ``SPLIT_TARGET`` blocks where the table
+    is wide enough, with at most ``MAX_PAGES_PER_SPLIT`` entries a split.
+    A split whose entries hold no token writes an empty partial."""
+    n = max(1, min(maxp, -(-SPLIT_TARGET // max(1, B * KVH))),
+            -(-maxp // MAX_PAGES_PER_SPLIT))
+    pps = max(1, -(-maxp // n))
+    return max(1, -(-maxp // pps)), pps
 
 
 def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,
@@ -106,6 +130,32 @@ def hybrid_paged_attention_two_pool_ref(q, k_pages, v_pages, act_k_pages,
         k = torch.where(is_act, act_k_pages[act_i].float(), k)
         v = torch.where(is_act, act_v_pages[act_i].float(), v)
     return _attend(q, k, v, page_type, page_ntok, return_lse)
+
+
+def hybrid_paged_attention_two_pool_split_ref(
+        q, k_pages, v_pages, act_k_pages, act_v_pages, page_table, page_type,
+        page_ntok, *, k_scales=None, v_scales=None, return_lse: bool = False,
+        plan=None):
+    """The second-pool kernels' algorithm in plain PyTorch, for the tests:
+    each table row cut into ``plan`` (n_split, pps) ranges (default
+    ``split_plan``'s), each range attended on its own with its (m, l), the
+    partials folded in order with ``merge_partials_torch``.  Arguments and
+    result as ``hybrid_paged_attention_two_pool_ref``."""
+    B, KVH = q.shape[:2]
+    maxp = page_table.shape[1]
+    n_split, pps = split_plan(B, KVH, maxp) if plan is None else plan
+    acc = None
+    for s in range(n_split):
+        cols = slice(s * pps, min((s + 1) * pps, maxp))
+        o, m, l = hybrid_paged_attention_two_pool_ref(
+            q, k_pages, v_pages, act_k_pages, act_v_pages, page_table[:, cols],
+            page_type[:, cols], page_ntok[:, cols], k_scales=k_scales,
+            v_scales=v_scales, return_lse=True)
+        part = (o.float(), m, l)
+        acc = part if acc is None else merge_partials_torch(*acc, *part)
+    o, m, l = acc
+    o = o.to(q.dtype)
+    return (o, m, l) if return_lse else o
 
 
 def _pages(pool, scales, idx, dtype):

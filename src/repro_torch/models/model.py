@@ -551,32 +551,41 @@ def _layer_qkv(lp, cfg, h, act_kv: Optional[ActKV] = None):
 
 
 def _write_new(kc, vc, ac, k, v, act_in, kv_len, act_len, store_act,
-               scales=None):
+               scales=None, on=None):
     """Write the new token's K/V row (KV-bound) at ``kv_len`` of kc/vc
     (B, cap, KVH, D), or its checkpoint ``act_in`` (ACT-bound) at
-    ``act_len`` of ac (B, act_cap, d), in place.  ``scales`` (ks, vs, as),
-    the regions' sidecars of a quantized cache: the row is written as
-    codes, and its scale beside it."""
+    ``act_len`` of ac (B, act_cap, d), in place.  A write past its region's
+    capacity is dropped, as the reference's scatter drops an out-of-range
+    update (masked on the device, no host sync).  ``on`` (B,) x 2: which
+    requests write K/V and which a checkpoint, when the step has them
+    already (``DecodePlan.write_on``).  ``scales`` (ks, vs, as), the
+    regions' sidecars of a quantized cache: the row is written as codes,
+    and its scale beside it."""
     ar = torch.arange(kc.shape[0], device=kc.device)
     ki = kv_len.clamp(max=kc.shape[1] - 1).long()
     ai = act_len.clamp(max=ac.shape[1] - 1).long()
     ks, vs, as_ = scales if scales is not None else (None,) * 3
-    _put(kc, ks, ar, ki, k[:, 0], store_act, act=False)
-    _put(vc, vs, ar, ki, v[:, 0], store_act, act=False)
-    _put(ac, as_, ar, ai, act_in, store_act, act=True)
+    on_kv, on_act = on if on is not None else \
+        write_masks(store_act, kv_len, act_len, kc.shape[1], ac.shape[1])
+    _put(kc, ks, ar, ki, k[:, 0], on_kv)
+    _put(vc, vs, ar, ki, v[:, 0], on_kv)
+    _put(ac, as_, ar, ai, act_in, on_act)
 
 
-def _put(region, scales, ar, idx, row, store_act, act: bool) -> None:
+def write_masks(store_act, kv_len, act_len, kv_cap: int, act_cap: int):
+    """-> (on_kv, on_act) (B,) bool: the requests whose new token writes a
+    K/V row, and those that write a checkpoint, within capacity."""
+    return ~store_act & (kv_len < kv_cap), store_act & (act_len < act_cap)
+
+
+def _put(region, scales, ar, idx, row, on) -> None:
     """Write ``row`` (B, ...) at ``idx`` of ``region`` (B, cap, ...) for the
-    requests whose token is bound to it (ACT-bound: the ACT region, else
-    K/V), in the region's format: int8 codes with their scales written into
-    ``scales``."""
-    m = store_act.view(-1, *(1,) * (row.dim() - 1))
+    requests where ``on`` (B,) holds, in the region's format: int8 codes
+    with their scales written into ``scales``."""
+    m = on.view(-1, *(1,) * (row.dim() - 1))
     for plane, new in zip((region, scales), _encode(row, region.dtype)):
         if new is not None:
-            old = plane[ar, idx]
-            plane[ar, idx] = torch.where(m, new, old) if act else \
-                torch.where(m, old, new)
+            plane[ar, idx] = torch.where(m, new, plane[ar, idx])
 
 
 class OwnRow(NamedTuple):
@@ -603,6 +612,8 @@ def _hybrid_attend(lp, cfg, q, kc, vc, ac, tables,
     B = q.shape[0]
     KVH, D, d = cfg.num_kv_heads, cfg.head_dim, cfg.d_model
     qg = q.reshape(B, KVH, cfg.num_heads // KVH, D)
+    if own is not None:          # a checkpoint past the ACT capacity was dropped
+        own = own._replace(store_act=own.store_act & (own.act_len < ac.shape[1]))
     pools = (kc.view(-1, PAGE, KVH, D), vc.view(-1, PAGE, KVH, D))
     norm = (lp["ln1"]["scale"], lp["ln1"].get("bias"))
     wkv = (lp["attn"]["wk"].view(d, KVH, D), lp["attn"]["wv"].view(d, KVH, D))
@@ -671,12 +682,13 @@ def _layer_out(lp, cfg, h, o):
 
 def _hybrid_layer_step(lp, cfg, h, kc, vc, ac, kv_len, act_len, store_act,
                        tables, act_kv: Optional[ActKV] = None, scales=None,
-                       exact_own: bool = True):
+                       exact_own: bool = True, write_on=None):
     """One hybrid KV/ACT attention layer at decode time.  kc/vc (B, kv_cap,
     KVH, D) and ac (B, act_cap, d) are this layer's regions, updated in place
     (int8 codes, with ``scales`` (ks, vs, as) their sidecars, in a quantized
     cache).  ``exact_own``: the plan's, whether a quantized step has an
-    ACT-bound token to attend to its exact K/V.
+    ACT-bound token to attend to its exact K/V.  ``write_on``: the plan's
+    write masks, for regions of the cache's capacities.
 
     The new token's K/V (KV-bound) or checkpoint (ACT-bound) is written into
     its region BEFORE the kernels run.  Unquantized, an ACT-bound token's K/V
@@ -685,7 +697,8 @@ def _hybrid_layer_step(lp, cfg, h, kc, vc, ac, kv_len, act_len, store_act,
     checkpoint is not what the token attends to: its exact K/V are (see the
     module docstring)."""
     q, k, v = _layer_qkv(lp, cfg, h, act_kv)
-    _write_new(kc, vc, ac, k, v, h[:, 0], kv_len, act_len, store_act, scales)
+    _write_new(kc, vc, ac, k, v, h[:, 0], kv_len, act_len, store_act, scales,
+               write_on)
     own = OwnRow(k, v, act_len, store_act) \
         if scales is not None and exact_own else None
     o = _hybrid_attend(lp, cfg, q, kc, vc, ac, tables, act_kv, scales=scales,
@@ -700,13 +713,16 @@ class DecodePlan(NamedTuple):
     request's ACT entries in the pool they index (the ACT region, or the
     scratch pool) and the ACT tokens each request attends over; and whether
     ACT-bound tokens attend to their exact K/V after the kernels (a
-    quantized step with an ACT-bound token)."""
+    quantized step with an ACT-bound token); and which requests write a K/V
+    row and which a checkpoint, within the regions' capacities
+    (``write_masks``)."""
     x: torch.Tensor
     tables: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
     act_kv: Optional[ActKV]
     act_stride: int
     act_read: torch.Tensor
     exact_own: bool
+    write_on: Tuple[torch.Tensor, torch.Tensor]
 
 
 def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
@@ -725,8 +741,11 @@ def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
     ctx = kv_len + act_len                                     # absolute position
     ar = torch.arange(B, device=token.device)
     ai = act_len.clamp(max=act_cap - 1).long()
-    # ACT tokens carry their recorded absolute positions (appends interleave)
-    cache["act_pos"][ar, ai] = torch.where(store_act, ctx, cache["act_pos"][ar, ai])
+    write_on = write_masks(store_act, kv_len, act_len, kv_cap, act_cap)
+    # ACT tokens carry their recorded absolute positions (appends interleave);
+    # a checkpoint past the ACT capacity is dropped, and so is its position
+    cache["act_pos"][ar, ai] = torch.where(write_on[1], ctx,
+                                           cache["act_pos"][ar, ai])
 
     x = _embed_tokens(params, cfg, token)
     if cfg.pos_type == "learned":
@@ -745,8 +764,12 @@ def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
         act_stride = n_act * PAGE        # ACT entries index the scratch pool
         # tokens past the bound have no recomputed K/V: attention drops them
         act_read = act_new.clamp(max=act_stride)
-    tables = hybrid_page_table(kv_new, act_read, kv_cap, act_stride, n_pages)
-    return DecodePlan(x, tables, act_kv, act_stride, act_read, exact_own)
+    # a region at capacity attends over what it holds (its write was dropped)
+    tables = hybrid_page_table(kv_new.clamp(max=kv_cap),
+                               act_read.clamp(max=act_cap), kv_cap, act_stride,
+                               n_pages)
+    return DecodePlan(x, tables, act_kv, act_stride, act_read, exact_own,
+                      write_on)
 
 
 def hybrid_decode_end(params, cfg: ModelConfig, x, cache: Cache, store_act):
@@ -796,7 +819,7 @@ def hybrid_decode_step(params, cfg: ModelConfig, token, cache: Cache,
                                cache["v"][i], cache["act"][i], cache["kv_len"],
                                cache["act_len"], store_act, plan.tables,
                                plan.act_kv, region_scales(cache, i),
-                               plan.exact_own)
+                               plan.exact_own, plan.write_on)
     return hybrid_decode_end(params, cfg, x, cache, store_act), cache
 
 
@@ -853,7 +876,7 @@ def _hybrid_decode_windowed(params, cfg: ModelConfig, cache: Cache, store_act,
             x = _hybrid_layer_step(lp, cfg, x, cache["k"][i], cache["v"][i],
                                    cache["act"][i], cache["kv_len"],
                                    cache["act_len"], store_act, plan.tables,
-                                   plan.act_kv)
+                                   plan.act_kv, write_on=plan.write_on)
         else:
             x = _ring_layer_step(lp, cfg, x, *_ring(cache, stack, i, j), ctx,
                                  plan.act_kv.sincos_new, tables, no_act)

@@ -160,3 +160,51 @@ def test_hybrid_decode_loop_matches_stepwise_and_bound(models):
         want.append(lg[:, -1].argmax(-1).int())
     assert bound < KV_CAP // 16 + ACT_CAP // 16
     assert torch.equal(got, torch.stack(want, 1))
+
+
+_CAP_MODELS = {}
+
+
+def _cap_models(name):
+    """Port and reference weights of ``name``, built once per module."""
+    if name not in _CAP_MODELS:
+        jcfg = j_get_config(name)
+        jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+        tp = P.from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+        _CAP_MODELS[name] = (get_config(name), tp, jcfg, jp)
+    return _CAP_MODELS[name]
+
+
+@pytest.mark.parametrize("name", ["opt-6.7b-reduced", "yi-6b-reduced"])
+def test_hybrid_decode_drops_a_write_past_capacity(name):
+    """A decode step whose token's region is full: the reference's scatter
+    drops the write (``.at[b, len].set`` out of range), so the region keeps
+    its last row, ``act_pos`` its last position, and attention reads the
+    region as it was.  Request 0's KV region and request 1's ACT region are
+    full after prefill; the first step appends to each, the second step
+    appends to request 0's KV region again, one past capacity.  Logits and
+    every cache tensor as the reference's."""
+    cfg, tp, jcfg, jp = _cap_models(name)
+    toks = _tokens(cfg, 3, KV_CAP, seed=5)
+    kv_keep = np.array([KV_CAP, 0, 32], np.int32)
+    last_pos = np.array([KV_CAP] * 3, np.int32)
+    lg, cache = M.hybrid_prefill_batched(
+        tp, cfg, torch.from_numpy(toks), KV_CAP, ACT_CAP,
+        torch.from_numpy(kv_keep), torch.from_numpy(last_pos))
+    jlg, jcache = JM.hybrid_prefill_batched(
+        jp, jcfg, {"tokens": jnp.asarray(toks)}, KV_CAP, ACT_CAP,
+        jnp.asarray(kv_keep), jnp.asarray(last_pos))
+    assert cache["kv_len"].tolist() == [KV_CAP, 0, 32]
+    assert cache["act_len"].tolist() == [0, ACT_CAP, 32]
+    step = jax.jit(lambda p, tok, c, s: JM.hybrid_decode_step(p, jcfg, tok, c, s))
+    keys = ("k", "v", "act", "act_pos", "kv_len", "act_len")
+    tok = np.array(jnp.argmax(jlg[:, -1], -1), np.int32)[:, None]
+    for s, store in enumerate(np.array([[False, True, True],
+                                        [False, False, True]])):
+        lg, cache = M.hybrid_decode_step(tp, cfg, torch.from_numpy(tok), cache,
+                                         torch.from_numpy(store))
+        jlg, jcache = step(jp, jnp.asarray(tok), jcache, jnp.asarray(store))
+        _close(lg, jlg, LOGIT_TOL, f"decode logits, step {s}")
+        for key in keys:
+            _close(cache[key], jcache[key], CACHE_TOL, f"{key}, step {s}")
+        tok = np.array(jnp.argmax(jlg[:, -1], -1), np.int32)[:, None]
