@@ -7,7 +7,7 @@
 // What it computes: one query token per request (q (B, KVH, G, D), GQA
 // grouped) attends over a typed page table (B, MAXP): type 0 is a KV page of
 // the pools (P, 16, KVH, D), type 1 an ACT page of the pool (P, 16, d_model)
-// whose K/V are recomputed in the kernel (paper Eq. 7: norm, then the head's
+// whose K/V are recomputed on the card (paper Eq. 7: norm, then the head's
 // slice of wk/wv, shaped (d_model, KVH, D)), type 2 is empty.  `page_ntok`
 // masks each page's tail.  Two deliberate differences from the TPU kernel,
 // both to follow the model path that serving runs:
@@ -26,59 +26,66 @@
 // kernel (csrc of kernels/kv_gen), and is read like a KV page.  That is the
 // paper's GPU design, PagedAttention over two KV buffer types with KV-Gen as
 // its own GEMM; RoPE at each ACT token's recorded position cannot be applied
-// inside the fused loop's per-column accumulators.  It has kernels of its
-// own, split across blocks (flash-decoding), described at the end of this
-// note.
+// inside the fused projection's accumulators.
 //
 // return_lse mode (both entry points, the TPU kernel's `return_lse`): given
-// non-null m_out/l_out (B, KVH, G, 1) float32, the block also writes each
-// query row's final online-softmax state: m the running masked max of the
+// non-null m_out/l_out (B, KVH, G, 1) float32, the combine pass also writes
+// each query row's merged online-softmax state: m the masked max of the
 // sm_scale'd scores (-1e30 when the row attended over no token), l the sum of
 // exp(s - m).  The CPU attention lane merges this partial with the host's
-// partial over the spilled KV rows.  In the fused mode every thread of the
-// block holds the same (m, l) (each is a reduction over the same shared
-// scores), so thread 0 writes them; in the second-pool mode the combine pass
-// writes the merged pair.  The output and its masking are untouched.
-//
-// What bounds it on this card: a KV page is bound by bytes (16 rows of K and
-// V read once, two operations per element).  An ACT page costs
-// 2 * 2 * 16 * d_model * D operations per head against a 16 x d_model page
-// and the head's two d_model x D weight slices, i.e. 16 operations per weight
-// element: bound by bytes too, and dominated by re-reading the weights.
-// Known cost of this simple design: each live ACT page re-reads its head's
-// wk/wv slices (1 MB each in f16 at d_model=4096, D=128), once per (request,
-// page); the ACT page itself is re-read once per head (from L2).
-//
-// The fused mode's simple design: one block of 128 threads per (KV head,
-// request); the block walks the request's row of the page table in order
-// (the caller sizes the table to the pages in use), with an online softmax
-// kept in registers, thread t owning output column t.  A KV page is staged
-// in shared memory.  An ACT page is never staged whole (16 x 4096 in f16 is
-// 128 KB): a first pass takes each row's mean and variance in float32 (one
-// warp per row), then d_model streams through shared memory in chunks of 64
-// columns that are normalised, rounded, and multiplied into 2 x 16 register
-// accumulators against the matching rows of wk/wv.
+// partial over the spilled KV rows.  The output and its masking are untouched.
 //
 // int8 mode (both entry points, the TPU kernel's `k_scales`/`v_scales`/
 // `act_scales`): given non-null scale pointers, the KV pools hold int8 codes
 // with float16 scales (P, 16, KVH, 1), one per (token, head), and in the fused
 // entry the ACT pool holds int8 codes with float16 scales (P, 16, 1), one per
-// token.  Each value is dequantized on the tile as rnd<T>(code * scale): the
-// product in float32, rounded to the cache dtype, which is the value the
-// model path's fake quantization stores (the TPU kernel keeps it in float32).
-// The fused mode's KV pages dequantize where they are staged into k_s/v_s
-// (the second-pool mode's where they are read); ACT rows dequantize
-// in both the statistics pass and the chunk pass, so the norm sees the same
-// values twice.  The second-pool entry's act_k/act_v pools stay in the cache
-// dtype (KV-Gen writes them).  Each K/V element then costs one byte and a
-// scale read per 16..128 elements instead of two bytes.
+// token.  Each value is dequantized as rnd<T>(code * scale): the product in
+// float32, rounded to the cache dtype, which is the value the model path's
+// fake quantization stores (the TPU kernel keeps it in float32).  The
+// second-pool entry's act_k/act_v pools stay in the cache dtype (KV-Gen
+// writes them).
+//
+// The fused mode's design.  An ACT page costs 2 * 2 * 16 * d_model * D
+// operations per head against its 16 x d_model rows and the head's two
+// d_model x D weight slices: 16 operations per weight byte pair if each head
+// projected each page alone, far below the card's ~295 operations per byte.
+// So pages are projected in tiles, each weight slice streamed once per tile,
+// and three kernels run on the current stream:
+//   - Norm pass, grid (MAXP, B), one warp per row: each ACT entry's 16 rows
+//     are dequantized (int8 mode), normed in float32 once per launch (the TPU
+//     kernel's hoist; not once per head) and rounded to the cache dtype into
+//     a scratch of (B, width, 16, d_model) rows, width = n_tiles * 4, at the
+//     entry's place in its table row.  Other entries' rows are not written.
+//   - Tile pass, grid (n_tiles, B, KVH), one warpgroup of 128 threads.
+//     Block (t, b, h) takes entries 4t .. 4t + 3 of request b's row: 64
+//     rows, one wgmma M.  Its KV entries are staged with 16-byte cp.async
+//     first.  If any entry is ACT, the tile's 64 scratch rows (one contiguous
+//     TMA box per stage: the scratch is laid out by table position) and the
+//     head's wk and wv slices are streamed over d_model in chunks of 64 by
+//     TMA into a ring of 4 stages guarded by mbarriers, and
+//     [K | V] = A . [wk_h | wv_h] runs as wgmma m64n(2 DP)k16 (DP = 64 or
+//     128, D <= DP zero-filled by TMA), A and B from shared memory in the
+//     128-byte swizzle, B read MN-major through the descriptor's transpose
+//     bit, so neither weight is copied transposed.  The float32 accumulators
+//     are rounded to the cache dtype into the ACT entries' rows of the tile's
+//     K/V (rounding point B); rows of other entries are dropped, so whatever
+//     their scratch rows held never reaches a score.  Then the G <= 8 query
+//     rows are scored against the tile's valid rows on the CUDA cores, and
+//     the tile's softmax partial (o unnormalised, m, l: the return_lse
+//     basis) goes to float32 scratch; a tile with no token writes o = 0,
+//     m = -1e30, l = 0.  The tile count comes from the table's width alone.
+//   - Combine pass, grid (G, KVH, B): the second-pool mode's merge of the
+//     partials, instantiated under the fused route's own name.
+// The grid's head axis is the slowest, so that the blocks resident together
+// share a few heads' weight slices in L2; each slice is read from L2 once
+// per tile that holds an ACT entry.
 //
 // The second-pool mode's design.  Its work is bound by bytes: each valid
 // token's K and V row is read once (2 x D x 2 bytes in 16 bits) for
 // 4 x G x D operations, far below the card's ~295 operations per byte.  One
-// block per (KV head, request), as the fused mode has, is 4 blocks on 132 SMs
-// under gemma3's MQA, and a block reading one page after another keeps few
-// bytes in flight.  So two kernels run on the current stream:
+// block per (KV head, request) is 4 blocks on 132 SMs under gemma3's MQA, and
+// a block reading one page after another keeps few bytes in flight.  So two
+// kernels run on the current stream:
 //   - Split pass, grid (n_split, KVH, B), 128 threads.  Block s takes a
 //     contiguous range of `pps` <= 128 entries of its request's table row,
 //     read once into shared memory (type 0 reads the KV pools, type 1 the
@@ -98,6 +105,7 @@
 //     (m, l); a request with no token gets zeros and (-1e30, 0).
 // The split plan (n_split, pps) comes from the wrapper, from B, KVH and the
 // table width alone (no device read): about two blocks per SM.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_fp16.h>
 #include <cuda_bf16.h>
@@ -109,7 +117,6 @@ namespace {
 constexpr int PAGE = 16;
 constexpr int MAX_D = 256;       // the second-pool mode's; the fused mode's is 128
 constexpr int MAX_G = 8;
-constexpr int CHUNK = 64;        // d_model columns per projection step
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
@@ -128,191 +135,10 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
   return to_f(from_f<T>(x));
 }
 
-// one stored element as float: a cache-dtype value, or an int8 code times
-// its float16 scale, rounded to the cache dtype T (the int8 mode)
-template <typename T>
-__device__ __forceinline__ float load_el(const T* p, long i, const __half*, long) {
-  return to_f(p[i]);
-}
-template <typename T>
-__device__ __forceinline__ float load_el(const int8_t* p, long i, const __half* s,
-                                         long si) {
-  return rnd<T>(__fmul_rn((float)p[i], __half2float(s[si])));
-}
-
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
   return x;
-}
-
-// P: the payload type of the KV pools and the ACT pool, T or int8_t.
-// MD: the block's width, 128 threads, one output column each (D <= MD)
-template <typename T, typename P, int MD>
-__global__ void __launch_bounds__(MD)
-hybrid_attn_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
-                   const P* __restrict__ v_pages, const __half* __restrict__ k_scales,
-                   const __half* __restrict__ v_scales, const P* __restrict__ act_pages,
-                   const __half* __restrict__ act_scales,
-                   const T* __restrict__ norm_scale, const T* __restrict__ norm_bias,
-                   const T* __restrict__ wk, const T* __restrict__ wv,
-                   const int* __restrict__ page_table, const int* __restrict__ page_type,
-                   const int* __restrict__ page_ntok, T* __restrict__ out,
-                   float* __restrict__ m_out, float* __restrict__ l_out,
-                   int KVH, int G, int D, int d_model, int maxp,
-                   int layernorm, float eps, float sm_scale) {
-  constexpr int THREADS = MD, WARPS = MD / 32;
-  __shared__ float q_s[MAX_G][MD];
-  __shared__ float k_s[PAGE][MD + 1];
-  __shared__ float v_s[PAGE][MD + 1];
-  __shared__ float s_s[MAX_G][PAGE];
-  __shared__ float a_s[PAGE][CHUNK + 1];
-  __shared__ float mu_s[PAGE];
-  __shared__ float rstd_s[PAGE];
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const T* qb = q + ((long)b * KVH + h) * G * D;
-  for (int i = tid; i < G * D; i += THREADS) q_s[i / D][i % D] = to_f(qb[i]) * sm_scale;
-
-  float m[MAX_G], l[MAX_G], acc[MAX_G];     // column `tid` of each query row
-#pragma unroll
-  for (int g = 0; g < MAX_G; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
-    acc[g] = 0.f;
-  }
-
-  const int* pt = page_table + (long)b * maxp;
-  const int* pty = page_type + (long)b * maxp;
-  const int* pn = page_ntok + (long)b * maxp;
-  for (int p = 0; p < maxp; ++p) {
-    const int ty = pty[p];
-    if (ty == 2) continue;
-    const long pg = pt[p];
-    const int ntok = pn[p];
-    __syncthreads();                 // the previous page's tiles are consumed
-    if (ty == 0) {
-      for (int i = tid; i < PAGE * D; i += THREADS) {
-        const int r = i / D, d = i % D;
-        const long row = (pg * PAGE + r) * KVH + h;
-        k_s[r][d] = load_el<T>(k_pages, row * D + d, k_scales, row);
-        v_s[r][d] = load_el<T>(v_pages, row * D + d, v_scales, row);
-      }
-    } else {
-      const P* a = act_pages + pg * PAGE * d_model;
-      for (int r = warp; r < PAGE; r += WARPS) {     // row statistics, fp32
-        const P* row = a + (long)r * d_model;
-        const long sr = pg * PAGE + r;               // the row's scale
-        float mu = 0.f;
-        if (layernorm) {
-          float sum = 0.f;
-          for (int d = lane; d < d_model; d += 32)
-            sum += load_el<T>(row, d, act_scales, sr);
-          mu = warp_sum(sum) / d_model;
-        }
-        float sq = 0.f;
-        for (int d = lane; d < d_model; d += 32) {
-          const float x = load_el<T>(row, d, act_scales, sr) - mu;
-          sq += x * x;
-        }
-        sq = warp_sum(sq);
-        if (lane == 0) {
-          mu_s[r] = mu;
-          rstd_s[r] = rsqrtf(sq / d_model + eps);
-        }
-      }
-      float kacc[PAGE], vacc[PAGE];
-#pragma unroll
-      for (int r = 0; r < PAGE; ++r) {
-        kacc[r] = 0.f;
-        vacc[r] = 0.f;
-      }
-      for (int c0 = 0; c0 < d_model; c0 += CHUNK) {
-        __syncthreads();             // statistics ready, previous chunk consumed
-        for (int i = tid; i < PAGE * CHUNK; i += THREADS) {
-          const int r = i / CHUNK, c = i % CHUNK, d = c0 + c;
-          float y = 0.f;
-          if (d < d_model) {
-            const float x = (load_el<T>(a, (long)r * d_model + d, act_scales,
-                                        pg * PAGE + r) - mu_s[r]) * rstd_s[r];
-            y = layernorm ? x * to_f(norm_scale[d]) + to_f(norm_bias[d])
-                          : x * (1.f + to_f(norm_scale[d]));
-            y = rnd<T>(y);
-          }
-          a_s[r][c] = y;
-        }
-        __syncthreads();
-        if (tid < D) {
-          const int cmax = min(CHUNK, d_model - c0);
-          for (int c = 0; c < cmax; ++c) {
-            const long w = ((long)(c0 + c) * KVH + h) * D + tid;
-            const float wkv = to_f(wk[w]), wvv = to_f(wv[w]);
-#pragma unroll
-            for (int r = 0; r < PAGE; ++r) {
-              const float av = a_s[r][c];
-              kacc[r] += av * wkv;
-              vacc[r] += av * wvv;
-            }
-          }
-        }
-      }
-      if (tid < D) {
-#pragma unroll
-        for (int r = 0; r < PAGE; ++r) {
-          k_s[r][tid] = rnd<T>(kacc[r]);
-          v_s[r][tid] = rnd<T>(vacc[r]);
-        }
-      }
-    }
-    __syncthreads();
-
-    for (int pr = warp; pr < G * PAGE; pr += WARPS) {   // one score per warp
-      const int g = pr / PAGE, r = pr % PAGE;
-      float s = 0.f;
-      for (int d = lane; d < D; d += 32) s += q_s[g][d] * k_s[r][d];
-      s = warp_sum(s);
-      if (lane == 0) s_s[g][r] = r < ntok ? s : NEG_INF;
-    }
-    __syncthreads();
-
-    if (tid < D) {
-#pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        if (g >= G) break;
-        float mx = m[g];
-        for (int r = 0; r < PAGE; ++r) mx = fmaxf(mx, s_s[g][r]);
-        const float corr = __expf(m[g] - mx);
-        float sum = 0.f, o = 0.f;
-        for (int r = 0; r < ntok; ++r) {
-          const float pv = __expf(s_s[g][r] - mx);
-          sum += pv;
-          o += pv * v_s[r][tid];
-        }
-        l[g] = l[g] * corr + sum;
-        acc[g] = acc[g] * corr + o;
-        m[g] = mx;
-      }
-    }
-  }
-
-  if (tid < D) {
-    T* ob = out + ((long)b * KVH + h) * G * D;
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g >= G) break;
-      ob[g * D + tid] = from_f<T>(acc[g] / fmaxf(l[g], 1e-30f));
-    }
-  }
-  if (m_out != nullptr && tid == 0) {
-    const long base = ((long)b * KVH + h) * G;
-#pragma unroll
-    for (int g = 0; g < MAX_G; ++g) {
-      if (g >= G) break;
-      m_out[base + g] = m[g];
-      l_out[base + g] = l[g];
-    }
-  }
 }
 
 // ----------------------------------------------------------------------------
@@ -335,6 +161,9 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // one staged page row's element as float: the cache dtype, or (Q8: an int8
@@ -565,12 +394,15 @@ split_attn_kernel(const T* __restrict__ q, const P* __restrict__ k_pages,
 // and (-1e30, 0).  A block per query row, not per (KV head, request): a
 // thread then sums one column over n_split partials with its loads in
 // flight together, not G x n_split loads one after another.
+// The fused mode runs the same merge under its own name (fused_combine_kernel,
+// one thread per column of its D <= 128).
 template <typename T>
-__global__ void __launch_bounds__(COMBINE_THREADS)
-split_combine_kernel(const float* __restrict__ part_o,
-                     const float* __restrict__ part_ml, T* __restrict__ out,
-                     float* __restrict__ m_out, float* __restrict__ l_out, int KVH,
-                     int G, int D, int n_split) {
+__device__ __forceinline__ void combine_partials(const float* __restrict__ part_o,
+                                                 const float* __restrict__ part_ml,
+                                                 T* __restrict__ out,
+                                                 float* __restrict__ m_out,
+                                                 float* __restrict__ l_out, int KVH,
+                                                 int G, int D, int n_split) {
   __shared__ float w_s[MAX_SPLITS];
   __shared__ float inv_s;
   const int tid = threadIdx.x, lane = tid % 32;
@@ -607,6 +439,551 @@ split_combine_kernel(const float* __restrict__ part_o,
   out[(base * G + g) * D + tid] = from_f<T>(o * inv_s);
 }
 
+template <typename T>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+split_combine_kernel(const float* __restrict__ part_o,
+                     const float* __restrict__ part_ml, T* __restrict__ out,
+                     float* __restrict__ m_out, float* __restrict__ l_out, int KVH,
+                     int G, int D, int n_split) {
+  combine_partials<T>(part_o, part_ml, out, m_out, l_out, KVH, G, D, n_split);
+}
+
+// ----------------------------------------------------------------------------
+// Fused mode: norm pass and tile pass (the combine pass is the one above)
+
+constexpr int TILE_PAGES = 4;                 // table entries per tile
+constexpr int TILE_ROWS = TILE_PAGES * PAGE;  // 64: one wgmma M
+constexpr int TILE_THREADS = 128;             // one warpgroup
+constexpr int NORM_THREADS = PAGE * 32;       // one warp per row of a page
+constexpr int KC = 64;                        // d_model columns per ring stage
+constexpr int STAGES = 4;
+constexpr int MAX_D_FUSED = 128;
+constexpr int ROW_BYTES = 128;                // one swizzled row: 64 16-bit values
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  }
+}
+
+// one TMA box of a 2-D or 3-D map into shared memory, completion on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of products are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin accumulator registers: no read or write moves across this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle (layout type 1)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi, __half) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi, __nv_bfloat16) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// wgmma m64nNk16, float32 accumulator, A and B from shared memory: A K-major,
+// B MN-major (the descriptor's transpose bit).  `acc` 0 overwrites the
+// accumulator.  The last argument selects the input type.
+__device__ __forceinline__ void wgmma_tn_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int acc, __half) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tn_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                              int acc, __half) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tn_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int acc, __nv_bfloat16) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tn_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                              int acc, __nv_bfloat16) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(acc));
+}
+// 8 consecutive elements as float: 16 bytes of T, or 8 int8 codes times
+// `scale`, each rounded to T (the int8 mode's dequant)
+template <typename T, typename P>
+__device__ __forceinline__ void load8(const P* p, float scale, float (&x)[8]) {
+  if constexpr (std::is_same<P, T>::value) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = to_f(e[j]);
+  } else {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = rnd<T>(__fmul_rn((float)e[j], scale));
+  }
+}
+
+// Norm pass.  Block (p, b) takes entry p of request b's table row; if it is
+// an ACT entry, warp r norms the page's row r in float32 (LayerNorm with its
+// bias, or rmsnorm by 1 + scale) and writes it rounded to T as row
+// (b * width + p) * 16 + r of the scratch.  Three sweeps over the row (sum,
+// squared deviations, output), the later two from L1/L2; each lane takes 8
+// columns of every 256.  P: the ACT pool's payload, T or int8_t.
+template <typename T, typename P>
+__global__ void __launch_bounds__(NORM_THREADS)
+fused_norm_kernel(const P* __restrict__ act_pages, const __half* __restrict__ act_scales,
+                  const T* __restrict__ norm_scale, const T* __restrict__ norm_bias,
+                  const int* __restrict__ page_table, const int* __restrict__ page_type,
+                  T* __restrict__ rows, int d_model, int maxp, int width, int layernorm,
+                  float eps) {
+  const int p = blockIdx.x, b = blockIdx.y;
+  const long e = (long)b * maxp + p;
+  if (page_type[e] != 1) return;
+  const int r = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long src = (long)page_table[e] * PAGE + r;           // the pool's row
+  const P* row = act_pages + src * d_model;
+  const float sc = act_scales != nullptr ? __half2float(act_scales[src]) : 1.f;
+  float x[8];
+  float mu = 0.f;
+  if (layernorm) {
+    float sum = 0.f;
+    for (int c = lane * 8; c < d_model; c += 256) {
+      load8<T>(row + c, sc, x);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum += x[j];
+    }
+    mu = warp_sum(sum) / d_model;
+  }
+  float sq = 0.f;
+  for (int c = lane * 8; c < d_model; c += 256) {
+    load8<T>(row + c, sc, x);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sq += (x[j] - mu) * (x[j] - mu);
+  }
+  const float rstd = rsqrtf(warp_sum(sq) / d_model + eps);
+  T* dst = rows + (((long)b * width + p) * PAGE + r) * d_model;
+  for (int c = lane * 8; c < d_model; c += 256) {
+    float w[8], bias[8] = {};
+    load8<T>(row + c, sc, x);
+    load8<T>(norm_scale + c, 1.f, w);
+    if (layernorm) load8<T>(norm_bias + c, 1.f, bias);
+    uint4 raw;
+    T* o = reinterpret_cast<T*>(&raw);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float y = (x[j] - mu) * rstd;
+      o[j] = from_f<T>(layernorm ? y * w[j] + bias[j] : y * (1.f + w[j]));
+    }
+    *reinterpret_cast<uint4*>(dst + c) = raw;
+  }
+}
+
+// the tile pass's dynamic shared memory: the ring (per stage the 64 x 64 A
+// box, then NB boxes of wk's and NB of wv's 64 x 64 slices), the tile's K and
+// V in T, and in the int8 mode their staged codes
+template <int DP, bool Q8>
+struct FusedTiles {
+  static constexpr int NB = DP / 64;                       // 64-column blocks
+  static constexpr int A_BYTES = TILE_ROWS * ROW_BYTES;
+  static constexpr int W_BYTES = KC * ROW_BYTES;
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * NB * W_BYTES;
+  static constexpr int KV_OFF = STAGES * STAGE_BYTES;
+  static constexpr int KV_ELEMS = TILE_ROWS * DP;
+  static constexpr int Q8_OFF = KV_OFF + 2 * KV_ELEMS * 2;
+  static constexpr int BAR_OFF = Q8_OFF + (Q8 ? 2 * KV_ELEMS : 0);
+  // + the barriers, + slack to align the base to the 1 KB swizzle atom
+  static constexpr int SMEM = BAR_OFF + STAGES * 8 + 1024;
+};
+
+// stage `c` of the projection: the tile's scratch rows and the head's
+// weight columns of d_model chunk c, one barrier for all their bytes
+template <int DP, bool Q8>
+__device__ __forceinline__ void load_stage(uint8_t* smem, uint64_t* full,
+                                            const CUtensorMap* tm_a,
+                                            const CUtensorMap* tm_wk,
+                                            const CUtensorMap* tm_wv, int c, int a_row,
+                                            int h) {
+  using L = FusedTiles<DP, Q8>;
+  uint8_t* st = smem + (c % STAGES) * L::STAGE_BYTES;
+  uint64_t* bar = &full[c % STAGES];
+  mbar_expect_tx(bar, L::STAGE_BYTES);
+  tma_load_2d(st, tm_a, bar, c * KC, a_row);
+#pragma unroll
+  for (int nb = 0; nb < L::NB; ++nb) {
+    tma_load_3d(st + L::A_BYTES + nb * L::W_BYTES, tm_wk, bar, nb * 64, h, c * KC);
+    tma_load_3d(st + L::A_BYTES + (L::NB + nb) * L::W_BYTES, tm_wv, bar, nb * 64, h,
+                c * KC);
+  }
+}
+
+// Tile pass.  Block (t, b, h) attends request b's KV head h over table
+// entries 4t .. 4t + 3 and writes the unnormalised float32 partial in the
+// return_lse basis: o (G, D), (m, l) per query row.  DP: the instantiated
+// head width, 64 or 128 (D <= DP; wk/wv columns past D are zero-filled by
+// TMA and dropped).  P: the KV pools' payload, T or int8_t.
+template <typename T, typename P, int DP>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+fused_tile_kernel(const __grid_constant__ CUtensorMap tm_a,
+                  const __grid_constant__ CUtensorMap tm_wk,
+                  const __grid_constant__ CUtensorMap tm_wv, const T* __restrict__ q,
+                  const P* __restrict__ k_pages, const P* __restrict__ v_pages,
+                  const __half* __restrict__ k_scales,
+                  const __half* __restrict__ v_scales,
+                  const int* __restrict__ page_table, const int* __restrict__ page_type,
+                  const int* __restrict__ page_ntok, float* __restrict__ part_o,
+                  float* __restrict__ part_ml, int KVH, int G, int D, int d_model,
+                  int maxp, int width, float sm_scale) {
+  constexpr bool Q8 = !std::is_same<P, T>::value;
+  using L = FusedTiles<DP, Q8>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  T* k_s = reinterpret_cast<T*>(smem + L::KV_OFF);           // [TILE_ROWS][DP]
+  T* v_s = k_s + L::KV_ELEMS;
+  int8_t* k8_s = reinterpret_cast<int8_t*>(smem + L::Q8_OFF);
+  int8_t* v8_s = k8_s + L::KV_ELEMS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);   // [STAGES]
+  __shared__ float q_s[MAX_G][DP];
+  __shared__ float s_s[MAX_G][TILE_ROWS];      // scores, then probabilities
+  __shared__ float ksc_s[TILE_ROWS], vsc_s[TILE_ROWS];
+  __shared__ float m_s[MAX_G], l_s[MAX_G];
+  __shared__ int ty_s[TILE_PAGES], pg_s[TILE_PAGES], nt_s[TILE_PAGES];
+  __shared__ bool ok_s[TILE_ROWS];             // the row holds a token
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tile = blockIdx.x, b = blockIdx.y, h = blockIdx.z;
+  if (tid < TILE_PAGES) {
+    const int p = tile * TILE_PAGES + tid;
+    const long e = (long)b * maxp + p;
+    ty_s[tid] = p < maxp ? page_type[e] : 2;
+    pg_s[tid] = p < maxp ? page_table[e] : 0;
+    nt_s[tid] = p < maxp ? page_ntok[e] : 0;
+  }
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const T* qb = q + ((long)b * KVH + h) * G * D;
+  for (int i = tid; i < G * D; i += TILE_THREADS) q_s[i / D][i % D] = to_f(qb[i]) * sm_scale;
+  __syncthreads();
+
+  // the KV entries' rows, 16-byte cp.async, in flight during the projection
+  bool any_act = false;
+  for (int e = 0; e < TILE_PAGES; ++e) {
+    any_act |= ty_s[e] == 1;
+    if (ty_s[e] != 0) continue;
+    const long pg = pg_s[e];
+    const int row_bytes = D * (int)sizeof(P), chunks = row_bytes / 16;
+    uint8_t* kd = Q8 ? reinterpret_cast<uint8_t*>(k8_s) : reinterpret_cast<uint8_t*>(k_s);
+    uint8_t* vd = Q8 ? reinterpret_cast<uint8_t*>(v8_s) : reinterpret_cast<uint8_t*>(v_s);
+    for (int i = tid; i < PAGE * chunks; i += TILE_THREADS) {
+      const int r = i / chunks, c = i % chunks;
+      const long src = ((pg * PAGE + r) * KVH + h) * row_bytes + c * 16;
+      const int dst = (e * PAGE + r) * DP * (int)sizeof(P) + c * 16;
+      cp_async16(kd + dst, reinterpret_cast<const uint8_t*>(k_pages) + src);
+      cp_async16(vd + dst, reinterpret_cast<const uint8_t*>(v_pages) + src);
+    }
+    if (Q8 && tid < PAGE) {
+      const long row = (pg * PAGE + tid) * KVH + h;
+      ksc_s[e * PAGE + tid] = __half2float(k_scales[row]);
+      vsc_s[e * PAGE + tid] = __half2float(v_scales[row]);
+    }
+  }
+  cp_async_commit();
+
+  if (any_act) {
+    // [K | V] (64 x 2 DP) = A (64 x d_model) . [wk_h | wv_h], d_model in
+    // chunks of 64 through the ring: chunk c's products are started, then
+    // chunk c - 1's are waited for and its stage refilled with chunk
+    // c - 1 + STAGES, so three chunks' loads stay in flight
+    float acc[DP];
+#pragma unroll
+    for (int i = 0; i < DP; ++i) acc[i] = 0.f;
+    const int n_chunks = d_model / KC;
+    const int a_row = (b * width + tile * TILE_PAGES) * PAGE;
+    if (tid == 0)
+      for (int c = 0; c < STAGES && c < n_chunks; ++c)
+        load_stage<DP, Q8>(smem, full, &tm_a, &tm_wk, &tm_wv, c, a_row, h);
+    for (int c = 0; c < n_chunks; ++c) {
+      const int st = c % STAGES;
+      mbar_wait(&full[st], (c / STAGES) & 1);
+      const uint32_t a_addr = smem_u32(smem + st * L::STAGE_BYTES);
+      const uint32_t w_addr = a_addr + L::A_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        // A: 8-row groups 1 KB apart, a k-step 32 bytes into the swizzle
+        // atom; B: 16 d_model rows a k-step, 64-column blocks W_BYTES apart
+        const uint64_t da = desc_sw128(a_addr + kk * 32, 16, 1024);
+        const uint64_t db = desc_sw128(w_addr + kk * 2048, L::W_BYTES, 1024);
+        if constexpr (DP == 128) wgmma_tn_n256(acc, da, db, 1, T{});
+        else wgmma_tn_n128(acc, da, db, 1, T{});
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(acc);
+      __syncthreads();                 // every warp is past chunk c - 1's stage
+      if (tid == 0 && c >= 1 && c - 1 + STAGES < n_chunks)
+        load_stage<DP, Q8>(smem, full, &tm_a, &tm_wk, &tm_wv, c - 1 + STAGES, a_row,
+                           h);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // the fragment: a thread holds rows r0 = 16 warp + lane / 4 and r0 + 8
+    // (both of entry `warp`), columns n = 8 j + 2 (lane % 4) + {0, 1} of
+    // [K | V] in acc[4j], acc[4j + 1] (row r0) and acc[4j + 2], acc[4j + 3]
+    // (row r0 + 8).  Rounded to T: rounding point B
+    if (ty_s[warp] == 1) {
+      const int r0 = 16 * warp + lane / 4;
+#pragma unroll
+      for (int j = 0; j < DP / 4; ++j) {
+        const int n = 8 * j + 2 * (lane % 4);
+        const int col = n < DP ? n : n - DP;
+        if (col < D) {
+          T* dst = n < DP ? k_s : v_s;
+          *reinterpret_cast<uint32_t*>(dst + r0 * DP + col) =
+              pack2(acc[4 * j], acc[4 * j + 1], T{});
+          *reinterpret_cast<uint32_t*>(dst + (r0 + 8) * DP + col) =
+              pack2(acc[4 * j + 2], acc[4 * j + 3], T{});
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if constexpr (Q8) {                  // the KV entries' codes, dequantized
+    for (int i = tid; i < TILE_ROWS * D; i += TILE_THREADS) {
+      const int r = i / D, c = i % D;
+      if (ty_s[r / PAGE] != 0) continue;
+      k_s[r * DP + c] = from_f<T>(__fmul_rn((float)k8_s[r * DP + c], ksc_s[r]));
+      v_s[r * DP + c] = from_f<T>(__fmul_rn((float)v8_s[r * DP + c], vsc_s[r]));
+    }
+    __syncthreads();
+  }
+
+  // scores: warp w takes rows w, w + 4, ..; lane its columns lane, lane + 32
+  for (int r = warp; r < TILE_ROWS; r += TILE_THREADS / 32) {
+    const int e = r / PAGE;
+    const bool ok = ty_s[e] != 2 && r % PAGE < nt_s[e];
+    float part[MAX_G];
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) part[g] = 0.f;
+    if (ok)
+      for (int c = lane; c < D; c += 32) {
+        const float kf = to_f(k_s[r * DP + c]);
+#pragma unroll
+        for (int g = 0; g < MAX_G; ++g)
+          if (g < G) part[g] += q_s[g][c] * kf;
+      }
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g)
+      if (g < G) part[g] = warp_sum(part[g]);
+    if (lane < G) {
+      float sc = part[0];
+#pragma unroll
+      for (int g = 1; g < MAX_G; ++g) if (lane == g) sc = part[g];
+      s_s[lane][r] = ok ? sc : NEG_INF;
+    }
+    if (lane == 0) ok_s[r] = ok;
+  }
+  __syncthreads();
+
+  // the tile's softmax: warp w takes query rows w, w + 4; lane its tokens
+  // lane and lane + 32
+  for (int g = warp; g < G; g += TILE_THREADS / 32) {
+    const float s0 = s_s[g][lane], s1 = s_s[g][lane + 32];
+    float mx = fmaxf(s0, s1);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    const float p0 = ok_s[lane] ? __expf(s0 - mx) : 0.f;
+    const float p1 = ok_s[lane + 32] ? __expf(s1 - mx) : 0.f;
+    s_s[g][lane] = p0;
+    s_s[g][lane + 32] = p1;
+    const float l = warp_sum(p0 + p1);
+    if (lane == 0) {
+      m_s[g] = mx;
+      l_s[g] = l;
+    }
+  }
+  __syncthreads();
+
+  // P.V: thread t owns column t; rows without a token are skipped, so
+  // whatever their K/V rows hold never reaches the output
+  const long part = ((long)b * KVH + h) * gridDim.x + tile;
+  if (tid < D) {
+    float o[MAX_G];
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g) o[g] = 0.f;
+    for (int r = 0; r < TILE_ROWS; ++r) {
+      if (!ok_s[r]) continue;
+      const float vf = to_f(v_s[r * DP + tid]);
+#pragma unroll
+      for (int g = 0; g < MAX_G; ++g)
+        if (g < G) o[g] += s_s[g][r] * vf;
+    }
+    float* po = part_o + part * G * D;
+#pragma unroll
+    for (int g = 0; g < MAX_G; ++g)
+      if (g < G) po[g * D + tid] = o[g];
+  }
+  if (tid < G) {
+    part_ml[(part * G + tid) * 2] = m_s[tid];
+    part_ml[(part * G + tid) * 2 + 1] = l_s[tid];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(TILE_THREADS)
+fused_combine_kernel(const float* __restrict__ part_o,
+                     const float* __restrict__ part_ml, T* __restrict__ out,
+                     float* __restrict__ m_out, float* __restrict__ l_out, int KVH,
+                     int G, int D, int n_tiles) {
+  combine_partials<T>(part_o, part_ml, out, m_out, l_out, KVH, G, D, n_tiles);
+}
+
 template <typename T, typename P>
 int launch_split(const void* q, const void* kp, const void* vp, const void* ks,
                  const void* vs, const void* akp, const void* avp, const int* pt,
@@ -637,21 +1014,103 @@ struct Scales {
   const void* act;
 };
 
-template <typename T, typename P>
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 16-bit tensor of `rank` dims (innermost first, `strides` in bytes for
+// the outer ones) with boxes of `box`, swizzled by 128 bytes; a box past an
+// edge is zero-filled
+bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType dt, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, dt, rank, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the scratch: the tile partials, float32 (B, KVH, n_tiles, G, D) then
+// (B, KVH, n_tiles, G, 2), and from this byte offset the normed rows, T
+// (B, n_tiles * 4, 16, d_model)
+long fused_rows_offset(int B, int KVH, int G, int D, int n_tiles) {
+  return ((long)B * KVH * n_tiles * G * (D + 2) * 4 + 255) / 256 * 256;
+}
+
+template <typename T, typename P, int DP>
 int launch_fused(const void* q, const void* kp, const void* vp, const void* ap,
                  const void* scale, const void* bias, const void* wk, const void* wv,
                  const int* pt, const int* pty, const int* pn, void* out, float* m_out,
-                 float* l_out, int B, int KVH, int G, int D, int d_model, int maxp,
-                 int layernorm, float eps, cudaStream_t stream, Scales sc) {
-  const dim3 grid(KVH, B);
-  hybrid_attn_kernel<T, P, 128><<<grid, 128, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const P*>(kp), static_cast<const P*>(vp),
-      static_cast<const __half*>(sc.k), static_cast<const __half*>(sc.v),
-      static_cast<const P*>(ap), static_cast<const __half*>(sc.act),
-      static_cast<const T*>(scale),
-      static_cast<const T*>(bias), static_cast<const T*>(wk),
-      static_cast<const T*>(wv), pt, pty, pn, static_cast<T*>(out), m_out, l_out,
-      KVH, G, D, d_model, maxp, layernorm, eps, 1.f / sqrtf((float)D));
+                 float* l_out, void* scratch, int B, int KVH, int G, int D, int d_model,
+                 int maxp, int n_tiles, int layernorm, float eps, CUtensorMapDataType dt,
+                 cudaStream_t stream, Scales sc) {
+  constexpr bool Q8 = !std::is_same<P, T>::value;
+  using L = FusedTiles<DP, Q8>;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_tile_kernel<T, P, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  const int width = n_tiles * TILE_PAGES;
+  float* part_o = static_cast<float*>(scratch);
+  float* part_ml = part_o + (long)B * KVH * n_tiles * G * D;
+  T* rows = reinterpret_cast<T*>(static_cast<uint8_t*>(scratch) +
+                                 fused_rows_offset(B, KVH, G, D, n_tiles));
+  // the normed rows (d_model, rows) in 64 x 64 boxes; wk and wv as
+  // (D, KVH, d_model), boxes of 64 columns of one head by 64 d_model rows
+  const cuuint64_t a_dims[2] = {(cuuint64_t)d_model, (cuuint64_t)B * width * PAGE};
+  const cuuint64_t a_strides[1] = {(cuuint64_t)d_model * 2};
+  const cuuint32_t a_box[2] = {KC, TILE_ROWS};
+  const cuuint64_t w_dims[3] = {(cuuint64_t)D, (cuuint64_t)KVH, (cuuint64_t)d_model};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)KVH * D * 2};
+  const cuuint32_t w_box[3] = {64, 1, KC};
+  CUtensorMap ta, tk, tv;
+  if (!make_map(&ta, rows, dt, 2, a_dims, a_strides, a_box) ||
+      !make_map(&tk, wk, dt, 3, w_dims, w_strides, w_box) ||
+      !make_map(&tv, wv, dt, 3, w_dims, w_strides, w_box))
+    return (int)cudaErrorInvalidValue;
+  if (maxp > 0) {
+    fused_norm_kernel<T, P><<<dim3(maxp, B), NORM_THREADS, 0, stream>>>(
+        static_cast<const P*>(ap), static_cast<const __half*>(sc.act),
+        static_cast<const T*>(scale), static_cast<const T*>(bias), pt, pty, rows, d_model,
+        maxp, width, layernorm, eps);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  fused_tile_kernel<T, P, DP><<<dim3(n_tiles, B, KVH), TILE_THREADS, L::SMEM, stream>>>(
+      ta, tk, tv, static_cast<const T*>(q), static_cast<const P*>(kp),
+      static_cast<const P*>(vp), static_cast<const __half*>(sc.k),
+      static_cast<const __half*>(sc.v), pt, pty, pn, part_o, part_ml, KVH, G, D, d_model,
+      maxp, width, 1.f / sqrtf((float)D));
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fused_combine_kernel<T><<<dim3(G, KVH, B), TILE_THREADS, 0, stream>>>(
+      part_o, part_ml, static_cast<T*>(out), m_out, l_out, KVH, G, D, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -659,15 +1118,16 @@ template <typename T>
 int launch(const void* q, const void* kp, const void* vp, const void* ap,
            const void* scale, const void* bias, const void* wk, const void* wv,
            const int* pt, const int* pty, const int* pn, void* out, float* m_out,
-           float* l_out, int B, int KVH, int G, int D, int d_model, int maxp,
-           int layernorm, float eps, cudaStream_t stream, Scales sc) {
-  if (sc.k != nullptr)
-    return launch_fused<T, int8_t>(q, kp, vp, ap, scale, bias, wk, wv, pt, pty, pn, out,
-                                   m_out, l_out, B, KVH, G, D, d_model, maxp, layernorm,
-                                   eps, stream, sc);
-  return launch_fused<T, T>(q, kp, vp, ap, scale, bias, wk, wv, pt, pty, pn, out, m_out,
-                            l_out, B, KVH, G, D, d_model, maxp, layernorm, eps, stream,
-                            sc);
+           float* l_out, void* scratch, int B, int KVH, int G, int D, int d_model,
+           int maxp, int n_tiles, int layernorm, float eps, CUtensorMapDataType dt,
+           cudaStream_t stream, Scales sc) {
+#define FUSED_ARGS q, kp, vp, ap, scale, bias, wk, wv, pt, pty, pn, out, m_out, l_out, \
+    scratch, B, KVH, G, D, d_model, maxp, n_tiles, layernorm, eps, dt, stream, sc
+  const bool q8 = sc.k != nullptr;
+  if (D <= 64)
+    return q8 ? launch_fused<T, int8_t, 64>(FUSED_ARGS) : launch_fused<T, T, 64>(FUSED_ARGS);
+  return q8 ? launch_fused<T, int8_t, 128>(FUSED_ARGS) : launch_fused<T, T, 128>(FUSED_ARGS);
+#undef FUSED_ARGS
 }
 
 }  // namespace
@@ -678,22 +1138,36 @@ extern "C" {
 // dtype: 1 float16, 2 bfloat16.
 // m_out, l_out: both null, or both (B, KVH, G, 1) float32 (return_lse mode).
 // k_scales, v_scales, act_scales: all null, or all float16 with int8 pools
-// (int8 mode).  Returns a cudaError_t.
+// (int8 mode).  D a multiple of 16 up to 128, d_model a multiple of 64;
+// every pointer 16-byte aligned.  n_tiles: the table row's tiles of 4
+// entries (n_tiles * 4 >= maxp, n_tiles <= 264).  scratch: at least
+// fused_rows_offset(B, KVH, G, D, n_tiles) + B * n_tiles * 4 * 16 * d_model
+// * 2 bytes (the partials, then the normed rows).  Launches the norm pass,
+// the tile pass and the combine pass on `stream`.  Returns a cudaError_t.
 int hybrid_paged_attention_fwd(const void* q, const void* k_pages, const void* v_pages,
                                const void* act_pages, const void* k_scales,
                                const void* v_scales, const void* act_scales,
-                               const void* norm_scale,
-                               const void* norm_bias, const void* wk, const void* wv,
-                               const void* page_table, const void* page_type,
-                               const void* page_ntok, void* out, void* m_out,
-                               void* l_out, int B, int KVH, int G, int D, int d_model,
-                               int maxp, int norm_type, float eps, int dtype,
-                               void* stream) {
+                               const void* norm_scale, const void* norm_bias,
+                               const void* wk, const void* wv, const void* page_table,
+                               const void* page_type, const void* page_ntok, void* out,
+                               void* m_out, void* l_out, void* scratch, int B, int KVH,
+                               int G, int D, int d_model, int maxp, int n_tiles,
+                               int norm_type, float eps, int dtype, void* stream) {
   const int n_scales = (k_scales != nullptr) + (v_scales != nullptr) +
                        (act_scales != nullptr);
-  if (D > 128 || G > MAX_G || G < 1 || (norm_type == 0 && norm_bias == nullptr) ||
+  const uintptr_t align =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k_pages) |
+      reinterpret_cast<uintptr_t>(v_pages) | reinterpret_cast<uintptr_t>(act_pages) |
+      reinterpret_cast<uintptr_t>(norm_scale) | reinterpret_cast<uintptr_t>(norm_bias) |
+      reinterpret_cast<uintptr_t>(wk) | reinterpret_cast<uintptr_t>(wv) |
+      reinterpret_cast<uintptr_t>(scratch);
+  if (D > MAX_D_FUSED || D % 16 != 0 || D <= 0 || G > MAX_G || G < 1 ||
+      d_model % KC != 0 || d_model <= 0 || n_tiles < 1 || n_tiles > MAX_SPLITS ||
+      (long)n_tiles * TILE_PAGES < maxp || align % 16 != 0 ||
+      (norm_type == 0 && norm_bias == nullptr) ||
       ((m_out == nullptr) != (l_out == nullptr)) || (n_scales != 0 && n_scales != 3))
     return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaSuccess;
   const Scales sc{k_scales, v_scales, act_scales};
   float* mo = static_cast<float*>(m_out);
   float* lo = static_cast<float*>(l_out);
@@ -702,14 +1176,14 @@ int hybrid_paged_attention_fwd(const void* q, const void* k_pages, const void* v
   const int* pty = static_cast<const int*>(page_type);
   const int* pn = static_cast<const int*>(page_ntok);
   const int ln = norm_type == 0;
+#define FUSED_ARGS q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk, wv, pt, pty, \
+    pn, out, mo, lo, scratch, B, KVH, G, D, d_model, maxp, n_tiles, ln, eps
   switch (dtype) {
-    case 1: return launch<__half>(q, k_pages, v_pages, act_pages, norm_scale, norm_bias,
-                                  wk, wv, pt, pty, pn, out, mo, lo, B, KVH, G, D,
-                                  d_model, maxp, ln, eps, st, sc);
-    case 2: return launch<__nv_bfloat16>(q, k_pages, v_pages, act_pages, norm_scale,
-                                         norm_bias, wk, wv, pt, pty, pn, out, mo, lo, B,
-                                         KVH, G, D, d_model, maxp, ln, eps, st, sc);
+    case 1: return launch<__half>(FUSED_ARGS, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st, sc);
+    case 2: return launch<__nv_bfloat16>(FUSED_ARGS, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st,
+                                         sc);
   }
+#undef FUSED_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,7 +3,10 @@
 A CUDA tensor launches ``csrc/hybrid_attention.cu`` on PyTorch's current
 stream, or raises; a CPU tensor takes the plain version in ``ref.py``.
 ``hybrid_paged_attention`` is the fused mode (ACT pages normed and projected
-in the kernel, the learned-position models' path);
+on the card, the learned-position models' path): a norm pass (each ACT row
+normed once), a tile pass over ``tile_plan``'s tiles of four table entries
+(the ACT rows projected by ``wk``/``wv`` on the tensor cores, then
+attended), then a combine pass (three CUDA kernels, one call);
 ``hybrid_paged_attention_two_pool`` is the second-pool mode (type-1 entries
 read K/V that ``kv_gen`` recomputed into a second pair of pools, the RoPE
 models' path), split across blocks: a split pass over ``split_plan``'s
@@ -37,16 +40,19 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.hybrid_attention.ref import (
-    PAGE, hybrid_paged_attention_ref, hybrid_paged_attention_two_pool_ref,
-    split_plan)
+    PAGE, TILE_PAGES, hybrid_paged_attention_ref,
+    hybrid_paged_attention_two_pool_ref, split_plan, tile_plan)
 
 # the dtypes the kernel is built and checked on the card for
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
 NORM_TYPES = {"layernorm": 0, "rmsnorm": 1}
-# head_dim up to 128 in the fused mode; in the second-pool mode a multiple
-# of 16 (its 16-byte page loads) up to 256
+# head_dim a multiple of 16 (16-byte page loads; wgmma's k-step in the fused
+# mode) up to 128 in the fused mode and 256 in the second-pool mode
 MAX_D, MAX_D_TWO_POOL, MAX_G = 128, 256, 8
-_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + \
+# the fused mode streams d_model through its projection in TMA boxes of 64
+# columns, and its combine pass merges at most 264 tiles a row
+D_MODEL_STEP, MAX_TILES = 64, 264
+_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + \
     [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 _TWO_POOL_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + \
     [ctypes.c_void_p]
@@ -75,78 +81,73 @@ def _lse_out(q, return_lse: bool):
     return (m, l), (m.data_ptr(), l.data_ptr())
 
 
-def _launch(lib, q, k_pages, v_pages, act_pages, scales, norm_scale,
-            norm_bias, wk, wv, page_table, page_type, page_ntok, out, lse_ptrs,
-            norm_type: str, eps: float, stream) -> None:
-    fn = lib.hybrid_paged_attention_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+def fused_scratch_bytes(B: int, KVH: int, G: int, D: int, d: int,
+                        n_tiles: int, esz: int) -> tuple[int, int]:
+    """-> (bytes, offset of the normed rows) of the fused kernels' scratch:
+    the tile partials, float32 (B, KVH, n_tiles, G, D + 2), then from a
+    256-byte boundary the normed ACT rows (B, n_tiles * 4, 16, d) in the
+    cache dtype (``esz`` bytes each), as the C side lays them out."""
+    off = -(-B * KVH * n_tiles * G * (D + 2) * 4 // 256) * 256
+    return off + B * n_tiles * TILE_PAGES * PAGE * d * esz, off
+
+
+def _check_tensors(what: str, named, tables, B: int, dev) -> None:
+    """Each (name, tensor, dtype, shape) of ``named`` contiguous on ``dev``
+    with that dtype and shape, and the page tables contiguous int32
+    (B, MAXP) on ``dev``; else a ValueError naming ``what``."""
+    for name, t, dt, shape in named:
+        if t.shape != shape or t.dtype != dt or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} tensor "
+                             f"of shape {shape} on {dev}, got "
+                             f"{tuple(t.shape)} {t.dtype} {t.device}")
+    maxp = tables[0].shape[-1]
+    for t in tables:
+        if t.shape != (B, maxp) or t.dtype != torch.int32 or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: page tables must be contiguous int32 "
+                             f"(B, MAXP) on {dev}")
+
+
+def _check_fused(q, k_pages, v_pages, act_pages, scales, norm_scale,
+                 norm_bias, wk, wv, tables, norm_type):
+    """What the fused kernels take: every tensor contiguous on q's device,
+    KV pools (P, 16, KVH, D), the ACT pool (P, 16, d) (int8 with float16
+    scales in the int8 mode), int32 (B, MAXP) tables; D a multiple of 16 up
+    to 128, d a multiple of 64, at most 264 tiles a row.  A shape outside
+    that is refused here, never sent down another path.  Kept lean: it runs
+    on every decode step of every layer."""
     B, KVH, G, D = q.shape
-    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             act_pages.data_ptr(), *map(_ptr, scales), norm_scale.data_ptr(),
-             _ptr(norm_bias),
-             wk.data_ptr(), wv.data_ptr(), page_table.data_ptr(),
-             page_type.data_ptr(), page_ntok.data_ptr(), out.data_ptr(),
-             *lse_ptrs, B, KVH, G, D, act_pages.shape[-1], page_table.shape[1],
-             NORM_TYPES[norm_type], eps, DTYPES[q.dtype], stream)
-    _build.check(lib, err, "hybrid_paged_attention_fwd")
-
-
-def _validate_fused(q, k_pages, v_pages, act_pages, scales, norm_scale,
-                    norm_bias, wk, wv, page_table, page_type, page_ntok,
-                    norm_type):
-    _, KVH, _, D = q.shape
-    d = act_pages.shape[-1]
-    q8 = scales[0] is not None
-    pay = torch.int8 if q8 else q.dtype
-    shapes = {"act_pages": (act_pages, (act_pages.shape[0], PAGE, d), pay),
-              "norm_scale": (norm_scale, (d,), q.dtype),
-              "wk": (wk, (d, KVH, D), q.dtype), "wv": (wv, (d, KVH, D), q.dtype)}
-    if q8:
-        shapes["act_scales"] = (scales[2], (act_pages.shape[0], PAGE, 1),
-                                torch.float16)
+    if q.dtype not in DTYPES or not q.is_contiguous():
+        raise ValueError(f"hybrid_paged_attention: q must be a contiguous "
+                         f"float16/bfloat16 tensor, got {q.dtype}")
+    d, maxp = act_pages.shape[-1], tables[0].shape[-1]
+    if D > MAX_D or D % 16 or not 1 <= G <= MAX_G or d % D_MODEL_STEP \
+            or tile_plan(maxp)[0] > MAX_TILES:
+        raise ValueError(f"hybrid_paged_attention: D={D} (a multiple of 16 "
+                         f"up to {MAX_D}), G={G} (max {MAX_G}), d_model={d} "
+                         f"(a multiple of {D_MODEL_STEP}), MAXP={maxp} (at "
+                         f"most {MAX_TILES * TILE_PAGES}): the kernels refuse it")
     if norm_type not in NORM_TYPES:
         raise ValueError(f"hybrid_paged_attention: norm_type {norm_type!r}")
+    if norm_type == "layernorm" and norm_bias is None:
+        raise ValueError("hybrid_paged_attention: layernorm needs norm_bias")
+    row, dev = (PAGE, KVH, D), q.device
+    pay = q.dtype if scales[0] is None else torch.int8
+    named = [("k_pages", k_pages, pay, (k_pages.shape[0],) + row),
+             ("v_pages", v_pages, pay, (k_pages.shape[0],) + row),
+             ("act_pages", act_pages, pay, (act_pages.shape[0], PAGE, d)),
+             ("norm_scale", norm_scale, q.dtype, (d,)),
+             ("wk", wk, q.dtype, (d, KVH, D)), ("wv", wv, q.dtype, (d, KVH, D))]
     if norm_type == "layernorm":
-        if norm_bias is None:
-            raise ValueError("hybrid_paged_attention: layernorm needs norm_bias")
-        shapes["norm_bias"] = (norm_bias, (d,), q.dtype)
-    _validate(q, {"k_pages": k_pages, "v_pages": v_pages}, scales[:2], shapes,
-              page_table, page_type, page_ntok)
-
-
-def _validate(q, kv_pools, kv_scales, shapes, page_table, page_type,
-              page_ntok):
-    """Shapes, dtypes and devices of every argument; ``kv_pools`` name the
-    (P, 16, KVH, D) pools of type-0 pages (int8 with ``kv_scales`` (P, 16,
-    KVH, 1) in the int8 mode), ``shapes`` maps the rest to their shapes and
-    dtypes."""
-    B, KVH, G, D = q.shape
-    q8 = kv_scales[0] is not None
-    shapes = {**{name: (t, (t.shape[0], PAGE, KVH, D),
-                        torch.int8 if q8 else q.dtype)
-                 for name, t in kv_pools.items()}, **shapes}
-    if q8:
-        for name, s in zip(("k_scales", "v_scales"), kv_scales):
-            shapes[name] = (s, (kv_pools["k_pages"].shape[0], PAGE, KVH, 1),
-                            torch.float16)
-    for name, (t, want, dt) in shapes.items():
-        if tuple(t.shape) != want:
-            raise ValueError(f"hybrid_paged_attention: {name} has shape "
-                             f"{tuple(t.shape)}, expected {want}")
-        if t.dtype != dt or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"hybrid_paged_attention: {name} must be a "
-                             f"contiguous {dt} tensor on {q.device}")
-    for t in (page_table, page_type, page_ntok):
-        if t.dim() != 2 or t.shape[0] != B or t.shape != page_table.shape \
-                or t.dtype != torch.int32 or t.device != q.device \
-                or not t.is_contiguous():
-            raise ValueError("hybrid_paged_attention: page tables must be "
-                             f"contiguous int32 (B, MAXP) on {q.device}")
-    if q.dtype not in DTYPES or not q.is_contiguous():
-        raise ValueError(f"hybrid_paged_attention: q dtype {q.dtype}")
-    if D > MAX_D or G > MAX_G:
-        raise ValueError(f"hybrid_paged_attention: D={D} (max {MAX_D}), "
-                         f"G={G} (max {MAX_G})")
+        named.append(("norm_bias", norm_bias, q.dtype, (d,)))
+    if scales[0] is not None:
+        sc = (k_pages.shape[0], PAGE, KVH, 1)
+        named += [("k_scales", scales[0], torch.float16, sc),
+                  ("v_scales", scales[1], torch.float16, sc),
+                  ("act_scales", scales[2], torch.float16,
+                   (act_pages.shape[0], PAGE, 1))]
+    _check_tensors("hybrid_paged_attention", named, tables, B, dev)
 
 
 def hybrid_paged_attention(q, k_pages, v_pages, act_pages, norm_scale,
@@ -155,11 +156,12 @@ def hybrid_paged_attention(q, k_pages, v_pages, act_pages, norm_scale,
                            act_scales=None, norm_type: str = "layernorm",
                            eps: float = 1e-5, return_lse: bool = False):
     """-> (B, KVH, G, D) decode attention over the hybrid paged cache, with
-    each ACT page's K/V recomputed inside the kernel (Eq. 7 fused); with
-    ``return_lse`` -> (out, m, l).  The kernel walks every entry of each
+    each ACT page's K/V recomputed on the card (Eq. 7 fused); with
+    ``return_lse`` -> (out, m, l).  The kernels cover every entry of each
     table row, so a caller that knows a bound on the pages in use passes
     tables that wide (the TPU kernel's ``pages_bound``).  The three scale
-    sidecars select the int8 mode."""
+    sidecars select the int8 mode.  On the card the scratch holds the
+    normed rows and the tiles' partials (``fused_scratch_bytes``)."""
     scales = (k_scales, v_scales, act_scales)
     q8 = _scales(("k_scales", "v_scales", "act_scales"), scales)
     if q.device.type == "cpu":
@@ -170,16 +172,30 @@ def hybrid_paged_attention(q, k_pages, v_pages, act_pages, norm_scale,
             eps=eps, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"hybrid_paged_attention: unsupported device {q.device}")
-    _validate_fused(q, k_pages, v_pages, act_pages, scales, norm_scale,
-                    norm_bias, wk, wv, page_table, page_type, page_ntok,
-                    norm_type)
+    tables = (page_table, page_type, page_ntok)
+    _check_fused(q, k_pages, v_pages, act_pages, scales, norm_scale,
+                 norm_bias, wk, wv, tables, norm_type)
+    B, KVH, G, D = q.shape
+    d, maxp = act_pages.shape[-1], page_table.shape[1]
+    n_tiles, _ = tile_plan(maxp)
     out = torch.empty_like(q)
     lse, lse_ptrs = _lse_out(q, return_lse)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(_build.load("hybrid_attention"), q, k_pages, v_pages,
-                act_pages, scales, norm_scale, norm_bias, wk, wv, page_table,
-                page_type, page_ntok, out, lse_ptrs, norm_type, eps, stream)
+    scratch = torch.empty(fused_scratch_bytes(B, KVH, G, D, d, n_tiles,
+                                              q.element_size())[0],
+                          dtype=torch.uint8, device=q.device)
+    lib, fn = _build.entry("hybrid_attention", "hybrid_paged_attention_fwd",
+                           _ARGTYPES)
+    dev = q.device.index
+    with _build.on_device(dev):
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 act_pages.data_ptr(), *map(_ptr, scales),
+                 norm_scale.data_ptr(), _ptr(norm_bias), wk.data_ptr(),
+                 wv.data_ptr(), page_table.data_ptr(), page_type.data_ptr(),
+                 page_ntok.data_ptr(), out.data_ptr(), *lse_ptrs,
+                 scratch.data_ptr(), B, KVH, G, D, d, maxp, n_tiles,
+                 NORM_TYPES[norm_type], eps, DTYPES[q.dtype],
+                 _build.current_stream(dev))
+    _build.check(lib, err, "hybrid_paged_attention_fwd")
     hybrid_paged_attention.launches += 1
     hybrid_paged_attention.lse_launches += bool(return_lse)
     hybrid_paged_attention.q8_launches += q8
@@ -216,18 +232,7 @@ def _check_two_pool(q, k_pages, v_pages, act_k_pages, act_v_pages, scales,
         sc = (k_pages.shape[0], PAGE, KVH, 1)
         named += [("k_scales", scales[0], torch.float16, sc),
                   ("v_scales", scales[1], torch.float16, sc)]
-    for name, t, dt, shape in named:
-        if t.shape != shape or t.dtype != dt or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(f"hybrid_paged_attention_two_pool: {name} must be "
-                             f"a contiguous {dt} tensor of shape {shape} on "
-                             f"{dev}, got {tuple(t.shape)} {t.dtype} {t.device}")
-    maxp = tables[0].shape[-1]
-    for t in tables:
-        if t.shape != (B, maxp) or t.dtype != torch.int32 or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError("hybrid_paged_attention_two_pool: page tables must "
-                             f"be contiguous int32 (B, MAXP) on {dev}")
+    _check_tensors("hybrid_paged_attention_two_pool", named, tables, B, dev)
 
 
 def hybrid_paged_attention_two_pool(q, k_pages, v_pages, act_k_pages,

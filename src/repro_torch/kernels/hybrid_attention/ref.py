@@ -25,7 +25,12 @@ int8 cache's ACT-bound token): ``merge_partials_torch``.
 ``split_plan`` is how the second-pool kernels cut each table row across
 blocks, and ``hybrid_paged_attention_two_pool_split_ref`` their algorithm in
 plain PyTorch (each range attended on its own, the partials merged), which
-the tests hold to ``hybrid_paged_attention_two_pool_ref``.
+the tests hold to ``hybrid_paged_attention_two_pool_ref``.  Likewise
+``tile_plan`` is how the fused mode's kernels cut each row into tiles of
+``TILE_PAGES`` entries, and ``hybrid_paged_attention_tiled_ref`` their
+algorithm: every ACT row normed once and rounded, each tile's ACT rows
+projected as one block and rounded, each tile attended with its own (m, l),
+the tiles merged.
 """
 from __future__ import annotations
 
@@ -41,6 +46,8 @@ PAGE = 16
 #: range of the table into shared memory)
 SPLIT_TARGET = 264
 MAX_PAGES_PER_SPLIT = 128
+#: the fused mode's tile: four table entries, 64 rows, one wgmma M of 64
+TILE_PAGES = 4
 #: masked-score basis shared with the kernel (finite, so an empty partition
 #: merges without nan: exp(NEG_INF - NEG_INF) = 1, l = 0)
 NEG_INF = -1e30
@@ -76,6 +83,14 @@ def split_plan(B: int, KVH: int, maxp: int) -> tuple[int, int]:
     return max(1, -(-maxp // pps)), pps
 
 
+def tile_plan(maxp: int) -> tuple[int, int]:
+    """The fused mode's tiles of each table row, from the table's width
+    alone (no tensor is read, so no sync): -> (n_tiles, pages_per_tile).
+    Tile t takes entries [t * TILE_PAGES, min((t + 1) * TILE_PAGES, maxp));
+    a row of no entry still gets one (empty) tile."""
+    return max(1, -(-maxp // TILE_PAGES)), TILE_PAGES
+
+
 def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,
                                norm_bias, wk, wv, page_table, page_type,
                                page_ntok, *, k_scales=None, v_scales=None,
@@ -94,18 +109,9 @@ def hybrid_paged_attention_ref(q, k_pages, v_pages, act_pages, norm_scale,
     kv_i, act_i = torch.where(pty == 0, pt, 0), torch.where(pty == 1, pt, 0)
     k_kv = _pages(k_pages, k_scales, kv_i, dt)                # (B,P,T,KVH,D)
     v_kv = _pages(v_pages, v_scales, kv_i, dt)
-    a = _pages(act_pages, act_scales, act_i, dt)              # (B,P,T,d)
-    if norm_type == "layernorm":
-        mu = a.mean(-1, keepdim=True)
-        var = (a - mu).square().mean(-1, keepdim=True)
-        a = (a - mu) * torch.rsqrt(var + eps) * norm_scale.float() \
-            + norm_bias.float()
-    else:
-        var = a.square().mean(-1, keepdim=True)
-        a = a * torch.rsqrt(var + eps) * (1.0 + norm_scale.float())
-    a = a.to(dt).float()
-    k_act = torch.einsum("bptd,dhe->bpthe", a, wk.float()).to(dt).float()
-    v_act = torch.einsum("bptd,dhe->bpthe", a, wv.float()).to(dt).float()
+    a = _norm(_pages(act_pages, act_scales, act_i, dt), norm_scale, norm_bias,
+              norm_type, eps, dt)                             # (B,P,T,d)
+    k_act, v_act = (_project(a, w, dt) for w in (wk, wv))
     is_act = (pty == 1)[..., None, None, None]
     k = torch.where(is_act, k_act, k_kv)
     v = torch.where(is_act, v_act, v_kv)
@@ -158,6 +164,69 @@ def hybrid_paged_attention_two_pool_split_ref(
     return (o, m, l) if return_lse else o
 
 
+def hybrid_paged_attention_tiled_ref(
+        q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk, wv,
+        page_table, page_type, page_ntok, *, k_scales=None, v_scales=None,
+        act_scales=None, norm_type: str = "layernorm", eps: float = 1e-5,
+        return_lse: bool = False):
+    """The fused mode's kernels in plain PyTorch, for the tests.  The norm
+    pass: every ACT entry's rows normed once (not once per head) and
+    rounded to the cache dtype, into a scratch of (B, n_tiles * pages, 16,
+    d) rows, zeros elsewhere.  The tile pass: each of ``tile_plan``'s
+    tiles projects its scratch rows by ``wk``/``wv`` as one block and
+    rounds them, takes its KV
+    entries from the pools, and attends with its own (m, l).  The combine
+    pass: the partials folded in order with ``merge_partials_torch``.
+    Arguments and result as ``hybrid_paged_attention_ref``."""
+    B, maxp = page_table.shape
+    n_tiles, ppt = tile_plan(maxp)
+    dt = act_pages.dtype if act_scales is None else q.dtype
+    pty, pt = page_type.long(), page_table.long()
+    width = n_tiles * ppt
+    pad = lambda x, v: torch.nn.functional.pad(x, (0, width - maxp), value=v)
+    pty, pt, pn = pad(pty, 2), pad(pt, 0), pad(page_ntok.long(), 0)
+    is_act = pty == 1
+    act_i = torch.where(is_act, pt, 0)
+    normed = _norm(_pages(act_pages, act_scales, act_i, dt), norm_scale,
+                   norm_bias, norm_type, eps, dt)
+    scratch = torch.where(is_act[..., None, None], normed, 0.0)
+    kv_i = torch.where(pty == 0, pt, 0)
+    acc = None
+    for t in range(n_tiles):
+        cols = slice(t * ppt, (t + 1) * ppt)
+        a = scratch[:, cols]                                  # (B,ppt,T,d)
+        k_act, v_act = (_project(a, w, dt) for w in (wk, wv))
+        sel = is_act[:, cols, None, None, None]
+        k = torch.where(sel, k_act, _pages(k_pages, k_scales, kv_i[:, cols], dt))
+        v = torch.where(sel, v_act, _pages(v_pages, v_scales, kv_i[:, cols], dt))
+        o, m, l = _attend(q, k, v, pty[:, cols], pn[:, cols], return_lse=True,
+                          out_dtype=torch.float32)
+        acc = (o, m, l) if acc is None else merge_partials_torch(*acc, o, m, l)
+    o, m, l = acc
+    o = o.to(q.dtype)
+    return (o, m, l) if return_lse else o
+
+
+def _norm(a, norm_scale, norm_bias, norm_type: str, eps: float, dtype):
+    """ACT rows a (..., d) float32 normed in float32 (LayerNorm with its
+    bias, or rmsnorm with 1 + scale), rounded to the cache ``dtype``."""
+    if norm_type == "layernorm":
+        mu = a.mean(-1, keepdim=True)
+        var = (a - mu).square().mean(-1, keepdim=True)
+        a = (a - mu) * torch.rsqrt(var + eps) * norm_scale.float() \
+            + norm_bias.float()
+    else:
+        var = a.square().mean(-1, keepdim=True)
+        a = a * torch.rsqrt(var + eps) * (1.0 + norm_scale.float())
+    return a.to(dtype).float()
+
+
+def _project(a, w, dtype):
+    """Normed rows a (B, P, T, d) by a projection w (d, KVH, D), rounded to
+    the cache ``dtype``: (B, P, T, KVH, D) float32."""
+    return torch.einsum("bptd,dhe->bpthe", a, w.float()).to(dtype).float()
+
+
 def _pages(pool, scales, idx, dtype):
     """Pages ``idx`` of a pool as float32; an int8 pool's codes times their
     scales, rounded to the cache ``dtype`` first."""
@@ -175,9 +244,11 @@ def _empty(q, return_lse: bool):
     return o, stat + NEG_INF, stat
 
 
-def _attend(q, k, v, page_type, page_ntok, return_lse: bool = False):
+def _attend(q, k, v, page_type, page_ntok, return_lse: bool = False,
+            out_dtype=None):
     """Masked softmax attention of q (B, KVH, G, D) over gathered pages
-    k/v (B, P, 16, KVH, D) float32."""
+    k/v (B, P, 16, KVH, D) float32; the output in ``out_dtype`` (default
+    q's)."""
     B, KVH, G, D = q.shape
     P = k.shape[1]
     pty = page_type.long()
@@ -193,5 +264,5 @@ def _attend(q, k, v, page_type, page_ntok, return_lse: bool = False):
     e = torch.where(vm, torch.exp(s - m), 0.0)
     o = torch.einsum("bhgs,bshd->bhgd", e, v)
     l = e.sum(-1, keepdim=True)
-    o = (o / l.clamp_min(1e-30)).to(q.dtype)
+    o = (o / l.clamp_min(1e-30)).to(out_dtype or q.dtype)
     return (o, m, l) if return_lse else o

@@ -16,11 +16,11 @@ with no ACT page: the ring's live slots are always its prefix
 
 The hybrid decode takes one of two kernel routes per model.  Learned-position
 models (OPT) run the fused ``hybrid_paged_attention``, which recomputes each
-ACT page's K/V inside the attention loop.  RoPE models (yi, minitron) first
-recompute the ACT region's bounded prefix with ``kv_gen`` (norm, projection,
-and K rotated at each ACT token's recorded position) into a per-step scratch
-pool, then run ``hybrid_paged_attention_two_pool`` over the KV pages and that
-pool: the fused loop cannot rotate K.
+ACT page's K/V in the same call that attends over them.  RoPE models (yi,
+minitron) first recompute the ACT region's bounded prefix with ``kv_gen``
+(norm, projection, and K rotated at each ACT token's recorded position) into
+a per-step scratch pool, then run ``hybrid_paged_attention_two_pool`` over
+the KV pages and that pool: the fused projection cannot rotate K.
 
 JAX's functions are pure and the JAX engine donates the cache into its decode
 loop; here the cache tensors are updated in place instead, and each function
@@ -604,9 +604,9 @@ def _hybrid_attend(lp, cfg, q, kc, vc, ac, tables,
     """The new token's attention over the typed page tables: KV pages of
     kc/vc (B, cap, KVH, D), ACT pages of ac (B, act_cap, d).  ``act_kv``
     given (RoPE models): ``kv_gen`` recomputes the ACT pages into the
-    scratch pool and the second-pool kernel attends; else the fused kernel
-    recomputes in its loop.  ``scales`` (ks, vs, as) select the kernels'
-    int8 modes; ``own`` then carries the ACT-bound token's exact K/V, which
+    scratch pool and the second-pool kernel attends; else the fused mode
+    recomputes them in the same call.  ``scales`` (ks, vs, as) select the
+    kernels' int8 modes; ``own`` then carries the ACT-bound token's exact K/V, which
     the tables leave out on the fused route.  -> (B, KVH, G, D), and (m, l)
     with ``return_lse``."""
     B = q.shape[0]

@@ -62,9 +62,31 @@ class _Step:
     events: dict = field(default_factory=dict)    # robustness events by name
 
 
+@dataclass
+class MeasuredStep(TimelineResult):
+    """A measured step: ``TimelineResult``'s schema (the reference's, key for
+    key), and the gpu busy seconds that lie inside the pcie lane's busy
+    intervals: the compute the weight copies hide."""
+    gpu_hidden: float = 0.0
+
+
 #: span tag -> traffic category (compute tags carry no bytes)
 _TAG_TO_TRAFFIC = {"w": "weights", "kv": "kv_load", "act": "act_load",
                    "st": "store"}
+
+
+def covered(spans: List[Span], lane: str, under: str) -> float:
+    """Seconds of ``lane``'s spans that lie inside the union of ``under``'s
+    spans: how much of one lane's busy time the other's busy time hides
+    (the gpu lane's compute under the pcie lane's copies)."""
+    merged: List[List[float]] = []
+    for a, b in sorted((sp.start, sp.end) for sp in spans if sp.lane == under):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return sum(max(0.0, min(b, sp.end) - max(a, sp.start))
+               for sp in spans if sp.lane == lane for a, b in merged)
 
 
 def _is_event(t) -> bool:
@@ -160,10 +182,11 @@ class MeasuredTimeline:
             self.record(lane, tag, t0, time.perf_counter(), nbytes)
 
     # ---------------------------------------------------------------- results
-    def results(self, tag: Optional[str] = None) -> List[TimelineResult]:
+    def results(self, tag: Optional[str] = None) -> List[MeasuredStep]:
         """Per-step measured ``TimelineResult``s (same schema as
-        ``simulate_steps``) of the COMPLETED steps; ``tag`` filters steps
-        (e.g. only "decode").  Synchronises pending CUDA events."""
+        ``simulate_steps``, and ``gpu_hidden``) of the COMPLETED steps;
+        ``tag`` filters steps (e.g. only "decode").  Synchronises pending
+        CUDA events."""
         out = []
         with self._lock:
             _resolve(self._steps)
@@ -182,10 +205,11 @@ class MeasuredTimeline:
                     traffic[cat] += sp.nbytes
                 finish.append(sp.end - s.start)
                 end = max(end, sp.end)
-            out.append(TimelineResult(
+            out.append(MeasuredStep(
                 total=end - s.start, pcie_busy=busy["pcie"],
                 gpu_busy=busy["gpu"], cpu_busy=busy["cpu"], traffic=traffic,
-                finish=finish, tag_busy=tag_busy, events=dict(s.events)))
+                finish=finish, tag_busy=tag_busy, events=dict(s.events),
+                gpu_hidden=covered(s.spans, "gpu", "pcie")))
         return out
 
     def drain(self, tag: Optional[str] = None) -> List[TimelineResult]:

@@ -35,6 +35,7 @@ from repro_torch.core.quant import QuantConfig
 from repro_torch.data.pipeline import request_trace
 from repro_torch.offload import (FaultPlan, HostBlockPool, HostWeightPool,
                                  MeasuredTimeline, WeightStreamer)
+from repro_torch.offload.timeline import MeasuredStep, covered
 from repro_torch.serving import HybridServeEngine
 
 torch.set_num_threads(1)
@@ -205,6 +206,31 @@ def test_timeline_step_attribution():
     assert res[0].traffic["weights"] == 100 and res[0].gpu_busy > 0
     assert res[1].traffic["store"] == 7 and res[1].gpu_busy == 0.0
     assert tl.drain() and not tl.results()             # drain resets
+
+
+@pytest.mark.parametrize("gpu,pcie,hidden", [
+    ([(1.0, 2.0)], [(0.0, 3.0)], 1.0),                 # inside one copy
+    ([(1.0, 2.0)], [(2.0, 3.0)], 0.0),                 # after it: serial
+    ([(1.0, 3.0)], [(0.0, 1.5), (1.2, 2.0)], 1.0),     # overlapping copies
+    ([(0.0, 1.0), (2.0, 4.0)], [(0.5, 2.5), (3.5, 5.0)], 1.5),
+    ([(0.0, 1.0)], [], 0.0)])
+def test_timeline_gpu_hidden_under_copies(gpu, pcie, hidden):
+    """A measured step's gpu busy time that lies inside the pcie lane's busy
+    intervals (their union, so two overlapping copies count once): the
+    offload phase's reading of how much compute the copy stream hides."""
+    tl = MeasuredTimeline()
+    tl.begin_step("decode", now=0.0)
+    for a, b in gpu:
+        tl.record("gpu", "fwd", a, b)
+    for a, b in pcie:
+        tl.record("pcie", "w", a, b, 10)
+    tl.record("cpu", "cpu", 0.0, 5.0)                  # other lanes hide nothing
+    tl.end_step(now=5.0)
+    res, = tl.results("decode")
+    assert isinstance(res, MeasuredStep) and isinstance(res, TimelineResult)
+    assert res.gpu_hidden == pytest.approx(hidden)
+    assert covered(tl._steps[0].spans, "gpu", "pcie") == pytest.approx(hidden)
+    assert 0.0 <= res.gpu_hidden <= res.gpu_busy
 
 
 def test_timeline_records_from_many_threads():

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.hybrid_attention.ops import split_plan
+from repro_torch.kernels.hybrid_attention.ops import _check_two_pool, split_plan
 from repro_torch.kernels.hybrid_attention.ref import (
     MAX_PAGES_PER_SPLIT, SPLIT_TARGET, hybrid_paged_attention_two_pool_ref,
     hybrid_paged_attention_two_pool_split_ref)
@@ -128,3 +128,25 @@ def test_split_in_cache_dtype_within_rounding(dtype):
     ulp = 2.0 ** -{torch.float16: 10, torch.bfloat16: 7}[dtype]
     assert got.dtype == dtype
     assert (got.float() - want.float()).abs().max() <= ulp * want.float().abs().max()
+
+
+@pytest.mark.parametrize("bad", ["D=24", "D=272", "G=9", "float32",
+                                 "int64_tables", "pool_shape"])
+def test_two_pool_wrapper_refuses_what_the_kernels_cannot_take(bad):
+    """The second-pool wrapper's check, called as its CUDA branch calls it
+    (on the CPU the wrapper takes the plain version): a head_dim that is no
+    multiple of 16 or over 256, G over 8, float32, tables that are not
+    int32, a pool of another head_dim are refused before any launch."""
+    D = {"D=24": 24, "D=272": 272}.get(bad, 32)
+    G = 9 if bad == "G=9" else 4
+    dt = torch.float32 if bad == "float32" else torch.float16
+    q = torch.zeros((2, 2, G, D), dtype=dt)
+    pool = torch.zeros((4, 16, 2, 16 if bad == "pool_shape" else D), dtype=dt)
+    tabs = tuple(torch.zeros((2, 5), dtype=torch.int64 if bad == "int64_tables"
+                             else torch.int32) for _ in range(3))
+    ok = torch.zeros((4, 16, 2, 32), dtype=torch.float16)
+    _check_two_pool(torch.zeros((2, 2, 4, 32), dtype=torch.float16), ok, ok, ok,
+                    ok, (None, None), tuple(torch.zeros((2, 5), dtype=torch.int32)
+                                           for _ in range(3)))
+    with pytest.raises(ValueError, match="hybrid_paged_attention_two_pool"):
+        _check_two_pool(q, pool, pool, pool, pool, (None, None), tabs)
