@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout (``nvcc``, sm_90a; the
-flash kernel's and the fused hybrid tile kernel's machine code must hold
-Hopper's tensor-core ``HGMMA``),
+machine code of the flash kernel, the fused hybrid tile kernel, ``kv_gen``'s
+projection and ``ssd_scan``'s Gram and scan passes must hold Hopper's
+tensor-core ``HGMMA``),
 holds each kernel against its plain PyTorch version at the main paths'
 shapes, then serves two models at full width and full depth (random weights
 from a seed) through ``HybridServeEngine`` in hybrid and kv modes and checks
@@ -70,9 +71,11 @@ from repro_torch.kernels.hybrid_attention.ops import (  # noqa: E402
     hybrid_paged_attention, hybrid_paged_attention_two_pool)
 from repro_torch.kernels.hybrid_attention.ref import (  # noqa: E402
     hybrid_paged_attention_ref, hybrid_paged_attention_two_pool_ref)
-from repro_torch.kernels.kv_gen.ops import kv_gen  # noqa: E402
+from repro_torch.kernels.kv_gen.ops import FAULTS as KV_GEN_FAULTS  # noqa: E402
+from repro_torch.kernels.kv_gen.ops import _kv_gen, kv_gen  # noqa: E402
 from repro_torch.kernels.kv_gen.ref import kv_gen_ref  # noqa: E402
-from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import FAULTS as SSD_FAULTS  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import _ssd_scan, ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -240,6 +243,14 @@ MAMBA_DT_RANGE = (1e-3, 1e-1)
 # run; the planted faults (a state not carried, a conv cache one token late,
 # a zero state) read 5-7, far above it
 MAMBA_SPREAD_CHUNK = 32
+# the earlier designs' kernel times on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (kv_gen: one block per 32-row tile and head on WMMA, its norm per column
+# block; ssd_scan: one block per (request, head), float32 on the CUDA cores),
+# printed beside each row's time: (name, its first shapes' key) -> ms
+BEFORE_REDESIGN_MS = {("kv_gen", 4096): 0.0847, ("kv_gen", 3072): 0.0650,
+                      ("kv_gen_q8", 4096): 0.0981,
+                      ("kv_gen_qk_norm", 1152): 0.0610,
+                      ("ssd_scan", 1000): 2.930, ("ssd_scan", 512): 0.844}
 
 
 def emit(obj) -> None:
@@ -369,7 +380,25 @@ def tensor_cores(lib: str) -> dict:
 # the kernel functions that must run their products on the tensor cores:
 # (library, part of the mangled name); every instantiation of each
 HGMMA_KERNELS = (("flash_attention", "flash_fwd_kernel"),
-                 ("hybrid_attention", "fused_tile_kernel"))
+                 ("hybrid_attention", "fused_tile_kernel"),
+                 ("kv_gen", "kv_proj_kernel"),
+                 ("ssd_scan", "ssd_gram_kernel"),
+                 ("ssd_scan", "ssd_scan_bf16_kernel"),
+                 ("ssd_scan", "ssd_scan_tf32_kernel"))
+
+
+def kernel_symbol(line: str):
+    """(kernel name, template arguments) of the first mangled
+    ``<length><name>_kernel I...E`` symbol in a ptxas line, or None: the
+    name is the ``length`` characters after its length prefix."""
+    for m in re.finditer(r"(?<!\d)(\d+)(?=[a-z_])", line):
+        start = m.end()
+        name = line[start:start + int(m.group(1))]
+        if name.endswith("_kernel"):
+            args = re.match(r"(I.*?E)Ev", line[start + len(name):])
+            if args:
+                return name, args.group(1)
+    return None
 
 
 def ptxas_report(log: str) -> dict:
@@ -379,12 +408,12 @@ def ptxas_report(log: str) -> dict:
              ("Li", ""), ("E", ""), ("a", "int8,"))
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"\d([a-z_]+_kernel)(I.*?E)Ev", line)
-        if m and ("Compiling entry" in line or "Function properties" in line):
-            args = m.group(2)[1:]
+        sym = kernel_symbol(line)
+        if sym and ("Compiling entry" in line or "Function properties" in line):
+            args = sym[1][1:]
             for a, b in short:
                 args = args.replace(a, b)
-            name = f"{m.group(1)}<{args.rstrip(',')}>"
+            name = f"{sym[0]}<{args.rstrip(',')}>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             out.setdefault(name, {})["spill_store_bytes"] = int(m.group(1))
@@ -612,7 +641,10 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
         pages, scale, bias, wk, wv, page_index=ix, sin=sin, cos=cos,
         norm_type=norm_type, eps=eps, **sc, **kn)
     got, want = run(kv_gen), run(kv_gen_ref)
-    faults = {}
+    faults = {"fault_err_last_slice_dropped": max(
+        (a.float() - b.float()).abs().max().item() for a, b in zip(
+            run(lambda *a, **kw: _kv_gen(
+                *a, **kw, flags=KV_GEN_FAULTS["drop_last_slice"])), want))}
     if knorm:
         faults["fault_err_no_knorm"] = max(
             (a.float() - b.float()).abs().max().item()
@@ -644,6 +676,8 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
     a = a.reshape(N * PAGE, d)
     w = torch.cat([wk.reshape(d, -1), wv.reshape(d, -1)], 1)
     ms = time_ms(lambda: run(kv_gen), 50)
+    name = "kv_gen_qk_norm" if knorm else "kv_gen_q8" if q8 else "kv_gen"
+    host, device = host_us(lambda: run(kv_gen)), device_us(lambda: run(kv_gen))
     plain_ms = time_ms(lambda: run(kv_gen_ref), 10)
     fp_ms = time_ms(lambda: run(kv_gen, sc={}, pages=fp_pool), 50) if q8 else None
     lib_ms = time_ms(lambda: torch.matmul(a, w), 50)
@@ -661,7 +695,10 @@ def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
                       "rope_theta": theta, "knorm": knorm},
             "dtype": str(dtype).removeprefix("torch."), "norm_type": norm_type,
             "int8": q8, "max_abs_err": err, "tol": tol, "max_abs_out": top,
-            **faults, "kernel_ms": ms, "fp_kernel_ms_same_values": fp_ms,
+            **faults, "kernel_ms": ms,
+            "kernel_ms_before_redesign": BEFORE_REDESIGN_MS.get((name, d)),
+            "kernel_host_us": host, "kernel_device_us": device,
+            "fp_kernel_ms_same_values": fp_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "torch.matmul of the normed rows against [wk|wv], "
                        "GEMM only" + (", rows dequantized beforehand" if q8 else ""),
@@ -1013,15 +1050,15 @@ def mamba_dt_bias(shape, g):
     return dt0 + torch.log(-torch.expm1(-dt0))
 
 
-def ssd_inputs(B, S, cfg, seed=0):
+def ssd_inputs(B, S, cfg, seed=0, dtype=torch.bfloat16):
     """ssd_scan's inputs as mamba2's prefill gives them: x, B and C slices of
-    one SiLU'd conv output (bfloat16; x read through its strides), dt
-    softplus'ed in float32 around the path's biases, A = -linspace(1, 16) as
-    the model inits it."""
+    one SiLU'd conv output (``dtype``, the model's bfloat16 by default; x
+    read through its strides), dt softplus'ed in float32 around the path's
+    biases, A = -linspace(1, 16) as the model inits it."""
     h, p, n = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_size
     g = torch.Generator(device="cuda").manual_seed(seed)
     xbc = F.silu(torch.randn((B, S, h * p + 2 * n), generator=g,
-                             device="cuda")).to(torch.bfloat16)
+                             device="cuda")).to(dtype)
     x, Bc, Cc = torch.split(xbc, [h * p, n, n], dim=-1)
     dt = F.softplus(torch.randn((B, S, h), generator=g, device="cuda")
                     + mamba_dt_bias((h,), g))
@@ -1046,23 +1083,31 @@ def rel_err(got, want) -> float:
             / want.float().abs().max()).item()
 
 
-def check_ssd_scan(B, S, cfg):
+def check_ssd_scan(B, S, cfg, dtype=torch.bfloat16):
     """ssd_scan against its plain version at one of mamba2's prefill shapes:
     y under the 4-ulp limit, the final state under ``SSD_STATE_RTOL``.
     Planted faults: the kernel called one chunk at a time (the state not
-    carried; read on y), and the final state taken before the last chunk
-    (the ragged one where S is no chunk multiple; read on the state)."""
+    carried; read on y), the final state taken before the last chunk (the
+    ragged one where S is no chunk multiple; read on the state), and each
+    chunk handed the previous chunk's C B^T (read on y).  Read, not held:
+    the kernel without its lo pieces.  ``dtype``: bfloat16 (the model's;
+    16-bit products) or float16 (TF32 products)."""
     chunk = cfg.ssm_chunk
-    x, dt, A, Bc, Cc = ssd_inputs(B, S, cfg, seed=S)
+    x, dt, A, Bc, Cc = ssd_inputs(B, S, cfg, seed=S, dtype=dtype)
     y, state = ssd_scan(x, dt, A, Bc, Cc, chunk=chunk)
     want_y, want_state = ssd_chunked_ref(x, dt, A, Bc, Cc, chunk=chunk)
     y_nc, _ = ssd_chunks(x, dt, A, Bc, Cc, chunk=chunk)
     last = (S - 1) // chunk * chunk
     _, state_early = ssd_scan(x[:, :last], dt[:, :last].contiguous(), A,
                               Bc[:, :last], Cc[:, :last], chunk=chunk)
+    y_lag, _ = _ssd_scan(x, dt, A, Bc, Cc, chunk=chunk,
+                         flags=SSD_FAULTS["previous_chunk_gram"])
+    y_nolo, state_nolo = _ssd_scan(x, dt, A, Bc, Cc, chunk=chunk,
+                                   flags=SSD_FAULTS["drop_lo_terms"])
     torch.cuda.synchronize()
     tol, top = kernel_tol(want_y)
-    ms = time_ms(lambda: ssd_scan(x, dt, A, Bc, Cc, chunk=chunk), 10)
+    run = lambda: ssd_scan(x, dt, A, Bc, Cc, chunk=chunk)
+    ms = time_ms(run, 10)
     plain_ms = time_ms(lambda: ssd_chunked_ref(x, dt, A, Bc, Cc, chunk=chunk), 10)
     h, p, n = x.shape[2], x.shape[3], Bc.shape[-1]
     # the chunk products over each chunk's real rows c: C B^T (c x c x n),
@@ -1074,7 +1119,8 @@ def check_ssd_scan(B, S, cfg):
               + 2 * B * S * n * Bc.element_size() + state.numel() * 4)
     bound_ms, by = bound(nbytes, ops)
     return {"shape": {"B": B, "S": S, "h": h, "p": p, "n": n, "chunk": chunk},
-            "dtype": "bfloat16", "max_abs_err": (y.float() - want_y.float())
+            "dtype": str(dtype).removeprefix("torch."),
+            "max_abs_err": (y.float() - want_y.float())
             .abs().max().item(), "tol": tol, "max_abs_out": top,
             "state_rel_err": rel_err(state, want_state),
             "state_rtol": SSD_STATE_RTOL,
@@ -1082,9 +1128,19 @@ def check_ssd_scan(B, S, cfg):
             .abs().max().item(),
             "fault_state_rel_err_before_last_chunk": rel_err(state_early,
                                                              want_state),
+            "fault_err_previous_chunk_gram": (y_lag.float() - want_y.float())
+            .abs().max().item(),
+            # read, not held: the hi pieces alone, one rounding per operand
+            "diag_state_rel_err_without_lo_terms": rel_err(state_nolo, want_state),
+            "diag_max_abs_err_without_lo_terms": (y_nolo.float() - want_y.float())
+            .abs().max().item(),
             "finite": bool(torch.isfinite(y).all() and torch.isfinite(state)
                            .all()),
-            "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "kernel_ms": ms,
+            "kernel_ms_before_redesign": BEFORE_REDESIGN_MS.get(("ssd_scan", S))
+            if dtype == torch.bfloat16 else None,
+            "kernel_host_us": host_us(run, 50), "kernel_device_us": device_us(run),
+            "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes the chunked "
                        "scan with its carried state",
             "bound_ms": bound_ms, "bound_by": by, "ops": ops, "bytes": nbytes}
@@ -1101,7 +1157,8 @@ def phase_kernels(results):
     causal and in its window mode at group 1's prompt, the second-pool mode
     at a global layer's tables and at a local layer's rings, and kv_gen with
     the K norm.  Last, ssd_scan at both of mamba2's prefill shapes
-    (bfloat16, h = 80, P = 64, N = 128), the ragged one first.  Beyond the
+    (bfloat16, h = 80, P = 64, N = 128), the ragged one first, and once in
+    float16.  Beyond the
     serve shapes: flash at a ragged GQA length (2 x 777, H = 8, KVH = 2,
     causal and window 100) and at D = 64, and the second-pool mode at the
     split plan's edges (``two_pool_edges``).  The second-pool rows also
@@ -1177,7 +1234,8 @@ def phase_kernels(results):
                             gemma.d_model, gemma.num_kv_heads, hd=gemma.head_dim,
                             act_cap=g_global["act_cap"], theta=gemma.rope_theta,
                             knorm=True)],
-           "ssd_scan": [check_ssd_scan(B, S, mamba) for B, S in MAMBA_GROUPS],
+           "ssd_scan": [check_ssd_scan(B, S, mamba) for B, S in MAMBA_GROUPS]
+           + [check_ssd_scan(*MAMBA_GROUPS[1], mamba, dtype=torch.float16)],
            "gemma_serve_shapes": {"global": g_global, "ring": g_ring},
            "opt_serve_shape": opt_shape}
     emit(out)
@@ -1193,6 +1251,13 @@ def phase_kernels(results):
                   f"{c['kernel_ms_before_tiles']}], host "
                   f"{c['kernel_host_us']} us, device {c['kernel_device_us']} us, "
                   f"bound {c['bound_ms']} ms", flush=True)
+    for name in ("kv_gen", "kv_gen_q8", "kv_gen_qk_norm", "ssd_scan"):
+        for c in out[name]:
+            print(f"{name} {c['dtype']} {c['shape']}: {c['kernel_ms']} ms "
+                  f"[before the redesign: {c['kernel_ms_before_redesign']}], "
+                  f"host {c['kernel_host_us']} us, device "
+                  f"{c['kernel_device_us']} us, bound {c['bound_ms']} ms, "
+                  f"error {c['max_abs_err']} (limit {c['tol']})", flush=True)
     bad = [(name, c["shape"], c["dtype"], c["max_abs_err"], c["tol"])
            for name in KERNELS for c in out[name]
            if not c["max_abs_err"] <= c["tol"]]
@@ -2009,9 +2074,9 @@ def kernel_group(name: str) -> str:
         return "hybrid_paged_attention_two_pool"
     if "flash_fwd_kernel" in name:
         return "flash_attention"
-    if "kv_gen_kernel" in name:
+    if "kv_norm_kernel" in name or "kv_proj_kernel" in name:
         return "kv_gen"
-    if "ssd_scan_kernel" in name:
+    if "ssd_gram_kernel" in name or "ssd_scan_" in name:
         return "ssd_scan"
     if any(w in name.lower() for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul (cuBLAS)"
@@ -2053,8 +2118,13 @@ def phase_profile(results, smi, name, engines, reqs, runs=None):
             "device_idle_share": 1.0 - busy / wall_ms if by_name else None,
             "device_ms_by_kernel": dict(sorted(by_group.items(),
                                                key=lambda kv: -kv[1])),
+            "device_share_by_kernel": {g: ms / busy for g, ms in by_group.items()}
+            if busy else {},
             "top_kernels": [{"name": n_[:90], "calls": n, "ms": t}
                             for n_, (n, t) in top]}
+        print(f"profile {name} {mode}: device busy {busy} ms of {wall_ms} ms; "
+              + ", ".join(f"{g} {by_group[g] / busy:.4f}" for g in
+                          ("kv_gen", "ssd_scan") if g in by_group), flush=True)
     emit(out)
     results[f"profile {name}"] = out
 
@@ -2376,6 +2446,8 @@ def phase_serve_mamba2(results, smi):
                 k: (after[k] - after_prefill[k]) / n for k in prev}})
         prev = after
     launches = read_counts()
+    print(f"mamba2 prefill ms per group {MAMBA_GROUPS}: "
+          f"{[st['prefill_ms'] for st in stages]}", flush=True)
     want_prefill = {k: 0 for k in COUNTERS}
     want_prefill["ssd_scan"] = cfg.num_layers
     want_step = {k: 0 for k in COUNTERS}

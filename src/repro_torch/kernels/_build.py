@@ -7,8 +7,10 @@ plain C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <name>.cu
 
 The output lands in ``build/kernels/`` at the root of the checkout.  The file
-name carries a hash of the source and the flags, so an edited source never
-loads a stale library.  All sources build in parallel, one ``nvcc`` each.
+name carries a hash of the source, of every local header it includes
+(``#include "..."``, such as ``kernels/hopper.cuh``, followed recursively) and
+of the flags, so an edited source or header never loads a stale library.  All
+sources build in parallel, one ``nvcc`` each.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -48,8 +51,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def includes(src: Path) -> list:
+    """The local headers ``src`` includes, recursively, each once, in the
+    order first met (a quoted include is found beside the including file)."""
+    seen, todo = [], [src]
+    while todo:
+        cur = todo.pop(0)
+        for name in _INCLUDE.findall(cur.read_bytes()):
+            dep = (cur.parent / name.decode()).resolve()
+            if dep.exists() and dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
 def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for dep in includes(src):
+        h.update(dep.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:12]}.so"
 
 

@@ -6,369 +6,343 @@
 // What it computes: for each selected ACT page (page_index[n] of the pool
 // (P, 16, d_model)), each of its 16 rows is normed in float32 (rmsnorm with
 // `1 + scale`, or layernorm with scale and bias), rounded to the cache
-// dtype, and projected by the layer's
-// wk and wv, shaped (d_model, KVH, hd); the projected K and V are rounded to
-// the dtype; with a `knorm` (the q/k-norm models, gemma3) K is then normed
-// per (row, head) over its hd columns in float32, rmsnorm with `1 + knorm`
-// and eps 1e-6, and rounded; and K is then rotated in float32 with the
-// caller's per-row sin/cos tables (N, 16, hd/2; half-split layout) and
-// rounded again.  That is
-// where the model path (`_hybrid_layer_step`) rounds, so a recomputed K/V
-// equals the one prefill stored for that token up to the order of summation.
-// Two deliberate differences from the TPU kernel, both to follow the model
+// dtype, and projected by the layer's wk and wv, shaped (d_model, KVH, hd);
+// the projected K and V are rounded to the dtype; with a `knorm` (the
+// q/k-norm models, gemma3) K is then normed per (row, head) over its hd
+// columns in float32, rmsnorm with `1 + knorm` and eps 1e-6, and rounded;
+// and K is then rotated in float32 with the caller's per-row sin/cos tables
+// (N, 16, hd/2; half-split layout) and rounded again.  That is where the
+// model path (`_hybrid_layer_step`) rounds, so a recomputed K/V equals the
+// one prefill stored for that token up to the order of summation.  Two
+// deliberate differences from the TPU kernel, both to follow the model
 // path: LayerNorm applies its bias, and the rounding points above (the TPU
 // kernel norms and projects in float32).  The rotation multiplies and adds
 // with explicit round-to-nearest intrinsics, so it is not contracted into
 // fused multiply-adds and gives PyTorch's elementwise result bit for bit.
 //
-// What bounds it on this card: one GEMM (N*16, d_model) x (d_model,
-// 2*KVH*hd).  At the serve shape (N = 16 pages, d_model = 4096, KVH = 4,
-// hd = 128, bf16) that is 2.1 GFLOP against 8.4 MB of weights, 2.1 MB of ACT
-// and 0.5 MB of output: about 170 operations per byte, below the H100's
-// ~295, so it is bound by bytes, and mostly by the weights.
-//
-// The simple design: a GEMM-tiled grid, one block per (32-row tile, one head
-// of K or of V), one warp per 32 output columns: 4 warps for hd <= 128, 8 for
-// hd <= 256 (gemma3).  The whole head sits in one block, so the RoPE epilogue
-// finds both halves of every pair and the K norm its whole row.  The block
-// first takes its rows' statistics in float32, each warp walking 8 rows at
-// once so that 8 loads per lane are in flight.  Then d_model streams through
-// shared memory 128 columns at a time: each thread loads its share of the
-// next ACT and weight tiles into registers (16-byte loads, all issued before
-// any is used) while the warps multiply the current tiles; the ACT tile is
-// normed and rounded on its way into shared memory.  Each warp owns a 32x32
-// share of the output on the tensor cores (WMMA 16x16x16, float32
-// accumulators), which goes through shared memory (aliasing the weight
-// tile) to the epilogue.  A step takes 128 columns of d_model at hd <= 128
-// and 64 at hd <= 256, so that the weight tile (64 x 264 x 2 = 33,792 bytes)
-// and the whole block stay under the 48 KB of static shared memory.  Each block reads its head's weight slice once for
-// its 32 rows, so the weights are read N*16/32 times in all, mostly from
-// L2.  cp.async or TMA pipelines, `wgmma`, and a grid that reads each weight
-// once are later work.
-//
 // int8 mode (a non-null `act_scales`): the ACT pool holds int8 codes with one
-// float16 scale per token (P, 16, 1), the quantized cache's ACT region.  The
-// norm prologue dequantizes each value as rnd<T>(code * scale), the product in
-// float32 rounded to the cache dtype T, which is the value the model path's
-// fake quantization stores; the statistics pass and the tile loads read the
-// same values.  This is the ACT dequant of the TPU hybrid kernel's norm hoist
-// (src/repro/kernels/hybrid_attention/kernel.py:100-103), which the RoPE route
-// runs here.  Outputs stay in the cache dtype.  The ACT bytes halve; the
-// weights, which dominate, do not change.
-#include <cuda_runtime.h>
-#include <cuda_fp16.h>
-#include <cuda_bf16.h>
-#include <mma.h>
-#include <cstdint>
-#include <type_traits>
+// float16 scale per token (P, 16, 1), the quantized cache's ACT region; the
+// norm pass dequantizes each value as rnd<T>(code * scale), the value the
+// model path's fake quantization stores (the ACT dequant of the TPU hybrid
+// kernel's norm hoist, src/repro/kernels/hybrid_attention/kernel.py:100-103,
+// which the RoPE route runs here).  The ACT bytes halve; the weights, which
+// dominate, do not change.
+//
+// What bounds it on this card: one GEMM (N*16, d_model) x (d_model,
+// 2*KVH*hd).  At yi-6b's serve shape (12 pages, d_model 4096, KVH 4, hd 128,
+// bf16) that is 1.6 GFLOP against 8.4 MB of weights, 1.6 MB of ACT and
+// 0.4 MB of output: ~160 operations per byte, under the H100's ~295, so it is
+// bound by bytes, mostly the weights' (~3 us at 3.35 TB/s).  The design reads
+// each weight byte from device memory once per launch and keeps enough bytes
+// in flight to approach that rate.
+//
+// Design.  Two kernels on the current stream:
+//   - Norm pass, one warp per row: each selected row is dequantized (int8
+//     mode), normed in float32 once per launch (not once per head or column
+//     block) and written rounded to T into a scratch of (N*16, d_model) rows
+//     in page_index's order (norm_row, kernels/hopper.cuh).
+//   - Projection pass, grid (CL, groups, row tiles) in thread-block clusters
+//     of CL blocks along d_model.  A group is one head's [K | V] (hd <= 128:
+//     one wgmma m64n(2 HDP)k16, HDP = hd rounded up to 64) or, at hd > 128
+//     (gemma3's 256), K or V alone (m64n256k16).  Block (r, group, tile)
+//     streams the tile's 64 scratch rows and the group's weight columns over
+//     its 1/CL of d_model in chunks of 64 by TMA into a ring of 4 stages
+//     guarded by mbarriers, the weights read MN-major through the
+//     descriptor's transpose bit (as the fused hybrid tile pass).  The
+//     float32 partials go to shared memory; after a cluster barrier, block r
+//     sums rows
+//     [r 64/CL, (r + 1) 64/CL) of all CL partials through distributed shared
+//     memory, in rank order, and runs the epilogue on them, where the whole
+//     head row lives: round, K norm, RoPE, round, scatter to (N, 16, KVH, hd).
+//     CL (1, 2, 4 or 8) is the largest that keeps the grid within one block
+//     per SM; the row tiles of one group read its weight slice together,
+//     from L2 after the first.
+//
+// `flags` (a planted fault, 0 on the model's path): bit 0 drops the last
+// d_model slice's partial from the cluster's sum.
+#include <cooperative_groups.h>
+
+#include "../../hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int PAGE = 16;
-constexpr int BM = 32;             // rows per block (two pages)
-constexpr int MAX_HD = 256;        // the widest head a block takes
-constexpr int VEC = 8;             // 16-bit elements per 16-byte load
-constexpr float KNORM_EPS = 1e-6f; // the K norm's eps (rms_norm's default)
+constexpr int ROWS = 64;                 // a row tile: wgmma's M (four pages)
+constexpr int THREADS = 128;             // one warpgroup
+constexpr int NORM_THREADS = 128;        // the norm pass: one warp per row
+constexpr int KC = 64;                   // d_model columns per ring stage
+constexpr int STAGES = 4;
+constexpr int MAX_HD = 256;
+constexpr int MAX_CLUSTER = 8;
+constexpr float KNORM_EPS = 1e-6f;       // the K norm's eps (rms_norm's default)
 
-// The tiling of a block whose head is up to HDB columns wide (128 or 256).
-template <int HDB> struct Tile {
-  static constexpr int THREADS = HDB;      // warp w owns output columns [32w, 32w + 32)
-  static constexpr int WARPS = THREADS / 32;
-  static constexpr int BK = HDB == 128 ? 128 : 64;   // d_model columns per step
-  static constexpr int RPW = BM / WARPS;   // rows per warp in the statistics pass
-  static constexpr int LDA = BK + 8;       // padded leading dimensions (elements)
-  static constexpr int LDB = HDB + 8;
-  static constexpr int LDC = HDB + 4;
-  static constexpr int TPRA = BK / VEC;    // threads per ACT tile row
-  static constexpr int TPRB = HDB / VEC;   // threads per weight tile row
-  static constexpr int A_VECS = BM * BK / VEC / THREADS;   // per thread and step
-  static constexpr int B_VECS = BK * HDB / VEC / THREADS;
-  static constexpr int B_BYTES = BK * LDB * 2;             // weight tile, 16-bit
-  static constexpr int C_BYTES = BM * LDC * 4;             // accumulators, float
-  static_assert(THREADS % TPRA == 0 && THREADS % TPRB == 0 &&
-                    A_VECS * THREADS * VEC == BM * BK &&
-                    B_VECS * THREADS * VEC == BK * HDB && BM % WARPS == 0,
-                "tile thread mapping");
-  static_assert(C_BYTES <= B_BYTES, "the accumulator tile aliases the weight tile");
+// the projection pass at padded head width HDP (64, 128 or 256)
+template <int HDP> struct Proj {
+  static constexpr bool KV_APART = HDP > 128;        // K and V in separate blocks
+  static constexpr int NW = KV_APART ? HDP : 2 * HDP;   // output columns: 128 or 256
+  static constexpr int NB = NW / 64;                 // 64-column weight boxes a stage
+  static constexpr int A_BYTES = ROWS * 128;         // 64 rows x 64 16-bit columns
+  static constexpr int W_BYTES = KC * 128;           // 64 d_model rows x 64 columns
+  static constexpr int STAGE_BYTES = A_BYTES + NB * W_BYTES;
+  static constexpr int LDP = NW + 4;                 // a partial row, padded (floats)
+  static constexpr int PART_BYTES = ROWS * LDP * 4;  // aliases the ring once drained
+  static constexpr int RING = STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = RING > PART_BYTES ? RING : PART_BYTES;
+  // + the barriers, + slack to align the base to the 1 KB swizzle atom
+  static constexpr int SMEM = BAR_OFF + STAGES * 8 + 1024;
 };
 
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// round to T and back: the rounding point of the model path
-template <typename T> __device__ __forceinline__ float rnd(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
-
-// VEC elements of a payload type P in one load: 16 bytes of a 16-bit type,
-// 8 bytes of int8 codes
-template <typename P> struct Vec8 { using type = uint4; };
-template <> struct Vec8<int8_t> { using type = uint2; };
-
-template <typename P>
-__device__ __forceinline__ typename Vec8<P>::type ldv(const P* p) {
-  return *reinterpret_cast<const typename Vec8<P>::type*>(p);
-}
-
-// VEC payload elements as float: cache-dtype values, or int8 codes times the
-// row's scale `sc`, rounded to the cache dtype T
+// Norm pass: warp w of block i norms output row m = 4 i + w (page
+// page_index[m / 16], row m % 16) into row m of `rows`.
 template <typename T, typename P>
-__device__ __forceinline__ void unpack8(const typename Vec8<P>::type& u, float* f,
-                                        float sc) {
-  const P* e = reinterpret_cast<const P*>(&u);
+__global__ void __launch_bounds__(NORM_THREADS)
+kv_norm_kernel(const P* __restrict__ act_pages, const __half* __restrict__ act_scales,
+               const int* __restrict__ page_index, const T* __restrict__ norm_scale,
+               const T* __restrict__ norm_bias, T* __restrict__ rows, int n_rows,
+               int d_model, int layernorm, float eps) {
+  const int m = blockIdx.x * (NORM_THREADS / 32) + threadIdx.x / 32;
+  if (m >= n_rows) return;
+  const long src = (long)page_index[m / PAGE] * PAGE + m % PAGE;   // the pool's row
+  const float sc = act_scales != nullptr ? __half2float(act_scales[src]) : 1.f;
+  norm_row<T>(act_pages + src * d_model, sc, norm_scale, norm_bias,
+              rows + (long)m * d_model, d_model, layernorm, eps, threadIdx.x % 32);
+}
+
+// stage `c` of the block's d_model range: the tile's scratch rows and the
+// group's weight columns of d_model chunk k0 / KC, one barrier for all
+template <int HDP>
+__device__ __forceinline__ void load_stage(uint8_t* smem, uint64_t* full, int c, int k0,
+                                           const CUtensorMap* tm_a, const CUtensorMap* tm_k,
+                                           const CUtensorMap* tm_v, int m0, int h,
+                                           int which) {
+  using L = Proj<HDP>;
+  uint8_t* st = smem + (c % STAGES) * L::STAGE_BYTES;
+  uint64_t* bar = &full[c % STAGES];
+  mbar_expect_tx(bar, L::STAGE_BYTES);
+  tma_load_2d(st, tm_a, bar, k0, m0);
+  uint8_t* w = st + L::A_BYTES;
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    if constexpr (std::is_same<P, int8_t>::value) f[i] = rnd<T>(__fmul_rn((float)e[i], sc));
-    else f[i] = to_f(e[i]);
+  for (int nb = 0; nb < L::NB; ++nb) {
+    // [K | V]: K's HDP / 64 boxes, then V's; apart: the group's own
+    const bool v = L::KV_APART ? which == 1 : nb >= L::NB / 2;
+    const int col = (L::KV_APART ? nb : nb % (L::NB / 2)) * 64;
+    tma_load_3d(w + nb * L::W_BYTES, v ? tm_v : tm_k, bar, col, h, k0);
   }
 }
 
-__device__ __forceinline__ uint4 ld16(const void* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
-
-// norm_type: 0 layernorm, 1 rmsnorm.  P: the ACT payload type, T or int8_t.
-// HDB: the block's head width (Tile).  knorm: null, or the K norm's (hd,).
-template <typename T, typename P, int HDB>
-__global__ void __launch_bounds__(HDB)
-kv_gen_kernel(const P* __restrict__ act, const __half* __restrict__ act_scales,
-              const int* __restrict__ page_index,
-              const T* __restrict__ norm_scale, const T* __restrict__ norm_bias,
-              const T* __restrict__ wk, const T* __restrict__ wv,
-              const T* __restrict__ knorm,
-              const float* __restrict__ sin_t, const float* __restrict__ cos_t,
-              T* __restrict__ k_out, T* __restrict__ v_out, int n_rows,
-              int d_model, int KVH, int hd, int norm_type, float eps) {
-  using Tl = Tile<HDB>;
-  constexpr int THREADS = Tl::THREADS, WARPS = Tl::WARPS, BK = Tl::BK;
-  constexpr int RPW = Tl::RPW, LDA = Tl::LDA, LDB = Tl::LDB, LDC = Tl::LDC;
-  constexpr int A_VECS = Tl::A_VECS, B_VECS = Tl::B_VECS;
-  __shared__ __align__(32) T a_s[BM * LDA];
-  __shared__ __align__(32) unsigned char bc_s[Tl::B_BYTES];   // weight tile, then C
-  __shared__ long row_off[BM];
-  __shared__ float row_sc[BM];       // int8 mode: each row's scale
-  __shared__ float mu_s[BM], rstd_s[BM];
-  __shared__ float kn_rstd[BM];      // the K norm's per-row factor
-  T* b_s = reinterpret_cast<T*>(bc_s);
-  float* c_s = reinterpret_cast<float*>(bc_s);
-
+// Projection pass.  Block (r, group, tile): rows 64 tile .. + 63, the
+// group's columns, d_model chunks [r nc / CL, (r + 1) nc / CL).
+template <typename T, int HDP>
+__global__ void __launch_bounds__(THREADS, 1)
+kv_proj_kernel(const __grid_constant__ CUtensorMap tm_a,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const T* __restrict__ knorm,
+               const float* __restrict__ sin_t, const float* __restrict__ cos_t,
+               T* __restrict__ k_out, T* __restrict__ v_out, int n_rows, int d_model,
+               int KVH, int hd, int flags) {
+  using L = Proj<HDP>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* part = reinterpret_cast<float*>(smem);                    // [ROWS][LDP]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);  // [STAGES]
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int which = blockIdx.x / KVH, h = blockIdx.x % KVH;  // 0: K, 1: V
-  const int m0 = blockIdx.y * BM;
-  const T* w = (which ? wv : wk) + (long)h * hd;
-  const long ldw = (long)KVH * hd;
+  const int group = blockIdx.y, m0 = blockIdx.z * ROWS;
+  const int h = L::KV_APART ? group / 2 : group;
+  const int which = L::KV_APART ? group % 2 : 0;
+  const int nc = (d_model + KC - 1) / KC;
+  const int c0 = rank * nc / CL, my_nc = (rank + 1) * nc / CL - c0;
 
-  if (tid < BM) {
-    const int m = m0 + tid;
-    long off = -1;
-    float sc = 1.f;
-    if (m < n_rows) {
-      const long pg = page_index[m / PAGE];
-      off = (pg * PAGE + m % PAGE) * d_model;
-      if (act_scales != nullptr) sc = __half2float(act_scales[pg * PAGE + m % PAGE]);
-    }
-    row_off[tid] = off;
-    row_sc[tid] = sc;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(&full[s], 1);
+    mbar_fence_init();
+    for (int c = 0; c < STAGES && c < my_nc; ++c)
+      load_stage<HDP>(smem, full, c, (c0 + c) * KC, &tm_a, &tm_k, &tm_v, m0, h, which);
   }
   __syncthreads();
 
-  // row statistics in float32; warp w takes rows w, w + 4, ... all at once
-  float mu[RPW], acc_s[RPW];
+  // D (64 x NW) = A (64 x its d_model range) . W: chunk c's products are
+  // started, then chunk c - 1's waited for and its stage refilled with
+  // chunk c - 1 + STAGES, so three chunks' loads stay in flight
+  float acc[L::NW / 2];
 #pragma unroll
-  for (int j = 0; j < RPW; ++j) mu[j] = 0.f;
-  for (int pass = norm_type == 0 ? 0 : 1; pass < 2; ++pass) {
+  for (int i = 0; i < L::NW / 2; ++i) acc[i] = 0.f;
+  for (int c = 0; c < my_nc; ++c) {
+    const int st = c % STAGES;
+    mbar_wait(&full[st], (c / STAGES) & 1);
+    const uint32_t a_addr = smem_u32(smem + st * L::STAGE_BYTES);
+    const uint32_t w_addr = a_addr + L::A_BYTES;
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < RPW; ++j) acc_s[j] = 0.f;
-    for (int c = lane * VEC; c < d_model; c += 32 * VEC) {
-      typename Vec8<P>::type u[RPW];
-#pragma unroll
-      for (int j = 0; j < RPW; ++j) {
-        const long off = row_off[warp + j * WARPS];
-        u[j] = off >= 0 ? ldv(act + off + c) : typename Vec8<P>::type{};
-      }
-#pragma unroll
-      for (int j = 0; j < RPW; ++j) {
-        float f[VEC];
-        unpack8<T, P>(u[j], f, row_sc[warp + j * WARPS]);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i)
-          acc_s[j] += pass == 0 ? f[i] : (f[i] - mu[j]) * (f[i] - mu[j]);
-      }
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      // A: 8-row groups 1 KB apart, a k-step 32 bytes into the swizzle atom;
+      // B: 16 d_model rows a k-step, 64-column blocks W_BYTES apart
+      const uint64_t da = desc_sw128(a_addr + kk * 32, 16, 1024);
+      const uint64_t db = desc_sw128(w_addr + kk * 2048, L::W_BYTES, 1024);
+      if constexpr (L::NW == 256) wgmma_tn_n256(acc, da, db, 1, T{});
+      else wgmma_tn_n128(acc, da, db, 1, T{});
     }
-#pragma unroll
-    for (int j = 0; j < RPW; ++j) {
-      const float tot = warp_sum(acc_s[j]) / d_model;
-      if (pass == 0) mu[j] = tot;
-      else if (lane == 0) {
-        mu_s[warp + j * WARPS] = mu[j];
-        rstd_s[warp + j * WARPS] = rsqrtf(tot + eps);
-      }
-    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc);
+    __syncthreads();                 // every warp is past chunk c - 1's stage
+    if (tid == 0 && c >= 1 && c - 1 + STAGES < my_nc)
+      load_stage<HDP>(smem, full, c - 1 + STAGES, (c0 + c - 1 + STAGES) * KC, &tm_a,
+                      &tm_k, &tm_v, m0, h, which);
   }
-
-  // this thread's share of a step's tiles: ACT tile column ta, rows
-  // ra0 + RA*j; weight tile column tb, rows rb0 + RB*j
-  constexpr int RA = THREADS / Tl::TPRA, RB = THREADS / Tl::TPRB;
-  const int ta = (tid % Tl::TPRA) * VEC, ra0 = tid / Tl::TPRA;
-  const int tb = (tid % Tl::TPRB) * VEC, rb0 = tid / Tl::TPRB;
-  typename Vec8<P>::type ax[A_VECS];
-  uint4 sc4 = make_uint4(0u, 0u, 0u, 0u), bi4 = sc4, bw[B_VECS];
-  auto load = [&](int k0) {
-    const int d = k0 + ta;
-    const bool din = d < d_model;
+  wgmma_wait<0>();
+  fence_regs(acc);
+  __syncthreads();                   // the ring is drained: the partial aliases it
+  // the fragment: rows 16 warp + lane / 4 (+ 8), columns 8 j + 2 (lane % 4)
 #pragma unroll
-    for (int j = 0; j < A_VECS; ++j) {
-      const long off = row_off[ra0 + j * RA];
-      ax[j] = off >= 0 && din ? ldv(act + off + d) : typename Vec8<P>::type{};
+  for (int j = 0; j < L::NW / 8; ++j)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = 16 * warp + lane / 4 + 8 * rr, col = 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(part + row * L::LDP + col) =
+          make_float2(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
     }
-    sc4 = din ? ld16(norm_scale + d) : make_uint4(0u, 0u, 0u, 0u);
-    if (norm_type == 0) bi4 = din ? ld16(norm_bias + d) : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-    for (int j = 0; j < B_VECS; ++j) {
-      const int r = k0 + rb0 + j * RB;
-      bw[j] = tb < hd && r < d_model ? ld16(w + r * ldw + tb)
-                                     : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-  auto store = [&]() {
-    float s[VEC], b[VEC];
-    unpack8<T, T>(sc4, s, 1.f);
-    unpack8<T, T>(bi4, b, 1.f);
-#pragma unroll
-    for (int j = 0; j < A_VECS; ++j) {
-      const int r = ra0 + j * RA;
-      float f[VEC];
-      unpack8<T, P>(ax[j], f, row_sc[r]);
-      alignas(16) T y[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        float x = f[e];
-        if (norm_type == 0) x = (x - mu_s[r]) * rstd_s[r] * s[e] + b[e];
-        else x = x * rstd_s[r] * (1.f + s[e]);
-        y[e] = from_f<T>(x);
-      }
-      *reinterpret_cast<uint4*>(a_s + r * LDA + ta) = *reinterpret_cast<const uint4*>(y);
-    }
-#pragma unroll
-    for (int j = 0; j < B_VECS; ++j)
-      *reinterpret_cast<uint4*>(b_s + (rb0 + j * RB) * LDB + tb) = bw[j];
-  };
+  cluster.sync();                    // every block's partial is written
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-  const bool active = warp * 32 < hd;
-
-  load(0);
-  for (int k0 = 0; k0 < d_model; k0 += BK) {
-    __syncthreads();               // statistics ready, previous tiles consumed
-    store();
-    __syncthreads();
-    if (k0 + BK < d_model) load(k0 + BK);        // in flight during the MMAs
-    if (active) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], a_s + i * 16 * LDA + kk, LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], b_s + kk * LDB + warp * 32 + j * 16, LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
+  // rows [r0, r0 + rpb): the sum over the cluster's blocks, in rank order,
+  // written over this block's own partial (only this block reads these rows)
+  const int rpb = ROWS / CL, r0 = rank * rpb;
+  const int srcs = (flags & 1) ? CL - 1 : CL;
+  for (int e = tid; e < rpb * L::NW / 4; e += THREADS) {
+    const int row = r0 + e / (L::NW / 4), col = (e % (L::NW / 4)) * 4;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int src = 0; src < srcs; ++src) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, src) + row * L::LDP + col);
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
     }
-  }
-
-  __syncthreads();                 // the weight tile is consumed: C aliases it
-  if (active) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(c_s + i * 16 * LDC + warp * 32 + j * 16, acc[i][j],
-                                LDC, wmma::mem_row_major);
+    *reinterpret_cast<float4*>(part + row * L::LDP + col) = s;
   }
   __syncthreads();
 
-  if (which == 0 && knorm != nullptr) {    // the K norm of the rounded projection
-    for (int r = warp; r < BM; r += WARPS) {
+  // epilogue, one warp a row: K and V rounded (rounding point of the model
+  // path), K normed and rounded, K rotated and rounded, scattered
+  const int half = hd / 2;
+  for (int row = r0 + warp; row < r0 + rpb; row += THREADS / 32) {
+    const int m = m0 + row;
+    if (m >= n_rows) continue;
+    const float* pr = part + row * L::LDP;
+    // this row's K columns start at column 0 of the group, V's at HDP (or 0)
+    const bool has_k = !L::KV_APART || which == 0;
+    const bool has_v = !L::KV_APART || which == 1;
+    const float* kr = pr;
+    const float* vr = pr + (L::KV_APART ? 0 : HDP);
+    if (has_v)
+      for (int c = lane; c < hd; c += 32)
+        v_out[((long)m * KVH + h) * hd + c] = from_f<T>(vr[c]);
+    if (!has_k) continue;
+    float kn_rstd = 1.f;
+    if (knorm != nullptr) {          // the K norm of the rounded projection
       float sq = 0.f;
       for (int c = lane; c < hd; c += 32) {
-        const float x = rnd<T>(c_s[r * LDC + c]);
+        const float x = rnd<T>(kr[c]);
         sq += x * x;
       }
-      sq = warp_sum(sq);
-      if (lane == 0) kn_rstd[r] = rsqrtf(sq / hd + KNORM_EPS);
+      kn_rstd = rsqrtf(warp_sum(sq) / hd + KNORM_EPS);
     }
-    __syncthreads();
-    for (int i = tid; i < BM * hd; i += THREADS) {
-      const int r = i / hd, c = i % hd;
-      c_s[r * LDC + c] =
-          rnd<T>(rnd<T>(c_s[r * LDC + c]) * kn_rstd[r] * (1.f + to_f(knorm[c])));
-    }
-    __syncthreads();
-  }
-
-  T* out = which ? v_out : k_out;
-  const int half = hd / 2;
-  const bool rope = which == 0;
-  for (int i = tid; i < BM * hd; i += THREADS) {     // epilogue
-    const int r = i / hd, c = i % hd, m = m0 + r;
-    if (m >= n_rows) continue;
-    float x = rnd<T>(c_s[r * LDC + c]);
-    if (rope) {
+    auto kval = [&](int c) {
+      const float x = rnd<T>(kr[c]);
+      return knorm != nullptr ? rnd<T>(x * kn_rstd * (1.f + to_f(knorm[c]))) : x;
+    };
+    for (int c = lane; c < hd; c += 32) {
       const int j = c < half ? c : c - half;
       const float sn = sin_t[(long)m * half + j], cs = cos_t[(long)m * half + j];
-      if (c < half) {            // x1 * cos - x2 * sin
-        const float x2 = rnd<T>(c_s[r * LDC + c + half]);
-        x = __fsub_rn(__fmul_rn(x, cs), __fmul_rn(x2, sn));
-      } else {                   // x2 * cos + x1 * sin
-        const float x1 = rnd<T>(c_s[r * LDC + c - half]);
-        x = __fadd_rn(__fmul_rn(x, cs), __fmul_rn(x1, sn));
-      }
+      const float x = kval(c), other = kval(c < half ? c + half : c - half);
+      const float r = c < half ? __fsub_rn(__fmul_rn(x, cs), __fmul_rn(other, sn))  // x1 cos - x2 sin
+                               : __fadd_rn(__fmul_rn(x, cs), __fmul_rn(other, sn)); // x2 cos + x1 sin
+      k_out[((long)m * KVH + h) * hd + c] = from_f<T>(r);
     }
-    out[((long)m * KVH + h) * hd + c] = from_f<T>(x);
   }
+  cluster.sync();                    // no block leaves while its partial is read
 }
 
-template <typename T, typename P, int HDB>
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+template <typename T, typename P, int HDP>
 int launch_as(const void* act, const void* act_scales, const int* page_index,
               const void* scale, const void* bias, const void* wk, const void* wv,
               const void* knorm, const float* sin_t, const float* cos_t, void* k_out,
-              void* v_out, int n_pages, int d_model, int KVH, int hd, int norm_type,
-              float eps, cudaStream_t stream) {
-  const int n_rows = n_pages * PAGE;
-  const dim3 grid(2 * KVH, (n_rows + BM - 1) / BM);
-  kv_gen_kernel<T, P, HDB><<<grid, Tile<HDB>::THREADS, 0, stream>>>(
+              void* v_out, void* scratch, int n_pages, int d_model, int KVH, int hd,
+              int layernorm, float eps, CUtensorMapDataType dtype, int flags,
+              cudaStream_t stream) {
+  using L = Proj<HDP>;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kv_proj_kernel<T, HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  int n_rows = n_pages * PAGE;             // (its address goes to the launch)
+  T* rows = static_cast<T*>(scratch);
+  // the normed rows (d_model, rows) in 64 x 64 boxes; wk and wv as
+  // (hd, KVH, d_model), boxes of 64 columns of one head by 64 d_model rows
+  const cuuint64_t a_dims[2] = {(cuuint64_t)d_model, (cuuint64_t)n_rows};
+  const cuuint64_t a_strides[1] = {(cuuint64_t)d_model * 2};
+  const cuuint32_t a_box[2] = {KC, ROWS};
+  const cuuint64_t w_dims[3] = {(cuuint64_t)hd, (cuuint64_t)KVH, (cuuint64_t)d_model};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)KVH * hd * 2};
+  const cuuint32_t w_box[3] = {64, 1, KC};
+  CUtensorMap ta, tk, tv;
+  if (!make_map(&ta, rows, dtype, 2, a_dims, a_strides, a_box) ||
+      !make_map(&tk, wk, dtype, 3, w_dims, w_strides, w_box) ||
+      !make_map(&tv, wv, dtype, 3, w_dims, w_strides, w_box))
+    return (int)cudaErrorInvalidValue;
+  kv_norm_kernel<T, P><<<(n_rows + 3) / 4, NORM_THREADS, 0, stream>>>(
       static_cast<const P*>(act), static_cast<const __half*>(act_scales), page_index,
-      static_cast<const T*>(scale),
-      static_cast<const T*>(bias), static_cast<const T*>(wk),
-      static_cast<const T*>(wv), static_cast<const T*>(knorm), sin_t, cos_t,
-      static_cast<T*>(k_out), static_cast<T*>(v_out), n_rows, d_model, KVH, hd,
-      norm_type, eps);
+      static_cast<const T*>(scale), static_cast<const T*>(bias), rows, n_rows, d_model,
+      layernorm, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // the cluster: the largest of 8, 4, 2, 1 blocks along d_model that keeps
+  // the grid within one block per SM and gives every block a chunk
+  const int groups = L::KV_APART ? 2 * KVH : KVH;
+  const int tiles = (n_rows + ROWS - 1) / ROWS, nc = (d_model + KC - 1) / KC;
+  int CL = MAX_CLUSTER;
+  while (CL > 1 && ((long)tiles * groups * CL > sm_count() || CL > nc)) CL /= 2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL, groups, tiles);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = CL;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const T* kn = static_cast<const T*>(knorm);
+  T* ko = static_cast<T*>(k_out);
+  T* vo = static_cast<T*>(v_out);
+  void* args[] = {&ta, &tk, &tv, &kn, &sin_t, &cos_t, &ko, &vo, &n_rows, &d_model, &KVH,
+                  &hd, &flags};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kv_proj_kernel<T, HDP>),
+                            args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -376,30 +350,15 @@ template <typename T, typename P>
 int launch_hd(const void* act, const void* act_scales, const int* page_index,
               const void* scale, const void* bias, const void* wk, const void* wv,
               const void* knorm, const float* sin_t, const float* cos_t, void* k_out,
-              void* v_out, int n_pages, int d_model, int KVH, int hd, int norm_type,
-              float eps, cudaStream_t stream) {
-  if (hd <= 128)
-    return launch_as<T, P, 128>(act, act_scales, page_index, scale, bias, wk, wv,
-                                knorm, sin_t, cos_t, k_out, v_out, n_pages, d_model,
-                                KVH, hd, norm_type, eps, stream);
-  return launch_as<T, P, 256>(act, act_scales, page_index, scale, bias, wk, wv, knorm,
-                              sin_t, cos_t, k_out, v_out, n_pages, d_model, KVH, hd,
-                              norm_type, eps, stream);
-}
-
-template <typename T>
-int launch(const void* act, const void* act_scales, const int* page_index,
-           const void* scale, const void* bias, const void* wk, const void* wv,
-           const void* knorm, const float* sin_t, const float* cos_t, void* k_out,
-           void* v_out, int n_pages, int d_model, int KVH, int hd, int norm_type,
-           float eps, cudaStream_t stream) {
-  if (act_scales != nullptr)
-    return launch_hd<T, int8_t>(act, act_scales, page_index, scale, bias, wk, wv,
-                                knorm, sin_t, cos_t, k_out, v_out, n_pages, d_model,
-                                KVH, hd, norm_type, eps, stream);
-  return launch_hd<T, T>(act, nullptr, page_index, scale, bias, wk, wv, knorm, sin_t,
-                         cos_t, k_out, v_out, n_pages, d_model, KVH, hd, norm_type,
-                         eps, stream);
+              void* v_out, void* scratch, int n_pages, int d_model, int KVH, int hd,
+              int layernorm, float eps, CUtensorMapDataType dtype, int flags,
+              cudaStream_t stream) {
+#define HD_ARGS act, act_scales, page_index, scale, bias, wk, wv, knorm, sin_t, cos_t, \
+    k_out, v_out, scratch, n_pages, d_model, KVH, hd, layernorm, eps, dtype, flags, stream
+  if (hd <= 64) return launch_as<T, P, 64>(HD_ARGS);
+  if (hd <= 128) return launch_as<T, P, 128>(HD_ARGS);
+  return launch_as<T, P, 256>(HD_ARGS);
+#undef HD_ARGS
 }
 
 }  // namespace
@@ -410,31 +369,45 @@ extern "C" {
 // 1 rmsnorm (scale).  knorm: null, or the K norm's scale (hd,) in the dtype.
 // sin/cos: float32 (n_pages, 16, hd/2).  dtype: 1 float16, 2 bfloat16.
 // act_scales: null, or float16 (P, 16, 1) with an int8 act_pages (int8 mode).
-// d_model a multiple of 8, hd a multiple of 32 up to 256, act/weights/norm
-// parameters 16-byte aligned.  Returns a cudaError_t.
+// scratch: n_pages * 16 * d_model values of the dtype (the normed rows).
+// d_model a multiple of 8, hd a multiple of 32 up to 256, act, weights, norm
+// parameters and scratch 16-byte aligned.  flags: 0, or the planted fault in
+// the header.  Launches the norm pass and the projection pass on `stream`.
+// Returns a cudaError_t.
 int kv_gen_fwd(const void* act_pages, const void* act_scales, const void* page_index,
-               const void* norm_scale,
-               const void* norm_bias, const void* wk, const void* wv, const void* knorm,
-               const void* sin_t, const void* cos_t, void* k_out, void* v_out,
-               int n_pages, int d_model, int KVH, int hd, int norm_type, float eps,
-               int dtype, void* stream) {
-  if (n_pages < 1 || d_model % VEC || hd % 32 || hd > MAX_HD || KVH < 1 ||
-      page_index == nullptr || norm_type < 0 || norm_type > 1 || norm_scale == nullptr ||
-      (norm_type == 0 && norm_bias == nullptr) || sin_t == nullptr || cos_t == nullptr)
+               const void* norm_scale, const void* norm_bias, const void* wk,
+               const void* wv, const void* knorm, const void* sin_t, const void* cos_t,
+               void* k_out, void* v_out, void* scratch, int n_pages, int d_model, int KVH,
+               int hd, int norm_type, float eps, int dtype, int flags, void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(act_pages) |
+                          reinterpret_cast<uintptr_t>(norm_scale) |
+                          reinterpret_cast<uintptr_t>(norm_bias) |
+                          reinterpret_cast<uintptr_t>(wk) | reinterpret_cast<uintptr_t>(wv) |
+                          reinterpret_cast<uintptr_t>(scratch);
+  if (n_pages < 1 || d_model < 8 || d_model % 8 || hd < 32 || hd % 32 || hd > MAX_HD ||
+      KVH < 1 || page_index == nullptr || norm_type < 0 || norm_type > 1 ||
+      norm_scale == nullptr || (norm_type == 0 && norm_bias == nullptr) ||
+      sin_t == nullptr || cos_t == nullptr || scratch == nullptr || align % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* pi = static_cast<const int*>(page_index);
   const float* sn = static_cast<const float*>(sin_t);
   const float* cs = static_cast<const float*>(cos_t);
+  const int ln = norm_type == 0;
+#define KV_ARGS(dt) act_pages, act_scales, pi, norm_scale, norm_bias, wk, wv, knorm, sn, cs, \
+    k_out, v_out, scratch, n_pages, d_model, KVH, hd, ln, eps, dt, flags, st
   switch (dtype) {
-    case 1: return launch<__half>(act_pages, act_scales, pi, norm_scale, norm_bias, wk,
-                                  wv, knorm, sn, cs, k_out, v_out, n_pages, d_model,
-                                  KVH, hd, norm_type, eps, st);
-    case 2: return launch<__nv_bfloat16>(act_pages, act_scales, pi, norm_scale,
-                                         norm_bias, wk, wv, knorm, sn, cs, k_out, v_out,
-                                         n_pages, d_model, KVH, hd, norm_type, eps,
-                                         st);
+    case 1:
+      return act_scales != nullptr
+                 ? launch_hd<__half, int8_t>(KV_ARGS(CU_TENSOR_MAP_DATA_TYPE_FLOAT16))
+                 : launch_hd<__half, __half>(KV_ARGS(CU_TENSOR_MAP_DATA_TYPE_FLOAT16));
+    case 2:
+      return act_scales != nullptr
+                 ? launch_hd<__nv_bfloat16, int8_t>(KV_ARGS(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16))
+                 : launch_hd<__nv_bfloat16, __nv_bfloat16>(
+                       KV_ARGS(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16));
   }
+#undef KV_ARGS
   return (int)cudaErrorInvalidValue;
 }
 

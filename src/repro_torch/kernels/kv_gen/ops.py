@@ -1,7 +1,11 @@
 """Wrapper of the hand-written CUDA KV-Gen kernel (ACT pages -> K, V).
 
 A CUDA tensor launches ``csrc/kv_gen.cu`` on PyTorch's current stream, or
-raises; a CPU tensor takes the plain version in ``ref.py``.
+raises; a CPU tensor takes the plain version in ``ref.py``.  On the card one
+call runs two kernels: a norm pass (each selected ACT row normed once, into
+a scratch of the cache dtype) and a projection pass on the tensor cores, its
+d_model split across the blocks of a cluster (``kv_gen_split_ref`` in
+``ref.py`` is the same algorithm in plain PyTorch).
 ``kv_gen.launches`` counts the kernel's launches, ``kv_gen.q8_launches``
 again those of its int8 mode (``act_scales`` given: an int8 ACT pool with one
 float16 scale per token, dequantized in the norm prologue), and
@@ -36,24 +40,32 @@ from repro_torch.kernels.kv_gen.ref import PAGE, kv_gen_ref
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
 NORM_TYPES = {"layernorm": 0, "rmsnorm": 1}
 MAX_HD = 256
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + \
-    [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+# planted faults of the card's kernels (``flags``; 0 on every model path)
+FAULTS = {"drop_last_slice": 1}
+_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + \
+    [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def _launch(lib, act_pages, act_scales, page_index, norm_scale, norm_bias, wk,
-            wv, knorm, sin, cos, k, v, norm_type: str, eps: float,
-            stream) -> None:
-    fn = lib.kv_gen_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+def _launch(act_pages, act_scales, page_index, norm_scale, norm_bias, wk, wv,
+            knorm, sin, cos, k, v, norm_type: str, eps: float,
+            flags: int) -> None:
+    """The card's two kernels on the current stream, the normed rows in a
+    scratch of (N * 16, d_model) values of the cache dtype."""
+    n, d = k.shape[0], act_pages.shape[-1]
     _, KVH, hd = wk.shape
-    err = fn(act_pages.data_ptr(),
-             None if act_scales is None else act_scales.data_ptr(),
-             page_index.data_ptr(), norm_scale.data_ptr(),
-             None if norm_bias is None else norm_bias.data_ptr(), wk.data_ptr(),
-             wv.data_ptr(), None if knorm is None else knorm.data_ptr(),
-             sin.data_ptr(), cos.data_ptr(),
-             k.data_ptr(), v.data_ptr(), k.shape[0], act_pages.shape[-1], KVH,
-             hd, NORM_TYPES[norm_type], eps, DTYPES[wk.dtype], stream)
+    scratch = torch.empty((n * PAGE, d), dtype=wk.dtype, device=wk.device)
+    lib, fn = _build.entry("kv_gen", "kv_gen_fwd", _ARGTYPES)
+    idx = act_pages.device.index
+    with _build.on_device(idx):
+        err = fn(act_pages.data_ptr(),
+                 None if act_scales is None else act_scales.data_ptr(),
+                 page_index.data_ptr(), norm_scale.data_ptr(),
+                 None if norm_bias is None else norm_bias.data_ptr(),
+                 wk.data_ptr(), wv.data_ptr(),
+                 None if knorm is None else knorm.data_ptr(), sin.data_ptr(),
+                 cos.data_ptr(), k.data_ptr(), v.data_ptr(), scratch.data_ptr(),
+                 n, d, KVH, hd, NORM_TYPES[norm_type], eps, DTYPES[wk.dtype],
+                 flags, _build.current_stream(idx))
     _build.check(lib, err, "kv_gen_fwd")
 
 
@@ -117,6 +129,18 @@ def kv_gen(act_pages, norm_scale, norm_bias, wk, wv, *, page_index=None,
     by the RoPE tables (paper Eq. 7 as one GEMM).  ``out`` = (k, v) preallocated buffers
     to write into (the decode step's scratch pool).  Page indices are not
     range-checked on the card (that would sync with the host)."""
+    return _kv_gen(act_pages, norm_scale, norm_bias, wk, wv,
+                   page_index=page_index, sin=sin, cos=cos,
+                   act_scales=act_scales, knorm=knorm, norm_type=norm_type,
+                   eps=eps, out=out)
+
+
+def _kv_gen(act_pages, norm_scale, norm_bias, wk, wv, *, page_index=None,
+            sin=None, cos=None, act_scales=None, knorm=None,
+            norm_type: str = "rmsnorm", eps: float = 1e-6, out=None,
+            flags: int = 0):
+    """``kv_gen`` with ``flags``, the card's planted faults (``FAULTS``;
+    chip_smoke.py holds the kernels' limits against them)."""
     n = act_pages.shape[0] if page_index is None else page_index.shape[0]
     if act_pages.device.type == "cpu":
         k, v = kv_gen_ref(act_pages, norm_scale, norm_bias, wk, wv,
@@ -138,12 +162,9 @@ def kv_gen(act_pages, norm_scale, norm_bias, wk, wv, *, page_index=None,
               out, norm_type, n, act_scales, knorm)
     if n == 0:
         return out
-    with torch.cuda.device(act_pages.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(_build.load("kv_gen"), act_pages, act_scales, page_index,
-                norm_scale,
-                norm_bias if norm_type == "layernorm" else None, wk, wv, knorm,
-                sin, cos, out[0], out[1], norm_type, eps, stream)
+    _launch(act_pages, act_scales, page_index, norm_scale,
+            norm_bias if norm_type == "layernorm" else None, wk, wv, knorm, sin,
+            cos, out[0], out[1], norm_type, eps, flags)
     kv_gen.launches += 1
     kv_gen.q8_launches += act_scales is not None
     kv_gen.knorm_launches += knorm is not None

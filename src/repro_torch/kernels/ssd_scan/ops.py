@@ -1,8 +1,13 @@
 """Wrapper of the hand-written CUDA SSD scan kernel (Mamba-2 prefill).
 
 A CUDA tensor launches ``csrc/ssd_scan.cu`` on PyTorch's current stream, or
-raises; a CPU tensor takes the plain version in ``ref.py``.
-``ssd_scan.launches`` counts the kernel's launches.
+raises; a CPU tensor takes the plain version in ``ref.py``.  On the card one
+call runs two kernels: a Gram pass (C B^T once per request and chunk, into a
+float32 scratch) and the scan, split across blocks along the head dim, its
+chunk products on the tensor cores with each float32-derived operand split
+into hi + lo pieces (bfloat16 pieces for bfloat16 inputs, TF32 for float16;
+``ssd_scan_split_ref`` in ``ref.py`` is the same algorithm in plain
+PyTorch).  ``ssd_scan.launches`` counts the calls that launch them.
 
 Layout (as ``repro.kernels.ssd_scan.kernel``, one group of B/C):
   x      (b, s, h, p)   float16 or bfloat16 on the card
@@ -12,9 +17,10 @@ Layout (as ``repro.kernels.ssd_scan.kernel``, one group of B/C):
   -> y (b, s, h, p) in x's dtype, final state (b, h, p, n) float32
 
 x, B and C come to the model's ``ssd_full`` as slices of one projection; the
-kernel reads them through their batch and row strides, so they are passed as
-they are, with no copy.  Each needs only its last dim contiguous (and x's
-heads ``p`` apart).  Any s: the ragged tail is masked in the kernel.
+kernel reads them through their batch and row strides (by TMA), so they are
+passed as they are, with no copy.  Each needs its last dim contiguous (and
+x's heads ``p`` apart), a 16-byte aligned start and strides of multiples of
+8 elements.  Any s: the ragged tail is masked in the kernel.
 """
 from __future__ import annotations
 
@@ -28,18 +34,27 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref
 # the dtypes the kernel is built and checked on the card for
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
 MAX_CHUNK, MAX_P, MAX_N = 64, 64, 128
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + \
-    [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p]
+# planted faults and diagnostics of the card's kernels (``flags``; 0 on the
+# model's path)
+FAULTS = {"drop_lo_terms": 1, "previous_chunk_gram": 2}
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
+    [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def _launch(lib, x, dt, A, B, C, y, state, chunk: int, stream) -> None:
-    fn = lib.ssd_scan_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+def _launch(x, dt, A, B, C, y, state, chunk: int, flags: int) -> None:
+    """The card's two kernels on the current stream, C B^T in a float32
+    scratch of b * ceil(s / chunk) * 64 * 64 values."""
     b, s, h, p = x.shape
-    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-             C.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, p,
-             B.shape[-1], chunk, x.stride(0), x.stride(1), B.stride(0),
-             B.stride(1), C.stride(0), C.stride(1), DTYPES[x.dtype], stream)
+    gram = torch.empty(b * -(-s // chunk) * 64 * 64, dtype=torch.float32,
+                       device=x.device)
+    lib, fn = _build.entry("ssd_scan", "ssd_scan_fwd", _ARGTYPES)
+    idx = x.device.index
+    with _build.on_device(idx):
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                 C.data_ptr(), y.data_ptr(), state.data_ptr(), gram.data_ptr(),
+                 b, s, h, p, B.shape[-1], chunk, x.stride(0), x.stride(1),
+                 B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+                 DTYPES[x.dtype], flags, _build.current_stream(idx))
     _build.check(lib, err, "ssd_scan_fwd")
 
 
@@ -70,11 +85,22 @@ def _validate(x, dt, A, B, C, chunk: int) -> None:
                          "(x's heads p apart), dt and A contiguous")
     if any(t.device != x.device for t in (dt, A, B, C)):
         raise ValueError("ssd_scan: tensors on more than one device")
+    steps = [t.stride(1) for t in (x, B, C)] + \
+        ([t.stride(0) for t in (x, B, C)] if b > 1 else [])
+    if any(st % 8 for st in steps) or any(t.data_ptr() % 16 for t in (x, B, C)):
+        raise ValueError("ssd_scan: x, B and C need 16-byte aligned starts and "
+                         "strides of multiples of 8 elements (TMA)")
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
     """Mamba-2 chunked SSD forward from a zero state -> (y, final_state);
     see the module docstring for the layout."""
+    return _ssd_scan(x, dt, A, B, C, chunk=chunk)
+
+
+def _ssd_scan(x, dt, A, B, C, *, chunk: int = 64, flags: int = 0):
+    """``ssd_scan`` with ``flags``, the card's planted faults and its
+    diagnostic (``FAULTS``; chip_smoke.py reads them)."""
     if x.device.type == "cpu":
         return ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)
     if x.device.type != "cuda":
@@ -84,9 +110,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, p, B.shape[-1]), dtype=torch.float32,
                         device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(_build.load("ssd_scan"), x, dt, A, B, C, y, state, chunk, stream)
+    _launch(x, dt, A, B, C, y, state, chunk, flags)
     ssd_scan.launches += 1
     return y, state
 

@@ -7,6 +7,11 @@ does, one chunk's (b, c, c, h) tile live at a time, in float32, and rounds
 each chunk's y to x's dtype where the reference does.
 ``ssd_ref_sequential`` is the O(s) recurrence, token by token: the ground
 truth the tests hold both the plain version and the kernel to.
+``ssd_scan_split_ref`` is the card's algorithm (csrc/ssd_scan.cu) in plain
+PyTorch: C B^T once per (request, chunk), the head dim in slices, the state
+carried transposed, and each operand derived in float32 split into hi + lo
+before its product: bfloat16 pieces for bfloat16 inputs, TF32 pieces
+(``cvt.rna.tf32`` emulated on the bits) otherwise.
 """
 from __future__ import annotations
 
@@ -67,3 +72,99 @@ def ssd_ref_sequential(x, dt, A, B, C):
         state = state * dA[..., None, None] + upd
         ys.append(torch.einsum("bhpn,bn->bhp", state, C[:, t]))
     return torch.stack(ys, 1)
+
+
+def tf32_rna(v):
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as float32: ``cvt.rna.tf32.f32``, by adding half of the dropped
+    13 bits' range to the magnitude and clearing them."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(v):
+    """v -> (hi, lo), TF32 values with hi + lo within 2**-22 |v| of v."""
+    hi = tf32_rna(v)
+    return hi, tf32_rna(v - hi)
+
+
+def split_bf16(v):
+    """v -> (hi, lo), bfloat16 values (round to nearest even) with hi + lo
+    within 2**-17 |v| of v."""
+    hi = v.float().bfloat16().float()
+    return hi, (v - hi).bfloat16().float()
+
+
+SPLITS = {"tf32": split_tf32, "bf16": split_bf16}
+
+
+def slice_width(p: int) -> int:
+    """The columns of the head dim one block of the card's scan takes."""
+    return 32 if p % 32 == 0 else 16
+
+
+def ssd_scan_split_ref(x, dt, A, B, C, *, chunk: int = 64, p_slice=None,
+                       split=None, lo_terms: bool = True):
+    """``ssd_chunked_ref``'s function by the card's algorithm, in float32:
+    G = C B^T once per (request, chunk) for all heads; per slice of
+    ``p_slice`` columns of p (default ``slice_width(p)``) the state carried
+    as S^T (n x p_slice), and per chunk y_intra = (G . L . dt) x,
+    y_state = (C S^T) . exp(cum) and the state's update, with each operand
+    derived in float32 split into hi + lo (``split``: "bf16", the default
+    for bfloat16 inputs, or "tf32", otherwise) and multiplied as
+    hi . b + lo . b.  The update is B^T (x . w) with bfloat16 pieces (B^T
+    enters as loaded) and (B^T . w) x with TF32 ones (B^T . w from
+    registers).  ``lo_terms`` False drops the lo terms (the card's
+    diagnostic).  -> (y (b, s, h, p) in x's dtype, final state (b, h, p, n)
+    float32)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    ps = p_slice or slice_width(p)
+    if p % ps:
+        raise ValueError(f"ssd_scan_split_ref: p={p} is no multiple of {ps}")
+    kind = split or ("bf16" if x.dtype == torch.bfloat16 else "tf32")
+    full = SPLITS[kind]
+    split = full if lo_terms else (lambda v: (full(v)[0], torch.zeros_like(v)))
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+    nc = (s + pad) // chunk
+    xf, dtf, A32 = x.float(), dt.float(), A.float()
+    Bc = B.float().view(b, nc, chunk, n)
+    Cc = C.float().view(b, nc, chunk, n)
+    G = Cc @ Bc.transpose(-1, -2)                          # (b, nc, i, j)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    y = torch.empty((b, s + pad, h, p), dtype=x.dtype, device=x.device)
+    state_t = torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+    for ci in range(nc):
+        rows = slice(ci * chunk, (ci + 1) * chunk)
+        xc, dtc = xf[:, rows], dtf[:, rows]                # (b, c, h, p), (b, c, h)
+        cum = torch.cumsum(dtc * A32, dim=1)
+        L = torch.where(tri[None, :, :, None],
+                        torch.exp(cum[:, :, None] - cum[:, None]), 0.0)
+        mh, ml = split(G[:, ci, :, :, None] * L * dtc[:, None])      # (b, i, j, h)
+        w = torch.exp(cum[:, -1:] - cum) * dtc                      # (b, j, h)
+        if kind == "tf32":
+            wh, wl = split(Bc[:, ci, :, None, :] * w[..., None])     # (b, j, h, n)
+        ecum, decay = torch.exp(cum), torch.exp(cum[:, -1])
+        for p0 in range(0, p, ps):
+            cols = slice(p0, p0 + ps)
+            xs, st = xc[..., cols], state_t[..., cols]
+            sh, sl = split(st)
+            y_state = torch.einsum("bin,bhnp->bihp", Cc[:, ci], sh) + \
+                torch.einsum("bin,bhnp->bihp", Cc[:, ci], sl)
+            y_intra = torch.einsum("bijh,bjhp->bihp", mh, xs) + \
+                torch.einsum("bijh,bjhp->bihp", ml, xs)
+            y[:, rows, :, cols] = (y_intra + ecum[..., None] * y_state).to(x.dtype)
+            if kind == "tf32":
+                upd = torch.einsum("bjhn,bjhp->bhnp", wh, xs) + \
+                    torch.einsum("bjhn,bjhp->bhnp", wl, xs)
+            else:
+                xh, xl = split(xs * w[..., None])                   # (b, j, h, ps)
+                upd = torch.einsum("bjn,bjhp->bhnp", Bc[:, ci], xh) + \
+                    torch.einsum("bjn,bjhp->bhnp", Bc[:, ci], xl)
+            state_t[..., cols] = st * decay[:, :, None, None] + upd
+    return y[:, :s], state_t.transpose(-1, -2).contiguous()
