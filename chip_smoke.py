@@ -30,8 +30,14 @@ from the timeline's spans, against a planted fault.  The int8 cache
 (``QuantConfig()``) runs beside each: its kernel modes held against their
 plain versions (with planted faults), the device-resident serve in hybrid
 and kv modes against the q8 oracle, and the spilled and CPU-lane offload
-runs.  Each path runs with the launch counts set to 0 just before it and
-read just after.  One JSON line per
+runs.  After each of OPT's and yi's engine serves, the continuous-batching
+server (``ContinuousBatchingServer``) serves an open-loop trace of twelve
+requests on the same weights: chunks of 1 and 8 steps, int8, pool pressure
+(preemption, demotion to ACT, resume), streamed weights and the CPU lane,
+each chunk under the sync check, with tokens (each run's allowance from a
+teacher-forced run of the same server schedule), counters, leaks, launches
+and three planted faults checked.  Each path runs with the launch counts set to 0
+just before it and read just after.  One JSON line per
 phase; the line before the last lists every kernel with its launches on its
 path, error, times and bound; the last line is the device summary.  Any
 failure raises and the exit code is non-zero.  Without a CUDA device, or
@@ -63,7 +69,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.offload import OffloadBudget, _tight  # noqa: E402
 from repro_torch.core.costmodel import H100_SXM  # noqa: E402
 from repro_torch.core.quant import QuantConfig  # noqa: E402
-from repro_torch.data.pipeline import request_trace  # noqa: E402
+from repro_torch.data.pipeline import open_loop_trace, request_trace  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
@@ -84,7 +90,9 @@ from repro_torch.models.quant_ops import dequantize, quantize  # noqa: E402
 from repro_torch.offload import (HostWeightPool, host_flash_attention,  # noqa: E402
                                  merge_partials_torch)
 from repro_torch.offload.host_attn import QuantPlane  # noqa: E402
-from repro_torch.serving import HybridServeEngine, exact_reference_generate  # noqa: E402
+from repro_torch.serving import (ContinuousBatchingServer,  # noqa: E402
+                                 HybridServeEngine, exact_reference_generate)
+from repro_torch.serving import scheduler as SCHED  # noqa: E402
 from repro_torch.serving.util import bucket  # noqa: E402
 
 # H100 SXM data sheet: dense fp16
@@ -1832,7 +1840,7 @@ def phase_serve(results, smi, name):
     outs = {"hybrid": hyb, "kv": kv_out, "hybrid_q8": q8_outs["hybrid"]}
     return ({"fp": launches, "int8": q8_launches},
             {"hybrid": eng, "kv": kv_eng, "hybrid_q8": q8_eng}, reqs, outs,
-            (rule, gold, ora), q8_oracle)
+            (rule, gold, ora), q8_oracle, params)
 
 
 def mem_available() -> int:
@@ -2066,6 +2074,566 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle, q8_oracle):
     return ha_launches
 
 
+# ----------------------------------------------------------- scheduler phase
+# the continuous-batching server's traffic: twelve open-loop requests of 64 to
+# 447 prompt tokens and 16 or 32 new ones, arriving over the first 32 steps,
+# through four slots with 512-token regions
+SCHED_TRACE = dict(seed=17, prompt_lo=64, prompt_hi=448,
+                   max_new_choices=(16, 32), arrival_hi=32)
+SCHED_REQUESTS = 12
+SCHED_SERVER = dict(slots=4, kv_cap=512, act_cap=512)
+# the pressure run's pools: 28 host KV blocks and none on the device.  The
+# server's block accounting does not depend on the tokens, so it was sized
+# on the host (the server with its decode and admission stubbed): with this
+# trace at S = 8, opt-6.7b's run preempts 4 requests, each demoted to ACT
+# checkpoints and resumed
+SCHED_PRESSURE = dict(host_kv_blocks=28, dev_kv_blocks=0)
+# the offload runs stream every layer's weights each step (~0.25 s a step for
+# opt-6.7b at ~54 GB/s, ~0.32 s with the CPU lane), so they serve the first
+# four requests of the trace (96 tokens, 40 steps; the whole trace's 96 steps
+# would take 25-30 s a run); so do their device-resident twin (profiled:
+# the device's idle share), the planted faults, and the q8 oracle (~1.5 s a
+# request) that the int8 run's teacher-forced gap and its limit are read on
+SCHED_SUBSET = 4
+ACT_BOUND_FAULT = "act_bound_one_page_short"
+SCALES_FAULT = "admission_without_scale_planes"
+FREEZE_FAULT = "inactive_lengths_advance"
+
+
+class ChunkCheck:
+    """``M.hybrid_decode_chunk`` wrapped for one device-resident run: each
+    call runs under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync
+    inside a chunk), is counted (its steps, the steps that bind a token to
+    the ACT region, the steps whose tables hold an ACT page), and is then
+    held, from the device's lengths, to the masking contract (an active
+    slot's lengths advance by one region a step, an inactive slot's stay
+    frozen) and to the bounds' (they cover every slot active in the chunk,
+    as its lengths end)."""
+
+    def __init__(self):
+        self.real = M.hybrid_decode_chunk
+        self.calls = self.steps = self.any_act_steps = self.act_page_steps = 0
+        self.length_faults = self.bound_faults = 0
+
+    def __call__(self, params, cfg, cur, cache, store, active, *, pages_bound,
+                 act_pages_bound, quant, any_act):
+        kv0, act0 = cache["kv_len"].clone(), cache["act_len"].clone()
+        on = store & active
+        kv_end = kv0 + (active & ~on).sum(0).int()
+        act_end = act0 + on.sum(0).int()
+        ran = active.any(0)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = self.real(params, cfg, cur, cache, store, active,
+                            pages_bound=pages_bound,
+                            act_pages_bound=act_pages_bound, quant=quant,
+                            any_act=any_act)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        S = store.shape[0]
+        self.calls += 1
+        self.steps += S
+        self.any_act_steps += int(np.sum(any_act))
+        self.act_page_steps += S if act_pages_bound > 0 else 0
+        cache = out[2]
+        if not (torch.equal(cache["kv_len"], kv_end)
+                and torch.equal(cache["act_len"], act_end)):
+            self.length_faults += 1
+        kv_pages = pages_bound - act_pages_bound
+        if (int(cache["act_len"][ran].max()) > act_pages_bound * PAGE
+                or int(cache["kv_len"][ran].max()) > kv_pages * PAGE):
+            self.bound_faults += 1
+        return out
+
+
+class ForcedRun:
+    """One server run teacher-forced with an oracle's tokens ``gold`` (rid ->
+    (n,) tensor): each admission's first token and every chunk's fed tokens
+    are the oracle's, so the run keeps the server's own admission batches,
+    chunk bounds and store schedules (they follow lengths, not tokens) while
+    each position's logits are read against the oracle's ``ora`` (rid ->
+    (n, V)).  Install with ``patch(srv)``; ``gaps()`` -> {rid: (n,) max
+    |Δlogit| per position}.  ``act_short`` plants the bound fault: each
+    chunk's tables one ACT page short of what its active slots hold as it
+    starts, and ``bound_faults`` counts the chunks whose device lengths then
+    outgrow the bound."""
+
+    def __init__(self, srv, gold, ora, act_short: bool = False):
+        self.srv, self.act_short = srv, act_short
+        self.gold = {rid: g.cpu().numpy() for rid, g in gold.items()}
+        rids = sorted(ora)
+        self.off = dict(zip(rids, np.cumsum([0] + [len(ora[r]) for r in rids])))
+        self.ora = torch.cat([ora[r] for r in rids]).float()
+        self.real_prefill, self.real_admit = (M.hybrid_prefill_batched,
+                                              srv._admit_batch)
+        self.rows: list = []        # (rids, positions, gaps tensor)
+        self.calls = self.bound_faults = 0
+        self._lg = None
+
+    @contextlib.contextmanager
+    def patch(self):
+        self.srv._admit_batch = self.admit_batch
+        try:
+            with patched(M, "hybrid_prefill_batched", self.prefill), \
+                    patched(M, "hybrid_decode_chunk", self.chunk):
+                yield self
+        finally:
+            del self.srv._admit_batch
+
+    def record(self, rows, lg, rids, pos):
+        idx = torch.tensor([self.off[r] + p for r, p in zip(rids, pos)],
+                           device=lg.device)
+        self.rows.append((rids, pos, (lg[rows].float() - self.ora[idx])
+                          .abs().amax(-1)))
+
+    def prefill(self, *a, **kw):
+        lg, new = self.real_prefill(*a, **kw)
+        self._lg = lg[:, -1]
+        return lg, new
+
+    def admit_batch(self, assignments, stats):
+        self.real_admit(assignments, stats)
+        slots = [i for i, _, _ in assignments]
+        rids = [r.rid for _, r, _ in assignments]
+        pos = [len(self.srv.slots[i].generated) for i in slots]
+        self.record(list(range(len(slots))), self._lg, rids, pos)
+        for i, r, p in zip(slots, rids, pos):
+            self.srv._cur_tok[i] = self.gold[r][p]
+
+    def chunk(self, params, cfg, cur, cache, store, active, *, pages_bound,
+              act_pages_bound, quant, any_act):
+        S, B = store.shape
+        act_np = active.cpu().numpy()
+        rid = [st.rid for st in self.srv.slots]
+        pos0 = [len(st.generated) for st in self.srv.slots]
+        fed = np.zeros((S + 1, B), np.int32)
+        for b in range(B):
+            if rid[b] >= 0:
+                g = self.gold[rid[b]]
+                fed[:, b] = g[np.minimum(pos0[b] + np.arange(S + 1), len(g) - 1)]
+        ran = torch.from_numpy(act_np.any(0)).cuda()
+        if self.act_short:
+            need = -(-int(cache["act_len"][ran].max()) // PAGE)
+            if need < 1:
+                raise AssertionError("the fault's chunk holds no ACT page")
+            pages_bound -= act_pages_bound - (need - 1)
+            act_pages_bound = need - 1
+        fed_d = torch.from_numpy(fed).cuda()
+        toks = []
+        for s in range(S):
+            a = active[s]
+            kv_len, act_len = cache["kv_len"], cache["act_len"]
+            lg, cache = M.hybrid_decode_step(
+                params, cfg, fed_d[s][:, None], cache, store[s] & a,
+                pages_bound=pages_bound, act_pages_bound=act_pages_bound,
+                quant=quant, any_act=bool(any_act[s]))
+            M._freeze_inactive(cache, a, kv_len, act_len)
+            toks.append(torch.where(a, fed_d[s], -1))
+            rows = [b for b in range(B) if act_np[s, b]
+                    and pos0[b] + s + 1 < len(self.gold[rid[b]])]
+            if rows:
+                self.record(rows, lg[:, -1], [rid[b] for b in rows],
+                            [pos0[b] + s + 1 for b in rows])
+        self.calls += 1
+        if self.act_short and \
+                int(cache["act_len"][ran].max()) > act_pages_bound * PAGE:
+            self.bound_faults += 1
+        return torch.stack(toks, 1), fed_d[S], cache
+
+    def gaps(self) -> dict:
+        out = {rid: np.full(len(g), np.nan) for rid, g in self.gold.items()}
+        for rids, pos, g in self.rows:       # a resume's prefill overwrites
+            for r, p, v in zip(rids, pos, g.cpu().numpy()):
+                out[r][p] = v
+        if any(np.isnan(g).any() for g in out.values()):
+            raise AssertionError("the forced run left positions unread")
+        return out
+
+
+def sched_forced(cfg, params, reqs, arrivals, S, gold, ora, act_short=False,
+                 **kw):
+    """One ``ForcedRun`` of the server as ``sched_serve`` configures it, on
+    ``reqs`` and the oracle ``gold``/``ora`` restricted to them.  -> the
+    ``ForcedRun`` (its ``gaps()`` read)."""
+    srv = ContinuousBatchingServer(cfg, params, chunk_steps=S, hw=H100_SXM,
+                                   **SCHED_SERVER, **kw)
+    forced = ForcedRun(srv, {r.rid: gold[r.rid] for r in reqs},
+                       {r.rid: ora[r.rid] for r in reqs}, act_short)
+    with forced.patch():
+        srv.run(reqs, arrival_steps=arrivals)
+    srv.close()
+    forced.gap = forced.gaps()
+    forced.max_gap = max(float(g.max()) for g in forced.gap.values())
+    return forced
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def scatter_without_scales(cache, new, slot_idx):
+    """The admission scatter with the int8 scale planes left out (a planted
+    fault): the new rows' codes land in the slots, their scales do not."""
+    for key in ("k", "v", "act"):
+        cache[key][:, slot_idx] = new[key]
+    for key in ("act_pos", "kv_len", "act_len"):
+        cache[key][slot_idx] = new[key]
+
+
+def freeze_nothing(cache, active, kv_len, act_len):
+    """``M._freeze_inactive`` as a planted fault: inactive slots' lengths
+    advance with the active ones'."""
+
+
+def sched_oracle(params, cfg, reqs, logit_tol):
+    """The fp oracle of the scheduler's trace in one pass per request:
+    ``exact_reference_generate``'s plain prefill and greedy decode, each
+    step's logits kept (the oracle fed its own tokens), and their top-2
+    margins.  -> (rule, gold, ora)."""
+    oracle, ora, margin = {}, {}, {}
+    for r in reqs:
+        padded = np.full(bucket(len(r.prompt)), r.prompt[-1], np.int32)
+        padded[:len(r.prompt)] = r.prompt
+        toks = torch.from_numpy(padded).cuda()[None]
+        lg, c = M.prefill(params, cfg, toks,
+                          max_len=toks.shape[1] + r.max_new_tokens + 8)
+        steps, cur = [], []
+        for s in range(r.max_new_tokens):
+            steps.append(lg[:, -1])
+            cur.append(lg[:, -1].argmax(-1).int())
+            if s < r.max_new_tokens - 1:
+                lg, c = M.decode_step(params, cfg, cur[-1][:, None], c)
+        ora[r.rid] = torch.cat(steps, 0)
+        oracle[r.rid] = torch.cat(cur).cpu().numpy()
+        top2 = ora[r.rid].topk(2, dim=-1).values
+        margin[r.rid] = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    gold = {rid: torch.from_numpy(t).cuda() for rid, t in oracle.items()}
+    return {"oracle": oracle, "margin": margin, "logit_tol": logit_tol}, \
+        gold, ora
+
+
+def sched_launches(cfg, stats, check, quant, host_attn=False) -> dict:
+    """Launches of one server run: a flash launch per layer and admission
+    batch, a hybrid launch per layer and executed step (and on the RoPE
+    route a ``kv_gen`` launch on the steps whose tables hold an ACT page);
+    the int8 run's modes and, on the fused route, a ``return_lse`` launch
+    on the steps that bind a token to the ACT region (its exact row's
+    merge); the host-attend run's hybrid launches are all ``return_lse``.
+    ``check``: the run's ``ChunkCheck`` (None: an offload run, whose tables
+    always hold an ACT page)."""
+    L, rope = cfg.num_layers, cfg.pos_type == "rope"
+    hk = "hybrid_paged_attention_two_pool" if rope else "hybrid_paged_attention"
+    steps = stats.steps
+    act_steps = check.act_page_steps if check is not None else steps
+    lse = steps if host_attn else \
+        check.any_act_steps if quant is not None and not rope else 0
+    want = {k: 0 for k in COUNTERS}
+    want["flash_attention"] = L * stats.admission_batches
+    want[hk] = L * steps
+    want["kv_gen"] = L * act_steps if rope else 0
+    want[hk + "_return_lse"] = L * lse
+    if quant is not None:
+        want[hk + "_q8"] = L * steps
+        want["kv_gen_q8"] = want["kv_gen"]
+        want[hk + "_return_lse_q8"] = L * lse
+    return want
+
+
+def sched_leak_free(srv) -> bool:
+    return (not any(s.active for s in srv.slots) and not srv.parked
+            and not srv.blockman.tables
+            and not any(p.allocated for p in srv.blockman.pools.values()))
+
+
+def sched_serve(cfg, params, reqs, arrivals, S, check=None, **kw):
+    """One server run with the launch counts set to 0 before it and read
+    after.  -> (server, tokens, stats, launches, wall s)."""
+    srv = ContinuousBatchingServer(cfg, params, chunk_steps=S, hw=H100_SXM,
+                                   **SCHED_SERVER, **kw)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    if check is not None:
+        with patched(M, "hybrid_decode_chunk", check):
+            out, stats = srv.run(reqs, arrival_steps=arrivals)
+    else:
+        out, stats = srv.run(reqs, arrival_steps=arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    srv.close()
+    return srv, out, stats, launches, wall
+
+
+def sched_stats(stats, wall) -> dict:
+    return {"wall_s": wall, "tokens_per_s": stats.generated_tokens / wall,
+            "generated_tokens": stats.generated_tokens, "steps": stats.steps,
+            "chunks": stats.chunks, "admission_batches": stats.admission_batches,
+            "admitted": stats.admitted, "device_calls": stats.device_calls,
+            "host_syncs": stats.host_syncs,
+            "dispatches_per_token": stats.dispatches_per_token,
+            "host_syncs_per_token": stats.host_syncs / stats.generated_tokens,
+            "sim_time_s": stats.sim_time}
+
+
+def phase_scheduler(results, smi, cfg, params):
+    """The continuous-batching server on the card, at full width and depth,
+    over ``SCHED_TRACE``.  opt-6.7b: S = 1 and 8, S = 8 under int8, under
+    pool pressure (preemption, demotion to ACT, resume), and on the first
+    ``SCHED_SUBSET`` requests device-resident (profiled), with the weights
+    streamed (``offload=True``, depth 1) and with the CPU lane
+    (``host_attn=True``); yi-6b: S = 8, and S = 8 int8 with the CPU lane on
+    the subset.  Every device-resident chunk runs under the sync check and
+    is held to the masking and bound contracts.  Checks tokens (the fp rule
+    against the oracle, each run's allowance read from a ``ForcedRun`` of
+    the same server on the same schedule; int8 against the q8 oracle under
+    the int8 rule; the offload run equal to the device-resident server's),
+    counters (one call and one readback per admission batch and per chunk;
+    S = 8 under half of S = 1's calls per token), leaks, launches, and
+    planted faults (admission without the int8 scale planes, chunks one ACT
+    page short, which must move the teacher-forced logits past the limit,
+    inactive slots' lengths advancing), each of which must fail.  Prints
+    tokens/s per run, the profiled run's device idle share, and the offload
+    runs' step times.  -> {run label: launches}."""
+    name = cfg.name
+    rope = cfg.pos_type == "rope"
+    logit_tol = LOGIT_TOL_BY_DTYPE[cfg.dtype]
+    t_phase = time.perf_counter()
+    stage_s = {}
+
+    def stage(label, t0):
+        stage_s[label] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    reqs, arrivals = open_loop_trace(cfg.vocab_size, SCHED_REQUESTS,
+                                     **SCHED_TRACE)
+    sub, sub_arr = reqs[:SCHED_SUBSET], arrivals[:SCHED_SUBSET]
+    out = {"phase": "scheduler", "card": smi, "model": name,
+           "prompt_lens": [len(r.prompt) for r in reqs],
+           "max_new": [r.max_new_tokens for r in reqs], "arrivals": arrivals,
+           "subset": SCHED_SUBSET, **SCHED_SERVER}
+    t0 = time.perf_counter()
+    rule, gold, ora = sched_oracle(params, cfg, reqs, logit_tol)
+    t0 = stage("oracle", t0)
+    probe = ContinuousBatchingServer(cfg, params, hw=H100_SXM, **SCHED_SERVER)
+    out["act_frac"] = probe.act_frac
+    if probe.act_frac <= 0:
+        raise AssertionError(f"{name}: the server keeps no ACT tokens")
+    del probe
+    runs, launches, faults, forced_gap = {}, {}, {}, {}
+    out.update(max_teacher_forced_dlogit=forced_gap, logit_tol=logit_tol)
+
+    def forced(label, S, rs=reqs, ar=arrivals, **kw):
+        """The fp rule's allowance for the run ``label``: its teacher-forced
+        gaps through the server's own admissions, bounds and schedules,
+        held within the logit limit."""
+        f = sched_forced(cfg, params, rs, ar, S, gold, ora, **kw)
+        rule[label], forced_gap[label] = f.gap, f.max_gap
+        if f.max_gap > logit_tol:
+            raise AssertionError(f"{name} scheduler {label}: teacher-forced "
+                                 f"logits differ by {f.max_gap}")
+        return f
+
+    def record(label, srv, toks, stats, got, wall, want, check=None,
+               resident=True):
+        run = sched_stats(stats, wall)
+        run["launches"] = got
+        checks = {"launches": got == want, "no_leaks": sched_leak_free(srv),
+                  "tokens_generated": stats.generated_tokens == sum(
+                      r.max_new_tokens for r in reqs if r.rid in toks)}
+        if resident:
+            checks["one_call_per_batch_and_chunk"] = \
+                stats.device_calls == stats.admission_batches + stats.chunks
+            checks["one_readback_per_call"] = \
+                stats.host_syncs == stats.device_calls
+        if check is not None:
+            run.update(chunk_calls=check.calls, any_act_steps=check.any_act_steps)
+            checks["chunks_checked"] = check.calls == stats.chunks
+            checks["lengths_frozen"] = check.length_faults == 0
+            checks["bounds_cover_lengths"] = check.bound_faults == 0
+        run["checks"] = checks
+        runs[label] = run
+        print(f"scheduler {name} {label}: {run['tokens_per_s']:.2f} tokens/s, "
+              f"{stats.dispatches_per_token:.4f} calls/token ({smi})",
+              flush=True)
+        if not all(checks.values()):
+            raise AssertionError(f"scheduler {name} {label} failed {checks}: "
+                                 f"{run}, expected launches {want}")
+
+    def resident_run(label, S, rs=reqs, ar=arrivals, quant=None, **kw):
+        check = ChunkCheck()
+        srv, toks, stats, got, wall = sched_serve(cfg, params, rs, ar, S,
+                                                  check, quant=quant, **kw)
+        record(label, srv, toks, stats, got, wall,
+               sched_launches(cfg, stats, check, quant), check)
+        return srv, toks
+
+    # OPT: S = 1 then 8, compared within the call (host times vary between
+    # calls by more than S moves them)
+    for S in ((1, 8) if not rope else (8,)):
+        forced(f"S{S}", S)
+        _, toks = resident_run(f"S{S}", S)
+        runs[f"S{S}"].update(exactness(rule, f"S{S}", toks, reqs))
+        launches["fp" if S == 8 else "fp_S1"] = runs[f"S{S}"]["launches"]
+        t0 = stage(f"S{S}", t0)
+    if not rope:
+        ratio = runs["S8"]["dispatches_per_token"] / \
+            runs["S1"]["dispatches_per_token"]
+        out["dispatches_per_token_S8_over_S1"] = ratio
+        out["tokens_per_s_S8_over_S1"] = \
+            runs["S8"]["tokens_per_s"] / runs["S1"]["tokens_per_s"]
+        if not ratio < 0.5:
+            raise AssertionError(f"{name}: S = 8 issues {ratio} of S = 1's "
+                                 "calls per token")
+
+    # planted faults on the subset, each of which must fail
+    if rope:
+        # the fault must show in the logits: the teacher-forced gap on the
+        # subset's schedule past the limit, where the sound run's stays in it
+        clean = forced("S8_subset", 8, sub, sub_arr)
+        bad = sched_forced(cfg, params, sub, sub_arr, 8, gold, ora,
+                           act_short=True)
+        faults[ACT_BOUND_FAULT] = (
+            "failed" if bad.max_gap > logit_tol and bad.bound_faults
+            else "passed") + (
+            f": teacher-forced gap {bad.max_gap} (sound {clean.max_gap}, "
+            f"limit {logit_tol}); {bad.bound_faults} of {bad.calls} chunks' "
+            "bounds short")
+    else:
+        check = ChunkCheck()
+        with patched(M, "_freeze_inactive", freeze_nothing):
+            sched_serve(cfg, params, sub, sub_arr, 8, check)
+        faults[FREEZE_FAULT] = (f"failed: {check.length_faults} of "
+                                f"{check.calls} chunks broke the lengths"
+                                if check.length_faults else "passed")
+    t0 = stage("faults_fp", t0)
+
+    if not rope:
+        # the int8 cache against the q8 oracle: agreement with the fp oracle,
+        # and the path's teacher-forced gap to the q8 oracle (on the subset:
+        # the q8 oracle decodes ~1.5 s a request) within the limit
+        q = QuantConfig()
+        q8 = {r.rid: q8_generate(params, cfg, r.prompt, r.max_new_tokens)
+              for r in sub}
+        q8_gold = {rid: torch.from_numpy(t).cuda() for rid, (t, _) in q8.items()}
+        q8_oracle = {rid: t for rid, (t, _) in q8.items()}
+        gap_q8_fp = max((q8_generate(params, cfg, r.prompt, r.max_new_tokens,
+                                     gold[r.rid])[1] - ora[r.rid]).abs().max()
+                        .item() for r in sub)
+        limit = QUANT_GAP_FACTOR * gap_q8_fp + logit_tol
+        t0 = stage("q8_oracle", t0)
+        srv, toks = resident_run("S8_int8", 8, quant=q)
+        launches["int8"] = runs["S8_int8"]["launches"]
+        q8_gap = sched_forced(cfg, params, sub, sub_arr, 8, q8_gold,
+                              {rid: lg for rid, (_, lg) in q8.items()},
+                              quant=q).max_gap
+        agree = agreement(toks, rule["oracle"], reqs)
+        runs["S8_int8"].update(
+            act_frac=srv.act_frac, agreement_with_fp_oracle=agree,
+            equal_to_q8_oracle=sum(np.array_equal(toks[r.rid], q8_oracle[r.rid])
+                                   for r in sub),
+            max_teacher_forced_dlogit_vs_q8=q8_gap, limit=limit,
+            gap_q8_oracle_vs_fp_oracle=gap_q8_fp)
+        if agree < MIN_AGREEMENT or q8_gap > limit:
+            raise AssertionError(f"{name} scheduler int8: agreement {agree}, "
+                                 f"gap to the q8 oracle {q8_gap}, limit {limit}")
+        with patched(SCHED, "scatter_rows", scatter_without_scales):
+            _, toks, *_ = sched_serve(cfg, params, sub, sub_arr, 8, quant=q)
+        agree_f = agreement(toks, rule["oracle"], sub)
+        faults[SCALES_FAULT] = (f"failed: agreement {agree_f}"
+                                if agree_f < MIN_AGREEMENT else
+                                f"passed: agreement {agree_f}")
+        t0 = stage("int8", t0)
+
+        # pool pressure: preemption demotes to ACT and resumes
+        forced("S8_pressure", 8, **SCHED_PRESSURE)
+        srv, toks = resident_run("S8_pressure", 8, **SCHED_PRESSURE)
+        rs = srv.recovery_stats
+        runs["S8_pressure"].update(
+            recovery=dataclasses.asdict(rs),
+            **exactness(rule, "S8_pressure", toks, reqs))
+        launches["fp_pressure"] = runs["S8_pressure"]["launches"]
+        if not (rs.preemptions >= 1 and rs.preempt_to_act >= 1
+                and rs.resumes == rs.preemptions):
+            raise AssertionError(f"{name} pressure run: {rs}")
+        t0 = stage("pressure", t0)
+
+        # the subset device-resident, profiled: the device's busy and idle
+        # share; the offload runs' tokens must equal its
+        resident = {}
+
+        def profiled():
+            resident.update(resident_run("S8_subset", 8, sub, sub_arr)[1])
+
+        phase_profile(results, smi, f"{name} scheduler", None, None,
+                      runs={"S8_subset": profiled}, cpu_ops=False)
+        # the CPU-lane run's allowance: the device-resident path's forced
+        # gaps on the same schedule (the subset at S = 8)
+        forced("S8_subset", 8, sub, sub_arr)
+        t0 = stage("profiled_subset", t0)
+
+    # streamed weights on the subset
+    off_runs = ({"S8_offload": dict(offload=True),
+                 "S8_offload_host_attn": dict(offload=True, host_attn=True)}
+                if not rope else
+                {"S8_offload_host_attn_int8": dict(offload=True, host_attn=True,
+                                                   quant=QuantConfig())})
+    for label, kw in off_runs.items():
+        srv, toks, stats, got, wall = sched_serve(cfg, params, sub, sub_arr, 8,
+                                                  **kw)
+        q8 = kw.get("quant")
+        record(label, srv, toks, stats, got, wall,
+               sched_launches(cfg, stats, None, q8, kw.get("host_attn", False)),
+               resident=False)
+        ms = srv.measured_steps
+        run = runs[label]
+        run.update(step_s_mean=float(np.mean([m.total for m in ms])),
+                   pcie_busy_s_mean=float(np.mean([m.pcie_busy for m in ms])),
+                   gpu_busy_s_mean=float(np.mean([m.gpu_busy for m in ms])),
+                   cpu_busy_s_mean=float(np.mean([m.cpu_busy for m in ms])),
+                   gpu_idle_share=1.0 - sum(m.gpu_busy for m in ms)
+                   / sum(m.total for m in ms),
+                   measured_steps=len(ms),
+                   blocking_syncs=srv.executor.blocking_syncs)
+        print(f"scheduler {name} {label}: step {run['step_s_mean']:.4f} s, "
+              f"pcie {run['pcie_busy_s_mean']:.4f} s, gpu "
+              f"{run['gpu_busy_s_mean']:.4f} s ({smi})", flush=True)
+        launches[label.replace("S8_", "")] = got
+        if q8 is not None:
+            agree = agreement(toks, rule["oracle"], sub)
+            run["agreement_with_fp_oracle"] = agree
+            if agree < MIN_AGREEMENT:
+                raise AssertionError(f"{name} {label}: agreement {agree}")
+        elif kw.get("host_attn"):
+            run.update(exactness(rule, "S8_subset", toks, sub))
+        else:
+            same = sum(np.array_equal(toks[r.rid], resident[r.rid]) for r in sub)
+            run["equal_to_device_resident"] = same
+            if same != len(sub):
+                raise AssertionError(f"{name} {label}: tokens differ from the "
+                                     "device-resident server's")
+        if len(ms) != stats.steps:
+            raise AssertionError(f"{name} {label}: {len(ms)} measured steps of "
+                                 f"{stats.steps}")
+        del srv
+        gc.collect()
+        t0 = stage(label, t0)
+    out.update(runs=runs, faults=faults, stage_s=stage_s,
+               phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    results[f"scheduler {name}"] = out
+    held = [k for k, v in faults.items() if not v.startswith("failed")]
+    if held:
+        raise AssertionError(f"{name} scheduler: planted faults pass: {faults}")
+    return launches
+
+
 def kernel_group(name: str) -> str:
     if any(k in name for k in ("fused_norm_kernel", "fused_tile_kernel",
                                "fused_combine_kernel")):
@@ -2083,20 +2651,24 @@ def kernel_group(name: str) -> str:
     return "other (norms, elementwise, indexing, argmax)"
 
 
-def phase_profile(results, smi, name, engines, reqs, runs=None):
+def phase_profile(results, smi, name, engines, reqs, runs=None,
+                  cpu_ops=True):
     """Per mode: device time by kernel over one warm ``generate`` of the trace
     (torch.profiler kernel events), the device's busy and idle share of the
     wall-clock window, and the kernels that took the most device time.
-    ``runs``: {mode: callable} to profile in place of the engines' runs."""
+    ``runs``: {mode: callable} to profile in place of the engines' runs.
+    ``cpu_ops=False`` traces the device alone (the host's operator events
+    of a long run take the profiler tens of seconds to collect)."""
     from torch.profiler import ProfilerActivity, profile
     out = {"phase": "profile", "card": smi, "model": name}
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if cpu_ops else [])
     if runs is None:
         runs = {mode: (lambda e=eng: e.generate(reqs))
                 for mode, eng in engines.items()}
     for mode, run in runs.items():
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -2527,12 +3099,18 @@ def phase_serve_mamba2(results, smi):
 
 
 def serve_path(results, smi, name):
-    """Serve and profile one model, free its weights, so that peak device
-    memory is one model's, then serve it from host memory.  -> the launch
-    counts of its device-resident hybrid runs and of its host-attend runs,
-    each {"fp": ..., "int8": ...}."""
-    launches, engines, reqs, outs, oracle, q8_oracle = phase_serve(
+    """Serve one model through the engine, then through the
+    continuous-batching server on the same weights, profile it, free its
+    weights, so that peak device memory is one model's, then serve it from
+    host memory.  -> the launch counts of its device-resident hybrid runs
+    and of its host-attend runs, each {"fp": ..., "int8": ...}, and of its
+    scheduler runs, {run: ...}."""
+    launches, engines, reqs, outs, oracle, q8_oracle, params = phase_serve(
         results, smi, name)
+    sched_launches_ = phase_scheduler(results, smi, get_config(name), params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_profile(results, smi, name, engines, reqs)
     del engines
     gc.collect()
@@ -2541,7 +3119,7 @@ def serve_path(results, smi, name):
                                 q8_oracle)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, ha_launches
+    return launches, ha_launches, sched_launches_
 
 
 def main() -> int:
@@ -2554,9 +3132,10 @@ def main() -> int:
     smi = phase_env(results)
     phase_build(results)
     phase_kernels(results)
-    by_path, ha_path = {}, {}
+    by_path, ha_path, sched_path = {}, {}, {}
     for name in ("opt-6.7b", "yi-6b"):
-        by_path[name], ha_path[name] = serve_path(results, smi, name)
+        by_path[name], ha_path[name], sched_path[name] = serve_path(
+            results, smi, name)
     by_path[GEMMA] = {"fp": phase_serve_gemma(results, smi)}
     gc.collect()
     torch.cuda.empty_cache()
@@ -2589,7 +3168,7 @@ def main() -> int:
                "hybrid_paged_attention_two_pool_hd256": (GEMMA, serve, "fp"),
                "kv_gen_qk_norm": (GEMMA, serve, "fp"),
                "ssd_scan": (MAMBA, serve, "fp")}
-    counts = {serve: by_path, ha: ha_path}
+    counts = {serve: by_path, ha: ha_path, "scheduler": sched_path}
     k = results["kernels"]
     rows = []
     for name, (src, tpu) in KERNELS.items():

@@ -1,9 +1,10 @@
 """Hybrid cache blocks: PagedAttention-style tables extended with block TYPE.
 
 A copy of ``repro.core.blocks`` with the offload runtime's residency moves,
-the CPU lane's ``host_attend`` tag and the quantized block layout
-(``quant=``: int8 payloads with float16 scales, priced by ``core.quant``),
-without the sharding, controller and preemption hooks.
+the CPU lane's ``host_attend`` tag, the quantized block layout (``quant=``:
+int8 payloads with float16 scales, priced by ``core.quant``) and the
+continuous-batching server's preemption demotion, without the sharding and
+controller hooks.
 
 Each logical block covers BLOCK_TOKENS tokens of one request's context across
 all layers, stored either as K/V tensors (KV block) or as activation
@@ -124,6 +125,9 @@ class BlockManager:
         # the offload runtime migrates blocks when its memory budget allows
         # device residency and spills them back when it doesn't.
         self.transitions: Dict[Tuple[BlockType, Location, Location], int] = {}
+        # live-block representation changes, counted per (from, to): the
+        # preemption path demotes a victim's KV blocks to ACT checkpoints
+        self.kind_transitions: Dict[Tuple[BlockType, BlockType], int] = {}
 
     # -- allocation ----------------------------------------------------------
     def new_request(self, rid: int) -> None:
@@ -199,6 +203,32 @@ class BlockManager:
                 moved += self.move_block(rid, i, new_loc)
         return moved
 
+    # -- preemption demotion (the server's pressure recovery) -----------------
+    def demote_request_kv(self, rid: int) -> int:
+        """Demote every KV block of ``rid`` to an ACT block in place: the
+        checkpoint costs d_model per token instead of 2·L·d_kv, and a resume
+        regenerates the KV from it.  Each block allocates in the ACT pools
+        first (ACT's device-first order) and only then frees its KV slot, so
+        a mid-table exhaustion loses no accounting: blocks that could not
+        demote stay KV.  Token counts are kept.  -> blocks demoted, counted
+        in ``kind_transitions[(KV, ACT)]``."""
+        moved = 0
+        for blk in self.tables[rid]:
+            if blk.kind != BlockType.KV:
+                continue
+            new = self._alloc_block(BlockType.ACT)
+            if new is None:
+                break
+            self.pools[(blk.kind, blk.location)].free(blk.pbn)
+            blk.kind, blk.location, blk.pbn = BlockType.ACT, new.location, new.pbn
+            blk.dtype, blk.scale_dtype = new.dtype, new.scale_dtype
+            blk.host_attend = False     # ACT blocks regenerate, never cpu-attend
+            moved += 1
+        if moved:
+            key = (BlockType.KV, BlockType.ACT)
+            self.kind_transitions[key] = self.kind_transitions.get(key, 0) + moved
+        return moved
+
     # -- cpu-attend lane residency --------------------------------------------
     def tag_host_attend(self, rid: int, on: bool = True) -> int:
         """Set the cpu-lane residency tag on every HOST KV block of a
@@ -214,6 +244,11 @@ class BlockManager:
                 blk.host_attend = target
                 changed += 1
         return changed
+
+    def free_blocks(self, kind: BlockType) -> int:
+        """Total free capacity of ``kind`` across both tiers."""
+        return sum(pool.free_blocks for (k, _), pool in self.pools.items()
+                   if k == kind)
 
     # -- byte accounting ------------------------------------------------------
     def block_bytes(self, kind: BlockType) -> int:

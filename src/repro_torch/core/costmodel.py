@@ -2,7 +2,7 @@
 
 A copy of ``repro.core.costmodel`` (the port imports nothing from the JAX
 package) with one addition: ``H100_SXM``, the port's default target.  The
-inter-chip and dispatch terms are left to the slices that use them.
+inter-chip terms are left to the slice that uses them.
 ``quant=`` prices the host link's and the host lane's bytes by the quantized
 block layout (``core.quant``).
 
@@ -39,6 +39,10 @@ class HardwareSpec:
     # are contiguous and get the full link.  Measured fractions for pinned
     # scatter-gather DMA land near 0.4-0.6 on PCIe 4.0.
     gather_eff: float = 0.5
+    # Host-side cost of one dispatch plus its blocking sync, serialized on
+    # the serving critical path: the tax the continuous-batching server
+    # amortizes over ``chunk_steps`` iterations and adds to its sim_time.
+    dispatch_overhead: float = 40e-6
     # Host-compute attention lane: peak host FLOP/s across all cores and host
     # DRAM bandwidth.  Like ``host_mem`` these describe the ONE shared host.
     # Defaults are a mid-range server CPU (~32 cores AVX-512, 8-ch DDR).

@@ -1,8 +1,10 @@
 """Cache management policy (paper §4.3, Algorithm 1 + Eq. 11).
 
-A copy of the two-way policy of ``repro.core.policy`` as the paper states
-it (the reference's ``generalized=False``); ``quant=`` prices blocks and
-the lane fits by the quantized layout.
+A copy of the two-way policy of ``repro.core.policy``: Algorithm 1 as the
+paper states it (``generalized=False``, the engine's) or with the
+reference's byte-ratio-aware balance (``generalized=True``, the
+continuous-batching server's default); ``quant=`` prices blocks and the
+lane fits by the quantized layout.
 
 Step 1  initial_cache_allocation  — blocks needed to kill pipeline idleness
 Step 2  alloc_remaining           — fill the rest of host memory balanced
@@ -16,6 +18,7 @@ from typing import Tuple
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant as Q
 from repro_torch.core.blocks import BLOCK_TOKENS, act_block_bytes, kv_block_bytes
 from repro_torch.core.costmodel import HardwareSpec, LinearFit, profile_cost_fns, t_load_w
 
@@ -63,9 +66,16 @@ def initial_cache_allocation(cfg: ModelConfig, hw: HardwareSpec,
 
 def alloc_remaining(cfg: ModelConfig, hw: HardwareSpec,
                     fit_gen: LinearFit, fit_load: LinearFit,
-                    act_init: int, kv_init: int, quant=None) -> Tuple[int, int]:
+                    act_init: int, kv_init: int, generalized: bool = False,
+                    quant=None) -> Tuple[int, int]:
     """Algorithm 1 lines 20-27: fill remaining host memory with the balanced
-    2x2 linear system  {S_ACT*a + S_KV*k = M_rem ; T_gen(a) = T_load(k)}."""
+    2x2 linear system  {S_ACT*a + S_KV*k = M_rem ; T_gen(a) = T_load(k)}.
+
+    ``generalized=True`` is the reference's byte-ratio-aware balance: the
+    paper's Eq. 9 omits the link cost of loading the ACT blocks themselves,
+    which cancels for MHA (ACT = KV/2) but misallocates under GQA, where an
+    ACT block costs more link bytes than the KV block it replaces.  It moves
+    T_load_act to the link side:  T_gen(a) = T_load_kv(k) - T_load_act(a)."""
     S_act = act_block_bytes(cfg, quant=quant)
     S_kv = kv_block_bytes(cfg, quant=quant)
     S_weight = cfg.num_params() * cfg.bytes_per_param()
@@ -77,6 +87,13 @@ def alloc_remaining(cfg: ModelConfig, hw: HardwareSpec,
     ga = fit_gen.slope * BLOCK_TOKENS
     lk = fit_load.slope * BLOCK_TOKENS
     c = fit_load.intercept - fit_gen.intercept
+    if generalized:
+        # ACT bytes per block over the same link, priced by the fitted
+        # KV-load slope scaled by the ACT:KV byte ratio
+        la = (fit_load.slope * BLOCK_TOKENS
+              * Q.act_bytes_per_token(cfg, quant)
+              / Q.kv_bytes_per_token(cfg, quant))
+        ga = ga + la
     # solve: S_act*a + S_kv*k = M_rem ;  ga*a - lk*k = c
     A = np.array([[S_act, S_kv], [ga, -lk]], float)
     b = np.array([M_rem, c], float)
@@ -92,15 +109,17 @@ def alloc_remaining(cfg: ModelConfig, hw: HardwareSpec,
 
 
 def host_block_allocation(cfg: ModelConfig, hw: HardwareSpec,
-                          n_act_gpu_blocks: int,
+                          n_act_gpu_blocks: int, generalized: bool = False,
                           quant=None) -> HostAllocation:
     """Algorithm 1 top level: -> #ACT_Host, #KV_Host.  ``quant`` reprices
-    block sizes and the fits, so the KV:ACT split re-balances."""
+    block sizes and the fits, so the KV:ACT split re-balances;
+    ``generalized`` as for ``alloc_remaining``."""
     fit_gen, fit_load = profile_cost_fns(cfg, hw, quant=quant)
     act_init, kv_init = initial_cache_allocation(
         cfg, hw, fit_gen, fit_load, n_act_gpu_blocks)
     act_rem, kv_rem = alloc_remaining(cfg, hw, fit_gen, fit_load, act_init,
-                                      kv_init, quant=quant)
+                                      kv_init, generalized=generalized,
+                                      quant=quant)
     return HostAllocation(act_blocks=act_init + act_rem,
                           kv_blocks=kv_init + kv_rem,
                           act_init=act_init, kv_init=kv_init)

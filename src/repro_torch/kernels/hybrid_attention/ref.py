@@ -59,8 +59,8 @@ def merge_partials_torch(o_a, m_a, l_a, o_b, m_b, l_b):
     ``o_*`` are NORMALISED partition outputs (..., D); ``m_*``/``l_*`` are
     broadcastable against them with a trailing singleton (..., 1).  A
     partition with l = 0 (empty: m = NEG_INF) contributes weight 0 and
-    drops out of the sum.  The host lane's numpy ``merge_partials`` runs
-    the same operations in the same order."""
+    drops out of the sum.  The executor merges the host lane's partial
+    with the device's through it."""
     m_new = torch.maximum(m_a, m_b)
     w_a = l_a * torch.exp(m_a - m_new)
     w_b = l_b * torch.exp(m_b - m_new)

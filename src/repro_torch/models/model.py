@@ -903,24 +903,71 @@ def _act_kv(cfg, cache, ctx, n_act: int) -> ActKV:
 
 
 def hybrid_decode_loop(params, cfg: ModelConfig, cur, cache: Cache,
-                       store_sched, *, pages_bound=None, act_pages_bound=None,
-                       quant: Optional[QuantConfig] = None, any_act=None):
+                       store_sched, **kw):
     """Greedy generation over the hybrid cache, argmax on the device and no
-    host sync inside the loop.
+    host sync inside the loop: ``hybrid_decode_chunk`` with every slot
+    active (its keywords).
 
     cur:         (B,) int32 — first token to emit (argmax of prefill logits).
     store_sched: (n_steps, B) bool tensor — per-step store_act flags.
-    any_act:     (n_steps,) host bools, whether step s binds a token to the
-                 ACT region (``hybrid_decode_step``); None: every step may.
     -> (tokens (B, n_steps) int32, cache)."""
+    toks, _, cache = hybrid_decode_chunk(params, cfg, cur, cache, store_sched,
+                                         **kw)
+    return toks, cache
+
+
+def _freeze_inactive(cache: Cache, active, kv_len, act_len) -> None:
+    """Restore the lengths ``kv_len``/``act_len`` (B,) from before a step for
+    the slots not ``active`` in it (``hybrid_decode_end`` advanced them)."""
+    cache["kv_len"] = torch.where(active, cache["kv_len"], kv_len)
+    cache["act_len"] = torch.where(active, cache["act_len"], act_len)
+
+
+def hybrid_decode_chunk(params, cfg: ModelConfig, cur, cache: Cache,
+                        store_sched, active_sched=None, *, pages_bound=None,
+                        act_pages_bound=None,
+                        quant: Optional[QuantConfig] = None, any_act=None):
+    """Masked multi-step decode: the continuous-batching server's S serving
+    iterations as one call, argmax on the device and no host sync inside.
+
+    Each step is ``hybrid_decode_step`` with per-step masking on top:
+    INACTIVE slots (retired mid-chunk, or never admitted) store nothing to
+    the ACT region (``store &= active``), keep their carried token and emit
+    -1, and their ``kv_len``/``act_len`` stay frozen, so an idle slot never
+    creeps past its regions.  Their rows may hold garbage; admission
+    rewrites every plane of a slot.
+
+    cur:          (B,) int32 — next token each slot would emit.
+    store_sched:  (S, B) bool tensor — per-step store_act flags.
+    active_sched: (S, B) bool tensor — slot b takes part in step s; None:
+                  every slot takes part in every step (no masking launched).
+    pages_bound, act_pages_bound: as for ``hybrid_decode_step``, covering
+                  every ACTIVE slot's lengths within the chunk (the
+                  reference's token bounds / 16).  A frozen slot's lengths
+                  may exceed them: its tables stay inside its own regions.
+    any_act:      (S,) host bools, whether step s binds an active token to
+                  the ACT region; None: every step may.
+    -> (tokens (B, S) int32 with -1 at inactive entries, next cur (B,),
+        cache)."""
     toks = []
     for s in range(store_sched.shape[0]):
-        toks.append(cur)
-        lg, cache = hybrid_decode_step(params, cfg, cur[:, None], cache,
-                                       store_sched[s], pages_bound=pages_bound,
+        store = store_sched[s]
+        if active_sched is not None:
+            active = active_sched[s]
+            store = store & active
+            kv_len, act_len = cache["kv_len"], cache["act_len"]
+        lg, cache = hybrid_decode_step(params, cfg, cur[:, None], cache, store,
+                                       pages_bound=pages_bound,
                                        act_pages_bound=act_pages_bound,
                                        quant=quant,
                                        any_act=True if any_act is None
                                        else bool(any_act[s]))
-        cur = lg[:, -1].argmax(-1).int()
-    return _stack(toks, cur), cache
+        nxt = lg[:, -1].argmax(-1).int()
+        if active_sched is None:
+            toks.append(cur)
+            cur = nxt
+            continue
+        _freeze_inactive(cache, active, kv_len, act_len)
+        toks.append(torch.where(active, cur, -1))
+        cur = torch.where(active, nxt, cur)
+    return _stack(toks, cur), cur, cache

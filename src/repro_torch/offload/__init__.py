@@ -11,7 +11,6 @@ from repro_torch.offload.faults import (FAULT_KINDS, FaultEvent, FaultPlan,
                                         TransientCopyError)
 from repro_torch.offload.host_attn import (HostAttnExecutor,
                                            host_flash_attention,
-                                           merge_partials,
                                            merge_partials_torch)
 from repro_torch.offload.host_pool import (HostBlockPool, HostWeightPool,
                                            Region, kv_region_blocks,

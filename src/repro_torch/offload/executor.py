@@ -82,9 +82,10 @@ class OffloadExecutor:
             self.pool, prefetch_depth=prefetch_depth, timeline=self.timeline,
             faults=faults, watchdog_s=watchdog_s)
         self.resident = self.pool.resident
+        self._mirror: Dict[str, torch.Tensor] = {}   # decode_chunk's host mirror
         self.dispatches = 0                     # stages issued (as the reference)
-        # blocking host waits on the device: the final tokens, a spill-out,
-        # and the query of each host-attended layer
+        # blocking host waits on the device: the final tokens, a spill-out or
+        # a chunk's mirror pull, and the query of each host-attended layer
         self.blocking_syncs = 0
 
     def _now(self):
@@ -223,8 +224,20 @@ class OffloadExecutor:
         return (QuantPlane(self._planes[0][l], self._planes[2][l], dt),
                 QuantPlane(self._planes[1][l], self._planes[3][l], dt))
 
+    def _ha_buffers(self, cache: Cache, keys, B: int):
+        """The host-attend path's per-call buffers: the query's pinned host
+        copy, a zero length per request, and -> the new token's own KV page
+        of each KV plane ``keys``, in its format."""
+        cfg = self.cfg
+        self._zeros_b = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        if self.cuda:
+            self._q_host = torch.empty((B, 1, cfg.num_heads, cfg.head_dim),
+                                       dtype=T.torch_dtype(cfg), pin_memory=True)
+        return [torch.zeros((B, PAGE) + cache[k].shape[3:], dtype=cache[k].dtype,
+                            device=self.device) for k in keys]
+
     def _ha_layer(self, lane, lp, x, ac, act_s, act_len, store, store_np,
-                  plan, ha_tables, own, l: int, kv_len_np):
+                  plan, ha_tables, own, l: int, kv_len_np, dev_kv=None):
         """One host-attend layer against the spilled arena.  The region
         never crosses the link: the query goes D2H, the host partial's
         statistics H2D, the new row D2H.  The device partial attends over
@@ -234,7 +247,10 @@ class OffloadExecutor:
         [0, kv_len) the two partitions are exactly the one-pool valid set.
         Quantized, ``own`` holds codes and scales (the KV-bound row is read
         back dequantized), and the ACT-bound token attends to its exact K/V
-        as on the device-resident path."""
+        as on the device-resident path.  ``dev_kv`` (the scheduler's chunk):
+        the layer's device KV planes and lengths, ``(planes, kv_len)``; the
+        new row is written there too, as ``_hybrid_layer_step`` writes it,
+        and the arena planes are the chunk's host mirror."""
         cfg = self.cfg
         B = x.shape[0]
         t0 = self._now()
@@ -245,6 +261,13 @@ class OffloadExecutor:
         scales = M.plane_scales(own, act_s)
         M._write_new(own[0], own[1], ac, k, v, x[:, 0], self._zeros_b, act_len,
                      store, scales)
+        if dev_kv is not None:
+            planes, kv_len = dev_kv
+            ar = torch.arange(B, device=self.device)
+            ki = kv_len.clamp(max=planes[0].shape[1] - 1).long()
+            on = plan.write_on[0].view(B, 1, 1)
+            for plane, row in zip(planes, own):
+                plane[ar, ki] = torch.where(on, row[:, 0], plane[ar, ki])
         exact = M.OwnRow(k, v, act_len, store) \
             if scales is not None and plan.exact_own else None
         o_d, m_d, l_d = M._hybrid_attend(lp, cfg, q, own[0], own[1], ac,
@@ -317,16 +340,7 @@ class OffloadExecutor:
             if not host_attn:
                 side = self._kv_stage
         if host_attn:
-            # the new token's own KV page of each KV plane, in its format
-            own = [torch.zeros((B, PAGE) + cache[k].shape[3:],
-                               dtype=cache[k].dtype, device=self.device)
-                   for k in keys]
-            self._zeros_b = torch.zeros((B,), dtype=torch.int32,
-                                        device=self.device)
-            if self.cuda:
-                self._q_host = torch.empty((B, 1, cfg.num_heads, cfg.head_dim),
-                                           dtype=T.torch_dtype(cfg),
-                                           pin_memory=True)
+            own = self._ha_buffers(cache, keys, B)
             act_cap = cache["act"].shape[2]
         toks: List[torch.Tensor] = []
         self._in_step = False
@@ -393,6 +407,136 @@ class OffloadExecutor:
             self._planes = None
         self._kv_dev = {}
         return out, dict(cache, spilled=spill)
+
+    # ========================================= the scheduler's decode paths
+    def _mirror_out(self, cache: Cache, kv_b: int):
+        """The chunk's host mirror of the KV region: rows [0, kv_b) of every
+        KV plane (codes and scales when quantized), in one bulk device→host
+        pull into host buffers the executor keeps across chunks (pinned on
+        the card).  The device cache stays the source of truth.  -> (the
+        mirror's planes (L, B, kv_b, ...), the KV lengths on the host)."""
+        t0 = self._now()
+        planes, nbytes = [], 0
+        for key in M.kv_planes(cache):
+            t = cache[key]
+            buf = self._mirror.get(key)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=self.cuda)
+                self._mirror[key] = buf
+            plane = buf[:, :, :kv_b]
+            plane.copy_(t[:, :, :kv_b], non_blocking=True)
+            planes.append(plane)
+            nbytes += plane.numel() * plane.element_size()
+        self.timeline.record("pcie", "kv", t0, self._now(), nbytes)
+        kv_len = cache["kv_len"].cpu().numpy().copy()   # waits for the copies
+        self.blocking_syncs += 1
+        return planes, kv_len
+
+    def decode_chunk(self, cur, cache: Cache, store_sched, active_sched, *,
+                     kv_bound: Optional[int] = None,
+                     act_bound: Optional[int] = None, host_attn: bool = False
+                     ) -> Tuple[np.ndarray, np.ndarray, Cache]:
+        """Chunked layer-streamed decode over the server's slot cache,
+        token-exact vs ``M.hybrid_decode_chunk``: the continuous-batching
+        server's offload hot path.
+
+        The cache is one tensor per plane with the layer axis first, updated
+        in place, so nothing is unstacked or restacked.  The streamer's
+        prefetch window spans the whole chunk's layer sequence, so the copy
+        stream rolls from step s's last layers into step s+1's first ones.
+
+        cur:          (B,) int32 (host or device) — next token per slot.
+        store_sched:  (n_steps, B) bool — store_act flags.
+        active_sched: (n_steps, B) bool — inactive slots keep their carried
+                      token and frozen lengths and emit -1.
+        kv_bound / act_bound: token bounds on the regions' occupancy, page
+                      multiples covering every active slot's lengths within
+                      the chunk (the page tables' widths derive from them).
+        host_attn:    each layer's KV-region attention runs on the cpu lane
+                      over the chunk's host mirror of the region up to
+                      ``kv_bound`` (one bulk pull; each step's new rows are
+                      appended to it), while the device attends over [the new
+                      row ; the ACT region] (``return_lse``) and the two
+                      partials merge.
+        -> (tokens (B, n_steps) int32 numpy with -1 at inactive entries,
+            next cur (B,) int32 numpy, cache)."""
+        cfg = self.cfg
+        L = cfg.num_layers
+        act_np = np.asarray(active_sched, bool)
+        sched = np.asarray(store_sched, bool) & act_np
+        n_steps, B = sched.shape
+        kv_cap, act_cap = cache["k"].shape[2], cache["act"].shape[2]
+        kv_b = kv_cap if kv_bound is None else min(int(kv_bound), kv_cap)
+        act_b = act_cap if act_bound is None else min(int(act_bound), act_cap)
+        bounds = dict(pages_bound=kv_b // PAGE + act_b // PAGE,
+                      act_pages_bound=act_b // PAGE)
+        sched_dev = torch.from_numpy(np.ascontiguousarray(sched)).to(self.device)
+        act_dev = torch.from_numpy(np.ascontiguousarray(act_np)).to(self.device)
+        cur = torch.as_tensor(np.asarray(cur, np.int32)).to(self.device)
+        keys = M.kv_planes(cache)
+        quant = self.quant is not None
+        lane = None
+        self._stored_ev: List[Optional[object]] = [None] * L
+        if host_attn:
+            lane = self._ensure_host_lane()
+            self.timeline.begin_step("mirror", now=self._now())
+            self._planes, kv_len_np = self._mirror_out(cache, kv_b)
+            self.timeline.end_step(now=self._now())
+            own = self._ha_buffers(cache, keys, B)
+        toks: List[torch.Tensor] = []
+        self.streamer.begin([l for _ in range(n_steps) for l in range(L)])
+        seq = 0
+        for s in range(n_steps):
+            self.timeline.begin_step("decode", now=self._now())
+            store, active = sched_dev[s], act_dev[s]
+            kv_len, act_len = cache["kv_len"], cache["act_len"]
+            plan = M.hybrid_decode_begin(self.resident, cfg, cur[:, None],
+                                         cache, store, quant=self.quant,
+                                         any_act=bool(sched[s].any()),
+                                         **bounds)
+            self.dispatches += 1
+            if host_attn:
+                n_act = plan.act_stride // PAGE if plan.act_kv is not None \
+                    else bounds["act_pages_bound"]
+                ha_tables = M.hybrid_page_table((~store).int(), plan.act_read,
+                                                PAGE, plan.act_stride, 1 + n_act)
+                # an inactive slot's host partition is empty, and its row
+                # is not appended to the mirror
+                lane_len = np.where(act_np[s], kv_len_np, 0)
+                skip = sched[s] | ~act_np[s]
+            x = plan.x
+            for l in range(L):
+                lp = self.streamer.acquire(seq)
+                ac = cache["act"][l]
+                act_s = cache["act_s"][l] if quant else None
+                bufs = [cache[key][l] for key in keys]
+                if host_attn:
+                    x = self._ha_layer(lane, lp, x, ac, act_s, act_len, store,
+                                       skip, plan, ha_tables, own, l, lane_len,
+                                       dev_kv=(bufs, kv_len))
+                else:
+                    t0 = self._now()
+                    x = M._hybrid_layer_step(lp, cfg, x, bufs[0], bufs[1], ac,
+                                             kv_len, act_len, store,
+                                             plan.tables, plan.act_kv,
+                                             M.plane_scales(bufs, act_s),
+                                             plan.exact_own, plan.write_on)
+                    self.timeline.record("gpu", "fwd", t0, self._now())
+                    self.dispatches += 1
+                self.streamer.release(seq)
+                seq += 1
+            toks.append(torch.where(active, cur, -1))
+            lg = M.hybrid_decode_end(self.resident, cfg, x, cache, store)
+            M._freeze_inactive(cache, active, kv_len, act_len)
+            cur = torch.where(active, lg[:, -1].argmax(-1).int(), cur)
+            self.dispatches += 1
+            if host_attn:
+                kv_len_np = kv_len_np + (~sched[s] & act_np[s])
+            self.timeline.end_step(now=self._now())
+        out = torch.cat([M._stack(toks, cur), cur[:, None]], 1).cpu().numpy()
+        self.blocking_syncs += 1
+        self._planes = None
+        return out[:, :n_steps], out[:, n_steps], cache
 
     # ================================================================== misc
     def drain_timeline(self, tag: Optional[str] = "decode"):

@@ -49,8 +49,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-# the device merge lives beside the kernel's plain version, below the model
-# layer that also merges; re-exported here for the lane's callers
+# the merge lives beside the kernel's plain version, below the model layer
+# that also merges; re-exported here for the lane's callers
 from repro_torch.kernels.hybrid_attention.ref import (  # noqa: F401
     NEG_INF, merge_partials_torch)
 from repro_torch.models.quant_ops import dequantize
@@ -61,24 +61,6 @@ from repro_torch.offload.timeline import MeasuredTimeline
 
 #: fault-injection site consulted once per submitted job
 HOST_ATTN_SITE = "host_attn"
-
-
-# ============================================================== partial math
-def merge_partials(o_a, m_a, l_a, o_b, m_b, l_b, *, xp=np):
-    """Fold two flash-attention partials into one (associative, exact).
-
-    ``o_*`` are NORMALISED partition outputs (..., D); ``m_*``/``l_*`` are
-    broadcastable against them with a trailing singleton (..., 1).  A
-    partition with l = 0 (empty: m = NEG_INF) contributes weight 0 and
-    drops out of the sum.  ``xp`` selects the array module (numpy on the
-    host); ``merge_partials_torch`` is the device twin.
-    """
-    m_new = xp.maximum(m_a, m_b)
-    w_a = l_a * xp.exp(m_a - m_new)
-    w_b = l_b * xp.exp(m_b - m_new)
-    tot = w_a + w_b
-    o = (w_a * o_a + w_b * o_b) / xp.maximum(tot, 1e-30)
-    return o, m_new, tot
 
 
 class QuantPlane(NamedTuple):
@@ -119,7 +101,7 @@ def host_flash_attention(q: np.ndarray, hk, hv, kv_len: np.ndarray, *,
 
     Single pass over kv chunks with a running (m, l, acc) — the numpy
     mirror of the kernel's inner loop, so the returned partial obeys the
-    same NEG_INF conventions ``merge_partials`` expects.
+    same NEG_INF conventions ``merge_partials_torch`` expects.
     """
     B, KVH, G, D = q.shape
     scale = 1.0 / math.sqrt(D)

@@ -1,3 +1,6 @@
-from repro_torch.serving.engine import (CapacityError, GenStats,
-                                        HybridServeEngine,
+from repro_torch.serving.engine import (GenStats, HybridServeEngine,
                                         exact_reference_generate)
+from repro_torch.serving.recovery import (CapacityError, ParkedRequest,
+                                          RecoveryConfig, RecoveryStats)
+from repro_torch.serving.scheduler import (ContinuousBatchingServer,
+                                           ServeStats)

@@ -34,7 +34,7 @@ sharding are not part of this engine yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,26 +54,8 @@ from repro_torch.core.costmodel import profile_cost_fns
 from repro_torch.data.pipeline import Request
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.serving.recovery import CapacityError
 from repro_torch.serving.util import bucket, pack_group
-
-
-class CapacityError(RuntimeError):
-    """A capacity limit was hit (copied from ``repro.serving.recovery``).
-
-    Carries the affected request ids and a hint naming the knob that would
-    have prevented the raise."""
-
-    def __init__(self, message: str, *, rids: Sequence[int] = (),
-                 resource: str = "blocks", hint: str = ""):
-        self.rids = list(rids)
-        self.resource = resource
-        self.hint = hint
-        full = message
-        if rids:
-            full += f" [rids={self.rids}]"
-        if hint:
-            full += f" (hint: {hint})"
-        super().__init__(full)
 
 
 @dataclasses.dataclass

@@ -17,18 +17,44 @@ def bucket(n: int, mult: int = 16) -> int:
     return max(mult, (n + mult - 1) // mult * mult)
 
 
+def kv_keep_for(pb: int, act_frac: float, kv_cap: int, act_cap: int, *,
+                mode: str = "hybrid", clamp: bool = False) -> int:
+    """KV tokens of a ``pb``-token prefix: the Eq. 11 split at ``act_frac``,
+    block-aligned (``mode`` "kv": all of it, "act": none).
+
+    ``clamp=True`` (the server's admission): a split that violates a per-slot
+    cap is clamped into the feasible block-aligned window
+    [pb − act_cap, kv_cap], which is token-exact by the hybrid equivalence.
+    A prefix that fits neither region combined (pb > kv_cap + act_cap) is
+    left as it is, for the caller to refuse.
+    """
+    kk = int(round(pb * (1 - act_frac) / BLOCK_TOKENS)) * BLOCK_TOKENS
+    if mode == "kv":
+        kk = pb
+    if mode == "act":
+        kk = 0
+    if clamp and pb <= kv_cap + act_cap:
+        lo = bucket(max(pb - act_cap, 0)) if pb > act_cap else 0
+        kk = min(max(kk, lo), min(kv_cap, pb))
+    return kk
+
+
 def pack_group(requests, act_frac: float, kv_cap: int, act_cap: int, *,
-               mode: str = "hybrid"
+               mode: str = "hybrid", clamp: bool = False
                ) -> Tuple[np.ndarray, np.ndarray, List[int]]:
     """Pad a group of prompts to the common bucket and split each at the
     Eq. 11 ratio (block-aligned) — the preamble of the engine's group
-    prefill.
+    prefill and of the continuous-batching server's coalesced admission.
 
     -> (tokens (B, Smax) int32 padded with each prompt's last token,
         kv_keep (B,) int32, per-request buckets pbs).
 
     The batched prefill places per-request prefixes by masking, so an
     overfull region would truncate SILENTLY — fail loudly here instead.
+
+    ``clamp=True`` (the server's admission): each split is clamped into its
+    feasible window (``kv_keep_for``) instead of raising.  A prefix that fits
+    neither region combined (pbs > kv_cap + act_cap) still raises.
     """
     plens = [len(r.prompt) for r in requests]
     pbs = [bucket(p) for p in plens]
@@ -38,12 +64,8 @@ def pack_group(requests, act_frac: float, kv_cap: int, act_cap: int, *,
     for i, r in enumerate(requests):
         toks[i, :plens[i]] = r.prompt
         toks[i, plens[i]:] = r.prompt[-1]       # pad with last token
-        kk = int(round(pbs[i] * (1 - act_frac) / BLOCK_TOKENS)) * BLOCK_TOKENS
-        if mode == "kv":
-            kk = pbs[i]
-        if mode == "act":
-            kk = 0
-        kv_keep[i] = kk
+        kv_keep[i] = kv_keep_for(pbs[i], act_frac, kv_cap, act_cap,
+                                 mode=mode, clamp=clamp)
     if int(kv_keep.max()) > kv_cap:
         raise ValueError(f"kv_keep={int(kv_keep.max())} exceeds "
                          f"kv_cap={kv_cap}; raise kv_cap")

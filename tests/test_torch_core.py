@@ -88,6 +88,58 @@ def test_full_size_opt_mixes_kv_and_act_on_the_h100():
     assert 0.5 < a.act_fraction < 0.7
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("name", NAMES + ["yi-6b", "yi-6b-reduced"])
+@pytest.mark.parametrize("hw_name", sorted(HW))
+def test_generalized_allocation_matches_reference(name, hw_name, quant):
+    """Algorithm 1 with the byte-ratio-aware balance (``generalized=True``,
+    the continuous-batching server's default) gives the reference's
+    allocation and schedule, fp and int8."""
+    from repro.core.quant import QuantConfig as JQuant
+    from repro_torch.core.quant import QuantConfig
+    cfg, jcfg = get_config(name), j_get_config(name)
+    hw, jhw = HW[hw_name], j_hw(HW[hw_name])
+    q, jq = (QuantConfig(), JQuant()) if quant else (None, None)
+    dev = policy.device_act_blocks(cfg, hw, quant=q)
+    a = policy.host_block_allocation(cfg, hw, dev, generalized=True, quant=q)
+    ja = j_policy.host_block_allocation(jcfg, jhw, dev, generalized=True,
+                                        quant=jq)
+    assert (a.act_blocks, a.kv_blocks, a.act_init, a.kv_init) == \
+        (ja.act_blocks, ja.kv_blocks, ja.act_init, ja.kv_init)
+    fits = cm.profile_cost_fns(cfg, hw, quant=q)
+    assert policy.alloc_remaining(cfg, hw, *fits, 3, 0, generalized=True,
+                                  quant=q) == \
+        j_policy.alloc_remaining(jcfg, jhw, *j_cm.profile_cost_fns(
+            jcfg, jhw, quant=jq), 3, 0, generalized=True, quant=jq)
+    act0, kv0 = np.array([0, 37, 64, 5]), np.array([48, 16, 0, 3])
+    np.testing.assert_array_equal(
+        policy.store_act_schedule(a, act0, kv0, 24),
+        j_policy.store_act_schedule(ja, act0, kv0, 24))
+
+
+def test_dispatch_overhead_is_the_reference_default():
+    assert cm.HardwareSpec("x", 1, 1, 1, 1, 1).dispatch_overhead == \
+        j_cm.HardwareSpec("x", 1, 1, 1, 1, 1).dispatch_overhead == 40e-6
+    assert cm.H100_SXM.dispatch_overhead == cm.TPU_V5E.dispatch_overhead
+
+
+@pytest.mark.parametrize("caps", [(128, 128), (64, 32), (32, 64), (16, 16)])
+@pytest.mark.parametrize("act_frac", [0.0, 0.4, 0.98])
+def test_pack_group_clamp_matches_reference(act_frac, caps):
+    """``clamp=True`` (the server's admission) moves a split that breaks a
+    cap into the feasible window, or raises as the reference does."""
+    reqs = request_trace(1024, 4, prompt_mean=40, gen_tokens=6, seed=7)
+    try:
+        want = j_util.pack_group(reqs, act_frac, *caps, clamp=True)
+    except ValueError:
+        with pytest.raises(ValueError):
+            util.pack_group(reqs, act_frac, *caps, clamp=True)
+        return
+    got = util.pack_group(reqs, act_frac, *caps, clamp=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
 @pytest.mark.parametrize("act_frac", [0.0, 0.4, 0.98, 1.0])
 @pytest.mark.parametrize("mode", ["hybrid", "kv", "act"])
 def test_pack_group_matches_reference(act_frac, mode):
@@ -170,6 +222,23 @@ def test_block_manager_residency_moves_match_reference():
             for (k, a, b), n in bm.transitions.items()} == \
         {(k.value, a.value, b.value): n
          for (k, a, b), n in jbm.transitions.items()}
+
+
+def test_block_manager_free_blocks_match_reference():
+    """``free_blocks(kind)``: free capacity of a kind over both tiers."""
+    cfg, jcfg = get_config(NAMES[1]), j_get_config(NAMES[1])
+    sizes = dict(host_kv_blocks=3, host_act_blocks=5, dev_kv_blocks=2,
+                 dev_act_blocks=1)
+    bm, jbm = (blocks.BlockManager(cfg, **sizes),
+               j_blocks.BlockManager(jcfg, **sizes))
+    for m, kinds in ((bm, blocks.BlockType), (jbm, j_blocks.BlockType)):
+        m.new_request(0)
+        for t in range(70):
+            m.append_token(0, kinds.KV if t % 3 else kinds.ACT)
+    for kind, jkind in zip(blocks.BlockType, j_blocks.BlockType):
+        assert bm.free_blocks(kind) == jbm.free_blocks(jkind)
+    assert bm.free_blocks(blocks.BlockType.KV) == 5 - 3     # 46 KV tokens
+    assert bm.kind_transitions == {}
 
 
 def test_block_manager_accounting_matches_reference():

@@ -35,8 +35,7 @@ from repro_torch.kernels.hybrid_attention.ops import (
     hybrid_paged_attention, hybrid_paged_attention_two_pool)
 from repro_torch.models import model as M
 from repro_torch.offload import (FaultPlan, HostAttnExecutor,
-                                 host_flash_attention, merge_partials,
-                                 merge_partials_torch)
+                                 host_flash_attention, merge_partials_torch)
 from repro_torch.offload.host_attn import NEG_INF
 from repro_torch.serving import HybridServeEngine
 
@@ -163,8 +162,6 @@ def test_merge_partials_and_host_flash_attention_match_reference():
     o_b, m_b, l_b = host_flash_attention(q, hk[:, 25:], hv[:, 25:],
                                          np.maximum(kv_len - 25, 0))[:3]
     want = j_merge(o_a, m_a, l_a, o_b, m_b, l_b)
-    for a, b in zip(merge_partials(o_a, m_a, l_a, o_b, m_b, l_b), want):
-        np.testing.assert_array_equal(a, b)
     got = merge_partials_torch(*map(t, (o_a, m_a, l_a, o_b, m_b, l_b)))
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), b, rtol=1e-6, atol=1e-7)

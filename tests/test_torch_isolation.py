@@ -17,6 +17,7 @@ from repro_torch.models import quantized_cache as QC
 from repro_torch.offload import host_pool as HP
 from repro_torch.offload.executor import OffloadExecutor
 from repro_torch.serving import engine as E
+from repro_torch.serving import scheduler as S
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -64,6 +65,7 @@ def test_importing_every_port_module_loads_no_jax():
                                 M.init_hybrid_cache, P.from_numpy,
                                 E.HybridServeEngine.__init__,
                                 E.exact_reference_generate,
+                                S.ContinuousBatchingServer.__init__,
                                 HP.HostWeightPool.__init__,
                                 HP.HostBlockPool.__init__, HP.make_spill_pool,
                                 OffloadExecutor.__init__, QC.init_cache_q8],
