@@ -56,6 +56,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -67,8 +68,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.offload import OffloadBudget, _tight  # noqa: E402
+from repro_torch.core.controller import (ControllerConfig,  # noqa: E402
+                                         HybridCacheController)
 from repro_torch.core.costmodel import H100_SXM  # noqa: E402
-from repro_torch.core.quant import QuantConfig  # noqa: E402
+from repro_torch.core.quant import QuantConfig, kv_bytes_per_token  # noqa: E402
 from repro_torch.data.pipeline import open_loop_trace, request_trace  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
@@ -87,9 +90,12 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import quantized_cache as QC  # noqa: E402
 from repro_torch.models.quant_ops import dequantize, quantize  # noqa: E402
+from repro_torch.obs import (DriftMonitor, MetricsRegistry, Tracer,  # noqa: E402
+                             assert_single_rooted, validate_chrome_trace)
 from repro_torch.offload import (HostWeightPool, host_flash_attention,  # noqa: E402
                                  merge_partials_torch)
 from repro_torch.offload.host_attn import QuantPlane  # noqa: E402
+from repro_torch.offload.timeline import MeasuredTimeline  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingServer,  # noqa: E402
                                  HybridServeEngine, exact_reference_generate)
 from repro_torch.serving import scheduler as SCHED  # noqa: E402
@@ -1311,7 +1317,7 @@ def forced_logits(eng, params, cfg, group, gold):
     toks, kv_keep, pbs, sched, bound_, act_bound = eng.group_schedule(group)
     dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()
     lg, cache = M.hybrid_prefill_batched(params, cfg, dev(toks), eng.kv_cap,
-                                         eng.act_cap, dev(kv_keep), dev(pbs),
+                                         eng.act_cap, kv_keep, pbs,
                                          quant=eng.quant)
     out = [lg[:, -1]]
     s_dev = torch.from_numpy(sched).cuda()
@@ -1543,6 +1549,19 @@ def step_gaps(eng, params, cfg, reqs, gold, want) -> dict:
     return gaps
 
 
+def first_divergence(outs, rule, reqs) -> dict:
+    """{rid: (the first position where ``outs`` leave the fp oracle's
+    tokens, the oracle's top-2 logit margin there)} over the requests that
+    leave them."""
+    got = {}
+    for r in reqs:
+        diff = np.flatnonzero(outs[r.rid] != rule["oracle"][r.rid])
+        if diff.size:
+            p = int(diff[0])
+            got[r.rid] = (p, float(rule["margin"][r.rid][p]))
+    return got
+
+
 def agreement(outs, oracle, reqs) -> float:
     """Mean per-token agreement of ``outs`` with ``oracle`` over requests."""
     return float(np.mean([np.mean(outs[r.rid] == oracle[r.rid]) for r in reqs]))
@@ -1557,7 +1576,7 @@ def decode_launches(params, cfg, eng, group, quant, all_kv=False) -> int:
     toks, kv_keep, pbs, sched, bound_, act_bound = eng.group_schedule(group)
     dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()
     lg, cache = M.hybrid_prefill_batched(params, cfg, dev(toks), eng.kv_cap,
-                                         eng.act_cap, dev(kv_keep), dev(pbs),
+                                         eng.act_cap, kv_keep, pbs,
                                          quant=quant)
     tok = lg[:, -1].argmax(-1).int()[:, None]
     store_np = np.zeros_like(sched[:, 0]) if all_kv else sched[:, 0].copy()
@@ -1627,7 +1646,7 @@ def phase_serve_quant(results, smi, cfg, params, reqs, fp):
     region_bytes = {}
     for label, quant in (("fp", None), ("int8", q)):
         lg, cache = M.hybrid_prefill_batched(params, cfg, dev(toks), eng.kv_cap,
-                                             eng.act_cap, dev(kv_keep), dev(pbs),
+                                             eng.act_cap, kv_keep, pbs,
                                              quant=quant)
         region_bytes[label] = sum(cache[k].numel() * cache[k].element_size()
                                   for k in M.region_planes(cache))
@@ -1805,7 +1824,7 @@ def phase_serve(results, smi, name):
     toks, kv_keep, pbs, sched, bound_, act_bound = eng.group_schedule(g0)
     dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).cuda()
     lg, cache = M.hybrid_prefill_batched(params, cfg, dev(toks), eng.kv_cap,
-                                         eng.act_cap, dev(kv_keep), dev(pbs))
+                                         eng.act_cap, kv_keep, pbs)
     cur = lg[:, -1].argmax(-1).int()
     sched_dev = torch.from_numpy(np.ascontiguousarray(sched.T)).cuda()
     torch.cuda.synchronize()
@@ -1886,7 +1905,9 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle, q8_oracle):
     quant engine's, its KV uploads per request and step at least 1.8x
     smaller than the fp spilled run's) and with the CPU lane (agreement with
     the fp oracle, and its own teacher-forced gap to the q8 oracle under the
-    quant limit).  -> the host-attend runs' launch counts, fp and int8."""
+    quant limit).  For OPT, ``phase_telemetry_offload`` runs on the same
+    pinned weights.  -> the host-attend runs' launch counts, fp and int8,
+    and the telemetry runs', {run: ...}."""
     rule, gold, ora = oracle
     q8_rule, q8_gold, q8_lg, q8_limit = q8_oracle
     cfg = get_config(name)
@@ -2032,6 +2053,10 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle, q8_oracle):
                                  f"expected launches {want}")
         if host_attn:
             ha_launches["int8" if q8 else "fp"] = launches
+    # OPT's engine-side telemetry runs, on the same pinned weights
+    tel_launches = (phase_telemetry_offload(results, smi, cfg, pool, reqs,
+                                            resident_outs, rule, out)
+                    if cfg.pos_type != "rope" else {})
     # depth 1 against depth 0, each the mean of its two runs.  The overlap is
     # read from the timeline's spans: the share of the gpu lane's busy time
     # that lies inside the pcie lane's busy intervals.  Depth 1 must hide at
@@ -2071,7 +2096,7 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle, q8_oracle):
     if overlaps(fault):
         raise AssertionError(f"the overlap check passes a planted fault: copies "
                              f"on the compute stream hide {fault} of the compute")
-    return ha_launches
+    return ha_launches, tel_launches
 
 
 # ----------------------------------------------------------- scheduler phase
@@ -2156,14 +2181,18 @@ class ForcedRun:
     |Δlogit| per position}.  ``act_short`` plants the bound fault: each
     chunk's tables one ACT page short of what its active slots hold as it
     starts, and ``bound_faults`` counts the chunks whose device lengths then
-    outgrow the bound."""
+    outgrow the bound.  ``ora`` None (an offload server): nothing is forced,
+    the run's own logits are kept (``gold`` gives the lengths only) and
+    ``gaps(ora)`` reads them against an oracle fed the run's tokens."""
 
     def __init__(self, srv, gold, ora, act_short: bool = False):
-        self.srv, self.act_short = srv, act_short
+        self.srv, self.act_short, self.force = srv, act_short, ora is not None
         self.gold = {rid: g.cpu().numpy() for rid, g in gold.items()}
-        rids = sorted(ora)
-        self.off = dict(zip(rids, np.cumsum([0] + [len(ora[r]) for r in rids])))
-        self.ora = torch.cat([ora[r] for r in rids]).float()
+        if self.force:
+            rids = sorted(ora)
+            self.off = dict(zip(rids, np.cumsum([0] + [len(ora[r])
+                                                       for r in rids])))
+            self.ora = torch.cat([ora[r] for r in rids]).float()
         self.real_prefill, self.real_admit = (M.hybrid_prefill_batched,
                                               srv._admit_batch)
         self.rows: list = []        # (rids, positions, gaps tensor)
@@ -2173,14 +2202,20 @@ class ForcedRun:
     @contextlib.contextmanager
     def patch(self):
         self.srv._admit_batch = self.admit_batch
+        ex = self.srv.executor
+        chunk = (patched(M, "hybrid_decode_chunk", self.chunk) if ex is None
+                 else patched(ex, "decode_chunk",
+                              self.offload_chunk(ex.decode_chunk)))
         try:
-            with patched(M, "hybrid_prefill_batched", self.prefill), \
-                    patched(M, "hybrid_decode_chunk", self.chunk):
+            with patched(M, "hybrid_prefill_batched", self.prefill), chunk:
                 yield self
         finally:
             del self.srv._admit_batch
 
     def record(self, rows, lg, rids, pos):
+        if not self.force:
+            self.rows.append((rids, pos, lg[rows].float()))
+            return
         idx = torch.tensor([self.off[r] + p for r, p in zip(rids, pos)],
                            device=lg.device)
         self.rows.append((rids, pos, (lg[rows].float() - self.ora[idx])
@@ -2198,12 +2233,12 @@ class ForcedRun:
         pos = [len(self.srv.slots[i].generated) for i in slots]
         self.record(list(range(len(slots))), self._lg, rids, pos)
         for i, r, p in zip(slots, rids, pos):
-            self.srv._cur_tok[i] = self.gold[r][p]
+            if self.force:
+                self.srv._cur_tok[i] = self.gold[r][p]
 
-    def chunk(self, params, cfg, cur, cache, store, active, *, pages_bound,
-              act_pages_bound, quant, any_act):
-        S, B = store.shape
-        act_np = active.cpu().numpy()
+    def fed(self, S, B):
+        """The chunk's fed tokens (S + 1, B) from each slot's position, the
+        slots' rids and those positions."""
         rid = [st.rid for st in self.srv.slots]
         pos0 = [len(st.generated) for st in self.srv.slots]
         fed = np.zeros((S + 1, B), np.int32)
@@ -2211,6 +2246,44 @@ class ForcedRun:
             if rid[b] >= 0:
                 g = self.gold[rid[b]]
                 fed[:, b] = g[np.minimum(pos0[b] + np.arange(S + 1), len(g) - 1)]
+        return fed, rid, pos0
+
+    def record_step(self, act_np, s, lg, rid, pos0):
+        rows = [b for b in range(lg.shape[0]) if act_np[s, b]
+                and pos0[b] + s + 1 < len(self.gold[rid[b]])]
+        if rows:
+            self.record(rows, lg[:, -1], [rid[b] for b in rows],
+                        [pos0[b] + s + 1 for b in rows])
+
+    def offload_chunk(self, real):
+        """The offload executor's ``decode_chunk`` fed the oracle's tokens:
+        each step's logits recorded, the oracle's next token handed back in
+        place of their argmax."""
+        def chunk(cur, cache, store_sched, active_sched, **kw):
+            act_np = np.asarray(active_sched, bool)
+            fed, rid, pos0 = self.fed(*act_np.shape)
+            fed_d = torch.from_numpy(fed).cuda()
+            step = iter(range(act_np.shape[0]))
+            real_end = M.hybrid_decode_end
+
+            def end(*a, **k):
+                lg = real_end(*a, **k)
+                s = next(step)
+                self.record_step(act_np, s, lg, rid, pos0)
+                return lg if not self.force else F.one_hot(
+                    fed_d[s + 1].long(), lg.shape[-1]).to(lg.dtype)[:, None]
+
+            with patched(M, "hybrid_decode_end", end):
+                got = real(cur, cache, store_sched, active_sched, **kw)
+            self.calls += 1
+            return got
+        return chunk
+
+    def chunk(self, params, cfg, cur, cache, store, active, *, pages_bound,
+              act_pages_bound, quant, any_act):
+        S, B = store.shape
+        act_np = active.cpu().numpy()
+        fed, rid, pos0 = self.fed(S, B)
         ran = torch.from_numpy(act_np.any(0)).cuda()
         if self.act_short:
             need = -(-int(cache["act_len"][ran].max()) // PAGE)
@@ -2229,20 +2302,19 @@ class ForcedRun:
                 quant=quant, any_act=bool(any_act[s]))
             M._freeze_inactive(cache, a, kv_len, act_len)
             toks.append(torch.where(a, fed_d[s], -1))
-            rows = [b for b in range(B) if act_np[s, b]
-                    and pos0[b] + s + 1 < len(self.gold[rid[b]])]
-            if rows:
-                self.record(rows, lg[:, -1], [rid[b] for b in rows],
-                            [pos0[b] + s + 1 for b in rows])
+            self.record_step(act_np, s, lg, rid, pos0)
         self.calls += 1
         if self.act_short and \
                 int(cache["act_len"][ran].max()) > act_pages_bound * PAGE:
             self.bound_faults += 1
         return torch.stack(toks, 1), fed_d[S], cache
 
-    def gaps(self) -> dict:
+    def gaps(self, ora=None) -> dict:
         out = {rid: np.full(len(g), np.nan) for rid, g in self.gold.items()}
         for rids, pos, g in self.rows:       # a resume's prefill overwrites
+            if ora is not None:              # the kept logits, read now
+                g = torch.stack([(row - ora[r][p].float()).abs().amax()
+                                 for r, p, row in zip(rids, pos, g)])
             for r, p, v in zip(rids, pos, g.cpu().numpy()):
                 out[r][p] = v
         if any(np.isnan(g).any() for g in out.values()):
@@ -2351,18 +2423,21 @@ def sched_leak_free(srv) -> bool:
             and not any(p.allocated for p in srv.blockman.pools.values()))
 
 
-def sched_serve(cfg, params, reqs, arrivals, S, check=None, **kw):
+def sched_serve(cfg, params, reqs, arrivals, S, check=None, hook=None,
+                **kw):
     """One server run with the launch counts set to 0 before it and read
-    after.  -> (server, tokens, stats, launches, wall s)."""
+    after; ``hook(srv)``, when given, a context the run goes through.
+    -> (server, tokens, stats, launches, wall s)."""
     srv = ContinuousBatchingServer(cfg, params, chunk_steps=S, hw=H100_SXM,
                                    **SCHED_SERVER, **kw)
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    if check is not None:
-        with patched(M, "hybrid_decode_chunk", check):
-            out, stats = srv.run(reqs, arrival_steps=arrivals)
-    else:
+    with contextlib.ExitStack() as stack:
+        if check is not None:
+            stack.enter_context(patched(M, "hybrid_decode_chunk", check))
+        if hook is not None:
+            stack.enter_context(hook(srv))
         out, stats = srv.run(reqs, arrival_steps=arrivals)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2400,7 +2475,11 @@ def phase_scheduler(results, smi, cfg, params):
     page short, which must move the teacher-forced logits past the limit,
     inactive slots' lengths advancing), each of which must fail.  Prints
     tokens/s per run, the profiled run's device idle share, and the offload
-    runs' step times.  -> {run label: launches}."""
+    runs' step times.  OPT's CPU-lane run is traced (``Tracer`` and
+    ``MetricsRegistry``; the telemetry phase reads its trace).
+    -> ({run label: launches}, what the telemetry phase compares with: the
+    oracle rule, the device-resident subset's tokens, the runs, the traced
+    run's tracer)."""
     name = cfg.name
     rope = cfg.pos_type == "rope"
     logit_tol = LOGIT_TOL_BY_DTYPE[cfg.dtype]
@@ -2556,7 +2635,7 @@ def phase_scheduler(results, smi, cfg, params):
         srv, toks = resident_run("S8_pressure", 8, **SCHED_PRESSURE)
         rs = srv.recovery_stats
         runs["S8_pressure"].update(
-            recovery=dataclasses.asdict(rs),
+            recovery=rs.as_dict(),
             **exactness(rule, "S8_pressure", toks, reqs))
         launches["fp_pressure"] = runs["S8_pressure"]["launches"]
         if not (rs.preemptions >= 1 and rs.preempt_to_act >= 1
@@ -2580,7 +2659,9 @@ def phase_scheduler(results, smi, cfg, params):
 
     # streamed weights on the subset
     off_runs = ({"S8_offload": dict(offload=True),
-                 "S8_offload_host_attn": dict(offload=True, host_attn=True)}
+                 "S8_offload_host_attn": dict(offload=True, host_attn=True,
+                                              tracer=Tracer(),
+                                              metrics=MetricsRegistry())}
                 if not rope else
                 {"S8_offload_host_attn_int8": dict(offload=True, host_attn=True,
                                                    quant=QuantConfig())})
@@ -2631,6 +2712,539 @@ def phase_scheduler(results, smi, cfg, params):
     held = [k for k, v in faults.items() if not v.startswith("failed")]
     if held:
         raise AssertionError(f"{name} scheduler: planted faults pass: {faults}")
+    ctx = {"rule": rule, "gold": gold, "ora": ora, "runs": runs, "sub": sub,
+           "sub_arr": sub_arr,
+           "resident": resident if not rope else None,
+           "tracers": {label: kw["tracer"] for label, kw in off_runs.items()
+                       if "tracer" in kw}}
+    return launches, ctx
+
+
+# ----------------------------------------------------------- telemetry phase
+class AdmitSyncs:
+    """``ContinuousBatchingServer._admit`` under
+    ``set_sync_debug_mode("warn")``: every stream sync it makes (an upload
+    from pageable memory, a readback) warns; each is counted, with the line
+    that made it.  The one readback of the first tokens is the counted host
+    sync."""
+
+    def __init__(self):
+        self.calls = self.syncs = 0
+        self.sites: dict = {}
+        self.real = ContinuousBatchingServer._admit
+
+    def patch(self):
+        return patched(ContinuousBatchingServer, "_admit",
+                       lambda srv, *a, **kw: self.admit(srv, *a, **kw))
+
+    def admit(self, srv, *a, **kw):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                got = self.real(srv, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        self.calls += 1
+        for w in seen:
+            if "synchroniz" in str(w.message):
+                self.syncs += 1
+                site = f"{Path(w.filename).name}:{w.lineno}"
+                self.sites[site] = self.sites.get(site, 0) + 1
+        return got
+
+
+# the controller's runs on the card update after every chunk (group) so that
+# the few chunks of the subset make several updates
+TELEMETRY_CTL = dict(update_every=1)
+RECORD_SYNC_FAULT = "lane_spans_synchronised_as_recorded"
+GPU_X4_FAULT = "measured_compute_lane_x4"
+
+
+def fit_row(f) -> dict:
+    return {"slope_s_per_token_layer": f.slope, "intercept_s": f.intercept,
+            "r2": f.r2}
+
+
+def controller_report(ctl, cfg, quant) -> dict:
+    """The controller's prior and refit fits per lane (the load lane's slope
+    also as the rates it implies: the gather rate, bytes per token over the
+    slope, and the link, that rate over the spec's gather efficiency, beside
+    the spec's link), its ACT fraction per update, and the drift monitor's
+    per-lane summary."""
+    kv_b = kv_bytes_per_token(cfg, quant)
+    fits = {}
+    for lane, prior, fit in (("gen", ctl.prior_gen, ctl.fit_gen),
+                             ("load", ctl.prior_load, ctl.fit_load),
+                             ("cpu", ctl.prior_cpu, ctl.fit_cpu)):
+        if prior is None:
+            continue
+        row = {"prior": fit_row(prior), "refit": fit_row(fit),
+               "slope_over_prior": fit.slope / prior.slope,
+               "samples": len({"gen": ctl._gen, "load": ctl._load,
+                               "cpu": ctl._cpu}[lane])}
+        if lane == "load":
+            for key, f in (("prior", prior), ("refit", fit)):
+                row[key]["gather_GBps"] = kv_b / f.slope / 1e9
+                row[key]["link_GBps"] = kv_b / f.slope / ctl.hw.gather_eff / 1e9
+            row["spec_link_GBps"] = ctl.hw.host_link_bw / 1e9
+        fits[lane] = row
+    drift = ctl.drift.summary() if ctl.drift is not None else None
+    return {"fits": fits, "frac_history": list(ctl.frac_history),
+            "target_act_fraction": ctl.target_allocation().act_fraction,
+            "updates": ctl.updates, "migrated_blocks": ctl.migrated_blocks,
+            "faulted_skipped": ctl.faulted_skipped,
+            "alloc": dataclasses.asdict(ctl.alloc), "drift": drift}
+
+
+def print_controller(label, rep, smi) -> None:
+    for lane, row in rep["fits"].items():
+        link = (f", link {row['prior']['link_GBps']:.2f} -> "
+                f"{row['refit']['link_GBps']:.2f} GB/s (spec "
+                f"{row['spec_link_GBps']:.0f})" if lane == "load" else "")
+        print(f"telemetry {label} {lane}: slope "
+              f"{row['prior']['slope_s_per_token_layer']:.4g} -> "
+              f"{row['refit']['slope_s_per_token_layer']:.4g} s/token/layer "
+              f"(x{row['slope_over_prior']:.3f}, {row['samples']} samples), "
+              f"intercept {row['prior']['intercept_s']:.4g} -> "
+              f"{row['refit']['intercept_s']:.4g} s{link} ({smi})", flush=True)
+    d = rep["drift"] or {}
+    print(f"telemetry {label}: act fraction "
+          f"{[round(f, 4) for f in rep['frac_history']]}, updates "
+          f"{rep['updates']}, migrated {rep['migrated_blocks']} blocks, "
+          f"faulted skipped {rep['faulted_skipped']}, drift "
+          f"{ {k: round(v, 3) for k, v in d.get('rel', {}).items()} } "
+          f"flagged {d.get('flagged')} ({smi})", flush=True)
+
+
+def trace_checks(tracer, rids, require, path=None) -> dict:
+    """Export (to ``path`` when given), validate and read one trace: every
+    request single-rooted with ``require``; -> the trace's counts."""
+    data = tracer.to_chrome()
+    if path is not None:
+        path.write_text(json.dumps(data))
+        data = json.loads(path.read_text())
+    validate_chrome_trace(data)
+    for rid in rids:
+        assert_single_rooted(data, rid, require=require)
+    ev = data["traceEvents"]
+    spans = lambda name: [e for e in ev if e["ph"] == "X" and e["name"] == name]
+    chunks, mirrors = spans("chunk"), spans("mirror")
+    lanes = sorted({e["name"] for e in ev if e["ph"] == "X"
+                    and e.get("cat", "").startswith("lane:")})
+    out = {"events": len(ev), "lane_span_names": lanes,
+           "chunk_spans": len(chunks), "mirror_spans": len(mirrors)}
+    if mirrors:
+        # the host-mirror pull, a link span of its own: its share of the
+        # chunk spans it falls in
+        pull = sum(m["dur"] for m in mirrors)
+        chunk = sum(c["dur"] for c in chunks)
+        inside = sum(any(c["ts"] <= m["ts"] and m["ts"] + m["dur"]
+                         <= c["ts"] + c["dur"] + 1e-3 for c in chunks)
+                     for m in mirrors)
+        out.update(mirror_ms_mean=pull / len(mirrors) / 1e3,
+                   mirror_share_of_chunks=pull / chunk,
+                   mirror_inside_a_chunk=inside,
+                   mirror_bytes_mean=float(np.mean([m["args"]["nbytes"]
+                                                    for m in mirrors])))
+    return out
+
+
+def phase_telemetry(results, smi, cfg, params, sched):
+    """The tracer, the metrics registry and the adaptive controller on the
+    card, on the weights already loaded (``sched``: the scheduler phase's
+    context).  Tracing invariance: the S = 8 server over the subset, device
+    resident, with and without ``Tracer()`` + ``MetricsRegistry()``: the same
+    tokens, calls, readbacks, admission batches and every kernel's
+    launches; its exported trace (``chiprun_out/``) validates with every
+    request single-rooted.  The engine's device-resident decode runs traced
+    under ``set_sync_debug_mode("error")``; the server's admission makes
+    one stream sync each, its counted readback (``AdmitSyncs``).  The
+    controller on measured timelines: the server with streamed weights and
+    ``adaptive=True`` (OPT: two-way; yi: int8 with the CPU lane,
+    three-way), traced, against its non-adaptive twin of the scheduler
+    phase (calls, readbacks, launches), tokens under that twin's rule (int8
+    also a teacher-forced run within the q8 oracle's limit), leak-free, at
+    least two updates, no degraded step fitted.  The
+    CPU-lane runs' host-mirror pull is a link span of its own: its share of
+    the chunks is printed.  -> {run label: launches}."""
+    name = cfg.name
+    rope = cfg.pos_type == "rope"
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    sub, sub_arr, runs = sched["sub"], sched["sub_arr"], sched["runs"]
+    rids = [r.rid for r in sub]
+    out = {"phase": "telemetry", "card": smi, "model": name}
+    launches, checks = {}, {}
+
+    # tracing invariance, device resident: untraced, traced, untraced (the
+    # first run of a shape pays a warm-up the others do not)
+    # the traced run's admissions (prefill, uploads, scatter, first tokens)
+    # under the sync check: one stream sync each, its counted readback
+    pair, admit = {}, AdmitSyncs()
+    for label, kw in (("S8_subset_untraced", {}),
+                      ("S8_subset_traced", dict(tracer=Tracer(),
+                                                metrics=MetricsRegistry())),
+                      ("S8_subset_untraced_again", {})):
+        # each chunk under the sync check and the masking contract
+        check = ChunkCheck()
+        srv, toks, stats, got, wall = sched_serve(
+            cfg, params, sub, sub_arr, 8, check,
+            hook=(lambda _: admit.patch()) if "tracer" in kw else None, **kw)
+        checks[f"{label}_chunks_checked"] = \
+            check.calls == stats.chunks and not (check.length_faults
+                                                 or check.bound_faults)
+        pair[label] = (srv, toks, stats, got, wall, kw.get("tracer"))
+        launches[label] = got
+        out[label] = dict(sched_stats(stats, wall), launches=got,
+                          wall_ms_per_token=1e3 * wall / stats.generated_tokens)
+    (_, t0_, s0, l0, _, _), (srv1, t1_, s1, l1, _, tracer), \
+        (_, t2_, s2, l2, _, _) = pair.values()
+    checks["traced_tokens_equal"] = all(
+        np.array_equal(t0_[r], t1_[r]) and np.array_equal(t2_[r], t1_[r])
+        for r in rids)
+    for f in ("device_calls", "host_syncs", "admission_batches", "chunks"):
+        checks[f"traced_{f}_equal"] = \
+            getattr(s0, f) == getattr(s1, f) == getattr(s2, f)
+    checks["traced_launches_equal"] = l0 == l1 == l2
+    checks["traced_leak_free"] = sched_leak_free(srv1)
+    out["server_trace"] = trace_checks(
+        tracer, rids, ("prefill", "complete"),
+        out_dir / f"trace_{name}_server.json")
+    snap = srv1.snapshot()
+    out["snapshot_keys"] = len(snap)
+    checks["snapshot_ttft"] = snap["ttft_s"]["count"] == len(sub)
+    print(f"telemetry {name}: wall ms per token untraced "
+          f"{out['S8_subset_untraced']['wall_ms_per_token']:.3f}, traced "
+          f"{out['S8_subset_traced']['wall_ms_per_token']:.3f}, untraced "
+          f"{out['S8_subset_untraced_again']['wall_ms_per_token']:.3f} "
+          f"({smi})", flush=True)
+
+    out["admission_syncs"] = {"admissions": admit.calls,
+                              "syncs": admit.syncs, "sites": admit.sites}
+    checks["admission_one_sync_each"] = \
+        admit.calls == s1.admission_batches > 0 and admit.syncs == admit.calls
+
+    # the engine's device-resident decode, traced, under the sync check
+    reqs = request_trace(cfg.vocab_size, **TRACE)
+    real_loop = M.hybrid_decode_loop
+
+    def checked_loop(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_loop(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    eng_runs = {}
+    for label, kw in (("engine_untraced", {}),
+                      ("engine_traced", dict(tracer=Tracer(),
+                                             metrics=MetricsRegistry()))):
+        eng = HybridServeEngine(cfg, params, hw=H100_SXM, **kw)
+        torch.cuda.synchronize()
+        reset_counts()
+        with patched(M, "hybrid_decode_loop", checked_loop):
+            toks, stats = eng.generate(reqs)
+        torch.cuda.synchronize()
+        launches[label] = read_counts()
+        out[label] = {"launches": launches[label],
+                      "device_calls": stats.device_calls}
+        eng_runs[label] = (eng, toks, stats, kw.get("tracer"))
+    (_, e0, es0, _), (eng1, e1, es1, etr) = eng_runs.values()
+    checks["engine_traced_tokens_equal"] = all(
+        np.array_equal(e0[r.rid], e1[r.rid]) for r in reqs)
+    checks["engine_traced_calls_equal"] = es0.device_calls == es1.device_calls
+    checks["engine_traced_launches_equal"] = \
+        launches["engine_untraced"] == launches["engine_traced"] == \
+        expected_launches(eng1, reqs)
+    out["engine_trace"] = trace_checks(etr, [r.rid for r in reqs],
+                                       ("admit", "complete"))
+    out["engine_decode_host_syncs"] = 0
+    del eng_runs, eng1
+
+    # the controller on the card's measured lane timelines
+    adaptive = ({"S8_offload_adaptive": ("S8_offload", dict(offload=True))}
+                if not rope else
+                {"S8_offload_host_attn_int8_adaptive": (
+                    "S8_offload_host_attn_int8",
+                    dict(offload=True, host_attn=True, quant=QuantConfig()))})
+    for label, (twin, kw) in adaptive.items():
+        tracer = Tracer()
+        kept = {}                 # the int8 run's own logits, kept
+
+        def keep(srv):
+            kept["run"] = ForcedRun(srv, {r.rid: torch.zeros(
+                r.max_new_tokens, dtype=torch.int32) for r in sub}, None)
+            return kept["run"].patch()
+
+        srv, toks, stats, got, wall = sched_serve(
+            cfg, params, sub, sub_arr, 8, adaptive=True,
+            ctl=ControllerConfig(**TELEMETRY_CTL), tracer=tracer,
+            metrics=MetricsRegistry(),
+            hook=keep if kw.get("quant") is not None else None, **kw)
+        ctl = srv.controller
+        rep = controller_report(ctl, cfg, kw.get("quant"))
+        ref = runs[twin]
+        run = dict(sched_stats(stats, wall), controller=rep, twin=twin,
+                   launches=got,
+                   trace=trace_checks(tracer, rids, ("prefill", "complete")))
+        launches[label] = got
+        checks[f"{label}_calls_equal_twin"] = \
+            stats.device_calls == ref["device_calls"]
+        checks[f"{label}_syncs_equal_twin"] = \
+            stats.host_syncs == ref["host_syncs"]
+        checks[f"{label}_launches_equal_twin"] = got == ref["launches"]
+        checks[f"{label}_leak_free"] = sched_leak_free(srv)
+        checks[f"{label}_updates"] = ctl.updates >= 2
+        checks[f"{label}_faulted_skipped"] = ctl.faulted_skipped == 0
+        if kw.get("quant") is not None:
+            # held as the scheduler phase's int8 run is: agreement with the
+            # fp oracle, and a teacher-forced gap to the q8 oracle within the
+            # limit (its logits at each position against the q8 oracle's fed
+            # the run's own tokens; the limit from the q8 oracle fed the fp
+            # oracle's); beside them the non-adaptive twin's agreement and
+            # where each request first leaves the fp oracle, with the
+            # oracle's top-2 margin there
+            q8_fp = {r.rid: q8_generate(params, cfg, r.prompt,
+                                        r.max_new_tokens,
+                                        sched["gold"][r.rid])[1] for r in sub}
+            gap_q8_fp = max((q8_fp[r] - sched["ora"][r]).abs().max().item()
+                            for r in rids)
+            limit = QUANT_GAP_FACTOR * gap_q8_fp + \
+                LOGIT_TOL_BY_DTYPE[cfg.dtype]
+            q8_own = {r.rid: q8_generate(
+                params, cfg, r.prompt, r.max_new_tokens,
+                torch.from_numpy(toks[r.rid]).cuda())[1] for r in sub}
+            max_gap = max(float(g.max())
+                          for g in kept["run"].gaps(q8_own).values())
+            run.update(
+                agreement_with_fp_oracle=agreement(toks, sched["rule"]["oracle"],
+                                                   sub),
+                twin_agreement_with_fp_oracle=ref["agreement_with_fp_oracle"],
+                first_divergence=first_divergence(toks, sched["rule"], sub),
+                max_teacher_forced_dlogit_vs_q8=max_gap, limit=limit,
+                gap_q8_oracle_vs_fp_oracle=gap_q8_fp)
+            checks[f"{label}_agreement"] = \
+                run["agreement_with_fp_oracle"] >= MIN_AGREEMENT
+            checks[f"{label}_forced_gap_vs_q8"] = max_gap <= limit
+            print(f"telemetry {name} {label}: agreement with the fp oracle "
+                  f"{run['agreement_with_fp_oracle']:.4f} (non-adaptive twin "
+                  f"{run['twin_agreement_with_fp_oracle']:.4f}); first "
+                  f"divergence (position, fp margin) "
+                  f"{run['first_divergence']}; teacher-forced gap to the q8 "
+                  f"oracle {max_gap:.4f}, limit {limit:.4f} ({smi})",
+                  flush=True)
+        else:
+            # the refit moves the split mid-run: the fp rule, with the
+            # device-resident subset's teacher-forced gaps as allowance
+            run.update(exactness(sched["rule"], "S8_subset", toks, sub))
+            run["equal_to_device_resident"] = sum(
+                np.array_equal(toks[r], sched["resident"][r]) for r in rids)
+        if kw.get("host_attn"):
+            checks[f"{label}_mirror_spans"] = \
+                run["trace"]["mirror_spans"] == stats.chunks == \
+                run["trace"]["mirror_inside_a_chunk"]
+        out[label] = run
+        print_controller(f"{name} {label}", rep, smi)
+        srv.close()
+        del srv
+        gc.collect()
+
+    # OPT's CPU-lane run of the scheduler phase was traced: its mirror pull
+    if "S8_offload_host_attn" in sched["tracers"]:
+        tr = trace_checks(sched["tracers"]["S8_offload_host_attn"], rids,
+                          ("prefill", "complete"),
+                          out_dir / f"trace_{name}_server_host_attn.json")
+        out["S8_offload_host_attn_trace"] = tr
+        checks["host_attn_mirror_spans"] = \
+            tr["mirror_spans"] == runs["S8_offload_host_attn"]["chunks"] == \
+            tr["mirror_inside_a_chunk"]
+    cpu_lane = {"S8_offload_host_attn": out.get("S8_offload_host_attn_trace"),
+                "S8_offload_host_attn_int8_adaptive":
+                    out.get("S8_offload_host_attn_int8_adaptive", {}).get("trace")}
+    for label, tr in cpu_lane.items():
+        if tr:
+            print(f"telemetry {name} {label}: mirror pull "
+                  f"{tr['mirror_ms_mean']:.3f} ms a chunk, "
+                  f"{tr['mirror_share_of_chunks']:.4f} of the chunks ({smi})",
+                  flush=True)
+    out.update(checks=checks, phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    results[f"telemetry {name}"] = out
+    if not all(checks.values()):
+        raise AssertionError(f"telemetry {name} failed "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return launches
+
+
+REAL_RECORD = MeasuredTimeline.record
+
+
+def record_synchronised(self, lane, tag, start, end, nbytes=0):
+    """``MeasuredTimeline.record`` with the reference's record-time tracer
+    hook carried over literally (a planted fault): each span's CUDA events
+    are synchronised as the span is recorded, to hand the tracer host
+    seconds at once."""
+    for t in (start, end):
+        if not isinstance(t, (int, float)):
+            t.synchronize()
+    REAL_RECORD(self, lane, tag, start, end, nbytes)
+
+
+def gpu_lane_x4(res):
+    """A measured step with its compute lane four times as long (a planted
+    fault): the gpu lane's busy time and its spans' seconds."""
+    tb = {k: 4.0 * v if k in ("fwd", "gen") else v
+          for k, v in res.tag_busy.items()}
+    return dataclasses.replace(res, tag_busy=tb, gpu_busy=4.0 * res.gpu_busy)
+
+
+def phase_telemetry_offload(results, smi, cfg, pool, reqs, resident_outs,
+                            rule, offload_runs):
+    """The controller on the offload engine's measured timelines, inside the
+    offload phase (its pinned weights): the engine with ``adaptive=True``
+    under the tight budget (the KV region spills, so the link's KV loads
+    feed the load lane) calls ``generate`` twice on the trace, the second
+    call on the refit split; tokens equal the device-resident engine's,
+    calls and blocking syncs the non-adaptive spilled run's (the second
+    call, on the refit split, holds the fp rule against the oracle), at
+    least two updates, no degraded step fitted.  Two planted faults must
+    fail: the reference's record-time tracer hook carried over literally
+    (each span's events synchronised as recorded) must break the depth-1
+    overlap check or the sync count, and the same observations replayed
+    with the measured compute lane scaled x4 (regeneration priced dearer)
+    must move the target ACT fraction below the sound replay's by more than
+    the controller's deadband.  -> {run label: launches}."""
+    name = cfg.name
+    t_phase = time.perf_counter()
+    out = {"phase": "telemetry_offload", "card": smi, "model": name}
+    launches, checks, faults = {}, {}, {}
+    twin = offload_runs["hybrid_spill"]
+    eng = HybridServeEngine(cfg, pool, hw=H100_SXM, offload=True,
+                            budget=_tight(cfg), adaptive=True,
+                            ctl=ControllerConfig(**TELEMETRY_CTL))
+    seen = []                         # the controller's observations
+    real_observe = eng.controller.observe
+
+    def observe(results_, kv, act, sim=None, cpu_tokens=None):
+        seen.append((list(results_), list(kv), list(act), list(sim)))
+        return real_observe(results_, kv, act, sim=sim, cpu_tokens=cpu_tokens)
+
+    eng.controller.observe = observe
+    start = eng.alloc
+    calls = []
+    for i in range(2):
+        b0 = eng.executor.blocking_syncs
+        torch.cuda.synchronize()
+        reset_counts()
+        toks, stats = eng.generate(reqs)
+        torch.cuda.synchronize()
+        got = read_counts()
+        launches[f"engine_spill_adaptive_call{i + 1}"] = got
+        calls.append({"act_frac": eng.act_frac,
+                      "device_calls": stats.device_calls,
+                      "blocking_syncs": eng.executor.blocking_syncs - b0,
+                      "launches_equal_twin": got == twin["launches"]})
+        calls[-1]["equal_to_device_resident"] = sum(
+            np.array_equal(toks[r.rid], resident_outs["hybrid"][r.rid])
+            for r in reqs)
+        if i == 0:
+            checks["call1_tokens_equal_device_resident"] = \
+                calls[-1]["equal_to_device_resident"] == len(reqs)
+        else:
+            calls[-1].update(exactness(rule, "hybrid", toks, reqs))
+        checks[f"call{i + 1}_calls_equal_twin"] = \
+            stats.device_calls == twin["device_calls"]
+        checks[f"call{i + 1}_syncs_equal_twin"] = \
+            calls[-1]["blocking_syncs"] == twin["blocking_syncs"]
+        checks[f"call{i + 1}_launches_equal_twin"] = got == twin["launches"]
+    ctl = eng.controller
+    rep = controller_report(ctl, cfg, None)
+    checks["updates"] = ctl.updates >= 2
+    checks["faulted_skipped"] = ctl.faulted_skipped == 0
+    checks["leak_free"] = not any(p.allocated for p in
+                                  eng.blockman.pools.values()) \
+        and eng.spill_kv_pool.allocated_blocks == 0
+    out["engine_spill_adaptive"] = {"calls": calls, "controller": rep,
+                                    "act_frac_start": start.act_fraction}
+    print_controller(f"{name} engine_spill_adaptive", rep, smi)
+    eng.close()
+    del eng
+    gc.collect()
+
+    # planted fault 1: the record-time hook, at depth 1 (roomy budget)
+    eng = HybridServeEngine(cfg, pool, hw=H100_SXM, offload=True,
+                            budget=OffloadBudget(16 * 2**30, 1),
+                            tracer=Tracer())
+    with patched(MeasuredTimeline, "record", record_synchronised):
+        eng.generate(reqs)
+    ms = eng.measured_steps
+    share = sum(m.gpu_hidden for m in ms) / sum(m.gpu_busy for m in ms)
+    sound = offload_runs["hybrid_d1"]
+    syncs_differ = eng.executor.blocking_syncs != sound["blocking_syncs"]
+    out[RECORD_SYNC_FAULT] = {"gpu_hidden_share": share,
+                              "sound_gpu_hidden_share":
+                                  sound["gpu_hidden_share"],
+                              "blocking_syncs": eng.executor.blocking_syncs,
+                              "step_s_mean": float(np.mean([m.total
+                                                            for m in ms]))}
+    faults[RECORD_SYNC_FAULT] = (
+        "failed" if share < MIN_HIDDEN_SHARE or syncs_differ else "passed") + \
+        f": depth 1 hides {share:.4f} of its compute (sound " \
+        f"{sound['gpu_hidden_share']:.4f}, limit {MIN_HIDDEN_SHARE})"
+    eng.close()
+    del eng
+    gc.collect()
+
+    # planted fault 2: the same observations, the compute lane x4, replayed
+    def replay(fault):
+        targets = []
+        c = HybridCacheController(cfg, H100_SXM, start,
+                                  ctl.n_act_gpu_blocks,
+                                  fits=(ctl.prior_gen, ctl.prior_load),
+                                  generalized=False,
+                                  ctl=ControllerConfig(**TELEMETRY_CTL),
+                                  drift=DriftMonitor())
+        for res, kv, act, sim in seen:
+            c.observe([gpu_lane_x4(r) for r in res] if fault else res, kv,
+                      act, sim=sim)
+            c.alloc = c.update()
+            targets.append(c.target_allocation().act_fraction)
+        return c, targets
+
+    sound_c, sound_t = replay(False)
+    bad_c, bad_t = replay(True)
+    out[GPU_X4_FAULT] = {
+        label: {"frac_history": c.frac_history, "targets": t,
+                "fit_gen": fit_row(c.fit_gen),
+                "gen_slope_over_prior": c.fit_gen.slope / c.prior_gen.slope,
+                "drift": c.drift.summary()}
+        for label, c, t in (("sound", sound_c, sound_t),
+                            ("fault", bad_c, bad_t))}
+    checks["replay_equals_the_run"] = sound_c.frac_history == ctl.frac_history
+    # regeneration four times dearer: fewer ACT blocks than the sound target
+    moved = bad_t[-1] < sound_t[-1] - ctl.ctl.deadband_frac
+    faults[GPU_X4_FAULT] = ("failed" if moved else "passed") + \
+        f": target act fraction {bad_t[-1]:.4f} (sound {sound_t[-1]:.4f}, " \
+        f"deadband {ctl.ctl.deadband_frac}); gen slope x" \
+        f"{out[GPU_X4_FAULT]['fault']['gen_slope_over_prior']:.3f} of the " \
+        f"prior (sound x" \
+        f"{out[GPU_X4_FAULT]['sound']['gen_slope_over_prior']:.3f}); gpu " \
+        f"drift {bad_c.drift.drift('gpu'):.3f} (sound " \
+        f"{sound_c.drift.drift('gpu'):.3f})"
+    out.update(checks=checks, faults=faults,
+               phase_s=time.perf_counter() - t_phase)
+    emit(out)
+    results[f"telemetry_offload {name}"] = out
+    print(f"telemetry {name} faults: {faults} ({smi})", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"telemetry offload {name} failed "
+                             f"{[k for k, v in checks.items() if not v]}")
+    held = [k for k, v in faults.items() if not v.startswith("failed")]
+    if held:
+        raise AssertionError(f"telemetry {name}: planted faults pass: {faults}")
     return launches
 
 
@@ -3100,26 +3714,32 @@ def phase_serve_mamba2(results, smi):
 
 def serve_path(results, smi, name):
     """Serve one model through the engine, then through the
-    continuous-batching server on the same weights, profile it, free its
-    weights, so that peak device memory is one model's, then serve it from
-    host memory.  -> the launch counts of its device-resident hybrid runs
-    and of its host-attend runs, each {"fp": ..., "int8": ...}, and of its
-    scheduler runs, {run: ...}."""
+    continuous-batching server on the same weights, then its telemetry phase
+    (tracer, metrics registry, adaptive controller) on them, profile it,
+    free its weights, so that peak device memory is one model's, then serve
+    it from host memory (OPT's engine-side telemetry runs there).  -> the
+    launch counts of its device-resident hybrid runs and of its host-attend
+    runs, each {"fp": ..., "int8": ...}, of its scheduler runs and of its
+    telemetry runs, {run: ...}."""
     launches, engines, reqs, outs, oracle, q8_oracle, params = phase_serve(
         results, smi, name)
-    sched_launches_ = phase_scheduler(results, smi, get_config(name), params)
-    del params
+    sched_launches_, sched_ctx = phase_scheduler(results, smi,
+                                                 get_config(name), params)
+    tel_launches = phase_telemetry(results, smi, get_config(name), params,
+                                   sched_ctx)
+    del params, sched_ctx
     gc.collect()
     torch.cuda.empty_cache()
     phase_profile(results, smi, name, engines, reqs)
     del engines
     gc.collect()
     torch.cuda.empty_cache()
-    ha_launches = phase_offload(results, smi, name, reqs, outs, oracle,
-                                q8_oracle)
+    ha_launches, tel_offload = phase_offload(results, smi, name, reqs, outs,
+                                             oracle, q8_oracle)
+    tel_launches.update(tel_offload)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, ha_launches, sched_launches_
+    return launches, ha_launches, sched_launches_, tel_launches
 
 
 def main() -> int:
@@ -3132,10 +3752,10 @@ def main() -> int:
     smi = phase_env(results)
     phase_build(results)
     phase_kernels(results)
-    by_path, ha_path, sched_path = {}, {}, {}
+    by_path, ha_path, sched_path, tel_path = {}, {}, {}, {}
     for name in ("opt-6.7b", "yi-6b"):
-        by_path[name], ha_path[name], sched_path[name] = serve_path(
-            results, smi, name)
+        by_path[name], ha_path[name], sched_path[name], tel_path[name] = \
+            serve_path(results, smi, name)
     by_path[GEMMA] = {"fp": phase_serve_gemma(results, smi)}
     gc.collect()
     torch.cuda.empty_cache()
@@ -3168,7 +3788,8 @@ def main() -> int:
                "hybrid_paged_attention_two_pool_hd256": (GEMMA, serve, "fp"),
                "kv_gen_qk_norm": (GEMMA, serve, "fp"),
                "ssd_scan": (MAMBA, serve, "fp")}
-    counts = {serve: by_path, ha: ha_path, "scheduler": sched_path}
+    counts = {serve: by_path, ha: ha_path, "scheduler": sched_path,
+              "telemetry": tel_path}
     k = results["kernels"]
     rows = []
     for name, (src, tpu) in KERNELS.items():

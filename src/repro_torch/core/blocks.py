@@ -3,8 +3,8 @@
 A copy of ``repro.core.blocks`` with the offload runtime's residency moves,
 the CPU lane's ``host_attend`` tag, the quantized block layout (``quant=``:
 int8 payloads with float16 scales, priced by ``core.quant``) and the
-continuous-batching server's preemption demotion, without the sharding and
-controller hooks.
+continuous-batching server's preemption demotion and the adaptive
+controller's capacity retags, without the sharding hooks.
 
 Each logical block covers BLOCK_TOKENS tokens of one request's context across
 all layers, stored either as K/V tensors (KV block) or as activation
@@ -69,34 +69,70 @@ class LogicalBlock:
 
 
 class PhysicalPool:
-    """Allocator for one (kind, location) pool of fixed capacity.  Block
-    numbers go out in the reference's order: the last freed first, else the
-    lowest never handed out.  Those are counted, not listed: a host pool
-    priced for int8 holds tens of millions of blocks."""
+    """Allocator for one (kind, location) pool.  Capacity is fixed between
+    ``grow``/``shrink`` calls: the adaptive controller retags free capacity
+    between the ACT and KV pools of a tier.  Block numbers go out in the
+    reference's order (its free list, popped from the end: the last freed
+    or grown first, else the lowest never handed out).  The free list is
+    kept as runs of numbers, not listed: a host pool priced for int8 holds
+    tens of millions of blocks."""
 
     def __init__(self, capacity_blocks: int):
         self.capacity = int(capacity_blocks)
-        self._fresh = 0                 # blocks [0, _fresh) were handed out
-        self._freed: list = []
+        # free block numbers as a stack of ranges, the next one out last
+        self._free: List[range] = ([range(self.capacity - 1, -1, -1)]
+                                   if self.capacity else [])
+        self._n_free = self.capacity
+        self._next_pbn = self.capacity          # unique ids across regrowth
         self.allocated = 0
 
     def alloc(self) -> Optional[int]:
-        if self._freed:
-            pbn = self._freed.pop()
-        elif self._fresh < self.capacity:
-            pbn, self._fresh = self._fresh, self._fresh + 1
-        else:
+        if not self._n_free:
             return None
+        run = self._free[-1]
+        pbn = run[-1]
+        if len(run) == 1:
+            self._free.pop()
+        else:
+            self._free[-1] = run[:-1]
+        self._n_free -= 1
         self.allocated += 1
         return pbn
 
     def free(self, pbn: int) -> None:
         self.allocated -= 1
-        self._freed.append(pbn)
+        self._free.append(range(pbn, pbn + 1))
+        self._n_free += 1
 
     @property
     def free_blocks(self) -> int:
-        return len(self._freed) + self.capacity - self._fresh
+        return self._n_free
+
+    def grow(self, n_blocks: int) -> None:
+        """Add ``n_blocks`` of fresh capacity (new, never-used numbers)."""
+        assert n_blocks >= 0
+        if n_blocks:
+            self._free.append(range(self._next_pbn, self._next_pbn + n_blocks))
+        self._next_pbn += n_blocks
+        self.capacity += n_blocks
+        self._n_free += n_blocks
+
+    def shrink(self, n_blocks: int) -> int:
+        """Remove up to ``n_blocks`` of FREE capacity, the next ones out
+        first; allocated blocks are never reclaimed.  -> blocks removed."""
+        assert n_blocks >= 0
+        n = left = min(n_blocks, self._n_free)
+        while left:
+            run = self._free[-1]
+            if len(run) <= left:
+                self._free.pop()
+                left -= len(run)
+            else:
+                self._free[-1] = run[:len(run) - left]
+                left = 0
+        self.capacity -= n
+        self._n_free -= n
+        return n
 
 
 class BlockManager:
@@ -125,6 +161,9 @@ class BlockManager:
         # the offload runtime migrates blocks when its memory budget allows
         # device residency and spills them back when it doesn't.
         self.transitions: Dict[Tuple[BlockType, Location, Location], int] = {}
+        # KV<->ACT capacity retags, counted per (location, from, to): the
+        # adaptive controller's bounded role migrations (free capacity only)
+        self.retags: Dict[Tuple[Location, BlockType, BlockType], int] = {}
         # live-block representation changes, counted per (from, to): the
         # preemption path demotes a victim's KV blocks to ACT checkpoints
         self.kind_transitions: Dict[Tuple[BlockType, BlockType], int] = {}
@@ -249,6 +288,21 @@ class BlockManager:
         """Total free capacity of ``kind`` across both tiers."""
         return sum(pool.free_blocks for (k, _), pool in self.pools.items()
                    if k == kind)
+
+    # -- role retagging (adaptive controller) ---------------------------------
+    def retag_capacity(self, loc: Location, src: BlockType, dst: BlockType,
+                       n_blocks: int) -> int:
+        """Move up to ``n_blocks`` of FREE capacity from the ``src`` pool to
+        the ``dst`` pool of one tier: the controller re-deciding a block's
+        role (KV or ACT) between groups or chunks.  Live tables are never
+        touched.  -> blocks moved, counted in ``self.retags``."""
+        assert src != dst
+        moved = self.pools[(src, loc)].shrink(max(n_blocks, 0))
+        self.pools[(dst, loc)].grow(moved)
+        if moved:
+            key = (loc, src, dst)
+            self.retags[key] = self.retags.get(key, 0) + moved
+        return moved
 
     # -- byte accounting ------------------------------------------------------
     def block_bytes(self, kind: BlockType) -> int:

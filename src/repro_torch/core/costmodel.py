@@ -4,7 +4,9 @@ A copy of ``repro.core.costmodel`` (the port imports nothing from the JAX
 package) with one addition: ``H100_SXM``, the port's default target.  The
 inter-chip terms are left to the slice that uses them.
 ``quant=`` prices the host link's and the host lane's bytes by the quantized
-block layout (``core.quant``).
+block layout (``core.quant``); ``cpu=`` adds the host-attention lane.  The
+online refit (``LaneSample``, ``fit_samples``, ``damp_fit``, ``ewma_refit``)
+is the adaptive controller's.
 
 The paper profiles ``T_kv_gen`` and ``T_load_kv`` on the target machine and
 fits linear functions (R² = 0.99, Fig. 11).  We do the same: the "profiler"
@@ -133,8 +135,10 @@ def forward_flops_per_token(cfg: ModelConfig, ctx: int) -> float:
     return proj + ffn + attn_flops_per_token(cfg, ctx)
 
 
-def make_cost_fns(cfg: ModelConfig, hw: HardwareSpec, quant=None):
-    """-> (t_kv_gen(n_tokens), t_load_kv(n_tokens), t_load_act(n_tokens)).
+def make_cost_fns(cfg: ModelConfig, hw: HardwareSpec, quant=None, cpu=False):
+    """-> (t_kv_gen(n_tokens), t_load_kv(n_tokens), t_load_act(n_tokens)),
+    plus ``t_cpu_attend(n_tokens)`` as a fourth element when ``cpu=True``
+    (the host-attention lane).
 
     Per layer, batch-aggregate token counts (matching Algorithm 1's units:
     "#blocks" scaled by BLOCK_TOKENS happens at the caller).  ``quant``
@@ -156,7 +160,15 @@ def make_cost_fns(cfg: ModelConfig, hw: HardwareSpec, quant=None):
     def t_load_act(n):                   # PCIe lane (half-size block gather)
         return np.asarray(n, float) * actB / kv_bw
 
-    return t_kv_gen, t_load_kv, t_load_act
+    if not cpu:
+        return t_kv_gen, t_load_kv, t_load_act
+
+    cpuB = cpu_attend_seconds_per_token(cfg, hw, quant=quant)
+
+    def t_cpu_attend(n):                 # CPU lane (host flash attention)
+        return np.asarray(n, float) * cpuB
+
+    return t_kv_gen, t_load_kv, t_load_act, t_cpu_attend
 
 
 # =============================================================================
@@ -202,9 +214,83 @@ SAMPLE_TOKENS = (256, 1024, 4096, 16384, 65536)
 PROFILE_NOISE = 0.02
 
 
-def profile_cost_fns(cfg: ModelConfig, hw: HardwareSpec,
-                     quant=None) -> Tuple[LinearFit, ...]:
-    """The paper's sampling step: returns (fit_kv_gen, fit_load_kv)."""
-    fns = make_cost_fns(cfg, hw, quant=quant)
-    return (fit_linear(fns[0], SAMPLE_TOKENS, PROFILE_NOISE, seed=1),
+def profile_cost_fns(cfg: ModelConfig, hw: HardwareSpec, quant=None,
+                     cpu: bool = False) -> Tuple[LinearFit, ...]:
+    """The paper's sampling step: returns (fit_kv_gen, fit_load_kv), plus
+    ``fit_cpu_attend`` as a third element when ``cpu=True``."""
+    fns = make_cost_fns(cfg, hw, quant=quant, cpu=cpu)
+    fits = (fit_linear(fns[0], SAMPLE_TOKENS, PROFILE_NOISE, seed=1),
             fit_linear(fns[1], SAMPLE_TOKENS, PROFILE_NOISE, seed=2))
+    if cpu:
+        fits += (fit_linear(fns[3], SAMPLE_TOKENS, PROFILE_NOISE, seed=3),)
+    return fits
+
+
+# =============================================================================
+# online refit (the adaptive controller's feedback)
+# =============================================================================
+
+@dataclass(frozen=True)
+class LaneSample:
+    """One measured lane observation: ``seconds`` spent on ``n_tokens``
+    (per layer, batch-aggregate: the units the fits are in)."""
+    n_tokens: float
+    seconds: float
+
+
+def fit_samples(samples: Sequence[LaneSample],
+                fallback: LinearFit) -> LinearFit:
+    """Least squares over measured (n_tokens, seconds) pairs.
+
+    Sets that cannot pin down both coefficients (fewer than two points, or
+    all at one n) estimate the slope through ``fallback``'s intercept; with
+    no usable sample the fallback is returned unchanged."""
+    pts = [(float(s.n_tokens), float(s.seconds)) for s in samples
+           if s.n_tokens > 0 and s.seconds > 0 and np.isfinite(s.seconds)]
+    if not pts:
+        return fallback
+    ns = np.array([p[0] for p in pts])
+    ts = np.array([p[1] for p in pts])
+    if len(pts) < 2 or float(ns.max() - ns.min()) < 1e-9:
+        slope = max(float(((ts - fallback.intercept) / ns).mean()), 0.0)
+        return LinearFit(slope=slope, intercept=fallback.intercept, r2=0.0)
+    A = np.stack([ns, np.ones_like(ns)], axis=1)
+    coef, *_ = np.linalg.lstsq(A, ts, rcond=None)
+    pred = A @ coef
+    ss_res = float(np.sum((ts - pred) ** 2))
+    ss_tot = float(np.sum((ts - ts.mean()) ** 2))
+    r2 = 1.0 - ss_res / ss_tot if ss_tot > 0 else 1.0
+    return LinearFit(slope=float(coef[0]), intercept=float(coef[1]), r2=r2)
+
+
+def damp_fit(fit: LinearFit, prior: LinearFit, damping: float,
+             intercept_scale_tokens: float = 256.0) -> LinearFit:
+    """Clamp a refit into the trust region around the analytic prior: the
+    slope within a factor ``damping`` (>= 1) of the prior's, the intercept
+    within an additive band sized by the prior's cost at
+    ``intercept_scale_tokens``.  The prior lies inside its own region, which
+    makes the analytic allocation a fixed point of the controller."""
+    assert damping >= 1.0
+    lo, hi = prior.slope / damping, prior.slope * damping
+    slope = float(np.clip(fit.slope, min(lo, hi), max(lo, hi)))
+    band = (damping - 1.0) * (abs(prior.intercept)
+                              + abs(prior.slope) * intercept_scale_tokens)
+    intercept = float(np.clip(fit.intercept, prior.intercept - band,
+                              prior.intercept + band))
+    return LinearFit(slope=slope, intercept=intercept, r2=fit.r2)
+
+
+def ewma_refit(current: LinearFit, prior: LinearFit,
+               samples: Sequence[LaneSample], *, alpha: float,
+               damping: float,
+               intercept_scale_tokens: float = 256.0) -> LinearFit:
+    """Exponentially weighted online refit with the analytic fit as prior:
+    the least-squares fit of the samples blended into ``current`` with
+    weight ``alpha``, then clamped by ``damp_fit`` around ``prior``.
+    Samples that match ``current`` leave it unchanged."""
+    fitted = fit_samples(samples, fallback=current)
+    blended = LinearFit(
+        slope=(1.0 - alpha) * current.slope + alpha * fitted.slope,
+        intercept=(1.0 - alpha) * current.intercept + alpha * fitted.intercept,
+        r2=fitted.r2)
+    return damp_fit(blended, prior, damping, intercept_scale_tokens)

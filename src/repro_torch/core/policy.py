@@ -1,10 +1,11 @@
 """Cache management policy (paper §4.3, Algorithm 1 + Eq. 11).
 
-A copy of the two-way policy of ``repro.core.policy``: Algorithm 1 as the
-paper states it (``generalized=False``, the engine's) or with the
-reference's byte-ratio-aware balance (``generalized=True``, the
-continuous-batching server's default); ``quant=`` prices blocks and the
-lane fits by the quantized layout.
+A copy of ``repro.core.policy``: Algorithm 1 as the paper states it
+(``generalized=False``, the engine's) or with the reference's
+byte-ratio-aware balance (``generalized=True``, the continuous-batching
+server's default); ``quant=`` prices blocks and the lane fits by the
+quantized layout; ``fits=`` takes the adaptive controller's refit lanes; the
+three-way law (``*_threeway``) adds the host-attention lane.
 
 Step 1  initial_cache_allocation  — blocks needed to kill pipeline idleness
 Step 2  alloc_remaining           — fill the rest of host memory balanced
@@ -31,6 +32,10 @@ class HostAllocation:
     kv_blocks: int
     act_init: int
     kv_init: int
+    # host KV blocks placed on the cpu-attend lane: KV-shaped in the host
+    # arena but attended on host cores instead of loaded over the link
+    # (the three-way law); 0 keeps the two-way allocation
+    cpu_blocks: int = 0
 
     @property
     def total_blocks(self) -> int:
@@ -109,12 +114,16 @@ def alloc_remaining(cfg: ModelConfig, hw: HardwareSpec,
 
 
 def host_block_allocation(cfg: ModelConfig, hw: HardwareSpec,
-                          n_act_gpu_blocks: int, generalized: bool = False,
+                          n_act_gpu_blocks: int,
+                          fits: Tuple[LinearFit, LinearFit] = None,
+                          generalized: bool = False,
                           quant=None) -> HostAllocation:
-    """Algorithm 1 top level: -> #ACT_Host, #KV_Host.  ``quant`` reprices
-    block sizes and the fits, so the KV:ACT split re-balances;
-    ``generalized`` as for ``alloc_remaining``."""
-    fit_gen, fit_load = profile_cost_fns(cfg, hw, quant=quant)
+    """Algorithm 1 top level: -> #ACT_Host, #KV_Host.  ``fits``: (fit_gen,
+    fit_load), profiled when None; ``quant`` reprices block sizes and the
+    profiled fits, so the KV:ACT split re-balances; ``generalized`` as for
+    ``alloc_remaining``."""
+    fit_gen, fit_load = fits if fits is not None else \
+        profile_cost_fns(cfg, hw, quant=quant)
     act_init, kv_init = initial_cache_allocation(
         cfg, hw, fit_gen, fit_load, n_act_gpu_blocks)
     act_rem, kv_rem = alloc_remaining(cfg, hw, fit_gen, fit_load, act_init,
@@ -123,6 +132,97 @@ def host_block_allocation(cfg: ModelConfig, hw: HardwareSpec,
     return HostAllocation(act_blocks=act_init + act_rem,
                           kv_blocks=kv_init + kv_rem,
                           act_init=act_init, kv_init=kv_init)
+
+
+def alloc_remaining_threeway(cfg: ModelConfig, hw: HardwareSpec,
+                             fit_gen: LinearFit, fit_load: LinearFit,
+                             fit_cpu: LinearFit,
+                             act_init: int, kv_init: int,
+                             generalized: bool = False,
+                             quant=None) -> Tuple[int, int, int]:
+    """Three-way Algorithm 1: fill the remaining host memory so that all
+    three lanes finish together.
+
+        S_ACT*a + S_KV*(k + c) = M_rem
+        T_gen(a) = T_load(k)            (device regen vs link load)
+        T_gen(a) = T_cpu(c)             (device regen vs host attend)
+
+    ``c`` blocks stay KV-shaped in the host arena but are attended on host
+    cores: no link bytes, no regen FLOPs.  A negative corner falls back to
+    the best two-way split over the lanes that survive.
+    -> (act_blocks, kv_blocks, cpu_blocks)."""
+    S_act = act_block_bytes(cfg, quant=quant)
+    S_kv = kv_block_bytes(cfg, quant=quant)
+    S_weight = cfg.num_params() * cfg.bytes_per_param()
+    M_occ = S_act * act_init + S_kv * kv_init
+    M_rem = hw.host_mem - S_weight - M_occ
+    if M_rem <= 0:
+        return 0, 0, 0
+    ga = fit_gen.slope * BLOCK_TOKENS
+    lk = fit_load.slope * BLOCK_TOKENS
+    cc = fit_cpu.slope * BLOCK_TOKENS
+    c1 = fit_load.intercept - fit_gen.intercept
+    c2 = fit_cpu.intercept - fit_gen.intercept
+    if generalized:
+        la = (fit_load.slope * BLOCK_TOKENS
+              * Q.act_bytes_per_token(cfg, quant)
+              / Q.kv_bytes_per_token(cfg, quant))
+        ga = ga + la
+    A = np.array([[S_act, S_kv, S_kv],
+                  [ga, -lk, 0.0],
+                  [ga, 0.0, -cc]], float)
+    b = np.array([M_rem, c1, c2], float)
+    try:
+        a, k, c = np.linalg.solve(A, b)
+    except np.linalg.LinAlgError:
+        a, k, c = -1.0, -1.0, -1.0        # degenerate: fall through to 2-way
+    if a >= 0 and k >= 0 and c >= 0:
+        return int(a), int(k), int(c)
+    if c < 0:                             # the cpu lane never pays: 2-way
+        a2, k2 = alloc_remaining(cfg, hw, fit_gen, fit_load, act_init,
+                                 kv_init, generalized=generalized,
+                                 quant=quant)
+        return a2, k2, 0
+    if a < 0:                             # regen never pays: link vs cpu
+        tot = M_rem / S_kv
+        d = fit_cpu.intercept - fit_load.intercept
+        if lk + cc > 0:
+            k2 = float(np.clip((cc * tot + d) / (lk + cc), 0.0, tot))
+        else:
+            k2 = 0.0
+        return 0, int(k2), int(tot - k2)
+    # k < 0: the link never pays: regen vs cpu
+    A2 = np.array([[S_act, S_kv], [ga, -cc]], float)
+    b2 = np.array([M_rem, c2], float)
+    try:
+        a2, c2b = np.linalg.solve(A2, b2)
+    except np.linalg.LinAlgError:
+        return 0, 0, int(M_rem // S_kv)
+    if a2 < 0:
+        return 0, 0, int(M_rem // S_kv)
+    if c2b < 0:
+        return int(M_rem // S_act), 0, 0
+    return int(a2), 0, int(c2b)
+
+
+def host_block_allocation_threeway(cfg: ModelConfig, hw: HardwareSpec,
+                                   n_act_gpu_blocks: int,
+                                   fits=None, generalized: bool = False,
+                                   quant=None) -> HostAllocation:
+    """Three-way Algorithm 1 -> ``HostAllocation`` with ``cpu_blocks``.
+    ``fits``: (fit_gen, fit_load, fit_cpu), profiled with ``cpu=True`` when
+    None.  The init step is the paper's; only the fill balances three
+    lanes."""
+    if fits is None:
+        fits = profile_cost_fns(cfg, hw, quant=quant, cpu=True)
+    fit_gen, fit_load, fit_cpu = fits
+    act_init, kv_init = initial_cache_allocation(
+        cfg, hw, fit_gen, fit_load, n_act_gpu_blocks)
+    a, k, c = alloc_remaining_threeway(cfg, hw, fit_gen, fit_load, fit_cpu,
+                                       act_init, kv_init,
+                                       generalized=generalized, quant=quant)
+    return HostAllocation(act_blocks=act_init + a, kv_blocks=kv_init + k,
+                          act_init=act_init, kv_init=kv_init, cpu_blocks=c)
 
 
 def device_act_blocks(cfg: ModelConfig, hw: HardwareSpec, quant=None) -> int:

@@ -49,6 +49,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
@@ -377,10 +378,8 @@ def hybrid_prefill(params, cfg: ModelConfig, tokens, kv_cap: int,
                 "QuantConfig is wired for the uniform hybrid family only")
         return _hybrid_prefill_windowed(params, cfg, tokens, kv_cap, act_cap,
                                         kfit)
-    split = lambda n: torch.full((B,), n, dtype=torch.int32,
-                                 device=tokens.device)
     return hybrid_prefill_batched(params, cfg, tokens, kv_cap, act_cap,
-                                  split(kfit), split(S), quant)
+                                  np.full((B,), kfit), np.full((B,), S), quant)
 
 
 def _hybrid_prefill_windowed(params, cfg: ModelConfig, tokens, kv_cap: int,
@@ -421,7 +420,9 @@ def hybrid_prefill_batched(params, cfg: ModelConfig, tokens, kv_cap: int,
       kv region  <- K/V of positions [0, kv_keep[b])   (kv_len masks the rest)
       act region <- checkpoints of [kv_keep[b], last_pos[b])  (gathered)
 
-    tokens (B, S); kv_keep, last_pos: (B,) int32 tensors on the same device.
+    tokens (B, S); kv_keep, last_pos (B,): host integers (numpy, a sequence
+    or a CPU tensor), checked against the capacities (``check_split``) and
+    uploaded without a stream sync.
     -> (last_logits (B, 1, V), hybrid cache).  Its three stages are the
     offload executor's too, which runs the layers with streamed weights.
     ``quant`` stores both regions as int8 codes with their scales."""
@@ -430,40 +431,61 @@ def hybrid_prefill_batched(params, cfg: ModelConfig, tokens, kv_cap: int,
     h = pre.h
     for i in range(cfg.num_layers):
         h = hybrid_prefill_layer(layer_params(params, i), cfg, h, pre, i)
-    return hybrid_prefill_end(params, cfg, h, pre, kv_keep, last_pos)
+    return hybrid_prefill_end(params, cfg, h, pre)
 
 
 class PrefillPlan(NamedTuple):
     """What every layer of one hybrid prefill shares: the embedded input
     ``h``, the cache it fills, RoPE at positions 0..S-1 (or None), the
-    ACT-region gather index (B, act_cap, d) and the KV rows each layer
-    keeps."""
+    ACT-region gather index (B, act_cap, d), the KV rows each layer keeps,
+    and the split (kv_keep, last_pos) on the device."""
     h: torch.Tensor
     cache: Cache
     sincos: Optional[Tuple[torch.Tensor, torch.Tensor]]
     act_idx: torch.Tensor
     kfit: int
+    kv_keep: torch.Tensor
+    last_pos: torch.Tensor
+
+
+def check_split(kv_keep, last_pos, kv_cap: int, act_cap: int) -> None:
+    """The split's capacity check on host integers: a KV prefix over
+    ``kv_cap`` or an ACT span over ``act_cap`` raises ``ValueError``."""
+    kv_keep = np.asarray(kv_keep, np.int64)
+    span = np.asarray(last_pos, np.int64) - kv_keep
+    if int(kv_keep.max()) > kv_cap:
+        raise ValueError(f"kv_keep={int(kv_keep.max())} exceeds kv_cap={kv_cap}")
+    if int(span.max()) > act_cap:
+        raise ValueError(f"ACT span {int(span.max())} exceeds act_cap={act_cap}")
+
+
+def upload(a, device) -> torch.Tensor:
+    """A host array on ``device`` without a stream sync: on CUDA staged in
+    page-locked memory and copied non-blocking."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def hybrid_prefill_begin(params, cfg: ModelConfig, tokens, kv_cap: int,
                          act_cap: int, kv_keep, last_pos,
                          quant: Optional[QuantConfig] = None) -> PrefillPlan:
-    """Check the split against the capacities, embed, allocate the cache."""
-    if int(kv_keep.max()) > kv_cap:
-        raise ValueError(f"kv_keep={int(kv_keep.max())} exceeds kv_cap={kv_cap}")
-    if int((last_pos - kv_keep).max()) > act_cap:
-        raise ValueError(f"ACT span {int((last_pos - kv_keep).max())} exceeds "
-                         f"act_cap={act_cap}")
+    """Check the host split against the capacities and upload it, embed,
+    allocate the cache.  Reads no device value."""
+    dev = tokens.device
+    kv_keep, last_pos = (np.asarray(a, np.int32) for a in (kv_keep, last_pos))
+    check_split(kv_keep, last_pos, kv_cap, act_cap)
+    kv_keep, last_pos = upload(kv_keep, dev), upload(last_pos, dev)
     h = embed_input(params, cfg, tokens)
     B, S = h.shape[:2]
-    dev = h.device
     cache = init_hybrid_cache(cfg, B, kv_cap, act_cap, device=dev, quant=quant)
     slots = torch.arange(act_cap, dtype=torch.int32, device=dev)[None]
     # act region slot j of request b holds the checkpoint of position kv_keep[b]+j
     act_idx = (kv_keep[:, None] + slots).clamp(0, S - 1).long()
     act_idx = act_idx[:, :, None].expand(B, act_cap, cfg.d_model)
     return PrefillPlan(h, cache, T._rope_for(cfg, _positions(S, dev)), act_idx,
-                       min(S, kv_cap))
+                       min(S, kv_cap), kv_keep, last_pos)
 
 
 def hybrid_prefill_layer(lp, cfg: ModelConfig, h, pre: PrefillPlan, i: int):
@@ -478,11 +500,10 @@ def hybrid_prefill_layer(lp, cfg: ModelConfig, h, pre: PrefillPlan, i: int):
     return h
 
 
-def hybrid_prefill_end(params, cfg: ModelConfig, h, pre: PrefillPlan, kv_keep,
-                       last_pos):
+def hybrid_prefill_end(params, cfg: ModelConfig, h, pre: PrefillPlan):
     """Final norm, logits at each request's last prompt position, lengths.
     -> (last_logits (B, 1, V), cache)."""
-    cache = pre.cache
+    cache, kv_keep, last_pos = pre.cache, pre.kv_keep, pre.last_pos
     h = L.apply_norm(h, params["final_norm"], cfg.norm_type)
     B, act_cap = h.shape[0], cache["act"].shape[2]
     ar = torch.arange(B, device=h.device)

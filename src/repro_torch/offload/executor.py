@@ -18,7 +18,9 @@ is that regime: a Python loop at layer granularity where
     ``return_lse`` mode, and the two partials merge,
   * every task is timed into a ``MeasuredTimeline`` whose per-step results
     share ``simulate_steps``'s schema; on the card the spans are CUDA events,
-    so timing adds no host sync.
+    so timing adds no host sync.  A ``tracer`` rides that timeline (each
+    span reaches it once resolved) and a ``metrics`` registry backs the
+    lanes' fault counters; neither adds a call or a sync.
 
 Exactness: each layer runs the functions the device-resident path runs
 (``models.model``'s prefill and decode stages and ``_hybrid_layer_step``),
@@ -62,15 +64,16 @@ class OffloadExecutor:
 
     def __init__(self, cfg: ModelConfig, params, *, prefetch_depth: int = 1,
                  faults=None, watchdog_s: Optional[float] = None,
-                 quant=None, device="cuda"):
+                 tracer=None, metrics=None, quant=None, device="cuda"):
         T.check_supported(cfg, families=("uniform",), qk_norm=False)
         self.cfg = cfg
         self.quant = quant
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
-        self.timeline = MeasuredTimeline()
+        self.timeline = MeasuredTimeline(tracer=tracer)
         self.faults = faults
         self._watchdog_s = watchdog_s
+        self._metrics = metrics
         # cpu attention lane: created on the first host-attend decode
         self.host_lane: Optional[HostAttnExecutor] = None
         self.pool = params if isinstance(params, HostWeightPool) else \
@@ -80,7 +83,7 @@ class OffloadExecutor:
                              f"executor runs on {self.device}")
         self.streamer = WeightStreamer(
             self.pool, prefetch_depth=prefetch_depth, timeline=self.timeline,
-            faults=faults, watchdog_s=watchdog_s)
+            faults=faults, watchdog_s=watchdog_s, metrics=metrics)
         self.resident = self.pool.resident
         self._mirror: Dict[str, torch.Tensor] = {}   # decode_chunk's host mirror
         self.dispatches = 0                     # stages issued (as the reference)
@@ -102,7 +105,6 @@ class OffloadExecutor:
         with each layer's weights arriving over the copy stream; the full
         parameter set is never device-resident.  -> (first token (B,), cache)."""
         cfg = self.cfg
-        kv_keep, last_pos = self._as_dev(kv_keep), self._as_dev(last_pos)
         self.timeline.begin_step("prefill", now=self._now())
         pre = M.hybrid_prefill_begin(self.resident, cfg, self._as_dev(tokens),
                                      kv_cap, act_cap, kv_keep, last_pos,
@@ -117,8 +119,7 @@ class OffloadExecutor:
             self.timeline.record("gpu", "fwd", t0, self._now())
             self.dispatches += 1
             self.streamer.release(l)
-        lg, cache = M.hybrid_prefill_end(self.resident, cfg, h, pre, kv_keep,
-                                         last_pos)
+        lg, cache = M.hybrid_prefill_end(self.resident, cfg, h, pre)
         self.dispatches += 1
         self.timeline.end_step(now=self._now())
         return lg[:, -1].argmax(-1).int(), cache
@@ -208,11 +209,11 @@ class OffloadExecutor:
     # ------------------------------------------------- host-attend layer path
     def _ensure_host_lane(self) -> HostAttnExecutor:
         """Create (once) and re-arm the cpu attention lane, sharing the
-        executor's timeline, fault plan and watchdog."""
+        executor's timeline, fault plan, watchdog and metrics registry."""
         if self.host_lane is None:
             self.host_lane = HostAttnExecutor(
                 timeline=self.timeline, faults=self.faults,
-                watchdog_s=self._watchdog_s)
+                watchdog_s=self._watchdog_s, metrics=self._metrics)
         self.host_lane.begin()
         return self.host_lane
 
@@ -413,7 +414,8 @@ class OffloadExecutor:
         """The chunk's host mirror of the KV region: rows [0, kv_b) of every
         KV plane (codes and scales when quantized), in one bulk device→host
         pull into host buffers the executor keeps across chunks (pinned on
-        the card).  The device cache stays the source of truth.  -> (the
+        the card), timed as a span of its own (tag "mirror" on the link
+        lane).  The device cache stays the source of truth.  -> (the
         mirror's planes (L, B, kv_b, ...), the KV lengths on the host)."""
         t0 = self._now()
         planes, nbytes = [], 0
@@ -427,7 +429,7 @@ class OffloadExecutor:
             plane.copy_(t[:, :, :kv_b], non_blocking=True)
             planes.append(plane)
             nbytes += plane.numel() * plane.element_size()
-        self.timeline.record("pcie", "kv", t0, self._now(), nbytes)
+        self.timeline.record("pcie", "mirror", t0, self._now(), nbytes)
         kv_len = cache["kv_len"].cpu().numpy().copy()   # waits for the copies
         self.blocking_syncs += 1
         return planes, kv_len

@@ -54,6 +54,7 @@ import torch
 from repro_torch.kernels.hybrid_attention.ref import (  # noqa: F401
     NEG_INF, merge_partials_torch)
 from repro_torch.models.quant_ops import dequantize
+from repro_torch.obs.metrics import CounterDictView, MetricsRegistry
 from repro_torch.offload.faults import (MAX_COPY_RETRIES, FaultPlan,
                                         TransientCopyError)
 from repro_torch.offload.streamer import FAULT_COUNTER_KEYS
@@ -172,7 +173,8 @@ class HostAttnExecutor:
 
     def __init__(self, *, timeline: Optional[MeasuredTimeline] = None,
                  faults: Optional[FaultPlan] = None,
-                 watchdog_s: Optional[float] = None):
+                 watchdog_s: Optional[float] = None,
+                 metrics: Optional[MetricsRegistry] = None):
         self.timeline = timeline if timeline is not None else MeasuredTimeline()
         self.faults = faults
         self.watchdog_s = watchdog_s
@@ -180,7 +182,13 @@ class HostAttnExecutor:
         self._closed = False
         self._worker = ThreadPoolExecutor(max_workers=1,
                                           thread_name_prefix="host-attn")
-        self.counters: Dict[str, int] = {k: 0 for k in FAULT_COUNTER_KEYS}
+        # a live view over ``host_attn_faults{key=...}`` counters with a
+        # registry, a plain dict without one
+        if metrics is None:
+            self.counters: Dict[str, int] = {k: 0 for k in FAULT_COUNTER_KEYS}
+        else:
+            self.counters = CounterDictView(metrics, "host_attn_faults",
+                                            keys=FAULT_COUNTER_KEYS)
 
     # ------------------------------------------------------------------ work
     def _attend(self, job: _HostJob, *, inject: bool):

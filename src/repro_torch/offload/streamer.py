@@ -57,6 +57,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch.obs.metrics import CounterDictView, MetricsRegistry
 from repro_torch.offload.faults import (MAX_COPY_RETRIES, FaultPlan,
                                         TransientCopyError)
 from repro_torch.offload.host_pool import HostWeightPool
@@ -95,7 +96,8 @@ class WeightStreamer:
     def __init__(self, pool: HostWeightPool, *, prefetch_depth: int = 1,
                  timeline: Optional[MeasuredTimeline] = None,
                  faults: Optional[FaultPlan] = None,
-                 watchdog_s: Optional[float] = None):
+                 watchdog_s: Optional[float] = None,
+                 metrics: Optional[MetricsRegistry] = None):
         assert prefetch_depth >= 0
         assert watchdog_s is None or watchdog_s > 0.0
         self.pool = pool
@@ -121,7 +123,15 @@ class WeightStreamer:
         self.bytes_uploaded = 0
         self.peak_resident = 0
         self.degraded = False
-        self.counters: Dict[str, int] = {k: 0 for k in FAULT_COUNTER_KEYS}
+        # robustness counters (cumulative across passes).  With a metrics
+        # registry the dict is a live view over ``streamer_faults{key=...,
+        # shard=0}`` counters; without one it is a plain dict
+        if metrics is None:
+            self.counters: Dict[str, int] = {k: 0 for k in FAULT_COUNTER_KEYS}
+        else:
+            self.counters = CounterDictView(
+                metrics, "streamer_faults", labels={"shard": 0},
+                keys=FAULT_COUNTER_KEYS)
 
     # ------------------------------------------------------------------ copies
     def _stage(self, i: int, slot: int) -> _Staged:

@@ -14,6 +14,11 @@ every pending event is synchronised once, then one anchor event recorded and
 synchronised after them maps device time onto the host clock.  Recording a
 span therefore adds no host sync to the hot path; reading results does.
 
+With a tracer (``obs.trace.Tracer``) every span also goes onto the trace's
+lane tracks: a span stamped in host seconds when it is recorded, a span
+stamped with events when ``results``/``drain`` resolve it, in host seconds
+on the tracer's clock.  Robustness events are host-side and go at once.
+
 Spans are recorded from two threads (the compute thread and the CPU lane's
 worker); a lock serialises appends.  A span belongs to the step that is
 current when it is recorded.
@@ -134,8 +139,11 @@ class MeasuredTimeline:
         self._lock = threading.Lock()
         self._steps: List[_Step] = []
         self._cur: Optional[_Step] = None
-        # the telemetry hook of the reference; the port records without one
+        # optional obs bridge: every span and robustness event is mirrored
+        # onto the tracer's lane tracks; None records exactly as without it
         self.tracer = tracer
+        # spans stamped with CUDA events, held for the tracer until resolved
+        self._untraced: List[Span] = []
 
     # ------------------------------------------------------------------ steps
     def begin_step(self, tag: str = "decode", now: Stamp = None) -> None:
@@ -159,10 +167,16 @@ class MeasuredTimeline:
     def record(self, lane: str, tag: str, start: Stamp, end: Stamp,
                nbytes: int = 0) -> None:
         assert lane in LANES, lane
+        span = Span(lane, tag, start, end, nbytes)
         with self._lock:
             if self._cur is None:           # span outside any step: open one
                 self._cur = _Step(tag="untagged", start=start)
-            self._cur.spans.append(Span(lane, tag, start, end, nbytes))
+            self._cur.spans.append(span)
+            if self.tracer is not None and (_is_event(start) or _is_event(end)):
+                self._untraced.append(span)
+                return
+        if self.tracer is not None:
+            self.tracer.lane_span(lane, tag, start, end, nbytes=nbytes)
 
     def record_event(self, name: str, n: int = 1) -> None:
         """Count a robustness event (watchdog timeout, copy retry, lane
@@ -172,6 +186,8 @@ class MeasuredTimeline:
             if self._cur is None:
                 self._cur = _Step(tag="untagged", start=time.perf_counter())
             self._cur.events[name] = self._cur.events.get(name, 0) + n
+        if self.tracer is not None:
+            self.tracer.lane_event(name)
 
     @contextmanager
     def task(self, lane: str, tag: str, nbytes: int = 0):
@@ -191,6 +207,13 @@ class MeasuredTimeline:
         with self._lock:
             _resolve(self._steps)
             steps = [s for s in self._steps if tag is None or s.tag == tag]
+            ready = [sp for sp in self._untraced
+                     if not (_is_event(sp.start) or _is_event(sp.end))]
+            self._untraced = [sp for sp in self._untraced
+                              if _is_event(sp.start) or _is_event(sp.end)]
+        for sp in ready:
+            self.tracer.lane_span(sp.lane, sp.tag, sp.start, sp.end,
+                                  nbytes=sp.nbytes)
         for s in steps:
             busy = {l: 0.0 for l in LANES}
             tag_busy: dict = {}

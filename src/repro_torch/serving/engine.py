@@ -28,8 +28,14 @@ timelines next to the simulated predictions — token-exact against each other.
 ``quant=QuantConfig()`` stores both cache regions as int8 codes with float16
 scales on the device, read by the kernels' int8 modes; Algorithm 1, the block
 manager, the spill arena and the simulator price the quantized bytes, so the
-split re-balances as the reference's does.  The adaptive controller and
-sharding are not part of this engine yet.
+split re-balances as the reference's does.
+
+``adaptive=True`` refits the cost model between groups from their lane
+timelines (``core.controller``) and retags free host capacity toward the
+refit split; ``tracer=``/``metrics=`` record the request and server spans,
+the lane timelines and the counters (``obs``).  All of it is host-side, on
+results already read: no call and no sync is added.  Sharding is not part of
+this engine yet.
 """
 from __future__ import annotations
 
@@ -44,33 +50,47 @@ from repro_torch.configs.offload import OffloadBudget, offload_budget
 from repro_torch.core import costmodel as cm
 from repro_torch.core.blocks import (BLOCK_TOKENS, BlockManager, BlockType,
                                      Location)
+from repro_torch.core.controller import ControllerConfig, HybridCacheController
 from repro_torch.core.minibatch import RequestBlocks, form_minibatches
 from repro_torch.core.pipeline import (MiniBatchSpec, TimelineResult,
                                        simulate_steps)
 from repro_torch.core.quant import QuantConfig
-from repro_torch.core.policy import (device_act_blocks, host_block_allocation,
+from repro_torch.core.policy import (HostAllocation, device_act_blocks,
+                                     host_block_allocation,
                                      store_act_schedule)
 from repro_torch.core.costmodel import profile_cost_fns
 from repro_torch.data.pipeline import Request
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.obs import (NULL_TRACER, DriftMonitor, ScalarStatsView,
+                             fold_timeline_metrics,
+                             register_busy_fraction_collector)
 from repro_torch.serving.recovery import CapacityError
-from repro_torch.serving.util import bucket, pack_group
+from repro_torch.serving.util import (bucket, collect_block_metrics, pack_group,
+                                     retag_toward)
 
 
-@dataclasses.dataclass
-class GenStats:
-    """Per-call generation stats."""
-    generated_tokens: int = 0
-    steps: int = 0
-    sim_time: float = 0.0
-    sim_gpu_busy: float = 0.0
-    device_calls: int = 0        # prefill + decode dispatches (2 per group)
-    traffic: Dict[str, float] = dataclasses.field(default_factory=dict)
-    # measured (offload runtime; zero device-resident)
-    measured_time: float = 0.0
-    measured_gpu_busy: float = 0.0
-    measured_cpu_busy: float = 0.0    # cpu attention lane
+class GenStats(ScalarStatsView):
+    """Per-call generation stats: plain attributes, or, constructed with a
+    ``MetricsRegistry``, live views over its ``gen_*`` counters (each view
+    reads zero at construction while the registry keeps the engine's
+    totals)."""
+
+    _FIELDS = {
+        "generated_tokens": 0,
+        "steps": 0,
+        "sim_time": 0.0,
+        "sim_gpu_busy": 0.0,
+        "device_calls": 0,     # prefill + decode dispatches (2 per group)
+        # measured (offload runtime; zero device-resident)
+        "measured_time": 0.0,
+        "measured_gpu_busy": 0.0,
+        "measured_cpu_busy": 0.0,    # cpu attention lane
+    }
+
+    def __init__(self, registry=None):
+        super().__init__(registry, prefix="gen")
+        self.traffic: Dict[str, float] = {}
 
     @property
     def sim_throughput(self) -> float:
@@ -80,6 +100,11 @@ class GenStats:
     def sim_gpu_util(self) -> float:
         return self.sim_gpu_busy / self.sim_time if self.sim_time else 0.0
 
+    @property
+    def measured_gpu_util(self) -> float:
+        return (self.measured_gpu_busy / self.measured_time
+                if self.measured_time else 0.0)
+
 
 class HybridServeEngine:
     def __init__(self, cfg: ModelConfig, params, *,
@@ -87,8 +112,10 @@ class HybridServeEngine:
                  max_minibatch: int = 4, kv_cap: int = 512, act_cap: int = 512,
                  offload: bool = False, budget: Optional[OffloadBudget] = None,
                  host_attn: bool = False, faults=None,
-                 watchdog_s: Optional[float] = None,
-                 quant: Optional[QuantConfig] = None, device="cuda"):
+                 watchdog_s: Optional[float] = None, adaptive: bool = False,
+                 ctl: Optional[ControllerConfig] = None, tracer=None,
+                 metrics=None, quant: Optional[QuantConfig] = None,
+                 device="cuda"):
         """``params`` must already live on ``device`` (under ``offload`` they
         may live anywhere, or be a ``HostWeightPool`` shared between
         engines).  Algorithm 1 runs as the paper states it (the reference's
@@ -109,6 +136,20 @@ class HybridServeEngine:
         deadline; an arena denial (real or injected) serves the group
         device-resident instead of failing it.
 
+        adaptive=True (hybrid mode) runs the ``HybridCacheController``
+        between groups: it refits the cost model from the group's lane
+        timelines (measured under offload, else the simulated predictions),
+        re-runs Algorithm 1 (its plain form, ``generalized=False``) and
+        retags up to its migration bound of free host capacity toward the
+        refit split.  ``ctl``: its ``ControllerConfig``.  Tokens stay exact
+        at any split.
+
+        tracer / metrics: an ``obs.Tracer`` (request roots, the server's
+        prefill and decode spans, the executor's lane spans) and an
+        ``obs.MetricsRegistry`` (``GenStats`` as ``gen_*`` counters, the
+        timeline folds, occupancy and controller gauges; ``snapshot()``).
+        Host-side only: tokens, calls and syncs are those of a run without.
+
         quant=QuantConfig() keeps both cache regions as int8 codes with
         float16 scales, on the device and in the spill arena; the policy,
         block manager and simulator price those bytes.  None: the config
@@ -117,6 +158,9 @@ class HybridServeEngine:
             raise ValueError(f"mode={mode!r}: one of hybrid, kv, act")
         if host_attn and not offload:
             raise ValueError("host_attn rides the offload runtime's spill arena")
+        if adaptive and mode != "hybrid":
+            raise ValueError("the adaptive controller re-balances the hybrid "
+                             "split; the kv and act baselines pin the ratio")
         T.check_supported(cfg, families=("uniform",), qk_norm=False)
         self.cfg, self.params, self.hw, self.mode = cfg, params, hw, mode
         self.quant = quant
@@ -126,6 +170,13 @@ class HybridServeEngine:
         self.device = torch.device(device)
         self.max_minibatch = max_minibatch
         self.kv_cap, self.act_cap = kv_cap, act_cap
+        # telemetry, host-side only: NULL_TRACER is off
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics
+        self.drift = DriftMonitor(registry=metrics)
+        if metrics is not None:
+            register_busy_fraction_collector(metrics)
+            metrics.register_collector(self._collect_metrics)
         self.fits = profile_cost_fns(cfg, hw, quant=quant)
         dev_act = device_act_blocks(cfg, hw, quant=quant)
         self.alloc = host_block_allocation(cfg, hw, dev_act, quant=quant)
@@ -136,6 +187,14 @@ class HybridServeEngine:
             self.alloc = dataclasses.replace(self.alloc, kv_blocks=0, act_blocks=max(
                 self.alloc.act_blocks, 1))
         self.act_frac = self.alloc.act_fraction
+        self.controller: Optional[HybridCacheController] = None
+        self._last_obs = None
+        if adaptive:
+            self.controller = HybridCacheController(
+                cfg, hw, self.alloc, dev_act, fits=self.fits,
+                generalized=False,
+                ctl=ctl if ctl is not None else ControllerConfig(),
+                drift=self.drift, quant=quant, cpu=host_attn)
         # device KV pool: generous when device-resident; budget-derived under
         # offload, so tight budgets force real spill to the host arena
         self.blockman = BlockManager(
@@ -151,8 +210,8 @@ class HybridServeEngine:
             from repro_torch.offload import OffloadExecutor, make_spill_pool
             self.executor = OffloadExecutor(
                 cfg, params, prefetch_depth=self.budget.prefetch_depth,
-                faults=faults, watchdog_s=watchdog_s, quant=quant,
-                device=device)
+                faults=faults, watchdog_s=watchdog_s, tracer=tracer,
+                metrics=metrics, quant=quant, device=device)
             self.spill_kv_pool = make_spill_pool(
                 cfg, max_requests=max_minibatch, kv_cap=kv_cap, quant=quant,
                 device=device)
@@ -195,11 +254,28 @@ class HybridServeEngine:
                 groups.append(batch_reqs[i: i + self.max_minibatch])
         return groups
 
+    def snapshot(self) -> Dict[str, object]:
+        """One-call observability read: the registry's snapshot (collectors
+        run, so occupancy, busy-fraction and drift gauges are fresh) plus the
+        drift monitor's summary; the summary alone without a registry."""
+        out: Dict[str, object] = (self.metrics.snapshot()
+                                  if self.metrics is not None else {})
+        out["predictor_drift"] = self.drift.summary()
+        return out
+
+    def _collect_metrics(self, reg) -> None:
+        """Pull-style collector: occupancy by tag, retags and controller
+        state, read at ``snapshot()`` time, never on the hot path."""
+        collect_block_metrics(reg, self.blockman, self.act_frac,
+                              self.controller)
+        reg.counter("arena_denials").set(self.arena_denials)
+
     def generate(self, requests: List[Request]) -> Tuple[Dict[int, np.ndarray], GenStats]:
-        stats = GenStats()
+        stats = GenStats(self.metrics)
         outputs: Dict[int, np.ndarray] = {}
         for group in self.plan_groups(requests):
             out, st = self._run_group(group)
+            self._controller_step()
             outputs.update(out)
             stats.generated_tokens += st.generated_tokens
             stats.steps += st.steps
@@ -212,6 +288,25 @@ class HybridServeEngine:
             for k, v in st.traffic.items():
                 stats.traffic[k] = stats.traffic.get(k, 0.0) + v
         return outputs, stats
+
+    # --- adaptive controller hook (between groups) ---------------------------
+    def _controller_step(self) -> None:
+        """Feed the last group's lane timelines to the controller and apply
+        its bounded re-balance, on host data the group already read."""
+        if self.controller is None or self._last_obs is None:
+            return
+        results, sim, kv_tok, act_tok, cpu_tok = self._last_obs
+        self._last_obs = None
+        self.controller.observe(results, kv_tok, act_tok, sim=sim,
+                                cpu_tokens=cpu_tok)
+        self._apply_alloc(self.controller.update())
+
+    def _apply_alloc(self, new_alloc: HostAllocation) -> None:
+        """Commit the retag toward ``new_alloc`` that actually moved."""
+        self.alloc = retag_toward(self.blockman, self.alloc, new_alloc)
+        self.act_frac = self.alloc.act_fraction
+        if self.controller is not None:
+            self.controller.alloc = self.alloc
 
     def group_schedule(self, group: List[Request]):
         """Host-side plan of one group, as ``_run_group`` runs it.
@@ -251,23 +346,28 @@ class HybridServeEngine:
         cfg, dev = self.cfg, self.device
         stats = GenStats()
         B = len(group)
-        toks, kv_keep, pbs, sched, pages_bound, act_bound = \
-            self.group_schedule(group)
-        max_new = sched.shape[1]
-        as_dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)
-        if self.executor is not None:
-            d0 = self.executor.dispatches
-            cur, cache = self.executor.prefill_batched(
-                toks, kv_keep, pbs, kv_cap=self.kv_cap, act_cap=self.act_cap)
-            stats.device_calls += self.executor.dispatches - d0
-        else:
-            lg, cache = M.hybrid_prefill_batched(
-                self.params, cfg, as_dev(toks), self.kv_cap, self.act_cap,
-                as_dev(kv_keep), as_dev(pbs), quant=self.quant)
-            cur = lg[:, -1].argmax(-1).int()
-            stats.device_calls += 1
+        for r in group:
+            self.tracer.request_begin(r.rid, prompt_tokens=len(r.prompt),
+                                      max_new=r.max_new_tokens)
         region = None
         try:
+            toks, kv_keep, pbs, sched, pages_bound, act_bound = \
+                self.group_schedule(group)
+            max_new = sched.shape[1]
+            with self.tracer.server_span("prefill", batch=B):
+                if self.executor is not None:
+                    d0 = self.executor.dispatches
+                    cur, cache = self.executor.prefill_batched(
+                        toks, kv_keep, pbs, kv_cap=self.kv_cap,
+                        act_cap=self.act_cap)
+                    stats.device_calls += self.executor.dispatches - d0
+                else:
+                    lg, cache = M.hybrid_prefill_batched(
+                        self.params, cfg, torch.from_numpy(toks).to(dev),
+                        self.kv_cap, self.act_cap, kv_keep, pbs,
+                        quant=self.quant)
+                    cur = lg[:, -1].argmax(-1).int()
+                    stats.device_calls += 1
             for i, r in enumerate(group):
                 self.blockman.new_request(r.rid)
                 for t in range(pbs[i]):
@@ -320,28 +420,32 @@ class HybridServeEngine:
                 for r in group:
                     self.blockman.tag_host_attend(r.rid, True)
 
-            if max_new and self.executor is not None:
-                d0 = self.executor.dispatches
-                gen, _ = self.executor.decode_loop(
-                    cur, cache, sched.T, spill_region=region,
-                    host_attn=use_cpu, pages_bound=pages_bound,
-                    act_pages_bound=act_bound)
-                stats.device_calls += self.executor.dispatches - d0
-                measured = self.executor.drain_timeline("decode")
-                self.measured_steps += measured
-                stats.measured_time += sum(m.total for m in measured)
-                stats.measured_gpu_busy += sum(m.gpu_busy for m in measured)
-                stats.measured_cpu_busy += sum(m.cpu_busy for m in measured)
-            elif max_new:
-                sched_dev = torch.from_numpy(np.ascontiguousarray(sched.T)).to(dev)
-                gen_dev, _ = M.hybrid_decode_loop(self.params, cfg, cur, cache,
-                                                  sched_dev,
-                                                  pages_bound=pages_bound,
-                                                  act_pages_bound=act_bound,
-                                                  quant=self.quant,
-                                                  any_act=sched.any(0))
-                gen = gen_dev.cpu().numpy()
-                stats.device_calls += 1
+            if max_new:
+                with self.tracer.server_span("decode", batch=B,
+                                             steps=max_new):
+                    if self.executor is not None:
+                        d0 = self.executor.dispatches
+                        gen, _ = self.executor.decode_loop(
+                            cur, cache, sched.T, spill_region=region,
+                            host_attn=use_cpu, pages_bound=pages_bound,
+                            act_pages_bound=act_bound)
+                        stats.device_calls += self.executor.dispatches - d0
+                        measured = self.executor.drain_timeline("decode")
+                        self.measured_steps += measured
+                        stats.measured_time += sum(m.total for m in measured)
+                        stats.measured_gpu_busy += sum(m.gpu_busy
+                                                       for m in measured)
+                        stats.measured_cpu_busy += sum(m.cpu_busy
+                                                       for m in measured)
+                    else:
+                        sched_dev = torch.from_numpy(
+                            np.ascontiguousarray(sched.T)).to(dev)
+                        gen_dev, _ = M.hybrid_decode_loop(
+                            self.params, cfg, cur, cache, sched_dev,
+                            pages_bound=pages_bound, act_pages_bound=act_bound,
+                            quant=self.quant, any_act=sched.any(0))
+                        gen = gen_dev.cpu().numpy()
+                        stats.device_calls += 1
             else:
                 gen = np.zeros((B, 0), np.int32)
             stats.steps += max_new
@@ -379,13 +483,40 @@ class HybridServeEngine:
                 ctx_tokens=int(np.mean(np.asarray(pbs) + steps_ahead[s])),
                 cpu_host_tokens=int(kv_tok[s]) if use_cpu else 0)]
                 for s in range(max_new)]
-            for res in simulate_steps(cfg, self.hw, specs, quant=self.quant):
+            sim_results = simulate_steps(cfg, self.hw, specs, quant=self.quant)
+            for res in sim_results:
                 stats.sim_time += res.total
                 stats.sim_gpu_busy += res.gpu_busy
                 for k, v in res.traffic.items():
                     stats.traffic[k] = stats.traffic.get(k, 0.0) + v
-            return {r.rid: gen[bi, : r.max_new_tokens]
-                    for bi, r in enumerate(group)}, stats
+            if self.metrics is not None:
+                fold_timeline_metrics(self.metrics, sim_results, source="sim")
+                fold_timeline_metrics(self.metrics, measured,
+                                      source="measured")
+            if self.controller is not None:
+                # controller food: measured lane times under offload, the
+                # simulated prediction otherwise, with the schedule's
+                # per-step host token counts; a host-attended group's KV
+                # tokens fed the cpu lane, not the link
+                self._last_obs = (measured if self.executor is not None
+                                  else sim_results, sim_results,
+                                  [0] * max_new if use_cpu
+                                  else kv_tok.tolist(), act_tok.tolist(),
+                                  kv_tok.tolist() if use_cpu else None)
+            elif self.executor is not None:
+                # no controller to route through: the drift monitor takes
+                # its (measured, predicted) pairs directly
+                self.drift.observe_steps(measured, sim_results)
+            out = {}
+            for bi, r in enumerate(group):
+                out[r.rid] = gen[bi, : r.max_new_tokens]
+                self.tracer.request_end(r.rid, "complete",
+                                        tokens=int(len(out[r.rid])))
+            return out, stats
+        except BaseException:
+            for r in group:
+                self.tracer.request_end(r.rid, "fail")
+            raise
         finally:
             if region is not None:
                 region.free()               # the staging arena is reused per group

@@ -16,18 +16,20 @@ ahead of fresh arrivals, and are bounded by ``RecoveryConfig.max_parked``: a
 genuinely overcommitted server still raises ``CapacityError``, with the
 affected rids and a hint.
 
-``RecoveryStats`` is a plain dataclass of the reference's counters; the
-reference's registry-backed view comes with the metrics registry.
+``RecoveryStats`` is a ``ScalarStatsView``: with a metrics registry its
+fields are live views over ``recovery_*`` counters, without one plain
+attributes.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costmodel as cm
 from repro_torch.core.blocks import BLOCK_TOKENS
 from repro_torch.data.pipeline import Request
+from repro_torch.obs.metrics import ScalarStatsView
 
 
 class CapacityError(RuntimeError):
@@ -93,25 +95,28 @@ class ParkedRequest:
         return padded + len(self.generated)
 
 
-@dataclass
-class RecoveryStats:
-    """Preemption and degraded-mode counters, surfaced on the server."""
-    preemptions: int = 0
-    preempt_to_act: int = 0               # victims demoted KV -> ACT
-    preempt_to_tokens: int = 0            # victims dropped to token IDs
-    demoted_blocks: int = 0
-    dropped_blocks: int = 0
-    resumes: int = 0
-    resume_from_act: int = 0
-    resume_from_tokens: int = 0
-    sched_clamps: int = 0                 # store flags flipped off a full region
-    parked_degraded: int = 0              # parked ACT holdings dropped to tokens
-    resume_cost_s: float = 0.0            # simulated seconds spent on resumes
-    parked_peak: int = 0
+class RecoveryStats(ScalarStatsView):
+    """Preemption and degraded-mode counters, surfaced on the server: plain
+    attributes, or, constructed with a ``MetricsRegistry``, live views over
+    its ``recovery_*`` counters (one source of truth with ``snapshot()``)."""
 
+    _FIELDS = {
+        "preemptions": 0,
+        "preempt_to_act": 0,              # victims demoted KV -> ACT
+        "preempt_to_tokens": 0,           # victims dropped to token IDs
+        "demoted_blocks": 0,
+        "dropped_blocks": 0,
+        "resumes": 0,
+        "resume_from_act": 0,
+        "resume_from_tokens": 0,
+        "sched_clamps": 0,                # store flags flipped off a full region
+        "parked_degraded": 0,             # parked ACT holdings dropped to tokens
+        "resume_cost_s": 0.0,             # simulated seconds spent on resumes
+        "parked_peak": 0,
+    }
 
-#: the counters and their initial values, as the reference lists them
-RecoveryStats._FIELDS = {f.name: f.default for f in fields(RecoveryStats)}
+    def __init__(self, registry=None):
+        super().__init__(registry, prefix="recovery")
 
 
 def blocks_for_tokens(t0: int, t1: int) -> int:

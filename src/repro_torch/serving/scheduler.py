@@ -21,11 +21,16 @@ requests leave and queued arrivals are admitted at CHUNK boundaries.
 ``chunk_steps=1`` is the classic step server.  Pressure recovery (preempt,
 park, resume through a re-prefill) is ``serving.recovery``'s.
 
-Not here yet: the adaptive controller, the tracer and metrics registry
-(ROADMAP queue 1, item 2) and sharding (item 5); asking for them raises.
+``adaptive=True`` runs the hybrid-cache controller between chunks;
+``tracer=``/``metrics=`` record each request's lifecycle, the server's
+admission and chunk spans, the lane timelines and the counters, with TTFT and
+TBT histograms.  Both are host-side, on results the chunk already read.
+
+Not here yet: sharding (ROADMAP queue 1, item 5); asking for it raises.
 """
 from __future__ import annotations
 
+from contextlib import ExitStack
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -35,19 +40,23 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import costmodel as cm
 from repro_torch.core.blocks import BLOCK_TOKENS, BlockManager, BlockType
+from repro_torch.core.controller import ControllerConfig, HybridCacheController
 from repro_torch.core.pipeline import MiniBatchSpec, simulate_steps
-from repro_torch.core.policy import (device_act_blocks, host_block_allocation,
+from repro_torch.core.policy import (HostAllocation, device_act_blocks,
+                                     host_block_allocation,
                                      store_act_schedule)
 from repro_torch.core.quant import QuantConfig
 from repro_torch.data.pipeline import Request
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
+from repro_torch.obs import (NULL_TRACER, DriftMonitor, fold_timeline_metrics,
+                             register_busy_fraction_collector)
 from repro_torch.serving.recovery import (CapacityError, ParkedRequest,
                                           RecoveryConfig, RecoveryStats,
                                           blocks_for_tokens, resume_cost)
-from repro_torch.serving.util import bucket, kv_keep_for, pack_group
+from repro_torch.serving.util import (bucket, collect_block_metrics, kv_keep_for,
+                                     pack_group, retag_toward)
 
-_CONTROLLER = "ROADMAP queue 1, item 2 (controller and telemetry)"
 _SHARDING = "ROADMAP queue 1, item 5 (sharding)"
 
 
@@ -111,8 +120,10 @@ class ContinuousBatchingServer:
                  kv_cap: int = 256, act_cap: int = 256,
                  chunk_steps: int = 1,
                  hw: cm.HardwareSpec = cm.H100_SXM, offload: bool = False,
-                 adaptive: bool = False, ctl=None, plan=None,
+                 adaptive: bool = False,
+                 ctl: Optional[ControllerConfig] = None, plan=None,
                  recovery: Optional[RecoveryConfig] = None,
+                 faults=None, watchdog_s: Optional[float] = None,
                  host_kv_blocks: Optional[int] = None,
                  host_act_blocks: Optional[int] = None,
                  dev_kv_blocks: Optional[int] = None,
@@ -152,11 +163,25 @@ class ContinuousBatchingServer:
         host_attn=True (offload only): each chunk's KV-region attention runs
         on the cpu lane over a host mirror of the region.
 
-        adaptive/ctl, plan, tracer/metrics: not ported yet; raise."""
-        if adaptive or ctl is not None or tracer is not None \
-                or metrics is not None:
-            raise NotImplementedError(
-                f"the adaptive controller and telemetry: {_CONTROLLER}")
+        faults / watchdog_s: the offload lanes' ``FaultPlan`` and watchdog
+        deadline, handed to the ``OffloadExecutor`` (offload only).
+
+        adaptive=True runs the ``HybridCacheController`` between chunks:
+        each chunk's timelines (measured under offload, simulated
+        otherwise) refit the cost model, and the ACT:KV target that drives
+        the per-slot store schedule follows the refit allocation, mirrored
+        onto the host pools by bounded capacity retags.  ``ctl`` defaults
+        to ``ControllerConfig(update_every=4)``.
+
+        tracer / metrics: an ``obs.Tracer`` (request roots with admit,
+        prefill, decode, preempt, park, resume and complete; admit and
+        chunk server spans; the executor's lane spans) and an
+        ``obs.MetricsRegistry`` (``RecoveryStats`` as ``recovery_*``
+        counters, ``ttft_s``/``tbt_s`` histograms, timeline folds; read
+        with ``snapshot()``).  Tokens, calls and syncs are those of a run
+        without.
+
+        plan (sharding): not ported yet; raises."""
         if plan is not None:
             raise NotImplementedError(f"sharded serving: {_SHARDING}")
         T.check_supported(cfg, families=("uniform",), qk_norm=False)
@@ -168,12 +193,26 @@ class ContinuousBatchingServer:
         self.cfg, self.params, self.hw = cfg, params, hw
         self.n_slots, self.kv_cap, self.act_cap = slots, kv_cap, act_cap
         self.chunk_steps = max(int(chunk_steps), 1)
+        # telemetry, host-side only: NULL_TRACER is off
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.metrics = metrics
+        self.drift = DriftMonitor(registry=metrics)
+        if metrics is not None:
+            register_busy_fraction_collector(metrics)
+            metrics.register_collector(self._collect_metrics)
         dev_act = device_act_blocks(cfg, hw, quant=quant)
         # the byte-ratio-aware Algorithm-1 balance (the reference server's
         # default; the engine keeps the plain one)
         self.alloc = host_block_allocation(cfg, hw, dev_act, generalized=True,
                                            quant=quant)
         self.act_frac = self.alloc.act_fraction
+        self.controller: Optional[HybridCacheController] = None
+        if adaptive:
+            self.controller = HybridCacheController(
+                cfg, hw, self.alloc, dev_act, generalized=True,
+                ctl=ctl if ctl is not None else
+                ControllerConfig(update_every=4), drift=self.drift,
+                quant=quant, cpu=host_attn)
         # physical block accounting, replayed per chunk from the precomputed
         # store schedule: host pools in the Algorithm-1 split, device pools
         # as the engine sizes them
@@ -189,7 +228,7 @@ class ContinuousBatchingServer:
                             else dev_act),
             quant=quant)
         self.recovery = recovery if recovery is not None else RecoveryConfig()
-        self.recovery_stats = RecoveryStats()
+        self.recovery_stats = RecoveryStats(metrics)
         self.parked: List[ParkedRequest] = []
         self.fits = cm.profile_cost_fns(cfg, hw, quant=quant)
         # offload: per-iteration timelines drained out of the executor per
@@ -201,8 +240,10 @@ class ContinuousBatchingServer:
         self.executor = None
         if offload:
             from repro_torch.offload import OffloadExecutor
-            self.executor = OffloadExecutor(cfg, params, quant=quant,
-                                            device=self.device)
+            self.executor = OffloadExecutor(
+                cfg, params, faults=faults, watchdog_s=watchdog_s,
+                tracer=tracer, metrics=metrics, quant=quant,
+                device=self.device)
         self._cur_tok = np.zeros((slots,), np.int32)
 
     @property
@@ -212,10 +253,24 @@ class ContinuousBatchingServer:
             return []
         return self._measured + self.executor.timeline.results("decode")
 
-    def snapshot(self):
-        """The reference's one-call observability read (metrics registry and
-        drift monitor): not ported yet."""
-        raise NotImplementedError(f"the server's telemetry: {_CONTROLLER}")
+    def snapshot(self) -> Dict[str, object]:
+        """One-call observability read: TTFT/TBT percentiles, lane busy
+        fractions, fault and recovery counters, block occupancy and per-lane
+        predictor drift (the registry's snapshot with its collectors run,
+        and the drift monitor's summary; the summary alone without a
+        registry)."""
+        out: Dict[str, object] = (self.metrics.snapshot()
+                                  if self.metrics is not None else {})
+        out["predictor_drift"] = self.drift.summary()
+        return out
+
+    def _collect_metrics(self, reg) -> None:
+        """Pull-style collector: occupancy by tag, retags, parked depth and
+        controller state, read at ``snapshot()`` time, never on the hot
+        path."""
+        collect_block_metrics(reg, self.blockman, self.act_frac,
+                              self.controller)
+        reg.gauge("parked_requests").set(len(self.parked))
 
     def close(self) -> None:
         """Shut down the offload executor (no-op device-resident): it owns a
@@ -230,7 +285,7 @@ class ContinuousBatchingServer:
         self.close()
 
     def _as_dev(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return M.upload(a, self.device)
 
     # ------------------------------------------------------------- admission
     def _admit(self, tokens, kv_keep, last_pos, slot_idx) -> np.ndarray:
@@ -240,8 +295,7 @@ class ContinuousBatchingServer:
         readback.  -> (k,) int32."""
         lg, new = M.hybrid_prefill_batched(
             self.params, self.cfg, self._as_dev(tokens), self.kv_cap,
-            self.act_cap, self._as_dev(kv_keep), self._as_dev(last_pos),
-            quant=self.quant)
+            self.act_cap, kv_keep, last_pos, quant=self.quant)
         scatter_rows(self.cache, new, self._as_dev(slot_idx).long())
         return lg[:, -1].argmax(-1).int().cpu().numpy()
 
@@ -303,9 +357,15 @@ class ContinuousBatchingServer:
         rstats = self.recovery_stats
         for _, r, pk in assignments:
             if pk is None:
+                # a fresh admission opens the request's root span; a resume
+                # re-enters the root its first admission opened
+                self.tracer.request_begin(r.rid, prompt_tokens=len(r.prompt),
+                                          max_new=r.max_new_tokens)
                 reqs.append(r)
                 lens.append(-1)
                 continue
+            self.tracer.request_event(r.rid, "resume", mode=pk.mode,
+                                      generated=len(pk.generated))
             if pk.mode == "act":
                 self.blockman.free_request(pk.rid)
                 rstats.resume_from_act += 1
@@ -345,8 +405,14 @@ class ContinuousBatchingServer:
                                      max(tl - self.act_cap, 0)),
                                  min(self.kv_cap, tl))
         slot_idx = np.asarray([i for i, _, _ in assignments], np.int32)
-        cur_np = self._admit(toks, kv_keep, np.asarray(lens, np.int32),
-                             slot_idx)
+        with ExitStack() as tspans:
+            tspans.enter_context(self.tracer.server_span("admit", batch=k))
+            for j, (_, _, pk) in enumerate(assignments):
+                tspans.enter_context(self.tracer.request_span(
+                    reqs[j].rid,
+                    "resume_prefill" if pk is not None else "prefill"))
+            cur_np = self._admit(toks, kv_keep, np.asarray(lens, np.int32),
+                                 slot_idx)
         stats.device_calls += 1
         stats.admission_batches += 1
         stats.admitted += k
@@ -380,6 +446,14 @@ class ContinuousBatchingServer:
             self._release_slots([i for i, _, _ in assignments])
             raise
 
+    # --- adaptive controller hook (between chunks) ----------------------------
+    def _apply_alloc(self, new_alloc: HostAllocation) -> None:
+        """Commit the retag toward ``new_alloc`` that actually moved."""
+        self.alloc = retag_toward(self.blockman, self.alloc, new_alloc)
+        self.act_frac = self.alloc.act_fraction
+        if self.controller is not None:
+            self.controller.alloc = self.alloc
+
     def _release_slots(self, slot_idx) -> None:
         """Failure-path cleanup: free the given slots' requests (tables
         included) and reset their states (``free_request`` is a no-op for
@@ -388,6 +462,7 @@ class ContinuousBatchingServer:
             st = self.slots[i]
             if st.active:
                 self.blockman.free_request(st.rid)
+                self.tracer.request_end(st.rid, "fail")
             self.slots[i] = SlotState()
 
     # ---------------------------------------------------- pressure recovery
@@ -398,6 +473,7 @@ class ContinuousBatchingServer:
         for pk in self.parked:
             if pk.mode == "act":
                 self.blockman.free_request(pk.rid)
+            self.tracer.request_end(pk.rid, "fail")
             rids.append(pk.rid)
         self.parked.clear()
         return rids
@@ -434,9 +510,12 @@ class ContinuousBatchingServer:
         else:
             rstats.preempt_to_act += 1
         rstats.preemptions += 1
+        self.tracer.request_event(st.rid, "preempt", mode=mode,
+                                  generated=len(st.generated))
         self.parked.append(ParkedRequest(
             request=st.request, generated=list(st.generated), mode=mode,
             preempts=st.preempts + 1))
+        self.tracer.request_event(st.rid, "park", depth=len(self.parked))
         rstats.parked_peak = max(rstats.parked_peak, len(self.parked))
         active[:, v] = False
         sched_t[:, v] = False
@@ -601,8 +680,16 @@ class ContinuousBatchingServer:
         # frozen device lengths may exceed them (its mirror reads 0)
         kv_bound = min(self.kv_cap, bucket(int(kt0.max()) + n_steps))
         act_bound = min(self.act_cap, bucket(int(at0.max()) + n_steps))
-        toks_np, cur_np = self._decode(sched_t, active, kv_bound, act_bound,
-                                       stats)
+        with ExitStack() as tspans:
+            tspans.enter_context(self.tracer.server_span(
+                "chunk", steps=n_steps, idx=stats.chunks))
+            for i, st in enumerate(self.slots):
+                if st.active and active[:, i].any():
+                    tspans.enter_context(self.tracer.request_span(
+                        st.rid, "decode", chunk=stats.chunks,
+                        steps=int(active[:, i].sum())))
+            toks_np, cur_np = self._decode(sched_t, active, kv_bound,
+                                           act_bound, stats)
         self._cur_tok = np.array(cur_np, np.int32)
         stats.chunks += 1
         stats.sim_time += self.hw.dispatch_overhead
@@ -650,21 +737,51 @@ class ContinuousBatchingServer:
                             hint="grow the host pools or lower concurrency")
                     if st.rid not in stats.ttft:
                         stats.ttft[st.rid] = stats.sim_time
+                        if self.metrics is not None:
+                            self.metrics.histogram("ttft_s").observe(
+                                stats.ttft[st.rid])
                     if st.remaining == 0:
                         out[st.rid] = np.asarray(st.generated, np.int32)
                         stats.tbt[st.rid] = stats.sim_time / max(
                             len(st.generated), 1)
                         stats.completed_at[st.rid] = step_idx + s
+                        if self.metrics is not None:
+                            self.metrics.histogram("tbt_s").observe(
+                                stats.tbt[st.rid])
+                        self.tracer.request_end(
+                            st.rid, "complete", tokens=len(st.generated),
+                            step=step_idx + s)
                         self.blockman.free_request(st.rid)
                         self.slots[i] = SlotState()
         except Exception:
             self._release_slots(range(self.n_slots))
             self._release_parked()
             raise
+        meas: List = []
         if self.executor is not None:
+            # the chunk's steps, resolved once (the span store stays bounded)
             meas = self.executor.drain_timeline("decode")
             self._measured.extend(meas)
             stats.measured_time += sum(m.total for m in meas)
+        if self.metrics is not None:
+            fold_timeline_metrics(self.metrics, sim_results, source="sim")
+            fold_timeline_metrics(self.metrics, meas, source="measured")
+            self.metrics.counter("serve_generated_tokens").inc(
+                int(active.sum()))
+            self.metrics.counter("serve_chunks").inc()
+        if self.controller is not None:
+            # per-chunk batch: the measured steps under offload, the
+            # simulated predictions otherwise; a host-attended chunk's KV
+            # tokens fed the cpu lane, not the link
+            self.controller.observe(
+                meas if meas else sim_results,
+                [0] * n_steps if use_cpu else kv_tok, act_tok,
+                sim=sim_results, cpu_tokens=kv_tok if use_cpu else None)
+            self._apply_alloc(self.controller.update())
+        elif self.executor is not None:
+            # no controller to route through: the drift monitor takes its
+            # (measured, predicted) pairs directly
+            self.drift.observe_steps(meas, sim_results)
 
     # ---------------------------------------------------------------- serving
     def run(self, requests: List[Request],

@@ -1,11 +1,13 @@
-"""Shared serving helpers (copied from ``repro.serving.util``)."""
+"""Shared serving helpers (copied from ``repro.serving.util``), and the
+adaptive controller's hooks that the engine and the server share."""
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Tuple
 
 import numpy as np
 
-from repro_torch.core.blocks import BLOCK_TOKENS
+from repro_torch.core.blocks import BLOCK_TOKENS, BlockType, Location
 
 
 def bucket(n: int, mult: int = 16) -> int:
@@ -74,3 +76,38 @@ def pack_group(requests, act_frac: float, kv_cap: int, act_cap: int, *,
             f"ACT prefix {int((np.asarray(pbs) - kv_keep).max())} "
             f"exceeds act_cap={act_cap}; raise act_cap")
     return toks, kv_keep, pbs
+
+
+def retag_toward(blockman, alloc, new_alloc):
+    """Retag host pool capacity from ``alloc`` toward ``new_alloc``'s ACT
+    blocks and -> the allocation that actually moved: free capacity only,
+    so live blocks are never stranded."""
+    delta = new_alloc.act_blocks - alloc.act_blocks
+    if delta > 0:
+        moved = blockman.retag_capacity(Location.HOST, BlockType.KV,
+                                        BlockType.ACT, delta)
+    elif delta < 0:
+        moved = -blockman.retag_capacity(Location.HOST, BlockType.ACT,
+                                         BlockType.KV, -delta)
+    else:
+        moved = 0
+    return dataclasses.replace(alloc, act_blocks=alloc.act_blocks + moved,
+                               kv_blocks=alloc.kv_blocks - moved)
+
+
+def collect_block_metrics(reg, blockman, act_frac, controller) -> None:
+    """The gauges the engine's and the server's collectors share, read at
+    ``snapshot()`` time: occupancy by tag, retags, the ACT fraction and the
+    controller's state."""
+    for (kind, loc), pool in blockman.pools.items():
+        labels = dict(kind=kind.value, tier=loc.value)
+        reg.gauge("blocks_capacity", **labels).set(pool.capacity)
+        reg.gauge("blocks_allocated", **labels).set(pool.allocated)
+    for (loc, src, dst), n in blockman.retags.items():
+        reg.counter("retagged_blocks", tier=loc.value, src=src.value,
+                    dst=dst.value).set(n)
+    reg.gauge("act_fraction").set(act_frac)
+    if controller is not None:
+        reg.gauge("controller_updates").set(controller.updates)
+        reg.gauge("controller_migrated_blocks").set(controller.migrated_blocks)
+        reg.gauge("controller_faulted_skipped").set(controller.faulted_skipped)

@@ -208,3 +208,49 @@ def test_hybrid_decode_drops_a_write_past_capacity(name):
         for key in keys:
             _close(cache[key], jcache[key], CACHE_TOL, f"{key}, step {s}")
         tok = np.array(jnp.argmax(jlg[:, -1], -1), np.int32)[:, None]
+
+
+def _refuse_reads(monkeypatch):
+    """Every read of a tensor's value raises: a read of a device tensor is
+    a sync its caller did not count."""
+    def refuse(*a, **kw):
+        raise AssertionError("the prefill read a tensor's value")
+
+    for name in ("__int__", "__index__", "__float__", "__bool__", "item",
+                 "tolist", "numpy", "__array__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+
+
+def test_hybrid_prefill_reads_no_device_value(models, monkeypatch):
+    """The batched prefill checks its host split on the host and reads no
+    tensor's value (the split's capacity check read it back from the
+    device).  It equals the prefill run without the refusal."""
+    cfg, tp, *_ = models
+    toks = torch.from_numpy(_tokens(cfg, 3, 48, seed=1))
+    kv_keep = np.array(SPLITS["mixed"], np.int32)
+    last_pos = np.array([48, 32, 48], np.int32)
+    want_lg, want = M.hybrid_prefill_batched(tp, cfg, toks, KV_CAP, ACT_CAP,
+                                             kv_keep, last_pos)
+    with monkeypatch.context() as m:
+        _refuse_reads(m)
+        lg, cache = M.hybrid_prefill_batched(tp, cfg, toks, KV_CAP, ACT_CAP,
+                                             kv_keep, last_pos)
+    assert torch.equal(lg, want_lg)
+    for key in ("k", "v", "act", "act_pos", "kv_len", "act_len"):
+        assert torch.equal(cache[key], want[key]), key
+
+
+def test_hybrid_prefill_checks_a_host_split(models):
+    """A host split over a capacity raises the ``ValueError`` the device
+    check raised, before anything runs; ``check_split`` is that check."""
+    cfg, tp, *_ = models
+    toks = torch.from_numpy(_tokens(cfg, 2, 48, seed=2))
+    with pytest.raises(ValueError, match="exceeds kv_cap=32"):
+        M.hybrid_prefill_batched(tp, cfg, toks, 32, ACT_CAP,
+                                 np.array([48, 16]), np.array([48, 48]))
+    with pytest.raises(ValueError, match="exceeds act_cap=16"):
+        M.hybrid_prefill_batched(tp, cfg, toks, KV_CAP, 16,
+                                 [16, 16], [48, 32])
+    M.check_split([32, 16], [48, 32], 32, 16)
+    with pytest.raises(ValueError, match="ACT span 17"):
+        M.check_split([32, 15], [48, 32], 32, 16)

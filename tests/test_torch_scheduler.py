@@ -142,11 +142,11 @@ def test_region_overflow_raises_and_server_stays_admissible(name):
 
 def test_refusals():
     cfg, tp, *_ = _setup("opt-6.7b-reduced")
-    for kw in (dict(adaptive=True), dict(metrics=object())):
-        with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-            ContinuousBatchingServer(cfg, tp, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        ContinuousBatchingServer(cfg, tp, device="cpu").snapshot()
+    # the controller and the telemetry are ported: accepted, and snapshot()
+    # answers with the drift summary even without a registry
+    srv = ContinuousBatchingServer(cfg, tp, device="cpu", adaptive=True)
+    assert srv.controller is not None and srv.controller.ctl.update_every == 4
+    assert set(srv.snapshot()) == {"predictor_drift"}
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         ContinuousBatchingServer(cfg, tp, device="cpu", plan=object())
     with pytest.raises(ValueError, match="host_attn"):
