@@ -20,7 +20,13 @@ against the plain ``prefill`` + ``decode_loop`` with three planted faults.
 Last, mamba2-2.7b (64 SSD layers, no attention) runs ``prefill`` ->
 ``decode_loop``: each layer's prefill scan through the ``ssd_scan`` kernel,
 decode in plain torch, checked against the same path with the plain scan,
-with three planted faults.  After each of OPT's and yi's device-resident
+with three planted faults.  Then the MoE models at full width, their depth
+cut to what one card holds (dbrx-132b at 4 of 40 layers, grok-1-314b at 2
+of 64): the engine in hybrid and kv modes (the MoE dispatch inside the
+sync-checked decode loop), hybrid held to kv mode of the same group and to
+the oracle where the group's prefill dropped no real token's pair, each
+prefill's dropped pairs printed, two planted faults in the dispatch; dbrx
+also streamed from pinned host memory and through the server.  After each of OPT's and yi's device-resident
 serves has freed its weights, an offload phase serves it again with its
 layer weights in pinned host memory, streamed to the card over a CUDA copy stream (``HybridServeEngine(offload=
 True)``): prefetch depth 1 and 0, the KV region resident or spilled to the
@@ -67,7 +73,8 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.offload import OffloadBudget, _tight  # noqa: E402
+from repro_torch.configs.offload import (OffloadBudget, _tight,  # noqa: E402
+                                         offload_budget)
 from repro_torch.core.controller import (ControllerConfig,  # noqa: E402
                                          HybridCacheController)
 from repro_torch.core.costmodel import H100_SXM  # noqa: E402
@@ -609,7 +616,7 @@ def serve_shape(cfg, quant=None) -> dict:
     exact K/V are merged after the kernel)."""
     eng = HybridServeEngine(cfg, None, mode="hybrid", hw=H100_SXM, quant=quant)
     reqs = request_trace(cfg.vocab_size, **TRACE)
-    _, kv_keep, pbs, sched, pages_bound, act_bound = \
+    toks, kv_keep, pbs, sched, pages_bound, act_bound = \
         eng.group_schedule(eng.plan_groups(reqs)[0])
     act = np.asarray(pbs) - kv_keep + sched.sum(1)
     if quant is not None and cfg.pos_type != "rope":
@@ -617,7 +624,8 @@ def serve_shape(cfg, quant=None) -> dict:
     return {"B": len(pbs), "act_cap": eng.act_cap, "kv_cap": eng.kv_cap,
             "kv_tokens": (kv_keep + (~sched).sum(1)).tolist(),
             "act_tokens": act.tolist(), "pages_bound": pages_bound,
-            "act_pages_bound": act_bound, "int8_plan": quant is not None}
+            "act_pages_bound": act_bound, "int8_plan": quant is not None,
+            "prefill_len": int(toks.shape[1])}
 
 
 def check_kv_gen(B, n_act, d, KVH, hd=128, act_cap=512, dtype=torch.bfloat16,
@@ -1189,6 +1197,12 @@ def phase_kernels(results):
     tp_empty, tp_one_split, g_short = two_pool_edges(shape)
     yi_q8, opt_q8 = serve_shape(yi, QuantConfig()), serve_shape(opt, QuantConfig())
     bf16 = torch.bfloat16
+    dbrx, grok = moe_config("dbrx-132b"), moe_config("grok-1-314b")
+    m_shape, g_shape = serve_shape(dbrx), serve_shape(grok)
+    m_kv_gen = lambda sh, c: check_kv_gen(
+        sh["B"], sh["act_pages_bound"], c.d_model, c.num_kv_heads,
+        hd=c.head_dim, act_cap=sh["act_cap"], norm_type=c.norm_type,
+        theta=c.rope_theta)
     out = {"phase": "kernels", "yi_serve_shape": shape,
            "yi_serve_shape_q8": yi_q8, "opt_serve_shape_q8": opt_q8,
            "flash_attention": [
@@ -1198,7 +1212,10 @@ def phase_kernels(results):
                check_flash(1, 2048, H=32, KVH=4, dtype=bf16),
                check_flash(gB, gS, **gw),
                check_flash(2, 777, H=8, KVH=2, dtype=bf16),
-               check_flash(4, 512, H=8, KVH=8, D=64)],
+               check_flash(4, 512, H=8, KVH=8, D=64),
+               check_flash(m_shape["B"], m_shape["prefill_len"],
+                           H=dbrx.num_heads, KVH=dbrx.num_kv_heads,
+                           dtype=bf16)],
            "hybrid_paged_attention": [
                check_hybrid(before_ms=BEFORE_TILES_MS["hand_f16"]),
                check_hybrid(KVH=8, G=4, dtype=bf16, norm_type="rmsnorm",
@@ -1208,13 +1225,16 @@ def phase_kernels(results):
                             norm_type="rmsnorm")],
            "hybrid_paged_attention_two_pool": [
                check_two_pool(shape), check_two_pool(tp_empty),
-               check_two_pool(tp_one_split, KVH=16, G=2)],
+               check_two_pool(tp_one_split, KVH=16, G=2),
+               check_two_pool(m_shape, KVH=dbrx.num_kv_heads,
+                              G=dbrx.num_heads // dbrx.num_kv_heads)],
            "kv_gen": [
                check_kv_gen(shape["B"], shape["act_pages_bound"], yi.d_model,
                             yi.num_kv_heads),
                check_kv_gen(shape["B"], shape["act_pages_bound"], 3072, 8,
                             dtype=torch.float16, norm_type="layernorm",
-                            theta=1e4)],
+                            theta=1e4),
+               m_kv_gen(m_shape, dbrx), m_kv_gen(g_shape, grok)],
            "hybrid_paged_attention_return_lse":
                check_lse("fused", opt_shape, KVH=32, G=1,
                          before_ms=BEFORE_TILES_MS["lse_fp"]),
@@ -1251,9 +1271,18 @@ def phase_kernels(results):
            "ssd_scan": [check_ssd_scan(B, S, mamba) for B, S in MAMBA_GROUPS]
            + [check_ssd_scan(*MAMBA_GROUPS[1], mamba, dtype=torch.float16)],
            "gemma_serve_shapes": {"global": g_global, "ring": g_ring},
-           "opt_serve_shape": opt_shape}
+           "opt_serve_shape": opt_shape,
+           "moe_serve_shapes": {"dbrx-132b": m_shape, "grok-1-314b": g_shape}}
     emit(out)
     results["kernels"] = out
+    # the MoE models' shapes: the last flash and second-pool rows, the last
+    # two kv_gen rows (dbrx's layernorm with its bias, grok's rmsnorm)
+    for name, c in (("flash_attention", out["flash_attention"][-1]),
+                    ("hybrid_paged_attention_two_pool",
+                     out["hybrid_paged_attention_two_pool"][-1])):
+        print(f"moe shape {name} {c['dtype']} {c['shape']}: {c['kernel_ms']} "
+              f"ms, bound {c['bound_ms']} ms, library {c['library_ms']} ms, "
+              f"error {c['max_abs_err']} (limit {c['tol']})", flush=True)
     for name in ("hybrid_paged_attention", "hybrid_paged_attention_q8",
                  "hybrid_paged_attention_return_lse",
                  "hybrid_paged_attention_return_lse_q8"):
@@ -1862,12 +1891,14 @@ def phase_serve(results, smi, name):
             (rule, gold, ora), q8_oracle, params)
 
 
-def mem_available() -> int:
-    """The host's MemAvailable, bytes."""
+def meminfo() -> dict:
+    """The host's MemTotal and MemAvailable, bytes."""
+    out = {}
     for line in Path("/proc/meminfo").read_text().splitlines():
-        if line.startswith("MemAvailable:"):
-            return int(line.split()[1]) * 1024
-    return -1
+        key = line.split(":")[0]
+        if key in ("MemTotal", "MemAvailable"):
+            out[key] = int(line.split()[1]) * 1024
+    return out
 
 
 def spills(eng, group) -> bool:
@@ -1883,6 +1914,78 @@ def spills(eng, group) -> bool:
 # an overlapping stream hides nearly all of it, a serial one none)
 MIN_HIDDEN_SHARE = 0.5
 OVERLAP_FAULT = "hybrid_d1_copies_on_compute_stream"
+
+
+def offload_run(eng, reqs, label, layer_bytes):
+    """One counted ``generate`` of an offload engine (``label`` names a
+    spilled run with "spill"): launches, uploads, slots in use, peak device
+    memory below the layer weights' bytes, spill, the CPU lane, leaks, and
+    the timeline's lanes.  -> (tokens, launches, expected launches, run,
+    checks)."""
+    L = eng.cfg.num_layers
+    host_attn, depth = eng.host_attn, eng.budget.prefetch_depth
+    plan = eng.plan_groups(reqs)
+    steps = sum(max(r.max_new_tokens for r in g) for g in plan)
+    want = expected_launches(eng, reqs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, stats = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st, ms = eng.executor.streamer, eng.measured_steps
+    spilled = sum(m.traffic["kv_load"] for m in ms) > 0
+    w_s = sum(m.tag_busy.get("w", 0.0) for m in ms)
+    run = {"groups": len(plan), "decode_steps": steps, "wall_s": wall,
+           "spilled_groups": sum(spills(eng, g) for g in plan),
+           "tokens_per_s": stats.generated_tokens / wall,
+           "launches": launches, "uploads": st.uploads,
+           "bytes_uploaded": st.bytes_uploaded,
+           "peak_resident_slots": st.peak_resident,
+           "max_memory_allocated": peak,
+           "step_s_mean": float(np.mean([m.total for m in ms])),
+           "pcie_busy_s_mean": float(np.mean([m.pcie_busy for m in ms])),
+           "gpu_busy_s_mean": float(np.mean([m.gpu_busy for m in ms])),
+           # the share of the gpu lane's busy time inside the pcie lane's
+           # busy intervals, from the timeline's own spans
+           "gpu_hidden_share": sum(m.gpu_hidden for m in ms)
+           / sum(m.gpu_busy for m in ms),
+           "cpu_busy_s_mean": float(np.mean([m.cpu_busy for m in ms])),
+           "kv_upload_s_mean": float(np.mean([m.tag_busy.get("kv", 0.0)
+                                              for m in ms])),
+           "store_s_mean": float(np.mean([m.tag_busy.get("st", 0.0)
+                                          for m in ms])),
+           "weights_h2d_GBps": sum(m.traffic["weights"] for m in ms)
+           / w_s / 1e9,
+           "gpu_idle_share": 1.0 - sum(m.gpu_busy for m in ms)
+           / sum(m.total for m in ms),
+           "measured_time_s": stats.measured_time,
+           "spilled": spilled, "arena_denials": eng.arena_denials,
+           "blocking_syncs": eng.executor.blocking_syncs,
+           "device_calls": stats.device_calls,
+           # KV bytes uploaded per request and decode step of the groups
+           # that spill (each uploads its region every step)
+           "kv_upload_bytes_per_request_step": sum(
+               m.traffic["kv_load"] for m in ms) / max(1, sum(
+                   len(g) * max(r.max_new_tokens for r in g)
+                   for g in plan if spills(eng, g)))}
+    checks = {
+        "launches": launches == want,
+        "uploads": st.uploads == L * sum(1 + max(r.max_new_tokens
+                                                 for r in g) for g in plan),
+        "bytes_uploaded": st.bytes_uploaded == st.uploads * layer_bytes,
+        "peak_resident": st.peak_resident <= depth + 1,
+        "weights_never_resident": peak < L * layer_bytes,
+        "spill": spilled == ("spill" in label and not host_attn),
+        "host_lane_ran": (stats.measured_cpu_busy > 0) == host_attn,
+        "no_leaked_blocks": not any(p.allocated for p in
+                                    eng.blockman.pools.values()),
+        "no_arena_blocks": eng.spill_kv_pool.allocated_blocks == 0,
+        "lane_healthy": eng.executor.lane_health == "healthy"}
+    return toks, launches, want, run, checks
 
 
 def phase_offload(results, smi, name, reqs, resident_outs, oracle, q8_oracle):
@@ -1913,7 +2016,7 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle, q8_oracle):
     cfg = get_config(name)
     L = cfg.num_layers
     out = {"phase": "offload", "card": smi, "model": cfg.name,
-           "host_mem_available_before_pinning": mem_available()}
+           "host_mem_available_before_pinning": meminfo()["MemAvailable"]}
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
     pool = HostWeightPool(cfg, params, device="cuda")
@@ -1925,7 +2028,7 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle, q8_oracle):
     layer_bytes = pool.layer_nbytes[0]
     out.update(pinned=pool.pinned, layer_weight_bytes=layer_bytes,
                layer_weights_total_bytes=L * layer_bytes,
-               host_mem_available_after_pinning=mem_available(),
+               host_mem_available_after_pinning=meminfo()["MemAvailable"],
                resident_tree_bytes=sum(t.numel() * t.element_size()
                                        for t in _leaves(pool.resident)))
     if not pool.pinned:
@@ -1954,68 +2057,8 @@ def phase_offload(results, smi, name, reqs, resident_outs, oracle, q8_oracle):
             eng.executor.streamer.copy_stream = torch.cuda.current_stream()
         mode, host_attn = kw["mode"], kw.get("host_attn", False)
         q8 = kw.get("quant") is not None
-        depth = kw["budget"].prefetch_depth
-        plan = eng.plan_groups(reqs)
-        steps = sum(max(r.max_new_tokens for r in g) for g in plan)
-        want = expected_launches(eng, reqs)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        toks, stats = eng.generate(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        peak = torch.cuda.max_memory_allocated()
-        st, ms = eng.executor.streamer, eng.measured_steps
-        spilled = sum(m.traffic["kv_load"] for m in ms) > 0
-        w_s = sum(m.tag_busy.get("w", 0.0) for m in ms)
-        run = {"groups": len(plan), "decode_steps": steps, "wall_s": wall,
-               "spilled_groups": sum(spills(eng, g) for g in plan),
-               "tokens_per_s": stats.generated_tokens / wall,
-               "launches": launches, "uploads": st.uploads,
-               "bytes_uploaded": st.bytes_uploaded,
-               "peak_resident_slots": st.peak_resident,
-               "max_memory_allocated": peak,
-               "step_s_mean": float(np.mean([m.total for m in ms])),
-               "pcie_busy_s_mean": float(np.mean([m.pcie_busy for m in ms])),
-               "gpu_busy_s_mean": float(np.mean([m.gpu_busy for m in ms])),
-               # the share of the gpu lane's busy time inside the pcie
-               # lane's busy intervals, from the timeline's own spans
-               "gpu_hidden_share": sum(m.gpu_hidden for m in ms)
-               / sum(m.gpu_busy for m in ms),
-               "cpu_busy_s_mean": float(np.mean([m.cpu_busy for m in ms])),
-               "kv_upload_s_mean": float(np.mean([m.tag_busy.get("kv", 0.0)
-                                                  for m in ms])),
-               "store_s_mean": float(np.mean([m.tag_busy.get("st", 0.0)
-                                              for m in ms])),
-               "weights_h2d_GBps": sum(m.traffic["weights"] for m in ms)
-               / w_s / 1e9,
-               "gpu_idle_share": 1.0 - sum(m.gpu_busy for m in ms)
-               / sum(m.total for m in ms),
-               "measured_time_s": stats.measured_time,
-               "spilled": spilled, "arena_denials": eng.arena_denials,
-               "blocking_syncs": eng.executor.blocking_syncs,
-               "device_calls": stats.device_calls,
-               # KV bytes uploaded per request and decode step of the groups
-               # that spill (each uploads its region every step)
-               "kv_upload_bytes_per_request_step": sum(
-                   m.traffic["kv_load"] for m in ms) / max(1, sum(
-                       len(g) * max(r.max_new_tokens for r in g)
-                       for g in plan if spills(eng, g)))}
-        checks = {
-            "launches": launches == want,
-            "uploads": st.uploads == L * sum(1 + max(r.max_new_tokens
-                                                     for r in g) for g in plan),
-            "bytes_uploaded": st.bytes_uploaded == st.uploads * layer_bytes,
-            "peak_resident": st.peak_resident <= depth + 1,
-            "weights_never_resident": peak < L * layer_bytes,
-            "spill": spilled == ("spill" in label and not host_attn),
-            "host_lane_ran": (stats.measured_cpu_busy > 0) == host_attn,
-            "no_leaked_blocks": not any(p.allocated for p in
-                                        eng.blockman.pools.values()),
-            "no_arena_blocks": eng.spill_kv_pool.allocated_blocks == 0,
-            "lane_healthy": eng.executor.lane_health == "healthy"}
+        toks, launches, want, run, checks = offload_run(eng, reqs, label,
+                                                        layer_bytes)
         if q8:
             run["agreement_with_fp_oracle"] = agreement(toks, rule["oracle"], reqs)
             checks["agreement"] = run["agreement_with_fp_oracle"] >= MIN_AGREEMENT
@@ -2651,7 +2694,7 @@ def phase_scheduler(results, smi, cfg, params):
             resident.update(resident_run("S8_subset", 8, sub, sub_arr)[1])
 
         phase_profile(results, smi, f"{name} scheduler", None, None,
-                      runs={"S8_subset": profiled}, cpu_ops=False)
+                      runs={"S8_subset": profiled})
         # the CPU-lane run's allowance: the device-resident path's forced
         # gaps on the same schedule (the subset at S = 8)
         forced("S8_subset", 8, sub, sub_arr)
@@ -3265,18 +3308,17 @@ def kernel_group(name: str) -> str:
     return "other (norms, elementwise, indexing, argmax)"
 
 
-def phase_profile(results, smi, name, engines, reqs, runs=None,
-                  cpu_ops=True):
+def phase_profile(results, smi, name, engines, reqs, runs=None):
     """Per mode: device time by kernel over one warm ``generate`` of the trace
     (torch.profiler kernel events), the device's busy and idle share of the
     wall-clock window, and the kernels that took the most device time.
     ``runs``: {mode: callable} to profile in place of the engines' runs.
-    ``cpu_ops=False`` traces the device alone (the host's operator events
-    of a long run take the profiler tens of seconds to collect)."""
+    The device alone is traced: nothing reads the host's operator events,
+    and a long run's take the profiler tens of seconds to collect."""
     from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
     out = {"phase": "profile", "card": smi, "model": name}
-    activities = [ProfilerActivity.CUDA] + (
-        [ProfilerActivity.CPU] if cpu_ops else [])
+    activities = [ProfilerActivity.CUDA]
     if runs is None:
         runs = {mode: (lambda e=eng: e.generate(reqs))
                 for mode, eng in engines.items()}
@@ -3311,6 +3353,7 @@ def phase_profile(results, smi, name, engines, reqs, runs=None,
         print(f"profile {name} {mode}: device busy {busy} ms of {wall_ms} ms; "
               + ", ".join(f"{g} {by_group[g] / busy:.4f}" for g in
                           ("kv_gen", "ssd_scan") if g in by_group), flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
     emit(out)
     results[f"profile {name}"] = out
 
@@ -3712,6 +3755,687 @@ def phase_serve_mamba2(results, smi):
     return launches
 
 
+# ----------------------------------------------------------------- moe phase
+# the MoE models at full width, their depth cut to what one card holds
+# (bfloat16: a dbrx layer is 6.52 GB, 4 of its 40 layers 27.3 GB with the
+# embeddings; a grok layer 9.84 GB, 2 of its 64 layers 21.3 GB)
+MOE_LAYERS = {"dbrx-132b": 4, "grok-1-314b": 2}
+MOE_FAULTS = ("pairs_not_returned_to_token_order", "gates_not_renormalised")
+# TRACE's requests with shorter prompts (29-42 tokens, buckets of <= 48):
+# a group of four prefills <= 192 tokens, 32 dispatch groups of <= 6, so no
+# expert gets more than 6 pairs of a group against C = 8 and no pair can
+# drop, as none can in the oracle's one-request prefills.  On TRACE itself
+# (4 x 80) every request's context dropped pairs on the card (the random
+# weights route a sequence's tokens alike), leaving the oracle nothing to
+# be held to there
+MOE_DROP_FREE_TRACE = dict(TRACE, prompt_mean=40)
+# The MoE token rule.  The router is a discontinuous function: where a
+# token's k-th and (k+1)-th router logits nearly tie, the rounding that
+# separates two sound paths (recomputed K/V against stored K/V, one batch
+# shape against another) can swap the two experts, and the logits move by
+# up to ~1.2 from there on (measured on dbrx, NVIDIA H100 80GB HBM3, 700 W:
+# hybrid against kv mode swapped one token at a router probability margin
+# of 0.0047, and the logits moved 0.79 after it).  So the fp rule holds
+# each request's logits within the limit at every output before its first
+# dispatch that routes a token otherwise, and that first swap must be a
+# near-tie: the reference's
+# router logits of the expert it kept and of the one the path took instead
+# within the same limit of each other (router logits are unit-scale, as
+# the output's are: a normed row against a d**-0.5 router).  A token may
+# leave the reference's from that output on; before it, as the fp rule
+# says.  A wrong path swaps experts at wide margins, or moves the logits
+# before any swap.
+
+
+def moe_config(name):
+    return dataclasses.replace(get_config(name), num_layers=MOE_LAYERS[name])
+
+
+REAL_MOE_ROUTE = L.moe_route
+
+
+class MoeWatch:
+    """``L.moe_route`` wrapped (install with ``patched``).  While ``tags``
+    is set (per row of the next dispatches: (rid, output j, its tokens), or
+    None), each dispatch's experts and router log-probabilities are kept per
+    request and output, on the device, read afterwards.  ``arm(lens, S,
+    rids)`` counts the pairs the next prefill's dispatches drop, per row in
+    its real context (positions before the row's prefill length, which
+    decode attends to and the oracle holds) and in its padding."""
+
+    def __init__(self):
+        self.calls, self.tags, self.mask, self.rows = [], None, None, []
+
+    def arm(self, lens, S: int, rids):
+        lens = torch.as_tensor(np.asarray(lens), device="cuda")
+        self.mask = torch.arange(S, device="cuda")[None] < lens[:, None]
+        self.rows.append({"rids": list(rids), "real": torch.zeros(
+            len(lens), dtype=torch.int64, device="cuda"), "pad": 0})
+        self.tags = [(rid, 0, int(n)) for rid, n in zip(rids, lens.tolist())]
+
+    def __call__(self, router, x, **kw):
+        r = REAL_MOE_ROUTE(router, x, **kw)
+        T, k = x.shape[0], kw["top_k"]
+        if self.tags is not None:
+            self.calls.append((self.tags, r.idx.reshape(T, k),
+                               r.probs.reshape(T, -1).log()))
+        if self.mask is not None and T == self.mask.numel():
+            d = L.moe_dropped(r, k).view(self.mask.shape)
+            rec = self.rows[-1]
+            rec["real"] += (d * self.mask).sum(1)
+            rec["pad"] = rec["pad"] + (d * ~self.mask).sum()
+        return r
+
+    def drops(self) -> list:
+        """Per armed prefill: {"rids", "real" per row, "pad"} as ints."""
+        return [{"rids": r["rids"], "real": r["real"].tolist(),
+                 "pad": int(r["pad"])} for r in self.rows]
+
+    def routes(self) -> dict:
+        """{(rid, output j): [(experts, log-probs) of its tokens, one per
+        dispatch in layer order]}."""
+        out = {}
+        for tags, idx, logp in self.calls:
+            per = idx.shape[0] // len(tags)
+            for b, tag in enumerate(tags):
+                if tag is not None:
+                    rid, j, n = tag
+                    sl = slice(b * per, b * per + n)
+                    out.setdefault((rid, j), []).append((idx[sl], logp[sl]))
+        return out
+
+
+def first_swap(ref: dict, path: dict, rid, n_out: int):
+    """The first output of request ``rid`` whose dispatches route a token
+    otherwise than the reference's, the tokens swapped in that dispatch
+    and the widest reference margin among them (the log-probability of an
+    expert the reference kept and the path left, over one the path took
+    instead).  -> (output or None, margin, tokens)."""
+    for j in range(n_out):
+        a, b = ref.get((rid, j), []), path.get((rid, j), [])
+        if len(a) != len(b):
+            raise AssertionError(f"request {rid} output {j}: {len(a)} "
+                                 f"dispatches against {len(b)}")
+        for (ri, rl), (pi, _) in zip(a, b):
+            rm = torch.zeros_like(rl, dtype=torch.bool).scatter_(1, ri, True)
+            pm = torch.zeros_like(rl, dtype=torch.bool).scatter_(1, pi, True)
+            diff = (rm != pm).any(1)
+            if bool(diff.any()):
+                kept = rl.masked_fill(~(rm & ~pm), -math.inf).amax(1)
+                taken = rl.masked_fill(~(pm & ~rm), math.inf).amin(1)
+                return j, float((kept - taken)[diff].max()), int(diff.sum())
+    return None, 0.0, 0
+
+
+def moe_rule(reqs, toks, gaps, ref_toks, ref_lg, ref_routes, path_routes,
+             logit_tol) -> dict:
+    """The MoE token rule (above) for each of ``reqs``: ``toks`` the path's
+    greedy tokens, ``gaps`` its teacher-forced per-output gaps to the
+    reference's logits ``ref_lg``, whose greedy tokens are ``ref_toks``;
+    both runs' dispatches as ``MoeWatch.routes`` gives them.  -> {"ok",
+    "requests": per request the first swap, the held outputs' largest gap,
+    the largest after the swap, where the tokens leave the reference's}."""
+    per, ok = {}, True
+    for r in reqs:
+        g = np.asarray(gaps[r.rid])
+        j0, margin, n_sw = first_swap(ref_routes, path_routes, r.rid, len(g))
+        held = g[:j0] if j0 is not None else g
+        top2 = ref_lg[r.rid].topk(2, dim=-1).values
+        m = (top2[:, 0] - top2[:, 1]).float().cpu().numpy()
+        diff = np.flatnonzero(np.asarray(toks[r.rid]) != ref_toks[r.rid])
+        p = int(diff[0]) if diff.size else None
+        tok_ok = p is None or (j0 is not None and p >= j0) or \
+            (m[p] <= logit_tol and m[p] <= 2 * g[p])
+        rec = {"first_swap_output": j0, "swap_margin": margin,
+               "tokens_swapped": n_sw, "held_outputs": int(held.size),
+               "max_held_dlogit": float(held.max(initial=0.0)),
+               "max_dlogit_after_swap": float(g[j0:].max())
+               if j0 is not None else None,
+               "leaves_reference_at": p,
+               "reference_margin_there": float(m[p]) if p is not None else None}
+        rec["ok"] = bool(rec["max_held_dlogit"] <= logit_tol and tok_ok
+                         and (j0 is None or margin <= logit_tol))
+        ok = ok and rec["ok"]
+        per[r.rid] = rec
+    return {"ok": ok, "logit_tol": logit_tol, "requests": per,
+            "exact_requests": sum(p["leaves_reference_at"] is None
+                                  for p in per.values())}
+
+
+@contextlib.contextmanager
+def tagged_steps(watch, rows):
+    """``M.hybrid_decode_step`` and ``M.decode_step`` wrapped to tag each
+    step's dispatches for ``watch``: ``rows()`` gives the step's
+    per-row (rid, output j, 1) or None."""
+    real_h, real_d = M.hybrid_decode_step, M.decode_step
+
+    def wrap(real):
+        def step(*a, **kw):
+            watch.tags = rows()
+            return real(*a, **kw)
+        return step
+
+    with patched(M, "hybrid_decode_step", wrap(real_h)), \
+            patched(M, "decode_step", wrap(real_d)):
+        yield
+    watch.tags = None
+
+
+def watched_forced(eng, params, cfg, group, gold, watch):
+    """``forced_logits`` over ``group`` with every dispatch tagged for
+    ``watch``: the prefill's rows (their context), then each step's."""
+    rids = [r.rid for r in group]
+    _, _, pbs, *_ = eng.group_schedule(group)
+    step = iter(range(1, gold.shape[1] + 1))
+    real_pre = M.hybrid_prefill_batched
+
+    def pre(*a, **kw):
+        watch.tags = [(rid, 0, int(n)) for rid, n in zip(rids, pbs)]
+        return real_pre(*a, **kw)
+
+    rows = lambda: (lambda j: [(rid, j, 1) for rid in rids])(next(step))
+    with patched(L, "moe_route", watch), \
+            patched(M, "hybrid_prefill_batched", pre), tagged_steps(watch, rows):
+        return forced_logits(eng, params, cfg, group, gold)
+
+
+def watched_oracle(params, cfg, r, gold, watch):
+    """``oracle_logits`` of request ``r`` with its dispatches tagged."""
+    step = iter(range(1, len(gold) + 1))
+    real_pre = M.prefill
+
+    def pre(p, c, toks, **kw):
+        watch.tags = [(r.rid, 0, toks.shape[1])]
+        return real_pre(p, c, toks, **kw)
+
+    with patched(L, "moe_route", watch), patched(M, "prefill", pre), \
+            tagged_steps(watch, lambda: [(r.rid, next(step), 1)]):
+        return oracle_logits(params, cfg, r.prompt, gold)
+
+
+def group_drops(eng, params, cfg, group) -> dict:
+    """The pairs the engine's batched prefill of ``group`` drops, per row
+    (real context) and in its padding, summed over the layers."""
+    toks, kv_keep, pbs, *_ = eng.group_schedule(group)
+    watch = MoeWatch()
+    watch.arm(pbs, toks.shape[1], [r.rid for r in group])
+    with patched(L, "moe_route", watch):
+        M.hybrid_prefill_batched(params, cfg, torch.from_numpy(toks).cuda(),
+                                 eng.kv_cap, eng.act_cap, kv_keep, pbs)
+    return watch.drops()[0]
+
+
+def oracle_rule(eng, params, cfg, reqs, hyb, logit_tol) -> dict:
+    """The engine's hybrid tokens ``hyb`` over ``reqs`` against
+    ``exact_reference_generate`` under the MoE rule, held for the requests
+    whose group's batched prefill dropped no real token's pair; each
+    group's drops and the agreement over all requests kept."""
+    groups = eng.plan_groups(reqs)
+    drops = [group_drops(eng, params, cfg, g) for g in groups]
+    clean = {rid for d in drops for rid, n in zip(d["rids"], d["real"])
+             if n == 0}
+    oracle = exact_reference_generate(cfg, params, reqs)
+    gold = {r.rid: torch.from_numpy(oracle[r.rid]).cuda() for r in reqs}
+    o_watch, e_watch = MoeWatch(), MoeWatch()
+    ora = {r.rid: watched_oracle(params, cfg, r, gold[r.rid], o_watch)
+           for r in reqs}
+    gaps = {}
+    for g in groups:
+        lg = watched_forced(eng, params, cfg, g,
+                            torch.stack([gold[r.rid] for r in g]), e_watch)
+        for i, r in enumerate(g):
+            gaps[r.rid] = (lg[i] - ora[r.rid]).abs().amax(-1).cpu().numpy()
+    held = [r for r in reqs if r.rid in clean]
+    rule = moe_rule(held, hyb, gaps, oracle, ora, o_watch.routes(),
+                    e_watch.routes(), logit_tol)
+    rule.update(prefill_drops=drops, held_requests=[r.rid for r in held],
+                dlogit_by_request={r.rid: float(gaps[r.rid].max())
+                                   for r in reqs},
+                agreement_all=agreement(hyb, oracle, reqs))
+    return rule
+
+
+def identity_order(order):
+    """A planted fault: the pairs' outputs left in expert order (the inverse
+    permutation back to token order skipped)."""
+    return torch.arange(order.shape[1], device=order.device).expand_as(order)
+
+
+class Admissions:
+    """A server's admission batches: each batch's rids in row order, its
+    tokens and prefill lengths, with ``watch`` armed for each (its drops
+    counted per row, its dispatches tagged)."""
+
+    def __init__(self, srv, watch):
+        self.srv, self.watch, self.batches = srv, watch, []
+
+    @contextlib.contextmanager
+    def patch(self):
+        real_batch, real_admit = self.srv._admit_batch, self.srv._admit
+        rids = []
+
+        def admit_batch(assignments, stats):
+            rids[:] = [r.rid for _, r, _ in assignments]
+            real_batch(assignments, stats)
+
+        def admit(toks, kv_keep, lens, slot_idx):
+            self.batches.append((list(rids), np.array(toks), np.array(lens)))
+            self.watch.arm(lens, toks.shape[1], list(rids))
+            return real_admit(toks, kv_keep, lens, slot_idx)
+
+        self.srv._admit_batch, self.srv._admit = admit_batch, admit
+        try:
+            yield self
+        finally:
+            for key in ("_admit_batch", "_admit"):
+                self.srv.__dict__.pop(key, None)
+
+
+def admission_oracle(params, cfg, batches, reqs, watch):
+    """The kv path of each admission batch: the same batched prefill (the
+    same dispatch groups, so the same drops), every context token kept as
+    K/V, then greedy decode with every new token K/V; each step's logits
+    kept, and the dispatches tagged for ``watch``.  -> (tokens, logits)
+    per rid."""
+    n_new = {r.rid: r.max_new_tokens for r in reqs}
+    tok_out, lg_out = {}, {}
+    cap = SCHED_SERVER["kv_cap"]
+    with patched(L, "moe_route", watch):
+        for rids, toks, lens in batches:
+            B, n = len(rids), max(n_new[r] for r in rids)
+            watch.tags = [(rid, 0, int(k)) for rid, k in zip(rids, lens)]
+            lg, cache = M.hybrid_prefill_batched(
+                params, cfg, torch.from_numpy(toks).cuda(), cap, PAGE, lens,
+                lens)
+            store = torch.zeros(B, dtype=torch.bool, device="cuda")
+            steps, cur = [], []
+            for s in range(n):
+                steps.append(lg[:, -1].float())
+                cur.append(lg[:, -1].argmax(-1).int())
+                if s < n - 1:
+                    watch.tags = [(rid, s + 1, 1) for rid in rids]
+                    lg, cache = M.hybrid_decode_step(
+                        params, cfg, cur[-1][:, None], cache, store,
+                        pages_bound=cap // PAGE, act_pages_bound=0,
+                        any_act=False)
+            lg_all, tok_all = torch.stack(steps, 1), torch.stack(cur, 1)
+            for j, rid in enumerate(rids):
+                lg_out[rid] = lg_all[j, :n_new[rid]]
+                tok_out[rid] = tok_all[j, :n_new[rid]].cpu().numpy()
+    watch.tags = None
+    return tok_out, lg_out
+
+
+def phase_serve_moe(results, smi) -> dict:
+    """The MoE models at full width (dbrx-132b at 4 of its 40 layers,
+    grok-1-314b at 2 of 64; random weights from seed 0) through the engine,
+    device-resident, in hybrid and kv modes on ``TRACE``: launches per
+    prefill and decode step, no host sync in the decode loop (the dispatch
+    inside it), no leaks.  Tokens under the MoE rule (above): hybrid against
+    kv mode of the same engine and group (the kv path's own greedy tokens
+    and teacher-forced logits as the reference), and against
+    ``exact_reference_generate`` for the requests whose group's batched
+    prefill dropped no real token's pair (the oracle prefills one request at
+    a time, in groups too small to drop); each prefill's drops, real and
+    pad, are printed, and so is the agreement of the rest.  Two planted
+    faults (the inverse permutation skipped, the gates not renormalised)
+    must break the limit and the rule on dbrx.  dbrx also serves through
+    the continuous-batching server at S = 8 on the first four requests of
+    the scheduler trace (held under the rule to the kv path of its own
+    admission batches, which drop what its admissions drop; the plain
+    oracle's agreement printed) and with its layers streamed from pinned
+    host memory at depth 1 (tokens equal to the device-resident run's).
+    -> {model: launches of its counted hybrid run}."""
+    launches = {}
+    for name in MOE_LAYERS:
+        launches[name] = serve_moe(results, smi, name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def serve_moe(results, smi, name) -> dict:
+    cfg = moe_config(name)
+    logit_tol = LOGIT_TOL_BY_DTYPE[cfg.dtype]
+    t_phase = time.perf_counter()
+    stage_s = {}
+
+    def stage(label, t0):
+        stage_s[label] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    t0 = stage("init", t0)
+    reqs = request_trace(cfg.vocab_size, **TRACE)
+    full = get_config(name)
+    out = {"phase": "moe", "card": smi, "model": name,
+           "layers": f"{cfg.num_layers} of {full.num_layers} (depth cut to "
+                     "one card; full width)",
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+           "experts": cfg.moe_num_experts, "top_k": cfg.moe_top_k,
+           "capacity_factor": cfg.moe_capacity_factor,
+           "ffn_type": cfg.ffn_type, "norm_type": cfg.norm_type,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "params": sum(t.numel() for t in _leaves(params)),
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in _leaves(params)),
+           "prompt_lens": [len(r.prompt) for r in reqs]}
+    print(f"moe {name}: {out['layers']}, {out['param_bytes'] / 1e9:.2f} GB "
+          f"of weights on the card ({smi})", flush=True)
+
+    eng = HybridServeEngine(cfg, params, mode="hybrid", hw=H100_SXM)
+    kv_eng = HybridServeEngine(cfg, params, mode="kv", hw=H100_SXM)
+    groups = eng.plan_groups(reqs)
+    if [[r.rid for r in g] for g in groups] != \
+            [[r.rid for r in g] for g in kv_eng.plan_groups(reqs)]:
+        raise AssertionError("hybrid and kv modes plan other groups")
+    splits = []
+    for g in groups:
+        _, kv_keep, pbs, *_ = eng.group_schedule(g)
+        splits += [{"rid": r.rid, "kv": int(k), "act": int(p - k)}
+                   for r, k, p in zip(g, kv_keep, pbs)]
+    out.update(act_frac=eng.act_frac, splits=splits, groups=len(groups))
+    runs = {}
+    for mode, e in (("hybrid", eng), ("kv", kv_eng)):
+        want = expected_launches(e, reqs)
+        e.generate(reqs)                                 # warm-up
+        torch.cuda.synchronize()
+        reset_counts()              # the counted main-path run
+        t1 = time.perf_counter()
+        toks, stats = e.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        got = read_counts()
+        runs[mode] = toks
+        out[mode] = {"launches": got, "wall_s": wall,
+                     "tokens_per_s": stats.generated_tokens / wall,
+                     "device_calls": stats.device_calls}
+        if got != want:
+            raise AssertionError(f"moe {name} {mode} launches {got}, "
+                                 f"expected {want}")
+        if any(p.allocated for p in e.blockman.pools.values()):
+            raise AssertionError(f"moe {name}: leaked blocks after {mode}")
+        print(f"moe {name} {mode}: {out[mode]['tokens_per_s']:.2f} tokens/s "
+              f"({smi})", flush=True)
+    del e                     # an engine holds the weights until the offload
+    t0 = stage("engine", t0)
+
+    # no host sync inside the decode loop, the MoE dispatch included
+    g0 = groups[0]
+    toks, kv_keep, pbs, sched, bound_, act_bound = eng.group_schedule(g0)
+    lg, cache = M.hybrid_prefill_batched(params, cfg,
+                                         torch.from_numpy(toks).cuda(),
+                                         eng.kv_cap, eng.act_cap, kv_keep, pbs)
+    cur = lg[:, -1].argmax(-1).int()
+    sched_dev = torch.from_numpy(np.ascontiguousarray(sched.T)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loop_toks, _ = M.hybrid_decode_loop(params, cfg, cur, cache, sched_dev,
+                                            pages_bound=bound_,
+                                            act_pages_bound=act_bound)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    loop_toks = loop_toks.cpu().numpy()
+    for i, r in enumerate(g0):
+        if not np.array_equal(loop_toks[i, :r.max_new_tokens],
+                              runs["hybrid"][r.rid]):
+            raise AssertionError(f"moe {name} request {r.rid}: the "
+                                 "sync-checked loop differs")
+    out["decode_loop_host_syncs"] = 0
+    del cache
+    out["launches_per_decode_step_profiled"] = decode_launches(
+        params, cfg, eng, g0, None)
+    # one layer's MoE FFN at the decode shape against its bound: every
+    # expert's weights read once (the batched products read them all)
+    lp = M.layer_params(params, 0)["ffn"]
+    x = torch.randn((len(g0), cfg.d_model), device="cuda").to(lp["we1"].dtype)
+    moe_ms = time_ms(lambda: L.moe_ffn(
+        lp, x, num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+        capacity_factor=cfg.moe_capacity_factor, ffn_type=cfg.ffn_type), 10)
+    expert_bytes = sum(lp[k].numel() * lp[k].element_size()
+                       for k in ("we1", "we2", "we3") if k in lp)
+    out.update(moe_ffn_decode_ms=moe_ms,
+               moe_ffn_bound_ms=expert_bytes / PEAK_BYTES_PER_S * 1e3,
+               moe_ffn_expert_bytes=expert_bytes)
+    del x, lp                  # views of every layer's stacked experts
+    print(f"moe {name}: {out['launches_per_decode_step_profiled']} launches "
+          f"a decode step; moe_ffn at decode {moe_ms:.4f} ms a layer, bound "
+          f"{out['moe_ffn_bound_ms']:.4f} ms ({smi})", flush=True)
+    phase_profile(results, smi, name, {"hybrid": eng}, reqs)
+    t0 = stage("syncs_and_profile", t0)
+
+    # hybrid against kv mode of the same group: kv's own greedy tokens and
+    # teacher-forced logits are the reference
+    kv_gold = {r.rid: torch.from_numpy(runs["kv"][r.rid]).cuda() for r in reqs}
+    kv_lg, hy_gap = {}, {}
+    kv_watch, hy_watch = MoeWatch(), MoeWatch()
+    for g in groups:
+        gold = torch.stack([kv_gold[r.rid] for r in g])
+        lk = watched_forced(kv_eng, params, cfg, g, gold, kv_watch)
+        lh = watched_forced(eng, params, cfg, g, gold, hy_watch)
+        for i, r in enumerate(g):
+            kv_lg[r.rid] = lk[i]
+            hy_gap[r.rid] = (lh[i] - lk[i]).abs().amax(-1).cpu().numpy()
+    kv_routes = kv_watch.routes()
+    rule = moe_rule(reqs, runs["hybrid"], hy_gap, runs["kv"], kv_lg,
+                    kv_routes, hy_watch.routes(), logit_tol)
+    rule["max_teacher_forced_dlogit"] = max(float(g.max())
+                                            for g in hy_gap.values())
+    out["hybrid_vs_kv"] = rule
+    print(f"moe {name} hybrid vs kv: {json.dumps(rule['requests'])}",
+          flush=True)
+    if not rule["ok"]:
+        raise AssertionError(f"moe {name}: hybrid breaks the MoE rule "
+                             f"against kv mode: {rule}")
+    del hy_watch
+    t0 = stage("hybrid_vs_kv", t0)
+
+    # against the oracle where the group's prefill dropped no real pair: on
+    # TRACE, and on a trace whose groups cannot drop
+    out["hybrid_vs_oracle"] = {}
+    for label, rs in (("trace", reqs), ("drop_free", request_trace(
+            cfg.vocab_size, **MOE_DROP_FREE_TRACE))):
+        hyb = runs["hybrid"] if rs is reqs else eng.generate(rs)[0]
+        o_rule = oracle_rule(eng, params, cfg, rs, hyb, logit_tol)
+        out["hybrid_vs_oracle"][label] = o_rule
+        print(f"moe {name} hybrid vs the oracle on {label} ({smi}): prefill "
+              f"drops {o_rule['prefill_drops']}; held for "
+              f"{o_rule['held_requests']}: {json.dumps(o_rule['requests'])}; "
+              f"agreement over all {o_rule['agreement_all']}", flush=True)
+        if not o_rule["ok"] or (label == "drop_free"
+                                and len(o_rule["held_requests"]) < len(rs)):
+            raise AssertionError(f"moe {name}: hybrid breaks the MoE rule "
+                                 f"against the oracle on {label}: {o_rule}")
+    t0 = stage("hybrid_vs_oracle", t0)
+
+    if name == "dbrx-132b":
+        faults = {}
+        for label, patch in zip(MOE_FAULTS, (
+                patched(L, "_inverse", identity_order),
+                patched(L, "_renormalise", lambda gate: gate))):
+            f_watch, f_gap = MoeWatch(), {}
+            with patch:
+                for g in groups:
+                    lg = watched_forced(eng, params, cfg, g, torch.stack(
+                        [kv_gold[r.rid] for r in g]), f_watch)
+                    for i, r in enumerate(g):
+                        f_gap[r.rid] = (lg[i] - kv_lg[r.rid]).abs().amax(-1) \
+                            .cpu().numpy()
+            f_rule = moe_rule(reqs, runs["hybrid"], f_gap, runs["kv"], kv_lg,
+                              kv_routes, f_watch.routes(), logit_tol)
+            faults[label] = {"max_dlogit": max(float(v.max())
+                                               for v in f_gap.values()),
+                             "rule_ok": f_rule["ok"],
+                             "first_swaps": {rid: (p["first_swap_output"],
+                                                   p["swap_margin"])
+                                             for rid, p in
+                                             f_rule["requests"].items()}}
+        out["faults"] = faults
+        print(f"moe {name} planted faults: {json.dumps(faults)}", flush=True)
+        if not all(f["max_dlogit"] > logit_tol and not f["rule_ok"]
+                   for f in faults.values()):
+            raise AssertionError(f"moe {name}: the limit or the rule passes a "
+                                 f"planted fault: {faults}")
+        t0 = stage("faults", t0)
+        out["server"] = moe_server(cfg, params, logit_tol, smi)
+        t0 = stage("server", t0)
+        del eng, kv_eng
+        out["host_memory_before_pinning"] = meminfo()
+        print(f"moe {name}: host memory before pinning "
+              f"{out['host_memory_before_pinning']}", flush=True)
+        pool = HostWeightPool(cfg, params, device="cuda")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["host_memory_after_pinning"] = meminfo()
+        t0 = stage("pin", t0)
+        out["offload"] = moe_offload(cfg, pool, reqs, runs["hybrid"], smi)
+        del pool
+        t0 = stage("offload", t0)
+    else:
+        del eng, kv_eng, params
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["stage_s"] = stage_s
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"moe {name}: {out['seconds']:.1f} s {stage_s}", flush=True)
+    emit(out)
+    results[f"moe {name}"] = out
+    return out["hybrid"]["launches"]
+
+
+def moe_server(cfg, params, logit_tol, smi) -> dict:
+    """``ContinuousBatchingServer`` at S = 8 over the scheduler trace's first
+    ``SCHED_SUBSET`` requests, every chunk under ``ChunkCheck``: tokens/s,
+    calls and readbacks per token, launches, leaks, each admission's drops;
+    tokens under the MoE rule against the kv path of its own admission
+    batches (a forced run of the same schedule gives the gaps, both runs'
+    dispatches tagged), and the plain oracle's agreement printed beside its
+    own prefills' drops."""
+    reqs, arrivals = open_loop_trace(cfg.vocab_size, SCHED_REQUESTS,
+                                     **SCHED_TRACE)
+    reqs, arrivals = reqs[:SCHED_SUBSET], arrivals[:SCHED_SUBSET]
+    check, watch = ChunkCheck(), MoeWatch()
+    srv = ContinuousBatchingServer(cfg, params, chunk_steps=8, hw=H100_SXM,
+                                   **SCHED_SERVER)
+    adm = Admissions(srv, watch)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with patched(M, "hybrid_decode_chunk", check), \
+            patched(L, "moe_route", watch), adm.patch():
+        toks, stats = srv.run(reqs, arrival_steps=arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = read_counts()
+    srv.close()
+    run = sched_stats(stats, wall)
+    want = sched_launches(cfg, stats, check, None)
+    checks = {"launches": got == want, "no_leaks": sched_leak_free(srv),
+              "one_call_per_batch_and_chunk":
+                  stats.device_calls == stats.admission_batches + stats.chunks,
+              "one_readback_per_call": stats.host_syncs == stats.device_calls,
+              "chunks_checked": check.calls == stats.chunks,
+              "lengths_frozen": check.length_faults == 0,
+              "bounds_cover_lengths": check.bound_faults == 0}
+    run.update(launches=got, admission_drops=watch.drops(), checks=checks)
+    print(f"moe server {cfg.name} S=8: {run['tokens_per_s']:.2f} tokens/s, "
+          f"{stats.dispatches_per_token:.4f} calls/token, "
+          f"{run['host_syncs_per_token']:.4f} readbacks/token; admission "
+          f"drops {run['admission_drops']} ({smi})", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"moe server failed {checks}: {run}, expected "
+                             f"launches {want}")
+    # the reference: the kv path of the same admission batches
+    ref_watch, f_watch = MoeWatch(), MoeWatch()
+    ref_toks, ref_lg = admission_oracle(params, cfg, adm.batches, reqs,
+                                        ref_watch)
+    gold = {rid: torch.from_numpy(t).cuda() for rid, t in ref_toks.items()}
+    # the server teacher-forced with those tokens, on its own schedule
+    srv = ContinuousBatchingServer(cfg, params, chunk_steps=8, hw=H100_SXM,
+                                   **SCHED_SERVER)
+    f_adm = Admissions(srv, f_watch)
+    with f_adm.patch():
+        forced = ForcedRun(srv, gold, ref_lg)
+        real_chunk, ctx = forced.chunk, {}
+
+        def chunk(params_, cfg_, cur, cache, store, active, **kw):
+            ctx.update(rid=[st.rid for st in srv.slots],
+                       pos=[len(st.generated) for st in srv.slots],
+                       act=active.cpu().numpy(), s=0)
+            return real_chunk(params_, cfg_, cur, cache, store, active, **kw)
+
+        def rows():
+            s = ctx["s"]
+            ctx["s"] += 1
+            return [(rid, p + s + 1, 1) if a and rid >= 0 else None
+                    for rid, p, a in zip(ctx["rid"], ctx["pos"], ctx["act"][s])]
+
+        forced.chunk = chunk
+        with forced.patch(), patched(L, "moe_route", f_watch), \
+                tagged_steps(f_watch, rows):
+            srv.run(reqs, arrival_steps=arrivals)
+    srv.close()
+    gaps = forced.gaps()
+    rule = moe_rule(reqs, toks, gaps, ref_toks, ref_lg, ref_watch.routes(),
+                    f_watch.routes(), logit_tol)
+    rule["max_teacher_forced_dlogit"] = max(float(g.max())
+                                            for g in gaps.values())
+    run["vs_admission_kv_path"] = rule
+    print(f"moe server vs the admissions' kv path: "
+          f"{json.dumps(rule['requests'])}", flush=True)
+    if not rule["ok"]:
+        raise AssertionError(f"moe server breaks the MoE rule against the kv "
+                             f"path of its admissions: {rule}")
+    # the plain oracle, one request at a time: its own drops counted
+    o_watch, real_prefill = MoeWatch(), M.prefill
+
+    def prefill(*a, **kw):
+        o_watch.arm([a[2].shape[1]], a[2].shape[1], [None])
+        return real_prefill(*a, **kw)
+
+    with patched(L, "moe_route", o_watch), patched(M, "prefill", prefill):
+        plain = sched_oracle(params, cfg, reqs, logit_tol)[0]["oracle"]
+    run["oracle_prefill_drops"] = {r.rid: d["real"][0] for r, d in
+                                   zip(reqs, o_watch.drops())}
+    run["agreement_with_plain_oracle"] = agreement(toks, plain, reqs)
+    run["agreement_of_admission_kv_path_with_plain_oracle"] = agreement(
+        ref_toks, plain, reqs)
+    return run
+
+
+def moe_offload(cfg, pool, reqs, resident, smi) -> dict:
+    """dbrx with its layers streamed from pinned host memory under the
+    default budget (16 GiB on the card at depth 1: two layer slots and
+    every KV block): ``offload_run``'s checks, and tokens equal to the
+    device-resident hybrid run's."""
+    budget = offload_budget(cfg)
+    eng = HybridServeEngine(cfg, pool, hw=H100_SXM, offload=True, mode="hybrid",
+                            budget=budget)
+    toks, _, want, run, checks = offload_run(eng, reqs, "hybrid_d1",
+                                             pool.layer_nbytes[0])
+    eng.close()
+    run.update(budget_dev_bytes=budget.dev_bytes,
+               prefetch_depth=budget.prefetch_depth,
+               host_buffer_bytes_per_layer=pool.layer_nbytes[0])
+    checks.update(pinned=pool.pinned, tokens_equal_device_resident=all(
+        np.array_equal(toks[r.rid], resident[r.rid]) for r in reqs))
+    run["checks"] = checks
+    print(f"moe offload {cfg.name} d1: step {run['step_s_mean']:.4f} s, pcie "
+          f"{run['pcie_busy_s_mean']:.4f} s, gpu {run['gpu_busy_s_mean']:.4f} "
+          f"s, {run['weights_h2d_GBps']:.2f} GB/s, idle "
+          f"{run['gpu_idle_share']:.4f}, peak "
+          f"{run['max_memory_allocated'] / 1e9:.2f} GB, host buffer "
+          f"{pool.layer_nbytes[0] / 1e9:.3f} GB a layer ({smi})", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"moe offload failed {checks}: {run}, expected "
+                             f"launches {want}")
+    return run
+
+
 def serve_path(results, smi, name):
     """Serve one model through the engine, then through the
     continuous-batching server on the same weights, then its telemetry phase
@@ -3748,20 +4472,37 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results = {}
+    results, seconds = {}, {}
+    t_start = t0 = time.perf_counter()
+
+    def stage(label, t0):
+        seconds[label] = time.perf_counter() - t0
+        return time.perf_counter()
+
     smi = phase_env(results)
     phase_build(results)
+    t0 = stage("env_and_build", t0)
     phase_kernels(results)
+    t0 = stage("kernels", t0)
     by_path, ha_path, sched_path, tel_path = {}, {}, {}, {}
     for name in ("opt-6.7b", "yi-6b"):
         by_path[name], ha_path[name], sched_path[name], tel_path[name] = \
             serve_path(results, smi, name)
+        t0 = stage(name, t0)
     by_path[GEMMA] = {"fp": phase_serve_gemma(results, smi)}
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = stage(GEMMA, t0)
     by_path[MAMBA] = {"fp": phase_serve_mamba2(results, smi)}
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = stage(MAMBA, t0)
+    for name, n in phase_serve_moe(results, smi).items():
+        by_path[name] = {"fp": n}
+    t0 = stage("moe", t0)
+    seconds["script"] = time.perf_counter() - t_start
+    results["seconds"] = seconds
+    emit({"phase": "seconds", "card": smi, "seconds": seconds})
     # each kernel's launches on the path that carries it: the fused hybrid
     # kernel on OPT's serve, the second-pool mode and kv_gen on yi's, their
     # gemma modes (the flash window, head_dim 256, the K norm) on gemma's, the

@@ -1,15 +1,17 @@
-"""Layer primitives of the attention families (OPT, yi, minitron, gemma3)
-and of the SSM family (mamba2), as plain functions on tensors.
+"""Layer primitives of the attention families (OPT, yi, minitron, gemma3,
+and the MoE models dbrx and grok) and of the SSM family (mamba2), as plain
+functions on tensors.
 
 Counterparts of ``repro.models.layers``: the norms compute in float32 and cast
 back to the input dtype at the same point, so the port rounds where the
 reference rounds.  The SSD scan of prefill goes through the hand-written
-kernel's wrapper; the one-token SSD step and the causal conv are plain torch,
-as the reference has no kernel for them.
+kernel's wrapper; the one-token SSD step, the causal conv and the MoE
+dispatch are plain torch, as the reference has no kernel for them.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +118,148 @@ def dense_ffn(params, x, ffn_type: str):
     else:
         h = _act(h, ffn_type)
     return h @ params["w2"]
+
+
+# --------------------------------------------------------------------------- moe
+
+def _moe_groups(T: int, want: int = 32) -> int:
+    for g in (want, 16, 8, 4, 2):
+        if T % g == 0:
+            return g
+    return 1
+
+
+def moe_capacity(tokens_per_group: int, top_k: int, num_experts: int,
+                 capacity_factor: float) -> int:
+    """C: each expert's slots per dispatch group, a multiple of 8, at least 8."""
+    Tk = tokens_per_group * top_k
+    return max(int(math.ceil(capacity_factor * Tk / num_experts / 8) * 8), 8)
+
+
+def _top_k(probs, k: int):
+    """``lax.top_k``: the k largest along the last axis, the lower index
+    first among equals (a stable descending sort)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _renormalise(gate):
+    return gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+
+
+def _group_ranks(sorted_e, E: int):
+    """sorted_e (G, Tk): each group's pairs' experts, sorted.  -> (counts
+    (G, E): each expert's pairs in the group, starts (G, E): its first
+    sorted position, rank (G, Tk): each pair's place among its expert's)."""
+    G, Tk = sorted_e.shape
+    counts = torch.zeros((G, E), dtype=torch.int64, device=sorted_e.device) \
+        .scatter_add_(1, sorted_e, torch.ones_like(sorted_e))
+    starts = counts.cumsum(1) - counts                          # exclusive
+    rank = torch.arange(Tk, device=sorted_e.device)[None] \
+        - starts.gather(1, sorted_e)
+    return counts, starts, rank
+
+
+def _inverse(order):
+    """The permutation that takes sorted positions back to pair order."""
+    return torch.argsort(order, dim=1, stable=True)
+
+
+class MoeRoute(NamedTuple):
+    """The dispatch of ``T = G·Tg`` tokens: ``probs`` (G, Tg, E) float32,
+    ``gate``/``idx`` (G, Tg, k) each token's renormalised gates and experts,
+    ``sorted_e``/``order`` (G, Tk) its group's pairs sorted by expert and
+    where each came from, ``counts``/``starts`` (G, E), ``rank`` (G, Tk) each
+    sorted pair's place among its expert's, ``C`` the capacity."""
+    probs: torch.Tensor
+    gate: torch.Tensor
+    idx: torch.Tensor
+    sorted_e: torch.Tensor
+    order: torch.Tensor
+    counts: torch.Tensor
+    starts: torch.Tensor
+    rank: torch.Tensor
+    C: int
+
+
+def moe_route(router, x, *, num_experts: int, top_k: int,
+              capacity_factor: float) -> MoeRoute:
+    """x (T, d): float32 router softmax, top-k gates renormalised;
+    ``_moe_groups(T)`` groups of contiguous tokens, each sorting its (token,
+    choice) pairs by expert (stable) and ranking them within their expert."""
+    T, d = x.shape
+    G = _moe_groups(T)
+    Tg = T // G
+    logits = x.reshape(G, Tg, d).float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)                       # (G, Tg, E)
+    gate, idx = _top_k(probs, top_k)
+    gate = _renormalise(gate)
+    sorted_e, order = torch.sort(idx.reshape(G, Tg * top_k), dim=1,
+                                 stable=True)
+    counts, starts, rank = _group_ranks(sorted_e, num_experts)
+    return MoeRoute(probs, gate, idx, sorted_e, order, counts, starts, rank,
+                    moe_capacity(Tg, top_k, num_experts, capacity_factor))
+
+
+def moe_dropped(route: MoeRoute, top_k: int):
+    """-> (T,) int64: each token's pairs ranked at or past the capacity."""
+    G, Tk = route.order.shape
+    tok = route.order // top_k + (torch.arange(G, device=route.order.device)
+                                  * (Tk // top_k))[:, None]
+    drop = (route.rank >= route.C).long()
+    return torch.zeros(G * Tk // top_k, dtype=torch.int64,
+                       device=drop.device).index_add_(0, tok.reshape(-1),
+                                                      drop.reshape(-1))
+
+
+def moe_ffn(params, x, *, num_experts: int, top_k: int,
+            capacity_factor: float = 1.25, ffn_type: str = "gated_silu"):
+    """Token-choice MoE with group-local, sort-based capacity dispatch.
+    x (T, d) flattened tokens -> (y (T, d) in x's dtype, Switch aux loss).
+
+    The reference's semantics (``moe_route``): a pair ranked at or past
+    the capacity C is dropped, a zero row whose gate is not renormalised
+    away.  Every shape is static and nothing reads the device: the expert
+    buffer is built by gather, the experts' products are one batched matmul
+    each, a dropped pair reads an appended zero row.  The buffer is laid out
+    experts first, (E, G, C), where the reference's is (G, E, C); both hold
+    the same rows."""
+    T, d = x.shape
+    E, k = num_experts, top_k
+    r = moe_route(params["router"], x, num_experts=E, top_k=k,
+                  capacity_factor=capacity_factor)
+    G, Tk = r.order.shape
+    Tg, C, dev = Tk // k, r.C, x.device
+
+    # slot c of expert e in group g: the pair at sorted position
+    # starts[g, e] + c when c < counts[g, e], else a zero row
+    c = torch.arange(C, device=dev)
+    posn = (r.starts[:, :, None] + c).clamp(0, Tk - 1).reshape(G, E * C)
+    tok = (r.order // k).gather(1, posn).reshape(G, E, C) \
+        + (torch.arange(G, device=dev) * Tg)[:, None, None]
+    valid = c < r.counts[:, :, None]                            # (G, E, C)
+    buf = x[tok.transpose(0, 1)].masked_fill(
+        ~valid.transpose(0, 1)[..., None], 0).reshape(E, G * C, d)
+
+    h = torch.bmm(buf, params["we1"])                           # (E, G*C, f)
+    if ffn_type.startswith("gated"):
+        h = _act(h, ffn_type) * torch.bmm(buf, params["we3"])
+    else:
+        h = _act(h, ffn_type)
+    out = torch.bmm(h, params["we2"]).reshape(E * G * C, d)
+    out = torch.cat([out, out.new_zeros((1, d))])               # the drop row
+
+    g_idx = torch.arange(G, device=dev)[:, None]
+    row = torch.where(r.rank < C, (r.sorted_e * G + g_idx) * C + r.rank,
+                      E * G * C)
+    y_pairs = out[row.gather(1, _inverse(r.order))].reshape(G, Tg, k, d)
+    y = (r.gate.to(x.dtype).float()[..., None] * y_pairs.float()).sum(2)
+
+    # load-balance auxiliary loss (Switch-style, group-averaged)
+    frac_tokens = r.counts.float().sum(0) / max(G * Tk, 1)
+    frac_prob = r.probs.mean(dim=(0, 1))
+    aux = E * (frac_tokens * frac_prob).sum()
+    return y.reshape(T, d).to(x.dtype), aux
 
 
 # --------------------------------------------------------------------------- mamba2 SSD

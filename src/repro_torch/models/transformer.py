@@ -1,7 +1,8 @@
 """Parameter init and the per-layer forwards of three families:
 
   uniform   every layer attention + FFN: OPT (learned positions, tied
-            embeddings), yi and minitron (RoPE, untied embeddings);
+            embeddings), yi and minitron (RoPE, untied embeddings), and the
+            MoE models dbrx and grok (RoPE, an MoE FFN in every layer);
   windowed  gemma3: periods of ``window_period - 1`` sliding-window (local)
             layers and one global layer, then a tail of local layers; q/k
             norm, MQA, tied embeddings;
@@ -95,22 +96,24 @@ def _window_split(cfg) -> Tuple[int, int, int]:
 
 def check_supported(cfg: ModelConfig, families=FAMILIES,
                     qk_norm: bool = True) -> None:
-    """Raise unless the port serves ``cfg`` in one of ``families``: a dense
-    decoder (no MoE, encoder or frontend) with an FFN, learned or RoPE
-    positions; q/k norm (where ``qk_norm`` allows it) and the windowed
-    family only with RoPE, the route that recomputes K outside the fused
-    kernel; or (the ssm family) a stack of SSD mixers with no FFN and no
-    positions.  The serving engine and the offload executor take the
-    uniform family without q/k norm, as far as the reference's engine is
-    held against."""
-    plain = (not cfg.is_encoder_decoder and cfg.moe_num_experts == 0
-             and cfg.frontend == "none")
+    """Raise unless the port serves ``cfg`` in one of ``families``: a
+    decoder (no encoder or frontend) with an FFN, learned or RoPE
+    positions, dense or, in the uniform family, MoE in every layer; q/k
+    norm (where ``qk_norm`` allows it) and the windowed family only with
+    RoPE, the route that recomputes K outside the fused kernel; or (the
+    ssm family) a stack of SSD mixers with no FFN and no positions.  The
+    serving engine and the offload executor take the uniform family
+    without q/k norm, as far as the reference's engine is held against."""
+    plain = not cfg.is_encoder_decoder and cfg.frontend == "none"
     if family(cfg) == "ssm":
         ok = cfg.d_ff == 0 and cfg.pos_type == "none" \
-            and cfg.ssm_state_size > 0
+            and cfg.ssm_state_size > 0 and cfg.moe_num_experts == 0
     else:
         rope_only = cfg.qk_norm or family(cfg) == "windowed"
-        ok = cfg.arch_type == "dense" and cfg.d_ff > 0 \
+        moe = cfg.arch_type == "moe" and cfg.moe_num_experts > 0 \
+            and cfg.moe_every == 1 and family(cfg) == "uniform"
+        ok = (moe or (cfg.arch_type == "dense"
+                      and cfg.moe_num_experts == 0)) and cfg.d_ff > 0 \
             and cfg.pos_type in POS_TYPES \
             and not (rope_only and cfg.pos_type != "rope") \
             and not (cfg.qk_norm and not qk_norm)
@@ -119,6 +122,8 @@ def check_supported(cfg: ModelConfig, families=FAMILIES,
             f"{cfg.name}: the port serves dense "
             f"{' and '.join(f + '-family' for f in families if f != 'ssm')} "
             f"decoders with {' or '.join(POS_TYPES)} positions"
+            + (", MoE in every layer of the uniform family"
+               if "uniform" in families else "")
             + (" (q/k norm and windows with RoPE only)" if qk_norm
                else " and no q/k norm")
             + (", and SSD stacks with no FFN and no positions"
@@ -128,6 +133,7 @@ def check_supported(cfg: ModelConfig, families=FAMILIES,
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     """Random parameters (the JAX pytree's keys: ``unembed`` when embeddings
     are untied, ``pos_embed`` for learned positions, ``w3`` for gated FFNs,
+    an MoE FFN's ``router`` (float32) and ``we1``/``we2``/``we3``,
     ``qnorm``/``knorm`` with q/k norm; ``layers``, or for the windowed family
     ``periods`` and ``tail``), made on ``device`` from a seeded
     ``torch.Generator``."""
@@ -155,11 +161,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                      "wv": _dense(gen, (d, kvd), cfg, device, n=n),
                      "wo": _dense(gen, (qd, d), cfg, device, scale=o_scale, n=n)},
             "ln2": _norm_p(cfg, device, n),
-            "ffn": {"w1": _dense(gen, (d, f), cfg, device, n=n),
-                    "w2": _dense(gen, (f, d), cfg, device, scale=f_scale, n=n)},
+            "ffn": (_moe_p if cfg.is_moe else _ffn_p)(gen, cfg, device, n,
+                                                      f_scale),
         }
-        if cfg.ffn_type.startswith("gated"):
-            layers["ffn"]["w3"] = _dense(gen, (d, f), cfg, device, n=n)
         if cfg.qk_norm:
             for key in ("qnorm", "knorm"):
                 layers["attn"][key] = torch.zeros((n, cfg.head_dim),
@@ -181,6 +185,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     if tail:
         params["tail"] = stack(tail)
     return params
+
+
+def _ffn_p(gen, cfg, device, n, out_scale):
+    """``n`` stacked dense FFNs: ``w1`` and (gated) ``w3`` (d, f), ``w2``
+    (f, d)."""
+    d, f = cfg.d_model, cfg.d_ff
+    p = {"w1": _dense(gen, (d, f), cfg, device, n=n),
+         "w2": _dense(gen, (f, d), cfg, device, scale=out_scale, n=n)}
+    if cfg.ffn_type.startswith("gated"):
+        p["w3"] = _dense(gen, (d, f), cfg, device, n=n)
+    return p
+
+
+def _moe_p(gen, cfg, device, n, out_scale):
+    """``n`` stacked MoE FFNs (the reference's ``init_moe``): the router
+    drawn in the config dtype and kept in float32, experts ``we1``/``we3``
+    (E, d, f) and ``we2`` (E, f, d).  Each expert is drawn on its own, so
+    the float32 scratch stays one expert's matrix large."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe_num_experts
+    experts = lambda shape, scale=None: _dense(
+        gen, shape, cfg, device, scale=scale, n=n * E).view(n, E, *shape)
+    p = {"router": _dense(gen, (d, E), cfg, device, n=n).float(),
+         "we1": experts((d, f)),
+         "we2": experts((f, d), out_scale)}
+    if cfg.ffn_type.startswith("gated"):
+        p["we3"] = experts((d, f))
+    return p
 
 
 def _ssd_p(gen, cfg, device, n):
@@ -320,6 +351,16 @@ def _masked_decode_attn(q, k_cache, v_cache, valid):
 
 
 def ffn_apply(p, cfg: ModelConfig, x):
+    """The layer's FFN on x (B, S, d): dense, or (MoE configs, every layer)
+    ``moe_ffn`` over the B·S tokens flattened row-major, as the reference
+    flattens them; its aux loss is not kept (serving only)."""
+    if cfg.is_moe:
+        B, S, d = x.shape
+        y, _ = L.moe_ffn(p, x.reshape(B * S, d),
+                         num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+                         capacity_factor=cfg.moe_capacity_factor,
+                         ffn_type=cfg.ffn_type)
+        return y.reshape(B, S, d)
     return L.dense_ffn(p, x, cfg.ffn_type)
 
 

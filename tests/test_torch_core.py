@@ -41,6 +41,17 @@ def test_config_copies_equal_the_reference(name):
         dataclasses.asdict(j_get_config(name))
 
 
+@pytest.mark.parametrize("name", ["dbrx-132b", "grok-1-314b",
+                                  "dbrx-132b-reduced", "grok-1-314b-reduced"])
+def test_moe_config_param_counts_equal_the_reference(name):
+    """The MoE copies count the reference's parameters: every expert
+    (``num_params``) and the top-k ones a token runs (``active_params``)."""
+    cfg, jcfg = get_config(name), j_get_config(name)
+    assert cfg.num_params() == jcfg.num_params()
+    assert cfg.active_params() == jcfg.active_params()
+    assert cfg.active_params() < cfg.num_params()
+
+
 def test_h100_spec_is_the_data_sheet():
     hw = cm.H100_SXM
     assert (hw.flops, hw.hbm_bw, hw.device_mem) == (989e12, 3.35e12, 80 * 2**30)

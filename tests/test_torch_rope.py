@@ -309,12 +309,15 @@ def test_engine_matches_jax_engine_and_oracle(case):
 
 @pytest.mark.parametrize("change", [{"pos_type": "mrope"}, {"qk_norm": True},
                                     {"window_period": 2, "sliding_window": 64},
-                                    {"arch_type": "moe", "moe_num_experts": 4}],
+                                    {"arch_type": "hybrid", "moe_num_experts": 4},
+                                    {"arch_type": "moe", "moe_num_experts": 4,
+                                     "moe_every": 2}],
                          ids=lambda c: "-".join(c))
 def test_engine_and_init_refuse_unsupported_configs(change):
-    """The engine serves the uniform family without q/k norm; the model
-    functions also serve q/k norm (with RoPE) and the windowed family, and
-    refuse the rest."""
+    """The engine serves the uniform family without q/k norm, MoE in every
+    layer included; the model functions also serve q/k norm (with RoPE) and
+    the windowed family, and refuse the rest: experts under another arch
+    type, and MoE in every other layer (jamba's)."""
     cfg = dataclasses.replace(get_config("yi-6b-reduced"), **change)
     tp = _models("yi-6b-reduced")[1]
     with pytest.raises(NotImplementedError, match="uniform-family"):
