@@ -26,7 +26,14 @@ of 64): the engine in hybrid and kv modes (the MoE dispatch inside the
 sync-checked decode loop), hybrid held to kv mode of the same group and to
 the oracle where the group's prefill dropped no real token's pair, each
 prefill's dropped pairs printed, two planted faults in the dispatch; dbrx
-also streamed from pinned host memory and through the server.  After each of OPT's and yi's device-resident
+also streamed from pinned host memory and through the server.  Last, the
+frontend models at full width and depth through ``prefill`` ->
+``decode_loop``: whisper-base (the flash kernel's non-causal mode in its
+encoder and cross attention; cross-KV, and cross-ACT, whose decode
+recomputes every layer's cross K/V from one encoder checkpoint in the fused
+hybrid kernel, held to cross-KV, with a planted fault) and qwen2-vl-2b
+(M-RoPE, 256 patches before the text, held to the same path on the plain
+flash).  After each of OPT's and yi's device-resident
 serves has freed its weights, an offload phase serves it again with its
 layer weights in pinned host memory, streamed to the card over a CUDA copy stream (``HybridServeEngine(offload=
 True)``): prefetch depth 1 and 0, the KV region resident or spilled to the
@@ -195,6 +202,14 @@ KERNELS = {
     # to decode
     "ssd_scan": ("src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:61"),
+    # whisper's path: the flash kernel's non-causal mode (kernel.py:47 skips
+    # and :61 masks only when causal), the encoder's self attention and the
+    # decoder's cross attention over the frames; the fused mode over the
+    # cross-ACT checkpoint (ACT pages only, enc_norm as its norm)
+    "flash_attention_noncausal": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:84"),
+    "hybrid_paged_attention_cross_act": _HYBRID,
 }
 # the launch counters: (kernel wrapper, its counter); the return_lse and
 # int8 rows count the launches of that mode on the same wrappers
@@ -219,7 +234,12 @@ COUNTERS = {"flash_attention": (flash_attention, "launches"),
             "hybrid_paged_attention_two_pool_hd256": (
                 hybrid_paged_attention_two_pool, "hd256_launches"),
             "kv_gen_qk_norm": (kv_gen, "knorm_launches"),
-            "ssd_scan": (ssd_scan, "launches")}
+            "ssd_scan": (ssd_scan, "launches"),
+            "flash_attention_noncausal": (flash_attention,
+                                          "noncausal_launches")}
+# the kernel rows that a counter of another row counts on their own path:
+# on whisper's cross-ACT run every fused launch is a cross-ACT one
+COUNTED_AS = {"hybrid_paged_attention_cross_act": "hybrid_paged_attention"}
 GEMMA = "gemma3-1b"
 # the gemma path's groups (requests, prompt length): group 1's prompt is no
 # page multiple, longer than the window, so the window mask and the rings'
@@ -264,6 +284,27 @@ MAMBA_DT_RANGE = (1e-3, 1e-1)
 # run; the planted faults (a state not carried, a conv cache one token late,
 # a zero state) read 5-7, far above it
 MAMBA_SPREAD_CHUNK = 32
+# the frontend models: whisper-base (encoder-decoder, cross-KV and cross-ACT)
+# and qwen2-vl-2b (M-RoPE, patch embeddings before the text), each through
+# prefill -> decode_loop at full width and depth: one group of 4 requests of
+# a 48-token prompt (qwen2-vl's after its 256 patches), 12 decode tokens
+WHISPER, QWEN = "whisper-base", "qwen2-vl-2b"
+FRONTEND_GROUP = (4, 48)
+FRONTEND_STEPS = 12
+# the cross-ACT cache against cross-KV: 2·L·KVH·D/d_model = 12x fewer bytes
+# at whisper-base's widths, 11.97x with the checkpoint padded to whole pages
+MIN_CROSS_RATIO = 11.9
+# trained whisper's cross attention is peaked (it aligns the text with a few
+# frames); at the random init's unit-scale queries the scores over 1500
+# frames spread by ~1, the softmax is near uniform, the cross attention's
+# output is a mean of ~500 values, and a fault in its keys moves the logits
+# little: on the CPU at full width in bfloat16 (the fused kernel's plain
+# version) the next layer's wk moved them by 0.33, against the 0.25 limit.
+# The random weights set ln_x's scale to WHISPER_LN_X_SCALE, so the scores
+# spread by that factor and a few frames carry each query, as in a trained
+# model: there, at scales 2 and 4, the fault read 0.93 and 2.24, and
+# cross-ACT's own gap to cross-KV 0.018 and 0.035
+WHISPER_LN_X_SCALE = 4.0
 # the earlier designs' kernel times on an NVIDIA H100 80GB HBM3 at 700.00 W
 # (kv_gen: one block per 32-row tile and head on WMMA, its norm per column
 # block; ssd_scan: one block per (request, head), float32 on the CUDA cores),
@@ -469,20 +510,35 @@ def phase_build(results):
                              f"{out['hgmma_by_kernel']}")
 
 
-def check_flash(B, S, H=32, KVH=32, D=128, dtype=torch.float16, window=0):
-    """The flash kernel, causal or (``window`` > 0) sliding-window, against
-    its plain version; the window mode's planted fault is the kernel run
-    without its window."""
-    g = torch.Generator(device="cuda").manual_seed(S)
+def check_flash(B, S, H=32, KVH=32, D=128, dtype=torch.float16, window=0,
+                causal=True, Sk=None):
+    """The flash kernel, causal, sliding-window (``window`` > 0) or
+    non-causal (``causal=False``, keys of their own length ``Sk``, S by
+    default), against its plain version.  Planted faults: the window mode
+    run without its window; the non-causal mode run causal (Sk = S), or
+    with its ragged last key tile dropped (Sk != S, a 64-key multiple
+    short)."""
+    Sk = S if Sk is None else Sk
+    g = torch.Generator(device="cuda").manual_seed(S + Sk)
     q = torch.randn((B, S, H, D), generator=g, device="cuda", dtype=dtype)
-    k, v = (torch.randn((B, S, KVH, D), generator=g, device="cuda",
+    k, v = (torch.randn((B, Sk, KVH, D), generator=g, device="cuda",
                         dtype=dtype) for _ in range(2))
-    got = flash_attention(q, k, v, window=window)
-    want = flash_attention_ref(q, k, v, window)
+    run = lambda f, *kv: f(q, *(kv or (k, v)), causal=causal, window=window)
+    got = run(flash_attention)
+    want = flash_attention_ref(q, k, v, window, causal)
     faults = {}
     if window:
         faults["fault_err_no_window"] = (flash_attention(q, k, v).float()
                                          - want.float()).abs().max().item()
+    if not causal and Sk == S:
+        faults["fault_err_causal_mask"] = (flash_attention(q, k, v).float()
+                                           - want.float()).abs().max().item()
+    elif not causal:
+        cut = (Sk - 1) // 64 * 64
+        faults["fault_err_last_key_tile_dropped"] = (
+            run(flash_attention, k[:, :cut].contiguous(),
+                v[:, :cut].contiguous()).float() - want.float()
+        ).abs().max().item()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol, top = kernel_tol(want)
@@ -494,23 +550,28 @@ def check_flash(B, S, H=32, KVH=32, D=128, dtype=torch.float16, window=0):
     band = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
     lib = (lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)) \
         if window else (lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
-    iters = 50 if S <= 256 else 10
-    ms = time_ms(lambda: flash_attention(q, k, v, window=window), iters)
-    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, window), iters)
+            qt, kt, vt, is_causal=causal))
+    iters = 50 if S * Sk <= 256 * 256 else 10
+    ms = time_ms(lambda: run(flash_attention), iters)
+    plain_ms = time_ms(lambda: run(flash_attention_ref), iters)
     lib_ms = time_ms(lib, iters)
     # QK^T and PV over the (query, key) pairs the mask keeps
-    pairs = sum(min(n + 1, window) if window else n + 1 for n in range(S))
+    pairs = S * Sk if not causal else \
+        sum(min(n + 1, window) if window else n + 1 for n in range(S))
     ops = 4.0 * B * H * D * pairs
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     bound_ms, by = bound(nbytes, ops)
-    return {"shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D,
-                      "window": window},
+    return {"shape": {"B": B, "S": S, "Sk": Sk, "H": H, "KVH": KVH, "D": D,
+                      "window": window, "causal": causal},
             "dtype": str(dtype).removeprefix("torch."), "max_abs_err": err,
             "tol": tol, "max_abs_out": top, **faults, "kernel_ms": ms,
+            **({} if causal else {
+                "kernel_host_us": host_us(lambda: run(flash_attention)),
+                "kernel_device_us": device_us(lambda: run(flash_attention))}),
             "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": "F.scaled_dot_product_attention"
-                       + (", boolean band mask" if window else ", is_causal"),
+                       + (", boolean band mask" if window else
+                          ", is_causal" if causal else ", is_causal=False"),
             "bound_ms": bound_ms, "bound_by": by}
 
 
@@ -602,6 +663,67 @@ def check_hybrid(shape=HAND_SHAPE, KVH=32, G=1, D=128, d=4096,
             "kernel_host_us": host_us(lambda: run(hybrid_paged_attention)),
             "kernel_device_us": device_us(lambda: run(hybrid_paged_attention)),
             "fp_kernel_ms_same_values": fp_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            "library": "none: no one PyTorch call norms, projects and attends",
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def check_cross_act(cfg, B=4, dtype=torch.bfloat16):
+    """The fused mode at the encdec model's cross-ACT shape: each request's
+    checkpoint of F frames (``M.enc_act_len`` rows, the padding zeros) as
+    its ACT pages, tables of ACT pages only (``M.cross_page_table``: every
+    page full but the last), a one-page KV pool no entry reads, LayerNorm
+    with a bias (``enc_norm``), ``xattn.wk``/``wv`` (d, KVH, D).  Planted
+    faults: ``enc_norm``'s scale and bias left out (a checkpoint normed
+    otherwise than the encoder's output), and each request's table pointing
+    at the next request's pages."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rnd = lambda *shape, s=1.0, o=0.0: (torch.randn(
+        shape, generator=g, device="cuda") * s + o).to(dtype)
+    F_, d, KVH, D = cfg.enc_seq_len, cfg.d_model, cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // KVH
+    act = rnd(B, M.enc_act_len(cfg), d, o=0.1)
+    act[:, F_:] = 0
+    pool = act.view(-1, PAGE, d)
+    q = rnd(B, KVH, G, D)
+    scale, bias = rnd(d, s=0.1, o=1.0), rnd(d, s=0.2)
+    wk, wv = rnd(d, KVH, D, s=d ** -0.5), rnd(d, KVH, D, s=d ** -0.5)
+    no_kv = torch.zeros((1, PAGE, KVH, D), dtype=dtype, device="cuda")
+    tables = M.cross_page_table(B, F_, "cuda")
+    run = lambda f, sc=scale, bi=bias, tabs=tables: f(
+        q, no_kv, no_kv, pool, sc, bi, wk, wv, *tabs, norm_type=cfg.norm_type,
+        eps=L.NORM_EPS[cfg.norm_type])
+    got = run(hybrid_paged_attention)
+    want = run(hybrid_paged_attention_ref)
+    other = (tables[0] + tables[0].shape[1]) % (B * tables[0].shape[1])
+    faults = {
+        "fault_err_enc_norm_weights_left_out": run(
+            hybrid_paged_attention, torch.ones_like(scale),
+            torch.zeros_like(bias)),
+        "fault_err_next_requests_pages": run(
+            hybrid_paged_attention, tabs=(other.int(), *tables[1:]))}
+    torch.cuda.synchronize()
+    faults = {k: (f.float() - want.float()).abs().max().item()
+              for k, f in faults.items()}
+    err = (got.float() - want.float()).abs().max().item()
+    tol, top = kernel_tol(want)
+    ms = time_ms(lambda: run(hybrid_paged_attention), 50)
+    plain_ms = time_ms(lambda: run(hybrid_paged_attention_ref), 10)
+    esz = q.element_size()
+    # each frame's checkpoint row read once, the weights and norm once, q
+    # read and o written, the three tables; LN and the projection of every
+    # frame to K and V, then QK^T and PV
+    nbytes = esz * (B * F_ * d + 2 * q.numel() + 2 * d * KVH * D + 2 * d) \
+        + 3 * 4 * tables[0].numel()
+    ops = B * F_ * KVH * 4.0 * d * D + B * KVH * G * F_ * 4.0 * D
+    bound_ms, by = bound(nbytes, ops)
+    return {"shape": {"B": B, "F": F_, "pages": tables[0].shape[1], "KVH": KVH,
+                      "G": G, "D": D, "d_model": d},
+            "dtype": str(dtype).removeprefix("torch."),
+            "norm_type": cfg.norm_type, "max_abs_err": err, "tol": tol,
+            "max_abs_out": top, **faults, "kernel_ms": ms,
+            "kernel_host_us": host_us(lambda: run(hybrid_paged_attention)),
+            "kernel_device_us": device_us(lambda: run(hybrid_paged_attention)),
             "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no one PyTorch call norms, projects and attends",
             "bound_ms": bound_ms, "bound_by": by}
@@ -1199,6 +1321,10 @@ def phase_kernels(results):
     bf16 = torch.bfloat16
     dbrx, grok = moe_config("dbrx-132b"), moe_config("grok-1-314b")
     m_shape, g_shape = serve_shape(dbrx), serve_shape(grok)
+    wh, qw = get_config(WHISPER), get_config(QWEN)
+    wB, wS = FRONTEND_GROUP
+    wkw = dict(H=wh.num_heads, KVH=wh.num_kv_heads, D=wh.head_dim, dtype=bf16,
+               causal=False)
     m_kv_gen = lambda sh, c: check_kv_gen(
         sh["B"], sh["act_pages_bound"], c.d_model, c.num_kv_heads,
         hd=c.head_dim, act_cap=sh["act_cap"], norm_type=c.norm_type,
@@ -1213,6 +1339,8 @@ def phase_kernels(results):
                check_flash(gB, gS, **gw),
                check_flash(2, 777, H=8, KVH=2, dtype=bf16),
                check_flash(4, 512, H=8, KVH=8, D=64),
+               check_flash(wB, qw.frontend_tokens + wS, H=qw.num_heads,
+                           KVH=qw.num_kv_heads, dtype=bf16),
                check_flash(m_shape["B"], m_shape["prefill_len"],
                            H=dbrx.num_heads, KVH=dbrx.num_kv_heads,
                            dtype=bf16)],
@@ -1270,6 +1398,13 @@ def phase_kernels(results):
                             knorm=True)],
            "ssd_scan": [check_ssd_scan(B, S, mamba) for B, S in MAMBA_GROUPS]
            + [check_ssd_scan(*MAMBA_GROUPS[1], mamba, dtype=torch.float16)],
+           # whisper's encoder (F frames each way) and its cross attention
+           # (the prompt over the F frames); the fused mode over its
+           # checkpoint
+           "flash_attention_noncausal": [
+               check_flash(wB, wh.enc_seq_len, **wkw),
+               check_flash(wB, wS, Sk=wh.enc_seq_len, **wkw)],
+           "hybrid_paged_attention_cross_act": [check_cross_act(wh, B=wB)],
            "gemma_serve_shapes": {"global": g_global, "ring": g_ring},
            "opt_serve_shape": opt_shape,
            "moe_serve_shapes": {"dbrx-132b": m_shape, "grok-1-314b": g_shape}}
@@ -1294,6 +1429,16 @@ def phase_kernels(results):
                   f"{c['kernel_ms_before_tiles']}], host "
                   f"{c['kernel_host_us']} us, device {c['kernel_device_us']} us, "
                   f"bound {c['bound_ms']} ms", flush=True)
+    for name in ("flash_attention_noncausal", "hybrid_paged_attention_cross_act"):
+        for c in out[name]:
+            print(f"{name} {c['dtype']} {c['shape']}: {c['kernel_ms']} ms, "
+                  f"host {c['kernel_host_us']} us, device "
+                  f"{c['kernel_device_us']} us, bound {c['bound_ms']} ms "
+                  f"({c['bound_by']}), plain {c['plain_ms']} ms, library "
+                  f"{c['library_ms']} ms, error {c['max_abs_err']} (limit "
+                  f"{c['tol']}), faults "
+                  f"{ {k: v for k, v in c.items() if k.startswith('fault')} }",
+                  flush=True)
     for name in ("kv_gen", "kv_gen_q8", "kv_gen_qk_norm", "ssd_scan"):
         for c in out[name]:
             print(f"{name} {c['dtype']} {c['shape']}: {c['kernel_ms']} ms "
@@ -3422,7 +3567,8 @@ def gemma_ring_one_slot_short(ctx, W):
 # the gemma path's planted faults: (module, attribute, stand-in)
 GEMMA_FAULTS = {
     "local_layers_without_window": (
-        M.T, "flash_attention", lambda q, k, v, window=0: _real_flash(q, k, v)),
+        M.T, "flash_attention",
+        lambda q, k, v, causal=True, window=0: _real_flash(q, k, v)),
     "ring_page_ntok_one_slot_short": (M, "ring_page_table",
                                       gemma_ring_one_slot_short),
     "kv_gen_without_knorm": (
@@ -3752,6 +3898,277 @@ def phase_serve_mamba2(results, smi):
     if not all(f > logit_tol for f in faults.values()):
         raise AssertionError(f"the logit limit {logit_tol} passes a planted "
                              f"fault: {faults}")
+    return launches
+
+
+# ------------------------------------------------------------ frontends phase
+def frontend_run(params, cfg, toks, n: int, gold=None, marks=None, **inputs):
+    """The plain path over one group: ``prefill`` (its frontend ``inputs``:
+    whisper's frames and cross mode, qwen2-vl's patches) then greedy
+    ``decode_loop`` (``gold`` None), or ``decode_step`` fed ``gold`` (B, n)
+    to read its per-step logits.  ``marks``: a list to append (time, launch
+    counts, logits, the cache's cross bytes) to when the prefill has run.
+    -> (tokens (B, n), logits (B, n, V) or None)."""
+    B, S = toks.shape
+    if "patches" in inputs:                      # the cache holds them too
+        S += inputs["patches"].shape[1]
+    lg, cache = M.prefill(params, cfg, toks, S + n, **inputs)
+    if marks is not None:
+        torch.cuda.synchronize()
+        cross = sum(cache[k].numel() * cache[k].element_size()
+                    for k in ("cross_k", "cross_v", "enc_act") if k in cache)
+        marks.append((time.perf_counter(), read_counts(), lg, cross))
+    if gold is None:
+        return M.decode_loop(params, cfg, lg[:, -1].argmax(-1).int(), cache,
+                             n)[0], None
+    steps = [lg[:, -1]]
+    for s in range(n - 1):
+        lg, cache = M.decode_step(params, cfg, gold[:, s:s + 1].int(), cache)
+        steps.append(lg[:, -1])
+    return gold, torch.stack(steps, 1)
+
+
+def counted_runs(params, cfg, toks, n, modes, want_prefill, want_step):
+    """Each mode of ``modes`` ({name: prefill inputs}) once, its launch
+    counts set to 0 just before and read just after, and held to the
+    expected counts per prefill and per decode step.  -> ({mode: tokens},
+    {mode: counts}, {mode: stage readings})."""
+    toks_out, counts, stages = {}, {}, {}
+    for mode, inputs in modes.items():
+        reset_counts()
+        marks = []
+        t0 = time.perf_counter()
+        out, _ = frontend_run(params, cfg, toks, n, marks=marks, **inputs)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts[mode] = read_counts()
+        (t1, after_prefill, lg, cross), = marks
+        V = M.pad_vocab(cfg.vocab_size)
+        if not (torch.isfinite(lg).all() and lg.shape == (toks.shape[0], 1, V)):
+            raise AssertionError(f"{cfg.name} {mode}: prefill logits "
+                                 f"{tuple(lg.shape)} not finite")
+        st = {"prefill_ms": (t1 - t0) * 1e3, "decode_s": t2 - t1,
+              "decode_tokens_per_s": toks.shape[0] * n / (t2 - t1),
+              "cross_cache_bytes": cross,
+              "prefill_launches": after_prefill,
+              "decode_launches_per_step": {
+                  k: (counts[mode][k] - after_prefill[k]) / n for k in COUNTERS}}
+        stages[mode] = st
+        toks_out[mode] = out
+        if st["prefill_launches"] != want_prefill(mode) or \
+                st["decode_launches_per_step"] != want_step(mode):
+            raise AssertionError(f"{cfg.name} {mode} launches {st}, expected "
+                                 f"{want_prefill(mode)} / {want_step(mode)}")
+    return toks_out, counts, stages
+
+
+def held_to(gold, ora, logits, outs, logit_tol) -> dict:
+    """The fp rule: ``outs`` (B, n) tokens of a path whose teacher-forced
+    ``logits`` (fed ``gold``) are held to the reference's ``ora``; a request
+    may leave ``gold`` only where the reference's top-2 margin is within
+    the limit and within twice the path's gap there.  -> readings."""
+    top2 = ora.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    gaps = (logits - ora).abs().amax(-1).cpu().numpy()
+    gold_np, outs = gold.cpu().numpy(), outs.cpu().numpy()
+    rule = {"oracle": {}, "margin": {}, "logit_tol": logit_tol, "path": {}}
+    rids, got = [], {}
+    for b in range(gold_np.shape[0]):
+        rid = f"request{b}"
+        rids.append(SimpleNamespace(rid=rid))
+        rule["oracle"][rid], rule["margin"][rid] = gold_np[b], margin[b]
+        rule["path"][rid], got[rid] = gaps[b], outs[b]
+    gap = float(gaps.max())
+    if gap > logit_tol:
+        raise AssertionError(f"teacher-forced logits differ by {gap}")
+    return dict(exactness(rule, "path", got, rids),
+                max_teacher_forced_dlogit=gap,
+                dlogit_by_step=gaps.max(0).tolist(),
+                min_oracle_margin=float(margin.min()))
+
+
+_real_cross_act = M._cross_act_attend
+
+
+def cross_k_of_the_next_layer(params, n_layers: int):
+    """A planted fault: each decoder layer's cross K recomputed with the
+    next layer's ``xattn.wk`` (the layers are called in order)."""
+    calls = [0]
+
+    def fault(lp, cfg, q, *args):
+        i = calls[0] % n_layers
+        calls[0] += 1
+        wk = M.T.layer_params(params, (i + 1) % n_layers)["xattn"]["wk"]
+        return _real_cross_act(dict(lp, xattn=dict(lp["xattn"], wk=wk)), cfg,
+                               q, *args)
+    return fault
+
+
+def serve_whisper(smi) -> tuple:
+    """whisper-base at full width and depth (6 encoder and 6 decoder
+    layers, bfloat16, random weights from seed 0, F = 1500 random frames)
+    through ``prefill`` -> ``decode_loop`` in both cross modes.  Checks the
+    launches (per prefill 18 flash, 12 of them non-causal; per cross-ACT
+    decode step one fused launch a layer, none in cross-KV), the cross
+    cache's bytes (cross-ACT at least ``MIN_CROSS_RATIO`` times fewer), and
+    the cross-ACT tokens against the cross-KV oracle under the bfloat16
+    rule; the planted fault (``cross_k_of_the_next_layer``) must break the
+    limit.  -> (readings, {mode: launch counts})."""
+    cfg = get_config(WHISPER)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    params["layers"]["ln_x"]["scale"].fill_(WHISPER_LN_X_SCALE)
+    B, S = FRONTEND_GROUP
+    n = FRONTEND_STEPS
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                            .astype(np.int32)).cuda()
+    frames = torch.randn((B, cfg.enc_seq_len, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(0)
+                         ).to(M.torch_dtype(cfg))
+    modes = {"cross_kv": dict(frames=frames, cross_act=False),
+             "cross_act": dict(frames=frames, cross_act=True)}
+    for inputs in modes.values():                                # warm-up
+        frontend_run(params, cfg, toks, n, **inputs)
+    torch.cuda.synchronize()
+    Le, Ld = cfg.enc_num_layers, cfg.num_layers
+
+    def want_prefill(mode):
+        want = {k: 0 for k in COUNTERS}
+        want["flash_attention"] = Le + 2 * Ld
+        want["flash_attention_noncausal"] = Le + Ld
+        return want
+
+    def want_step(mode):
+        want = {k: 0 for k in COUNTERS}
+        if mode == "cross_act":
+            want["hybrid_paged_attention"] = Ld
+        return want
+
+    outs, counts, stages = counted_runs(params, cfg, toks, n, modes,
+                                        want_prefill, want_step)
+    kv_bytes = stages["cross_kv"]["cross_cache_bytes"]
+    act_bytes = stages["cross_act"]["cross_cache_bytes"]
+    out = {"model": cfg.name, "layers": [Le, Ld], "d_model": cfg.d_model,
+           "frames": cfg.enc_seq_len, "checkpoint_rows": M.enc_act_len(cfg),
+           "dtype": cfg.dtype, "group": [B, S], "steps": n,
+           "init_and_warmup_s": time.perf_counter() - t0, "stages": stages,
+           "cross_cache_bytes": {"cross_kv": kv_bytes, "cross_act": act_bytes},
+           "cross_cache_ratio": kv_bytes / act_bytes}
+    # cross-ACT's tokens held to the cross-KV oracle, both fed its tokens
+    logit_tol = LOGIT_TOL_BY_DTYPE[cfg.dtype]
+    gold = outs["cross_kv"]
+    ora = frontend_run(params, cfg, toks, n, gold, **modes["cross_kv"])[1]
+    hyb = frontend_run(params, cfg, toks, n, gold, **modes["cross_act"])[1]
+    errors = []
+    try:
+        out["cross_act_vs_cross_kv"] = held_to(gold, ora, hyb,
+                                               outs["cross_act"], logit_tol)
+    except AssertionError as e:
+        errors.append(f"whisper cross-ACT: {e}")
+    M._cross_act_attend = cross_k_of_the_next_layer(params, Ld)
+    try:
+        fault = frontend_run(params, cfg, toks, n, gold, **modes["cross_act"])[1]
+    finally:
+        M._cross_act_attend = _real_cross_act
+    out["fault_dlogit"] = {"cross_k_of_the_next_layer":
+                           (fault - ora).abs().max().item()}
+    out["logit_tol"] = logit_tol
+    if out["cross_cache_ratio"] < MIN_CROSS_RATIO:
+        errors.append(f"cross cache only {out['cross_cache_ratio']}x smaller")
+    if not out["fault_dlogit"]["cross_k_of_the_next_layer"] > logit_tol:
+        errors.append(f"the logit limit {logit_tol} passes a planted fault: "
+                      f"{out['fault_dlogit']}")
+    out["errors"] = errors
+    print(f"whisper prefill ms {[st['prefill_ms'] for st in stages.values()]}, "
+          f"decode tokens/s "
+          f"{[st['decode_tokens_per_s'] for st in stages.values()]}, cross "
+          f"cache {kv_bytes} -> {act_bytes} bytes "
+          f"({out['cross_cache_ratio']}x), gap "
+          f"{out.get('cross_act_vs_cross_kv', {}).get('max_teacher_forced_dlogit')}"
+          f", fault {out['fault_dlogit']}", flush=True)
+    return out, counts
+
+
+def serve_qwen(smi) -> tuple:
+    """qwen2-vl-2b at full width and depth (28 layers, G = 6, head_dim 128,
+    M-RoPE; bfloat16, random weights from seed 0) through ``prefill`` ->
+    ``decode_loop``: 256 random patch embeddings before each 48-token
+    prompt.  Checks the launches (28 causal flash per prefill, none per
+    decode step) and the tokens against the same path with the flash
+    kernel swapped for its plain version, under the bfloat16 rule.
+    -> (readings, {"fp": launch counts})."""
+    cfg = get_config(QWEN)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    B, S = FRONTEND_GROUP
+    n = FRONTEND_STEPS
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                            .astype(np.int32)).cuda()
+    patches = torch.randn((B, cfg.frontend_tokens, cfg.d_model), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(1)
+                          ).to(M.torch_dtype(cfg))
+    modes = {"fp": dict(patches=patches)}
+    frontend_run(params, cfg, toks, n, patches=patches)          # warm-up
+    torch.cuda.synchronize()
+
+    def want_prefill(mode):
+        want = {k: 0 for k in COUNTERS}
+        want["flash_attention"] = cfg.num_layers
+        return want
+
+    outs, counts, stages = counted_runs(params, cfg, toks, n, modes,
+                                        want_prefill,
+                                        lambda mode: {k: 0 for k in COUNTERS})
+    out = {"model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": [cfg.num_heads, cfg.num_kv_heads], "head_dim": cfg.head_dim,
+           "patches": cfg.frontend_tokens, "dtype": cfg.dtype, "group": [B, S],
+           "steps": n, "init_and_warmup_s": time.perf_counter() - t0,
+           "stages": stages}
+    logit_tol = LOGIT_TOL_BY_DTYPE[cfg.dtype]
+    M.T.flash_attention = lambda q, k, v, causal=True, window=0: \
+        flash_attention_ref(q, k, v, window, causal)
+    try:
+        gold, _ = frontend_run(params, cfg, toks, n, patches=patches)
+        ora = frontend_run(params, cfg, toks, n, gold, patches=patches)[1]
+    finally:
+        M.T.flash_attention = flash_attention
+    got = frontend_run(params, cfg, toks, n, gold, patches=patches)[1]
+    out["logit_tol"], errors = logit_tol, []
+    try:
+        out["kernel_vs_plain"] = held_to(gold, ora, got, outs["fp"], logit_tol)
+    except AssertionError as e:
+        errors.append(f"qwen2-vl: {e}")
+    out["errors"] = errors
+    print(f"qwen2-vl prefill ms {stages['fp']['prefill_ms']}, decode tokens/s "
+          f"{stages['fp']['decode_tokens_per_s']}, gap "
+          f"{out.get('kernel_vs_plain', {}).get('max_teacher_forced_dlogit')}",
+          flush=True)
+    return out, counts
+
+
+def phase_serve_frontends(results, smi) -> dict:
+    """whisper-base (``serve_whisper``), then qwen2-vl-2b (``serve_qwen``),
+    each model's weights freed before the next.  -> {model: {mode: launch
+    counts}}."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "serve_frontends", "card": smi}
+    launches = {}
+    out["whisper"], launches[WHISPER] = serve_whisper(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["qwen"], launches[QWEN] = serve_qwen(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    results["serve frontends"] = out
+    errors = out["whisper"]["errors"] + out["qwen"]["errors"]
+    if errors:
+        raise AssertionError(f"frontends phase: {errors}")
     return launches
 
 
@@ -4500,6 +4917,8 @@ def main() -> int:
     for name, n in phase_serve_moe(results, smi).items():
         by_path[name] = {"fp": n}
     t0 = stage("moe", t0)
+    by_path.update(phase_serve_frontends(results, smi))
+    t0 = stage("frontends", t0)
     seconds["script"] = time.perf_counter() - t_start
     results["seconds"] = seconds
     emit({"phase": "seconds", "card": smi, "seconds": seconds})
@@ -4510,8 +4929,9 @@ def main() -> int:
     # int8 modes on the int8 serves and the int8 return_lse of each on that
     # model's int8 host-attend run (the int8 OPT serve also launches it on
     # the steps with an ACT-bound token, for its exact row's merge: listed
-    # beside it), ssd_scan on mamba2's; flash_attention runs on every
-    # attention path and reports OPT's
+    # beside it), ssd_scan on mamba2's, the flash kernel's non-causal mode
+    # and the fused mode over the checkpoint on whisper's cross-ACT run;
+    # flash_attention runs on every attention path and reports OPT's
     serve, ha = "serve", "offload host_attn"
     path_of = {"flash_attention": ("opt-6.7b", serve, "fp"),
                "hybrid_paged_attention": ("opt-6.7b", serve, "fp"),
@@ -4528,7 +4948,10 @@ def main() -> int:
                "flash_attention_window": (GEMMA, serve, "fp"),
                "hybrid_paged_attention_two_pool_hd256": (GEMMA, serve, "fp"),
                "kv_gen_qk_norm": (GEMMA, serve, "fp"),
-               "ssd_scan": (MAMBA, serve, "fp")}
+               "ssd_scan": (MAMBA, serve, "fp"),
+               "flash_attention_noncausal": (WHISPER, serve, "cross_act"),
+               "hybrid_paged_attention_cross_act": (WHISPER, serve,
+                                                    "cross_act")}
     counts = {serve: by_path, ha: ha_path, "scheduler": sched_path,
               "telemetry": tel_path}
     k = results["kernels"]
@@ -4536,11 +4959,13 @@ def main() -> int:
     for name, (src, tpu) in KERNELS.items():
         c = k[name][0]                    # the serve path's own shape first
         model, where, fmt = path_of[name]
+        counter = COUNTED_AS.get(name, name)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": tpu, "path": f"{model} {where} {fmt}",
-                     "launches": counts[where][model][fmt][name],
+                     "launches": counts[where][model][fmt][counter],
                      "launches_by_path": {
-                         f"{m} {w} {f}": n[name] for w, per in counts.items()
+                         f"{m} {w} {f}": n[counter]
+                         for w, per in counts.items()
                          for m, fmts in per.items() for f, n in fmts.items()},
                      "max_abs_err": c["max_abs_err"], "tol": c["tol"],
                      "ms": c["kernel_ms"], "kernel_ms": c["kernel_ms"],

@@ -1,5 +1,6 @@
 """Config registry of the port: OPT, yi-6b, minitron-4b, gemma3-1b,
-mamba2-2.7b, dbrx-132b and grok-1-314b, and their ``-reduced`` variants."""
+mamba2-2.7b, dbrx-132b, grok-1-314b, whisper-base and qwen2-vl-2b, and their
+``-reduced`` variants."""
 from __future__ import annotations
 
 from repro_torch.configs import opt as _opt
@@ -9,10 +10,13 @@ from repro_torch.configs.gemma3_1b import CONFIG as GEMMA3_1B
 from repro_torch.configs.grok_1_314b import CONFIG as GROK_1_314B
 from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA2_2_7B
 from repro_torch.configs.minitron_4b import CONFIG as MINITRON_4B
+from repro_torch.configs.qwen2_vl_2b import CONFIG as QWEN2_VL_2B
+from repro_torch.configs.whisper_base import CONFIG as WHISPER_BASE
 from repro_torch.configs.yi_6b import CONFIG as YI_6B
 
 REGISTRY = {c.name: c for c in (YI_6B, MINITRON_4B, GEMMA3_1B, MAMBA2_2_7B,
-                                DBRX_132B, GROK_1_314B)}
+                                DBRX_132B, GROK_1_314B, WHISPER_BASE,
+                                QWEN2_VL_2B)}
 REGISTRY.update(_opt.CONFIGS)
 
 

@@ -1,20 +1,24 @@
-// Causal and sliding-window GQA flash-attention forward (prefill) for
-// Hopper, sm_90a, on the tensor cores.
+// Causal, sliding-window and bidirectional GQA flash-attention forward
+// (prefill) for Hopper, sm_90a, on the tensor cores.
 //
 // Replaces the TPU kernel `flash_attention` (body `_flash_kernel`) of
-// src/repro/kernels/flash_attention/kernel.py, in both of its modes.
+// src/repro/kernels/flash_attention/kernel.py, in all three of its modes.
 //
 // What it computes: o[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h/G] / sqrt(D))
-// . v[b, j, h/G] over keys j <= i (causal) and j < S, and with a window W > 0
-// also j > i - W (sliding window, the windowed family's local layers), for
-// q (B, S, H, D) and k/v (B, S, KVH, D) read in place, without a transpose.
-// Online softmax with float32 statistics; scores never reach device memory.
+// . v[b, j, h/G] over keys j < Sk, and j <= i (causal, Sq = Sk), and with a
+// window W > 0 also j > i - W (sliding window, the windowed family's local
+// layers), for q (B, Sq, H, D) and k/v (B, Sk, KVH, D) read in place,
+// without a transpose.  The non-causal mode masks only the ragged ends: the
+// encoder-decoder family's encoder (Sq = Sk) and its decoder's cross
+// attention over the encoder's frames (Sq != Sk).  Online softmax with
+// float32 statistics; scores never reach device memory.
 //
 // What bounds it on this card: at prefill lengths the work is
-// 4 * S^2/2 * H * D operations (4 * S * W * H * D in the window mode)
-// against (3 + 1) * S * H * D * 2 bytes, far above the H100's ~295
-// operations per byte, so it is bound by operations, and only the tensor
-// cores (989 TFLOP/s in 16 bits) can approach that bound.
+// 4 * S^2/2 * H * D operations (4 * S * W * H * D in the window mode,
+// 4 * Sq * Sk * H * D non-causal) against (3 + 1) * S * H * D * 2 bytes,
+// far above the H100's ~295 operations per byte, so it is bound by
+// operations, and only the tensor cores (989 TFLOP/s in 16 bits) can
+// approach that bound.
 //
 // The design.  One block per (128-query tile, head, request), 384 threads:
 // two consumer warpgroups of 64 query rows each and a producer warpgroup.
@@ -38,10 +42,11 @@
 //   - P is rounded to the input dtype in registers, where the accumulator
 //     fragment of 16 keys is exactly wgmma's register A fragment, and
 //     O += P.V runs as wgmma m64nDk16 with A from registers.
-//   - Key tiles past the block's last live query are skipped, and in the
-//     window mode so are the tiles wholly before its first query's window
-//     (the TPU kernel's tile skip); masks (the ragged tail, causality, the
-//     window) are applied only on tiles that cross one.  Masked scores
+//   - Causal: key tiles past the block's last live query are skipped, and
+//     in the window mode so are the tiles wholly before its first query's
+//     window (the TPU kernel's tile skip); non-causal: every key tile up to
+//     Sk.  Masks (the ragged tail, causality, the window) are applied only
+//     on tiles that cross one.  Masked scores
 //     take the finite basis -1e30 and contribute exactly zero.  Query tiles
 //     are scheduled longest first.
 //   - D is instantiated at 64, 128 and 256; any multiple of 16 up to 256
@@ -404,7 +409,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,
-                 int S, int H, int KVH, int D, int window, float scale_log2) {
+                 int Sq, int Sk, int H, int KVH, int D, int window, int causal,
+                 float scale_log2) {
   using L = Tiles<DP>;
   constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -421,9 +427,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;        // longest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / KVH);
-  // keys past the tile's last live query are masked for every row, and with
-  // a window so are keys before the first query's window: skip those tiles
-  const int k_end = min(q0 + BQ, S);
+  // causal: keys past the tile's last live query are masked for every row,
+  // and with a window so are keys before the first query's window: skip
+  // those tiles.  Non-causal: every key (the wrapper refuses a window)
+  const int k_end = causal ? min(q0 + BQ, Sk) : Sk;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
   const int n_tiles = (k_end - k_begin + BK - 1) / BK;
 
@@ -490,14 +497,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(s);
 
     // the tile crosses the diagonal, the ragged end or the window's edge
-    const bool masked = k0 + BK - 1 > row_lo || k0 + BK > S ||
+    const bool masked = (causal && k0 + BK - 1 > row_lo) || k0 + BK > Sk ||
                         (window > 0 && k0 <= row_lo + 63 - window);
     if (masked) {
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) {
         const int row = (i % 4) < 2 ? r0 : r1;
         const int col = k0 + 8 * (i / 4) + cq + (i % 2);
-        const bool ok = col < S && col <= row && (window <= 0 || col > row - window);
+        const bool ok = col < Sk && (!causal || col <= row) &&
+                        (window <= 0 || col > row - window);
         if (!ok) s[i] = NEG_INF;
       }
     }
@@ -551,15 +559,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   const long q_row = (long)H * D;              // stride between positions of o
-  T* ob = o + (long)b * S * q_row + (long)h * D;
+  T* ob = o + (long)b * Sq * q_row + (long)h * D;
 #pragma unroll
   for (int c = 0; c < DP / 8; ++c) {
     const int col = 8 * c + cq;
     if (col >= D) continue;
-    if (r0 < S)
+    if (r0 < Sq)
       *reinterpret_cast<uint32_t*>(ob + r0 * q_row + col) =
           pack2(acc[4 * c] * inv0, acc[4 * c + 1] * inv0, T{});
-    if (r1 < S)
+    if (r1 < Sq)
       *reinterpret_cast<uint32_t*>(ob + r1 * q_row + col) =
           pack2(acc[4 * c + 2] * inv1, acc[4 * c + 3] * inv1, T{});
   }
@@ -610,8 +618,9 @@ bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType dt, int B,
 }
 
 template <typename T, int DP>
-int launch_dp(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-              int KVH, int D, int window, CUtensorMapDataType dt, cudaStream_t stream) {
+int launch_dp(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+              int H, int KVH, int D, int window, int causal, CUtensorMapDataType dt,
+              cudaStream_t stream) {
   using L = Tiles<DP>;
   static bool attr = false;
   if (!attr) {
@@ -621,47 +630,53 @@ int launch_dp(const void* q, const void* k, const void* v, void* o, int B, int S
     attr = true;
   }
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, dt, B, S, H, D, BQ) || !make_map(&tk, k, dt, B, S, KVH, D, L::BK) ||
-      !make_map(&tv, v, dt, B, S, KVH, D, L::BK))
+  if (!make_map(&tq, q, dt, B, Sq, H, D, BQ) ||
+      !make_map(&tk, k, dt, B, Sk, KVH, D, L::BK) ||
+      !make_map(&tv, v, dt, B, Sk, KVH, D, L::BK))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, DP><<<grid, THREADS, L::SMEM, stream>>>(
-      tq, tk, tv, static_cast<T*>(o), S, H, KVH, D, window,
+      tq, tk, tv, static_cast<T*>(o), Sq, Sk, H, KVH, D, window, causal,
       1.4426950408889634f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-           int KVH, int D, int window, CUtensorMapDataType dt, cudaStream_t stream) {
-  if (D <= 64) return launch_dp<T, 64>(q, k, v, o, B, S, H, KVH, D, window, dt, stream);
-  if (D <= 128) return launch_dp<T, 128>(q, k, v, o, B, S, H, KVH, D, window, dt, stream);
-  return launch_dp<T, 256>(q, k, v, o, B, S, H, KVH, D, window, dt, stream);
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+           int H, int KVH, int D, int window, int causal, CUtensorMapDataType dt,
+           cudaStream_t stream) {
+#define DP_ARGS q, k, v, o, B, Sq, Sk, H, KVH, D, window, causal, dt, stream
+  if (D <= 64) return launch_dp<T, 64>(DP_ARGS);
+  if (D <= 128) return launch_dp<T, 128>(DP_ARGS);
+  return launch_dp<T, 256>(DP_ARGS);
+#undef DP_ARGS
 }
 
 }  // namespace
 
 extern "C" {
 
-// window: 0 causal, > 0 sliding window of that many keys (the query's own
-// included).  dtype: 1 float16, 2 bfloat16.  q, k, v: 16-byte aligned.
-// Returns a cudaError_t.
+// q (B, Sq, H, D), k/v (B, Sk, KVH, D).  causal 1: keys j <= i (Sq = Sk),
+// and window > 0 a sliding window of that many keys (the query's own
+// included); causal 0: every key j < Sk, no window.  dtype: 1 float16,
+// 2 bfloat16.  q, k, v: 16-byte aligned.  Returns a cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int S, int H, int KVH, int D, int window, int dtype,
-                        void* stream) {
+                        int B, int Sq, int Sk, int H, int KVH, int D, int window,
+                        int causal, int dtype, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) |
                           reinterpret_cast<uintptr_t>(o);
-  if (D > MAX_D || D % 16 != 0 || D <= 0 || KVH <= 0 || H % KVH != 0 || S <= 0 ||
-      window < 0 || align % 16 != 0)
+  if (D > MAX_D || D % 16 != 0 || D <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 ||
+      Sk <= 0 || window < 0 || align % 16 != 0 || (causal && Sq != Sk) ||
+      (!causal && window > 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 1: return launch<__half>(q, k, v, o, B, S, H, KVH, D, window,
+    case 1: return launch<__half>(q, k, v, o, B, Sq, Sk, H, KVH, D, window, causal,
                                   CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
-    case 2: return launch<__nv_bfloat16>(q, k, v, o, B, S, H, KVH, D, window,
-                                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
+    case 2: return launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KVH, D, window,
+                                         causal, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
   }
   return (int)cudaErrorInvalidValue;
 }

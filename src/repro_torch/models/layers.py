@@ -62,6 +62,28 @@ def rope_sin_cos(positions, head_dim: int, theta: float):
     return torch.sin(angle), torch.cos(angle)
 
 
+def mrope_sin_cos(positions3, head_dim: int, theta: float,
+                  sections=(1, 1, 1)):
+    """Qwen2-VL's multimodal RoPE: positions3 (B, S, 3) int, the (temporal,
+    height, width) position ids -> sin/cos (B, S, head_dim//2) float32.
+    The rotary half-dim is split into three contiguous sections sized in
+    proportion to ``sections`` (the remainder on the last), each rotated by
+    its own position stream; with three equal streams (text) it is
+    ``rope_sin_cos`` exactly.  Frequencies as ``rope_sin_cos`` takes them."""
+    half = head_dim // 2
+    total = sum(sections)
+    sizes = [half * s // total for s in sections]
+    sizes[-1] = half - sizes[0] - sizes[1]
+    dev = positions3.device
+    freq = (theta ** (-torch.arange(0, half, dtype=torch.float64, device=dev)
+                      / half)).float()
+    sec_id = torch.repeat_interleave(torch.arange(3, device=dev),
+                                     torch.tensor(sizes, device=dev))
+    pos = positions3.float()[..., sec_id]      # (B, S, half): each frequency's id
+    angle = pos * freq
+    return torch.sin(angle), torch.cos(angle)
+
+
 def apply_rope(x, sin, cos):
     """x (B, S, H, D); sin/cos (B, S, D//2) -> rotated x (half-split layout),
     computed in float32 and cast back to x's dtype."""

@@ -1,6 +1,27 @@
-"""Top-level model API of the uniform, windowed and ssm families: embed ->
-layers -> logits, the plain decode path (the oracle's) and the hybrid KV/ACT
-decode path (the engine's).  Counterparts of ``repro.models.model``.
+"""Top-level model API of the uniform, windowed, ssm and encdec families:
+embed -> layers -> logits, the plain decode path (the oracle's) and the
+hybrid KV/ACT decode path (the engine's).  Counterparts of
+``repro.models.model``.
+
+The encdec family (whisper) and the vision frontend (qwen2-vl, M-RoPE) have
+the plain path only, as in the reference, whose engine asserts the uniform
+family.  whisper's ``prefill`` encodes the frames (bidirectional layers,
+the flash kernel's non-causal mode), then runs the decoder, whose cross
+attention over the encoder's frames is the same mode with Sk = F.  Its
+cache holds the decoder's self K/V and, per layer, cross K/V (cross-KV,
+``init_cache``), or (``cross_act=True``, ``cache_spec_cross_act``) one
+activation checkpoint of the encoder, 2·L·KVH·D/d = 12× fewer bytes: the
+paper's Eq. 7 applied to cross attention.  The checkpoint is the encoder's
+last residual BEFORE ``enc_norm``, padded to whole 16-token pages, and each
+decode step recomputes every layer's cross K/V from it in one launch of the
+fused ``hybrid_paged_attention`` (its norm prologue applies ``enc_norm``,
+its projection the layer's ``xattn.wk``/``wv``), over tables of ACT pages
+only.  The values attended are the reference's, which stores
+``enc_norm(enc)`` rounded to the cache dtype and projects it: the kernel
+rounds the normed row to the cache dtype before projecting.  The cross-KV
+mode is the oracle and attends in plain torch (``L.decode_attention``).
+qwen2-vl's patch embeddings go before the text, and its three position
+streams (``mrope_positions``) rotate q and k in every layer.
 
 The ssm family (mamba2) has no KV cache to trade for activations, so it has
 the plain path only, as in the reference: ``prefill`` runs each SSD layer's
@@ -80,10 +101,23 @@ def _embed_tokens(params, cfg, tokens):
     return params["embed"][tokens.long()]
 
 
-def embed_input(params, cfg: ModelConfig, tokens, offset: int = 0):
+def embed_input(params, cfg: ModelConfig, tokens=None, offset: int = 0, *,
+                frames=None, patches=None):
     """tokens (B, S) -> x (B, S, d); learned positions offset..offset+S are
-    added here, RoPE is applied inside attention."""
-    x = _embed_tokens(params, cfg, tokens)
+    added here, RoPE is applied inside attention.  Frontends, as the
+    reference's ``embed_input``: ``patches`` (B, P, d) go before the
+    embedded tokens (vision_stub; required there); ``frames`` (B, F, d)
+    without tokens are the input itself (audio_stub; the encoder adds its
+    own ``enc_pos`` in ``_encdec_encode`` instead)."""
+    if cfg.frontend == "vision_stub":
+        if patches is None:
+            raise ValueError(f"{cfg.name}: the vision frontend needs patches")
+        tok = _embed_tokens(params, cfg, tokens)
+        x = torch.cat([patches.to(tok.dtype), tok], 1)
+    elif cfg.frontend == "audio_stub" and frames is not None and tokens is None:
+        x = frames
+    else:
+        x = _embed_tokens(params, cfg, tokens)
     if cfg.pos_type == "learned":
         x = x + params["pos_embed"][offset: offset + x.shape[1]][None]
     return x
@@ -91,6 +125,38 @@ def embed_input(params, cfg: ModelConfig, tokens, offset: int = 0):
 
 def _positions(S: int, device):
     return torch.arange(S, dtype=torch.int32, device=device)[None]
+
+
+def mrope_grid(cfg: ModelConfig) -> Tuple[int, int]:
+    """(grid width, t0) of the M-RoPE layout: the P patches sit on a grid
+    of that width at temporal position 0, and the text's three streams run
+    equal from t0 (the reference's ``_positions_for``)."""
+    P = cfg.frontend_tokens
+    gw = max(1, math.isqrt(max(P, 1)))
+    return gw, max(gw, P // gw)
+
+
+def mrope_positions(cfg: ModelConfig, B: int, S: int, device):
+    """(B, S, 3) int32 (temporal, height, width) ids of P patches and S - P
+    text tokens: patch i at (0, i // gw, i % gw), text token j at t0 + j
+    in all three streams."""
+    P = cfg.frontend_tokens
+    gw, t0 = mrope_grid(cfg)
+    ids = np.arange(P)
+    txt = t0 + np.arange(S - P)
+    pos3 = np.stack([np.concatenate([np.zeros_like(ids), txt]),
+                     np.concatenate([ids // gw, txt]),
+                     np.concatenate([ids % gw, txt])], -1)
+    pos3 = torch.from_numpy(pos3.astype(np.int32)).to(device)
+    return pos3[None].expand(B, S, 3)
+
+
+def _sincos_at(cfg: ModelConfig, B: int, S: int, device):
+    """RoPE or M-RoPE tables of a whole sequence from position 0 (None for
+    learned positions)."""
+    if cfg.pos_type == "mrope":
+        return T._rope_for(cfg, mrope_positions(cfg, B, S, device))
+    return T._rope_for(cfg, _positions(S, device))
 
 
 def unembed(params, cfg: ModelConfig, h):
@@ -108,11 +174,19 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda") -> Cache:
     ``local_k/v`` rings (n_per, period - 1, B, W, KVH, D), ``global_k/v``
     (n_per, B, max_len, KVH, D) and ``tail_k/v`` rings (tail, B, W, KVH, D);
     ssm family: the SSD ``state`` (L, B, h, p, n) and the conv tail ``conv``
-    (L, B, width - 1, inner + 2n), whatever ``max_len``."""
+    (L, B, width - 1, inner + 2n), whatever ``max_len``; encdec family (its
+    cross-KV mode): ``self_k/v`` (L, B, max_len, KVH, D) and ``cross_k/v``
+    (L, B, F, KVH, D)."""
     dt = torch_dtype(cfg)
     kv = lambda *shape: torch.zeros(shape, dtype=dt, device=device)
     head = (cfg.num_kv_heads, cfg.head_dim)
     kv_len = torch.zeros((B,), dtype=torch.int32, device=device)
+    if family(cfg) == "encdec":
+        F = cfg.enc_seq_len
+        return {"self_k": kv(cfg.num_layers, B, max_len, *head),
+                "self_v": kv(cfg.num_layers, B, max_len, *head),
+                "cross_k": kv(cfg.num_layers, B, F, *head),
+                "cross_v": kv(cfg.num_layers, B, F, *head), "kv_len": kv_len}
     if family(cfg) == "ssm":
         return {"state": kv(cfg.num_layers, B, cfg.ssm_num_heads,
                             cfg.ssm_head_dim, cfg.ssm_state_size),
@@ -146,6 +220,27 @@ def _to_ring(k_full, W: int):
     return k_full[:, S - 1 - (S - 1 - j) % W]
 
 
+def enc_act_len(cfg: ModelConfig) -> int:
+    """Rows of the cross-ACT checkpoint: the F frames padded to whole
+    16-token pages (whisper-base: 1500 -> 1504, 94 pages)."""
+    return -(-cfg.enc_seq_len // PAGE) * PAGE
+
+
+def cache_spec_cross_act(cfg: ModelConfig, B: int, max_len: int,
+                         device="cuda") -> Cache:
+    """The encdec cache in its cross-ACT mode: ``init_cache``'s without
+    ``cross_k/v``, with ``enc_act`` (B, F_pad, d), the encoder's last
+    residual before ``enc_norm`` (``enc_act_len`` rows, the padding zeros),
+    which reshapes without a copy into a pool of 16-token ACT pages.
+    2·L·KVH·D/d_model times fewer cross-cache bytes than cross-KV (12× for
+    whisper-base; 11.9× with the page padding)."""
+    cache = init_cache(cfg, B, max_len, device)
+    del cache["cross_k"], cache["cross_v"]
+    cache["enc_act"] = torch.zeros((B, enc_act_len(cfg), cfg.d_model),
+                                   dtype=torch_dtype(cfg), device=device)
+    return cache
+
+
 def _ring(cache: Cache, stack: str, i: int, j: Optional[int]):
     """The (k, v) ring buffers (B, W, KVH, D) of a windowed model's local
     layer: local layer j of period i, or tail layer i."""
@@ -164,12 +259,94 @@ def _local_full(lp, cfg, h, sincos, rings):
     return h
 
 
-def prefill(params, cfg: ModelConfig, tokens, max_len: int):
-    """Run the prompt (B, S), build the decode cache. -> (last_logits, cache)."""
+def _encdec_encode(params, cfg: ModelConfig, frames):
+    """The encoder over frame embeddings (B, F, d): ``enc_pos`` added, its
+    bidirectional layers (the flash kernel's non-causal mode).  -> its last
+    residual BEFORE ``enc_norm`` (the cross-ACT checkpoint; the reference's
+    encoder output is ``enc_norm`` of it)."""
+    h = frames + params["enc_pos"][: frames.shape[1]][None]
+    for i in range(cfg.enc_num_layers):
+        h, _ = T.layer_full(T.layer_params(params, i, stack="enc"), cfg, h,
+                            causal=False)
+    return h
+
+
+def _cross_q(lp, cfg: ModelConfig, h):
+    """The decoder's cross-attention queries (B, S, H, D) from its residual
+    h (B, S, d): ``ln_x``, then ``xattn.wq``."""
+    hx = L.apply_norm(h, lp["ln_x"], cfg.norm_type)
+    return (hx @ lp["xattn"]["wq"]).reshape(h.shape[0], h.shape[1],
+                                             cfg.num_heads, cfg.head_dim)
+
+
+def _cross_kv(lp, cfg: ModelConfig, enc_out):
+    """A decoder layer's cross K/V (B, F, KVH, D) of the encoder's output."""
+    shape = enc_out.shape[:2] + (cfg.num_kv_heads, cfg.head_dim)
+    return ((enc_out @ lp["xattn"]["wk"]).reshape(shape),
+            (enc_out @ lp["xattn"]["wv"]).reshape(shape))
+
+
+def _cross_out(lp, cfg: ModelConfig, h, o):
+    """The cross attention's output ``o`` projected by ``xattn.wo`` onto the
+    residual, then the FFN, both residual."""
+    h = h + o.reshape(h.shape[0], h.shape[1], cfg.q_dim) @ lp["xattn"]["wo"]
+    return h + T.ffn_apply(lp["ffn"], cfg, L.apply_norm(h, lp["ln2"],
+                                                        cfg.norm_type))
+
+
+def _prefill_encdec(params, cfg: ModelConfig, tokens, max_len: int, frames,
+                    cross_act: bool):
+    """whisper's prefill: encode the frames, then the decoder over the
+    prompt, each layer's causal self attention then its cross attention
+    over the F frames (flash, non-causal, Sk = F).  The cache keeps the
+    self K/V and the cross K/V, or the encoder's checkpoint (cross-ACT)."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: the encoder needs frames")
+    pre = _encdec_encode(params, cfg, frames)
+    enc_out = L.apply_norm(pre, params["enc_norm"], cfg.norm_type)
     h = embed_input(params, cfg, tokens)
     B, S = h.shape[:2]
+    F = frames.shape[1]
+    if cross_act:
+        cache = cache_spec_cross_act(cfg, B, max_len, device=h.device)
+        cache["enc_act"][:, :F] = pre
+    else:
+        cache = init_cache(cfg, B, max_len, device=h.device)
+    for i in range(cfg.num_layers):
+        lp = T.layer_params(params, i)
+        a, (k, v) = T.attn_full(lp["attn"], cfg,
+                                L.apply_norm(h, lp["ln1"], cfg.norm_type))
+        h = h + a
+        ek, ev = _cross_kv(lp, cfg, enc_out)
+        o = T.flash_attention(_cross_q(lp, cfg, h), ek, ev, causal=False)
+        h = _cross_out(lp, cfg, h, o)
+        cache["self_k"][i, :, :S] = k
+        cache["self_v"][i, :, :S] = v
+        if not cross_act:
+            cache["cross_k"][i] = ek
+            cache["cross_v"][i] = ev
+    h = L.apply_norm(h, params["final_norm"], cfg.norm_type)
+    cache["kv_len"].fill_(S)
+    return unembed(params, cfg, h[:, -1:]), cache
+
+
+def prefill(params, cfg: ModelConfig, tokens, max_len: int, *, frames=None,
+            patches=None, cross_act: bool = False):
+    """Run the prompt (B, S), build the decode cache. -> (last_logits, cache).
+    whisper (encdec): ``frames`` (B, F, d) feed the encoder, and
+    ``cross_act`` stores its checkpoint instead of per-layer cross K/V
+    (``cache_spec_cross_act``).  qwen2-vl (vision_stub): ``patches``
+    (B, P, d) go before the prompt, which the cache then holds from
+    position P on."""
+    if family(cfg) == "encdec":
+        return _prefill_encdec(params, cfg, tokens, max_len, frames, cross_act)
+    if cross_act or frames is not None:
+        raise ValueError(f"{cfg.name}: frames and cross_act are the encdec "
+                         "family's")
+    h = embed_input(params, cfg, tokens, patches=patches)
+    B, S = h.shape[:2]
     cache = init_cache(cfg, B, max_len, device=h.device)
-    sincos = T._rope_for(cfg, _positions(S, h.device))
+    sincos = _sincos_at(cfg, B, S, h.device)
     if family(cfg) == "windowed":
         for stack, i, j in window_walk(cfg):
             lp = layer_params(params, i, j, stack)
@@ -199,13 +376,23 @@ def decode_step(params, cfg: ModelConfig, token, cache: Cache):
     """token (B, 1) -> (logits (B, 1, V), cache); kv_len advances by 1.
     The windowed family's local layers attend over their rings in the
     torch formulation (``T._masked_decode_attn``), as the uniform layers do
-    over their caches: the oracle stays independent of the kernels."""
+    over their caches: the oracle stays independent of the kernels.  The
+    encdec family: cross-KV attends in torch too; cross-ACT recomputes each
+    layer's cross K/V from the checkpoint in the fused kernel
+    (``_decode_encdec``).  M-RoPE: the text continues at kv_len - P + t0
+    in all three streams (the patches take P slots but t0 positions)."""
     kv_len = cache["kv_len"]
     x = _embed_tokens(params, cfg, token)
     if cfg.pos_type == "learned":
         x = x + params["pos_embed"][kv_len.long()][:, None]
-    sincos = T._rope_for(cfg, kv_len[:, None])
-    if family(cfg) == "windowed":
+    if cfg.pos_type == "mrope":
+        mpos = kv_len - cfg.frontend_tokens + mrope_grid(cfg)[1]
+        sincos = T._rope_for(cfg, mpos[:, None, None].expand(-1, 1, 3))
+    else:
+        sincos = T._rope_for(cfg, kv_len[:, None])
+    if family(cfg) == "encdec":
+        x = _decode_encdec(params, cfg, x, cache)
+    elif family(cfg) == "windowed":
         W = cfg.sliding_window
         for stack, i, j in window_walk(cfg):
             lp = layer_params(params, i, j, stack)
@@ -227,6 +414,60 @@ def decode_step(params, cfg: ModelConfig, token, cache: Cache):
     x = L.apply_norm(x, params["final_norm"], cfg.norm_type)
     cache["kv_len"] = kv_len + 1
     return unembed(params, cfg, x), cache
+
+
+def cross_page_table(B: int, F: int, device):
+    """The cross-ACT checkpoint's page tables, the same every step and
+    layer: request b's ``ceil(F/16)`` ACT pages are pages ``b*n + j`` of its
+    checkpoint pool, every one full but the last (whisper-base: 93 of 16
+    tokens and one of 12).  -> (page_table, page_type, page_ntok), int32
+    (B, n)."""
+    n = -(-F // PAGE)
+    j = torch.arange(n, dtype=torch.int32, device=device)[None]
+    b = torch.arange(B, dtype=torch.int32, device=device)[:, None]
+    ntok = (F - PAGE * j).clamp(0, PAGE).expand(B, n).contiguous()
+    return (b * n + j).contiguous(), torch.ones_like(ntok), ntok
+
+
+def _cross_act_attend(lp, cfg: ModelConfig, q, enc_norm, enc_act, tables,
+                      no_kv):
+    """One decoder layer's cross attention in the cross-ACT mode: one fused
+    launch that norms the checkpoint's rows by ``enc_norm``, projects them
+    by the layer's ``xattn.wk``/``wv`` and attends q (B, 1, H, D) over them,
+    through tables of ACT pages only (``no_kv``: a one-page KV pool no
+    entry reads).  -> (B, KVH, G, D)."""
+    B = q.shape[0]
+    KVH, D, d = cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    w = (lp["xattn"]["wk"].view(d, KVH, D), lp["xattn"]["wv"].view(d, KVH, D))
+    return hybrid_paged_attention(
+        q.reshape(B, KVH, cfg.num_heads // KVH, D), no_kv, no_kv,
+        enc_act.view(-1, PAGE, d), enc_norm["scale"], enc_norm.get("bias"),
+        *w, *tables, norm_type=cfg.norm_type, eps=L.NORM_EPS[cfg.norm_type])
+
+
+def _decode_encdec(params, cfg: ModelConfig, x, cache: Cache):
+    """The decoder's layers for one token x (B, 1, d): causal self attention
+    over ``self_k/v`` (written in place), cross attention over the F frames,
+    the FFN.  -> the last layer's output."""
+    kv_len = cache["kv_len"]
+    cross_act = "enc_act" in cache
+    if cross_act:
+        tables = cross_page_table(x.shape[0], cfg.enc_seq_len, x.device)
+        no_kv = x.new_zeros((1, PAGE, cfg.num_kv_heads, cfg.head_dim))
+    for i in range(cfg.num_layers):
+        lp = T.layer_params(params, i)
+        x = x + T.attn_decode(lp["attn"], cfg,
+                              L.apply_norm(x, lp["ln1"], cfg.norm_type),
+                              cache["self_k"][i], cache["self_v"][i], kv_len)
+        q = _cross_q(lp, cfg, x)
+        if cross_act:
+            o = _cross_act_attend(lp, cfg, q, params["enc_norm"],
+                                  cache["enc_act"], tables, no_kv)
+        else:
+            o = L.decode_attention(q, cache["cross_k"][i], cache["cross_v"][i],
+                                   kv_len=cfg.enc_seq_len)
+        x = _cross_out(lp, cfg, x, o)
+    return x
 
 
 def decode_loop(params, cfg: ModelConfig, cur, cache: Cache, n_steps: int):
@@ -268,7 +509,7 @@ def init_hybrid_cache(cfg: ModelConfig, B: int, kv_cap: int, act_cap: int,
     ``tail_k/v`` (tail, B, W, KVH, D), W a whole number of pages.  As in the
     reference, no ``quant`` for this family.  The ssm family has no KV to
     trade (the reference's hybrid cache is for attention): refused."""
-    T.check_supported(cfg, families=("uniform", "windowed"))
+    T.check_supported(cfg, "hybrid")
     if kv_cap % PAGE or act_cap % PAGE:
         raise ValueError(f"kv_cap={kv_cap}, act_cap={act_cap}: not multiples "
                          f"of the {PAGE}-token page")
@@ -473,6 +714,7 @@ def hybrid_prefill_begin(params, cfg: ModelConfig, tokens, kv_cap: int,
                          quant: Optional[QuantConfig] = None) -> PrefillPlan:
     """Check the host split against the capacities and upload it, embed,
     allocate the cache.  Reads no device value."""
+    T.check_supported(cfg, "hybrid")
     dev = tokens.device
     kv_keep, last_pos = (np.asarray(a, np.int32) for a in (kv_keep, last_pos))
     check_split(kv_keep, last_pos, kv_cap, act_cap)
@@ -755,6 +997,7 @@ def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
     layers.  Bounds and ``any_act`` as for ``hybrid_decode_step``.
     Quantized, the fused route's tables leave out an ACT-bound token's own
     row (its exact K/V are merged in after the kernel)."""
+    T.check_supported(cfg, "hybrid")
     _check_cache(cache, quant)
     B = token.shape[0]
     kv_cap, act_cap = cache["k"].shape[2], cache["act"].shape[2]

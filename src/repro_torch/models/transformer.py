@@ -1,20 +1,26 @@
-"""Parameter init and the per-layer forwards of three families:
+"""Parameter init and the per-layer forwards of four families:
 
   uniform   every layer attention + FFN: OPT (learned positions, tied
-            embeddings), yi and minitron (RoPE, untied embeddings), and the
-            MoE models dbrx and grok (RoPE, an MoE FFN in every layer);
+            embeddings), yi and minitron (RoPE, untied embeddings), the
+            MoE models dbrx and grok (RoPE, an MoE FFN in every layer), and
+            qwen2-vl (M-RoPE; patch embeddings before the text);
   windowed  gemma3: periods of ``window_period - 1`` sliding-window (local)
             layers and one global layer, then a tail of local layers; q/k
             norm, MQA, tied embeddings;
   ssm       mamba2: every layer a Mamba-2 SSD mixer, no FFN, no positions,
-            tied embeddings.
+            tied embeddings;
+  encdec    whisper: a bidirectional encoder over frame embeddings
+            (``enc_pos``, ``enc_layers``, ``enc_norm``), and a causal
+            decoder whose layers add cross attention (``ln_x``, ``xattn``)
+            over the encoder's output.
 
 Counterparts of ``repro.models.transformer``.  Parameters are a plain dict laid
 out like the JAX pytree: layers stacked on dim 0 (``layers``; windowed:
 ``periods.local`` stacked (n_per, period - 1, ...), ``periods.global``
 (n_per, ...) and ``tail``), weights stored ``(d_in, d_out)``.  Prefill
 attention goes through the hand-written flash kernel's wrapper, the local
-layers' through its sliding-window mode; the SSD layers' prefill scan through
+layers' through its sliding-window mode, the encoder's and the cross
+attention through its non-causal mode; the SSD layers' prefill scan through
 the ``ssd_scan`` kernel's.
 """
 from __future__ import annotations
@@ -69,10 +75,44 @@ def _norm_p(cfg, device, n=None):
             "bias": torch.zeros(shape, dtype=dt, device=device)}
 
 
-#: position encodings the port serves
-POS_TYPES = ("learned", "rope")
-#: the architecture families the port serves (``family``)
-FAMILIES = ("uniform", "windowed", "ssm")
+#: what each path of the port serves (``check_supported``'s ``path``):
+#: (families, frontends, q/k norm allowed).  The server takes the
+#: engine's models.
+_ENGINE = (("uniform",), ("none",), False)
+SERVES = {
+    "plain": (("uniform", "windowed", "ssm", "encdec"),
+              ("none", "audio_stub", "vision_stub"), True),
+    "hybrid": (("uniform", "windowed"), ("none",), True),
+    "engine": _ENGINE,
+    "server": _ENGINE,
+}
+#: the position encodings of the models with attention (M-RoPE only with
+#: the vision frontend, see ``check_supported``)
+POS_TYPES = ("learned", "rope", "mrope")
+#: the entry points of each path, as the refusal names them
+PATH_NAMES = {"plain": "the plain path (prefill -> decode_loop)",
+              "hybrid": "the hybrid model functions (hybrid_prefill -> "
+                        "hybrid_decode_loop, init_hybrid_cache)",
+              "engine": "the engine and the offload executor",
+              "server": "the server (ContinuousBatchingServer)"}
+#: what the port serves, path by path, and why the serving paths refuse
+#: the frontend models: every refusal carries it
+SERVED = (
+    "The port serves, on the plain path (prefill -> decode_loop): dense "
+    "uniform-family and windowed-family decoders with learned or RoPE "
+    "positions (q/k norm and windows with RoPE only), MoE in every layer of "
+    "the uniform family, SSD stacks with no FFN and no positions, the "
+    "encdec family (whisper: audio_stub frames, learned positions, cross-KV "
+    "or cross-ACT) and vision_stub patches with M-RoPE (qwen2-vl).  On the "
+    "hybrid model functions: the uniform and windowed families with no "
+    "frontend, learned or RoPE positions (the reference's hybrid step "
+    "rotates RoPE only, so it has no M-RoPE path).  On the engine and the "
+    "offload executor, and on the server: the uniform family with no "
+    "frontend and no q/k norm, learned or RoPE positions.  The serving "
+    "paths refuse the encdec family because the reference's engine asserts "
+    "the uniform family (an encoder checkpoint or cross K/V per request "
+    "have no place in its block pools), and the vlm frontend because their "
+    "batched prefill takes no patches.")
 
 
 def family(cfg: ModelConfig) -> str:
@@ -94,40 +134,44 @@ def _window_split(cfg) -> Tuple[int, int, int]:
     return period, n_per, tail
 
 
-def check_supported(cfg: ModelConfig, families=FAMILIES,
-                    qk_norm: bool = True) -> None:
-    """Raise unless the port serves ``cfg`` in one of ``families``: a
-    decoder (no encoder or frontend) with an FFN, learned or RoPE
-    positions, dense or, in the uniform family, MoE in every layer; q/k
-    norm (where ``qk_norm`` allows it) and the windowed family only with
-    RoPE, the route that recomputes K outside the fused kernel; or (the
-    ssm family) a stack of SSD mixers with no FFN and no positions.  The
-    serving engine and the offload executor take the uniform family
-    without q/k norm, as far as the reference's engine is held against."""
-    plain = not cfg.is_encoder_decoder and cfg.frontend == "none"
-    if family(cfg) == "ssm":
+def check_supported(cfg: ModelConfig, path: str = "plain") -> None:
+    """Raise ``NotImplementedError`` unless ``path`` of the port serves
+    ``cfg`` (``SERVES``; the message names the path and carries ``SERVED``,
+    what every path serves).  Beyond each path's families, frontends and
+    q/k norm: the ssm family is a stack of SSD mixers with no FFN and no
+    positions; every other model has an FFN, dense or (the uniform family)
+    MoE in every layer; q/k norm and the windowed family take RoPE only,
+    the route that recomputes K outside the fused kernel; the audio_stub
+    frontend is the encdec family's, with learned positions and no q/k
+    norm; the vision_stub frontend and M-RoPE go together (M-RoPE's
+    positions are laid out on the patch grid)."""
+    families, frontends, qk_norm = SERVES[path]
+    fam = family(cfg)
+    if fam == "ssm":
         ok = cfg.d_ff == 0 and cfg.pos_type == "none" \
-            and cfg.ssm_state_size > 0 and cfg.moe_num_experts == 0
+            and cfg.ssm_state_size > 0 and cfg.moe_num_experts == 0 \
+            and cfg.frontend == "none"
     else:
-        rope_only = cfg.qk_norm or family(cfg) == "windowed"
         moe = cfg.arch_type == "moe" and cfg.moe_num_experts > 0 \
-            and cfg.moe_every == 1 and family(cfg) == "uniform"
-        ok = (moe or (cfg.arch_type == "dense"
-                      and cfg.moe_num_experts == 0)) and cfg.d_ff > 0 \
-            and cfg.pos_type in POS_TYPES \
+            and cfg.moe_every == 1 and fam == "uniform"
+        dense = cfg.arch_type in ("dense", "audio", "vlm") \
+            and cfg.moe_num_experts == 0
+        rope_only = cfg.qk_norm or fam == "windowed"
+        audio = cfg.frontend == "audio_stub"
+        vision = cfg.frontend == "vision_stub"
+        ok = (moe or dense) and cfg.d_ff > 0 \
+            and cfg.pos_type in POS_TYPES and cfg.frontend in frontends \
             and not (rope_only and cfg.pos_type != "rope") \
-            and not (cfg.qk_norm and not qk_norm)
-    if not (plain and ok and family(cfg) in families):
+            and not (cfg.qk_norm and not qk_norm) \
+            and audio == (fam == "encdec") \
+            and not (audio and (cfg.pos_type != "learned" or cfg.qk_norm)) \
+            and vision == (cfg.pos_type == "mrope") \
+            and not (vision and cfg.frontend_tokens <= 0)
+    if not (ok and fam in families):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense "
-            f"{' and '.join(f + '-family' for f in families if f != 'ssm')} "
-            f"decoders with {' or '.join(POS_TYPES)} positions"
-            + (", MoE in every layer of the uniform family"
-               if "uniform" in families else "")
-            + (" (q/k norm and windows with RoPE only)" if qk_norm
-               else " and no q/k norm")
-            + (", and SSD stacks with no FFN and no positions"
-               if "ssm" in families else ""))
+            f"{cfg.name} ({fam} family, frontend {cfg.frontend}, "
+            f"{cfg.pos_type} positions): not served by {PATH_NAMES[path]}.  "
+            + SERVED)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
@@ -135,8 +179,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     are untied, ``pos_embed`` for learned positions, ``w3`` for gated FFNs,
     an MoE FFN's ``router`` (float32) and ``we1``/``we2``/``we3``,
     ``qnorm``/``knorm`` with q/k norm; ``layers``, or for the windowed family
-    ``periods`` and ``tail``), made on ``device`` from a seeded
-    ``torch.Generator``."""
+    ``periods`` and ``tail``; the encdec family's ``enc_pos``,
+    ``enc_layers`` and ``enc_norm``, and ``ln_x``/``xattn`` in each decoder
+    layer), made on ``device`` from a seeded ``torch.Generator``."""
     check_supported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     Lyr, d, qd, kvd, f = (cfg.num_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim,
@@ -151,19 +196,25 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                                      scale=0.02)
     # the draw order is part of what a seed means: the optional leaves come
     # after the ones every model has, so adding them changes no other weight
-    def stack(n):
-        o_scale = 1.0 / math.sqrt(qd) / math.sqrt(2 * Lyr)
+    attn = lambda n: {"wq": _dense(gen, (d, qd), cfg, device, n=n),
+                      "wk": _dense(gen, (d, kvd), cfg, device, n=n),
+                      "wv": _dense(gen, (d, kvd), cfg, device, n=n),
+                      "wo": _dense(gen, (qd, d), cfg, device, n=n,
+                                   scale=1.0 / math.sqrt(qd)
+                                   / math.sqrt(2 * Lyr))}
+
+    def stack(n, cross=False):
         f_scale = 1.0 / math.sqrt(f) / math.sqrt(2 * Lyr)
         layers = {
             "ln1": _norm_p(cfg, device, n),
-            "attn": {"wq": _dense(gen, (d, qd), cfg, device, n=n),
-                     "wk": _dense(gen, (d, kvd), cfg, device, n=n),
-                     "wv": _dense(gen, (d, kvd), cfg, device, n=n),
-                     "wo": _dense(gen, (qd, d), cfg, device, scale=o_scale, n=n)},
+            "attn": attn(n),
             "ln2": _norm_p(cfg, device, n),
             "ffn": (_moe_p if cfg.is_moe else _ffn_p)(gen, cfg, device, n,
                                                       f_scale),
         }
+        if cross:                          # the decoder's cross attention
+            layers["ln_x"] = _norm_p(cfg, device, n)
+            layers["xattn"] = attn(n)
         if cfg.qk_norm:
             for key in ("qnorm", "knorm"):
                 layers["attn"][key] = torch.zeros((n, cfg.head_dim),
@@ -177,6 +228,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
         return params
     if family(cfg) == "uniform":
         params["layers"] = stack(Lyr)
+        return params
+    if family(cfg) == "encdec":
+        params["enc_pos"] = _dense(gen, (cfg.enc_seq_len, d), cfg, device,
+                                   scale=0.02)
+        params["enc_layers"] = stack(cfg.enc_num_layers)
+        params["enc_norm"] = _norm_p(cfg, device)
+        params["layers"] = stack(Lyr, cross=True)
         return params
     period, n_per, tail = _window_split(cfg)
     local = _map(stack(n_per * (period - 1)),
@@ -240,10 +298,12 @@ def _map(tree, fn):
 
 
 #: where each layer stack lives in the params: the uniform family's
-#: ``layers``; the windowed family's local layers of each period, its
-#: global layers and its tail
+#: ``layers`` (the encdec family's decoder layers); the windowed family's
+#: local layers of each period, its global layers and its tail; the encdec
+#: family's encoder layers
 _STACKS = {"layers": ("layers",), "local": ("periods", "local"),
-           "global": ("periods", "global"), "tail": ("tail",)}
+           "global": ("periods", "global"), "tail": ("tail",),
+           "enc": ("enc_layers",)}
 
 
 def layer_params(params: Params, i: int, j: Optional[int] = None,
@@ -251,7 +311,8 @@ def layer_params(params: Params, i: int, j: Optional[int] = None,
     """Views of one layer's parameters (the stacked dims indexed away): layer
     ``i`` of ``stack``; for the windowed family, local layer ``j`` of period
     ``i`` (``"local"``), period ``i``'s global layer (``"global"``) or tail
-    layer ``i`` (``"tail"``)."""
+    layer ``i`` (``"tail"``); for the encdec family, encoder layer ``i``
+    (``"enc"``)."""
     tree = params
     for key in _STACKS[stack]:
         tree = tree[key]
@@ -277,9 +338,12 @@ def window_walk(cfg: ModelConfig) -> Iterator[Tuple[str, int, Optional[int]]]:
 # =============================================================================
 
 def _rope_for(cfg: ModelConfig, positions):
-    """-> (sin, cos) (..., S, head_dim/2) for RoPE models, else None."""
+    """-> (sin, cos) (..., S, head_dim/2) for RoPE models (positions
+    (..., S)) and M-RoPE models (positions (B, S, 3)), else None."""
     if cfg.pos_type == "rope":
         return L.rope_sin_cos(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.pos_type == "mrope":
+        return L.mrope_sin_cos(positions, cfg.head_dim, cfg.rope_theta)
     return None
 
 
@@ -301,12 +365,13 @@ def _qk_roped(p, cfg, x, sincos):
     return q, k, v
 
 
-def attn_full(p, cfg: ModelConfig, x, sincos=None, window: int = 0):
-    """Causal full-sequence attention (prefill), sliding-window when
-    ``window`` > 0; q and k rotated by ``sincos`` when given.
-    Returns (out, (k, v))."""
+def attn_full(p, cfg: ModelConfig, x, sincos=None, window: int = 0, *,
+              causal: bool = True):
+    """Full-sequence attention (prefill): causal, sliding-window when
+    ``window`` > 0, or bidirectional with ``causal=False`` (the encoder);
+    q and k rotated by ``sincos`` when given.  Returns (out, (k, v))."""
     q, k, v = _qk_roped(p, cfg, x, sincos)
-    o = flash_attention(q, k, v, window=window)
+    o = flash_attention(q, k, v, causal=causal, window=window)
     return o.reshape(x.shape[0], x.shape[1], cfg.q_dim) @ p["wo"], (k, v)
 
 
@@ -415,15 +480,17 @@ def ssd_decode(p, cfg: ModelConfig, x, state, conv_cache):
 
 # --- single transformer layer (pre-norm residual) -----------------------------
 
-def layer_full(p, cfg, x, sincos=None, window: int = 0, *, kind: str = "attn"):
+def layer_full(p, cfg, x, sincos=None, window: int = 0, *, kind: str = "attn",
+               causal: bool = True):
     """-> (x', cache) over the whole sequence: attention's (k, v)
-    (sliding-window when ``window`` > 0), or with ``kind="ssd"`` the SSD
-    mixer's (final state, conv cache).  No FFN where the config has none."""
+    (sliding-window when ``window`` > 0, bidirectional with
+    ``causal=False``), or with ``kind="ssd"`` the SSD mixer's (final state,
+    conv cache).  No FFN where the config has none."""
     h = L.apply_norm(x, p["ln1"], cfg.norm_type)
     if kind == "ssd":
         a, cache = ssd_full(p["ssd"], cfg, h)
     else:
-        a, cache = attn_full(p["attn"], cfg, h, sincos, window)
+        a, cache = attn_full(p["attn"], cfg, h, sincos, window, causal=causal)
     x = x + a
     if cfg.d_ff > 0:
         x = x + ffn_apply(p["ffn"], cfg, L.apply_norm(x, p["ln2"], cfg.norm_type))

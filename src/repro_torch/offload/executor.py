@@ -65,7 +65,7 @@ class OffloadExecutor:
     def __init__(self, cfg: ModelConfig, params, *, prefetch_depth: int = 1,
                  faults=None, watchdog_s: Optional[float] = None,
                  tracer=None, metrics=None, quant=None, device="cuda"):
-        T.check_supported(cfg, families=("uniform",), qk_norm=False)
+        T.check_supported(cfg, "engine")
         self.cfg = cfg
         self.quant = quant
         self.device = torch.device(device)

@@ -161,7 +161,7 @@ class HybridServeEngine:
         if adaptive and mode != "hybrid":
             raise ValueError("the adaptive controller re-balances the hybrid "
                              "split; the kv and act baselines pin the ratio")
-        T.check_supported(cfg, families=("uniform",), qk_norm=False)
+        T.check_supported(cfg, "engine")
         self.cfg, self.params, self.hw, self.mode = cfg, params, hw, mode
         self.quant = quant
         self.host_attn = bool(host_attn)

@@ -184,7 +184,7 @@ class ContinuousBatchingServer:
         plan (sharding): not ported yet; raises."""
         if plan is not None:
             raise NotImplementedError(f"sharded serving: {_SHARDING}")
-        T.check_supported(cfg, families=("uniform",), qk_norm=False)
+        T.check_supported(cfg, "server")
         if host_attn and not offload:
             raise ValueError("host_attn rides the offload runtime's host mirror")
         self.host_attn = bool(host_attn)

@@ -4,7 +4,9 @@ Policy, packing and simulation are pure numpy on both sides, so every
 comparison here is exact (integers, or floats from the same operations in
 the same order)."""
 import dataclasses
+from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -15,10 +17,12 @@ from repro.core import costmodel as j_cm
 from repro.core import minibatch as j_mb
 from repro.core import pipeline as j_pipe
 from repro.core import policy as j_policy
+from repro.models import model as JM
 from repro.serving import util as j_util
 from repro_torch.configs import REGISTRY, get_config
 from repro_torch.core import blocks, costmodel as cm, minibatch, pipeline, policy
 from repro_torch.data.pipeline import request_trace
+from repro_torch.models import model as M
 from repro_torch.serving import util
 
 torch.set_num_threads(1)
@@ -39,6 +43,33 @@ def test_config_copies_equal_the_reference(name):
     so is its ``-reduced`` variant."""
     assert dataclasses.asdict(get_config(name)) == \
         dataclasses.asdict(j_get_config(name))
+
+
+@pytest.mark.parametrize("name", [n + "-reduced" for n in sorted(REGISTRY)
+                                  if not n.startswith("opt-") or n == "opt-6.7b"])
+def test_init_params_draws_the_reference_tree(name):
+    """The port's own ``init_params`` makes the reference's pytree, key for
+    key, shape for shape and dtype for dtype, for every family it serves
+    (the reference's tree by ``jax.eval_shape``, nothing drawn)."""
+    want = jax.eval_shape(lambda: JM.init_params(j_get_config(name),
+                                                 jax.random.PRNGKey(0)))
+    got = M.init_params(get_config(name), seed=0, device="cpu")
+    flat = lambda tree: {k: flat(v) if isinstance(v, dict)
+                         else (tuple(v.shape), str(v.dtype).split(".")[-1])
+                         for k, v in tree.items()}
+    assert flat(got) == flat(want)
+
+
+@pytest.mark.parametrize("stem,name", [("whisper_base", "whisper-base"),
+                                       ("qwen2_vl_2b", "qwen2-vl-2b")])
+def test_frontend_config_sources_are_the_references(stem, name):
+    """whisper-base's and qwen2-vl-2b's config files are the reference's,
+    line for line but for the package they import from."""
+    root = Path(__file__).resolve().parents[1] / "src"
+    mine = (root / "repro_torch" / "configs" / f"{stem}.py").read_text()
+    ref = (root / "repro" / "configs" / f"{stem}.py").read_text()
+    assert mine.replace("repro_torch.configs", "repro.configs") == ref
+    assert name in REGISTRY
 
 
 @pytest.mark.parametrize("name", ["dbrx-132b", "grok-1-314b",

@@ -94,7 +94,7 @@ def test_family_walk_and_params_bridge_keep_the_pytree():
     assert shapes(mine) == shapes(jp)
     full = dataclasses.replace(cfg, dtype="bfloat16")
     with pytest.raises(NotImplementedError):
-        T.check_supported(full, families=("uniform",))
+        T.check_supported(full, "engine")
     T.check_supported(get_config("gemma3-1b"))
 
 
