@@ -33,7 +33,14 @@ encoder and cross attention; cross-KV, and cross-ACT, whose decode
 recomputes every layer's cross K/V from one encoder checkpoint in the fused
 hybrid kernel, held to cross-KV, with a planted fault) and qwen2-vl-2b
 (M-RoPE, 256 patches before the text, held to the same path on the plain
-flash).  After each of OPT's and yi's device-resident
+flash).  Then training: minitron-4b at full width and depth takes five
+``make_train_step`` steps of 4 x 512 tokens (remat, AdamW), its attention
+on the flash kernel with the lse output and the hand-written backward
+(``flash_attention_bwd``, held in the kernels phase against its plain
+version with two planted faults), step 1's loss and every gradient leaf
+held to the same step on the plain attention; and the serve CLI
+(``repro_torch.launch.serve``) serves opt-6.7b with ``--verify``.  After
+each of OPT's and yi's device-resident
 serves has freed its weights, an offload phase serves it again with its
 layer weights in pinned host memory, streamed to the card over a CUDA copy stream (``HybridServeEngine(offload=
 True)``): prefetch depth 1 and 0, the KV region resident or spilled to the
@@ -86,10 +93,13 @@ from repro_torch.core.controller import (ControllerConfig,  # noqa: E402
                                          HybridCacheController)
 from repro_torch.core.costmodel import H100_SXM  # noqa: E402
 from repro_torch.core.quant import QuantConfig, kv_bytes_per_token  # noqa: E402
-from repro_torch.data.pipeline import open_loop_trace, request_trace  # noqa: E402
+from repro_torch.data.pipeline import (DataConfig, lm_batches,  # noqa: E402
+                                       open_loop_trace, request_trace)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as FA  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_bwd_ref, flash_attention_ref)
 from repro_torch.kernels.hybrid_attention.ops import (  # noqa: E402
     hybrid_paged_attention, hybrid_paged_attention_two_pool)
 from repro_torch.kernels.hybrid_attention.ref import (  # noqa: E402
@@ -114,6 +124,9 @@ from repro_torch.serving import (ContinuousBatchingServer,  # noqa: E402
                                  HybridServeEngine, exact_reference_generate)
 from repro_torch.serving import scheduler as SCHED  # noqa: E402
 from repro_torch.serving.util import bucket  # noqa: E402
+from repro_torch.launch import serve as SERVE_CLI  # noqa: E402
+from repro_torch.launch import specs as SPECS  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 
 # H100 SXM data sheet: dense fp16
 # tensor-core rate and HBM3 bandwidth, at the full 700 W power limit
@@ -210,6 +223,12 @@ KERNELS = {
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/kernel.py:84"),
     "hybrid_paged_attention_cross_act": _HYBRID,
+    # the training path's attention gradient: no Pallas kernel, the
+    # counterpart of the reference's custom VJP (XLA), whose backward it
+    # computes from the forward's lse
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cuh",
+        "src/repro/models/layers.py:276"),
 }
 # the launch counters: (kernel wrapper, its counter); the return_lse and
 # int8 rows count the launches of that mode on the same wrappers
@@ -236,7 +255,8 @@ COUNTERS = {"flash_attention": (flash_attention, "launches"),
             "kv_gen_qk_norm": (kv_gen, "knorm_launches"),
             "ssd_scan": (ssd_scan, "launches"),
             "flash_attention_noncausal": (flash_attention,
-                                          "noncausal_launches")}
+                                          "noncausal_launches"),
+            "flash_attention_bwd": (flash_attention, "bwd_launches")}
 # the kernel rows that a counter of another row counts on their own path:
 # on whisper's cross-ACT run every fused launch is a cross-ACT one
 COUNTED_AS = {"hybrid_paged_attention_cross_act": "hybrid_paged_attention"}
@@ -450,17 +470,20 @@ HGMMA_KERNELS = (("flash_attention", "flash_fwd_kernel"),
 
 
 def kernel_symbol(line: str):
-    """(kernel name, template arguments) of the first mangled
-    ``<length><name>_kernel I...E`` symbol in a ptxas line, or None: the
-    name is the ``length`` characters after its length prefix."""
+    """(kernel name, template arguments) of the mangled ``<length><name>
+    _kernel I...E`` symbol in a ptxas line, or None: the name is the
+    ``length`` characters after its length prefix.  Where a digit run in an
+    anonymous namespace's hash also reads as a length that ends at the same
+    ``_kernel``, the shortest such name is the kernel's own."""
+    found = []
     for m in re.finditer(r"(?<!\d)(\d+)(?=[a-z_])", line):
         start = m.end()
         name = line[start:start + int(m.group(1))]
         if name.endswith("_kernel"):
             args = re.match(r"(I.*?E)Ev", line[start + len(name):])
             if args:
-                return name, args.group(1)
-    return None
+                found.append((len(name), name, args.group(1)))
+    return min(found)[1:] if found else None
 
 
 def ptxas_report(log: str) -> dict:
@@ -573,6 +596,99 @@ def check_flash(B, S, H=32, KVH=32, D=128, dtype=torch.float16, window=0,
                        + (", boolean band mask" if window else
                           ", is_causal" if causal else ", is_causal=False"),
             "bound_ms": bound_ms, "bound_by": by}
+
+
+# the backward kernel's shapes: (B, S, H, KVH, D) at the training batch
+# (4 x 512): minitron-4b's (G = 3), opt-6.7b's (MHA, G = 1), yi-6b's (G =
+# 8), then an edge, D = 64 at a ragged 2 x 777 with G = 4
+BWD_SHAPES = ((4, 512, 24, 8, 128), (4, 512, 32, 32, 128),
+              (4, 512, 32, 4, 128), (2, 777, 8, 2, 64))
+
+
+def library_bwd_ms(q, k, v, do):
+    """SDPA (causal, GQA) forward + backward less its forward: the library
+    call's time for the same gradients, on (B, H, S, D) copies made before
+    the timing.  Device time (the profiler's kernel events): the two host
+    timings it would otherwise subtract carry autograd's host time, which
+    moved this difference 0.17-0.75 ms between calls at one shape."""
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    qt, kt, vt = (x.requires_grad_(True) for x in (qt, kt, vt))
+    G = q.shape[2] // k.shape[2]
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+        fwd = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                     enable_gqa=True)
+    except TypeError:                  # a torch without enable_gqa
+        fwd = lambda: F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(G, 1), vt.repeat_interleave(G, 1),
+            is_causal=True)
+    both = lambda: torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+    return (device_us(both) - device_us(fwd)) / 1e3
+
+
+def check_flash_bwd(B, S, H, KVH, D, dtype=torch.bfloat16):
+    """The backward kernel against ``flash_attention_bwd_ref`` on the same
+    inputs (q, k, v, dO random; o and lse from the forward kernel, its lse
+    held to the plain version's too).  Each of dq, dk, dv is held to
+    TOL_ULPS ulps at its own largest plain value; the row's error and limit
+    are those of the output nearest its limit.  Planted faults (each must
+    put some output above its limit): the causal mask left out, and (G >
+    1) dK/dV not summed over the group."""
+    g = torch.Generator(device="cuda").manual_seed(S * H + D)
+    q, do = (torch.randn((B, S, H, D), generator=g, device="cuda", dtype=dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, KVH, D), generator=g, device="cuda",
+                        dtype=dtype) for _ in range(2))
+    o, lse = FA.flash_attention_lse(q, k, v)
+    # the lse output changes no bit of the forward's output
+    same_out = torch.equal(o, flash_attention(q, k, v))
+    _, lse_ref = flash_attention_ref(q, k, v, return_lse=True)
+    lse_err = (lse - lse_ref).abs().max().item()
+    lse_tol = LSE_RTOL * max(1.0, lse_ref.abs().max().item())
+    args = (q, k, v, o, lse, do)
+    got = FA.flash_attention_bwd(*args)
+    want = flash_attention_bwd_ref(*args)
+    torch.cuda.synchronize()
+
+    def ratios(out):
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(out, want)]
+        return [e / kernel_tol(w)[0] for e, w in zip(errs, want)], errs
+
+    r, errs = ratios(got)
+    tols = [kernel_tol(w)[0] for w in want]
+    worst = max(range(3), key=lambda i: r[i])
+    faults = {"fault_ratio_no_causal_mask": max(ratios(FA._flash_attention_bwd(
+        *args, flags=FA.FAULTS["no_causal_mask"]))[0])}
+    if H > KVH:
+        faults["fault_ratio_no_group_sum"] = max(ratios(FA._flash_attention_bwd(
+            *args, flags=FA.FAULTS["no_group_sum"]))[0])
+    iters = 20
+    run = lambda: FA.flash_attention_bwd(*args)
+    ms = time_ms(run, iters)
+    plain_ms = time_ms(lambda: flash_attention_bwd_ref(*args), 5)
+    lib_ms = library_bwd_ms(q, k, v, do)
+    # five products (the scores recomputed, dV, dP, dQ, dK) over the causal
+    # pairs; q, k, v, o, dO and lse read once, dq, dk, dv written once
+    pairs = S * (S + 1) // 2
+    ops = 10.0 * B * H * D * pairs
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * lse.numel()
+    bound_ms, by = bound(nbytes, ops)
+    return {"shape": {"B": B, "S": S, "H": H, "KVH": KVH, "D": D},
+            "dtype": str(dtype).removeprefix("torch."),
+            "max_abs_err": errs[worst], "tol": tols[worst],
+            "binding_output": "d" + "qkv"[worst],
+            "errors": dict(zip(("dq", "dk", "dv"), errs)),
+            "limits": dict(zip(("dq", "dk", "dv"), tols)),
+            "lse_err": lse_err, "lse_tol": lse_tol,
+            "out_bitwise_equal_without_lse": same_out, **faults,
+            "kernel_ms": ms, "kernel_host_us": host_us(run),
+            "kernel_device_us": device_us(run), "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library": "F.scaled_dot_product_attention(is_causal, enable_gqa) "
+                       "forward + backward less forward, device time",
+            "bound_ms": bound_ms, "bound_by": by, "ops": ops, "bytes": nbytes}
 
 
 # the fused mode's hand-picked tables (uneven splits, an empty KV region),
@@ -1307,7 +1423,8 @@ def phase_kernels(results):
     causal and window 100) and at D = 64, and the second-pool mode at the
     split plan's edges (``two_pool_edges``).  The second-pool rows also
     record the wrapper's host time per call and the kernels' device time, each
-    beside the library call's."""
+    beside the library call's.  Last, the flash backward at the training
+    shapes (``BWD_SHAPES``), with the forward's lse output."""
     yi, opt = get_config("yi-6b"), get_config("opt-6.7b")
     mamba = get_config(MAMBA)
     gemma = get_config(GEMMA)
@@ -1405,6 +1522,7 @@ def phase_kernels(results):
                check_flash(wB, wh.enc_seq_len, **wkw),
                check_flash(wB, wS, Sk=wh.enc_seq_len, **wkw)],
            "hybrid_paged_attention_cross_act": [check_cross_act(wh, B=wB)],
+           "flash_attention_bwd": [check_flash_bwd(*sh) for sh in BWD_SHAPES],
            "gemma_serve_shapes": {"global": g_global, "ring": g_ring},
            "opt_serve_shape": opt_shape,
            "moe_serve_shapes": {"dbrx-132b": m_shape, "grok-1-314b": g_shape}}
@@ -1439,6 +1557,16 @@ def phase_kernels(results):
                   f"{c['tol']}), faults "
                   f"{ {k: v for k, v in c.items() if k.startswith('fault')} }",
                   flush=True)
+    for c in out["flash_attention_bwd"]:
+        print(f"flash_attention_bwd {c['dtype']} {c['shape']}: "
+              f"{c['kernel_ms']} ms, host {c['kernel_host_us']} us, device "
+              f"{c['kernel_device_us']} us, bound {c['bound_ms']} ms "
+              f"({c['bound_by']}), plain {c['plain_ms']} ms, library "
+              f"{c['library_ms']} ms, errors {c['errors']} (limits "
+              f"{c['limits']}), lse error {c['lse_err']} (limit "
+              f"{c['lse_tol']}), faults (error / limit) "
+              f"{ {k: v for k, v in c.items() if k.startswith('fault')} }",
+              flush=True)
     for name in ("kv_gen", "kv_gen_q8", "kv_gen_qk_norm", "ssd_scan"):
         for c in out[name]:
             print(f"{name} {c['dtype']} {c['shape']}: {c['kernel_ms']} ms "
@@ -1471,6 +1599,19 @@ def phase_kernels(results):
              > SSD_STATE_RTOL]
     if blind:
         raise AssertionError(f"the state limit passes a planted fault: {blind}")
+    bwd = out["flash_attention_bwd"]
+    bad = [(c["shape"], c["lse_err"], c["lse_tol"],
+            c["out_bitwise_equal_without_lse"]) for c in bwd
+           if not (c["lse_err"] <= c["lse_tol"]
+                   and c["out_bitwise_equal_without_lse"])]
+    if bad:
+        raise AssertionError(f"the flash kernel's lse disagrees with its "
+                             f"plain version: {bad}")
+    blind = [(c["shape"], key, c[key]) for c in bwd for key in c
+             if key.startswith("fault_ratio_") and not c[key] > 1.0]
+    if blind:
+        raise AssertionError(f"the backward's limit passes a planted fault: "
+                             f"{blind}")
     lse = [c for name in KERNELS if "return_lse" in name for c in out[name]]
     bad = [(c["case"], c["shape"], c["m_err"], c["l_err"]) for c in lse
            if not (c["m_err"] <= LSE_RTOL and c["l_err"] <= LSE_RTOL)]
@@ -3444,6 +3585,8 @@ def kernel_group(name: str) -> str:
         return "hybrid_paged_attention_two_pool"
     if "flash_fwd_kernel" in name:
         return "flash_attention"
+    if "flash_bwd_" in name:
+        return "flash_attention_bwd"
     if "kv_norm_kernel" in name or "kv_proj_kernel" in name:
         return "kv_gen"
     if "ssd_gram_kernel" in name or "ssd_scan_" in name:
@@ -4883,6 +5026,202 @@ def serve_path(results, smi, name):
     return launches, ha_launches, sched_launches_, tel_launches
 
 
+# ----------------------------------------------------------------- train phase
+# minitron-4b at full width and depth (32 layers, d 3072, 24 heads over 8 kv
+# heads, head_dim 128, vocab 256,000 untied, bfloat16, 4.19 B parameters),
+# trained on ``lm_batches`` of 4 x 512 tokens by ``make_train_step``
+TRAIN_MODEL = "minitron-4b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 5
+# five steps from the random init with no warmup.  The params are bfloat16,
+# as the reference keeps them: an update under half an ulp (~0.2% of a
+# weight) rounds away and one over it moves a whole ulp, so AdamW's first,
+# sign-like step moves most weights by one ulp at any small rate, and the
+# second step's loss rises before it falls (on the card: 13.2 -> 22.9 at
+# 3e-5, -> 24.0 at 1e-4)
+TRAIN_OPT = dict(lr=3e-5, warmup_steps=1, total_steps=TRAIN_STEPS)
+# step 1 on the flash kernels against the same step with the plain attention
+# patched in: both are bf16 computations that round at other points (P and
+# dS in 16 bits in the kernels, the outputs of both), and the difference
+# grows through 32 layers of backpropagation.  The limits sit above that
+# noise and below what a broken backward gives (the planted fault, dK/dV of
+# one head of each group, must exceed the gradient limit)
+GRAD_REL_L2 = 0.05
+LOSS_ABS = 0.02
+
+
+def _rel_l2(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)
+            ).item()
+
+
+def train_batches(cfg, n: int, device="cuda"):
+    it = lm_batches(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               batch_size=TRAIN_BATCH))
+    return [{k: torch.from_numpy(b[k]).to(device) for k in ("tokens", "labels")}
+            for b in (next(it) for _ in range(n))]
+
+
+def grad_gaps(grads, want) -> dict:
+    """{leaf path: relative L2 of grads against want}."""
+    return {k: _rel_l2(g, w) for (k, g), (_, w) in
+            zip(_paths(grads), _paths(want))}
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _paths(tree[k], f"{prefix}/{k}" if prefix else k)]
+    return [(prefix, tree)]
+
+
+def phase_train(results, smi, name=TRAIN_MODEL, device="cuda") -> dict:
+    """Train ``name`` at full width on the card: first step 1's loss and
+    gradients on the flash kernels against the same step with the plain
+    ``flash_attention_ref`` patched in (and the planted backward fault
+    against both limits), then TRAIN_STEPS steps of ``make_train_step``
+    (remat, AdamW in place) with the launch counts set to 0 just before and
+    read just after: per step 2 L flash forward launches (the forward and
+    the remat recompute) and L backward launches.  -> the launch counts."""
+    t_phase = time.perf_counter()
+    cfg = get_config(name)
+    n_layers = cfg.num_layers
+    batches = train_batches(cfg, TRAIN_STEPS, device)
+    params = M.init_params(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in adamw.leaves(params))
+    out = {"phase": "train", "card": smi, "model": name,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "params": n_params,
+           "limits": {"grad_rel_l2": GRAD_REL_L2, "loss_abs": LOSS_ABS}}
+    errors = []
+
+    # step 1's gradients: the kernels, the plain attention, a planted fault
+    loss_k, _, g_k = SPECS.loss_and_grads(params, cfg, batches[0])
+    with patched(M.T, "flash_attention",
+                 lambda q, k, v, causal=True, window=0:
+                 flash_attention_ref(q, k, v, window, causal)):
+        loss_p, _, g_p = SPECS.loss_and_grads(params, cfg, batches[0])
+    gaps = grad_gaps(g_k, g_p)
+    del g_k
+    fault = lambda *a: FA._flash_attention_bwd(
+        *a, flags=FA.FAULTS["no_group_sum"])
+    with patched(FA, "flash_attention_bwd", fault):
+        _, _, g_f = SPECS.loss_and_grads(params, cfg, batches[0])
+    fault_gaps = grad_gaps(g_f, g_p)
+    del g_f, g_p
+    worst = max(gaps, key=gaps.get)
+    out["step1"] = {"loss_kernels": loss_k.item(), "loss_plain": loss_p.item(),
+                    "loss_gap": abs(loss_k.item() - loss_p.item()),
+                    "grad_rel_l2_max": gaps[worst], "grad_rel_l2_leaf": worst,
+                    "grad_rel_l2": gaps,
+                    "fault_no_group_sum_rel_l2_max": max(fault_gaps.values()),
+                    "fault_no_group_sum_rel_l2": fault_gaps}
+    if not out["step1"]["loss_gap"] <= LOSS_ABS:
+        errors.append(f"step 1 loss {loss_k.item()} vs plain {loss_p.item()}")
+    if not gaps[worst] <= GRAD_REL_L2:
+        errors.append(f"step 1 gradient {worst}: relative L2 {gaps[worst]}")
+    if not max(fault_gaps.values()) > GRAD_REL_L2:
+        errors.append(f"the gradient limit passes the planted backward fault: "
+                      f"{max(fault_gaps.values())}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path: TRAIN_STEPS optimizer steps
+    opt_state = adamw.init(params)
+    step = SPECS.make_train_step(cfg, adamw.AdamWConfig(**TRAIN_OPT))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    reset_counts()
+    for b in batches:
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = read_counts()
+    # one more step, split at the optimizer (host clock, the device drained
+    # at each end), then one profiled: where the step's device time goes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = SPECS.loss_and_grads(params, cfg, batches[-1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params, opt_state, _ = adamw.update(adamw.AdamWConfig(**TRAIN_OPT), params,
+                                        grads, opt_state)
+    torch.cuda.synchronize()
+    split = {"grads_s": t1 - t0, "adamw_s": time.perf_counter() - t1}
+    del grads
+    phase_profile(results, smi, name, None, None, runs={
+        "train_step": lambda: step(params, opt_state, batches[-1])})
+    steady = step_s[1:] or step_s
+    out["steps"] = {"losses": losses, "step_seconds": step_s,
+                    "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * len(steady)
+                    / sum(steady),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    "step_split": split,
+                    "launches": {"flash_attention": counts["flash_attention"],
+                                 "flash_attention_bwd":
+                                     counts["flash_attention_bwd"]},
+                    "launches_per_step_expected": {
+                        "flash_attention": 2 * n_layers,
+                        "flash_attention_bwd": n_layers}}
+    if not all(math.isfinite(x) for x in losses):
+        errors.append(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        errors.append(f"the loss did not fall: {losses}")
+    n = len(batches)
+    if counts["flash_attention"] != 2 * n_layers * n \
+            or counts["flash_attention_bwd"] != n_layers * n:
+        errors.append(f"launches {out['steps']['launches']}, want "
+                      f"{2 * n_layers * n} and {n_layers * n}")
+    print(f"train {name} B={TRAIN_BATCH} S={TRAIN_SEQ} ({smi}): losses "
+          f"{losses}, {out['steps']['tokens_per_s']:.1f} tokens/s, steps "
+          f"{step_s} s, peak {out['steps']['max_memory_allocated'] / 1e9:.2f} "
+          f"GB, launches {out['steps']['launches']} over {n} steps; step 1 "
+          f"loss gap {out['step1']['loss_gap']}, worst gradient "
+          f"{worst} {gaps[worst]} (limit {GRAD_REL_L2}), planted fault "
+          f"{out['step1']['fault_no_group_sum_rel_l2_max']}", flush=True)
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["errors"] = errors
+    emit({k: v for k, v in out.items() if k != "step1"}
+         | {"step1": {k: v for k, v in out["step1"].items()
+                      if not isinstance(v, dict)}})
+    results["train"] = out
+    if errors:
+        raise AssertionError(f"train phase: {errors}")
+    return counts
+
+
+def phase_serve_cli(results, smi, name="opt-6.7b") -> dict:
+    """``repro_torch.launch.serve.main`` at full width with ``--verify`` on
+    the card (its own assert holds the tokens to the oracle), the launch
+    counts set to 0 just before and read just after.  -> the counts."""
+    t_phase = time.perf_counter()
+    log = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(log):
+        outs, stats = SERVE_CLI.main(["--arch", name, "--verify"])
+    counts = read_counts()
+    text = log.getvalue()
+    print(text, end="", flush=True)
+    out = {"phase": "serve_cli", "card": smi, "model": name,
+           "generated_tokens": stats.generated_tokens,
+           "token_exact": "token-exact vs full-KV reference: True" in text,
+           "measured": [l for l in text.splitlines() if "measured on" in l],
+           "launches": {k: v for k, v in counts.items() if v},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    results["serve_cli"] = out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (out["token_exact"] and counts["flash_attention"]
+            and counts["hybrid_paged_attention"]):
+        raise AssertionError(f"serve CLI phase: {out}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4919,6 +5258,10 @@ def main() -> int:
     t0 = stage("moe", t0)
     by_path.update(phase_serve_frontends(results, smi))
     t0 = stage("frontends", t0)
+    train_path = {TRAIN_MODEL: {"fp": phase_train(results, smi)}}
+    t0 = stage("train", t0)
+    by_path["opt-6.7b"]["cli"] = phase_serve_cli(results, smi)
+    t0 = stage("serve_cli", t0)
     seconds["script"] = time.perf_counter() - t_start
     results["seconds"] = seconds
     emit({"phase": "seconds", "card": smi, "seconds": seconds})
@@ -4951,9 +5294,10 @@ def main() -> int:
                "ssd_scan": (MAMBA, serve, "fp"),
                "flash_attention_noncausal": (WHISPER, serve, "cross_act"),
                "hybrid_paged_attention_cross_act": (WHISPER, serve,
-                                                    "cross_act")}
+                                                    "cross_act"),
+               "flash_attention_bwd": (TRAIN_MODEL, "train", "fp")}
     counts = {serve: by_path, ha: ha_path, "scheduler": sched_path,
-              "telemetry": tel_path}
+              "telemetry": tel_path, "train": train_path}
     k = results["kernels"]
     rows = []
     for name, (src, tpu) in KERNELS.items():
@@ -4964,7 +5308,7 @@ def main() -> int:
                      "replaces": tpu, "path": f"{model} {where} {fmt}",
                      "launches": counts[where][model][fmt][counter],
                      "launches_by_path": {
-                         f"{m} {w} {f}": n[counter]
+                         f"{m} {w} {f}": n.get(counter, 0)
                          for w, per in counts.items()
                          for m, fmts in per.items() for f, n in fmts.items()},
                      "max_abs_err": c["max_abs_err"], "tol": c["tol"],

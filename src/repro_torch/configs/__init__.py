@@ -1,6 +1,6 @@
 """Config registry of the port: OPT, yi-6b, minitron-4b, gemma3-1b,
 mamba2-2.7b, dbrx-132b, grok-1-314b, whisper-base and qwen2-vl-2b, and their
-``-reduced`` variants."""
+``-reduced`` variants; the input shapes of ``configs.shapes``."""
 from __future__ import annotations
 
 from repro_torch.configs import opt as _opt
@@ -11,6 +11,7 @@ from repro_torch.configs.grok_1_314b import CONFIG as GROK_1_314B
 from repro_torch.configs.mamba2_2_7b import CONFIG as MAMBA2_2_7B
 from repro_torch.configs.minitron_4b import CONFIG as MINITRON_4B
 from repro_torch.configs.qwen2_vl_2b import CONFIG as QWEN2_VL_2B
+from repro_torch.configs.shapes import SHAPES, InputShape, applicable
 from repro_torch.configs.whisper_base import CONFIG as WHISPER_BASE
 from repro_torch.configs.yi_6b import CONFIG as YI_6B
 
@@ -29,4 +30,5 @@ def get_config(name: str) -> ModelConfig:
     raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
 
 
-__all__ = ["ModelConfig", "REGISTRY", "get_config", "reduced"]
+__all__ = ["ModelConfig", "InputShape", "SHAPES", "REGISTRY", "get_config",
+           "reduced", "applicable"]

@@ -1,9 +1,12 @@
-"""Seeded request traces (copied from ``repro.data.pipeline``, so the same
-seed gives the same prompts in both packages)."""
+"""Synthetic data, copied numpy for numpy from ``repro.data.pipeline`` (the
+same seed gives the same arrays in both packages): the structured LM corpus
+the training path learns (Zipf-distributed tokens with short-range copies,
+so the loss falls), and seeded request traces."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -14,6 +17,42 @@ def _zipf(rng: np.random.Generator, a: float, vocab: int, n: int) -> np.ndarray:
     probs = ranks ** (-a)
     probs /= probs.sum()
     return rng.choice(vocab, size=n, p=probs)
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    seed: int = 0
+    zipf_a: float = 1.2
+    repeat_p: float = 0.3      # P(copy a recent token) — learnable structure
+
+
+def token_stream(cfg: DataConfig) -> Iterator[np.ndarray]:
+    """Infinite stream of (seq_len+1,) token windows."""
+    rng = np.random.default_rng(cfg.seed)
+    while True:
+        toks = _zipf(rng, cfg.zipf_a, cfg.vocab_size, cfg.seq_len + 1)
+        # inject copy structure: with prob repeat_p, token t = token t-k
+        mask = rng.random(cfg.seq_len + 1) < cfg.repeat_p
+        lags = rng.integers(1, 8, size=cfg.seq_len + 1)
+        for t in range(8, cfg.seq_len + 1):
+            if mask[t]:
+                toks[t] = toks[t - lags[t]]
+        yield toks
+
+
+def lm_batches(cfg: DataConfig) -> Iterator[Dict[str, np.ndarray]]:
+    """{'tokens': (B, S), 'labels': (B, S)} int32 numpy — next-token
+    prediction, one stream per row (seeds seed, seed + 1, ...)."""
+    streams = [token_stream(dataclasses.replace(cfg, seed=cfg.seed + i))
+               for i in range(cfg.batch_size)]
+    while True:
+        rows = [next(s) for s in streams]
+        arr = np.stack(rows, 0)
+        yield {"tokens": arr[:, :-1].astype(np.int32),
+               "labels": arr[:, 1:].astype(np.int32)}
 
 
 @dataclass(frozen=True)

@@ -52,6 +52,9 @@
 //   - D is instantiated at 64, 128 and 256; any multiple of 16 up to 256
 //     takes the next instantiation, its columns past D zero-filled by TMA
 //     (zeros add nothing to a dot product) and not stored.
+// With a non-null `lse` the epilogue also writes each row's m + log l
+// (natural units, float32), the input of the backward (flash_attention_bwd.cuh,
+// included at the end of this file).
 // Shared memory: Q 16/32/64 KB plus two stages of K and V, 80/160/192 KB at
 // D = 64/128/256, one block per SM.  The one new rounding against the
 // float32 plain version is P in 16 bits before P.V.
@@ -409,8 +412,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,
-                 int Sq, int Sk, int H, int KVH, int D, int window, int causal,
-                 float scale_log2) {
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KVH, int D,
+                 int window, int causal, float scale_log2) {
   using L = Tiles<DP>;
   constexpr int BK = L::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -558,6 +561,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  // lse = m + log l of each row in natural units, (B, H, Sq) float32, for
+  // the backward: one thread of the quad that holds the row writes it
+  if (lse != nullptr && lane % 4 == 0) {
+    float* lb = lse + ((long)b * H + h) * Sq;
+    constexpr float LN2 = 0.6931471805599453f;
+    if (r0 < Sq) lb[r0] = (m0 * scale_log2 + log2f(fmaxf(l0, 1e-30f))) * LN2;
+    if (r1 < Sq) lb[r1] = (m1 * scale_log2 + log2f(fmaxf(l1, 1e-30f))) * LN2;
+  }
   const long q_row = (long)H * D;              // stride between positions of o
   T* ob = o + (long)b * Sq * q_row + (long)h * D;
 #pragma unroll
@@ -618,7 +629,8 @@ bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType dt, int B,
 }
 
 template <typename T, int DP>
-int launch_dp(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+int launch_dp(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+              int Sq, int Sk,
               int H, int KVH, int D, int window, int causal, CUtensorMapDataType dt,
               cudaStream_t stream) {
   using L = Tiles<DP>;
@@ -636,16 +648,16 @@ int launch_dp(const void* q, const void* k, const void* v, void* o, int B, int S
     return (int)cudaErrorInvalidValue;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_kernel<T, DP><<<grid, THREADS, L::SMEM, stream>>>(
-      tq, tk, tv, static_cast<T*>(o), Sq, Sk, H, KVH, D, window, causal,
+      tq, tk, tv, static_cast<T*>(o), lse, Sq, Sk, H, KVH, D, window, causal,
       1.4426950408889634f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-           int H, int KVH, int D, int window, int causal, CUtensorMapDataType dt,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+           int Sk, int H, int KVH, int D, int window, int causal, CUtensorMapDataType dt,
            cudaStream_t stream) {
-#define DP_ARGS q, k, v, o, B, Sq, Sk, H, KVH, D, window, causal, dt, stream
+#define DP_ARGS q, k, v, o, lse, B, Sq, Sk, H, KVH, D, window, causal, dt, stream
   if (D <= 64) return launch_dp<T, 64>(DP_ARGS);
   if (D <= 128) return launch_dp<T, 128>(DP_ARGS);
   return launch_dp<T, 256>(DP_ARGS);
@@ -659,10 +671,12 @@ extern "C" {
 // q (B, Sq, H, D), k/v (B, Sk, KVH, D).  causal 1: keys j <= i (Sq = Sk),
 // and window > 0 a sliding window of that many keys (the query's own
 // included); causal 0: every key j < Sk, no window.  dtype: 1 float16,
-// 2 bfloat16.  q, k, v: 16-byte aligned.  Returns a cudaError_t.
+// 2 bfloat16.  q, k, v: 16-byte aligned.  lse: null, or (B, H, Sq) float32
+// that receives each query row's log-sum-exp of its scaled scores (the
+// backward's input).  Returns a cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int B, int Sq, int Sk, int H, int KVH, int D, int window,
-                        int causal, int dtype, void* stream) {
+                        void* lse, int B, int Sq, int Sk, int H, int KVH, int D,
+                        int window, int causal, int dtype, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) |
@@ -673,10 +687,12 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 1: return launch<__half>(q, k, v, o, B, Sq, Sk, H, KVH, D, window, causal,
+    case 1: return launch<__half>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk, H,
+                                  KVH, D, window, causal,
                                   CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
-    case 2: return launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KVH, D, window,
-                                         causal, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
+    case 2: return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), B, Sq, Sk,
+                                         H, KVH, D, window, causal,
+                                         CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -686,3 +702,6 @@ const char* error_string(int err) {
 }
 
 }  // extern "C"
+
+// the backward (the training path's gradient), in the same library
+#include "flash_attention_bwd.cuh"

@@ -1,7 +1,8 @@
 """Top-level model API of the uniform, windowed, ssm and encdec families:
 embed -> layers -> logits, the plain decode path (the oracle's) and the
-hybrid KV/ACT decode path (the engine's).  Counterparts of
-``repro.models.model``.
+hybrid KV/ACT decode path (the engine's), and for the uniform family the
+training forward and loss (``forward_hidden`` -> ``lm_loss``,
+``apply_train``).  Counterparts of ``repro.models.model``.
 
 The encdec family (whisper) and the vision frontend (qwen2-vl, M-RoPE) have
 the plain path only, as in the reference, whose engine asserts the uniform
@@ -72,6 +73,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import QuantConfig
@@ -163,6 +165,87 @@ def unembed(params, cfg: ModelConfig, h):
     """Tied or untied embeddings; logits in float32."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return (h @ w.to(h.dtype)).float()
+
+
+# =============================================================================
+# training: full-sequence forward, loss (the uniform family)
+# =============================================================================
+
+def _train_layer(lp, cfg: ModelConfig, x, sincos):
+    x, _, aux = T.layer_full(lp, cfg, x, sincos, aux=True)
+    return x, aux
+
+
+def forward_hidden(params, cfg: ModelConfig, batch, *, remat: bool = False):
+    """Full-sequence forward of ``batch["tokens"]`` (B, S) -> (hidden after
+    the final norm, the layers' summed MoE aux loss).  Uniform family only
+    (``T.check_supported(cfg, "train")``).  Each layer runs on its own
+    unbound parameters (``T.unbind_layers``); ``remat`` checkpoints each
+    layer (``torch.utils.checkpoint``, non-reentrant), the counterpart of
+    ``_scan_layers``'s ``jax.checkpoint``: the backward recomputes the
+    layer from its input.  On the card the attention is the flash kernel
+    with its hand-written backward."""
+    T.check_supported(cfg, "train")
+    x = embed_input(params, cfg, batch["tokens"])
+    B, S = x.shape[:2]
+    sincos = _sincos_at(cfg, B, S, x.device)
+    aux = 0.0
+    for lp in T.unbind_layers(params):
+        if remat:
+            x, a = checkpoint(_train_layer, lp, cfg, x, sincos,
+                              use_reentrant=False)
+        else:
+            x, a = _train_layer(lp, cfg, x, sincos)
+        aux = aux + a
+    return L.apply_norm(x, params["final_norm"], cfg.norm_type), aux
+
+
+def apply_logits(params, cfg: ModelConfig, batch, remat: bool = False):
+    """-> (logits (B, S, V padded) float32, aux loss)."""
+    h, aux = forward_hidden(params, cfg, batch, remat=remat)
+    return unembed(params, cfg, h), aux
+
+
+def _ce_chunk(hc, lab, w):
+    """One chunk's summed cross entropy over its labelled positions, and
+    their count.  The logsumexp runs over the padded vocab, as the
+    reference's does; the label's logit is a gather, where the reference
+    takes a one-hot product (the same value: one logit plus zeros)."""
+    logits = (hc @ w.to(hc.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, lab.clamp_min(0).long()[..., None])[..., 0]
+    mask = (lab >= 0).float()
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def lm_loss(params, cfg: ModelConfig, h, labels, *, chunk: int = 512):
+    """Sequence-chunked mean cross entropy of h (B, S, d) against labels
+    (B, S); -1 labels are masked.  Each chunk's logits (B, chunk, V) exist
+    only inside its body, which is checkpointed (recomputed in the
+    backward), so the peak holds one chunk's logits."""
+    B, S, _ = h.shape
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    tot = cnt = 0.0
+    for i in range(0, S + pad, chunk):
+        t, c = checkpoint(_ce_chunk, h[:, i:i + chunk], labels[:, i:i + chunk],
+                          w, use_reentrant=False)
+        tot, cnt = tot + t, cnt + c
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def apply_train(params, cfg: ModelConfig, batch, remat: bool = True):
+    """-> (loss, metrics): cross entropy over ``batch["labels"]`` (-1 is
+    masked) plus ``moe_aux_loss_weight`` times the MoE aux loss; metrics
+    {"ce", "aux"}."""
+    h, aux = forward_hidden(params, cfg, batch, remat=remat)
+    loss = lm_loss(params, cfg, h, batch["labels"])
+    total = loss + cfg.moe_aux_loss_weight * aux
+    return total, {"ce": loss, "aux": aux}
 
 
 # =============================================================================

@@ -85,6 +85,9 @@ SERVES = {
     "hybrid": (("uniform", "windowed"), ("none",), True),
     "engine": _ENGINE,
     "server": _ENGINE,
+    # the training path: the uniform family (dense, and MoE in every layer,
+    # its aux loss kept), no frontend
+    "train": (("uniform",), ("none",), False),
 }
 #: the position encodings of the models with attention (M-RoPE only with
 #: the vision frontend, see ``check_supported``)
@@ -94,9 +97,10 @@ PATH_NAMES = {"plain": "the plain path (prefill -> decode_loop)",
               "hybrid": "the hybrid model functions (hybrid_prefill -> "
                         "hybrid_decode_loop, init_hybrid_cache)",
               "engine": "the engine and the offload executor",
-              "server": "the server (ContinuousBatchingServer)"}
-#: what the port serves, path by path, and why the serving paths refuse
-#: the frontend models: every refusal carries it
+              "server": "the server (ContinuousBatchingServer)",
+              "train": "the training path (apply_train, make_train_step)"}
+#: what the port serves and trains, path by path, and why the serving
+#: paths refuse the frontend models: every refusal carries it
 SERVED = (
     "The port serves, on the plain path (prefill -> decode_loop): dense "
     "uniform-family and windowed-family decoders with learned or RoPE "
@@ -112,7 +116,13 @@ SERVED = (
     "paths refuse the encdec family because the reference's engine asserts "
     "the uniform family (an encoder checkpoint or cross K/V per request "
     "have no place in its block pools), and the vlm frontend because their "
-    "batched prefill takes no patches.")
+    "batched prefill takes no patches.  The training path (apply_train, "
+    "make_train_step) trains the uniform family with no frontend: the dense "
+    "models (learned or RoPE positions) and the MoE models with an MoE FFN "
+    "in every layer, their aux loss kept.  The windowed, ssm, encdec and "
+    "vision families' training waits (ROADMAP queue 1, item 4): it needs "
+    "the flash backward's window, non-causal and D = 256 modes and an "
+    "ssd_scan backward.")
 
 
 def family(cfg: ModelConfig) -> str:
@@ -183,7 +193,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     ``enc_layers`` and ``enc_norm``, and ``ln_x``/``xattn`` in each decoder
     layer), made on ``device`` from a seeded ``torch.Generator``."""
     check_supported(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # the meta device (shapes only, ``launch.specs``) draws nothing
+    gen = torch.Generator(device="cpu" if torch.device(device).type == "meta"
+                          else device).manual_seed(seed)
     Lyr, d, qd, kvd, f = (cfg.num_layers, cfg.d_model, cfg.q_dim, cfg.kv_dim,
                           cfg.d_ff)
     V = pad_vocab(cfg.vocab_size)
@@ -320,6 +332,24 @@ def layer_params(params: Params, i: int, j: Optional[int] = None,
     return _map(tree, lambda t: t[idx])
 
 
+def unbind_layers(params: Params, stack: str = "layers") -> list:
+    """Each layer's parameters of ``stack``, for a forward under autograd:
+    every stacked leaf unbound once, so that the backward builds one
+    gradient per stack (``layer_params``'s index would build a zero-filled
+    gradient of the whole stack per layer, O(L^2) traffic)."""
+    tree = params
+    for key in _STACKS[stack]:
+        tree = tree[key]
+
+    def split(t):
+        if isinstance(t, dict):
+            parts = {k: split(v) for k, v in t.items()}
+            n = len(next(iter(parts.values())))
+            return [{k: parts[k][i] for k in parts} for i in range(n)]
+        return list(t.unbind(0))
+    return split(tree)
+
+
 def window_walk(cfg: ModelConfig) -> Iterator[Tuple[str, int, Optional[int]]]:
     """The windowed family's layers in order, as ``layer_params``'s
     (stack, i, j): each period's local layers, then its global layer, then
@@ -415,18 +445,24 @@ def _masked_decode_attn(q, k_cache, v_cache, valid):
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
-def ffn_apply(p, cfg: ModelConfig, x):
-    """The layer's FFN on x (B, S, d): dense, or (MoE configs, every layer)
-    ``moe_ffn`` over the B·S tokens flattened row-major, as the reference
-    flattens them; its aux loss is not kept (serving only)."""
+def ffn_full(p, cfg: ModelConfig, x):
+    """The layer's FFN on x (B, S, d) -> (y, aux loss): dense (aux 0.0), or
+    (MoE configs, every layer) ``moe_ffn`` over the B·S tokens flattened
+    row-major, as the reference flattens them, with its Switch aux loss
+    (float32)."""
     if cfg.is_moe:
         B, S, d = x.shape
-        y, _ = L.moe_ffn(p, x.reshape(B * S, d),
-                         num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
-                         capacity_factor=cfg.moe_capacity_factor,
-                         ffn_type=cfg.ffn_type)
-        return y.reshape(B, S, d)
-    return L.dense_ffn(p, x, cfg.ffn_type)
+        y, aux = L.moe_ffn(p, x.reshape(B * S, d),
+                           num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           ffn_type=cfg.ffn_type)
+        return y.reshape(B, S, d), aux
+    return L.dense_ffn(p, x, cfg.ffn_type), 0.0
+
+
+def ffn_apply(p, cfg: ModelConfig, x):
+    """``ffn_full`` without its aux loss (the serving paths)."""
+    return ffn_full(p, cfg, x)[0]
 
 
 def _ssd_in(p, cfg, x, conv_cache):
@@ -481,20 +517,25 @@ def ssd_decode(p, cfg: ModelConfig, x, state, conv_cache):
 # --- single transformer layer (pre-norm residual) -----------------------------
 
 def layer_full(p, cfg, x, sincos=None, window: int = 0, *, kind: str = "attn",
-               causal: bool = True):
+               causal: bool = True, aux: bool = False):
     """-> (x', cache) over the whole sequence: attention's (k, v)
     (sliding-window when ``window`` > 0, bidirectional with
     ``causal=False``), or with ``kind="ssd"`` the SSD mixer's (final state,
-    conv cache).  No FFN where the config has none."""
+    conv cache).  No FFN where the config has none.  ``aux=True`` (the
+    training forward): -> (x', cache, the FFN's aux loss), the reference's
+    triple."""
     h = L.apply_norm(x, p["ln1"], cfg.norm_type)
     if kind == "ssd":
         a, cache = ssd_full(p["ssd"], cfg, h)
     else:
         a, cache = attn_full(p["attn"], cfg, h, sincos, window, causal=causal)
     x = x + a
+    a_loss = 0.0
     if cfg.d_ff > 0:
-        x = x + ffn_apply(p["ffn"], cfg, L.apply_norm(x, p["ln2"], cfg.norm_type))
-    return x, cache
+        f, a_loss = ffn_full(p["ffn"], cfg,
+                             L.apply_norm(x, p["ln2"], cfg.norm_type))
+        x = x + f
+    return (x, cache, a_loss) if aux else (x, cache)
 
 
 def layer_decode(p, cfg, x, k_cache, v_cache, kv_len, sincos=None, *,
