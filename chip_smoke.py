@@ -16,11 +16,18 @@ kernel's second-pool mode attends).  Then gemma3-1b (5:1 sliding window, q/k nor
 runs its windowed hybrid path, ``hybrid_prefill`` -> ``hybrid_decode_loop``:
 the flash kernel's window mode in prefill, rings and global layers through
 the second-pool mode at head_dim 256, ``kv_gen`` with the K norm, checked
-against the plain ``prefill`` + ``decode_loop`` with three planted faults.
-Last, mamba2-2.7b (64 SSD layers, no attention) runs ``prefill`` ->
-``decode_loop``: each layer's prefill scan through the ``ssd_scan`` kernel,
-decode in plain torch, checked against the same path with the plain scan,
-with three planted faults.  Then the MoE models at full width, their depth
+against the plain ``prefill`` + ``decode_loop`` with three planted faults;
+then gemma3-27b the same way at full width and depth (62 layers, G = 2,
+head_dim 128, W = 1024, prompts of 2024 and 1017 tokens; ``kv_gen``'s K
+norm at head_dim 128).  Then mamba2-2.7b (64 SSD layers, no attention) runs
+``prefill`` -> ``decode_loop``: each layer's prefill scan through the
+``ssd_scan`` kernel, decode in plain torch, checked against the same path
+with the plain scan, with three planted faults; then jamba-1.5-large-398b
+(the hybrid family: SSD layers and a NoPE attention layer per period, MoE
+every second layer) at full width, cut to one period of 4 layers, through
+``prefill`` -> ``decode_loop`` (flash and ``ssd_scan`` in prefill), held
+under the MoE rule to the same path on the kernels' plain versions, with
+two planted faults.  Then the MoE models at full width, their depth
 cut to what one card holds (dbrx-132b at 4 of 40 layers, grok-1-314b at 2
 of 64): the engine in hybrid and kv modes (the MoE dispatch inside the
 sync-checked decode loop), hybrid held to kv mode of the same group and to
@@ -304,6 +311,35 @@ MAMBA_DT_RANGE = (1e-3, 1e-1)
 # run; the planted faults (a state not carried, a conv cache one token late,
 # a zero state) read 5-7, far above it
 MAMBA_SPREAD_CHUNK = 32
+# gemma3-27b at full width and depth (62 layers: 10 periods of 5 local and a
+# global layer, 2 local tail layers; d 5376, 32 heads over 16 KV heads,
+# head_dim 128, W = 1024; ~54 GB in bfloat16) through gemma3-1b's path.  Its
+# groups are gemma3-1b's scaled to its window: group 1's prompt is no page
+# multiple and longer than W (2024 = 2 W - 24), so the window mask and the
+# rings' wrap act in prefill; group 2's rings wrap at its 8th decode step
+# (1017 = W - 7).  At gemma3-1b's 1000 tokens a 1024-token window masks
+# nothing, and the prefill's window fault could not show
+GEMMA27 = "gemma3-27b"
+GEMMA27_GROUPS = ((4, 2024), (2, 1017))
+# jamba-1.5-large-398b at full width.  One period of its 8 layers holds 4
+# MoE layers of 16 x 3 x 8192 x 24576 x 2 B = 19.33 GB of experts each,
+# ~89.2 GB with the rest against the card's 85.5 GB, and the reference builds
+# whole periods only (n_per = num_layers // attn_period).  So the card runs
+# one period of 4 layers (attn_period 4): SSD-dense, SSD-MoE, attention
+# (NoPE, dense FFN), SSD-MoE, every slot kind of jamba's period, ~44.9 GB.
+# Its traffic is mamba2's groups and steps, so that the scan does real work
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_CUT = dict(attn_period=4, num_layers=4)
+# trained attention is peaked; at the random init's unit-scale queries the
+# scores over 1000 keys spread by ~1, the softmax is near uniform, the
+# attention slot's output is a mean of hundreds of values, and a fault in
+# its scores moves the logits little: on the CPU at the reduced width in
+# bfloat16, RoPE in the NoPE slot moved them by 0.19 at 4 x 1000 tokens,
+# against the 0.25 limit.  As whisper's ``ln_x``, the random weights set the
+# attention slot's ``ln1`` scale to JAMBA_ATTN_LN_SCALE (its scores then
+# spread by its square, whatever the width), so that a few keys carry each
+# query: there, at scales 2 and 4, the fault read 1.28 and 1.66
+JAMBA_ATTN_LN_SCALE = 2.0
 # the frontend models: whisper-base (encoder-decoder, cross-KV and cross-ACT)
 # and qwen2-vl-2b (M-RoPE, patch embeddings before the text), each through
 # prefill -> decode_loop at full width and depth: one group of 4 requests of
@@ -1269,12 +1305,12 @@ def gemma_plan(B: int, S: int, n: int = GEMMA_STEPS) -> dict:
             "act_pages_bound": int(act_pages.max())}
 
 
-def gemma_shapes():
-    """The gemma path's decode kernel shapes: a global layer's second-pool
+def gemma_shapes(name=GEMMA, groups=GEMMA_GROUPS):
+    """A gemma path's decode kernel shapes: a global layer's second-pool
     tables at group 1's last step, and a local layer's rings (W tokens, all
     live: KV pages only)."""
-    cfg = get_config(GEMMA)
-    plan = gemma_plan(*GEMMA_GROUPS[0])
+    cfg = get_config(name)
+    plan = gemma_plan(*groups[0])
     W = cfg.sliding_window
     B = plan["B"]
     ring = {"B": B, "kv_cap": W, "act_cap": 0, "kv_tokens": [W] * B,
@@ -1398,7 +1434,7 @@ def check_ssd_scan(B, S, cfg, dtype=torch.bfloat16):
                            .all()),
             "kernel_ms": ms,
             "kernel_ms_before_redesign": BEFORE_REDESIGN_MS.get(("ssd_scan", S))
-            if dtype == torch.bfloat16 else None,
+            if dtype == torch.bfloat16 and cfg.name == MAMBA else None,
             "kernel_host_us": host_us(run, 50), "kernel_device_us": device_us(run),
             "plain_ms": plain_ms, "library_ms": None,
             "library": "none: no single PyTorch call computes the chunked "
@@ -1424,7 +1460,13 @@ def phase_kernels(results):
     split plan's edges (``two_pool_edges``).  The second-pool rows also
     record the wrapper's host time per call and the kernels' device time, each
     beside the library call's.  Last, the flash backward at the training
-    shapes (``BWD_SHAPES``), with the forward's lse output."""
+    shapes (``BWD_SHAPES``), with the forward's lse output.  jamba's
+    prefill shapes (its cut, ``jamba_config``): flash at B 4, S 1000, H 64
+    over 8 KV heads, D 128, no rotation, and ``ssd_scan`` at h 256; and
+    gemma3-27b's (G = 2, head_dim 128, W = 1024): flash causal and in its
+    window mode at group 1's prompt, the second-pool mode at a global
+    layer's tables and at a local layer's rings, ``kv_gen`` with the K norm
+    at head_dim 128; each appended last to its kernel's rows."""
     yi, opt = get_config("yi-6b"), get_config("opt-6.7b")
     mamba = get_config(MAMBA)
     gemma = get_config(GEMMA)
@@ -1442,6 +1484,12 @@ def phase_kernels(results):
     wB, wS = FRONTEND_GROUP
     wkw = dict(H=wh.num_heads, KVH=wh.num_kv_heads, D=wh.head_dim, dtype=bf16,
                causal=False)
+    jamba, g27 = jamba_config(), get_config(GEMMA27)
+    jB, jS = MAMBA_GROUPS[0]
+    g27_global, g27_ring = gemma_shapes(GEMMA27, GEMMA27_GROUPS)
+    g27B, g27S = GEMMA27_GROUPS[0]
+    g27w = dict(H=g27.num_heads, KVH=g27.num_kv_heads, D=g27.head_dim,
+                dtype=bf16)
     m_kv_gen = lambda sh, c: check_kv_gen(
         sh["B"], sh["act_pages_bound"], c.d_model, c.num_kv_heads,
         hd=c.head_dim, act_cap=sh["act_cap"], norm_type=c.norm_type,
@@ -1460,7 +1508,10 @@ def phase_kernels(results):
                            KVH=qw.num_kv_heads, dtype=bf16),
                check_flash(m_shape["B"], m_shape["prefill_len"],
                            H=dbrx.num_heads, KVH=dbrx.num_kv_heads,
-                           dtype=bf16)],
+                           dtype=bf16),
+               check_flash(jB, jS, H=jamba.num_heads, KVH=jamba.num_kv_heads,
+                           D=jamba.head_dim, dtype=bf16),
+               check_flash(g27B, g27S, **g27w)],
            "hybrid_paged_attention": [
                check_hybrid(before_ms=BEFORE_TILES_MS["hand_f16"]),
                check_hybrid(KVH=8, G=4, dtype=bf16, norm_type="rmsnorm",
@@ -1472,7 +1523,10 @@ def phase_kernels(results):
                check_two_pool(shape), check_two_pool(tp_empty),
                check_two_pool(tp_one_split, KVH=16, G=2),
                check_two_pool(m_shape, KVH=dbrx.num_kv_heads,
-                              G=dbrx.num_heads // dbrx.num_kv_heads)],
+                              G=dbrx.num_heads // dbrx.num_kv_heads)]
+           + [check_two_pool(g, KVH=g27.num_kv_heads,
+                             G=g27.num_heads // g27.num_kv_heads,
+                             D=g27.head_dim) for g in (g27_global, g27_ring)],
            "kv_gen": [
                check_kv_gen(shape["B"], shape["act_pages_bound"], yi.d_model,
                             yi.num_kv_heads),
@@ -1502,7 +1556,8 @@ def phase_kernels(results):
                check_lse("two_pool", yi_q8, KVH=4, G=8, dtype=bf16, q8=True),
            "flash_attention_window": [
                check_flash(gB, gS, window=gemma.sliding_window, **gw),
-               check_flash(2, 777, H=8, KVH=2, dtype=bf16, window=100)],
+               check_flash(2, 777, H=8, KVH=2, dtype=bf16, window=100),
+               check_flash(g27B, g27S, window=g27.sliding_window, **g27w)],
            "hybrid_paged_attention_two_pool_hd256": [
                check_two_pool(g, KVH=gemma.num_kv_heads,
                               G=gemma.num_heads // gemma.num_kv_heads,
@@ -1512,9 +1567,14 @@ def phase_kernels(results):
                check_kv_gen(g_global["B"], g_global["act_pages_bound"],
                             gemma.d_model, gemma.num_kv_heads, hd=gemma.head_dim,
                             act_cap=g_global["act_cap"], theta=gemma.rope_theta,
+                            knorm=True),
+               check_kv_gen(g27_global["B"], g27_global["act_pages_bound"],
+                            g27.d_model, g27.num_kv_heads, hd=g27.head_dim,
+                            act_cap=g27_global["act_cap"], theta=g27.rope_theta,
                             knorm=True)],
            "ssd_scan": [check_ssd_scan(B, S, mamba) for B, S in MAMBA_GROUPS]
-           + [check_ssd_scan(*MAMBA_GROUPS[1], mamba, dtype=torch.float16)],
+           + [check_ssd_scan(*MAMBA_GROUPS[1], mamba, dtype=torch.float16),
+              check_ssd_scan(jB, jS, jamba)],
            # whisper's encoder (F frames each way) and its cross attention
            # (the prompt over the F frames); the fused mode over its
            # checkpoint
@@ -1525,9 +1585,26 @@ def phase_kernels(results):
            "flash_attention_bwd": [check_flash_bwd(*sh) for sh in BWD_SHAPES],
            "gemma_serve_shapes": {"global": g_global, "ring": g_ring},
            "opt_serve_shape": opt_shape,
-           "moe_serve_shapes": {"dbrx-132b": m_shape, "grok-1-314b": g_shape}}
+           "moe_serve_shapes": {"dbrx-132b": m_shape, "grok-1-314b": g_shape},
+           "gemma27_serve_shapes": {"global": g27_global, "ring": g27_ring}}
     emit(out)
     results["kernels"] = out
+    # jamba's and gemma3-27b's shapes: the rows appended last
+    for name, rows in (("flash_attention", out["flash_attention"][-2:]),
+                       ("ssd_scan", out["ssd_scan"][-1:]),
+                       ("flash_attention_window",
+                        out["flash_attention_window"][-1:]),
+                       ("hybrid_paged_attention_two_pool",
+                        out["hybrid_paged_attention_two_pool"][-2:]),
+                       ("kv_gen_qk_norm", out["kv_gen_qk_norm"][-1:])):
+        for c in rows:
+            print(f"new shape {name} {c['dtype']} {c['shape']}: "
+                  f"{c['kernel_ms']} ms, device {c.get('kernel_device_us')} "
+                  f"us, bound {c['bound_ms']} ms ({c['bound_by']}), plain "
+                  f"{c['plain_ms']} ms, library {c['library_ms']} ms, error "
+                  f"{c['max_abs_err']} (limit {c['tol']}), faults "
+                  f"{ {k: v for k, v in c.items() if k.startswith('fault')} }",
+                  flush=True)
     # the MoE models' shapes: the last flash and second-pool rows, the last
     # two kv_gen rows (dbrx's layernorm with its bias, grok's rmsnorm)
     for name, c in (("flash_attention", out["flash_attention"][-1]),
@@ -2972,15 +3049,9 @@ def phase_scheduler(results, smi, cfg, params):
             raise AssertionError(f"{name} pressure run: {rs}")
         t0 = stage("pressure", t0)
 
-        # the subset device-resident, profiled: the device's busy and idle
-        # share; the offload runs' tokens must equal its
-        resident = {}
-
-        def profiled():
-            resident.update(resident_run("S8_subset", 8, sub, sub_arr)[1])
-
-        phase_profile(results, smi, f"{name} scheduler", None, None,
-                      runs={"S8_subset": profiled})
+        # the subset device-resident; the offload runs' tokens must equal
+        # its (its profile was cut to keep the script's time)
+        resident = dict(resident_run("S8_subset", 8, sub, sub_arr)[1])
         # the CPU-lane run's allowance: the device-resident path's forced
         # gaps on the same schedule (the subset at S = 8)
         forced("S8_subset", 8, sub, sub_arr)
@@ -3719,21 +3790,31 @@ GEMMA_FAULTS = {
 }
 
 
-def phase_serve_gemma(results, smi):
-    """gemma3-1b at full width and depth (26 layers: 4 periods of 5 local
-    layers and a global one, 2 local tail layers; bfloat16, random weights
-    from seed 0) through ``hybrid_prefill`` -> ``hybrid_decode_loop``, two
-    groups of ``GEMMA_GROUPS``, ``GEMMA_STEPS`` tokens each.  Checks the
-    launches per prefill (flash: one per layer, the local layers' in the
-    window mode) and per decode step (the second-pool mode at head_dim 256
-    per layer, kv_gen with the K norm per global layer), no host sync in the
-    decode loop, finite logits, and the tokens against the plain ``prefill``
-    + ``decode_loop`` under the bfloat16 rule; each planted fault must fail
-    the logit limit.  -> the launch counts of the path's run."""
-    cfg = get_config(GEMMA)
+def phase_serve_gemma(results, smi, name=GEMMA, groups_=GEMMA_GROUPS,
+                      profile_groups=None):
+    """gemma3-1b (or ``name``: gemma3-27b) at full width and depth (26
+    layers: 4 periods of 5 local layers and a global one, 2 local tail
+    layers; 27b: 62 layers, 10 periods and 2; bfloat16, random weights from
+    seed 0) through ``hybrid_prefill`` -> ``hybrid_decode_loop``, two groups
+    of ``groups_``, ``GEMMA_STEPS`` tokens each.  Checks the launches per
+    prefill (flash: one per layer, the local layers' in the window mode)
+    and per decode step (the second-pool mode per layer, counted again at
+    head_dim 256, kv_gen with the K norm per global layer), no host sync in
+    the decode loop, finite logits, and the tokens against the plain
+    ``prefill`` + ``decode_loop`` under the bfloat16 rule (its limit grown
+    with the square root of the depth past 32 layers); each planted fault
+    must fail the logit limit.  The profile runs the groups
+    ``profile_groups`` picks (all by default).  -> the launch counts of the
+    path's run."""
+    t_phase = time.perf_counter()
+    cfg = get_config(name)
     period, n_per, tail = M._window_split(cfg)
     n_global, n_local = n_per, cfg.num_layers - n_per
-    logit_tol = LOGIT_TOL_BY_DTYPE[cfg.dtype]
+    # the bfloat16 rule's limit was derived for 32 layers, whose roundings
+    # add up as a random walk: past 32 layers it grows with the square root
+    # of the depth (gemma3-27b's 62: 0.348)
+    logit_tol = LOGIT_TOL_BY_DTYPE[cfg.dtype] * math.sqrt(
+        max(cfg.num_layers, 32) / 32)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
@@ -3749,7 +3830,7 @@ def phase_serve_gemma(results, smi):
     n = GEMMA_STEPS
     rng = np.random.default_rng(0)
     groups = []
-    for B, S in GEMMA_GROUPS:
+    for B, S in groups_:
         toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
                                 .astype(np.int32)).cuda()
         groups.append((toks, gemma_plan(B, S)))
@@ -3795,7 +3876,8 @@ def phase_serve_gemma(results, smi):
                         flash_attention_window=n_local)
     want_step = {k: 0 for k in COUNTERS}
     want_step.update(hybrid_paged_attention_two_pool=cfg.num_layers,
-                     hybrid_paged_attention_two_pool_hd256=cfg.num_layers,
+                     hybrid_paged_attention_two_pool_hd256=cfg.num_layers
+                     if cfg.head_dim > 128 else 0,
                      kv_gen=n_global, kv_gen_qk_norm=n_global)
     for st in stages:
         if st["prefill_launches"] != want_prefill or \
@@ -3824,31 +3906,44 @@ def phase_serve_gemma(results, smi):
             rule["oracle"][rid], rule["margin"][rid] = gold_np[b], margin[b]
             rule["hybrid"][rid], outs[rid] = gaps[b], got[b]
     gap = max(float(g_.max()) for g_ in rule["hybrid"].values())
-    out.update(exactness(rule, "hybrid", outs, rids),
-               min_oracle_margin=float(min(m.min() for m in rule["margin"]
+    out.update(min_oracle_margin=float(min(m.min() for m in rule["margin"]
                                            .values())),
-               max_teacher_forced_dlogit=gap)
+               max_teacher_forced_dlogit=gap,
+               dlogit_by_step=np.max(list(rule["hybrid"].values()), 0).tolist())
     if gap > logit_tol:
-        raise AssertionError(f"gemma hybrid teacher-forced logits differ by {gap}")
+        emit(out)
+        raise AssertionError(f"{name} hybrid teacher-forced logits differ by "
+                             f"{gap} (limit {logit_tol})")
+    out.update(exactness(rule, "hybrid", outs, rids))
     faults = {}
-    for name, (mod, attr, fault) in GEMMA_FAULTS.items():
+    for fault, (mod, attr, stand_in) in GEMMA_FAULTS.items():
         real = getattr(mod, attr)
-        setattr(mod, attr, fault)
+        setattr(mod, attr, stand_in)
         try:
-            faults[name] = max(
+            faults[fault] = max(
                 (gemma_hybrid(params, cfg, toks, plan, gold)[1] - ora)
                 .abs().max().item() for toks, plan, gold, ora in forced)
         finally:
             setattr(mod, attr, real)
     out["fault_dlogit"] = faults
-    emit(out)
-    results[f"serve {GEMMA}"] = out
+    print(f"{name}: launches per prefill {stages[0]['prefill_launches']}, per "
+          f"step {stages[0]['decode_launches_per_step']}; prefill s "
+          f"{[st['prefill_s'] for st in stages]}, decode tokens/s "
+          f"{[st['decode_tokens_per_s'] for st in stages]}; teacher-forced "
+          f"gap {gap} (limit {logit_tol}), faults {faults}; peak "
+          f"{out['max_memory_allocated'] / 1e9:.2f} GB ({smi})", flush=True)
     if not all(f > logit_tol for f in faults.values()):
+        emit(out)
         raise AssertionError(f"the logit limit {logit_tol} passes a planted "
                              f"fault: {faults}")
+    picked = groups if profile_groups is None else \
+        [groups[i] for i in profile_groups]
     runs = {"hybrid": lambda: [gemma_hybrid(params, cfg, toks, plan)
-                               for toks, plan in groups]}
-    phase_profile(results, smi, GEMMA, None, None, runs)
+                               for toks, plan in picked]}
+    phase_profile(results, smi, name, None, None, runs)
+    out["seconds"] = time.perf_counter() - t_phase        # profile included
+    emit(out)
+    results[f"serve {name}"] = out
     return launches
 
 
@@ -4028,8 +4123,8 @@ def phase_serve_mamba2(results, smi):
         finally:
             setattr(mod, attr, real)
     out["fault_dlogit"] = faults
-    runs = {"serve": lambda: [mamba_run(params, cfg, toks, n)
-                              for toks in groups]}
+    # group 1 alone (group 2's profile was cut to keep the script's time)
+    runs = {"serve": lambda: mamba_run(params, cfg, groups[0], n)}
     phase_profile(results, smi, MAMBA, None, None, runs)
     out["seconds"] = time.perf_counter() - t_phase        # profile included
     emit(out)
@@ -4038,6 +4133,265 @@ def phase_serve_mamba2(results, smi):
         raise diverged
     if gap > logit_tol:
         raise AssertionError(f"mamba2 teacher-forced logits differ by {gap}")
+    if not all(f > logit_tol for f in faults.values()):
+        raise AssertionError(f"the logit limit {logit_tol} passes a planted "
+                             f"fault: {faults}")
+    return launches
+
+
+# ---------------------------------------------------------------- jamba phase
+def jamba_config():
+    """jamba-1.5-large-398b at full width, cut to one period of
+    ``JAMBA_CUT``."""
+    return dataclasses.replace(get_config(JAMBA), **JAMBA_CUT)
+
+
+class RouteReplay:
+    """``L.moe_route`` wrapped to teacher-force the routing, as the tokens
+    are: recording (``inner``, a ``MoeWatch`` or the real route, routes),
+    it keeps each dispatch's experts in call order; after ``replay()`` the
+    next dispatches take those experts, in the same order, in place of the
+    router's top-k.  Their gates are the path's own probabilities at them,
+    renormalised; the ranks, and so the drops, follow from the experts.
+    Two paths fed the same tokens and the same experts differ by their
+    arithmetic alone: no near-tie swap of experts moves their gap."""
+
+    def __init__(self, inner=None):
+        self.inner, self.idx, self.pos = inner, [], None
+
+    def replay(self):
+        self.pos = 0
+        return self
+
+    def __call__(self, router, x, **kw):
+        if self.pos is None:
+            r = (self.inner or REAL_MOE_ROUTE)(router, x, **kw)
+            self.idx.append(r.idx)
+            return r
+        r = REAL_MOE_ROUTE(router, x, **kw)
+        idx = self.idx[self.pos]
+        self.pos += 1
+        G, Tg, k = idx.shape
+        sorted_e, order = torch.sort(idx.reshape(G, Tg * k), dim=1,
+                                     stable=True)
+        counts, starts, rank = L._group_ranks(sorted_e, kw["num_experts"])
+        return r._replace(gate=L._renormalise(r.probs.gather(-1, idx)),
+                          idx=idx, sorted_e=sorted_e, order=order,
+                          counts=counts, starts=starts, rank=rank)
+
+
+def jamba_forced(params, cfg, toks, n: int, gold, rids, watch=None,
+                 route=None):
+    """``mamba_run`` fed ``gold`` (B, n), ``route`` (or ``watch``)
+    installed as ``L.moe_route``; with ``watch``, every MoE dispatch tagged
+    for it: the prefill's rows (each its whole prompt; its drops counted),
+    then each step's.  -> the per-step logits (B, n, V)."""
+    B, S = toks.shape
+    step = iter(range(1, n + 1))
+    real_pre = M.prefill
+    if watch is None:
+        with patched(L, "moe_route", route):
+            return mamba_run(params, cfg, toks, n, gold)[1]
+
+    def pre(*a, **kw):
+        watch.arm([S] * B, S, rids)
+        return real_pre(*a, **kw)
+
+    rows = lambda: (lambda j: [(rid, j, 1) for rid in rids])(next(step))
+    with patched(L, "moe_route", route or watch), patched(M, "prefill", pre), \
+            tagged_steps(watch, rows):
+        return mamba_run(params, cfg, toks, n, gold)[1]
+
+
+def prefill_states_swapped(params, cfg, toks, max_len):
+    """A planted fault: the first two SSD slots' states swapped at the
+    prefill -> decode handoff."""
+    lg, cache = _real_prefill(params, cfg, toks, max_len)
+    st = cache["state"]
+    st[:, [0, 1]] = st[:, [1, 0]].clone()
+    return lg, cache
+
+
+def rope_in_the_nope_slot(cfg, positions):
+    """A planted fault: the attention slot rotates q and k by RoPE at the
+    config's theta, where jamba's attention has no positions."""
+    return L.rope_sin_cos(positions, cfg.head_dim, cfg.rope_theta)
+
+
+# the jamba path's planted faults: (module, attribute, stand-in)
+JAMBA_FAULTS = {
+    "ssd_states_swapped_at_handoff": (M, "prefill", prefill_states_swapped),
+    "rope_in_the_nope_attention": (M.T, "_rope_for", rope_in_the_nope_slot),
+}
+
+
+def phase_serve_jamba(results, smi):
+    """jamba-1.5-large-398b at full width, cut to one period of 4 layers
+    (``JAMBA_CUT``; bfloat16, random weights from seed 0, the SSD layers'
+    dt biases drawn as mamba2's), through ``prefill`` -> ``decode_loop``,
+    mamba2's groups and steps.  Checks the launches (per prefill flash once
+    for the attention slot, ``ssd_scan`` once per SSD slot; nothing in
+    decode), no host sync in the decode loop (the MoE dispatch inside it),
+    finite logits, and the tokens against the plain path (the same
+    functions with ``ssd_scan`` and flash swapped for their plain versions),
+    teacher-forced on its tokens, under the MoE rule with its own routing,
+    and within the limit at every output with the plain path's experts
+    replayed (``RouteReplay``): a 1000-token prefill swaps experts at some
+    near-tie in every request, which leaves the rule nothing to hold.  The
+    limit is the larger of 0.25 and twice the plain path's own spread
+    (chunk ``MAMBA_SPREAD_CHUNK`` against the config's, experts replayed);
+    each planted fault, experts replayed, must exceed it.  -> the launch
+    counts of the path's run."""
+    cfg, full = jamba_config(), get_config(JAMBA)
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    for stack in ("ssd_dense", "ssd_moe"):
+        bias = params["periods"][stack]["ssd"]["dt_bias"]
+        bias.copy_(mamba_dt_bias(bias.shape,
+                                 torch.Generator(device="cuda").manual_seed(0)))
+    params["periods"]["attn"]["ln1"]["scale"].fill_(JAMBA_ATTN_LN_SCALE - 1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    slots = M.T.hybrid_slots(cfg)
+    n_per = cfg.num_layers // cfg.attn_period
+    n_ssd = sum(s_ != "attn" for s_, _, _ in slots)
+    n = MAMBA_STEPS
+    rng = np.random.default_rng(0)
+    groups = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                               .astype(np.int32)).cuda()
+              for B, S in MAMBA_GROUPS]
+    rids = [[f"group{gi}/request{b}" for b in range(t.shape[0])]
+            for gi, t in enumerate(groups)]
+    V = M.pad_vocab(cfg.vocab_size)
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    out = {"phase": "serve_jamba", "card": smi, "model": cfg.name,
+           "layers": f"{cfg.num_layers} of {full.num_layers} (one period of "
+                     f"attn_period {cfg.attn_period} for jamba's "
+                     f"{full.attn_period}; full width)",
+           "slots": [list(s_) for s_ in slots], "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "ssm_heads": cfg.ssm_num_heads, "ssm_state": cfg.ssm_state_size,
+           "experts": cfg.moe_num_experts, "top_k": cfg.moe_top_k,
+           "capacity_factor": cfg.moe_capacity_factor, "d_ff": cfg.d_ff,
+           "chunk": cfg.ssm_chunk, "vocab_padded": V, "dtype": cfg.dtype,
+           "params": sum(t.numel() for t in _leaves(params)),
+           "param_bytes": param_bytes, "init_s": init_s,
+           "attn_ln1_scale": JAMBA_ATTN_LN_SCALE,
+           "groups": [list(g_) for g_ in MAMBA_GROUPS]}
+    print(f"jamba: {out['layers']}, {param_bytes / 1e9:.2f} GB of weights on "
+          f"the card ({smi})", flush=True)
+
+    for toks in groups:                                  # warm-up
+        mamba_run(params, cfg, toks, n)
+    torch.cuda.synchronize()
+    # the counted main-path run: counts start at 0, each stage's read apart
+    reset_counts()
+    outs_k, stages, prev = {}, [], read_counts()
+    for toks, rs in zip(groups, rids):
+        marks = []
+        t0 = time.perf_counter()
+        toks_out, _ = mamba_run(params, cfg, toks, n, marks=marks)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        after = read_counts()
+        (t1, after_prefill, lg), = marks
+        if not (torch.isfinite(lg).all() and lg.shape == (toks.shape[0], 1, V)):
+            raise AssertionError(f"prefill logits {tuple(lg.shape)} not finite")
+        outs_k.update(zip(rs, toks_out.cpu().numpy()))
+        stages.append({
+            "prefill_ms": (t1 - t0) * 1e3, "decode_ms_per_step":
+            (t2 - t1) * 1e3 / n,
+            "decode_tokens_per_s": toks.shape[0] * n / (t2 - t1),
+            "prefill_launches": {k: after_prefill[k] - prev[k] for k in prev},
+            "decode_launches_per_step": {
+                k: (after[k] - after_prefill[k]) / n for k in prev}})
+        prev = after
+    launches = read_counts()
+    want_prefill = {k: 0 for k in COUNTERS}
+    want_prefill.update(flash_attention=n_per, ssd_scan=n_per * n_ssd)
+    want_step = {k: 0 for k in COUNTERS}
+    for st in stages:
+        if st["prefill_launches"] != want_prefill or \
+                st["decode_launches_per_step"] != want_step:
+            raise AssertionError(f"jamba launches {st}, expected "
+                                 f"{want_prefill} / none a decode step")
+    out.update(launches=launches, stages=stages, decode_loop_host_syncs=0,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    print(f"jamba prefill ms {[st['prefill_ms'] for st in stages]}, decode ms "
+          f"a step {[st['decode_ms_per_step'] for st in stages]}; peak "
+          f"{out['max_memory_allocated'] / 1e9:.2f} GB ({smi})", flush=True)
+
+    # the plain path's greedy tokens and teacher-forced logits are the
+    # reference, its experts recorded; its own spread at another chunk, fed
+    # the same tokens and experts, sets the limit
+    other = dataclasses.replace(cfg, ssm_chunk=MAMBA_SPREAD_CHUNK)
+    ref_watch = MoeWatch()
+    rec = RouteReplay(ref_watch)
+    ref_toks, ref_lg, spread_lg, forced = {}, {}, {}, []
+    with patched(L, "ssd_scan", ssd_chunked_ref), \
+            patched(M.T, "flash_attention", flash_attention_ref):
+        for toks, rs in zip(groups, rids):
+            gold, _ = mamba_run(params, cfg, toks, n)
+            forced.append((toks, rs, gold))
+            lg = jamba_forced(params, cfg, toks, n, gold, rs, ref_watch, rec)
+            for i, rid in enumerate(rs):
+                ref_toks[rid], ref_lg[rid] = gold[i].cpu().numpy(), lg[i]
+        rec.replay()
+        for toks, rs, gold in forced:
+            lg = jamba_forced(params, other, toks, n, gold, rs, route=rec)
+            spread_lg.update((rid, lg[i]) for i, rid in enumerate(rs))
+    reqs = [SimpleNamespace(rid=rid) for rs in rids for rid in rs]
+    ref_routes = ref_watch.routes()
+    gaps_of = lambda lgs: {r.rid: (lgs[r.rid] - ref_lg[r.rid]).abs().amax(-1)
+                           .cpu().numpy() for r in reqs}
+    top = lambda gaps: max(float(g_.max()) for g_ in gaps.values())
+    spread = top(gaps_of(spread_lg))
+    logit_tol = max(LOGIT_TOL_BY_DTYPE[cfg.dtype], 2 * spread)
+    out.update(plain_spread_dlogit=spread, logit_tol=logit_tol,
+               prefill_drops_plain=ref_watch.drops())
+
+    def kernel_forced(watch=None, route=None):
+        lgs = {}
+        for toks, rs, gold in forced:
+            lg = jamba_forced(params, cfg, toks, n, gold, rs, watch, route)
+            lgs.update((rid, lg[i]) for i, rid in enumerate(rs))
+        return gaps_of(lgs)
+
+    # the kernel path teacher-forced on the plain path's tokens: its own
+    # routing under the MoE rule, and the plain path's experts replayed
+    k_watch = MoeWatch()
+    gaps = kernel_forced(watch=k_watch)
+    rule = moe_rule(reqs, outs_k, gaps, ref_toks, ref_lg, ref_routes,
+                    k_watch.routes(), logit_tol)
+    r_gaps = kernel_forced(route=rec.replay())
+    gap = top(r_gaps)
+    out.update(kernel_vs_plain=rule, max_teacher_forced_dlogit=gap,
+               max_teacher_forced_dlogit_own_routes=top(gaps),
+               prefill_drops_kernel=k_watch.drops(),
+               dlogit_by_step=np.max(list(r_gaps.values()), 0).tolist())
+    faults = {}
+    for fault, (mod, attr, stand_in) in JAMBA_FAULTS.items():
+        with patched(mod, attr, stand_in):
+            faults[fault] = top(kernel_forced(route=rec.replay()))
+    out["fault_dlogit"] = faults
+    print(f"jamba kernel vs plain, the plain path's experts replayed: gap "
+          f"{gap}, limit {logit_tol} (spread {spread}); own routes: MoE rule "
+          f"ok {rule['ok']}, first swaps "
+          f"{ {k: v['first_swap_output'] for k, v in rule['requests'].items()} }, "
+          f"exact requests {rule['exact_requests']} of {len(reqs)}; prefill "
+          f"drops {k_watch.drops()}; faults {faults} ({smi})", flush=True)
+    runs = {"serve": lambda: [mamba_run(params, cfg, toks, n)
+                              for toks in groups]}
+    phase_profile(results, smi, JAMBA, None, None, runs)
+    out["seconds"] = time.perf_counter() - t_phase        # profile included
+    emit(out)
+    results[f"serve {JAMBA}"] = out
+    if not rule["ok"]:
+        raise AssertionError(f"jamba: the kernel path breaks the MoE rule "
+                             f"against the plain path: {rule}")
+    if gap > logit_tol:
+        raise AssertionError(f"jamba teacher-forced logits differ by {gap}")
     if not all(f > logit_tol for f in faults.values()):
         raise AssertionError(f"the logit limit {logit_tol} passes a planted "
                              f"fault: {faults}")
@@ -5014,7 +5368,9 @@ def serve_path(results, smi, name):
     del params, sched_ctx
     gc.collect()
     torch.cuda.empty_cache()
-    phase_profile(results, smi, name, engines, reqs)
+    # the hybrid mode alone: the kv and int8 modes' profiles were cut to
+    # keep the script's time
+    phase_profile(results, smi, name, {"hybrid": engines["hybrid"]}, reqs)
     del engines
     gc.collect()
     torch.cuda.empty_cache()
@@ -5249,10 +5605,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = stage(GEMMA, t0)
+    by_path[GEMMA27] = {"fp": phase_serve_gemma(
+        results, smi, GEMMA27, GEMMA27_GROUPS, profile_groups=[0])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = stage(GEMMA27, t0)
     by_path[MAMBA] = {"fp": phase_serve_mamba2(results, smi)}
     gc.collect()
     torch.cuda.empty_cache()
     t0 = stage(MAMBA, t0)
+    by_path[JAMBA] = {"fp": phase_serve_jamba(results, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = stage(JAMBA, t0)
     for name, n in phase_serve_moe(results, smi).items():
         by_path[name] = {"fp": n}
     t0 = stage("moe", t0)
@@ -5272,7 +5637,9 @@ def main() -> int:
     # int8 modes on the int8 serves and the int8 return_lse of each on that
     # model's int8 host-attend run (the int8 OPT serve also launches it on
     # the steps with an ACT-bound token, for its exact row's merge: listed
-    # beside it), ssd_scan on mamba2's, the flash kernel's non-causal mode
+    # beside it), ssd_scan on mamba2's (jamba's prefill runs flash and
+    # ssd_scan too, gemma3-27b's the gemma modes at head_dim 128: in
+    # launches_by_path), the flash kernel's non-causal mode
     # and the fused mode over the checkpoint on whisper's cross-ACT run;
     # flash_attention runs on every attention path and reports OPT's
     serve, ha = "serve", "offload host_attn"

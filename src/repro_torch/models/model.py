@@ -1,4 +1,5 @@
-"""Top-level model API of the uniform, windowed, ssm and encdec families:
+"""Top-level model API of the uniform, windowed, ssm, hybrid and encdec
+families:
 embed -> layers -> logits, the plain decode path (the oracle's) and the
 hybrid KV/ACT decode path (the engine's), and for the uniform family the
 training forward and loss (``forward_hidden`` -> ``lm_loss``,
@@ -28,6 +29,17 @@ The ssm family (mamba2) has no KV cache to trade for activations, so it has
 the plain path only, as in the reference: ``prefill`` runs each SSD layer's
 scan through the ``ssd_scan`` kernel and keeps its final state and conv
 tail; ``decode_step`` advances both one token in plain torch.
+
+The hybrid family (jamba: SSD layers and one NoPE attention layer per
+period, each layer's FFN dense or MoE by ``layer_is_moe``) has the plain
+path only too: the reference's hybrid KV/ACT functions and engine assert
+the uniform and windowed families.  ``prefill`` walks each period's slots
+in ``T.hybrid_walk`` order, the attention layer on the flash kernel
+(causal, no rotation) and the SSD layers on ``ssd_scan``; its cache holds
+the attention layers' K/V (``attn_k/v``) and each SSD layer's state and
+conv tail in walk order (``state``/``conv`` (n_per, n_ssd, ...)), as the
+reference's prefill reassembles them.  ``decode_step`` attends over
+``attn_k/v`` and advances the SSD slots in plain torch.
 
 The windowed family (gemma3) keeps the hybrid cache on its GLOBAL layers
 only; its local layers keep ring buffers of ``sliding_window`` slots, as the
@@ -257,7 +269,10 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda") -> Cache:
     ``local_k/v`` rings (n_per, period - 1, B, W, KVH, D), ``global_k/v``
     (n_per, B, max_len, KVH, D) and ``tail_k/v`` rings (tail, B, W, KVH, D);
     ssm family: the SSD ``state`` (L, B, h, p, n) and the conv tail ``conv``
-    (L, B, width - 1, inner + 2n), whatever ``max_len``; encdec family (its
+    (L, B, width - 1, inner + 2n), whatever ``max_len``; hybrid family:
+    ``attn_k/v`` (n_per, B, max_len, KVH, D), ``state`` (n_per, n_ssd, B,
+    h, p, n) and ``conv`` (n_per, n_ssd, B, width - 1, inner + 2n), the SSD
+    slots in walk order; encdec family (its
     cross-KV mode): ``self_k/v`` (L, B, max_len, KVH, D) and ``cross_k/v``
     (L, B, F, KVH, D)."""
     dt = torch_dtype(cfg)
@@ -270,12 +285,18 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda") -> Cache:
                 "self_v": kv(cfg.num_layers, B, max_len, *head),
                 "cross_k": kv(cfg.num_layers, B, F, *head),
                 "cross_v": kv(cfg.num_layers, B, F, *head), "kv_len": kv_len}
+    ssd = lambda *n: {"state": kv(*n, B, cfg.ssm_num_heads, cfg.ssm_head_dim,
+                                  cfg.ssm_state_size),
+                      "conv": kv(*n, B, cfg.ssm_conv_width - 1,
+                                 cfg.ssm_inner + 2 * cfg.ssm_state_size)}
     if family(cfg) == "ssm":
-        return {"state": kv(cfg.num_layers, B, cfg.ssm_num_heads,
-                            cfg.ssm_head_dim, cfg.ssm_state_size),
-                "conv": kv(cfg.num_layers, B, cfg.ssm_conv_width - 1,
-                           cfg.ssm_inner + 2 * cfg.ssm_state_size),
-                "kv_len": kv_len}
+        return {**ssd(cfg.num_layers), "kv_len": kv_len}
+    if family(cfg) == "hybrid":
+        n_per = cfg.num_layers // cfg.attn_period
+        n_ssd = sum(name != "attn" for name, _, _ in T.hybrid_slots(cfg))
+        return {"attn_k": kv(n_per, B, max_len, *head),
+                "attn_v": kv(n_per, B, max_len, *head),
+                **ssd(n_per, n_ssd), "kv_len": kv_len}
     if family(cfg) != "windowed":
         return {"k": kv(cfg.num_layers, B, max_len, *head),
                 "v": kv(cfg.num_layers, B, max_len, *head), "kv_len": kv_len}
@@ -445,6 +466,18 @@ def prefill(params, cfg: ModelConfig, tokens, max_len: int, *, frames=None,
                                             kind="ssd")
             cache["state"][i] = state
             cache["conv"][i] = conv
+    elif family(cfg) == "hybrid":
+        for stack, i, j, si, moe in T.hybrid_walk(cfg):
+            lp = layer_params(params, i, j, stack)
+            if si is None:
+                h, (k, v) = T.layer_full(lp, cfg, h, sincos, is_moe=moe)
+                cache["attn_k"][i, :, :S] = k
+                cache["attn_v"][i, :, :S] = v
+            else:
+                h, (state, conv) = T.layer_full(lp, cfg, h, kind="ssd",
+                                                is_moe=moe)
+                cache["state"][i, si] = state
+                cache["conv"][i, si] = conv
     else:
         for i in range(cfg.num_layers):
             h, (k, v) = T.layer_full(layer_params(params, i), cfg, h, sincos)
@@ -490,6 +523,17 @@ def decode_step(params, cfg: ModelConfig, token, cache: Cache):
             x = T.layer_decode(layer_params(params, i), cfg, x,
                                cache["state"][i], cache["conv"][i], kv_len,
                                kind="ssd")
+    elif family(cfg) == "hybrid":
+        for stack, i, j, si, moe in T.hybrid_walk(cfg):
+            lp = layer_params(params, i, j, stack)
+            if si is None:
+                x = T.layer_decode(lp, cfg, x, cache["attn_k"][i],
+                                   cache["attn_v"][i], kv_len, sincos,
+                                   is_moe=moe)
+            else:
+                x = T.layer_decode(lp, cfg, x, cache["state"][i, si],
+                                   cache["conv"][i, si], kv_len, kind="ssd",
+                                   is_moe=moe)
     else:
         for i in range(cfg.num_layers):
             x = T.layer_decode(layer_params(params, i), cfg, x, cache["k"][i],

@@ -1,4 +1,4 @@
-"""Parameter init and the per-layer forwards of four families:
+"""Parameter init and the per-layer forwards of five families:
 
   uniform   every layer attention + FFN: OPT (learned positions, tied
             embeddings), yi and minitron (RoPE, untied embeddings), the
@@ -9,6 +9,10 @@
             norm, MQA, tied embeddings;
   ssm       mamba2: every layer a Mamba-2 SSD mixer, no FFN, no positions,
             tied embeddings;
+  hybrid    jamba: periods of ``attn_period`` layers, one attention layer
+            (NoPE) at ``attn_period // 2`` and SSD mixers elsewhere, every
+            layer with an FFN, MoE where ``layer_is_moe`` says (jamba:
+            every second layer), dense elsewhere;
   encdec    whisper: a bidirectional encoder over frame embeddings
             (``enc_pos``, ``enc_layers``, ``enc_norm``), and a causal
             decoder whose layers add cross attention (``ln_x``, ``xattn``)
@@ -17,7 +21,10 @@
 Counterparts of ``repro.models.transformer``.  Parameters are a plain dict laid
 out like the JAX pytree: layers stacked on dim 0 (``layers``; windowed:
 ``periods.local`` stacked (n_per, period - 1, ...), ``periods.global``
-(n_per, ...) and ``tail``), weights stored ``(d_in, d_out)``.  Prefill
+(n_per, ...) and ``tail``; hybrid: ``periods.attn`` (n_per, ...) and the
+SSD layers with a dense and with an MoE FFN, ``periods.ssd_dense`` and
+``periods.ssd_moe`` (n_per, n_j, ...), walked in ``hybrid_slots`` order),
+weights stored ``(d_in, d_out)``.  Prefill
 attention goes through the hand-written flash kernel's wrapper, the local
 layers' through its sliding-window mode, the encoder's and the cross
 attention through its non-causal mode; the SSD layers' prefill scan through
@@ -80,7 +87,7 @@ def _norm_p(cfg, device, n=None):
 #: engine's models.
 _ENGINE = (("uniform",), ("none",), False)
 SERVES = {
-    "plain": (("uniform", "windowed", "ssm", "encdec"),
+    "plain": (("uniform", "windowed", "ssm", "encdec", "hybrid"),
               ("none", "audio_stub", "vision_stub"), True),
     "hybrid": (("uniform", "windowed"), ("none",), True),
     "engine": _ENGINE,
@@ -106,11 +113,15 @@ SERVED = (
     "uniform-family and windowed-family decoders with learned or RoPE "
     "positions (q/k norm and windows with RoPE only), MoE in every layer of "
     "the uniform family, SSD stacks with no FFN and no positions, the "
-    "encdec family (whisper: audio_stub frames, learned positions, cross-KV "
-    "or cross-ACT) and vision_stub patches with M-RoPE (qwen2-vl).  On the "
+    "hybrid family (jamba: SSD and NoPE attention layers, each with a dense "
+    "or MoE FFN by layer), the encdec family (whisper: audio_stub frames, "
+    "learned positions, cross-KV or cross-ACT) and vision_stub patches "
+    "with M-RoPE (qwen2-vl).  On the "
     "hybrid model functions: the uniform and windowed families with no "
     "frontend, learned or RoPE positions (the reference's hybrid step "
-    "rotates RoPE only, so it has no M-RoPE path).  On the engine and the "
+    "rotates RoPE only, so it has no M-RoPE path; its hybrid KV/ACT "
+    "functions and engine assert the uniform and windowed families, so "
+    "the hybrid family has no KV/ACT path either).  On the engine and the "
     "offload executor, and on the server: the uniform family with no "
     "frontend and no q/k norm, learned or RoPE positions.  The serving "
     "paths refuse the encdec family because the reference's engine asserts "
@@ -120,9 +131,9 @@ SERVED = (
     "make_train_step) trains the uniform family with no frontend: the dense "
     "models (learned or RoPE positions) and the MoE models with an MoE FFN "
     "in every layer, their aux loss kept.  The windowed, ssm, encdec and "
-    "vision families' training waits (ROADMAP queue 1, item 4): it needs "
-    "the flash backward's window, non-causal and D = 256 modes and an "
-    "ssd_scan backward.")
+    "vision and hybrid families' training waits (ROADMAP queue 1, item 4): "
+    "it needs the flash backward's window, non-causal and D = 256 modes "
+    "and an ssd_scan backward.")
 
 
 def family(cfg: ModelConfig) -> str:
@@ -149,9 +160,11 @@ def check_supported(cfg: ModelConfig, path: str = "plain") -> None:
     ``cfg`` (``SERVES``; the message names the path and carries ``SERVED``,
     what every path serves).  Beyond each path's families, frontends and
     q/k norm: the ssm family is a stack of SSD mixers with no FFN and no
-    positions; every other model has an FFN, dense or (the uniform family)
-    MoE in every layer; q/k norm and the windowed family take RoPE only,
-    the route that recomputes K outside the fused kernel; the audio_stub
+    positions; the hybrid family (plain path only) interleaves SSD mixers
+    and NoPE attention, every layer with an FFN, dense or MoE by layer
+    (``layer_is_moe``); every other model has an FFN, dense or (the uniform
+    family) MoE in every layer; q/k norm and the windowed family take RoPE
+    only, the route that recomputes K outside the fused kernel; the audio_stub
     frontend is the encdec family's, with learned positions and no q/k
     norm; the vision_stub frontend and M-RoPE go together (M-RoPE's
     positions are laid out on the patch grid)."""
@@ -161,6 +174,10 @@ def check_supported(cfg: ModelConfig, path: str = "plain") -> None:
         ok = cfg.d_ff == 0 and cfg.pos_type == "none" \
             and cfg.ssm_state_size > 0 and cfg.moe_num_experts == 0 \
             and cfg.frontend == "none"
+    elif fam == "hybrid":
+        ok = cfg.d_ff > 0 and cfg.pos_type == "none" \
+            and cfg.ssm_state_size > 0 and cfg.frontend == "none" \
+            and not cfg.qk_norm
     else:
         moe = cfg.arch_type == "moe" and cfg.moe_num_experts > 0 \
             and cfg.moe_every == 1 and fam == "uniform"
@@ -189,7 +206,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     are untied, ``pos_embed`` for learned positions, ``w3`` for gated FFNs,
     an MoE FFN's ``router`` (float32) and ``we1``/``we2``/``we3``,
     ``qnorm``/``knorm`` with q/k norm; ``layers``, or for the windowed family
-    ``periods`` and ``tail``; the encdec family's ``enc_pos``,
+    ``periods`` and ``tail``, for the hybrid family ``periods`` (``attn``,
+    ``ssd_dense``, ``ssd_moe``); the encdec family's ``enc_pos``,
     ``enc_layers`` and ``enc_norm``, and ``ln_x``/``xattn`` in each decoder
     layer), made on ``device`` from a seeded ``torch.Generator``."""
     check_supported(cfg)
@@ -215,15 +233,15 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                                    scale=1.0 / math.sqrt(qd)
                                    / math.sqrt(2 * Lyr))}
 
-    def stack(n, cross=False):
+    def ffn(n, moe):
         f_scale = 1.0 / math.sqrt(f) / math.sqrt(2 * Lyr)
-        layers = {
-            "ln1": _norm_p(cfg, device, n),
-            "attn": attn(n),
-            "ln2": _norm_p(cfg, device, n),
-            "ffn": (_moe_p if cfg.is_moe else _ffn_p)(gen, cfg, device, n,
-                                                      f_scale),
-        }
+        return {"ln2": _norm_p(cfg, device, n),
+                "ffn": (_moe_p if moe else _ffn_p)(gen, cfg, device, n,
+                                                   f_scale)}
+
+    def stack(n, cross=False, moe=cfg.is_moe):
+        layers = {"ln1": _norm_p(cfg, device, n), "attn": attn(n),
+                  **ffn(n, moe)}
         if cross:                          # the decoder's cross attention
             layers["ln_x"] = _norm_p(cfg, device, n)
             layers["xattn"] = attn(n)
@@ -234,9 +252,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                                                   device=device)
         return layers
 
+    # SSD layers: their mixer, then (hybrid family) the layer's FFN
+    ssd = lambda n, moe: {"ln1": _norm_p(cfg, device, n),
+                          "ssd": _ssd_p(gen, cfg, device, n),
+                          **(ffn(n, moe) if f > 0 else {})}
     if family(cfg) == "ssm":
-        params["layers"] = {"ln1": _norm_p(cfg, device, Lyr),
-                            "ssd": _ssd_p(gen, cfg, device, Lyr)}
+        params["layers"] = ssd(Lyr, False)
+        return params
+    if family(cfg) == "hybrid":
+        slots = hybrid_slots(cfg)
+        n_per = cfg.num_layers // cfg.attn_period
+        attn_moe = next(m for name, _, m in slots if name == "attn")
+        params["periods"] = {"attn": stack(n_per, moe=attn_moe)}
+        for name, moe in (("ssd_dense", False), ("ssd_moe", True)):
+            n = sum(s_ == name for s_, _, _ in slots)
+            if n:
+                params["periods"][name] = _map(
+                    ssd(n_per * n, moe),
+                    lambda t: t.view(n_per, n, *t.shape[1:]))
         return params
     if family(cfg) == "uniform":
         params["layers"] = stack(Lyr)
@@ -315,7 +348,9 @@ def _map(tree, fn):
 #: family's encoder layers
 _STACKS = {"layers": ("layers",), "local": ("periods", "local"),
            "global": ("periods", "global"), "tail": ("tail",),
-           "enc": ("enc_layers",)}
+           "enc": ("enc_layers",), "attn": ("periods", "attn"),
+           "ssd_dense": ("periods", "ssd_dense"),
+           "ssd_moe": ("periods", "ssd_moe")}
 
 
 def layer_params(params: Params, i: int, j: Optional[int] = None,
@@ -324,7 +359,9 @@ def layer_params(params: Params, i: int, j: Optional[int] = None,
     ``i`` of ``stack``; for the windowed family, local layer ``j`` of period
     ``i`` (``"local"``), period ``i``'s global layer (``"global"``) or tail
     layer ``i`` (``"tail"``); for the encdec family, encoder layer ``i``
-    (``"enc"``)."""
+    (``"enc"``); for the hybrid family, period ``i``'s attention layer
+    (``"attn"``) or its SSD layer ``j`` of ``"ssd_dense"`` or
+    ``"ssd_moe"``."""
     tree = params
     for key in _STACKS[stack]:
         tree = tree[key]
@@ -361,6 +398,43 @@ def window_walk(cfg: ModelConfig) -> Iterator[Tuple[str, int, Optional[int]]]:
         yield "global", p, None
     for i in range(tail):
         yield "tail", i, None
+
+
+def hybrid_slots(cfg: ModelConfig) -> Tuple[Tuple[str, int, bool], ...]:
+    """Walk order inside one hybrid period: (stack name, index in that
+    stack, is_moe) per layer, the reference's ``hybrid_slots``."""
+    period = cfg.attn_period
+    kinds = cfg.layer_kinds()[:period]
+    moe_flags = cfg.layer_is_moe()[:period]
+    slots, nd, nm = [], 0, 0
+    for j in range(period):
+        if kinds[j] == "attn":
+            slots.append(("attn", 0, moe_flags[j]))
+        elif moe_flags[j]:
+            slots.append(("ssd_moe", nm, True))
+            nm += 1
+        else:
+            slots.append(("ssd_dense", nd, False))
+            nd += 1
+    return tuple(slots)
+
+
+def hybrid_walk(cfg: ModelConfig) -> Iterator[
+        Tuple[str, int, Optional[int], Optional[int], bool]]:
+    """The hybrid family's layers in order, as (stack, period i, index j in
+    the stack or None for attention, the SSD cache slot or None, is_moe).
+    The SSD cache slots count each period's SSD layers in WALK order, as the
+    reference's prefill reassembles its states (not in stack order: dense
+    layers first, then MoE)."""
+    slots = hybrid_slots(cfg)
+    for i in range(cfg.num_layers // cfg.attn_period):
+        si = 0
+        for name, j, moe in slots:
+            if name == "attn":
+                yield name, i, None, None, moe
+            else:
+                yield name, i, j, si, moe
+                si += 1
 
 
 # =============================================================================
@@ -445,12 +519,16 @@ def _masked_decode_attn(q, k_cache, v_cache, valid):
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
-def ffn_full(p, cfg: ModelConfig, x):
+def ffn_full(p, cfg: ModelConfig, x, is_moe: Optional[bool] = None):
     """The layer's FFN on x (B, S, d) -> (y, aux loss): dense (aux 0.0), or
-    (MoE configs, every layer) ``moe_ffn`` over the B·S tokens flattened
-    row-major, as the reference flattens them, with its Switch aux loss
-    (float32)."""
-    if cfg.is_moe:
+    MoE, ``moe_ffn`` over the B·S tokens flattened row-major, as the
+    reference flattens them, with its Switch aux loss (float32).  Which of
+    the two is the layer's (``is_moe``, the reference's per-layer flag):
+    by default MoE in every layer of an MoE config with ``moe_every`` 1,
+    the uniform family's; the hybrid family passes each layer's."""
+    if is_moe is None:
+        is_moe = cfg.is_moe and cfg.moe_every == 1
+    if is_moe:
         B, S, d = x.shape
         y, aux = L.moe_ffn(p, x.reshape(B * S, d),
                            num_experts=cfg.moe_num_experts, top_k=cfg.moe_top_k,
@@ -460,9 +538,9 @@ def ffn_full(p, cfg: ModelConfig, x):
     return L.dense_ffn(p, x, cfg.ffn_type), 0.0
 
 
-def ffn_apply(p, cfg: ModelConfig, x):
+def ffn_apply(p, cfg: ModelConfig, x, is_moe: Optional[bool] = None):
     """``ffn_full`` without its aux loss (the serving paths)."""
-    return ffn_full(p, cfg, x)[0]
+    return ffn_full(p, cfg, x, is_moe)[0]
 
 
 def _ssd_in(p, cfg, x, conv_cache):
@@ -517,13 +595,14 @@ def ssd_decode(p, cfg: ModelConfig, x, state, conv_cache):
 # --- single transformer layer (pre-norm residual) -----------------------------
 
 def layer_full(p, cfg, x, sincos=None, window: int = 0, *, kind: str = "attn",
-               causal: bool = True, aux: bool = False):
+               causal: bool = True, aux: bool = False,
+               is_moe: Optional[bool] = None):
     """-> (x', cache) over the whole sequence: attention's (k, v)
     (sliding-window when ``window`` > 0, bidirectional with
     ``causal=False``), or with ``kind="ssd"`` the SSD mixer's (final state,
-    conv cache).  No FFN where the config has none.  ``aux=True`` (the
-    training forward): -> (x', cache, the FFN's aux loss), the reference's
-    triple."""
+    conv cache).  No FFN where the config has none; ``is_moe`` as
+    ``ffn_full`` takes it.  ``aux=True`` (the training forward): -> (x',
+    cache, the FFN's aux loss), the reference's triple."""
     h = L.apply_norm(x, p["ln1"], cfg.norm_type)
     if kind == "ssd":
         a, cache = ssd_full(p["ssd"], cfg, h)
@@ -533,17 +612,19 @@ def layer_full(p, cfg, x, sincos=None, window: int = 0, *, kind: str = "attn",
     a_loss = 0.0
     if cfg.d_ff > 0:
         f, a_loss = ffn_full(p["ffn"], cfg,
-                             L.apply_norm(x, p["ln2"], cfg.norm_type))
+                             L.apply_norm(x, p["ln2"], cfg.norm_type), is_moe)
         x = x + f
     return (x, cache, a_loss) if aux else (x, cache)
 
 
 def layer_decode(p, cfg, x, k_cache, v_cache, kv_len, sincos=None, *,
-                 window: int = 0, ring: bool = False, kind: str = "attn"):
+                 window: int = 0, ring: bool = False, kind: str = "attn",
+                 is_moe: Optional[bool] = None):
     """-> x' for one token; the caches are updated in place (a ring buffer
     with ``ring``, see ``attn_decode``).  With ``kind="ssd"`` the two caches
     are the layer's SSD state (B, h, p, n) and conv cache (B, width - 1,
-    inner + 2n), and ``kv_len`` is not read."""
+    inner + 2n), and ``kv_len`` is not read.  ``is_moe`` as ``ffn_full``
+    takes it."""
     h = L.apply_norm(x, p["ln1"], cfg.norm_type)
     if kind == "ssd":
         a, state, conv = ssd_decode(p["ssd"], cfg, h, k_cache, v_cache)
@@ -554,5 +635,6 @@ def layer_decode(p, cfg, x, k_cache, v_cache, kv_len, sincos=None, *,
                         window=window, ring=ring)
     x = x + a
     if cfg.d_ff > 0:
-        x = x + ffn_apply(p["ffn"], cfg, L.apply_norm(x, p["ln2"], cfg.norm_type))
+        x = x + ffn_apply(p["ffn"], cfg, L.apply_norm(x, p["ln2"], cfg.norm_type),
+                          is_moe)
     return x

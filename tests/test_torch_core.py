@@ -60,11 +60,13 @@ def test_init_params_draws_the_reference_tree(name):
     assert flat(got) == flat(want)
 
 
-@pytest.mark.parametrize("stem,name", [("whisper_base", "whisper-base"),
-                                       ("qwen2_vl_2b", "qwen2-vl-2b")])
+@pytest.mark.parametrize("stem,name", [
+    ("whisper_base", "whisper-base"), ("qwen2_vl_2b", "qwen2-vl-2b"),
+    ("jamba_1_5_large", "jamba-1.5-large-398b"), ("gemma3_27b", "gemma3-27b")])
 def test_frontend_config_sources_are_the_references(stem, name):
-    """whisper-base's and qwen2-vl-2b's config files are the reference's,
-    line for line but for the package they import from."""
+    """whisper-base's, qwen2-vl-2b's, jamba-1.5-large-398b's and
+    gemma3-27b's config files are the reference's, line for line but for
+    the package they import from."""
     root = Path(__file__).resolve().parents[1] / "src"
     mine = (root / "repro_torch" / "configs" / f"{stem}.py").read_text()
     ref = (root / "repro" / "configs" / f"{stem}.py").read_text()
@@ -73,7 +75,9 @@ def test_frontend_config_sources_are_the_references(stem, name):
 
 
 @pytest.mark.parametrize("name", ["dbrx-132b", "grok-1-314b",
-                                  "dbrx-132b-reduced", "grok-1-314b-reduced"])
+                                  "dbrx-132b-reduced", "grok-1-314b-reduced",
+                                  "jamba-1.5-large-398b",
+                                  "jamba-1.5-large-398b-reduced"])
 def test_moe_config_param_counts_equal_the_reference(name):
     """The MoE copies count the reference's parameters: every expert
     (``num_params``) and the top-k ones a token runs (``active_params``)."""

@@ -1,7 +1,9 @@
 """The port's windowed family (gemma3: sliding-window local layers in ring
 buffers, global layers with the hybrid KV/ACT cache, q/k norm, MQA) against
 the JAX package on gemma3-1b-reduced cut to 3 layers: one period (a local
-and a global layer) and one local tail layer, W = 64.
+and a global layer) and one local tail layer, W = 64.  The prefill and
+decode cases also run gemma3-27b-reduced cut alike (GQA with G = 2, as
+gemma3-27b's 32 heads over 16 KV heads).
 
 Same weights (the reference's ``init_params`` through ``params.from_numpy``,
 with the q/k norm scales perturbed off their zero init so that the norms
@@ -30,14 +32,15 @@ from repro_torch.models import transformer as T
 torch.set_num_threads(1)
 LOGIT_TOL, CACHE_TOL = 1e-4, 1e-5
 NAME = "gemma3-1b-reduced"
+NAMES = [NAME, "gemma3-27b-reduced"]
 CAP = 128                       # kv_cap = act_cap: whole pages, cover S + steps
 _MODEL = {}
 
 
-def _model():
-    if not _MODEL:
-        jcfg = dataclasses.replace(j_get_config(NAME), num_layers=3)
-        cfg = dataclasses.replace(get_config(NAME), num_layers=3)
+def _model(name=NAME):
+    if name not in _MODEL:
+        jcfg = dataclasses.replace(j_get_config(name), num_layers=3)
+        cfg = dataclasses.replace(get_config(name), num_layers=3)
         jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
         tree = jax.tree.map(np.asarray, jp)
         rng = np.random.default_rng(5)
@@ -47,8 +50,8 @@ def _model():
                 a = stack["attn"][key]
                 stack["attn"][key] = (a + rng.normal(0, 0.3, a.shape)).astype(a.dtype)
         jp = jax.tree.map(jnp.asarray, tree)
-        _MODEL["m"] = (cfg, P.from_numpy(tree, device="cpu"), jcfg, jp)
-    return _MODEL["m"]
+        _MODEL[name] = (cfg, P.from_numpy(tree, device="cpu"), jcfg, jp)
+    return _MODEL[name]
 
 
 def _close(mine, ref, tol, what):
@@ -98,10 +101,11 @@ def test_family_walk_and_params_bridge_keep_the_pytree():
     T.check_supported(get_config("gemma3-1b"))
 
 
+@pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("S", [40, 80])
-def test_plain_prefill_matches(S):
+def test_plain_prefill_matches(S, name):
     """S = 40 leaves the rings part empty; S = 80 wraps them."""
-    cfg, tp, jcfg, jp = _model()
+    cfg, tp, jcfg, jp = _model(name)
     toks = _tokens(cfg, 2, S, seed=S)
     lg, cache = M.prefill(tp, cfg, torch.from_numpy(toks), max_len=S + 8)
     jlg, jcache = JM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, max_len=S + 8)
@@ -109,10 +113,11 @@ def test_plain_prefill_matches(S):
     _caches_close(cache, jcache, PLAIN_KEYS, "prefill")
 
 
-def test_decode_step_across_the_ring_wrap():
+@pytest.mark.parametrize("name", NAMES)
+def test_decode_step_across_the_ring_wrap(name):
     """ctx = W - 2 ... W + 2: the new token lands in the rings' last slots,
     then wraps to their first."""
-    cfg, tp, jcfg, jp = _model()
+    cfg, tp, jcfg, jp = _model(name)
     W = cfg.sliding_window
     toks = _tokens(cfg, 2, W - 2 + 5, seed=1)
     lg, cache = M.prefill(tp, cfg, torch.from_numpy(toks[:, :W - 2]),
@@ -127,11 +132,12 @@ def test_decode_step_across_the_ring_wrap():
         _caches_close(cache, jcache, PLAIN_KEYS, f"ctx {W - 2 + step}")
 
 
-def test_hybrid_prefill_and_decode_step_match():
+@pytest.mark.parametrize("name", NAMES)
+def test_hybrid_prefill_and_decode_step_match(name):
     """kv_keep = S // 2, store_act mixed over the requests and the steps;
     the decode crosses a ring wrap (S = W + 14, 4 steps, the global layer's
     ACT region grows while its KV region does too)."""
-    cfg, tp, jcfg, jp = _model()
+    cfg, tp, jcfg, jp = _model(name)
     W = cfg.sliding_window
     S = W + 14
     toks = _tokens(cfg, 2, S + 4, seed=2)
