@@ -1,4 +1,6 @@
-// Causal GQA flash-attention backward for Hopper (sm_90a): dQ, dK and dV.
+// GQA flash-attention backward for Hopper (sm_90a): dQ, dK and dV, in the
+// forward's three modes (causal, sliding window, non-causal with keys of
+// their own length).
 //
 // Replaces no Pallas kernel.  The JAX package's attention gradient is the
 // custom VJP of `blockwise_attention` (`_bw_attn_b` -> `_bw_attn_bwd_impl`,
@@ -8,36 +10,47 @@
 // query row, in float32.
 //
 // What it computes, per request b and query head h (kv head h / G):
-//   P = exp(Q.K^T / sqrt(D) - lse) under the causal mask (key j <= query i),
+//   P = exp(Q.K^T / sqrt(D) - lse) under the mask of `_tile_mask`
+//       (src/repro/models/layers.py:115-123): causal, key j <= query i, and
+//       with a window W > 0 also j > i - W; non-causal, every key j < Sk,
 //   dV = sum over the group's heads of P^T.dO,
 //   dP = dO.V^T, Delta_i = rowsum(dO_i * O_i),
 //   dS = P * (dP - Delta) / sqrt(D),
 //   dQ = dS.K, dK = sum over the group's heads of dS^T.Q,
-// with q, dO, o (B, S, H, D), k, v (B, S, KVH, D) read in place and lse
-// (B, H, S).  That is the reference's backward without the softcap (the
-// uniform family has none); the window and non-causal modes and D = 256 are
-// refused by the wrapper.
+// with q, dO, o (B, Sq, H, D), k, v (B, Sk, KVH, D) read in place and lse
+// (B, H, Sq).  That is the reference's backward without the softcap (no
+// model the port trains has one).  D is 64, 128 or 256.
 //
-// What bounds it on this card: five products of S^2/2 x D per head (the
-// recomputed scores, dV, dP, dQ, dK) against reading q, k, v, o, dO and lse
-// once and writing dq, dk, dv once.  At the training shapes (S = 512,
-// D = 128) that is ~250 operations per byte, under the H100's ~295: the
-// bound is the bytes, by a little, and a design near it needs the tensor
+// What bounds it on this card: five products of (live pairs) x D per head
+// (the recomputed scores, dV, dP, dQ, dK) against reading q, k, v, o, dO and
+// lse once and writing dq, dk, dv once.  At the training shapes (S = 512,
+// D = 128, causal) that is ~250 operations per byte, under the H100's ~295:
+// the bound is the bytes, by a little, and a design near it needs the tensor
 // cores and a few passes over the inputs.
 //
 // The design, simple first (the forward's wgmma/TMA redesign is later work):
 //   - a pre-pass (one warp per (b, i, h) row) takes Delta in float32 and
 //     zeroes the row's float32 dQ accumulator;
 //   - the main pass runs one block of four warps per (64-key tile, kv head,
-//     request).  The block loads its K and V tiles once, then loops over the
-//     G query heads of its group and over the 32-query tiles at or after its
-//     first key (the causal skip).  Each warp owns 16 keys: it recomputes
-//     S^T = K.Q^T and P^T for them, and keeps dK and dV for the whole group
-//     in float32 registers, so no atomic touches dK or dV.  dS^T goes
-//     through shared memory (rounded to the input dtype), and the block's
-//     partial dQ of the tile (32 queries x D over its 64 keys) is added to
-//     the float32 accumulator with atomics;
+//     column part of D, request).  The block loads its K and V tiles once,
+//     then loops over the G query heads of its group and over the 32-query
+//     tiles that see any of its keys: causal, those at or after its first
+//     key, and with a window W only those before its last key + W (the
+//     TPU kernel's tile skip); non-causal, every query tile.  Each warp
+//     owns 16 keys: it recomputes S^T = K.Q^T and P^T for them over the
+//     whole D, and keeps dK and dV of its keys for the whole group in
+//     float32 registers, so no atomic touches dK or dV.  dS^T goes through
+//     shared memory (rounded to the input dtype), and the block's partial
+//     dQ of the tile (32 queries x its columns, over its 64 keys) is added
+//     to the float32 accumulator with atomics;
 //   - a last pass rounds dQ to the input dtype.
+// D = 256 is split in two column parts of 128, one block each (the grid's
+// y is kv head x part): a thread's dK and dV are DC = min(D, 128) columns,
+// 128 floats of registers at any D.  Whole-D accumulators would be 256
+// floats a thread beside the operands, past the 255 registers a thread
+// has.  Each part recomputes S^T and dP^T over the whole D, so D = 256
+// does 7/5 of the tensor-core work of one pass, and its blocks share no
+// accumulator.
 // All five products are mma.sync m16n8k16 on the tensor cores (16-bit
 // inputs, float32 accumulators), their operands loaded by ldmatrix from
 // shared-memory tiles padded by 16 bytes a row (no bank conflicts).  The
@@ -64,10 +77,14 @@ constexpr int THREADS = 128;
 constexpr int PAD = 8;             // 16 bytes a row: ldmatrix without conflicts
 constexpr float LOG2E = 1.4426950408889634f;
 // planted faults (flags; 0 on every model path): the causal mask left out
-// (every query tile, every key), and dK/dV not summed over the group (each
-// head restarts them: only the group's last head survives)
+// (every query tile, every key), dK/dV not summed over the group (each head
+// restarts them: only the group's last head survives), the window left out
+// (the mask and the tile skip: the causal gradient), and the keys cut at Sq
+// (those past the queries' length take no part)
 constexpr int FAULT_NO_CAUSAL = 1;
 constexpr int FAULT_NO_GROUP_SUM = 2;
+constexpr int FAULT_NO_WINDOW = 4;
+constexpr int FAULT_SK_AS_SQ = 8;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -195,12 +212,20 @@ struct Smem {
   static constexpr int BYTES = ELEMS * 2 + 2 * BQ * 4;
 };
 
+// the columns of dK, dV and dQ one block accumulates: all of D up to 128,
+// else 128 (the grid's y holds D / DC parts per kv head)
+template <int D>
+struct Part {
+  static constexpr int DC = D > 128 ? 128 : D;
+  static constexpr int PARTS = D / DC;
+};
+
 // Delta_i = rowsum(dO_i * O_i) per (b, i, h) row, one warp each, written
-// (B, H, S); the row's float32 dQ accumulator zeroed
+// (B, H, Sq); the row's float32 dQ accumulator zeroed
 template <typename T>
 __global__ void flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                                        float* __restrict__ delta,
-                                       float* __restrict__ dq_acc, long rows, int S,
+                                       float* __restrict__ dq_acc, long rows, int Sq,
                                        int H, int D) {
   const long row = (blockIdx.x * (long)blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
@@ -215,7 +240,7 @@ __global__ void flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restr
   if (lane == 0) {
     const int h = row % H;
     const long bi = row / H;
-    delta[(bi / S * H + h) * S + bi % S] = s;
+    delta[(bi / Sq * H + h) * Sq + bi % Sq] = s;
   }
 }
 
@@ -225,9 +250,11 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
                  float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv,
-                 int S, int H, int KVH, float scale, int flags) {
+                 int Sq, int Sk, int H, int KVH, int window, int causal_in,
+                 float scale, int flags) {
   using M = Smem<D>;
   constexpr int LD = M::LD, LDS = M::LDS;
+  constexpr int DC = Part<D>::DC, PARTS = Part<D>::PARTS;
   extern __shared__ __align__(16) uint8_t bwd_smem[];
   T* ks = reinterpret_cast<T*>(bwd_smem);
   T* vs = ks + BKV * LD;
@@ -237,20 +264,24 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* lse_s = reinterpret_cast<float*>(dss + BKV * LDS);   // log2 units
   float* dl_s = lse_s + BQ;
 
-  const int k0 = blockIdx.x * BKV, kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BKV, b = blockIdx.z;
+  const int kvh = blockIdx.y / PARTS, d0 = DC * (blockIdx.y % PARTS);
   const int G = H / KVH;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
   const long kv_row = (long)KVH * D, q_row = (long)H * D;
-  const bool causal = !(flags & FAULT_NO_CAUSAL);
+  const bool causal = causal_in && !(flags & FAULT_NO_CAUSAL);
+  const int W = (flags & FAULT_NO_WINDOW) ? 0 : window;
+  // the keys that take part: all Sk, or under the fault those below Sq
+  const int n_keys = (flags & FAULT_SK_AS_SQ) ? min(Sq, Sk) : Sk;
   const float scale_log2 = scale * LOG2E;
 
-  // the block's K and V tiles, rows past S zero-filled
+  // the block's K and V tiles over the whole D, rows past Sk zero-filled
   for (int c = tid; c < BKV * D / 8; c += THREADS) {
     const int r = c / (D / 8), col = c % (D / 8) * 8;
     uint4 kx = make_uint4(0, 0, 0, 0), vx = kx;
-    if (k0 + r < S) {
-      const long off = ((long)b * S + k0 + r) * kv_row + (long)kvh * D + col;
+    if (k0 + r < Sk) {
+      const long off = ((long)b * Sk + k0 + r) * kv_row + (long)kvh * D + col;
       kx = *reinterpret_cast<const uint4*>(k + off);
       vx = *reinterpret_cast<const uint4*>(v + off);
     }
@@ -258,34 +289,38 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     *reinterpret_cast<uint4*>(vs + r * LD + col) = vx;
   }
 
-  // this warp's 16 keys; the thread's accumulator rows are keys key0, key0 + 8
+  // this warp's 16 keys; the thread's accumulator rows are keys key0, key0 + 8,
+  // its columns those of the block's part, d0 ..
   const int wk = 16 * warp;
   const int key0 = k0 + wk + g;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  float dk_acc[DC / 8][4], dv_acc[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
-  // the dQ piece this warp adds: 16 query rows x D/2 columns of the tile
-  const int m0 = 16 * (warp % 2), c0 = (D / 2) * (warp / 2);
+  // the dQ piece this warp adds: 16 query rows x DC/2 columns of the tile
+  const int m0 = 16 * (warp % 2), c0 = d0 + (DC / 2) * (warp / 2);
+  // the query tiles that see any of the block's keys: causal, from its
+  // first key on, and with a window, before its last key + W
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = causal && W > 0 ? min(Sq, k0 + BKV - 1 + W) : Sq;
 
   for (int hg = 0; hg < G; ++hg) {
     const int h = kvh * G + hg;
     if ((flags & FAULT_NO_GROUP_SUM) && hg > 0) {
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
     }
-    // query tiles before the block's first key see none of its keys
-    for (int q0 = causal ? k0 : 0; q0 < S; q0 += BQ) {
+    for (int q0 = q_lo; q0 < q_hi; q0 += BQ) {
       __syncthreads();                  // the last tile's Q, dO and dS^T are read
       for (int c = tid; c < BQ * D / 8; c += THREADS) {
         const int r = c / (D / 8), col = c % (D / 8) * 8;
         uint4 qx = make_uint4(0, 0, 0, 0), ox = qx;
-        if (q0 + r < S) {
-          const long off = ((long)b * S + q0 + r) * q_row + (long)h * D + col;
+        if (q0 + r < Sq) {
+          const long off = ((long)b * Sq + q0 + r) * q_row + (long)h * D + col;
           qx = *reinterpret_cast<const uint4*>(q + off);
           ox = *reinterpret_cast<const uint4*>(dout + off);
         }
@@ -293,8 +328,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         *reinterpret_cast<uint4*>(dos + r * LD + col) = ox;
       }
       if (tid < BQ) {
-        const bool live = q0 + tid < S;
-        const long at = ((long)b * H + h) * S + q0 + tid;
+        const bool live = q0 + tid < Sq;
+        const long at = ((long)b * H + h) * Sq + q0 + tid;
         lse_s[tid] = live ? lse[at] * LOG2E : 0.f;
         dl_s[tid] = live ? delta[at] : 0.f;
       }
@@ -309,10 +344,11 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e) {
           const int key = key0 + 8 * (e / 2);
           const int qi = q0 + 8 * j + 2 * t4 + (e % 2);
-          const bool ok = qi < S && key < S && (!causal || key <= qi);
+          const bool ok = qi < Sq && key < n_keys &&
+                          (!causal || (key <= qi && (W <= 0 || key > qi - W)));
           pt[j][e] = ok ? exp2f(pt[j][e] * scale_log2 - lse_s[qi - q0]) : 0.f;
         }
-      accumulate<T, D, LD>(dv_acc, pt, dos, lane);          // dV += P^T.dO
+      accumulate<T, DC, LD>(dv_acc, pt, dos + d0, lane);    // dV += P^T.dO
 
       // dS^T = P^T * (dP^T - Delta) * scale, dP^T = V.dO^T
       float ds[BQ / 8][4];
@@ -324,7 +360,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int ql = 8 * j + 2 * t4 + (e % 2);
           ds[j][e] = pt[j][e] * (ds[j][e] - dl_s[ql]) * scale;
         }
-      accumulate<T, D, LD>(dk_acc, ds, qs, lane);           // dK += dS^T.Q
+      accumulate<T, DC, LD>(dk_acc, ds, qs + d0, lane);     // dK += dS^T.Q
 #pragma unroll
       for (int j = 0; j < BQ / 8; ++j) {
         const int col = 8 * j + 2 * t4;
@@ -335,11 +371,11 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
 
-      // dQ (BQ x D) += dS (BQ x BKV) . K: this warp's 16 rows x D/2 columns,
-      // dS read transposed out of dS^T
-      float dq[D / 16][4];
+      // dQ (BQ x DC) += dS (BQ x BKV) . K: this warp's 16 rows x DC/2
+      // columns, dS read transposed out of dS^T
+      float dq[DC / 16][4];
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n)
+      for (int n = 0; n < DC / 16; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
 #pragma unroll
@@ -348,7 +384,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ldsm_t(a, dss + (16 * kk + lane % 8 + 8 * (lane / 16)) * LDS + m0 +
                       8 * ((lane / 8) % 2));
 #pragma unroll
-        for (int n = 0; n < D / 32; ++n) {
+        for (int n = 0; n < DC / 32; ++n) {
           uint32_t bk[4];
           ldsm_t(bk, ks + (16 * kk + lane % 8 + 8 * ((lane / 8) % 2)) * LD + c0 +
                          16 * n + 8 * (lane / 16));
@@ -357,13 +393,13 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
 #pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
+      for (int n = 0; n < DC / 16; ++n) {
         const int col = c0 + 8 * n + 2 * t4;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int qi = q0 + m0 + g + 8 * half;
-          if (qi < S) {
-            float* at = dq_acc + ((long)b * S + qi) * q_row + (long)h * D + col;
+          if (qi < Sq) {
+            float* at = dq_acc + ((long)b * Sq + qi) * q_row + (long)h * D + col;
             atomicAdd(at, dq[n][2 * half]);
             atomicAdd(at + 1, dq[n][2 * half + 1]);
           }
@@ -372,15 +408,15 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  // dK and dV of the warp's keys, rounded to T
+  // dK and dV of the warp's keys in the block's columns, rounded to T
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = 8 * n + 2 * t4;
+  for (int n = 0; n < DC / 8; ++n) {
+    const int col = d0 + 8 * n + 2 * t4;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int key = key0 + 8 * half;
-      if (key < S) {
-        const long off = ((long)b * S + key) * kv_row + (long)kvh * D + col;
+      if (key < Sk) {
+        const long off = ((long)b * Sk + key) * kv_row + (long)kvh * D + col;
         *reinterpret_cast<uint32_t*>(dk + off) =
             pack(dk_acc[n][2 * half], dk_acc[n][2 * half + 1], T{});
         *reinterpret_cast<uint32_t*>(dv + off) =
@@ -402,8 +438,8 @@ __global__ void flash_bwd_dq_kernel(const float* __restrict__ dq_acc, T* __restr
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, const void* o,
              const void* lse, const void* dout, void* dq, void* dk, void* dv,
-             void* dq_acc, void* delta, int B, int S, int H, int KVH, int flags,
-             cudaStream_t stream) {
+             void* dq_acc, void* delta, int B, int Sq, int Sk, int H, int KVH,
+             int window, int causal, int flags, cudaStream_t stream) {
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -412,19 +448,19 @@ int launch_d(const void* q, const void* k, const void* v, const void* o,
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  const long rows = (long)B * S * H;
+  const long rows = (long)B * Sq * H;
   flash_bwd_delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout),
-      static_cast<float*>(delta), static_cast<float*>(dq_acc), rows, S, H, D);
+      static_cast<float*>(delta), static_cast<float*>(dq_acc), rows, Sq, H, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BKV - 1) / BKV, KVH, B);
+  const dim3 grid((Sk + BKV - 1) / BKV, KVH * Part<D>::PARTS, B);
   flash_bwd_kernel<T, D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dq_acc),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, KVH, 1.f / sqrtf((float)D),
-      flags);
+      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KVH, window, causal,
+      1.f / sqrtf((float)D), flags);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long n = rows * D;
@@ -434,13 +470,20 @@ int launch_d(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
+// the instantiations: D 64, 128 and 256, and an error for any other D
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
            const void* dout, void* dq, void* dk, void* dv, void* dq_acc, void* delta,
-           int B, int S, int H, int KVH, int D, int flags, cudaStream_t stream) {
-#define D_ARGS q, k, v, o, lse, dout, dq, dk, dv, dq_acc, delta, B, S, H, KVH, flags, stream
-  if (D == 64) return launch_d<T, 64>(D_ARGS);
-  return launch_d<T, 128>(D_ARGS);
+           int B, int Sq, int Sk, int H, int KVH, int D, int window, int causal,
+           int flags, cudaStream_t stream) {
+#define D_ARGS q, k, v, o, lse, dout, dq, dk, dv, dq_acc, delta, B, Sq, Sk, H, KVH, \
+               window, causal, flags, stream
+  switch (D) {
+    case 64: return launch_d<T, 64>(D_ARGS);
+    case 128: return launch_d<T, 128>(D_ARGS);
+    case 256: return launch_d<T, 256>(D_ARGS);
+  }
+  return (int)cudaErrorInvalidValue;
 #undef D_ARGS
 }
 
@@ -449,29 +492,33 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 
 extern "C" {
 
-// q, o, dout, dq (B, S, H, D); k, v, dk, dv (B, S, KVH, D); lse (B, H, S)
-// float32 from the forward; scratch: dq_acc (B, S, H, D) and delta (B, H, S)
-// float32.  Causal only, D 64 or 128.  dtype: 1 float16, 2 bfloat16.  The
-// 16-bit tensors 16-byte aligned.  flags: planted faults, 0 on every model
-// path.  Returns a cudaError_t.
+// q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D); lse (B, H, Sq)
+// float32 from the forward; scratch: dq_acc (B, Sq, H, D) and delta (B, H,
+// Sq) float32.  causal 1: keys j <= i (Sq = Sk), and window > 0 only j > i -
+// window; causal 0: every key j < Sk, no window.  D 64, 128 or 256; any
+// other D returns cudaErrorInvalidValue and launches nothing.  dtype: 1
+// float16, 2 bfloat16.  The 16-bit tensors 16-byte aligned.  flags: planted
+// faults, 0 on every model path.  Returns a cudaError_t.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                        void* dq_acc, void* delta, int B, int S, int H, int KVH, int D,
-                        int dtype, int flags, void* stream) {
+                        void* dq_acc, void* delta, int B, int Sq, int Sk, int H, int KVH,
+                        int D, int window, int causal, int dtype, int flags,
+                        void* stream) {
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
       reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
       reinterpret_cast<uintptr_t>(dv);
-  if ((D != 64 && D != 128) || KVH <= 0 || H % KVH != 0 || S <= 0 || B <= 0 ||
-      align % 16 != 0)
+  if (KVH <= 0 || H % KVH != 0 || Sq <= 0 || Sk <= 0 || B <= 0 || window < 0 ||
+      (causal && Sq != Sk) || (!causal && window > 0) || align % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 1: return bwd::launch<__half>(q, k, v, o, lse, dout, dq, dk, dv, dq_acc, delta, B, S,
-                                  H, KVH, D, flags, st);
+    case 1: return bwd::launch<__half>(q, k, v, o, lse, dout, dq, dk, dv, dq_acc, delta, B,
+                                       Sq, Sk, H, KVH, D, window, causal, flags, st);
     case 2: return bwd::launch<__nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, dq_acc,
-                                         delta, B, S, H, KVH, D, flags, st);
+                                              delta, B, Sq, Sk, H, KVH, D, window, causal,
+                                              flags, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -61,6 +61,8 @@ def hybrid_cache_shape(cfg: ModelConfig, B: int, kv_cap: int, act_cap: int):
 def loss_and_grads(params, cfg: ModelConfig, batch):
     """-> (loss, metrics, grads): ``apply_train`` with remat, and the
     gradient of every leaf (a tree like ``params``, in each leaf's dtype).
+    ``batch`` holds ``tokens`` and ``labels``, and the vision frontend's
+    ``patches`` or the encdec family's ``frames`` (``batch_specs_for``).
     ``params`` are left as they were (no ``requires_grad``, no ``.grad``)."""
     flat = adamw.leaves(params)
     for p in flat:
@@ -87,7 +89,8 @@ def make_train_step(cfg: ModelConfig,
     (params, opt_state, metrics)``; params, m and v are updated in place.
     ``microbatches`` > 1 accumulates float32 gradients over sequential
     slices of the batch's rows (activation memory / m), then averages the
-    gradients and the loss."""
+    gradients and the loss.  Every entry of the batch (tokens, labels,
+    patches, frames) is sliced by the same rows."""
     def train_step(params, opt_state, batch):
         if microbatches == 1:
             loss, metrics, grads = loss_and_grads(params, cfg, batch)

@@ -4,7 +4,10 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b-reduced --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b --batch 4 --seq 512 --steps 5
 
-The uniform family trains (``T.check_supported(cfg, "train")``).  The
+Every family but the ssm and hybrid ones trains (``T.check_supported(cfg,
+"train")``); the vision frontend's patches and the encdec family's frames
+are zeros, as the reference CLI's are (in the model's dtype here: torch
+does not mix a float32 input with bfloat16 weights in a product).  The
 weights are the port's ``init_params`` at seed 0, or with ``--init PATH``
 those of a checkpoint written by either package (``repro.checkpoint`` or
 ``repro_torch.checkpoint``: ``{"params": ...}``), so the same weights give
@@ -23,6 +26,7 @@ from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, lm_batches
 from repro_torch.launch.specs import make_train_step, params_shape
 from repro_torch.models import model as M
+from repro_torch.models.transformer import torch_dtype
 from repro_torch.optim import adamw
 
 
@@ -61,6 +65,14 @@ def main(argv=None):
         raw = next(it)
         batch = {k: torch.from_numpy(raw[k]).to(args.device)
                  for k in ("tokens", "labels")}
+        if cfg.frontend == "vision_stub":
+            batch["patches"] = torch.zeros(
+                (args.batch, cfg.frontend_tokens, cfg.d_model),
+                dtype=torch_dtype(cfg), device=args.device)
+        if cfg.is_encoder_decoder:
+            batch["frames"] = torch.zeros(
+                (args.batch, cfg.enc_seq_len, cfg.d_model),
+                dtype=torch_dtype(cfg), device=args.device)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
         if step % args.log_every == 0 or step == args.steps - 1:

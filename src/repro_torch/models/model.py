@@ -1,9 +1,9 @@
 """Top-level model API of the uniform, windowed, ssm, hybrid and encdec
 families:
 embed -> layers -> logits, the plain decode path (the oracle's) and the
-hybrid KV/ACT decode path (the engine's), and for the uniform family the
-training forward and loss (``forward_hidden`` -> ``lm_loss``,
-``apply_train``).  Counterparts of ``repro.models.model``.
+hybrid KV/ACT decode path (the engine's), and for every family but the ssm
+and hybrid ones the training forward and loss (``forward_hidden`` ->
+``lm_loss``, ``apply_train``).  Counterparts of ``repro.models.model``.
 
 The encdec family (whisper) and the vision frontend (qwen2-vl, M-RoPE) have
 the plain path only, as in the reference, whose engine asserts the uniform
@@ -180,34 +180,77 @@ def unembed(params, cfg: ModelConfig, h):
 
 
 # =============================================================================
-# training: full-sequence forward, loss (the uniform family)
+# training: full-sequence forward, loss (every family but ssm and hybrid)
 # =============================================================================
 
-def _train_layer(lp, cfg: ModelConfig, x, sincos):
-    x, _, aux = T.layer_full(lp, cfg, x, sincos, aux=True)
-    return x, aux
+def _run(fn, remat: bool, *args, **kw):
+    """``fn(*args, **kw)``, checkpointed with ``remat``
+    (``torch.utils.checkpoint``, non-reentrant): the counterpart of
+    ``_scan_layers``'s ``jax.checkpoint``, the backward recomputes the
+    layer from its inputs."""
+    return checkpoint(fn, *args, use_reentrant=False, **kw) if remat \
+        else fn(*args, **kw)
+
+
+def _train_layers(params, cfg: ModelConfig) -> list:
+    """(layer params, window) of each decoder layer in the forward's order,
+    each stack's leaves unbound once (``T.unbind_layers``): the uniform
+    family's layers at window 0; the windowed family's in ``window_walk``
+    order, its local and tail layers at ``sliding_window``, its global
+    layers at 0."""
+    if family(cfg) != "windowed":
+        return [(lp, 0) for lp in T.unbind_layers(params)]
+    W = cfg.sliding_window
+    stacks = {"local": [T.unbind_tree(p)
+                        for p in T.unbind_layers(params, "local")],
+              "global": T.unbind_layers(params, "global"),
+              "tail": T.unbind_layers(params, "tail") if "tail" in params
+              else []}
+    return [(stacks[s][i] if j is None else stacks[s][i][j],
+             0 if s == "global" else W) for s, i, j in window_walk(cfg)]
+
+
+def _decoder_layer(lp, cfg: ModelConfig, h, enc_out):
+    """An encdec decoder layer over h (B, S, d): causal self attention, then
+    cross attention over the encoder's output (flash, non-causal, Sk = F),
+    then the FFN.  -> (h', self (k, v), cross (k, v))."""
+    a, kv = T.attn_full(lp["attn"], cfg,
+                        L.apply_norm(h, lp["ln1"], cfg.norm_type))
+    h = h + a
+    ek, ev = _cross_kv(lp, cfg, enc_out)
+    o = T.flash_attention(_cross_q(lp, cfg, h), ek, ev, causal=False)
+    return _cross_out(lp, cfg, h, o), kv, (ek, ev)
 
 
 def forward_hidden(params, cfg: ModelConfig, batch, *, remat: bool = False):
-    """Full-sequence forward of ``batch["tokens"]`` (B, S) -> (hidden after
-    the final norm, the layers' summed MoE aux loss).  Uniform family only
+    """Full-sequence forward of ``batch`` -> (hidden after the final norm,
+    the layers' summed MoE aux loss).  ``batch["tokens"]`` (B, S); the
+    vision frontend's ``batch["patches"]`` (B, P, d) go before the tokens
+    (the hidden rows then are P + S, M-RoPE over them); the encdec family's
+    ``batch["frames"]`` (B, F, d) feed the encoder, whose output (after
+    ``enc_norm``) every decoder layer's cross attention reads.  The windowed
+    family runs its layers in ``window_walk`` order, local ones at its
+    sliding window.  The ssm and hybrid families are refused
     (``T.check_supported(cfg, "train")``).  Each layer runs on its own
-    unbound parameters (``T.unbind_layers``); ``remat`` checkpoints each
-    layer (``torch.utils.checkpoint``, non-reentrant), the counterpart of
-    ``_scan_layers``'s ``jax.checkpoint``: the backward recomputes the
-    layer from its input.  On the card the attention is the flash kernel
-    with its hand-written backward."""
+    unbound parameters (``T.unbind_layers``); ``remat`` checkpoints every
+    layer of every stack, the encoder's too.  On the card the attention is
+    the flash kernel in its mode (causal, window, non-causal) with its
+    hand-written backward."""
     T.check_supported(cfg, "train")
-    x = embed_input(params, cfg, batch["tokens"])
+    if family(cfg) == "encdec":
+        pre = _encdec_encode(params, cfg, batch["frames"], remat)
+        enc_out = L.apply_norm(pre, params["enc_norm"], cfg.norm_type)
+        x = embed_input(params, cfg, batch["tokens"])
+        for lp in T.unbind_layers(params):
+            x = _run(_decoder_layer, remat, lp, cfg, x, enc_out)[0]
+        return L.apply_norm(x, params["final_norm"], cfg.norm_type), 0.0
+    x = embed_input(params, cfg, batch["tokens"], patches=batch.get("patches"))
     B, S = x.shape[:2]
     sincos = _sincos_at(cfg, B, S, x.device)
     aux = 0.0
-    for lp in T.unbind_layers(params):
-        if remat:
-            x, a = checkpoint(_train_layer, lp, cfg, x, sincos,
-                              use_reentrant=False)
-        else:
-            x, a = _train_layer(lp, cfg, x, sincos)
+    for lp, window in _train_layers(params, cfg):
+        x, _, a = _run(T.layer_full, remat, lp, cfg, x, sincos, window,
+                       aux=True)
         aux = aux + a
     return L.apply_norm(x, params["final_norm"], cfg.norm_type), aux
 
@@ -253,8 +296,11 @@ def lm_loss(params, cfg: ModelConfig, h, labels, *, chunk: int = 512):
 def apply_train(params, cfg: ModelConfig, batch, remat: bool = True):
     """-> (loss, metrics): cross entropy over ``batch["labels"]`` (-1 is
     masked) plus ``moe_aux_loss_weight`` times the MoE aux loss; metrics
-    {"ce", "aux"}."""
+    {"ce", "aux"}.  The vision frontend's patch rows carry no label: they
+    are dropped before the loss, as the reference drops them."""
     h, aux = forward_hidden(params, cfg, batch, remat=remat)
+    if cfg.frontend == "vision_stub":
+        h = h[:, cfg.frontend_tokens:]
     loss = lm_loss(params, cfg, h, batch["labels"])
     total = loss + cfg.moe_aux_loss_weight * aux
     return total, {"ce": loss, "aux": aux}
@@ -363,15 +409,15 @@ def _local_full(lp, cfg, h, sincos, rings):
     return h
 
 
-def _encdec_encode(params, cfg: ModelConfig, frames):
+def _encdec_encode(params, cfg: ModelConfig, frames, remat: bool = False):
     """The encoder over frame embeddings (B, F, d): ``enc_pos`` added, its
-    bidirectional layers (the flash kernel's non-causal mode).  -> its last
-    residual BEFORE ``enc_norm`` (the cross-ACT checkpoint; the reference's
-    encoder output is ``enc_norm`` of it)."""
+    bidirectional layers (the flash kernel's non-causal mode), each
+    checkpointed with ``remat``.  -> its last residual BEFORE ``enc_norm``
+    (the cross-ACT checkpoint; the reference's encoder output is
+    ``enc_norm`` of it)."""
     h = frames + params["enc_pos"][: frames.shape[1]][None]
-    for i in range(cfg.enc_num_layers):
-        h, _ = T.layer_full(T.layer_params(params, i, stack="enc"), cfg, h,
-                            causal=False)
+    for lp in T.unbind_layers(params, "enc"):
+        h = _run(T.layer_full, remat, lp, cfg, h, causal=False)[0]
     return h
 
 
@@ -417,13 +463,8 @@ def _prefill_encdec(params, cfg: ModelConfig, tokens, max_len: int, frames,
     else:
         cache = init_cache(cfg, B, max_len, device=h.device)
     for i in range(cfg.num_layers):
-        lp = T.layer_params(params, i)
-        a, (k, v) = T.attn_full(lp["attn"], cfg,
-                                L.apply_norm(h, lp["ln1"], cfg.norm_type))
-        h = h + a
-        ek, ev = _cross_kv(lp, cfg, enc_out)
-        o = T.flash_attention(_cross_q(lp, cfg, h), ek, ev, causal=False)
-        h = _cross_out(lp, cfg, h, o)
+        h, (k, v), (ek, ev) = _decoder_layer(T.layer_params(params, i), cfg,
+                                             h, enc_out)
         cache["self_k"][i, :, :S] = k
         cache["self_v"][i, :, :S] = v
         if not cross_act:

@@ -92,9 +92,10 @@ SERVES = {
     "hybrid": (("uniform", "windowed"), ("none",), True),
     "engine": _ENGINE,
     "server": _ENGINE,
-    # the training path: the uniform family (dense, and MoE in every layer,
-    # its aux loss kept), no frontend
-    "train": (("uniform",), ("none",), False),
+    # the training path: the plain path's models but the ssm and hybrid
+    # families (their SSD layers wait for an ssd_scan backward)
+    "train": (("uniform", "windowed", "encdec"),
+              ("none", "audio_stub", "vision_stub"), True),
 }
 #: the position encodings of the models with attention (M-RoPE only with
 #: the vision frontend, see ``check_supported``)
@@ -128,12 +129,13 @@ SERVED = (
     "the uniform family (an encoder checkpoint or cross K/V per request "
     "have no place in its block pools), and the vlm frontend because their "
     "batched prefill takes no patches.  The training path (apply_train, "
-    "make_train_step) trains the uniform family with no frontend: the dense "
-    "models (learned or RoPE positions) and the MoE models with an MoE FFN "
-    "in every layer, their aux loss kept.  The windowed, ssm, encdec and "
-    "vision and hybrid families' training waits (ROADMAP queue 1, item 4): "
-    "it needs the flash backward's window, non-causal and D = 256 modes "
-    "and an ssd_scan backward.")
+    "make_train_step) trains what the plain path serves but the ssm and "
+    "hybrid families: the uniform family (dense, and MoE in every layer with "
+    "its aux loss kept), the windowed family (sliding windows, q/k norm), "
+    "the encdec family (the gradient flows through the cross attention into "
+    "the encoder) and vision_stub patches with M-RoPE.  The ssm and hybrid "
+    "families' training waits (ROADMAP queue 1, item 4.2): their SSD layers "
+    "need a backward of the ssd_scan kernel.")
 
 
 def family(cfg: ModelConfig) -> str:
@@ -377,14 +379,17 @@ def unbind_layers(params: Params, stack: str = "layers") -> list:
     tree = params
     for key in _STACKS[stack]:
         tree = tree[key]
+    return unbind_tree(tree)
 
-    def split(t):
-        if isinstance(t, dict):
-            parts = {k: split(v) for k, v in t.items()}
-            n = len(next(iter(parts.values())))
-            return [{k: parts[k][i] for k in parts} for i in range(n)]
-        return list(t.unbind(0))
-    return split(tree)
+
+def unbind_tree(tree) -> list:
+    """A tree of stacked leaves -> one tree per index of their first dim
+    (views, each leaf unbound once)."""
+    if isinstance(tree, dict):
+        parts = {k: unbind_tree(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def window_walk(cfg: ModelConfig) -> Iterator[Tuple[str, int, Optional[int]]]:

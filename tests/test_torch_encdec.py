@@ -279,8 +279,8 @@ def test_serving_paths_refuse_the_frontend_models(name):
 def test_refusal_message_names_each_path_and_what_it_serves(path):
     """Every refusal names the refusing path and carries what each path
     serves, and why the serving paths refuse the encdec and vlm models."""
-    cfg = get_config(NAME) if path != "plain" else dataclasses.replace(
-        get_config(NAME), frontend="none")
+    cfg = get_config(NAME) if path not in ("plain", "train") else \
+        dataclasses.replace(get_config(NAME), frontend="none")
     with pytest.raises(NotImplementedError) as e:
         T.check_supported(cfg, path)
     fam = "encdec"
