@@ -843,3 +843,6 @@ const char* error_string(int err) {
 }
 
 }  // extern "C"
+
+// the backward (the training path's gradient), in the same library
+#include "ssd_scan_bwd.cuh"

@@ -12,6 +12,10 @@ PyTorch: C B^T once per (request, chunk), the head dim in slices, the state
 carried transposed, and each operand derived in float32 split into hi + lo
 before its product: bfloat16 pieces for bfloat16 inputs, TF32 pieces
 (``cvt.rna.tf32`` emulated on the bits) otherwise.
+``ssd_scan_bwd_ref`` is the scan's gradient as an explicit float32 chunked
+pass (the plain version of csrc/ssd_scan_bwd.cuh): the states entering each
+chunk, then a reverse walk over the chunks that carries the state's
+cotangent.
 """
 from __future__ import annotations
 
@@ -42,9 +46,14 @@ def ssd_chunked_ref(x, dt, A, B, C, *, chunk: int = 64):
         Bc = B[:, c0:c0 + chunk, None, :].float().expand(-1, -1, h, -1)
         Cc = C[:, c0:c0 + chunk, None, :].float().expand(-1, -1, h, -1)
         cum = torch.cumsum(dtc * A32, dim=1)
-        # intra-chunk: exp only selected where j <= i (inf above, never used)
+        # intra-chunk: exp taken only where j <= i.  Above the diagonal
+        # cum_i - cum_j > 0 can overflow to inf, and autograd through a
+        # where() that drops an inf still multiplies it by 0 (NaN), as
+        # XLA's gradient of the reference's ``ssd_chunked`` does; so the
+        # exponent is zeroed there first
         diff = cum[:, :, None, :] - cum[:, None, :, :]         # (b, c, c, h)
-        L = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+        keep = tri[None, :, :, None]
+        L = torch.where(keep, torch.exp(torch.where(keep, diff, 0.0)), 0.0)
         att = torch.einsum("bchn,bdhn->bcdh", Cc, Bc) * L
         y = torch.einsum("bcdh,bdhp->bchp", att, xc * dtc[..., None])
         # the carried state's contribution
@@ -168,3 +177,103 @@ def ssd_scan_split_ref(x, dt, A, B, C, *, chunk: int = 64, p_slice=None,
                     torch.einsum("bjn,bjhp->bhnp", Bc[:, ci], xl)
             state_t[..., cols] = st * decay[:, :, None, None] + upd
     return y[:, :s], state_t.transpose(-1, -2).contiguous()
+
+
+def _chunked(t, chunk: int, pad: int):
+    """t (b, s, ...) zero-padded by ``pad`` rows -> (b, n_chunks, chunk, ...)
+    in float32."""
+    if pad:
+        t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+    return t.float().reshape(t.shape[0], -1, chunk, *t.shape[2:])
+
+
+def _gram(C, B):
+    """C_i . B_j over one chunk's rows: (b, c, n) x (b, c, n) -> (b, c, c)."""
+    return torch.einsum("bin,bjn->bij", C, B)
+
+
+def ssd_scan_bwd_ref(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 64):
+    """Gradients of ``ssd_chunked_ref`` (from a zero state) given dy (b, s,
+    h, p), the cotangent of y, and ``dfinal`` (b, h, p, n), that of the
+    final state (None: zero).  -> (dx, ddt, dA, dB, dC) of the inputs'
+    shapes; dx, dB and dC in x's dtype, ddt and dA float32.  No initial
+    state's gradient: every caller starts the scan from zero.
+
+    Per (request, head) and chunk, with rows i, j of the chunk, a_k = dt_k
+    A, cum_i = sum_{k <= i} a_k, the state S entering the chunk, M_ij =
+    (C_i . B_j) e^(cum_i - cum_j) dt_j and w_j = e^(cum_last - cum_j) dt_j
+    for j <= i, and dS the cotangent of the state leaving it:
+      dS_in = e^(cum_last) dS + sum_i e^(cum_i) dy_i C_i^T
+      dx_j  = sum_{i >= j} M_ij dy_i + w_j dS B_j
+      dC_i  = sum_{j <= i} e^(cum_i - cum_j) dt_j (dy_i . x_j) B_j
+              + e^(cum_i) S^T dy_i
+      dB_j  = sum_{i >= j} e^(cum_i - cum_j) dt_j (dy_i . x_j) C_i
+              + w_j dS^T x_j
+    (dB and dC summed over the heads: one group), ddt_j's direct part
+    sum_{i >= j} (C_i . B_j) e^(cum_i - cum_j) (dy_i . x_j)
+    + e^(cum_last - cum_j) x_j^T dS B_j, and through cum: with dcum_i
+    collecting +sum_j T_ij at i and -sum_i T_ij at j (T_ij = M_ij (dy_i .
+    x_j)), e^(cum_i) dy_i^T S C_i at i, e^(cum_last) <dS, S> + sum_j w_j
+    x_j^T dS B_j at the last row and -w_j x_j^T dS B_j at j, ddt_k +=
+    A sum_{i >= k} dcum_i and dA += sum_k dt_k sum_{i >= k} dcum_i.  A
+    ragged s is zero-padded as ``ssd_chunked_ref`` pads it: dt = 0 and
+    dy = 0 there, so the padded rows contribute nothing."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    pad = (-s) % chunk
+    xc, dtc, Bc, Cc, dyc = (_chunked(t, chunk, pad) for t in (x, dt, B, C, dy))
+    nc = xc.shape[1]
+    A32 = A.float()
+    cum = torch.cumsum(dtc * A32, dim=2)                        # (b, nc, c, h)
+    last = cum[:, :, -1]                                        # (b, nc, h)
+    w = torch.exp(last[:, :, None] - cum) * dtc                 # (b, nc, c, h)
+    # the states entering each chunk
+    states, S = [], torch.zeros((b, h, p, n), dtype=torch.float32,
+                                device=x.device)
+    for ci in range(nc):
+        states.append(S)
+        S = S * torch.exp(last[:, ci])[..., None, None] + torch.einsum(
+            "bjh,bjhp,bjn->bhpn", w[:, ci], xc[:, ci], Bc[:, ci])
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    dS = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) \
+        if dfinal is None else dfinal.float()
+    dx, ddt = torch.empty_like(xc), torch.empty_like(dtc)
+    dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
+    dA = torch.zeros_like(A32)
+    for ci in reversed(range(nc)):
+        xi, dti, Bi, Ci, dyi = xc[:, ci], dtc[:, ci], Bc[:, ci], Cc[:, ci], \
+            dyc[:, ci]
+        cm, wi, S = cum[:, ci], w[:, ci], states[ci]
+        # E_ij = e^(cum_i - cum_j) where j <= i (inf above, never used)
+        E = torch.where(tri[None, :, :, None],
+                        torch.exp(cm[:, :, None] - cm[:, None]), 0.0)
+        G = _gram(Ci, Bi)                                       # C_i . B_j
+        D = torch.einsum("bihp,bjhp->bijh", dyi, xi)            # dy_i . x_j
+        K = E * dti[:, None]                                    # E_ij dt_j
+        M = G[..., None] * K
+        Q = D * K
+        T = M * D
+        ecum = torch.exp(cm)
+        dSB = torch.einsum("bhpn,bjn->bjhp", dS, Bi)            # dS B_j
+        xdS = torch.einsum("bjhp,bhpn->bjhn", xi, dS)           # dS^T x_j
+        dyS = torch.einsum("bihp,bhpn->bihn", dyi, S)           # S^T dy_i
+        v = torch.einsum("bjhn,bjn->bjh", xdS, Bi)              # x_j^T dS B_j
+        u = ecum * torch.einsum("bihn,bin->bih", dyS, Ci)       # dy_i^T S C_i
+        dx[:, ci] = torch.einsum("bijh,bihp->bjhp", M, dyi) + wi[..., None] * dSB
+        dC[:, ci] = torch.einsum("bijh,bjn->bin", Q, Bi) + \
+            torch.einsum("bih,bihn->bin", ecum, dyS)
+        dB[:, ci] = torch.einsum("bijh,bin->bjn", Q, Ci) + \
+            torch.einsum("bjh,bjhn->bjn", wi, xdS)
+        direct = torch.einsum("bij,bijh->bjh", G, E * D) + \
+            torch.exp(last[:, ci, None] - cm) * v
+        dcum = T.sum(2) - T.sum(1) + u - wi * v
+        dcum[:, -1] += torch.exp(last[:, ci]) * (dS * S).sum((-1, -2)) + \
+            (wi * v).sum(1)
+        rc = dcum.flip(1).cumsum(1).flip(1)                     # sum_{i >= k}
+        ddt[:, ci] = direct + A32 * rc
+        dA += (dti * rc).sum((0, 1))
+        dS = dS * torch.exp(last[:, ci])[..., None, None] + \
+            torch.einsum("bih,bihp,bin->bhpn", ecum, dyi, Ci)
+    rows = lambda t: t.reshape(b, nc * chunk, *t.shape[3:])[:, :s]
+    return (rows(dx).to(x.dtype), rows(ddt), dA, rows(dB).to(x.dtype),
+            rows(dC).to(x.dtype))

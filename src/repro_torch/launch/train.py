@@ -4,8 +4,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b-reduced --device cpu --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-4b --batch 4 --seq 512 --steps 5
 
-Every family but the ssm and hybrid ones trains (``T.check_supported(cfg,
-"train")``); the vision frontend's patches and the encdec family's frames
+Every family trains (``T.check_supported(cfg, "train")``; the ssm and
+hybrid families' SSD layers through the ``ssd_scan`` kernel's backward on
+the card); the vision frontend's patches and the encdec family's frames
 are zeros, as the reference CLI's are (in the model's dtype here: torch
 does not mix a float32 input with bfloat16 weights in a product).  The
 weights are the port's ``init_params`` at seed 0, or with ``--init PATH``

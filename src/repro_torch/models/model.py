@@ -1,9 +1,9 @@
 """Top-level model API of the uniform, windowed, ssm, hybrid and encdec
 families:
 embed -> layers -> logits, the plain decode path (the oracle's) and the
-hybrid KV/ACT decode path (the engine's), and for every family but the ssm
-and hybrid ones the training forward and loss (``forward_hidden`` ->
-``lm_loss``, ``apply_train``).  Counterparts of ``repro.models.model``.
+hybrid KV/ACT decode path (the engine's), and for every family the training
+forward and loss (``forward_hidden`` -> ``lm_loss``, ``apply_train``).
+Counterparts of ``repro.models.model``.
 
 The encdec family (whisper) and the vision frontend (qwen2-vl, M-RoPE) have
 the plain path only, as in the reference, whose engine asserts the uniform
@@ -180,7 +180,7 @@ def unembed(params, cfg: ModelConfig, h):
 
 
 # =============================================================================
-# training: full-sequence forward, loss (every family but ssm and hybrid)
+# training: full-sequence forward, loss (every family)
 # =============================================================================
 
 def _run(fn, remat: bool, *args, **kw):
@@ -193,13 +193,28 @@ def _run(fn, remat: bool, *args, **kw):
 
 
 def _train_layers(params, cfg: ModelConfig) -> list:
-    """(layer params, window) of each decoder layer in the forward's order,
-    each stack's leaves unbound once (``T.unbind_layers``): the uniform
-    family's layers at window 0; the windowed family's in ``window_walk``
-    order, its local and tail layers at ``sliding_window``, its global
-    layers at 0."""
-    if family(cfg) != "windowed":
-        return [(lp, 0) for lp in T.unbind_layers(params)]
+    """(layer params, window, kind, is_moe) of each decoder layer in the
+    forward's order, each stack's leaves unbound once (``T.unbind_layers``):
+    the uniform family's layers at window 0 (``is_moe`` None: the config's
+    default); the windowed family's in ``window_walk`` order, its local and
+    tail layers at ``sliding_window``, its global layers at 0; the ssm
+    family's layers as SSD mixers (``kind="ssd"``, no FFN); the hybrid
+    family's in ``T.hybrid_walk`` order, its attention slot at window 0,
+    each layer's FFN dense or MoE as the walk gives it."""
+    fam = family(cfg)
+    if fam == "ssm":
+        return [(lp, 0, "ssd", False) for lp in T.unbind_layers(params)]
+    if fam == "hybrid":
+        stacks = {"attn": T.unbind_layers(params, "attn")}
+        for name in ("ssd_dense", "ssd_moe"):
+            if name in params["periods"]:
+                stacks[name] = [T.unbind_tree(p)
+                                for p in T.unbind_layers(params, name)]
+        return [(stacks[s][i] if j is None else stacks[s][i][j], 0,
+                 "attn" if j is None else "ssd", moe)
+                for s, i, j, _, moe in T.hybrid_walk(cfg)]
+    if fam != "windowed":
+        return [(lp, 0, "attn", None) for lp in T.unbind_layers(params)]
     W = cfg.sliding_window
     stacks = {"local": [T.unbind_tree(p)
                         for p in T.unbind_layers(params, "local")],
@@ -207,7 +222,8 @@ def _train_layers(params, cfg: ModelConfig) -> list:
               "tail": T.unbind_layers(params, "tail") if "tail" in params
               else []}
     return [(stacks[s][i] if j is None else stacks[s][i][j],
-             0 if s == "global" else W) for s, i, j in window_walk(cfg)]
+             0 if s == "global" else W, "attn", None)
+            for s, i, j in window_walk(cfg)]
 
 
 def _decoder_layer(lp, cfg: ModelConfig, h, enc_out):
@@ -230,12 +246,14 @@ def forward_hidden(params, cfg: ModelConfig, batch, *, remat: bool = False):
     ``batch["frames"]`` (B, F, d) feed the encoder, whose output (after
     ``enc_norm``) every decoder layer's cross attention reads.  The windowed
     family runs its layers in ``window_walk`` order, local ones at its
-    sliding window.  The ssm and hybrid families are refused
-    (``T.check_supported(cfg, "train")``).  Each layer runs on its own
-    unbound parameters (``T.unbind_layers``); ``remat`` checkpoints every
-    layer of every stack, the encoder's too.  On the card the attention is
-    the flash kernel in its mode (causal, window, non-causal) with its
-    hand-written backward."""
+    sliding window; the ssm family's are SSD mixers; the hybrid family's
+    run in ``T.hybrid_walk`` order, SSD mixers and NoPE attention, each
+    layer's FFN dense or MoE, its aux loss summed as the reference's
+    ``_hybrid_full`` sums it.  Each layer runs on its own unbound parameters
+    (``T.unbind_layers``); ``remat`` checkpoints every layer of every stack,
+    the encoder's too.  On the card the attention is the flash kernel in
+    its mode (causal, window, non-causal) with its hand-written backward,
+    and the SSD scan the ``ssd_scan`` kernel with its own."""
     T.check_supported(cfg, "train")
     if family(cfg) == "encdec":
         pre = _encdec_encode(params, cfg, batch["frames"], remat)
@@ -248,9 +266,9 @@ def forward_hidden(params, cfg: ModelConfig, batch, *, remat: bool = False):
     B, S = x.shape[:2]
     sincos = _sincos_at(cfg, B, S, x.device)
     aux = 0.0
-    for lp, window in _train_layers(params, cfg):
+    for lp, window, kind, is_moe in _train_layers(params, cfg):
         x, _, a = _run(T.layer_full, remat, lp, cfg, x, sincos, window,
-                       aux=True)
+                       kind=kind, aux=True, is_moe=is_moe)
         aux = aux + a
     return L.apply_norm(x, params["final_norm"], cfg.norm_type), aux
 

@@ -86,16 +86,15 @@ def _norm_p(cfg, device, n=None):
 #: (families, frontends, q/k norm allowed).  The server takes the
 #: engine's models.
 _ENGINE = (("uniform",), ("none",), False)
+_PLAIN = (("uniform", "windowed", "ssm", "encdec", "hybrid"),
+          ("none", "audio_stub", "vision_stub"), True)
 SERVES = {
-    "plain": (("uniform", "windowed", "ssm", "encdec", "hybrid"),
-              ("none", "audio_stub", "vision_stub"), True),
+    "plain": _PLAIN,
     "hybrid": (("uniform", "windowed"), ("none",), True),
     "engine": _ENGINE,
     "server": _ENGINE,
-    # the training path: the plain path's models but the ssm and hybrid
-    # families (their SSD layers wait for an ssd_scan backward)
-    "train": (("uniform", "windowed", "encdec"),
-              ("none", "audio_stub", "vision_stub"), True),
+    # the training path trains the plain path's models
+    "train": _PLAIN,
 }
 #: the position encodings of the models with attention (M-RoPE only with
 #: the vision frontend, see ``check_supported``)
@@ -129,13 +128,13 @@ SERVED = (
     "the uniform family (an encoder checkpoint or cross K/V per request "
     "have no place in its block pools), and the vlm frontend because their "
     "batched prefill takes no patches.  The training path (apply_train, "
-    "make_train_step) trains what the plain path serves but the ssm and "
-    "hybrid families: the uniform family (dense, and MoE in every layer with "
-    "its aux loss kept), the windowed family (sliding windows, q/k norm), "
-    "the encdec family (the gradient flows through the cross attention into "
-    "the encoder) and vision_stub patches with M-RoPE.  The ssm and hybrid "
-    "families' training waits (ROADMAP queue 1, item 4.2): their SSD layers "
-    "need a backward of the ssd_scan kernel.")
+    "make_train_step) trains every family the plain path serves: the "
+    "uniform family (dense, and MoE in every layer with its aux loss kept), "
+    "the windowed family (sliding windows, q/k norm), the ssm family and the "
+    "hybrid family (their SSD layers through the ssd_scan kernel's "
+    "backward; jamba's MoE aux loss kept), the encdec family (the gradient "
+    "flows through the cross attention into the encoder) and vision_stub "
+    "patches with M-RoPE.")
 
 
 def family(cfg: ModelConfig) -> str:

@@ -223,8 +223,10 @@ def test_other_paths_refuse_jamba(path):
     """Only the plain path serves the hybrid family: the hybrid model
     functions, the engine, the offload executor and the server refuse it,
     as the reference's hybrid KV/ACT functions and engine assert the
-    uniform and windowed families, and so does the training path (its
-    ``ssd_scan`` backward waits); each message names the refusing path."""
+    uniform and windowed families; each message names the refusing path.
+    The training path, which refused it until the ``ssd_scan`` backward,
+    now trains it (its gradients against the reference's are in
+    ``tests/test_torch_train_ssm.py``): its case checks a finite loss."""
     cfg, tp, _, _ = _model()
     toks = torch.from_numpy(_tokens(cfg, 1, 16, seed=1))
     name = T.PATH_NAMES["engine" if path == "executor" else path]
@@ -235,6 +237,10 @@ def test_other_paths_refuse_jamba(path):
         "server": lambda: ContinuousBatchingServer(cfg, tp, device="cpu"),
         "train": lambda: M.apply_train(tp, cfg, {"tokens": toks,
                                                  "labels": toks})}
+    if path == "train":
+        loss, metrics = calls[path]()
+        assert torch.isfinite(loss) and float(metrics["aux"]) > 0
+        return
     with pytest.raises(NotImplementedError) as e:
         calls[path]()
     assert f"(hybrid family, frontend none, none positions): not served by " \

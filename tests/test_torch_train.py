@@ -292,7 +292,8 @@ def _same_specs(mine, ref, what):
 
 @pytest.mark.parametrize("name", UNIFORM + [
     "minitron-4b", "gemma3-1b-reduced", "whisper-base-reduced",
-    "qwen2-vl-2b-reduced", "gemma3-1b", "whisper-base", "qwen2-vl-2b"])
+    "qwen2-vl-2b-reduced", "gemma3-1b", "whisper-base", "qwen2-vl-2b",
+    "mamba2-2.7b-reduced", "jamba-1.5-large-398b-reduced", "mamba2-2.7b"])
 def test_meta_specs_equal_jax_eval_shape(name):
     """params, optimizer state, the plain cache, the hybrid cache where the
     model has one (``T.SERVES["hybrid"]``), and the batch specs of every input
@@ -319,17 +320,24 @@ def test_meta_specs_equal_jax_eval_shape(name):
 
 @pytest.mark.parametrize("name", ["mamba2-2.7b-reduced",
                                   "jamba-1.5-large-398b-reduced"])
-def test_training_refuses_the_other_families(name):
-    """The ssm and hybrid configs are refused before any work, with the
-    message that names what waits (ROADMAP item 4.2, an ssd_scan
-    backward)."""
+def test_training_accepts_the_ssm_and_hybrid_families(name):
+    """The ssm and hybrid configs pass the training path's check, and at
+    the reference's own init (dt bias 0: a chunk's decay passes exp()'s
+    range above the diagonal, where the reference's gradient is NaN) the
+    port's loss and every gradient leaf are finite, A_log's (which reaches
+    the loss only through the scan's decay) nonzero.  Their gradients against the
+    reference's, at Mamba-2's dt init, are in
+    ``tests/test_torch_train_ssm.py``."""
     cfg = get_config(name)
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 4.2"):
-        M.apply_train({}, cfg, batch)
-    with pytest.raises(NotImplementedError, match="training path"):
-        T.check_supported(cfg, "train")
+    T.check_supported(cfg, "train")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    b = _batch(cfg, 1, 24, seed=3)
+    loss, metrics, grads = S.loss_and_grads(params, cfg, _torch_batch(b))
+    assert np.isfinite(loss.item())
+    for key, g in _flat(grads).items():
+        assert torch.isfinite(g).all(), (name, key)
+    assert float(_flat(grads)[next(k for k in _flat(grads)
+                                   if k.endswith("A_log"))].abs().max()) > 0
 
 
 def test_dense_and_moe_configs_keep_their_serving_signatures():
