@@ -58,11 +58,7 @@
 // Shared memory: Q 16/32/64 KB plus two stages of K and V, 80/160/192 KB at
 // D = 64/128/256, one block per SM.  The one new rounding against the
 // float32 plain version is P in 16 bits before P.V.
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_fp16.h>
-#include <cuda_bf16.h>
-#include <cstdint>
+#include "../../hopper.cuh"
 
 namespace {
 
@@ -80,87 +76,11 @@ constexpr float NEG_INF = -1e30f;
 constexpr int ROW_BYTES = 128;   // one swizzled row: 64 16-bit values
 
 // ---------------------------------------------------------------- PTX helpers
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// wait until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  }
-}
-
-// one TMA tile of a 4-D map into shared memory, completion on `bar`
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1, int c2,
-                                            int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// pin accumulator registers: no read or write moves across this point
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle (layout type 1)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
+// (the rest, mbarriers, TMA, descriptors, live in kernels/hopper.cuh)
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi, __half) {
-  __half2 h = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-__device__ __forceinline__ uint32_t pack2(float lo, float hi, __nv_bfloat16) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // wgmma m64nNk16, float32 accumulator.  _ss: A and B from shared memory
@@ -443,7 +363,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -496,7 +416,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
     qk_tile<T, BK, DP>(s, q_addr, smem_u32(k_s + st * L::KV_BYTES));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // the tile crosses the diagonal, the ragged end or the window's edge
@@ -551,7 +471,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     wgmma_fence();
     pv_tile<T, BK, DP>(acc, p16, smem_u32(v_s + st * L::KV_BYTES));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc);
     mbar_arrive(&empty[st]);                   // this thread is done with the stage
   }
@@ -585,31 +505,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ------------------------------------------------------------------ host side
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up at run time (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                    cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a (B, S, heads, D) tensor as a 4-D map {D, heads, S, B}; a box is `rows`
 // positions of one head, 64 columns, swizzled by 128 bytes
 bool make_map(CUtensorMap* map, const void* base, CUtensorMapDataType dt, int B, int S,

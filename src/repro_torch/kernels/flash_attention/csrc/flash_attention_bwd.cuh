@@ -23,202 +23,129 @@
 //
 // What bounds it on this card: five products of (live pairs) x D per head
 // (the recomputed scores, dV, dP, dQ, dK) against reading q, k, v, o, dO and
-// lse once and writing dq, dk, dv once.  At the training shapes (S = 512,
-// D = 128, causal) that is ~250 operations per byte, under the H100's ~295:
-// the bound is the bytes, by a little, and a design near it needs the tensor
-// cores and a few passes over the inputs.
+// lse once and writing dq, dk, dv once: at the training shapes (S = 512 to
+// 1500) a few hundred operations per byte, at or above the H100's ~295, so
+// the tensor cores' rate (989 TFLOP/s in 16 bits) is the bound, and only
+// `wgmma` approaches it.
 //
-// The design, simple first (the forward's wgmma/TMA redesign is later work):
+// The design (the forward's wgmma + TMA shape, FlashAttention-3's order):
 //   - a pre-pass (one warp per (b, i, h) row) takes Delta in float32 and
 //     zeroes the row's float32 dQ accumulator;
-//   - the main pass runs one block of four warps per (64-key tile, kv head,
-//     column part of D, request).  The block loads its K and V tiles once,
-//     then loops over the G query heads of its group and over the 32-query
-//     tiles that see any of its keys: causal, those at or after its first
-//     key, and with a window W only those before its last key + W (the
-//     TPU kernel's tile skip); non-causal, every query tile.  Each warp
-//     owns 16 keys: it recomputes S^T = K.Q^T and P^T for them over the
-//     whole D, and keeps dK and dV of its keys for the whole group in
-//     float32 registers, so no atomic touches dK or dV.  dS^T goes through
-//     shared memory (rounded to the input dtype), and the block's partial
-//     dQ of the tile (32 queries x its columns, over its 64 keys) is added
-//     to the float32 accumulator with atomics;
-//   - a last pass rounds dQ to the input dtype.
-// D = 256 is split in two column parts of 128, one block each (the grid's
-// y is kv head x part): a thread's dK and dV are DC = min(D, 128) columns,
-// 128 floats of registers at any D.  Whole-D accumulators would be 256
-// floats a thread beside the operands, past the 255 registers a thread
-// has.  Each part recomputes S^T and dP^T over the whole D, so D = 256
-// does 7/5 of the tensor-core work of one pass, and its blocks share no
-// accumulator.
-// All five products are mma.sync m16n8k16 on the tensor cores (16-bit
-// inputs, float32 accumulators), their operands loaded by ldmatrix from
-// shared-memory tiles padded by 16 bytes a row (no bank conflicts).  The
-// new roundings against the float32 plain version: P and dS in 16 bits
-// before their products, as the forward rounds P.
+//   - the main pass runs one block per (query head, request, 64-key tile),
+//     the key tile slowest, so the causal grid starts with its longest
+//     blocks.  Each block takes one query head: the group's G heads are G
+//     blocks, not a serial walk, so a grid of few kv heads still fills the
+//     card (the 6.9x-SDPA shape of the first design had 52 blocks; 208 now).
+//     384 threads: a producer warpgroup and two consumer warpgroups that
+//     split the work by product, not by column:
+//       WG0: S^T = K.Q^T, P^T = exp(S^T / sqrt(D) - lse) under the mask,
+//            dV += P^T.dO (P^T rounded to the input dtype, the A operand
+//            from registers);
+//       WG1: dP^T = V.dO^T, dS^T = P^T (dP^T - Delta) / sqrt(D), with P^T
+//            handed over in float32 through shared memory in the
+//            accumulator's fragment order, dK += dS^T.Q (dS^T rounded, A
+//            from registers), and dS^T into shared memory (128-byte
+//            swizzle) for dQ;
+//       both: dQ (BQ x D) = dS.K, read as MN-major operands from the same
+//            two tiles (the descriptors' transpose bits), each warpgroup
+//            64 rows (D <= 128) or half the columns (D = 256), staged as
+//            float32 boxes (128-byte swizzle) over the stage's dO (WG0)
+//            or Q (WG1) and added into the float32 accumulator by TMA
+//            reduce-add, as FlashAttention-3 does; each warpgroup's first
+//            thread releases the stage to the producer once its add has
+//            read it, under the next tile's first products.  A
+//            fixed-order dQ would take a second pass recomputing S and dP
+//            (7 products instead of 5); dQ is the one output that depends
+//            on the order of the adds.
+//     S^T and dP^T are each computed once per tile at every D, so D = 256
+//     does no recomputation (its dK and dV are 128 accumulator registers a
+//     thread, one accumulator per warpgroup).  Named barriers order the
+//     two hand-overs (P^T, dS^T) and the reuse of their buffers.
+//   - the producer's first warp loads K and V once and each tile's Q and dO
+//     by TMA (4-D maps over (D, heads, S, B): a ragged tile zero-fills), and
+//     its lse and Delta with plain loads, into a ring of two stages on
+//     mbarriers, so the next tile loads under the current one's products.
+//     Query tiles of BQ = 128 rows (64 at D = 256); causal, only those at or
+//     after the block's first key, and with a window only those before its
+//     last key + W (the TPU kernel's tile skip).
+//   - every product is wgmma m64n64k16 (a row of them for a wider N), 16-bit
+//     inputs, float32 accumulators;
+//   - dK and dV: with G = 1 the block writes them rounded to the input
+//     dtype; with G > 1 each block writes its head's float32 partials to a
+//     scratch (2, B, Sk, H, D), and the last pass sums the group's G heads
+//     in head order (deterministic) and rounds them; the same pass rounds dQ.
+// The roundings against the float32 plain version are the first design's:
+// P and dS in 16 bits before their products, as the forward rounds P.
 //
 // One C call launches the three passes on the caller's stream.
 //
 // Included at the end of flash_attention.cu: one library holds the forward
-// and its gradient.  Everything here sits in the namespace `bwd` inside an
-// anonymous namespace, beside the forward's own helpers.
+// and its gradient; the Hopper helpers come from kernels/hopper.cuh.
+// Everything here sits in the namespace `bwd` inside an anonymous namespace.
 #pragma once
-#include <cuda_runtime.h>
-#include <cuda_fp16.h>
-#include <cuda_bf16.h>
-#include <cstdint>
 
 namespace {
 namespace bwd {
 
-constexpr int BKV = 64;            // keys per block, 16 per warp
-constexpr int BQ = 32;             // queries per inner tile
-constexpr int THREADS = 128;
-constexpr int PAD = 8;             // 16 bytes a row: ldmatrix without conflicts
+constexpr int BKV = 64;               // keys per block: one m64 tile
+constexpr int CONSUMERS = 256;        // WG0 (P^T, dV) and WG1 (dS^T, dK)
+constexpr int THREADS = CONSUMERS + 128;   // and the producer warpgroup
+// registers a thread keeps after setmaxnreg, as in the forward:
+// 128 x 40 + 256 x 232 = 64,512 of 65,536
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int STAGES = 2;
+constexpr int ROWB = 128;             // one swizzled row: 64 16-bit values
 constexpr float LOG2E = 1.4426950408889634f;
+// named barriers of the two consumer warpgroups (0 is __syncthreads)
+constexpr int BAR_P_FULL = 1, BAR_P_EMPTY = 2, BAR_DS_FULL = 3, BAR_DS_EMPTY = 4;
 // planted faults (flags; 0 on every model path): the causal mask left out
-// (every query tile, every key), dK/dV not summed over the group (each head
-// restarts them: only the group's last head survives), the window left out
-// (the mask and the tile skip: the causal gradient), and the keys cut at Sq
-// (those past the queries' length take no part)
+// (every query tile, every key), dK/dV not summed over the group (only the
+// group's last head survives), the window left out (the mask and the tile
+// skip: the causal gradient), and the keys cut at Sq (those past the
+// queries' length take no part)
 constexpr int FAULT_NO_CAUSAL = 1;
 constexpr int FAULT_NO_GROUP_SUM = 2;
 constexpr int FAULT_NO_WINDOW = 4;
 constexpr int FAULT_SK_AS_SQ = 8;
+// a diagnostic (read, never on a path): the main pass adds no dQ
+constexpr int DIAG_NO_DQ_ADD = 16;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half_rn(x);
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
-  return x;
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi, __half) {
-  __half2 h = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-__device__ __forceinline__ uint32_t pack(float lo, float hi, __nv_bfloat16) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// four 8 x 8 matrices of 16-bit values; thread i gives the address of row
-// i % 8 of matrix i / 8, and gets (row lane / 4, columns 2 (lane % 4) + {0,
-// 1}) of each, or with .trans the same of each matrix transposed
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c (16 x 8, float32) += a (16 x 16, row-major) . b (16 x 8, column-major).
-// Fragments (g = lane / 4, t = lane % 4): a0 (g, 2t..2t+1), a1 (g + 8, ..),
-// a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..); b0 (k 2t..2t+1, n g), b1 (k 2t + 8..,
-// n g); c0, c1 (g, 2t..2t+1), c2, c3 (g + 8, 2t..2t+1)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1, __nv_bfloat16) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1, __half) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two accumulator tiles of 8 columns (keys x queries) as one A fragment of
-// 16 columns: the register layouts coincide
-template <typename T>
-__device__ __forceinline__ void as_a(uint32_t (&a)[4], const float (&lo)[4],
-                                     const float (&hi)[4]) {
-  a[0] = pack(lo[0], lo[1], T{});
-  a[1] = pack(lo[2], lo[3], T{});
-  a[2] = pack(hi[0], hi[1], T{});
-  a[3] = pack(hi[2], hi[3], T{});
-}
-
-// acc (16 rows x BQ queries) = A (16 rows of `rows`, row-major, D wide) .
-// Q^T, Q's tile [BQ][LD] in shared memory: S^T = K.Q^T, or dP^T = V.dO^T
-template <typename T, int D, int LD>
-__device__ __forceinline__ void times_qt(float (&acc)[BQ / 8][4], const T* rows,
-                                         const T* qs, int lane) {
-#pragma unroll
-  for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm(a, rows + (lane % 16) * LD + 16 * kk + 8 * (lane / 16));
-#pragma unroll
-    for (int j = 0; j < BQ / 16; ++j) {
-      uint32_t b[4];
-      ldsm(b, qs + (16 * j + lane % 8 + 8 * (lane / 16)) * LD + 16 * kk +
-                  8 * ((lane / 8) % 2));
-      mma(acc[2 * j], a, b[0], b[1], T{});
-      mma(acc[2 * j + 1], a, b[2], b[3], T{});
-    }
-  }
-}
-
-// acc (16 keys x D) += X^T (16 keys x BQ queries, accumulator tiles) .
-// Y (BQ x D, the tile [BQ][LD] in shared memory): dV += P^T.dO, dK += dS^T.Q
-template <typename T, int D, int LD>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                           const float (&x)[BQ / 8][4], const T* ys,
-                                           int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BQ / 16; ++kk) {
-    uint32_t a[4];
-    as_a<T>(a, x[2 * kk], x[2 * kk + 1]);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      uint32_t b[4];
-      ldsm_t(b, ys + (16 * kk + lane % 8 + 8 * ((lane / 8) % 2)) * LD + 16 * n +
-                    8 * (lane / 16));
-      mma(acc[2 * n], a, b[0], b[1], T{});
-      mma(acc[2 * n + 1], a, b[2], b[3], T{});
-    }
-  }
-}
-
+// the shared-memory plan at head width D, offsets from a 1 KB-aligned base
 template <int D>
-struct Smem {
-  static constexpr int LD = D + PAD;          // row stride of the D-wide tiles
-  static constexpr int LDS = BQ + PAD;        // row stride of dS^T
-  static constexpr int ELEMS = 2 * BKV * LD + 2 * BQ * LD + BKV * LDS;
-  static constexpr int BYTES = ELEMS * 2 + 2 * BQ * 4;
+struct Cfg {
+  static constexpr int BQ = D == 256 ? 64 : 128;   // queries per tile
+  static constexpr int NB = D / 64;                // 64-column blocks of D
+  static constexpr int QB = BQ / 64;               // 64-query blocks of a tile
+  static constexpr int KV_BYTES = NB * BKV * ROWB;  // K or V: NB blocks of 64 rows
+  static constexpr int QT_BYTES = NB * BQ * ROWB;   // one stage of Q or dO
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;                   // [STAGES]
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;     // [STAGES]
+  static constexpr int DS_OFF = DO_OFF + STAGES * QT_BYTES;    // dS^T: QB blocks [64 keys][64 q]
+  static constexpr int P_OFF = DS_OFF + QB * BKV * ROWB;       // P^T float32, fragment order
+  static constexpr int ST_OFF = P_OFF + BKV * BQ * 4;          // [STAGES]: lse (log2), Delta
+  static constexpr int BAR_OFF = ST_OFF + STAGES * 2 * BQ * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;
+  // dQ per consumer warpgroup: its 64 rows and every column (D <= 128), or
+  // the tile's 64 rows and half the columns (D = 256)
+  static constexpr int DQ_NB = D == 256 ? 2 : NB;
 };
 
-// the columns of dK, dV and dQ one block accumulates: all of D up to 128,
-// else 128 (the grid's y holds D / DC parts per kv head)
-template <int D>
-struct Part {
-  static constexpr int DC = D > 128 ? 128 : D;
-  static constexpr int PARTS = D / DC;
-};
+// the forward's wgmma helpers at a width N: S^T or dP^T (both operands
+// K-major from shared memory), and dV or dK (A from registers, B MN-major)
+template <typename T, int N>
+__device__ __forceinline__ void mma_kk(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 128) wgmma_ss_n128(d, da, db, acc, T{});
+  else wgmma_ss_n64(d, da, db, acc, T{});
+}
+template <typename T, int N>
+__device__ __forceinline__ void mma_rt(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 256) wgmma_rs_n256(d, a, db, T{});
+  else if constexpr (N == 128) wgmma_rs_n128(d, a, db, T{});
+  else wgmma_rs_n64(d, a, db, T{});
+}
 
 // Delta_i = rowsum(dO_i * O_i) per (b, i, h) row, one warp each, written
 // (B, H, Sq); the row's float32 dQ accumulator zeroed
@@ -245,228 +172,368 @@ __global__ void flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restr
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv,
-                 int Sq, int Sk, int H, int KVH, int window, int causal_in,
-                 float scale, int flags) {
-  using M = Smem<D>;
-  constexpr int LD = M::LD, LDS = M::LDS;
-  constexpr int DC = Part<D>::DC, PARTS = Part<D>::PARTS;
-  extern __shared__ __align__(16) uint8_t bwd_smem[];
-  T* ks = reinterpret_cast<T*>(bwd_smem);
-  T* vs = ks + BKV * LD;
-  T* qs = vs + BKV * LD;
-  T* dos = qs + BQ * LD;
-  T* dss = dos + BQ * LD;                             // dS^T [BKV keys][BQ]
-  float* lse_s = reinterpret_cast<float*>(dss + BKV * LDS);   // log2 units
-  float* dl_s = lse_s + BQ;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const __grid_constant__ CUtensorMap tm_dq, const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                 float* __restrict__ kv_part,
+                 int Sq, int Sk, int H, int KVH, int window, int causal_in, float scale,
+                 int flags) {
+  using C = Cfg<D>;
+  constexpr int BQ = C::BQ, NB = C::NB;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;                     // [STAGES]
+  uint64_t* empty = bars + 1 + STAGES;           // [STAGES]
 
-  const int k0 = blockIdx.x * BKV, b = blockIdx.z;
-  const int kvh = blockIdx.y / PARTS, d0 = DC * (blockIdx.y % PARTS);
-  const int G = H / KVH;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const long kv_row = (long)KVH * D, q_row = (long)H * D;
+  const int h = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BKV;
+  const int G = H / KVH, kvh = h / G;
   const bool causal = causal_in && !(flags & FAULT_NO_CAUSAL);
   const int W = (flags & FAULT_NO_WINDOW) ? 0 : window;
   // the keys that take part: all Sk, or under the fault those below Sq
   const int n_keys = (flags & FAULT_SK_AS_SQ) ? min(Sq, Sk) : Sk;
+  // the query tiles that see any of the block's keys: causal, from the one
+  // holding its first key, and with a window, before its last key + W
+  const int q_lo = causal ? k0 / BQ * BQ : 0;
+  const int q_hi = causal && W > 0 ? min(Sq, k0 + BKV - 1 + W) : Sq;
+  const int n_tiles = q_hi > q_lo ? (q_hi - q_lo + BQ - 1) / BQ : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);               // the TMA's bytes, the warp's loads
+      mbar_init(&empty[s], 2);                   // each warpgroup's dQ add has read it
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {                // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    const int lane = threadIdx.x - CONSUMERS;
+    if (lane >= 32) return;                      // one warp loads
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+      for (int nb = 0; nb < NB; ++nb) {
+        tma_load_4d(smem + C::K_OFF + nb * BKV * ROWB, &tm_k, kv_full, nb * 64, kvh, k0, b);
+        tma_load_4d(smem + C::V_OFF + nb * BKV * ROWB, &tm_v, kv_full, nb * 64, kvh, k0, b);
+      }
+    }
+    const float* lse_bh = lse + ((long)b * H + h) * Sq;
+    const float* dl_bh = delta + ((long)b * H + h) * Sq;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % STAGES, q0 = q_lo + it * BQ;
+      if (it >= STAGES) mbar_wait(&empty[st], (it / STAGES - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], 2 * C::QT_BYTES);
+        for (int nb = 0; nb < NB; ++nb) {
+          const int off = st * C::QT_BYTES + nb * BQ * ROWB;
+          tma_load_4d(smem + C::Q_OFF + off, &tm_q, &full[st], nb * 64, h, q0, b);
+          tma_load_4d(smem + C::DO_OFF + off, &tm_do, &full[st], nb * 64, h, q0, b);
+        }
+      }
+      float* stl = reinterpret_cast<float*>(smem + C::ST_OFF) + st * 2 * BQ;
+      for (int c = lane; c < BQ; c += 32) {
+        const bool live = q0 + c < Sq;
+        stl[c] = live ? lse_bh[q0 + c] * LOG2E : 0.f;
+        stl[BQ + c] = live ? dl_bh[q0 + c] : 0.f;
+      }
+      mbar_arrive(&full[st]);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  // consumer warpgroup wg, thread t: in an m64 accumulator fragment it holds
+  // rows 16 wl + g (entries i with i % 4 < 2) and + 8, columns
+  // 8 (i / 4) + 2 q4 + i % 2
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int wl = t / 32, lane = t % 32, g = lane / 4, q4 = lane % 4;
+  const uint32_t k_addr = smem_u32(smem + C::K_OFF), v_addr = smem_u32(smem + C::V_OFF);
+  const uint32_t ds_addr = smem_u32(smem + C::DS_OFF);
+  uint8_t* ds_s = smem + C::DS_OFF;
+  float* pbuf = reinterpret_cast<float*>(smem + C::P_OFF);
   const float scale_log2 = scale * LOG2E;
 
-  // the block's K and V tiles over the whole D, rows past Sk zero-filled
-  for (int c = tid; c < BKV * D / 8; c += THREADS) {
-    const int r = c / (D / 8), col = c % (D / 8) * 8;
-    uint4 kx = make_uint4(0, 0, 0, 0), vx = kx;
-    if (k0 + r < Sk) {
-      const long off = ((long)b * Sk + k0 + r) * kv_row + (long)kvh * D + col;
-      kx = *reinterpret_cast<const uint4*>(k + off);
-      vx = *reinterpret_cast<const uint4*>(v + off);
+  // accumulator fragments of an m64 tile, entry e: row 16 wl + g (+ 8 for
+  // e % 4 >= 2), column 8 (e / 4) + 2 q4 + e % 2
+  float acc[D / 2];                              // WG0: dV, WG1: dK (64 keys x D)
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+
+  // the warpgroup's rows of a tile, and its first 64-column block of dQ
+  const int row0 = D == 256 ? 0 : 64 * wg;
+  const int cb0 = D == 256 ? 2 * wg : 0;
+  const bool add = !(flags & DIAG_NO_DQ_ADD);
+  // the warpgroup's first thread adds its dQ piece by TMA and releases the
+  // stage (which staged the piece) once that add has read it
+  const bool elected = t == 0;
+  auto release = [&](int stage) {
+    if (!elected) return;
+    if (add) bulk_wait_read<0>();
+    mbar_arrive(&empty[stage]);
+  };
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % STAGES, q0 = q_lo + it * BQ;
+    mbar_wait(&full[st], (it / STAGES) & 1);
+    const uint32_t q_addr = smem_u32(smem + C::Q_OFF + st * C::QT_BYTES);
+    const uint32_t do_addr = smem_u32(smem + C::DO_OFF + st * C::QT_BYTES);
+    const float* stl = reinterpret_cast<const float*>(smem + C::ST_OFF) + st * 2 * BQ;
+
+    // S^T = K.Q^T (WG0) or dP^T = V.dO^T (WG1): 64 keys x BQ queries, one
+    // m64nBQ product a k-step of 16 columns of D
+    float s[BQ / 2];
+#pragma unroll
+    for (int e = 0; e < BQ / 2; ++e) s[e] = 0.f;
+    {
+      const uint32_t a_base = wg == 0 ? k_addr : v_addr;
+      const uint32_t b_base = wg == 0 ? q_addr : do_addr;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_kk<T, BQ>(s, desc_sw128(a_base + (kk >> 2) * BKV * ROWB + (kk & 3) * 32, 16, 1024),
+                      desc_sw128(b_base + (kk >> 2) * BQ * ROWB + (kk & 3) * 32, 16, 1024),
+                      kk > 0);
+      wgmma_commit();
+      if (it > 0) release((it - 1) % STAGES);   // under the products
+      wgmma_wait<0>();
+      fence_regs(s);
     }
-    *reinterpret_cast<uint4*>(ks + r * LD + col) = kx;
-    *reinterpret_cast<uint4*>(vs + r * LD + col) = vx;
-  }
 
-  // this warp's 16 keys; the thread's accumulator rows are keys key0, key0 + 8,
-  // its columns those of the block's part, d0 ..
-  const int wk = 16 * warp;
-  const int key0 = k0 + wk + g;
-  float dk_acc[DC / 8][4], dv_acc[DC / 8][4];
+    // the tile crosses the ragged ends, the diagonal or the window's edge
+    const bool need_mask =
+        q0 + BQ > Sq || k0 + BKV > n_keys ||
+        (causal && (q0 < k0 + BKV - 1 || (W > 0 && q0 + BQ - 1 - k0 >= W)));
+    if (wg == 0) {
+      // P^T under the mask, float32
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  // the dQ piece this warp adds: 16 query rows x DC/2 columns of the tile
-  const int m0 = 16 * (warp % 2), c0 = d0 + (DC / 2) * (warp / 2);
-  // the query tiles that see any of the block's keys: causal, from its
-  // first key on, and with a window, before its last key + W
-  const int q_lo = causal ? k0 : 0;
-  const int q_hi = causal && W > 0 ? min(Sq, k0 + BKV - 1 + W) : Sq;
-
-  for (int hg = 0; hg < G; ++hg) {
-    const int h = kvh * G + hg;
-    if ((flags & FAULT_NO_GROUP_SUM) && hg > 0) {
-#pragma unroll
-      for (int n = 0; n < DC / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-    }
-    for (int q0 = q_lo; q0 < q_hi; q0 += BQ) {
-      __syncthreads();                  // the last tile's Q, dO and dS^T are read
-      for (int c = tid; c < BQ * D / 8; c += THREADS) {
-        const int r = c / (D / 8), col = c % (D / 8) * 8;
-        uint4 qx = make_uint4(0, 0, 0, 0), ox = qx;
-        if (q0 + r < Sq) {
-          const long off = ((long)b * Sq + q0 + r) * q_row + (long)h * D + col;
-          qx = *reinterpret_cast<const uint4*>(q + off);
-          ox = *reinterpret_cast<const uint4*>(dout + off);
-        }
-        *reinterpret_cast<uint4*>(qs + r * LD + col) = qx;
-        *reinterpret_cast<uint4*>(dos + r * LD + col) = ox;
-      }
-      if (tid < BQ) {
-        const bool live = q0 + tid < Sq;
-        const long at = ((long)b * H + h) * Sq + q0 + tid;
-        lse_s[tid] = live ? lse[at] * LOG2E : 0.f;
-        dl_s[tid] = live ? delta[at] : 0.f;
-      }
-      __syncthreads();
-
-      // P^T (16 keys x BQ queries): the recomputed scores under the mask
-      float pt[BQ / 8][4];
-      times_qt<T, D, LD>(pt, ks + wk * LD, qs, lane);
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + 8 * (e / 2);
-          const int qi = q0 + 8 * j + 2 * t4 + (e % 2);
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int col = 8 * (e >> 2) + 2 * q4 + (e & 1);
+        float p = ex2(fmaf(s[e], scale_log2, -stl[col]));
+        if (need_mask) {
+          const int key = k0 + 16 * wl + g + 8 * ((e >> 1) & 1), qi = q0 + col;
           const bool ok = qi < Sq && key < n_keys &&
                           (!causal || (key <= qi && (W <= 0 || key > qi - W)));
-          pt[j][e] = ok ? exp2f(pt[j][e] * scale_log2 - lse_s[qi - q0]) : 0.f;
+          if (!ok) p = 0.f;
         }
-      accumulate<T, DC, LD>(dv_acc, pt, dos + d0, lane);    // dV += P^T.dO
+        s[e] = p;
+      }
+      // hand P^T to WG1 once it has read the last one
+      if (it > 0) named_sync(BAR_P_EMPTY, CONSUMERS);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) pbuf[e * 128 + t] = s[e];
+      named_arrive(BAR_P_FULL, CONSUMERS);
+    } else {
+      // dS^T = P^T (dP^T - Delta) / sqrt(D)
+      named_sync(BAR_P_FULL, CONSUMERS);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        const int col = 8 * (e >> 2) + 2 * q4 + (e & 1);
+        s[e] = pbuf[e * 128 + t] * (s[e] - stl[BQ + col]) * scale;
+      }
+      if (it + 1 < n_tiles) named_arrive(BAR_P_EMPTY, CONSUMERS);
+      // dS^T rounded into shared memory for dQ, once both warpgroups' last dQ
+      // has read the previous one
+      if (it > 0) named_sync(BAR_DS_EMPTY, CONSUMERS);
+#pragma unroll
+      for (int e = 0; e < BQ / 2; e += 2) {
+        const int r = 16 * wl + g + 8 * ((e >> 1) & 1), c8 = e >> 2;
+        *reinterpret_cast<uint32_t*>(ds_s + (c8 >> 3) * BKV * ROWB + r * ROWB +
+                                     (((c8 & 7) ^ (r & 7)) << 4) + 4 * q4) =
+            pack2(s[e], s[e + 1], T{});
+      }
+      fence_proxy_async();
+    }
+    // the 16 queries of a k-step of the accumulator are one register A
+    // fragment: P^T (WG0) or dS^T (WG1) rounded to T
+    uint32_t pa[BQ / 16][4];
+#pragma unroll
+    for (int k = 0; k < BQ / 16; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pa[k][j] = pack2(s[8 * k + 2 * j], s[8 * k + 2 * j + 1], T{});
 
-      // dS^T = P^T * (dP^T - Delta) * scale, dP^T = V.dO^T
-      float ds[BQ / 8][4];
-      times_qt<T, D, LD>(ds, vs + wk * LD, dos, lane);
+    // dV += P^T.dO (WG0), dK += dS^T.Q (WG1): the stage's dO or Q as an
+    // MN-major operand (its 64-column blocks BQ rows apart), 16 queries a
+    // k-step, all of D in one product
+    {
+      const uint32_t y_addr = wg == 0 ? do_addr : q_addr;
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = 8 * j + 2 * t4 + (e % 2);
-          ds[j][e] = pt[j][e] * (ds[j][e] - dl_s[ql]) * scale;
-        }
-      accumulate<T, DC, LD>(dk_acc, ds, qs + d0, lane);     // dK += dS^T.Q
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-        const int col = 8 * j + 2 * t4;
-        *reinterpret_cast<uint32_t*>(dss + (wk + g) * LDS + col) =
-            pack(ds[j][0], ds[j][1], T{});
-        *reinterpret_cast<uint32_t*>(dss + (wk + g + 8) * LDS + col) =
-            pack(ds[j][2], ds[j][3], T{});
-      }
-      __syncthreads();
+      for (int k = 0; k < BQ / 16; ++k)
+        mma_rt<T, D>(acc, pa[k], desc_sw128(y_addr + k * 2048, BQ * ROWB, 1024));
+      wgmma_commit();
+    }
+    named_sync(BAR_DS_FULL, CONSUMERS);          // dS^T is in shared memory
 
-      // dQ (BQ x DC) += dS (BQ x BKV) . K: this warp's 16 rows x DC/2
-      // columns, dS read transposed out of dS^T
-      float dq[DC / 16][4];
+    // dQ = dS.K: A = dS^T read MN-major, B = K read MN-major, 16 keys a k-step
+    float dq[C::DQ_NB][32];
 #pragma unroll
-      for (int n = 0; n < DC / 16; ++n)
+    for (int j = 0; j < C::DQ_NB; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+      for (int i = 0; i < 32; ++i) dq[j][i] = 0.f;
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_t(a, dss + (16 * kk + lane % 8 + 8 * (lane / 16)) * LDS + m0 +
-                      8 * ((lane / 8) % 2));
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint64_t da =
+          desc_sw128(ds_addr + (row0 / 64) * BKV * ROWB + kk * 2048, BKV * ROWB, 1024);
 #pragma unroll
-        for (int n = 0; n < DC / 32; ++n) {
-          uint32_t bk[4];
-          ldsm_t(bk, ks + (16 * kk + lane % 8 + 8 * ((lane / 8) % 2)) * LD + c0 +
-                         16 * n + 8 * (lane / 16));
-          mma(dq[2 * n], a, bk[0], bk[1], T{});
-          mma(dq[2 * n + 1], a, bk[2], bk[3], T{});
+      for (int j = 0; j < C::DQ_NB; ++j)
+        wgmma_ss64<1, 1>(dq[j], da,
+                         desc_sw128(k_addr + (cb0 + j) * BKV * ROWB + kk * 2048, BKV * ROWB,
+                                    1024),
+                         kk > 0, T{});
+    }
+    wgmma_commit();
+    wgmma_wait<0>();                             // dV or dK, and dQ
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < C::DQ_NB; ++j) fence_regs(dq[j]);
+    if (wg == 0 && it + 1 < n_tiles) named_arrive(BAR_DS_EMPTY, CONSUMERS);
+
+    // dQ added into its float32 accumulator by TMA: the piece staged as
+    // boxes of 64 rows x 32 columns (128-byte swizzle) over the stage's dO
+    // (WG0) or Q (WG1), which this warpgroup has read; rows past Sq are not
+    // written
+    if (add) {
+      uint8_t* box = smem + (wg == 0 ? C::DO_OFF : C::Q_OFF) + st * C::QT_BYTES;
+#pragma unroll
+      for (int j = 0; j < C::DQ_NB; ++j)
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const int r = 16 * wl + g + 8 * ((e >> 1) & 1), c8 = e >> 2;
+          const int chunk = 2 * (c8 & 3) + (q4 >> 1);
+          *reinterpret_cast<float2*>(box + (2 * j + (c8 >> 2)) * 8192 + r * 128 +
+                                     ((chunk ^ (r & 7)) << 4) + 8 * (q4 & 1)) =
+              make_float2(dq[j][e], dq[j][e + 1]);
         }
-      }
+      fence_proxy_async();
+      named_sync(5 + wg, 128);
+      if (elected) {
 #pragma unroll
-      for (int n = 0; n < DC / 16; ++n) {
-        const int col = c0 + 8 * n + 2 * t4;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int qi = q0 + m0 + g + 8 * half;
-          if (qi < Sq) {
-            float* at = dq_acc + ((long)b * Sq + qi) * q_row + (long)h * D + col;
-            atomicAdd(at, dq[n][2 * half]);
-            atomicAdd(at + 1, dq[n][2 * half + 1]);
-          }
-        }
+        for (int k = 0; k < 2 * C::DQ_NB; ++k)
+          tma_reduce_add_4d(&tm_dq, box + k * 8192, 64 * cb0 + 32 * k, h, q0 + row0, b);
+        bulk_commit();
       }
+    } else {
+      named_sync(5 + wg, 128);
     }
   }
+  if (n_tiles > 0) release((n_tiles - 1) % STAGES);
+  if (elected) bulk_wait<0>();                   // the last dQ add written
 
-  // dK and dV of the warp's keys in the block's columns, rounded to T
+  // dV (WG0) or dK (WG1) of the block's keys: rounded to T with G = 1, else
+  // this head's float32 partial
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n) {
-    const int col = d0 + 8 * n + 2 * t4;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int key = key0 + 8 * half;
-      if (key < Sk) {
-        const long off = ((long)b * Sk + key) * kv_row + (long)kvh * D + col;
-        *reinterpret_cast<uint32_t*>(dk + off) =
-            pack(dk_acc[n][2 * half], dk_acc[n][2 * half + 1], T{});
-        *reinterpret_cast<uint32_t*>(dv + off) =
-            pack(dv_acc[n][2 * half], dv_acc[n][2 * half + 1], T{});
-      }
+  for (int e = 0; e < D / 2; e += 2) {
+    const int key = k0 + 16 * wl + g + 8 * ((e >> 1) & 1);
+    const int col = 8 * (e >> 2) + 2 * q4;
+    if (key >= Sk) continue;
+    if (G == 1) {
+      T* out = wg == 0 ? dv : dk;
+      *reinterpret_cast<uint32_t*>(out + ((long)b * Sk + key) * KVH * D + (long)kvh * D + col) =
+          pack2(acc[e], acc[e + 1], T{});
+    } else {
+      const long plane = (long)gridDim.y * Sk * H * D;   // dK's partials, then dV's
+      *reinterpret_cast<float2*>(kv_part + (wg == 0 ? plane : 0) +
+                                 ((long)b * Sk + key) * H * D + (long)h * D + col) =
+          make_float2(acc[e], acc[e + 1]);
     }
   }
 }
 
-// dQ rounded to T from its float32 accumulator
+// dQ rounded to T from its float32 accumulator; with G > 1 also dK and dV:
+// the group's G float32 partials summed in head order (only the last head
+// under the planted fault) and rounded to T.  Four elements a thread (D is a
+// multiple of 64)
 template <typename T>
-__global__ void flash_bwd_dq_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq,
-                                    long n) {
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x)
-    dq[i] = from_f<T>(dq_acc[i]);
+__device__ __forceinline__ void store4(T* dst, float4 v) {
+  uint2 raw;
+  raw.x = pack2(v.x, v.y, T{});
+  raw.y = pack2(v.z, v.w, T{});
+  *reinterpret_cast<uint2*>(dst) = raw;
+}
+
+template <typename T>
+__global__ void flash_bwd_post_kernel(const float* __restrict__ dq_acc, T* __restrict__ dq,
+                                      long n_q, const float* __restrict__ kv_part,
+                                      T* __restrict__ dk, T* __restrict__ dv, long n_kv,
+                                      int G, int D, int flags) {
+  const long n = n_q > n_kv ? n_q : n_kv;
+  const int g0 = (flags & FAULT_NO_GROUP_SUM) ? G - 1 : 0;
+  for (long i = 4 * (blockIdx.x * (long)blockDim.x + threadIdx.x); i < n;
+       i += 4 * (long)gridDim.x * blockDim.x) {
+    if (i < n_q) store4(dq + i, *reinterpret_cast<const float4*>(dq_acc + i));
+    if (kv_part != nullptr && i < n_kv) {
+      // i = ((b Sk + key) KVH + kvh) D + d; head kvh G + g's partial sits at
+      // ((b Sk + key) H + kvh G + g) D + d
+      const long base = (i / D) * G * D + i % D;
+      float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+      for (int g = g0; g < G; ++g) {
+        const float4 a = *reinterpret_cast<const float4*>(kv_part + base + (long)g * D);
+        const float4 c =
+            *reinterpret_cast<const float4*>(kv_part + n_kv * G + base + (long)g * D);
+        sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+        sv.x += c.x; sv.y += c.y; sv.z += c.z; sv.w += c.w;
+      }
+      store4(dk + i, sk);
+      store4(dv + i, sv);
+    }
+  }
 }
 
 template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, const void* o,
-             const void* lse, const void* dout, void* dq, void* dk, void* dv,
-             void* dq_acc, void* delta, int B, int Sq, int Sk, int H, int KVH,
-             int window, int causal, int flags, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, const void* o, const void* lse,
+             const void* dout, void* dq, void* dk, void* dv, void* dq_acc, void* delta,
+             void* kv_part, int B, int Sq, int Sk, int H, int KVH, int window, int causal,
+             int flags, CUtensorMapDataType dt, cudaStream_t stream) {
+  using C = Cfg<D>;
   static bool attr = false;
   if (!attr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        Smem<D>::BYTES);
+        flash_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
+  // dQ's float32 accumulator as (D, H, Sq, B) in boxes of 32 columns by 64
+  // rows (the TMA add)
+  const cuuint64_t dq_dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)Sq, (cuuint64_t)B};
+  const cuuint64_t dq_str[3] = {(cuuint64_t)D * 4, (cuuint64_t)H * D * 4,
+                                (cuuint64_t)Sq * H * D * 4};
+  const cuuint32_t dq_box[4] = {32, 1, 64, 1};
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  if (!make_map(&tq, q, dt, B, Sq, H, D, C::BQ) || !make_map(&tdo, dout, dt, B, Sq, H, D, C::BQ) ||
+      !make_map(&tk, k, dt, B, Sk, KVH, D, BKV) || !make_map(&tv, v, dt, B, Sk, KVH, D, BKV) ||
+      !make_map(&tdq, dq_acc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dq_dims, dq_str, dq_box))
+    return (int)cudaErrorInvalidValue;
   const long rows = (long)B * Sq * H;
   flash_bwd_delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout),
       static_cast<float*>(delta), static_cast<float*>(dq_acc), rows, Sq, H, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sk + BKV - 1) / BKV, KVH * Part<D>::PARTS, B);
-  flash_bwd_kernel<T, D><<<grid, THREADS, Smem<D>::BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq_acc),
-      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Sk, H, KVH, window, causal,
-      1.f / sqrtf((float)D), flags);
+  const int G = H / KVH;
+  float* part = G > 1 ? static_cast<float*>(kv_part) : nullptr;
+  const dim3 grid(H, B, (Sk + BKV - 1) / BKV);
+  flash_bwd_kernel<T, D><<<grid, THREADS, C::SMEM, stream>>>(
+      tq, tk, tv, tdo, tdq, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), part, Sq, Sk,
+      H, KVH, window, causal, 1.f / sqrtf((float)D), flags);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long n = rows * D;
-  const long blocks = (n + 255) / 256;
-  flash_bwd_dq_kernel<T><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
-      static_cast<const float*>(dq_acc), static_cast<T*>(dq), n);
+  const long n_q = rows * D, n_kv = G > 1 ? (long)B * Sk * KVH * D : 0;
+  const long n = n_q > n_kv ? n_q : n_kv;
+  const long blocks = (n / 4 + 255) / 256;
+  flash_bwd_post_kernel<T><<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(
+      static_cast<const float*>(dq_acc), static_cast<T*>(dq), n_q, part,
+      static_cast<T*>(dk), static_cast<T*>(dv), n_kv, G, D, flags);
   return (int)cudaGetLastError();
 }
 
@@ -474,10 +541,10 @@ int launch_d(const void* q, const void* k, const void* v, const void* o,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* lse,
            const void* dout, void* dq, void* dk, void* dv, void* dq_acc, void* delta,
-           int B, int Sq, int Sk, int H, int KVH, int D, int window, int causal,
-           int flags, cudaStream_t stream) {
-#define D_ARGS q, k, v, o, lse, dout, dq, dk, dv, dq_acc, delta, B, Sq, Sk, H, KVH, \
-               window, causal, flags, stream
+           void* kv_part, int B, int Sq, int Sk, int H, int KVH, int D, int window,
+           int causal, int flags, CUtensorMapDataType dt, cudaStream_t stream) {
+#define D_ARGS q, k, v, o, lse, dout, dq, dk, dv, dq_acc, delta, kv_part, B, Sq, Sk, H, KVH, \
+               window, causal, flags, dt, stream
   switch (D) {
     case 64: return launch_d<T, 64>(D_ARGS);
     case 128: return launch_d<T, 128>(D_ARGS);
@@ -494,15 +561,17 @@ extern "C" {
 
 // q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, KVH, D); lse (B, H, Sq)
 // float32 from the forward; scratch: dq_acc (B, Sq, H, D) and delta (B, H,
-// Sq) float32.  causal 1: keys j <= i (Sq = Sk), and window > 0 only j > i -
-// window; causal 0: every key j < Sk, no window.  D 64, 128 or 256; any
-// other D returns cudaErrorInvalidValue and launches nothing.  dtype: 1
-// float16, 2 bfloat16.  The 16-bit tensors 16-byte aligned.  flags: planted
-// faults, 0 on every model path.  Returns a cudaError_t.
+// Sq) float32, and with H > KVH kv_part (2, B, Sk, H, D) float32 (dK's and
+// dV's per-head partials; may be null when H = KVH).  causal 1: keys j <= i
+// (Sq = Sk), and window > 0 only j > i - window; causal 0: every key j <
+// Sk, no window.  D 64, 128 or 256; any other D returns
+// cudaErrorInvalidValue and launches nothing.  dtype: 1 float16, 2
+// bfloat16.  The 16-bit tensors 16-byte aligned.  flags: planted faults, 0
+// on every model path.  Returns a cudaError_t.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* lse, const void* dout, void* dq, void* dk, void* dv,
-                        void* dq_acc, void* delta, int B, int Sq, int Sk, int H, int KVH,
-                        int D, int window, int causal, int dtype, int flags,
+                        void* dq_acc, void* delta, void* kv_part, int B, int Sq, int Sk,
+                        int H, int KVH, int D, int window, int causal, int dtype, int flags,
                         void* stream) {
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -510,17 +579,30 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
       reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
       reinterpret_cast<uintptr_t>(dv);
   if (KVH <= 0 || H % KVH != 0 || Sq <= 0 || Sk <= 0 || B <= 0 || window < 0 ||
-      (causal && Sq != Sk) || (!causal && window > 0) || align % 16 != 0)
+      (causal && Sq != Sk) || (!causal && window > 0) || align % 16 != 0 ||
+      (H > KVH && kv_part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 1: return bwd::launch<__half>(q, k, v, o, lse, dout, dq, dk, dv, dq_acc, delta, B,
-                                       Sq, Sk, H, KVH, D, window, causal, flags, st);
+    case 1: return bwd::launch<__half>(q, k, v, o, lse, dout, dq, dk, dv, dq_acc, delta,
+                                       kv_part, B, Sq, Sk, H, KVH, D, window, causal, flags,
+                                       CU_TENSOR_MAP_DATA_TYPE_FLOAT16, st);
     case 2: return bwd::launch<__nv_bfloat16>(q, k, v, o, lse, dout, dq, dk, dv, dq_acc,
-                                              delta, B, Sq, Sk, H, KVH, D, window, causal,
-                                              flags, st);
+                                              delta, kv_part, B, Sq, Sk, H, KVH, D, window,
+                                              causal, flags,
+                                              CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// the main pass's dynamic shared memory at head_dim D (bytes), -1 if none
+int flash_attention_bwd_smem(int D) {
+  switch (D) {
+    case 64: return bwd::Cfg<64>::SMEM;
+    case 128: return bwd::Cfg<128>::SMEM;
+    case 256: return bwd::Cfg<256>::SMEM;
+  }
+  return -1;
 }
 
 }  // extern "C"

@@ -10,7 +10,10 @@ CPU tensor takes the plain versions in ``ref.py``, under autograd too.
 ``flash_attention.window_launches`` again those of its sliding-window mode,
 ``flash_attention.noncausal_launches`` again those of its non-causal mode,
 and ``flash_attention.bwd_launches`` the backward's (one C call: the Delta
-pre-pass, the main pass and the dQ rounding), ``.bwd_window_launches``,
+pre-pass, the main pass on ``wgmma`` with one block per (query head, request,
+64-key tile), and a last pass that rounds dQ and, for G > 1, sums each
+group's per-head dK/dV partials in head order; ``flash_attention_bwd_split_ref``
+in ``ref.py`` is the same algorithm in plain PyTorch), ``.bwd_window_launches``,
 ``.bwd_noncausal_launches`` and ``.bwd_hd256_launches`` again those of its
 window mode, its non-causal mode and head_dim 256.
 
@@ -35,11 +38,12 @@ from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
 MAX_D = 256
 BWD_D = (64, 128, 256)
-# planted faults of the backward kernel (``flags``; 0 on every model path)
+# planted faults of the backward kernel (``flags``; 0 on every model path),
+# and a diagnostic: the main pass adds no dQ (what the dQ adds cost)
 FAULTS = {"no_causal_mask": 1, "no_group_sum": 2, "no_window": 4,
-          "sk_as_sq": 8}
+          "sk_as_sq": 8, "diag_no_dq_add": 16}
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 TRAINS = (f"the flash kernel's gradient is built for head_dim {BWD_D} (the "
           "models the port trains); another head_dim has no instantiation")
 
@@ -163,13 +167,17 @@ def _launch_bwd(q, k, v, o, lse, dout, window: int, causal: bool, flags: int):
                            _BWD_ARGTYPES)
     B, Sq, H, D = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # scratch: dQ's float32 accumulator and Delta, written by the pre-pass
+    # scratch: dQ's float32 accumulator and Delta, written by the pre-pass;
+    # with G > 1 the per-head float32 dK and dV partials the last pass sums
     dq_acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    kv_part = torch.empty((2, B, k.shape[1], H, D), dtype=torch.float32,
+                          device=q.device) if H > k.shape[2] else None
     dev = q.device.index
     with _build.on_device(dev):
         err = fn(*(t.data_ptr() for t in (q, k, v, o, lse, dout, dq, dk, dv,
                                           dq_acc, delta)),
+                 None if kv_part is None else kv_part.data_ptr(),
                  B, Sq, k.shape[1], H, k.shape[2], D, window, int(causal),
                  DTYPES[q.dtype], flags, _build.current_stream(dev))
     _build.check(lib, err, "flash_attention_bwd")

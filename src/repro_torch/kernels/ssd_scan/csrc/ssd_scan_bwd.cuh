@@ -5,7 +5,7 @@
 // of `ssd_chunked`'s lax.scan (src/repro/models/layers.py:497-559); this is
 // its counterpart for the port's training path.  Its plain version is
 // `ssd_scan_bwd_ref` (kernels/ssd_scan/ref.py), whose docstring derives the
-// formulas below.
+// formulas below; `ssd_scan_bwd_split_ref` is this design in plain PyTorch.
 //
 // What it computes, per request b and head h, for each chunk of 64 rows i, j
 // with a_k = dt_k A, cum_i = sum_{k <= i} a_k, the state S entering the
@@ -23,40 +23,58 @@
 // gradient: every caller starts the scan from zero.
 //
 // What bounds it on this card: at mamba2's training shape (P = 64, N = 128,
-// chunk 64, 80 heads, 4 x 1024 rows) the products are ~6.3 MFLOP per
-// (request, head, chunk), and ~3.1 MFLOP per (request, chunk) for C B^T and
-// the intra terms of dB and dC, which the heads share (B and C are one
-// group: the heads' 64 x 64 weights can be summed before the product):
-// ~32 GFLOP in all against ~143 MB of inputs and outputs (x, dy and dx at
-// 42 MB each): ~230 operations per byte, under the H100's ~295, so at the
-// tensor cores' rate the bound is the bytes.  This first design is far
-// from it: it forms C B^T once per head, and runs its products in float32
-// on the CUDA cores (67 TFLOP/s at most, 15x under the 16-bit tensor rate)
-// from shared memory, one block an SM.  Right first; the tensor-core
-// design is later work.
+// chunk 64, 80 heads, 4 x 1024 rows) ~32 GFLOP of products against ~143 MB
+// of inputs and outputs: ~230 operations per byte, under the H100's ~295,
+// so at the tensor cores' rate the bytes bound it.  A chunk-parallel
+// design also moves each chunk's entering state and its cotangent (P x N
+// per (request, chunk, head)) through device memory once each way: 2 x
+// 168 MB at that shape in 16-bit hi + lo pieces, which the design pays to
+// run the chunks in parallel.
 //
-// The design:
-//   - one block of 256 threads per (head, request), 201 KB of dynamic
-//     shared memory (one block an SM).  It first walks the chunks forward
-//     and stores the state entering each one, (b, n_chunks, h, P, N) float32,
-//     in a scratch (the state pass: the recurrence's state is never stored by
-//     the forward, which keeps it in registers);
-//   - then it walks the chunks from the last to the first, carrying dS
-//     (P x N float32, 32 KB) in shared memory.  Per chunk it stages x, dy, B,
-//     C and the entering state as float32 in shared memory, forms C B^T and
-//     dy x^T (64 x 64), their masked products with e^(cum_i - cum_j) dt_j
-//     (M and Q) and the row and column sums that dcum takes, then dx, dC, dB
-//     and the new dS, each thread a 4 x 4 or 4 x 8 tile of float32 sums;
-//   - the sums over heads, deterministic: each block writes its dB and dC
-//     rows to a per-head float32 scratch (b, s, h, N) and its dA part to a
-//     (b, h) scratch, and a last pass sums them in a fixed order (heads 0..h-1,
-//     requests 0..b-1) and rounds dB and dC to the input dtype.  That moves
-//     b.s.h.N.4.2.2 bytes (0.67 GB at mamba2's 4 x 1024, ~0.2 ms at the
-//     card's rate) where float32 atomics would move none, but atomics add
-//     the heads in no fixed order, and at mamba2's 64 layers any rounding
-//     change moves step 1's bf16 gradients by ~3% (chip_smoke.py's
-//     BWD_GRAD_REL_L2 note): a deterministic backward gives the same step
-//     every run.
+// The design, Mamba-2's chunk-parallel decomposition on `wgmma`:
+//   1. The state pass, one warpgroup per (half of N, head, request) (grid
+//      (2, h, b); 640 blocks at mamba2's shape, all resident): the only
+//      sequential part.  The recurrence never mixes columns n, so the block
+//      keeps its half of S (P x 64) in registers as a wgmma accumulator and
+//      walks the chunks forward, S <- e^(cum_last) S + (x . w)^T B (A =
+//      (x . w)^T built in registers from the x tile and split into hi + lo,
+//      B = B's TMA tile through the descriptor's transpose bit), storing
+//      each chunk's entering S; then backward from the final state's
+//      cotangent, dS <- e^(cum_last) dS + (dy . e^cum)^T C, storing each
+//      chunk's dS.  Both go to a scratch (4, b, chunks, h, 2, P, N / 2) as
+//      hi + lo pieces in the input dtype, each half of N a contiguous 8 KB
+//      box: the operands of pass 2, stored and loaded by TMA.
+//      B, C, x and dy arrive by TMA into a three-stage ring.
+//   2. The chunk pass, one block per (head group, chunk, request), 384
+//      threads in three warpgroups, the heads of its group in order with a
+//      two-stage TMA ring of each head's x, dy, S and dS (80 KB a stage):
+//        WG2 (the i, j side): G^T = B C^T once per block; per head
+//          D^T = x dy^T, dx = w . (B dS^T) + M^T dy (M^T from registers,
+//          split into hi + lo; dy through the transpose bit; dx out by a
+//          TMA store), the sums of
+//          T = M . D over rows and columns and ddt's direct part, and
+//          Q^T = D^T . K added into a float32 sum over the heads;
+//        WG0 (the C side): dC += e^cum . (dy S), and u_i = e^cum_i dy_i^T S C_i;
+//        WG1 (the B side): dB += w . (x dS), and v_j = x_j^T dS B_j.
+//      dC and dB stay in float32 registers across the heads: the heads are
+//      summed inside the block, in head order.  After the last head the
+//      intra terms take the summed Q once: dC += Q B, dB += Q^T C (Q^T's
+//      hi + lo pieces in shared memory, read K-major for one and MN-major
+//      for the other).  Per head, two warps take dcum's reverse sums, ddt
+//      and the (request, chunk, head) part of dA.  The head groups are as
+//      many as fill one wave of blocks (`head_groups`, the wrapper's), each
+//      writing its float32 dB and dC parts.
+//   3. A last pass sums the head groups' parts in order and rounds dB and dC
+//      to the input dtype, and sums dA's parts over requests and chunks in
+//      order.  Every sum has a fixed order: the gradients are bit-equal from
+//      run to run (at mamba2's 64 layers any rounding change moves step 1's
+//      bf16 gradients by ~3%; chip_smoke.py's BWD_GRAD_REL_L2 note).
+// Every product is wgmma m64n64k16 with 16-bit inputs and float32
+// accumulators.  x, dy, B and C enter as loaded (exact); each operand
+// derived in float32 (x . w, dy . e^cum, S, dS, M^T, Q) is split v = hi + lo
+// in the input dtype and enters as two products, as the forward's
+// bfloat16 pass does: about 16 significant bits.  exp(cum_i - cum_j) only
+// where j <= i (fault Q of the reference, src/repro/models/layers.py:544).
 // The shapes it is built for: P = 64, N = 128, chunk 64 (mamba2-2.7b's and
 // jamba's); the C entry returns an error for any other and touches nothing.
 //
@@ -68,423 +86,658 @@
 namespace {
 namespace sbwd {
 
-constexpr int THREADS = 256;
 constexpr int CH = 64;         // the chunk
 constexpr int PP = 64;         // the head dim P
 constexpr int NN = 128;        // the state width N
-constexpr int XS = PP + 1;     // row stride of the 64-wide tiles (floats; no bank conflicts)
-constexpr int NS = NN + 1;     // row stride of the 128-wide tiles
-constexpr int NVEC = 9;        // per-row vectors: dt, cum, e^cum, w, rowT, intra, u, v, dcum
-constexpr int SMEM_FLOATS = 4 * CH * XS + 2 * CH * NS + 2 * PP * NS + NVEC * CH + 16;
-constexpr int SMEM = SMEM_FLOATS * 4;
+constexpr int ROWB = 128;      // one swizzled row: 64 16-bit values
+constexpr int TILE = 2 * BOX;    // a state tile (P rows x N columns, two swizzled boxes): 16 KB
 constexpr int FAULT_STATE_NOT_CARRIED = 4, FAULT_HEADS_NOT_SUMMED = 8;
+// diagnostics (read, never on a path; their outputs are not valid): the
+// state pass stores no state; the chunk pass loads its tiles and computes
+// nothing, or loads its first two heads' tiles only and computes every
+// head on them
+constexpr int DIAG_NO_STATE_STORES = 16, DIAG_CHUNK_LOADS_ONLY = 64,
+              DIAG_CHUNK_COMPUTE_ONLY = 128;
 
-// rows [r0, r0 + CH) of a (rows, W) 16-bit matrix read through its row
-// stride into a float tile of row stride `ld`; rows past S as zeros
-template <typename T, int W>
-__device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src, long long stride,
-                                           int r0, int S) {
-  for (int e = threadIdx.x; e < CH * W; e += THREADS) {
-    const int i = e / W, c = e % W, r = r0 + i;
-    dst[i * ld + c] = r < S ? to_f(src[(long long)r * stride + c]) : 0.f;
-  }
-}
-
-// dt of the chunk's rows (0 past S), the cumulative sums of dt A, e^cum and
-// w = e^(cum_last - cum) dt; two barriers inside
-__device__ __forceinline__ void chunk_decay(const float* dt_bh, int H, int r0, int S,
-                                            float a, float* v_dt, float* v_cum,
-                                            float* v_ecum, float* v_w) {
-  const int t = threadIdx.x;
-  if (t < CH) v_dt[t] = r0 + t < S ? dt_bh[(long long)(r0 + t) * H] : 0.f;
-  __syncthreads();
-  if (t < CH) {
-    float c = 0.f;
-    for (int k = 0; k <= t; ++k) c += v_dt[k] * a;
-    v_cum[t] = c;
-  }
-  __syncthreads();
-  if (t < CH) {
-    v_ecum[t] = expf(v_cum[t]);
-    v_w[t] = expf(v_cum[CH - 1] - v_cum[t]) * v_dt[t];
-  }
-}
-
+// (a, b) = hi + lo, each a pair of T (a in the low half)
 template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-ssd_bwd_kernel(const T* x, const float* dt, const float* A, const T* Bm, const T* Cm,
-               const T* dy, const float* dfinal, T* dx, float* ddt, float* dA_part,
-               float* partB, float* partC, float* states, int S, int H, long long sxb,
-               long long sxs, long long sbb, long long sbs, long long scb, long long scs,
-               int flags) {
-  extern __shared__ float sm[];
-  float* xs = sm;                    // x rows [CH][XS]
-  float* dys = xs + CH * XS;         // dy rows [CH][XS]
-  float* Gs = dys + CH * XS;         // C B^T, then M [CH][XS]
-  float* Ds = Gs + CH * XS;          // dy x^T, then Q [CH][XS]
-  float* Bs = Ds + CH * XS;          // B rows [CH][NS]
-  float* Cs = Bs + CH * NS;          // C rows [CH][NS]
-  float* Ss = Cs + CH * NS;          // the entering state [PP][NS]
-  float* dSs = Ss + PP * NS;         // the carried cotangent dS [PP][NS]
-  float* v_dt = dSs + PP * NS;
-  float* v_cum = v_dt + CH;
-  float* v_ecum = v_cum + CH;
-  float* v_w = v_ecum + CH;
-  float* v_rowT = v_w + CH;          // sum_j T_ij
-  float* v_intra = v_rowT + CH;      // sum_{i >= j} G_ij E_ij D_ij
-  float* v_u = v_intra + CH;         // e^cum_i dy_i^T S C_i
-  float* v_v = v_u + CH;             // x_j^T dS B_j
-  float* v_dcum = v_v + CH;
-  float* red = v_dcum + CH;          // 8 warps' partial <dS, S>, then dA's 2
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint32_t& lo) {
+  hi = pack2(a, b, T{});
+  const T* h = reinterpret_cast<const T*>(&hi);
+  lo = pack2(a - to_f(h[0]), b - to_f(h[1]), T{});
+}
 
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
-  const int n_chunks = (S + CH - 1) / CH;
+// byte offset of the pair (row r, columns 2 c2, 2 c2 + 1) in a tile of
+// 64-column rows with the 128-byte swizzle
+__device__ __forceinline__ int sw_pair(int r, int c2) {
+  return r * ROWB + ((((c2 >> 2)) ^ (r & 7)) << 4) + (c2 & 3) * 4;
+}
+
+// the pair (row, columns col, col + 1) of a 128-byte-swizzled TMA box of
+// 16-bit values, as floats (col even)
+template <typename T>
+__device__ __forceinline__ float2 sw_el2(const uint8_t* box, int row, int col) {
+  const uint32_t raw = *reinterpret_cast<const uint32_t*>(box + sw_pair(row, col / 2));
+  const T* e = reinterpret_cast<const T*>(&raw);
+  return make_float2(to_f(e[0]), to_f(e[1]));
+}
+
+// ----------------------------------------------------------- 1. state pass
+struct StateSmem {
+  static constexpr int STAGE = 2 * BOX;                 // R's n half, then X
+  static constexpr int V_OFF = 2 * STAGE;               // per stage: dt, cum, e^cum, w
+  static constexpr int BAR_OFF = V_OFF + 2 * 4 * CH * 4;
+  static constexpr int SMEM = BAR_OFF + 2 * 8 + 1024;
+};
+
+// Block (u, h, b): columns 64 u .. 64 u + 63 of the (P, N) state of head h,
+// request b (the recurrence never mixes columns n; 640 blocks at mamba2's
+// shape, five an SM: one wave).  Step gs of 2 n_chunks: the forward walk
+// over chunks 0 .., then the backward walk from the last chunk.  R is B
+// (forward) or C (backward), X is x or dy, the weight w or e^cum.  The
+// block holds its S (or dS) half, P x 64, as an m64n64 accumulator; per
+// chunk S <- e^(cum_last) S + (X . weight)^T R with A = (X . weight)^T
+// built in registers from the swizzled X tile and split into hi + lo, and
+// B = R's half read MN-major (16 rows of the chunk a k-step) from its TMA
+// tile.  Each step's S goes out as hi + lo boxes by TMA stores, staged in
+// the stage the last step consumed, which takes the next step's tiles once
+// the stores have read it (two stages).
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 5)
+ssd_bwd_state_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_dy,
+                     const __grid_constant__ CUtensorMap tm_b,
+                     const __grid_constant__ CUtensorMap tm_c,
+                     const __grid_constant__ CUtensorMap tm_planes, const float* __restrict__ dt,
+                     const float* __restrict__ A, const float* __restrict__ dfinal, int S,
+                     int H, int flags) {
+  using L = StateSmem;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* stats = reinterpret_cast<float*>(smem + L::V_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);   // [2]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int u = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nc = (S + CH - 1) / CH, steps = 2 * nc;
+  const int prow = gridDim.z * nc * H * 2 * PP;   // rows of one plane
   const float a = A[h];
-  const T* xb = x + b * sxb + (long long)h * PP;
-  const T* Bb = Bm + b * sbb;
-  const T* Cb = Cm + b * scb;
-  const long long row_hp = (long long)H * PP;
-  const T* dyb = dy + (long long)b * S * row_hp + (long long)h * PP;
-  const float* dtb = dt + (long long)b * S * H + h;
-  const long long chunk_state = (long long)H * PP * NN;
-  float* stb = states + (long long)b * n_chunks * chunk_state + (long long)h * PP * NN;
-
-  // the state pass: the state entering each chunk, a 4 x 8 tile a thread
-  // (rows p = ty * 4 + r, columns n = tx + 16 c)
-  float st[4][8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) st[r][c] = 0.f;
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    float* dst = stb + ci * chunk_state;
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) dst[(ty * 4 + r) * NN + tx + 16 * c] = st[r][c];
-    stage_rows<T, PP>(xs, XS, xb, sxs, ci * CH, S);
-    stage_rows<T, NN>(Bs, NS, Bb, sbs, ci * CH, S);
-    chunk_decay(dtb, H, ci * CH, S, a, v_dt, v_cum, v_ecum, v_w);
-    __syncthreads();
-    const float decay = expf(v_cum[CH - 1]);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) st[r][c] *= decay;
-    for (int j = 0; j < CH; ++j) {
-      const float wj = v_w[j];
-      float xa[4], bb[8];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) xa[r] = xs[j * XS + ty * 4 + r] * wj;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) bb[c] = Bs[j * NS + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) st[r][c] += xa[r] * bb[c];
-    }
-    __syncthreads();                 // before the next chunk overwrites the tiles
+  auto chunk_of = [&](int gs) { return gs < nc ? gs : steps - 1 - gs; };
+  auto load = [&](int gs) {
+    uint8_t* st = smem + (gs % 2) * L::STAGE;
+    const int t0 = chunk_of(gs) * CH;
+    mbar_expect_tx(&full[gs % 2], 2 * BOX);
+    tma_load_3d(st, gs < nc ? &tm_b : &tm_c, &full[gs % 2], 64 * u, t0, b);
+    tma_load_4d(st + BOX, gs < nc ? &tm_x : &tm_dy, &full[gs % 2], 0, h, t0, b);
+  };
+  if (tid == 0) {
+    mbar_init(&full[0], 1);
+    mbar_init(&full[1], 1);
+    mbar_fence_init();
+    load(0);
   }
+  // S's half or dS's (P x 64): entry e at p = 16 warp + g (+ 8 for e % 4 >=
+  // 2), n = 64 u + 8 (e / 4) + 2 q + e % 2
+  float st[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) st[e] = 0.f;
+  float2 dtv = load_dt(dt, lane, 0, CH, S, H, b, h);
+  const int p0 = 16 * warp + g;                  // this thread's rows p0, p0 + 8
 
-  // the reverse walk, dS from the final state's cotangent
-  const float* dfb = dfinal ? dfinal + ((long long)b * H + h) * PP * NN : nullptr;
-  for (int e = tid; e < PP * NN; e += THREADS)
-    dSs[(e / NN) * NS + e % NN] = dfb ? dfb[e] : 0.f;
-  const long long part_row = (long long)H * NN;   // a row of the per-head scratch
-  float dA_sum = 0.f;
-  for (int ci = n_chunks - 1; ci >= 0; --ci) {
-    const int r0 = ci * CH;
-    stage_rows<T, PP>(xs, XS, xb, sxs, r0, S);
-    stage_rows<T, PP>(dys, XS, dyb, row_hp, r0, S);
-    stage_rows<T, NN>(Bs, NS, Bb, sbs, r0, S);
-    stage_rows<T, NN>(Cs, NS, Cb, scs, r0, S);
-    const float* src = stb + ci * chunk_state;
-    for (int e = tid; e < PP * NN; e += THREADS) Ss[(e / NN) * NS + e % NN] = src[e];
-    chunk_decay(dtb, H, r0, S, a, v_dt, v_cum, v_ecum, v_w);
-    __syncthreads();
+  for (int gs = 0; gs < steps; ++gs) {
+    const int c = chunk_of(gs);
+    const bool fwd = gs < nc;
+    float* sb = stats + (gs % 2) * 4 * CH;
+    if (warp == 0) {
+      chunk_stats(dtv, sb, sb + CH, sb + 2 * CH, sb + 3 * CH, a, lane);
+      if (gs + 1 < steps) dtv = load_dt(dt, lane, chunk_of(gs + 1) * CH, CH, S, H, b, h);
+    }
+    if (gs == nc) {                    // the backward walk starts from dfinal
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int p = p0 + 8 * ((e >> 1) & 1), n = 64 * u + 8 * (e >> 2) + 2 * q + (e & 1);
+        st[e] = dfinal ? dfinal[(((long)b * H + h) * PP + p) * NN + n] : 0.f;
+      }
+    }
+    __syncthreads();                   // stats written; the last step's tiles read
 
-    // G = C B^T and D = dy x^T: rows i = ty * 4 + r, columns j = tx + 16 c
-    {
-      float g[4][4] = {}, d[4][4] = {};
-      for (int k = 0; k < NN; ++k) {
-        float ca[4], bb[4];
+    // the chunk's entering state (forward) or its dS (backward) as hi + lo
+    // boxes (P rows x 64 columns, swizzled) in the consumed stage, stored by
+    // TMA into planes 0, 1 (S) or 2, 3 (dS); then that stage takes the next
+    // step's tiles
+    uint8_t* out = smem + ((gs + 1) % 2) * L::STAGE;
+    const bool store = !(flags & DIAG_NO_STATE_STORES);
+    if (store) {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) ca[r] = Cs[(ty * 4 + r) * NS + k];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bb[c] = Bs[(tx + 16 * c) * NS + k];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) g[r][c] += ca[r] * bb[c];
+      for (int e = 0; e < 32; e += 2) {
+        const int off = sw_pair(p0 + 8 * ((e >> 1) & 1), 4 * (e >> 2) + q);
+        split_pair<T>(st[e], st[e + 1], *reinterpret_cast<uint32_t*>(out + off),
+                      *reinterpret_cast<uint32_t*>(out + BOX + off));
       }
-      for (int k = 0; k < PP; ++k) {
-        float ya[4], xa[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) ya[r] = dys[(ty * 4 + r) * XS + k];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) xa[c] = xs[(tx + 16 * c) * XS + k];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) d[r][c] += ya[r] * xa[c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          Gs[(ty * 4 + r) * XS + tx + 16 * c] = g[r][c];
-          Ds[(ty * 4 + r) * XS + tx + 16 * c] = d[r][c];
-        }
+      fence_proxy_async();
     }
     __syncthreads();
-
-    // dcum's intra-chunk sums: row i's sum_j T_ij, column j's sum_i G E D
-    if (tid < CH) {
-      const int i = tid;
-      float s = 0.f;
-      for (int j = 0; j <= i; ++j)
-        s += Gs[i * XS + j] * expf(v_cum[i] - v_cum[j]) * v_dt[j] * Ds[i * XS + j];
-      v_rowT[i] = s;
-    } else if (tid < 2 * CH) {
-      const int j = tid - CH;
-      float s = 0.f;
-      for (int i = j; i < CH; ++i)
-        s += Gs[i * XS + j] * expf(v_cum[i] - v_cum[j]) * Ds[i * XS + j];
-      v_intra[j] = s;
+    if (tid == 0 && store) {
+      const int row = (((b * nc + c) * H + h) * 2 + u) * PP + (fwd ? 0 : 2 * prow);
+      tma_store_2d(&tm_planes, out, 0, row);
+      tma_store_2d(&tm_planes, out + BOX, 0, row + prow);
+      bulk_commit();
     }
-    __syncthreads();
+    // once the stores have read it, the stage takes the next step's tiles
+    // (issued under this step's products)
+    auto refill = [&]() {
+      if (tid != 0) return;
+      if (store) bulk_wait_read<0>();
+      if (gs + 1 < steps) load(gs + 1);
+    };
+    mbar_wait(&full[gs % 2], (gs / 2) & 1);
+    if (!fwd && (flags & FAULT_STATE_NOT_CARRIED)) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) st[e] = 0.f;
+      refill();
+      continue;
+    }
 
-    // M = G . K and Q = D . K in place, K_ij = e^(cum_i - cum_j) dt_j (j <= i)
+    // A = (X . weight)^T (p x j), 16 rows j of the chunk a k-step: rows p0,
+    // p0 + 8, columns 16 k + 2 q (+ 1, + 8, + 9), split into hi + lo
+    const float* wgt = fwd ? sb + 3 * CH : sb + 2 * CH;
+    const uint8_t* stg = smem + (gs % 2) * L::STAGE;
+    uint32_t ah[4][4], al[4][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = ty * 4 + r, j = tx + 16 * c;
-        const float k = j <= i ? expf(v_cum[i] - v_cum[j]) * v_dt[j] : 0.f;
-        Gs[i * XS + j] *= k;
-        Ds[i * XS + j] *= k;
-      }
-    __syncthreads();
-
-    // dx: rows j = ty * 4 + r, columns p = tx + 16 c
-    {
-      float m[4][4] = {}, q[4][4] = {};
-      for (int i = 0; i < CH; ++i) {
-        float ma[4], ya[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) ma[r] = Gs[i * XS + ty * 4 + r];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) ya[c] = dys[i * XS + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) m[r][c] += ma[r] * ya[c];
-      }
-      for (int n = 0; n < NN; ++n) {
-        float ba[4], sa[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) ba[r] = Bs[(ty * 4 + r) * NS + n];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) sa[c] = dSs[(tx + 16 * c) * NS + n];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) q[r][c] += ba[r] * sa[c];
-      }
+    for (int k = 0; k < CH / 16; ++k)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int j = ty * 4 + r;
-        if (r0 + j < S) {
-          T* out = dx + ((long long)(b * (long long)S + r0 + j) * H + h) * PP;
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            out[tx + 16 * c] = from_f<T>(m[r][c] + v_w[j] * q[r][c]);
-        }
+        const int p = p0 + 8 * (r & 1), j = 16 * k + 2 * q + 8 * (r >> 1);
+        split_pair<T>(sw_el<T>(stg + BOX, j, p) * wgt[j], sw_el<T>(stg + BOX, j + 1, p) * wgt[j + 1],
+                      ah[k][r], al[k][r]);
       }
+    const float decay = sb[2 * CH + CH - 1];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) st[e] *= decay;
+    const uint32_t r_addr = smem_u32(stg);
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < CH / 16; ++k) {
+      const uint64_t db = desc_sw128(r_addr + k * 2048, BOX, 1024);
+      wgmma_rs64<1>(st, ah[k], db, 1, T{});
+      wgmma_rs64<1>(st, al[k], db, 1, T{});
     }
-
-    // dC: rows i = ty * 4 + r, columns n = tx + 16 c; u_i on the way
-    {
-      float q[4][8] = {}, s[4][8] = {};
-      for (int j = 0; j < CH; ++j) {
-        float qa[4], bb[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) qa[r] = Ds[(ty * 4 + r) * XS + j];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) bb[c] = Bs[j * NS + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) q[r][c] += qa[r] * bb[c];
-      }
-      for (int p = 0; p < PP; ++p) {
-        float ya[4], sb[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) ya[r] = dys[(ty * 4 + r) * XS + p];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) sb[c] = Ss[p * NS + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) s[r][c] += ya[r] * sb[c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = ty * 4 + r;
-        const float ec = v_ecum[i];
-        float u = 0.f;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) u += s[r][c] * Cs[i * NS + tx + 16 * c];
-#pragma unroll
-        for (int m = 8; m > 0; m >>= 1) u += __shfl_xor_sync(0xffffffffu, u, m);
-        if (tx == 0) v_u[i] = ec * u;
-        if (r0 + i < S) {
-          float* out = partC + (b * (long long)S + r0 + i) * part_row + h * NN;
-#pragma unroll
-          for (int c = 0; c < 8; ++c) out[tx + 16 * c] = q[r][c] + ec * s[r][c];
-        }
-      }
-    }
-
-    // dB: rows j = ty * 4 + r, columns n = tx + 16 c; v_j on the way
-    {
-      float q[4][8] = {}, s[4][8] = {};
-      for (int i = 0; i < CH; ++i) {
-        float qa[4], cb[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) qa[r] = Ds[i * XS + ty * 4 + r];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) cb[c] = Cs[i * NS + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) q[r][c] += qa[r] * cb[c];
-      }
-      for (int p = 0; p < PP; ++p) {
-        float xa[4], sb[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) xa[r] = xs[(ty * 4 + r) * XS + p];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) sb[c] = dSs[p * NS + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) s[r][c] += xa[r] * sb[c];
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int j = ty * 4 + r;
-        const float wj = v_w[j];
-        float v = 0.f;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) v += s[r][c] * Bs[j * NS + tx + 16 * c];
-#pragma unroll
-        for (int m = 8; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-        if (tx == 0) v_v[j] = v;
-        if (r0 + j < S) {
-          float* out = partB + (b * (long long)S + r0 + j) * part_row + h * NN;
-#pragma unroll
-          for (int c = 0; c < 8; ++c) out[tx + 16 * c] = q[r][c] + wj * s[r][c];
-        }
-      }
-    }
-
-    // the new dS (rows p = ty * 4 + r, columns n = tx + 16 c) and <dS, S>;
-    // written after the barrier that ends every read of the old dS
-    {
-      float n_ds[4][8] = {};
-      for (int i = 0; i < CH; ++i) {
-        const float ec = v_ecum[i];
-        float ya[4], cb[8];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) ya[r] = dys[i * XS + ty * 4 + r] * ec;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) cb[c] = Cs[i * NS + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) n_ds[r][c] += ya[r] * cb[c];
-      }
-      const float decay = expf(v_cum[CH - 1]);
-      const bool carry = !(flags & FAULT_STATE_NOT_CARRIED);
-      float dot = 0.f;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int e = (ty * 4 + r) * NS + tx + 16 * c;
-          const float old = dSs[e];
-          dot += old * Ss[e];
-          n_ds[r][c] = carry ? decay * old + n_ds[r][c] : 0.f;
-        }
-      dot = warp_sum(dot);
-      if ((tid & 31) == 0) red[tid >> 5] = dot;
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) dSs[(ty * 4 + r) * NS + tx + 16 * c] = n_ds[r][c];
-    }
-
-    // dcum, its reverse cumulative sums, ddt and dA's part
-    if (tid < CH) {
-      const int k = tid;
-      float dc = v_rowT[k] - v_dt[k] * v_intra[k] + v_u[k] - v_w[k] * v_v[k];
-      if (k == CH - 1) {
-        float dot = 0.f, wv = 0.f;
-        for (int w = 0; w < THREADS / 32; ++w) dot += red[w];
-        for (int j = 0; j < CH; ++j) wv += v_w[j] * v_v[j];
-        dc += expf(v_cum[CH - 1]) * dot + wv;
-      }
-      v_dcum[k] = dc;
-    }
-    __syncthreads();
-    if (tid < CH) {
-      const int k = tid;
-      float rc = 0.f;
-      for (int i = CH - 1; i >= k; --i) rc += v_dcum[i];
-      if (r0 + k < S)
-        ddt[(b * (long long)S + r0 + k) * H + h] =
-            v_intra[k] + expf(v_cum[CH - 1] - v_cum[k]) * v_v[k] + a * rc;
-      dA_sum += v_dt[k] * rc;
-    }
-    __syncthreads();                 // before the next chunk overwrites the tiles
+    wgmma_commit();
+    refill();
+    wgmma_wait<0>();
+    fence_regs(st);
   }
-  // dA's part of this (request, head): the two warps' sums in order
-  if (tid < CH) {
-    dA_sum = warp_sum(dA_sum);
-    if ((tid & 31) == 0) red[tid >> 5] = dA_sum;
-  }
-  __syncthreads();
-  if (tid == 0) dA_part[(long long)b * H + h] = red[0] + red[1];
+  if (tid == 0) bulk_wait<0>();        // the last stores written
 }
 
-// dB and dC: the heads' float32 parts summed in order (head 0 alone under
-// the planted fault) and rounded to the input dtype; dA: the requests'
-// parts summed in order
+// ----------------------------------------------------------- 2. chunk pass
+struct ChunkSmem {
+  // B's and C's tiles (two 64-column halves each), loaded once
+  static constexpr int C_OFF = 0;
+  static constexpr int B_OFF = 2 * BOX;
+  // per head, two stages: x, dy, S hi, S lo, dS hi, dS lo
+  static constexpr int ST_OFF = 4 * BOX;
+  static constexpr int X = 0, DY = BOX, SH = 2 * BOX, SL = SH + TILE, DSH = SL + TILE,
+                       DSL = DSH + TILE;
+  static constexpr int STAGE = DSL + TILE;                     // 80 KB
+  // a head's dx tile, staged for its TMA store
+  static constexpr int DX_OFF = ST_OFF + 2 * STAGE;
+  // Q^T's float32 sum over the heads (WG2's fragment order)
+  static constexpr int Q_OFF = DX_OFF + BOX;
+  static constexpr int V_OFF = Q_OFF + CH * CH * 4;            // 2 x (dt, cum, e^cum, w)
+  // per head, two buffers (the head's parity): u, v, the column sums of T,
+  // ddt's direct part, the 4 warps' row sums of T, and WG0's and WG1's 8
+  // warps' parts of <dS, S>
+  static constexpr int X_FLOATS = 8 * CH + 8;
+  static constexpr int X_OFF = V_OFF + 2 * 4 * CH * 4;
+  static constexpr int BAR_OFF = X_OFF + 2 * X_FLOATS * 4;
+  static constexpr int SMEM = BAR_OFF + 3 * 8 + 1024;
+};
+
 template <typename T>
-__global__ void ssd_bwd_reduce_kernel(const float* partB, const float* partC,
-                                      const float* dA_part, T* dB, T* dC, float* dA,
-                                      long long rows, int batch, int H, int flags) {
-  const int heads = (flags & FAULT_HEADS_NOT_SUMMED) ? 1 : H;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < rows * NN;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i / NN, n = i % NN;
-    const float* pb = partB + row * H * NN + n;
-    const float* pc = partC + row * H * NN + n;
-    float sb = 0.f, sc = 0.f;
-    for (int h = 0; h < heads; ++h) {
-      sb += pb[(long long)h * NN];
-      sc += pc[(long long)h * NN];
-    }
-    dB[i] = from_f<T>(sb);
-    dC[i] = from_f<T>(sc);
+__global__ void __launch_bounds__(3 * THREADS, 1)
+ssd_bwd_chunk_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_dy,
+                     const __grid_constant__ CUtensorMap tm_b,
+                     const __grid_constant__ CUtensorMap tm_c,
+                     const __grid_constant__ CUtensorMap tm_planes,
+                     const __grid_constant__ CUtensorMap tm_dx,
+                     const float* __restrict__ dt, const float* __restrict__ A,
+                     float* __restrict__ ddt,
+                     float* __restrict__ dA_part, float* __restrict__ part_bc, int S,
+                     int H, int flags) {
+  using L = ChunkSmem;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* qsum = reinterpret_cast<float*>(smem + L::Q_OFF);
+  uint8_t* dx_s = smem + L::DX_OFF;
+  float* stats = reinterpret_cast<float*>(smem + L::V_OFF);
+  // head hh's scratch: u, v, sum_i T_ij, direct_j, [4][CH] sum_j T_ij, [8]
+  // parts of <dS, S>
+  auto scratch = [&](int hh) {
+    return reinterpret_cast<float*>(smem + L::X_OFF) + (hh % 2) * L::X_FLOATS;
+  };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);  // B/C, stage 0, 1
+
+  const int tid = threadIdx.x, wg = tid / THREADS, t = tid % THREADS;
+  const int wl = t / 32, lane = t % 32, g = lane / 4, q = lane % 4;
+  const int hg = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int HG = gridDim.x, nc = gridDim.y, batch = gridDim.z;
+  const int h0 = hg * H / HG, h1 = (hg + 1) * H / HG, n_heads = h1 - h0;
+  const int t0 = c * CH, rows = min(CH, S - t0);
+  const long prow = (long)batch * nc * H * 2 * PP;             // rows of one plane
+  const uint32_t c_addr = smem_u32(smem + L::C_OFF), b_addr = smem_u32(smem + L::B_OFF);
+  const uint8_t* c_s = smem + L::C_OFF;
+  const uint8_t* b_s = smem + L::B_OFF;
+
+  auto load = [&](int hh) {
+    const int h = h0 + hh;
+    uint8_t* st = smem + L::ST_OFF + (hh % 2) * L::STAGE;
+    uint64_t* bar = &bars[1 + hh % 2];
+    const int row = (int)((((long)b * nc + c) * H + h) * 2 * PP);
+    mbar_expect_tx(bar, 2 * BOX + 4 * TILE);
+    tma_load_4d(st + L::X, &tm_x, bar, 0, h, t0, b);
+    tma_load_4d(st + L::DY, &tm_dy, bar, 0, h, t0, b);
+    const int off[4] = {L::SH, L::SL, L::DSH, L::DSL};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        tma_load_2d(st + off[k] + u * BOX, &tm_planes, bar, 0, (int)(row + u * PP + k * prow));
+  };
+  // WG2's first thread issues every TMA load
+  const bool issuer = tid == 2 * THREADS;
+  if (issuer) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
+    mbar_fence_init();
+    mbar_expect_tx(&bars[0], 4 * BOX);
+    tma_load_3d(smem + L::C_OFF, &tm_c, &bars[0], 0, t0, b);
+    tma_load_3d(smem + L::C_OFF + BOX, &tm_c, &bars[0], 64, t0, b);
+    tma_load_3d(smem + L::B_OFF, &tm_b, &bars[0], 0, t0, b);
+    tma_load_3d(smem + L::B_OFF + BOX, &tm_b, &bars[0], 64, t0, b);
+    load(0);
+    if (n_heads > 1) load(1);
   }
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  for (int i = tid; i < CH * CH; i += 3 * THREADS) qsum[i] = 0.f;
+  __syncthreads();
+  mbar_wait(&bars[0], 0);
+
+  // accumulator fragment of an m64 tile: entry e at row 16 wl + g (+ 8 for
+  // e % 4 >= 2), column 8 (e / 4) + 2 q + e % 2
+  auto row_of = [&](int e) { return 16 * wl + g + 8 * ((e >> 1) & 1); };
+  auto col_of = [&](int e) { return 8 * (e >> 2) + 2 * q + (e & 1); };
+  // the per-head stats of head hh: dt, cum, e^cum, w
+  auto stats_of = [&](int hh) { return stats + (hh % 2) * 4 * CH; };
+  auto summed = [&](int h) { return !(flags & FAULT_HEADS_NOT_SUMMED) || h == 0; };
+  // the block's barrier (every warp reaches it from one of the two role loops)
+  auto sync_all = [&]() { named_sync(1, 3 * THREADS); };
+  uint8_t* qt_hi = smem + L::ST_OFF;   // Q^T's pieces, over stage 0 at the end
+  uint8_t* qt_lo = qt_hi + BOX;
+
+  // dcum, its reverse cumulative sums, ddt and the (chunk, head) part of dA
+  // of head hh, from its scratch and stats: one warp, rows 2 lane, 2 lane + 1
+  auto head_sums = [&](int hh) {
+    const int h = h0 + hh;
+    const float* sb = stats_of(hh);
+    const float *dts = sb, *cum = sb + CH, *ecum = sb + 2 * CH, *wgt = sb + 3 * CH;
+    const float* x = scratch(hh);
+    const float *xu = x, *xv = x + CH, *xcol = x + 2 * CH, *xdir = x + 3 * CH;
+    const float *xrow = x + 4 * CH, *xdss = x + 8 * CH;
+    float dc[2], wv = 0.f;
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      const int k = 2 * lane + o;
+      const float rt = xrow[k] + xrow[CH + k] + xrow[2 * CH + k] + xrow[3 * CH + k];
+      dc[o] = rt - xcol[k] + xu[k] - wgt[k] * xv[k];
+      wv += wgt[k] * xv[k];
+    }
+    wv = warp_sum(wv);
+    if (lane == 31)
+      dc[1] += ecum[CH - 1] * (((xdss[0] + xdss[1]) + (xdss[2] + xdss[3])) +
+                               ((xdss[4] + xdss[5]) + (xdss[6] + xdss[7]))) + wv;
+    // suffix sums: rc_k = sum_{i >= k} dcum_i
+    float s = dc[0] + dc[1];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_down_sync(0xffffffffu, s, o);
+      if (lane + o < 32) s += v;
+    }
+    float da = 0.f;
+    const float a = A[h];
+#pragma unroll
+    for (int o = 0; o < 2; ++o) {
+      const int k = 2 * lane + o;
+      const float rc = o ? s - dc[0] : s;
+      if (k < rows)
+        ddt[((long)b * S + t0 + k) * H + h] =
+            xdir[k] + __expf(cum[CH - 1] - cum[k]) * xv[k] + a * rc;
+      da += dts[k] * rc;
+    }
+    da = warp_sum(da);
+    if (lane == 0) dA_part[((long)b * nc + c) * H + h] = da;
+  };
+
+  if (wg == 2) {
+    // ---- WG2, the i, j side.  G^T = B C^T (j x i), exact products
+    float gt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NN / 16; ++kk) {
+      const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+      wgmma_ss64<0, 0>(gt, desc_sw128(b_addr + off, 16, 1024),
+                       desc_sw128(c_addr + off, 16, 1024), kk > 0, T{});
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(gt);
+    const bool stats_warp = wl == 0;
+    float2 dtv = make_float2(0.f, 0.f);
+    if (stats_warp) dtv = load_dt(dt, lane, t0, CH, S, H, b, h0);
+
+    for (int hh = 0; hh < n_heads; ++hh) {
+      const int h = h0 + hh;
+      float* sb = stats_of(hh);
+      const float* dts = sb;
+      const float* cum = sb + CH;
+      const float* wgt = sb + 3 * CH;
+      float* x = scratch(hh);
+      if (stats_warp) {
+        chunk_stats(dtv, sb, sb + CH, sb + 2 * CH, sb + 3 * CH, A[h], lane);
+        if (hh + 1 < n_heads) dtv = load_dt(dt, lane, t0, CH, S, H, b, h + 1);
+      }
+      sync_all();                      // stats written; the last head's tiles read
+      const bool loads = !(flags & DIAG_CHUNK_COMPUTE_ONLY);
+      if (issuer && hh >= 1 && hh + 1 < n_heads && loads) load(hh + 1);
+      const uint32_t st_addr = smem_u32(smem + L::ST_OFF + (hh % 2) * L::STAGE);
+      const uint32_t x_addr = st_addr + L::X, dy_addr = st_addr + L::DY;
+      if (loads || hh < 2) mbar_wait(&bars[1 + hh % 2], (hh / 2) & 1);
+      if (flags & DIAG_CHUNK_LOADS_ONLY) continue;
+
+      // D^T = x dy^T (j x i) and B dS^T (j x p): one commit
+      float dT[32], dxa[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < PP / 16; ++kk)
+        wgmma_ss64<0, 0>(dT, desc_sw128(x_addr + kk * 32, 16, 1024),
+                         desc_sw128(dy_addr + kk * 32, 16, 1024), kk > 0, T{});
+#pragma unroll
+      for (int kk = 0; kk < NN / 16; ++kk) {
+        // A = B (j x n), B = dS^T (N = p rows, K = n): both K-major
+        const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+        const uint64_t da = desc_sw128(b_addr + off, 16, 1024);
+        wgmma_ss64<0, 0>(dxa, da, desc_sw128(st_addr + L::DSH + off, 16, 1024), kk > 0, T{});
+        wgmma_ss64<0, 0>(dxa, da, desc_sw128(st_addr + L::DSL + off, 16, 1024), 1, T{});
+      }
+      wgmma_commit();
+      if (stats_warp && hh > 0) head_sums(hh - 1);   // under the products
+      wgmma_wait<0>();
+      fence_regs(dT);
+      fence_regs(dxa);
+
+      // K_ij = e^(cum_i - cum_j) dt_j (j <= i), M^T = G^T . K, Q^T = D^T . K
+      // (added into the heads' sum), T^T = M^T . D^T and its row and column
+      // sums, ddt's direct part sum_i G^T E D^T; M^T split into A fragments
+      const bool add_q = summed(h);
+      uint32_t mh[4][4], ml[4][4];
+      float col0 = 0.f, col1 = 0.f, dir0 = 0.f, dir1 = 0.f;
+      const int j0 = 16 * wl + g;
+#pragma unroll
+      for (int c8 = 0; c8 < 8; ++c8) {
+        // the entries 4 c8 .. 4 c8 + 3: rows j0, j0 + 8, columns i0, i0 + 1
+        const int i0 = 8 * c8 + 2 * q;
+        float mt[4], tt[4];
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          const int e = 4 * c8 + o, j = j0 + 8 * (o >> 1), i = i0 + (o & 1);
+          const float E = i >= j ? __expf(cum[i] - cum[j]) : 0.f;
+          const float K = E * dts[j];
+          mt[o] = gt[e] * K;
+          tt[o] = mt[o] * dT[e];
+          if (add_q) qsum[e * THREADS + t] += dT[e] * K;
+          const float dr = gt[e] * E * dT[e];
+          if (o >> 1) {
+            col1 += tt[o];
+            dir1 += dr;
+          } else {
+            col0 += tt[o];
+            dir0 += dr;
+          }
+        }
+        split_pair<T>(mt[0], mt[1], mh[c8 >> 1][2 * (c8 & 1)], ml[c8 >> 1][2 * (c8 & 1)]);
+        split_pair<T>(mt[2], mt[3], mh[c8 >> 1][2 * (c8 & 1) + 1],
+                      ml[c8 >> 1][2 * (c8 & 1) + 1]);
+        // columns i0, i0 + 1 summed over this warp's 16 rows
+        float r0 = tt[0] + tt[2], r1 = tt[1] + tt[3];
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          r0 += __shfl_xor_sync(0xffffffffu, r0, m);
+          r1 += __shfl_xor_sync(0xffffffffu, r1, m);
+        }
+        if (g == 0) {
+          x[4 * CH + wl * CH + i0] = r0;
+          x[4 * CH + wl * CH + i0 + 1] = r1;
+        }
+      }
+#pragma unroll
+      for (int m = 1; m < 4; m <<= 1) {
+        col0 += __shfl_xor_sync(0xffffffffu, col0, m);
+        col1 += __shfl_xor_sync(0xffffffffu, col1, m);
+        dir0 += __shfl_xor_sync(0xffffffffu, dir0, m);
+        dir1 += __shfl_xor_sync(0xffffffffu, dir1, m);
+      }
+      if (q == 0) {
+        x[2 * CH + j0] = col0;
+        x[2 * CH + j0 + 8] = col1;
+        x[3 * CH + j0] = dir0;
+        x[3 * CH + j0 + 8] = dir1;
+      }
+
+      // dx = w . (B dS^T) + M^T dy: A = M^T from registers (hi, lo), B = dy
+      // (K = i rows, N = p) MN-major
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dxa[e] *= wgt[row_of(e)];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < CH / 16; ++k) {
+        const uint64_t db = desc_sw128(dy_addr + k * 2048, BOX, 1024);
+        wgmma_rs64<1>(dxa, mh[k], db, 1, T{});
+        wgmma_rs64<1>(dxa, ml[k], db, 1, T{});
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dxa);
+      // dx rounded to T into its staging box (the last head's store has read
+      // it), then one TMA store; rows past s are not written
+      if (issuer) bulk_wait_read<0>();
+      named_sync(2, THREADS);
+#pragma unroll
+      for (int e = 0; e < 32; e += 2)
+        *reinterpret_cast<uint32_t*>(dx_s + sw_pair(row_of(e), col_of(e) / 2)) =
+            pack2(dxa[e], dxa[e + 1], T{});
+      fence_proxy_async();
+      named_sync(2, THREADS);
+      if (issuer) {
+        tma_store_4d(&tm_dx, dx_s, 0, h, t0, b);
+        bulk_commit();
+      }
+    }
+
+    // the last head's sums, then Q^T's float32 sum split into hi + lo,
+    // [j rows][i columns], swizzled, over stage 0
+    sync_all();                        // every head's tiles read and scratch written
+    if (stats_warp) head_sums(n_heads - 1);
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      uint32_t hi, lo;
+      split_pair<T>(qsum[e * THREADS + t], qsum[(e + 1) * THREADS + t], hi, lo);
+      const int off = sw_pair(row_of(e), col_of(e) / 2);
+      *reinterpret_cast<uint32_t*>(qt_hi + off) = hi;
+      *reinterpret_cast<uint32_t*>(qt_lo + off) = lo;
+    }
+    fence_proxy_async();
+    sync_all();
+    if (issuer) bulk_wait<0>();        // the last dx written
+    return;
+  }
+
+  // ---- WG0, the C side: dC (i x n); WG1, the B side: dB (j x n), float32
+  // across the heads
+  float acc[2][32];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[u][e] = 0.f;
+  const uint8_t* rs = wg == 0 ? c_s : b_s;       // the rows' C or B
+  for (int hh = 0; hh < n_heads; ++hh) {
+    const int h = h0 + hh;
+    sync_all();                        // stats written; the last head's tiles read
+    float* x = scratch(hh);
+    const float* sb = stats_of(hh);
+    const float* sc = wg == 0 ? sb + 2 * CH : sb + 3 * CH;   // e^cum or w
+    const uint8_t* stg = smem + L::ST_OFF + (hh % 2) * L::STAGE;
+    const uint32_t st_addr = smem_u32(stg);
+    if (!(flags & DIAG_CHUNK_COMPUTE_ONLY) || hh < 2)
+      mbar_wait(&bars[1 + hh % 2], (hh / 2) & 1);
+    if (flags & DIAG_CHUNK_LOADS_ONLY) continue;
+
+    // WG0: dy S (i x n); WG1: x dS (j x n).  A = dy or x (K = p) K-major,
+    // B = the state tile (K = p rows, N = n) MN-major, hi and lo
+    const uint32_t a_addr = st_addr + (wg == 0 ? L::DY : L::X);
+    const uint32_t s_addr = st_addr + (wg == 0 ? L::SH : L::DSH);
+    float tmp[2][32];
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int kk = 0; kk < PP / 16; ++kk) {
+        const uint64_t da = desc_sw128(a_addr + kk * 32, 16, 1024);
+        wgmma_ss64<0, 1>(tmp[u], da, desc_sw128(s_addr + u * BOX + kk * 2048, BOX, 1024),
+                         kk > 0, T{});
+        wgmma_ss64<0, 1>(tmp[u], da,
+                         desc_sw128(s_addr + TILE + u * BOX + kk * 2048, BOX, 1024), 1, T{});
+      }
+    wgmma_commit();
+    {                                  // <dS, S> meanwhile, half the raw tiles each
+      const uint4* sh = reinterpret_cast<const uint4*>(stg + L::SH);
+      const uint4* sl = reinterpret_cast<const uint4*>(stg + L::SL);
+      const uint4* dh = reinterpret_cast<const uint4*>(stg + L::DSH);
+      const uint4* dl = reinterpret_cast<const uint4*>(stg + L::DSL);
+      float dot = 0.f;
+      for (int v = wg * (TILE / 32) + t; v < (wg + 1) * (TILE / 32); v += THREADS) {
+        const uint4 a0 = sh[v], a1 = sl[v], b0 = dh[v], b1 = dl[v];
+        const T* e0 = reinterpret_cast<const T*>(&a0);
+        const T* e1 = reinterpret_cast<const T*>(&a1);
+        const T* f0 = reinterpret_cast<const T*>(&b0);
+        const T* f1 = reinterpret_cast<const T*>(&b1);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          dot += (to_f(e0[k]) + to_f(e1[k])) * (to_f(f0[k]) + to_f(f1[k]));
+      }
+      dot = warp_sum(dot);
+      if (lane == 0) x[8 * CH + 4 * wg + wl] = dot;
+    }
+    wgmma_wait<0>();
+    fence_regs(tmp[0]);
+    fence_regs(tmp[1]);
+    // u_i = e^cum_i sum_n (dy S)_in C_in (WG0), v_j = sum_n (x dS)_jn B_jn
+    // (WG1); the product scaled by its rows' e^cum or w, added into dC or dB
+    float r0 = 0.f, r1 = 0.f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const float2 rv = sw_el2<T>(rs + u * BOX, row_of(e), col_of(e));
+        const float y = tmp[u][e] * rv.x + tmp[u][e + 1] * rv.y;
+        if ((e >> 1) & 1) r1 += y;
+        else r0 += y;
+      }
+#pragma unroll
+    for (int m = 1; m < 4; m <<= 1) {
+      r0 += __shfl_xor_sync(0xffffffffu, r0, m);
+      r1 += __shfl_xor_sync(0xffffffffu, r1, m);
+    }
+    if (q == 0) {
+      const int i0 = 16 * wl + g;
+      float* dst = x + (wg == 0 ? 0 : CH);     // u or v
+      dst[i0] = wg == 0 ? sc[i0] * r0 : r0;
+      dst[i0 + 8] = wg == 0 ? sc[i0 + 8] * r1 : r1;
+    }
+    if (summed(h)) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[u][e] += sc[row_of(e)] * tmp[u][e];
+    }
+  }
+
+  // the intra terms, once: dC += Q B (WG0), dB += Q^T C (WG1)
+  sync_all();
+  sync_all();                          // Q^T's pieces written
+  {
+    // WG0: A = Q (i x j), Q^T's tile read MN-major; B = B's tile (K = j rows)
+    // MN-major.  WG1: A = Q^T (j x i) K-major; B = C's tile MN-major
+    const uint32_t qh = smem_u32(qt_hi), ql = smem_u32(qt_lo);
+    const uint32_t r_addr = wg == 0 ? b_addr : c_addr;
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int k = 0; k < CH / 16; ++k) {
+        const uint64_t db = desc_sw128(r_addr + u * BOX + k * 2048, BOX, 1024);
+        if (wg == 0) {
+          wgmma_ss64<1, 1>(acc[u], desc_sw128(qh + k * 2048, BOX, 1024), db, 1, T{});
+          wgmma_ss64<1, 1>(acc[u], desc_sw128(ql + k * 2048, BOX, 1024), db, 1, T{});
+        } else {
+          wgmma_ss64<0, 1>(acc[u], desc_sw128(qh + k * 32, 16, 1024), db, 1, T{});
+          wgmma_ss64<0, 1>(acc[u], desc_sw128(ql + k * 32, 16, 1024), db, 1, T{});
+        }
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+  }
+  // this head group's float32 part of dC (plane 0) or dB (plane 1)
+  float* out = part_bc + (wg == 0 ? 0 : (long)batch * S * HG * NN);
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int r = row_of(e);
+      if (r < rows)
+        *reinterpret_cast<float2*>(out + (((long)b * S + t0 + r) * HG + hg) * NN + 64 * u +
+                                   col_of(e)) = make_float2(acc[u][e], acc[u][e + 1]);
+    }
+}
+
+// ----------------------------------------------------------- 3. last pass
+// dC and dB: the head groups' float32 parts summed in order and rounded to
+// the input dtype; dA: the (request, chunk) parts summed in order
+template <typename T>
+__global__ void ssd_bwd_sum_kernel(const float* __restrict__ part_bc,
+                                   const float* __restrict__ dA_part, T* __restrict__ dB,
+                                   T* __restrict__ dC, float* __restrict__ dA, long rows,
+                                   int HG, int parts, int H) {
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < rows * NN;
+       i += (long)gridDim.x * blockDim.x) {
+    const long row = i / NN, n = i % NN;
+    const float* pc = part_bc + row * HG * NN + n;
+    const float* pb = pc + rows * HG * NN;
+    float sc = 0.f, sb = 0.f;
+    for (int k = 0; k < HG; ++k) {
+      sc += pc[(long)k * NN];
+      sb += pb[(long)k * NN];
+    }
+    dC[i] = from_f<T>(sc);
+    dB[i] = from_f<T>(sb);
+  }
+  const long t = blockIdx.x * (long)blockDim.x + threadIdx.x;
   if (t < H) {
     float a = 0.f;
-    for (int b = 0; b < batch; ++b) a += dA_part[(long long)b * H + t];
+    for (int k = 0; k < parts; ++k) a += dA_part[(long)k * H + t];
     dA[t] = a;
   }
 }
@@ -492,33 +745,75 @@ __global__ void ssd_bwd_reduce_kernel(const float* partB, const float* partC,
 template <typename T>
 int launch(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
            const void* dy, const void* dfinal, void* dx, void* ddt, void* dA, void* dB,
-           void* dC, void* states, void* partB, void* partC, void* dA_part, int batch,
-           int S, int H, long long sxb, long long sxs, long long sbb, long long sbs,
-           long long scb, long long scs, int flags, cudaStream_t stream) {
+           void* dC, void* planes, void* part_bc, void* dA_part, int batch, int S, int H,
+           int HG, long long sxb, long long sxs, long long sbb, long long sbs,
+           long long scb, long long scs, CUtensorMapDataType dtype, int flags,
+           cudaStream_t stream) {
   static bool attr = false;
   if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ssd_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    cudaError_t err = cudaFuncSetAttribute(ssd_bwd_state_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           StateSmem::SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ssd_bwd_state_kernel<T>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ssd_bwd_chunk_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, ChunkSmem::SMEM);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  ssd_bwd_kernel<T><<<dim3(H, batch), THREADS, SMEM, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const T*>(Bm), static_cast<const T*>(Cm),
-      static_cast<const T*>(dy), static_cast<const float*>(dfinal), static_cast<T*>(dx),
-      static_cast<float*>(ddt), static_cast<float*>(dA_part), static_cast<float*>(partB),
-      static_cast<float*>(partC), static_cast<float*>(states), S, H, sxb, sxs, sbb, sbs,
-      scb, scs, flags);
+  const int nc = (S + CH - 1) / CH;
+  // x as (P, H, S, b) and dy likewise (contiguous), boxes of one head's 64
+  // rows; B and C as (N, S, b) in 64 x 64 boxes; the state planes as
+  // 64-column rows, a box one (request, chunk, head, half of N)'s P rows.
+  // All with the
+  // 128-byte swizzle.  Strides in bytes; a batch of one never steps its
+  // batch stride
+  const cuuint64_t x_dims[4] = {(cuuint64_t)PP, (cuuint64_t)H, (cuuint64_t)S,
+                                (cuuint64_t)batch};
+  const cuuint64_t x_str[3] = {(cuuint64_t)PP * 2, (cuuint64_t)sxs * 2,
+                               (cuuint64_t)(batch > 1 ? sxb : S * sxs) * 2};
+  const cuuint64_t dy_str[3] = {(cuuint64_t)PP * 2, (cuuint64_t)H * PP * 2,
+                                (cuuint64_t)S * H * PP * 2};
+  const cuuint32_t x_box[4] = {64, 1, CH, 1};
+  const cuuint64_t n_dims[3] = {(cuuint64_t)NN, (cuuint64_t)S, (cuuint64_t)batch};
+  const cuuint64_t b_str[2] = {(cuuint64_t)sbs * 2,
+                               (cuuint64_t)(batch > 1 ? sbb : S * sbs) * 2};
+  const cuuint64_t c_str[2] = {(cuuint64_t)scs * 2,
+                               (cuuint64_t)(batch > 1 ? scb : S * scs) * 2};
+  const cuuint32_t n_box[3] = {64, CH, 1};
+  const cuuint64_t p_dims[2] = {64, (cuuint64_t)4 * batch * nc * H * 2 * PP};
+  const cuuint64_t p_str[1] = {128};
+  const cuuint32_t p_box[2] = {64, PP};
+  CUtensorMap tx, tdy, tdx, tb, tc, tp;
+  if (!make_map(&tx, x, dtype, 4, x_dims, x_str, x_box) ||
+      !make_map(&tdy, dy, dtype, 4, x_dims, dy_str, x_box) ||
+      !make_map(&tdx, dx, dtype, 4, x_dims, dy_str, x_box) ||
+      !make_map(&tb, Bm, dtype, 3, n_dims, b_str, n_box) ||
+      !make_map(&tc, Cm, dtype, 3, n_dims, c_str, n_box) ||
+      !make_map(&tp, planes, dtype, 2, p_dims, p_str, p_box))
+    return (int)cudaErrorInvalidValue;
+  const float* dtf = static_cast<const float*>(dt);
+  const float* af = static_cast<const float*>(A);
+  ssd_bwd_state_kernel<T><<<dim3(2, H, batch), THREADS, StateSmem::SMEM, stream>>>(
+      tx, tdy, tb, tc, tp, dtf, af, static_cast<const float*>(dfinal), S, H, flags);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_chunk_kernel<T><<<dim3(HG, nc, batch), 3 * THREADS, ChunkSmem::SMEM, stream>>>(
+      tx, tdy, tb, tc, tp, tdx, dtf, af, static_cast<float*>(ddt),
+      static_cast<float*>(dA_part), static_cast<float*>(part_bc), S, H, flags);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long rows = (long long)batch * S;
   long long blocks = (rows * NN + 255) / 256;
   blocks = blocks < 4096 ? blocks : 4096;
   blocks = blocks * 256 < H ? (H + 255) / 256 : blocks;   // a thread per dA entry
-  ssd_bwd_reduce_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
-      static_cast<const float*>(partB), static_cast<const float*>(partC),
-      static_cast<const float*>(dA_part), static_cast<T*>(dB), static_cast<T*>(dC),
-      static_cast<float*>(dA), rows, batch, H, flags);
+  ssd_bwd_sum_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(
+      static_cast<const float*>(part_bc), static_cast<const float*>(dA_part),
+      static_cast<T*>(dB), static_cast<T*>(dC), static_cast<float*>(dA), rows, HG,
+      batch * nc, H);
   return (int)cudaGetLastError();
 }
 
@@ -532,31 +827,47 @@ extern "C" {
 // (batch, S, N) through their batch and row strides, dy (batch, S, H, P)
 // contiguous in x's dtype, dfinal (batch, H, P, N) float32 or null (zero).
 // Outputs: dx (batch, S, H, P) and dB, dC (batch, S, N) in x's dtype, ddt
-// (batch, S, H) and dA (H,) float32, all contiguous.  Scratch, float32:
-// states (batch, ceil(S / 64), H, P, N), partB and partC (batch, S, H, N),
-// dA_part (batch, H).  P = 64, N = 128 and chunk = 64 only: any other
-// returns cudaErrorInvalidValue and touches nothing.  dtype: 1 float16, 2
-// bfloat16.  flags: the planted faults in the header, 0 on every model
-// path.  Launches the main pass and the reduction on `stream`.  Returns a
-// cudaError_t.
+// (batch, S, H) and dA (H,) float32, all contiguous.  Scratch: planes (4,
+// batch, ceil(S / 64), H, 2, P, N / 2) in x's dtype (each chunk's entering state
+// and its cotangent, hi and lo pieces), part_bc (2, batch, S, head_groups,
+// N) and dA_part (batch, ceil(S / 64), H) float32.  head_groups: how many
+// blocks share a chunk's heads, 1 .. H.  P = 64, N = 128 and chunk = 64
+// only: any other returns cudaErrorInvalidValue and touches nothing.
+// dtype: 1 float16, 2 bfloat16.  x, B, C 16-byte aligned with strides of
+// multiples of 8 elements (TMA).  flags: the planted faults in the header,
+// 0 on every model path.  Launches the state pass, the chunk pass and the
+// last pass on `stream`.  Returns a cudaError_t.
 int ssd_scan_bwd(const void* x, const void* dt, const void* A, const void* Bm,
                  const void* Cm, const void* dy, const void* dfinal, void* dx, void* ddt,
-                 void* dA, void* dB, void* dC, void* states, void* partB, void* partC,
-                 void* dA_part, int batch, int S, int H, int P, int N, int chunk,
+                 void* dA, void* dB, void* dC, void* planes, void* part_bc, void* dA_part,
+                 int batch, int S, int H, int P, int N, int chunk, int head_groups,
                  long long sxb, long long sxs, long long sbb, long long sbs, long long scb,
                  long long scs, int dtype, int flags, void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(x) |
+                          reinterpret_cast<uintptr_t>(Bm) |
+                          reinterpret_cast<uintptr_t>(Cm) |
+                          reinterpret_cast<uintptr_t>(dy) |
+                          reinterpret_cast<uintptr_t>(planes);
+  const long long strides = (batch > 1 ? sxb | sbb | scb : 0) | sxs | sbs | scs;
   if (batch <= 0 || S <= 0 || H <= 0 || P != sbwd::PP || N != sbwd::NN ||
-      chunk != sbwd::CH)
+      chunk != sbwd::CH || head_groups < 1 || head_groups > H || align % 16 != 0 ||
+      strides % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SBWD_ARGS x, dt, A, Bm, Cm, dy, dfinal, dx, ddt, dA, dB, dC, states, partB, partC, \
-    dA_part, batch, S, H, sxb, sxs, sbb, sbs, scb, scs, flags, st
+#define SBWD_ARGS x, dt, A, Bm, Cm, dy, dfinal, dx, ddt, dA, dB, dC, planes, part_bc, \
+    dA_part, batch, S, H, head_groups, sxb, sxs, sbb, sbs, scb, scs
   switch (dtype) {
-    case 1: return sbwd::launch<__half>(SBWD_ARGS);
-    case 2: return sbwd::launch<__nv_bfloat16>(SBWD_ARGS);
+    case 1: return sbwd::launch<__half>(SBWD_ARGS, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, flags, st);
+    case 2: return sbwd::launch<__nv_bfloat16>(SBWD_ARGS, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                               flags, st);
   }
 #undef SBWD_ARGS
   return (int)cudaErrorInvalidValue;
+}
+
+// the dynamic shared memory (bytes) of the state pass (0) or the chunk pass (1)
+int ssd_scan_bwd_smem(int pass) {
+  return pass == 0 ? sbwd::StateSmem::SMEM : sbwd::ChunkSmem::SMEM;
 }
 
 }  // extern "C"

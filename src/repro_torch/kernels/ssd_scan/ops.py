@@ -16,8 +16,14 @@ they came as), and its backward launches ``csrc/ssd_scan_bwd.cuh`` (built
 into the same library) with dy and the final state's cotangent (None where
 nothing reads the state).  The backward is built for P = 64, N = 128 and
 chunk 64 (``BWD_SHAPE``: mamba2-2.7b's and jamba's); on the card another
-shape raises.  ``ssd_scan.bwd_launches`` counts its C calls.  A CPU tensor
-differentiates the plain version.
+shape raises.  ``ssd_scan.bwd_launches`` counts its C calls.  On the card a
+call runs three kernels: a state pass (each chunk's entering state and its
+cotangent, walked once each way per (head, request), stored as hi + lo
+pieces), a chunk pass on ``wgmma`` (one block per (head group, chunk,
+request); dB and dC summed over the group's heads inside the block, in head
+order) and a last pass that sums the head groups' parts and dA's in order;
+``ssd_scan_bwd_split_ref`` in ``ref.py`` is the same algorithm in plain
+PyTorch.  A CPU tensor differentiates the plain version.
 
 Layout (as ``repro.kernels.ssd_scan.kernel``, one group of B/C):
   x      (b, s, h, p)   float16 or bfloat16 on the card
@@ -39,7 +45,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_scan_bwd_ref
+from repro_torch.kernels.ssd_scan.ref import (head_groups, ssd_chunked_ref,
+                                              ssd_scan_bwd_ref)
 
 # the dtypes the kernel is built and checked on the card for
 DTYPES = {torch.float16: 1, torch.bfloat16: 2}
@@ -49,10 +56,12 @@ BWD_SHAPE = (64, 128, 64)
 # planted faults and diagnostics of the card's kernels (``flags``; 0 on the
 # model's path): the forward's, then the backward's
 FAULTS = {"drop_lo_terms": 1, "previous_chunk_gram": 2,
-          "bwd_state_not_carried": 4, "bwd_heads_not_summed": 8}
+          "bwd_state_not_carried": 4, "bwd_heads_not_summed": 8,
+          "diag_bwd_no_state_stores": 16, "diag_bwd_chunk_loads_only": 64,
+          "diag_bwd_chunk_compute_only": 128}
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
     [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + \
+_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + \
     [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -169,27 +178,28 @@ def _launch_bwd(x, dt, A, B, C, dy, dfinal, chunk: int, flags: int):
     b, s, h, p = x.shape
     n = B.shape[-1]
     dev = x.device
+    nc = -(-s // chunk)
+    hg = head_groups(b, nc, h, torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)
     dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev)
     dA = torch.empty((h,), dtype=torch.float32, device=dev)
     dB, dC = (torch.empty((b, s, n), dtype=x.dtype, device=dev)
               for _ in range(2))
-    # scratch: the state entering each chunk, dB's and dC's float32 parts
-    # per head and dA's per request (summed in order by the last pass)
-    states = torch.empty(b * -(-s // chunk) * h * p * n, dtype=torch.float32,
-                         device=dev)
-    part_b, part_c = (torch.empty((b, s, h, n), dtype=torch.float32,
-                                  device=dev) for _ in range(2))
-    part_a = torch.empty((b, h), dtype=torch.float32, device=dev)
+    # scratch: each chunk's entering state and its cotangent as hi + lo
+    # pieces, the head groups' float32 parts of dC and dB, dA's parts per
+    # (request, chunk, head)
+    planes = torch.empty((4, b, nc, h, 2, p, n // 2), dtype=x.dtype, device=dev)
+    part_bc = torch.empty((2, b, s, hg, n), dtype=torch.float32, device=dev)
+    part_a = torch.empty((b, nc, h), dtype=torch.float32, device=dev)
     lib, fn = _build.entry("ssd_scan", "ssd_scan_bwd", _BWD_ARGTYPES)
     with _build.on_device(dev.index):
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                  C.data_ptr(), dy.data_ptr(),
                  None if dfinal is None else dfinal.data_ptr(),
                  dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-                 dC.data_ptr(), states.data_ptr(), part_b.data_ptr(),
-                 part_c.data_ptr(), part_a.data_ptr(), b, s, h, p, n, chunk,
-                 x.stride(0),
+                 dC.data_ptr(), planes.data_ptr(), part_bc.data_ptr(),
+                 part_a.data_ptr(), b, s, h, p, n, chunk, hg, x.stride(0),
                  x.stride(1), B.stride(0), B.stride(1), C.stride(0),
                  C.stride(1), DTYPES[x.dtype], flags,
                  _build.current_stream(dev.index))
@@ -229,9 +239,9 @@ def ssd_scan_bwd(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 64):
     cotangent of y, and ``dfinal`` (b, h, p, n), that of the final state
     (None: zero) -> (dx, ddt, dA, dB, dC) of the inputs' shapes; dx, dB and
     dC in x's dtype, ddt and dA float32.  One C call on the card (the state
-    pass and the reverse walk, then the heads' and requests' parts summed in
-    a fixed order: the same gradients every run; counted in
-    ``ssd_scan.bwd_launches``); a CPU tensor takes ``ssd_scan_bwd_ref``."""
+    pass, the chunk pass and the last pass; every sum in a fixed order: the
+    same gradients every run; counted in ``ssd_scan.bwd_launches``); a CPU
+    tensor takes ``ssd_scan_bwd_ref``."""
     return _ssd_scan_bwd(x, dt, A, B, C, dy, dfinal, chunk=chunk)
 
 

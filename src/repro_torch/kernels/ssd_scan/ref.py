@@ -15,7 +15,11 @@ before its product: bfloat16 pieces for bfloat16 inputs, TF32 pieces
 ``ssd_scan_bwd_ref`` is the scan's gradient as an explicit float32 chunked
 pass (the plain version of csrc/ssd_scan_bwd.cuh): the states entering each
 chunk, then a reverse walk over the chunks that carries the state's
-cotangent.
+cotangent.  ``ssd_scan_bwd_split_ref`` is the card's backward algorithm in
+plain PyTorch: the state pass (each chunk's entering state and its
+cotangent, stored as hi + lo pieces), the chunk-parallel pass with dB and
+dC summed over each head group's heads in head order, and the groups'
+parts summed in order.
 """
 from __future__ import annotations
 
@@ -104,7 +108,14 @@ def split_bf16(v):
     return hi, (v - hi).bfloat16().float()
 
 
-SPLITS = {"tf32": split_tf32, "bf16": split_bf16}
+def split_f16(v):
+    """v -> (hi, lo), float16 values (round to nearest even): the pieces of
+    the backward kernel for float16 inputs."""
+    hi = v.float().half().float()
+    return hi, (v - hi).half().float()
+
+
+SPLITS = {"tf32": split_tf32, "bf16": split_bf16, "f16": split_f16}
 
 
 def slice_width(p: int) -> int:
@@ -274,6 +285,124 @@ def ssd_scan_bwd_ref(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 64):
         dA += (dti * rc).sum((0, 1))
         dS = dS * torch.exp(last[:, ci])[..., None, None] + \
             torch.einsum("bih,bihp,bin->bhpn", ecum, dyi, Ci)
+    rows = lambda t: t.reshape(b, nc * chunk, *t.shape[3:])[:, :s]
+    return (rows(dx).to(x.dtype), rows(ddt), dA, rows(dB).to(x.dtype),
+            rows(dC).to(x.dtype))
+
+
+def head_groups(b: int, n_chunks: int, h: int, sms: int = 132) -> int:
+    """How many blocks of the card's backward chunk pass share one (request,
+    chunk)'s heads: as many as keep the grid within one wave of one block an
+    SM (``sms``, 132 on an H100), 1 .. h."""
+    return max(1, min(h, sms // max(1, b * n_chunks)))
+
+
+def ssd_scan_bwd_split_ref(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 64,
+                           split=None, groups=None):
+    """``ssd_scan_bwd_ref``'s function by the card's algorithm, in float32:
+    1. the state pass: per (request, head) the chunks' entering states S
+       (forward, S <- e^(cum_last) S + (x . w)^T B) and the cotangents dS of
+       the states leaving them (backward from ``dfinal``, dS <- e^(cum_last)
+       dS + (dy . e^cum)^T C), the derived operand of each update split into
+       hi + lo, and S, dS kept as their hi + lo pieces;
+    2. the chunk pass per (request, chunk) and head group (``groups``,
+       default ``head_groups(b, n_chunks, h)``): per head in order, D = dy
+       x^T, M = G . K and Q = D . K (K_ij = e^(cum_i - cum_j) dt_j, j <= i,
+       G = C B^T), dx = w . (B dS^T) + M^T dy (M split), dC += e^cum . (dy S)
+       and dB += w . (x dS) over the pieces, u, v, dcum's sums, ddt and a
+       part of dA; then, once, dC += Q_sum B and dB += Q_sum^T C (Q_sum, the
+       group's sum of Q over its heads, split);
+    3. the groups' parts of dB and dC summed in group order, dA's parts in
+       (request, chunk) order.
+    ``split``: the pieces, "bf16" (the default), or "f16" (the default for
+    float16 inputs: the kernel splits in the input dtype).  x, dy, B and C
+    enter the products as given.  -> (dx, ddt, dA, dB, dC) as
+    ``ssd_scan_bwd_ref`` gives them."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    sp = SPLITS[split or ("f16" if x.dtype == torch.float16 else "bf16")]
+    pad = (-s) % chunk
+    xc, dtc, Bc, Cc, dyc = (_chunked(t, chunk, pad) for t in (x, dt, B, C, dy))
+    nc = xc.shape[1]
+    A32 = A.float()
+    cum = torch.cumsum(dtc * A32, dim=2)                        # (b, nc, c, h)
+    last = cum[:, :, -1]                                        # (b, nc, h)
+    ecum = torch.exp(cum)
+    w = torch.exp(last[:, :, None] - cum) * dtc
+
+    def two(eq, pieces, other):
+        return torch.einsum(eq, pieces[0], other) + torch.einsum(eq, pieces[1], other)
+
+    # 1. the state pass
+    states, S = [], torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    for ci in range(nc):
+        states.append(sp(S))
+        S = S * torch.exp(last[:, ci])[..., None, None] + two(
+            "bjhp,bjn->bhpn", sp(xc[:, ci] * w[:, ci][..., None]), Bc[:, ci])
+    dstates = [None] * nc
+    dS = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device) \
+        if dfinal is None else dfinal.float()
+    for ci in reversed(range(nc)):
+        dstates[ci] = sp(dS)
+        dS = dS * torch.exp(last[:, ci])[..., None, None] + two(
+            "bihp,bin->bhpn", sp(dyc[:, ci] * ecum[:, ci][..., None]), Cc[:, ci])
+    # (b, nc, h, p, n) pieces
+    Sp = [torch.stack([st[k] for st in states], 1) for k in range(2)]
+    dSp = [torch.stack([st[k] for st in dstates], 1) for k in range(2)]
+
+    # 2. the chunk pass
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    keep = tri[None, None, :, :, None]
+    diff = cum[:, :, :, None] - cum[:, :, None]                 # (b, nc, i, j, h)
+    E = torch.where(keep, torch.exp(torch.where(keep, diff, 0.0)), 0.0)
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    dx, ddt = torch.empty_like(xc), torch.empty_like(dtc)
+    dA_part = torch.empty((b, nc, h), dtype=torch.float32, device=x.device)
+    HG = groups or head_groups(b, nc, h)
+    parts_c, parts_b = [], []
+    for grp in range(HG):
+        dC_acc = torch.zeros_like(Cc)
+        dB_acc = torch.zeros_like(Bc)
+        Q_sum = torch.zeros((b, nc, chunk, chunk), dtype=torch.float32,
+                            device=x.device)
+        for hd in range(grp * h // HG, (grp + 1) * h // HG):
+            xh, dyh, dth = xc[..., hd, :], dyc[..., hd, :], dtc[..., hd]
+            Eh, ech, wh = E[..., hd], ecum[..., hd], w[..., hd]
+            Sh = [t[:, :, hd] for t in Sp]                     # (b, nc, p, n)
+            dSh = [t[:, :, hd] for t in dSp]
+            D = torch.einsum("bcip,bcjp->bcij", dyh, xh)
+            K = Eh * dth[:, :, None, :]
+            M = G * K
+            Q = D * K
+            T = M * D
+            Q_sum = Q_sum + Q
+            dCt = two("bcpn,bcip->bcin", Sh, dyh)
+            dBt = two("bcpn,bcjp->bcjn", dSh, xh)
+            dC_acc = dC_acc + ech[..., None] * dCt
+            dB_acc = dB_acc + wh[..., None] * dBt
+            u = ech * (dCt * Cc).sum(-1)
+            v = (dBt * Bc).sum(-1)
+            dx[..., hd, :] = wh[..., None] * two("bcpn,bcjn->bcjp", dSh, Bc) + \
+                two("bcij,bcip->bcjp", sp(M), dyh)
+            dss = ((Sh[0] + Sh[1]) * (dSh[0] + dSh[1])).sum((-1, -2))
+            dcum = T.sum(-1) - T.sum(-2) + u - wh * v
+            dcum[..., -1] += ech[..., -1] * dss + (wh * v).sum(-1)
+            rc = dcum.flip(-1).cumsum(-1).flip(-1)
+            ddt[..., hd] = (G * Eh * D).sum(-2) + \
+                torch.exp(last[..., hd, None] - cum[..., hd]) * v + A32[hd] * rc
+            dA_part[..., hd] = (dth * rc).sum(-1)
+        qs = sp(Q_sum)
+        parts_c.append(dC_acc + two("bcij,bcjn->bcin", qs, Bc))
+        parts_b.append(dB_acc + two("bcij,bcin->bcjn", qs, Cc))
+
+    # 3. the groups' and the (request, chunk) parts, each in order
+    dC, dB = parts_c[0], parts_b[0]
+    for k in range(1, HG):
+        dC, dB = dC + parts_c[k], dB + parts_b[k]
+    flat = dA_part.reshape(b * nc, h)
+    dA = flat[0]
+    for k in range(1, b * nc):
+        dA = dA + flat[k]
     rows = lambda t: t.reshape(b, nc * chunk, *t.shape[3:])[:, :s]
     return (rows(dx).to(x.dtype), rows(ddt), dA, rows(dB).to(x.dtype),
             rows(dC).to(x.dtype))

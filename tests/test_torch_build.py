@@ -38,12 +38,13 @@ def test_editing_an_included_header_renames_the_library(tmp_path, edit):
 
 
 def test_port_sources_include_the_shared_header():
-    """Every library includes ``hopper.cuh``; ``ssd_scan.cu`` also its
-    backward, ``ssd_scan_bwd.cuh``, built into the same library."""
+    """Every library includes ``hopper.cuh``; ``flash_attention.cu`` and
+    ``ssd_scan.cu`` also their backwards, ``flash_attention_bwd.cuh`` and
+    ``ssd_scan_bwd.cuh``, built into the same library."""
     hopper = (_build._PKG / "hopper.cuh").resolve()
     incl = {name: _build.includes(src) for name, src in _build.sources().items()}
     for name in ("hybrid_attention", "kv_gen"):
         assert incl[name] == [hopper]
-    assert incl["ssd_scan"] == [
-        hopper, (_build.sources()["ssd_scan"].parent / "ssd_scan_bwd.cuh")
-        .resolve()]
+    for name in ("flash_attention", "ssd_scan"):
+        assert incl[name] == [
+            hopper, (_build.sources()[name].parent / f"{name}_bwd.cuh").resolve()]
