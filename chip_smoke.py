@@ -53,7 +53,16 @@ layers on ``ssd_scan`` with its hand-written backward (``ssd_scan_bwd``,
 held in the kernels phase at mamba2's and jamba's shapes with two planted
 faults), step 1's loss and every gradient leaf held to the same step on
 the plain attention and SSD scan; and the serve CLI
-(``repro_torch.launch.serve``) serves opt-6.7b with ``--verify``.  After
+(``repro_torch.launch.serve``) serves opt-6.7b with ``--verify``.  Then
+the six example twins (``examples/torch_*.py``) run in process with their
+reference's asserts, each with the launch counts set to 0 before it and
+the kernels it must launch read after; the offload microbenchmark times
+stream only, compute only and overlapped at opt-6.7b's full width (4
+layers) and must save time; and the dry run's one-card fit check
+(``repro_torch.launch.dryrun``) covers every config and shape on ``meta``,
+must report the depth cuts this script runs as fitting, and measures three
+steps on the card: resident argument bytes within 1% of the dry run's,
+each peak under the card's memory.  After
 each of OPT's and yi's device-resident
 serves has freed its weights, an offload phase serves it again with its
 layer weights in pinned host memory, streamed to the card over a CUDA copy stream (``HybridServeEngine(offload=
@@ -89,6 +98,7 @@ import io
 import json
 import math
 import re
+import runpy
 import subprocess
 import sys
 import time
@@ -102,7 +112,8 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs import (ASSIGNED, SHAPES, InputShape,  # noqa: E402
+                                 applicable, get_config, reduced)
 from repro_torch.configs.offload import (OffloadBudget, _tight,  # noqa: E402
                                          offload_budget)
 from repro_torch.core.controller import (ControllerConfig,  # noqa: E402
@@ -138,12 +149,15 @@ from repro_torch.obs import (DriftMonitor, MetricsRegistry, Tracer,  # noqa: E40
 from repro_torch.offload import (HostWeightPool, host_flash_attention,  # noqa: E402
                                  merge_partials_torch)
 from repro_torch.offload.host_attn import QuantPlane  # noqa: E402
+from repro_torch.offload.microbench import (  # noqa: E402
+    weight_stream_microbench)
 from repro_torch.offload.timeline import MeasuredTimeline  # noqa: E402
 from repro_torch.serving import (ContinuousBatchingServer,  # noqa: E402
                                  HybridServeEngine, exact_reference_generate)
 from repro_torch.serving import scheduler as SCHED  # noqa: E402
 from repro_torch.serving.util import bucket  # noqa: E402
 from repro_torch.launch import serve as SERVE_CLI  # noqa: E402
+from repro_torch.launch import dryrun as DRY  # noqa: E402
 from repro_torch.launch import specs as SPECS  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
@@ -633,7 +647,7 @@ def check_flash(B, S, H=32, KVH=32, D=128, dtype=torch.float16, window=0,
     got = run(flash_attention)
     want = flash_attention_ref(q, k, v, window, causal)
     faults = {}
-    if window:
+    if window and window < S:       # a window over every key cuts nothing
         faults["fault_err_no_window"] = (flash_attention(q, k, v).float()
                                          - want.float()).abs().max().item()
     if not causal and Sk == S:
@@ -1739,6 +1753,89 @@ def ssd_bwd_c_entry_refusals(shapes=((32, 128, 64), (64, 64, 64),
     return out
 
 
+def card_reduced(name):
+    """``name``'s ``-reduced`` config as the twins run it on the card, in
+    the full config's dtype."""
+    full = get_config(name)
+    return reduced(full, dtype=full.dtype)
+
+
+def twin_specs() -> list:
+    """(row list, check, its arguments) at each kernel shape the example
+    twins launch (``launch_keys``; head_dim 32 but train_lm's 64):
+    quickstart's reduced OPT (float16) flash prefill and fused decode at its
+    engine's plan (``serve_shape``: the same trace); arch_zoo's (B 2, S 32,
+    and qwen2-vl's patches) in each family's modes at its reduced widths
+    and dtype: causal, windowed (the window covers the prompt, so each
+    window also runs at a length it cuts, for its planted fault), whisper's
+    non-causal encoder, the SSD scan (mamba2's and jamba's widths agree);
+    long_context_ssm's SSD scan at B 1, S 64; train_lm's yi-100m forward
+    and backward (B 8, S 256, bfloat16)."""
+    opt = card_reduced("opt-6.7b")
+    ow = dict(H=opt.num_heads, KVH=opt.num_kv_heads, D=opt.head_dim,
+              dtype=M.torch_dtype(opt))
+    osh = serve_shape(opt)
+    specs = [("flash_attention", check_flash, dict(B=osh["B"],
+                                                   S=osh["prefill_len"], **ow)),
+             ("hybrid_paged_attention", check_hybrid, dict(
+                 shape=osh, KVH=opt.num_kv_heads, G=1, D=opt.head_dim,
+                 d=opt.d_model, dtype=M.torch_dtype(opt),
+                 norm_type=opt.norm_type))]
+    B, S = 2, 32
+    for name in ASSIGNED:
+        c = card_reduced(name)
+        if c.ssm_state_size:
+            specs.append(("ssd_scan", check_ssd_scan, dict(B=B, S=S, cfg=c)))
+        if c.arch_type == "ssm":
+            continue
+        w = dict(H=c.num_heads, KVH=c.num_kv_heads, D=c.head_dim,
+                 dtype=M.torch_dtype(c))
+        S_ = S + (c.frontend_tokens if c.frontend == "vision_stub" else 0)
+        if c.is_encoder_decoder:
+            specs.append(("flash_attention_noncausal", check_flash,
+                          dict(B=B, S=c.enc_seq_len, causal=False, **w)))
+        if c.sliding_window:
+            specs += [("flash_attention_window", check_flash,
+                       dict(B=B, S=n, window=c.sliding_window, **w))
+                      for n in (S_, 2 * c.sliding_window + 37)]
+        specs.append(("flash_attention", check_flash, dict(B=B, S=S_, **w)))
+    specs.append(("ssd_scan", check_ssd_scan,
+                  dict(B=1, S=64, cfg=card_reduced(MAMBA))))
+    lm = dict(B=8, S=256, H=12, KVH=4, D=64, dtype=torch.bfloat16)
+    return specs + [("flash_attention", check_flash, lm),
+                    ("flash_attention_bwd", check_flash_bwd, lm)]
+
+
+def spec_key(kind, kw) -> tuple:
+    """The ``launch_keys`` key a twin spec's row holds."""
+    dt = str(kw.get("dtype", torch.bfloat16)).removeprefix("torch.")
+    if kind == "ssd_scan":
+        c = kw["cfg"]
+        return ("ssd", c.ssm_num_heads, c.ssm_head_dim, c.ssm_state_size,
+                c.ssm_chunk, str(M.torch_dtype(c)).removeprefix("torch."))
+    if kind == "hybrid_paged_attention":
+        return ("hybrid", kw["KVH"], kw["G"], kw["D"], kw["d"], dt,
+                kw["norm_type"], False, False)
+    mode = (kw["H"], kw["KVH"], kw["D"], dt, kw.get("window", 0),
+            kw.get("causal", True))
+    return ("flash_bwd" if kind == "flash_attention_bwd" else "flash",) + mode
+
+
+def twin_kernel_rows() -> dict:
+    """Each twin spec's row (``twin_specs``), by its row list, tagged with
+    the key it holds (``twin_key``); one row per (list, key, batch,
+    length)."""
+    rows, seen = {}, set()
+    for kind, check, kw in twin_specs():
+        key = spec_key(kind, kw)
+        at = (kind, key, kw.get("B"), kw.get("S"))
+        if at in seen:
+            continue
+        seen.add(at)
+        rows.setdefault(kind, []).append(dict(check(**kw), twin_key=list(key)))
+    return rows
+
+
 def phase_kernels(results):
     """Per kernel, the serve path's shapes first: opt-6.7b's (float16, MHA,
     LayerNorm, G=1), then yi-6b's (bfloat16, G=8: flash prefill, kv_gen and
@@ -1767,7 +1864,10 @@ def phase_kernels(results):
     at head_dim 128; each appended last to its kernel's rows.  Last, the SSD
     scan's backward at mamba2's training rows, a ragged length and jamba's
     heads (bfloat16), the ragged length in float16, and its C entry's
-    refusals."""
+    refusals.  Then, appended last to their lists, the example twins'
+    shapes (``twin_specs``: head_dim 32, train_lm's 64), each row tagged
+    with the key it holds (``twin_key``; ``twin_keys`` lists them); the
+    examples phase fails if a twin calls a kernel at any other key."""
     yi, opt = get_config("yi-6b"), get_config("opt-6.7b")
     mamba = get_config(MAMBA)
     gemma = get_config(GEMMA)
@@ -1898,13 +1998,20 @@ def phase_kernels(results):
            "opt_serve_shape": opt_shape,
            "moe_serve_shapes": {"dbrx-132b": m_shape, "grok-1-314b": g_shape},
            "gemma27_serve_shapes": {"global": g27_global, "ring": g27_ring}}
+    # the example twins' shapes (``twin_specs``), appended last to their
+    # lists and held below as every row is; ``own``: the rows before them
+    own = {n: list(v) for n, v in out.items() if isinstance(v, list)}
+    for name, rows in twin_kernel_rows().items():
+        out[name] += rows
+    out["twin_keys"] = sorted({tuple(c["twin_key"]) for name in KERNELS
+                               for c in out[name] if "twin_key" in c})
     emit(out)
     results["kernels"] = out
     # jamba's and gemma3-27b's shapes: the rows appended last
-    for name, rows in (("flash_attention", out["flash_attention"][-2:]),
-                       ("ssd_scan", out["ssd_scan"][-1:]),
+    for name, rows in (("flash_attention", own["flash_attention"][-2:]),
+                       ("ssd_scan", own["ssd_scan"][-1:]),
                        ("flash_attention_window",
-                        out["flash_attention_window"][-1:]),
+                        own["flash_attention_window"][-1:]),
                        ("hybrid_paged_attention_two_pool",
                         out["hybrid_paged_attention_two_pool"][-2:]),
                        ("kv_gen_qk_norm", out["kv_gen_qk_norm"][-1:])):
@@ -1918,7 +2025,7 @@ def phase_kernels(results):
                   flush=True)
     # the MoE models' shapes: the last flash and second-pool rows, the last
     # two kv_gen rows (dbrx's layernorm with its bias, grok's rmsnorm)
-    for name, c in (("flash_attention", out["flash_attention"][-1]),
+    for name, c in (("flash_attention", own["flash_attention"][-1]),
                     ("hybrid_paged_attention_two_pool",
                      out["hybrid_paged_attention_two_pool"][-1])):
         print(f"moe shape {name} {c['dtype']} {c['shape']}: {c['kernel_ms']} "
@@ -6261,6 +6368,252 @@ def phase_serve_cli(results, smi, name="opt-6.7b") -> dict:
         raise AssertionError(f"serve CLI phase: {out}")
     return counts
 
+# ------------------------------------------------------------ the dry run
+# the one-card fit check over every config x applicable shape, plus opt-30b
+# and opt-66b (their cuts are stated here); the cuts this script runs by
+# hand, each at the shape its phase serves (the engine's hybrid cache for
+# the MoE models and gemma3-27b, the plain cache for jamba's period): each
+# must be reported as fitting
+FIT_EXTRA = ("opt-30b", "opt-66b")
+SERVE_SHAPE = InputShape("smoke_serve", 1024, 4, "decode")
+HAND_CUTS = {"dbrx-132b": dict(layers=4, hybrid=True, shape=SERVE_SHAPE),
+             "grok-1-314b": dict(layers=2, hybrid=True, shape=SERVE_SHAPE),
+             JAMBA: dict(layers=4, hybrid=False, shape=SERVE_SHAPE),
+             GEMMA27: dict(layers=62, hybrid=True,
+                           shape=InputShape("smoke_serve27", 4096, 4,
+                                            "decode"))}
+# --measure on the card: a decode that needs a depth cut (and whose plain
+# attention's float32 K/V temporaries then lower it), and a prefill and a
+# train step that fit whole and take seconds (whisper-base)
+DRYRUN_MEASURE = (("yi-6b", "decode_32k"), ("whisper-base", "prefill_32k"),
+                  ("whisper-base", "train_4k"))
+RESIDENT_TOL = 0.01
+
+
+def phase_dryrun(results, smi) -> dict:
+    """The dry run's fit check on ``meta`` and its ``--measure`` on the card
+    (``repro_torch.launch.dryrun``)."""
+    t_phase = time.perf_counter()
+    mem, source = DRY.card_memory()
+    spec_mem = int(H100_SXM.device_mem)
+    print(f"dryrun: card memory {mem} B ({source}), H100_SXM.device_mem "
+          f"{spec_mem} B", flush=True)
+    table = {}
+    for arch in list(ASSIGNED) + list(FIT_EXTRA):
+        shapes = [s for s in SHAPES if applicable(arch, SHAPES[s])]
+        extra = [("smoke_serve", SERVE_SHAPE, True)] \
+            if arch in FIT_EXTRA else []
+        for name, shape, hyb in [(s, SHAPES[s], False) for s in shapes] + \
+                extra:
+            f = DRY.fit_check(get_config(arch), shape, device_mem=mem,
+                              hybrid=hyb)
+            table[f"{arch} {name}"] = {k: f[k] for k in (
+                "fits", "depth_cut", "depth_period", "argument_bytes_full",
+                "argument_bytes_cut")}
+    fit_s = time.perf_counter() - t_phase
+    hand = {}
+    for arch, h in HAND_CUTS.items():
+        cfg = jamba_config() if arch == JAMBA else get_config(arch)
+        f = DRY.fit_check(cfg, h["shape"], device_mem=mem, hybrid=h["hybrid"])
+        hand[arch] = dict(layers=h["layers"], fits=f["fits"],
+                          depth_cut=f["depth_cut"],
+                          argument_bytes_cut=f["argument_bytes_cut"])
+    bad = {a: v for a, v in hand.items()
+           if v["depth_cut"] is None or v["depth_cut"] < v["layers"]}
+    if bad:
+        raise AssertionError(f"dryrun: the fit check does not report the "
+                             f"cuts this script runs as fitting: {bad}")
+    measured = {}
+    for arch, shape_name in DRYRUN_MEASURE:
+        cfg, shape = get_config(arch), SHAPES[shape_name]
+        fit = DRY.measure_fit(cfg, shape,
+                              DRY.fit_check(cfg, shape, device_mem=mem))
+        before, cut, L = fit["depth_cut_args"], fit["depth_cut"], \
+            cfg.num_layers
+        runs = fit["measured"]
+        ok = [m for m in runs if not m["oom"]]
+        for m in ok:
+            err = abs(m["resident_bytes"] - m["argument_bytes"]) \
+                / m["argument_bytes"]
+            m["resident_rel_err"] = err
+            if err > RESIDENT_TOL:
+                raise AssertionError(
+                    f"dryrun {arch} {shape_name}: resident {m['resident_bytes']}"
+                    f" B against the dry run's {m['argument_bytes']} B")
+        # the cut is bracketed: the walk's one run that fit (its peak read,
+        # under the card's memory) is its last, at the cut, no deeper than
+        # the arguments' cut; and the cut is full depth or the run one
+        # period deeper failed on the card
+        deeper = min(cut + fit["depth_period"], L) if cut else None
+        if not (cut and cut <= before and len(ok) == 1 and runs[-1] is ok[0]
+                and ok[0]["depth"] == cut and ok[0]["peak_bytes"] <= mem
+                and (cut == L or (
+                    len(runs) > 1 and runs[-2]["oom"]
+                    and runs[-2]["depth"] == deeper))):
+            raise AssertionError(f"dryrun {arch} {shape_name}: the measured "
+                                 f"cut {cut} (arguments' cut {before}) is not "
+                                 f"bracketed by its runs: {runs}")
+        measured[f"{arch} {shape_name}"] = dict(
+            depth_cut_args=before, depth_cut=fit["depth_cut"],
+            fits=fit["fits"], runs=runs)
+        print(f"dryrun measure {arch} {shape_name}: depth {before} -> "
+              f"{fit['depth_cut']} of {cfg.num_layers}, " + "; ".join(
+                  f"depth {m['depth']}: " + ("oom" if m["oom"] else
+                  f"resident {m['resident_bytes'] / 2**30:.2f} GiB "
+                  f"({m['resident_rel_err']:.2e} off), peak "
+                  f"{m['peak_bytes'] / 2**30:.2f} GiB, step "
+                  f"{m['step_seconds']:.3f} s") for m in runs), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"phase": "dryrun", "card": smi, "device_mem": mem,
+           "device_mem_source": source, "spec_device_mem": spec_mem,
+           "fit": table, "hand_cuts": hand, "measured": measured,
+           "fit_seconds": fit_s, "seconds": time.perf_counter() - t_phase}
+    emit({k: v for k, v in out.items() if k != "fit"})
+    results["dryrun"] = out
+    return out
+
+
+# ------------------------------------------------------------ microbench
+# opt-6.7b at full width cut to a few layers: each layer's 403 MB shard is
+# a real copy on this link (``bench_config``'s 6 x d 512 shard is ~3 MB)
+MICROBENCH = dict(layers=4, B=4, S=256, kv_cap=512, act_cap=512, n_steps=4,
+                  reps=3)
+
+
+def phase_microbench(results, smi) -> dict:
+    t_phase = time.perf_counter()
+    mb = dict(MICROBENCH)
+    cfg = dataclasses.replace(get_config("opt-6.7b"),
+                              num_layers=mb.pop("layers"))
+    r = weight_stream_microbench(cfg, device="cuda", **mb)
+    out = {"phase": "microbench", "card": smi, "model": "opt-6.7b",
+           "layers": cfg.num_layers, **r,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    results["microbench"] = out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not r["saving_s"] > 0:
+        raise AssertionError(f"microbench: the overlapped loop saves nothing "
+                             f"over stream + compute: {r}")
+    return out
+
+
+# ------------------------------------------------------------ the examples
+# each twin of the reference's drivers (examples/torch_*.py) in process, the
+# launch counts set to 0 just before it and read just after; the kernels
+# each must have launched
+EXAMPLE_TWINS = ("quickstart", "serve_hybrid", "continuous_batching",
+                 "arch_zoo", "long_context_ssm", "train_lm")
+EXAMPLE_LAUNCHES = {
+    "quickstart": ("flash_attention", "hybrid_paged_attention"),
+    "serve_hybrid": ("flash_attention", "hybrid_paged_attention"),
+    "arch_zoo": ("ssd_scan",),
+    "train_lm": ("flash_attention_bwd",)}
+
+
+def launch_keys(name, a, kw) -> list:
+    """-> [(key, shape)] of one wrapper call: the key a kernels-phase row
+    is held at (kernel, widths, dtype, mode), the call's batch and lengths;
+    a flash call that records a gradient keys its backward too."""
+    dt = str(a[0].dtype).removeprefix("torch.")
+    if name == "flash_attention":
+        (B, S, H, D), (Sk, KVH) = a[0].shape, a[1].shape[1:3]
+        mode = (H, KVH, D, dt, kw.get("window", 0), kw.get("causal", True))
+        keys = [(("flash",) + mode, {"B": B, "S": S, "Sk": Sk})]
+        if torch.is_grad_enabled() and any(t.requires_grad for t in a[:3]):
+            keys.append((("flash_bwd",) + mode, {"B": B, "S": S, "Sk": Sk}))
+        return keys
+    if name == "ssd_scan":
+        b, s, h, p = a[0].shape
+        return [(("ssd", h, p, a[3].shape[-1], kw.get("chunk", 64), dt),
+                 {"B": b, "S": s})]
+    int8, lse = kw.get("k_scales") is not None, bool(kw.get("return_lse"))
+    if name == "hybrid_paged_attention":
+        B, KVH, G, D = a[0].shape
+        return [(("hybrid", KVH, G, D, a[3].shape[-1], dt,
+                  kw.get("norm_type", "layernorm"), int8, lse), {"B": B})]
+    if name == "hybrid_paged_attention_two_pool":
+        B, KVH, G, D = a[0].shape
+        return [(("two_pool", KVH, G, D, dt, int8, lse), {"B": B})]
+    _, _, KVH, hd = a[3].shape                                  # kv_gen
+    return [(("kv_gen", KVH, hd, a[0].shape[-1], str(a[3].dtype).removeprefix(
+        "torch."), kw.get("norm_type", "rmsnorm"), kw.get("knorm") is not None,
+        kw.get("act_scales") is not None), {"N": len(kw["page_index"])})]
+
+
+class KernelCalls:
+    """Within the block, every call the model makes of a kernel wrapper
+    recorded by its ``launch_keys`` (the first call's shape of each key)."""
+    SITES = ((M.T, "flash_attention"), (L, "ssd_scan"),
+             (M, "hybrid_paged_attention"),
+             (M, "hybrid_paged_attention_two_pool"), (M, "kv_gen"))
+
+    def __init__(self):
+        self.first = {}
+
+    def __enter__(self):
+        self.real = [(mod, name, getattr(mod, name)) for mod, name in self.SITES]
+        for mod, name, fn in self.real:
+            setattr(mod, name, self.wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.real:
+            setattr(mod, name, fn)
+
+    def wrap(self, name, fn):
+        def call(*a, **kw):
+            for key, shape in launch_keys(name, a, kw):
+                self.first.setdefault(key, shape)
+            return fn(*a, **kw)
+        return call
+
+
+def phase_examples(results, smi) -> dict:
+    """Each twin in process; every kernel call it makes must be at a key
+    (widths, dtype, mode: ``launch_keys``) that a kernels-phase row held
+    (``twin_specs``)."""
+    t_phase = time.perf_counter()
+    held = {tuple(k) for k in results["kernels"]["twin_keys"]}
+    out = {}
+    for name in EXAMPLE_TWINS:
+        t0 = time.perf_counter()
+        ns = runpy.run_path(str(ROOT / "examples" / f"torch_{name}.py"),
+                            run_name="twin")
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.chdir(ROOT), contextlib.redirect_stdout(buf), \
+                KernelCalls() as calls:
+            ret = ns["main"](["--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        lines = buf.getvalue().splitlines()
+        rec = {"seconds": time.perf_counter() - t0, "launches": counts,
+               "kernel_keys": [[list(k), v] for k, v in calls.first.items()],
+               "last_lines": lines[-4:]}
+        unheld = [k for k in calls.first if k not in held]
+        if unheld:
+            raise AssertionError(f"examples {name}: kernel calls at keys no "
+                                 f"kernels-phase row held: {unheld}")
+        if name == "train_lm":
+            rec.update(loss_first=ret[0], loss_last=ret[-1], steps=len(ret))
+        out[name] = rec
+        print(f"examples {name}: {rec['seconds']:.1f} s, launches {counts}; "
+              + " | ".join(lines[-2:]), flush=True)
+        missing = [k for k in EXAMPLE_LAUNCHES.get(name, ()) if not
+                   counts.get(k)]
+        if missing:
+            raise AssertionError(f"examples {name}: no launch of {missing}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    res = {"phase": "examples", "card": smi, "twins": out,
+           "seconds": time.perf_counter() - t_phase}
+    emit(res)
+    results["examples"] = res
+    return res
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -6313,6 +6666,12 @@ def main() -> int:
         t0 = stage(f"train {name}", t0)
     by_path["opt-6.7b"]["cli"] = phase_serve_cli(results, smi)
     t0 = stage("serve_cli", t0)
+    phase_examples(results, smi)
+    t0 = stage("examples", t0)
+    phase_microbench(results, smi)
+    t0 = stage("microbench", t0)
+    phase_dryrun(results, smi)
+    t0 = stage("dryrun", t0)
     seconds["script"] = time.perf_counter() - t_start
     results["seconds"] = seconds
     emit({"phase": "seconds", "card": smi, "seconds": seconds})

@@ -18,9 +18,13 @@ from repro_torch.configs.shapes import SHAPES, InputShape, applicable
 from repro_torch.configs.whisper_base import CONFIG as WHISPER_BASE
 from repro_torch.configs.yi_6b import CONFIG as YI_6B
 
-REGISTRY = {c.name: c for c in (YI_6B, MINITRON_4B, GEMMA3_1B, GEMMA3_27B,
-                                MAMBA2_2_7B, JAMBA_1_5_LARGE, DBRX_132B,
-                                GROK_1_314B, WHISPER_BASE, QWEN2_VL_2B)}
+# the assigned architectures, in the reference's order (its dry run and
+# ``examples/arch_zoo.py`` walk them)
+ASSIGNED = {c.name: c for c in (WHISPER_BASE, GEMMA3_27B, QWEN2_VL_2B,
+                                GROK_1_314B, YI_6B, GEMMA3_1B, DBRX_132B,
+                                JAMBA_1_5_LARGE, MINITRON_4B, MAMBA2_2_7B)}
+
+REGISTRY = dict(ASSIGNED)
 REGISTRY.update(_opt.CONFIGS)
 
 
@@ -33,5 +37,5 @@ def get_config(name: str) -> ModelConfig:
     raise KeyError(f"unknown arch {name!r}; known: {sorted(REGISTRY)}")
 
 
-__all__ = ["ModelConfig", "InputShape", "SHAPES", "REGISTRY", "get_config",
-           "reduced", "applicable"]
+__all__ = ["ModelConfig", "InputShape", "SHAPES", "ASSIGNED", "REGISTRY",
+           "get_config", "reduced", "applicable"]

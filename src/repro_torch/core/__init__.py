@@ -9,8 +9,11 @@ from repro_torch.core.costmodel import (H100_SXM, TPU_V5E, HardwareSpec,
                                         ewma_refit, fit_linear, fit_samples,
                                         make_cost_fns, profile_cost_fns)
 from repro_torch.core.minibatch import RequestBlocks, form_minibatches
-from repro_torch.core.pipeline import MiniBatchSpec, simulate_steps
+from repro_torch.core.pipeline import (GenerationResult, MiniBatchSpec,
+                                       StepConfig, simulate_generation,
+                                       simulate_step, simulate_steps)
 from repro_torch.core.policy import (HostAllocation, device_act_blocks,
                                      host_block_allocation,
                                      host_block_allocation_threeway,
+                                     policy_act_ratio, request_block_split,
                                      store_act_schedule)

@@ -55,6 +55,20 @@ class HardwareSpec:
     host_mfu: float = 0.25
 
 
+# The paper's evaluation machine (RTX 4090 on PCIe 4.0); its figures'
+# examples price their schedules on it.
+RTX4090 = HardwareSpec(
+    name="rtx4090-pcie4",
+    flops=330e12,
+    hbm_bw=1008e9,
+    host_link_bw=32e9,
+    device_mem=24 * 2**30,
+    host_mem=882 * 2**30,
+    mfu=0.5,
+    gen_mfu=0.25,
+    gather_eff=0.4,
+)
+
 # The reproduction target: one TPU v5e chip, host offload over PCIe DMA.
 TPU_V5E = HardwareSpec(
     name="tpu-v5e",

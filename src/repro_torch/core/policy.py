@@ -225,10 +225,30 @@ def host_block_allocation_threeway(cfg: ModelConfig, hw: HardwareSpec,
                           act_init=act_init, kv_init=kv_init, cpu_blocks=c)
 
 
-def device_act_blocks(cfg: ModelConfig, hw: HardwareSpec, quant=None) -> int:
+def request_block_split(alloc: HostAllocation, context_blocks: int) -> Tuple[int, int]:
+    """Eq. 11: split one request's context blocks in the host ACT:KV ratio."""
+    total = alloc.act_blocks + alloc.kv_blocks
+    if total == 0:
+        return 0, context_blocks
+    n_act = int(round(context_blocks * alloc.act_blocks / total))
+    return n_act, context_blocks - n_act
+
+
+def device_act_blocks(cfg: ModelConfig, hw: HardwareSpec,
+                      frac: float = DEVICE_MEM_FRAC, quant=None) -> int:
     """ACT blocks that fit the device-memory budget (weights stream)."""
     per_block = act_block_bytes(cfg, quant=quant)
-    return int(hw.device_mem * DEVICE_MEM_FRAC / per_block)
+    return int(hw.device_mem * frac / per_block)
+
+
+def policy_act_ratio(cfg: ModelConfig, hw: HardwareSpec,
+                     generalized: bool = False) -> float:
+    """Fraction of HOST context tokens to keep as ACT, per Algorithm 1 +
+    Eq. 11 — the knob the benchmarks compare against the brute-force best."""
+    alloc = host_block_allocation(cfg, hw, device_act_blocks(cfg, hw),
+                                  generalized=generalized)
+    total = alloc.act_blocks + alloc.kv_blocks
+    return alloc.act_blocks / total if total else 0.0
 
 
 def store_act_schedule(alloc: HostAllocation, act_tokens0, kv_tokens0,

@@ -32,9 +32,19 @@ BUILD_DIR = _PKG.parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
+#: device types whose tensors take a kernel's plain version: the CPU's, and
+#: ``meta`` (shapes only: the dry run's FLOP count allocates and launches
+#: nothing); a CUDA tensor launches the kernel or raises
+PLAIN_DEVICES = ("cpu", "meta")
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[tuple, tuple] = {}
 _SAME_DEVICE = contextlib.nullcontext()
+
+
+def plain(t: torch.Tensor) -> bool:
+    """True where ``t`` takes the plain version (``PLAIN_DEVICES``)."""
+    return t.device.type in PLAIN_DEVICES
 
 
 def sources() -> Dict[str, Path]:

@@ -5,7 +5,8 @@ sliding window, or non-causal.
 A CUDA tensor launches ``csrc/flash_attention.cu`` (and, for a gradient, its
 backward in ``csrc/flash_attention_bwd.cuh``, built into the same library)
 on PyTorch's current stream, or raises; a
-CPU tensor takes the plain versions in ``ref.py``, under autograd too.
+CPU or ``meta`` tensor takes the plain versions in ``ref.py``, under
+autograd too.
 ``flash_attention.launches`` counts the forward kernel's launches,
 ``flash_attention.window_launches`` again those of its sliding-window mode,
 ``flash_attention.noncausal_launches`` again those of its non-causal mode,
@@ -107,7 +108,7 @@ def flash_attention_lse(q, k, v, window: int = 0, causal: bool = True):
     one launch of the kernel (counted as ``flash_attention``'s); a CPU
     tensor takes the plain version."""
     _check_mode(causal, window)
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return flash_attention_ref(q, k, v, window, causal, return_lse=True)
     _check(q, k, v, causal, window)
     B, Sq, H, _ = q.shape
@@ -149,7 +150,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     the kernel with its hand-written backward in the same mode (head_dims
     ``BWD_D``); a CPU tensor differentiates the plain version."""
     _check_mode(causal, window)
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return flash_attention_ref(q, k, v, window, causal)
     _check(q, k, v, causal, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -190,7 +191,7 @@ def _flash_attention_bwd(q, k, v, o, lse, dout, *, window: int = 0,
     (``FAULTS``); the launch is counted in ``flash_attention.bwd_launches``
     (and its mode's counter) only with ``flags`` 0."""
     _check_mode(causal, window)
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return flash_attention_bwd_ref(q, k, v, o, lse, dout, window, causal)
     _check(q, k, v, causal, window)
     _check_grad(q.shape[3])

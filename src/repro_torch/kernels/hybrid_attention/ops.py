@@ -1,7 +1,8 @@
 """Wrappers of the hand-written CUDA hybrid paged-attention kernels (decode).
 
 A CUDA tensor launches ``csrc/hybrid_attention.cu`` on PyTorch's current
-stream, or raises; a CPU tensor takes the plain version in ``ref.py``.
+stream, or raises; a CPU or ``meta`` tensor takes the plain version in
+``ref.py``.
 ``hybrid_paged_attention`` is the fused mode (ACT pages normed and projected
 on the card, the learned-position models' path): a norm pass (each ACT row
 normed once), a tile pass over ``tile_plan``'s tiles of four table entries
@@ -164,7 +165,7 @@ def hybrid_paged_attention(q, k_pages, v_pages, act_pages, norm_scale,
     normed rows and the tiles' partials (``fused_scratch_bytes``)."""
     scales = (k_scales, v_scales, act_scales)
     q8 = _scales(("k_scales", "v_scales", "act_scales"), scales)
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return hybrid_paged_attention_ref(
             q, k_pages, v_pages, act_pages, norm_scale, norm_bias, wk, wv,
             page_table, page_type, page_ntok, k_scales=k_scales,
@@ -249,7 +250,7 @@ def hybrid_paged_attention_two_pool(q, k_pages, v_pages, act_k_pages,
     ``split_plan`` and the partials merged by a second kernel; float32
     scratch of B * KVH * n_split * G * (D + 2) values holds them."""
     q8 = _scales(("k_scales", "v_scales"), (k_scales, v_scales))
-    if q.device.type == "cpu":
+    if _build.plain(q):
         return hybrid_paged_attention_two_pool_ref(
             q, k_pages, v_pages, act_k_pages, act_v_pages, page_table,
             page_type, page_ntok, k_scales=k_scales, v_scales=v_scales,

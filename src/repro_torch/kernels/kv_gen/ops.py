@@ -1,11 +1,12 @@
 """Wrapper of the hand-written CUDA KV-Gen kernel (ACT pages -> K, V).
 
 A CUDA tensor launches ``csrc/kv_gen.cu`` on PyTorch's current stream, or
-raises; a CPU tensor takes the plain version in ``ref.py``.  On the card one
-call runs two kernels: a norm pass (each selected ACT row normed once, into
-a scratch of the cache dtype) and a projection pass on the tensor cores, its
-d_model split across the blocks of a cluster (``kv_gen_split_ref`` in
-``ref.py`` is the same algorithm in plain PyTorch).
+raises; a CPU or ``meta`` tensor takes the plain version in ``ref.py``.
+On the card one call runs two kernels: a norm pass (each selected ACT row
+normed once, into a scratch of the cache dtype) and a projection pass on
+the tensor cores, its d_model split across the blocks of a cluster
+(``kv_gen_split_ref`` in ``ref.py`` is the same algorithm in plain
+PyTorch).
 ``kv_gen.launches`` counts the kernel's launches, ``kv_gen.q8_launches``
 again those of its int8 mode (``act_scales`` given: an int8 ACT pool with one
 float16 scale per token, dequantized in the norm prologue), and
@@ -142,7 +143,7 @@ def _kv_gen(act_pages, norm_scale, norm_bias, wk, wv, *, page_index=None,
     """``kv_gen`` with ``flags``, the card's planted faults (``FAULTS``;
     chip_smoke.py holds the kernels' limits against them)."""
     n = act_pages.shape[0] if page_index is None else page_index.shape[0]
-    if act_pages.device.type == "cpu":
+    if _build.plain(act_pages):
         k, v = kv_gen_ref(act_pages, norm_scale, norm_bias, wk, wv,
                           page_index=page_index, sin=sin, cos=cos,
                           act_scales=act_scales, knorm=knorm,

@@ -1,11 +1,11 @@
 """Wrapper of the hand-written CUDA SSD scan kernel (Mamba-2 prefill).
 
 A CUDA tensor launches ``csrc/ssd_scan.cu`` on PyTorch's current stream, or
-raises; a CPU tensor takes the plain version in ``ref.py``.  On the card one
-call runs two kernels: a Gram pass (C B^T once per request and chunk, into a
-float32 scratch) and the scan, split across blocks along the head dim, its
-chunk products on the tensor cores with each float32-derived operand split
-into hi + lo pieces (bfloat16 pieces for bfloat16 inputs, TF32 for float16;
+raises; a CPU or ``meta`` tensor takes the plain version in ``ref.py``.
+On the card one call runs two kernels: a Gram pass (C B^T once per request
+and chunk, into a float32 scratch) and the scan, split across blocks along
+the head dim, its chunk products on the tensor cores with each
+float32-derived operand split into hi + lo pieces (bfloat16 pieces for bfloat16 inputs, TF32 for float16;
 ``ssd_scan_split_ref`` in ``ref.py`` is the same algorithm in plain
 PyTorch).  ``ssd_scan.launches`` counts the calls that launch them.
 
@@ -152,7 +152,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64):
 def _ssd_scan(x, dt, A, B, C, *, chunk: int = 64, flags: int = 0):
     """``ssd_scan`` with ``flags``, the card's planted faults and its
     diagnostic (``FAULTS``; chip_smoke.py reads them)."""
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")
@@ -212,7 +212,7 @@ def _ssd_scan_bwd(x, dt, A, B, C, dy, dfinal=None, *, chunk: int = 64,
     """``ssd_scan_bwd`` with ``flags``, the card's planted faults
     (``FAULTS``); the launch is counted in ``ssd_scan.bwd_launches`` only
     with ``flags`` 0."""
-    if x.device.type == "cpu":
+    if _build.plain(x):
         return ssd_scan_bwd_ref(x, dt, A, B, C, dy, dfinal, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_bwd: unsupported device {x.device}")

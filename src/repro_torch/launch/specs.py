@@ -115,8 +115,12 @@ def make_train_step(cfg: ModelConfig,
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int):
+    """``prefill_step(params, batch) -> (last_logits, cache)``; the batch's
+    ``frames`` (encdec) or ``patches`` (vision) go with its tokens."""
     def prefill_step(params, batch):
-        return M.prefill(params, cfg, batch["tokens"], max_len=max_len)
+        return M.prefill(params, cfg, batch["tokens"], max_len=max_len,
+                         frames=batch.get("frames"),
+                         patches=batch.get("patches"))
     return prefill_step
 
 

@@ -77,8 +77,10 @@ def mrope_sin_cos(positions3, head_dim: int, theta: float,
     dev = positions3.device
     freq = (theta ** (-torch.arange(0, half, dtype=torch.float64, device=dev)
                       / half)).float()
-    sec_id = torch.repeat_interleave(torch.arange(3, device=dev),
-                                     torch.tensor(sizes, device=dev))
+    # each frequency's section, from host integers (no shape read off a
+    # tensor's values, so the dry run's ``meta`` tensors take it too)
+    sec_id = torch.tensor([i for i, n in enumerate(sizes) for _ in range(n)],
+                          device=dev)
     pos = positions3.float()[..., sec_id]      # (B, S, half): each frequency's id
     angle = pos * freq
     return torch.sin(angle), torch.cos(angle)

@@ -104,8 +104,10 @@ def update(cfg: AdamWConfig, params, grads, state: AdamWState):
         for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.m),
                               leaves(state.v)):
             pf, gf, mf, vf = (t.view(-1) for t in (p, g.contiguous(), m, v))
-            for i in range(0, pf.numel(), CHUNK):
-                sl = slice(i, i + CHUNK)
+            # a ``meta`` leaf (the dry run) allocates no temporaries: one slice
+            step_n = max(pf.numel(), 1) if pf.device.type == "meta" else CHUNK
+            for i in range(0, pf.numel(), step_n):
+                sl = slice(i, i + step_n)
                 _update_slice(cfg, pf[sl], gf[sl], mf[sl], vf[sl], clip, lr,
                               b1c, b2c)
     return params, AdamWState(step, state.m, state.v), {"lr": lr, "gnorm": gnorm}

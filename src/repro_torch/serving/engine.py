@@ -110,7 +110,8 @@ class HybridServeEngine:
     def __init__(self, cfg: ModelConfig, params, *,
                  hw: cm.HardwareSpec = cm.H100_SXM, mode: str = "hybrid",
                  max_minibatch: int = 4, kv_cap: int = 512, act_cap: int = 512,
-                 offload: bool = False, budget: Optional[OffloadBudget] = None,
+                 generalized: bool = False, offload: bool = False,
+                 budget: Optional[OffloadBudget] = None,
                  host_attn: bool = False, faults=None,
                  watchdog_s: Optional[float] = None, adaptive: bool = False,
                  ctl: Optional[ControllerConfig] = None, tracer=None,
@@ -118,8 +119,11 @@ class HybridServeEngine:
                  device="cuda"):
         """``params`` must already live on ``device`` (under ``offload`` they
         may live anywhere, or be a ``HostWeightPool`` shared between
-        engines).  Algorithm 1 runs as the paper states it (the reference's
-        ``generalized=False``).
+        engines).
+
+        generalized=True uses the byte-ratio-aware Algorithm-1 variant
+        (recommended for GQA models), in the allocation and in the adaptive
+        controller's retarget; False reproduces the paper's policy exactly.
 
         offload=True runs the host-offload runtime: layer weights stream from
         pinned host memory through the copy stream, and a group's KV region
@@ -139,7 +143,7 @@ class HybridServeEngine:
         adaptive=True (hybrid mode) runs the ``HybridCacheController``
         between groups: it refits the cost model from the group's lane
         timelines (measured under offload, else the simulated predictions),
-        re-runs Algorithm 1 (its plain form, ``generalized=False``) and
+        re-runs Algorithm 1 (in the ``generalized`` form) and
         retags up to its migration bound of free host capacity toward the
         refit split.  ``ctl``: its ``ControllerConfig``.  Tokens stay exact
         at any split.
@@ -179,7 +183,8 @@ class HybridServeEngine:
             metrics.register_collector(self._collect_metrics)
         self.fits = profile_cost_fns(cfg, hw, quant=quant)
         dev_act = device_act_blocks(cfg, hw, quant=quant)
-        self.alloc = host_block_allocation(cfg, hw, dev_act, quant=quant)
+        self.alloc = host_block_allocation(cfg, hw, dev_act,
+                                           generalized=generalized, quant=quant)
         if mode == "kv":
             self.alloc = dataclasses.replace(self.alloc, act_blocks=0, kv_blocks=max(
                 self.alloc.kv_blocks, 1))
@@ -192,7 +197,7 @@ class HybridServeEngine:
         if adaptive:
             self.controller = HybridCacheController(
                 cfg, hw, self.alloc, dev_act, fits=self.fits,
-                generalized=False,
+                generalized=generalized,
                 ctl=ctl if ctl is not None else ControllerConfig(),
                 drift=self.drift, quant=quant, cpu=host_attn)
         # device KV pool: generous when device-resident; budget-derived under
@@ -479,7 +484,7 @@ class HybridServeEngine:
             kv_tok = int(kv_keep.sum()) + np.cumsum((~sched).sum(0))
             act_tok = int(act0.sum()) + np.cumsum(sched.sum(0))
             specs = [[MiniBatchSpec(
-                B, 0 if use_cpu else int(kv_tok[s]), int(act_tok[s]),
+                B, 0 if use_cpu else int(kv_tok[s]), int(act_tok[s]), 0,
                 ctx_tokens=int(np.mean(np.asarray(pbs) + steps_ahead[s])),
                 cpu_host_tokens=int(kv_tok[s]) if use_cpu else 0)]
                 for s in range(max_new)]

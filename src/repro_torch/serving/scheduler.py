@@ -47,6 +47,7 @@ from repro_torch.core.policy import (HostAllocation, device_act_blocks,
                                      store_act_schedule)
 from repro_torch.core.quant import QuantConfig
 from repro_torch.data.pipeline import Request
+from repro_torch.launch.mesh import SHARDING
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 from repro_torch.obs import (NULL_TRACER, DriftMonitor, fold_timeline_metrics,
@@ -56,8 +57,6 @@ from repro_torch.serving.recovery import (CapacityError, ParkedRequest,
                                           blocks_for_tokens, resume_cost)
 from repro_torch.serving.util import (bucket, collect_block_metrics, kv_keep_for,
                                      pack_group, retag_toward)
-
-_SHARDING = "ROADMAP queue 1, item 5 (sharding)"
 
 
 @dataclass
@@ -119,7 +118,8 @@ class ContinuousBatchingServer:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
                  kv_cap: int = 256, act_cap: int = 256,
                  chunk_steps: int = 1,
-                 hw: cm.HardwareSpec = cm.H100_SXM, offload: bool = False,
+                 hw: cm.HardwareSpec = cm.H100_SXM, generalized: bool = True,
+                 offload: bool = False, prefetch_depth: int = 1,
                  adaptive: bool = False,
                  ctl: Optional[ControllerConfig] = None, plan=None,
                  recovery: Optional[RecoveryConfig] = None,
@@ -139,9 +139,14 @@ class ContinuousBatchingServer:
         boundaries: calls per generated token fall toward 1/S while an
         arrival may wait up to S steps.
 
+        generalized: the Algorithm-1 variant of the allocation and of the
+        adaptive controller's retarget (True: the byte-ratio-aware balance;
+        False: the paper's).
+
         offload=True decodes through the layer-streamed ``OffloadExecutor``
-        (prefetch depth 1): weights stream from pinned host memory each
-        iteration, with the prefetch window spanning the whole chunk; ``measured_steps`` holds
+        (``prefetch_depth`` layers of weights in flight ahead of compute):
+        weights stream from pinned host memory each iteration, with the
+        prefetch window spanning the whole chunk; ``measured_steps`` holds
         the measured per-iteration timelines.  Admission still runs the
         batched prefill on the resident ``params``, as the reference's does,
         so this mode keeps a device copy of the weights.  Tokens are the
@@ -183,7 +188,7 @@ class ContinuousBatchingServer:
 
         plan (sharding): not ported yet; raises."""
         if plan is not None:
-            raise NotImplementedError(f"sharded serving: {_SHARDING}")
+            raise NotImplementedError(f"sharded serving: {SHARDING}")
         T.check_supported(cfg, "server")
         if host_attn and not offload:
             raise ValueError("host_attn rides the offload runtime's host mirror")
@@ -201,15 +206,13 @@ class ContinuousBatchingServer:
             register_busy_fraction_collector(metrics)
             metrics.register_collector(self._collect_metrics)
         dev_act = device_act_blocks(cfg, hw, quant=quant)
-        # the byte-ratio-aware Algorithm-1 balance (the reference server's
-        # default; the engine keeps the plain one)
-        self.alloc = host_block_allocation(cfg, hw, dev_act, generalized=True,
-                                           quant=quant)
+        self.alloc = host_block_allocation(cfg, hw, dev_act,
+                                           generalized=generalized, quant=quant)
         self.act_frac = self.alloc.act_fraction
         self.controller: Optional[HybridCacheController] = None
         if adaptive:
             self.controller = HybridCacheController(
-                cfg, hw, self.alloc, dev_act, generalized=True,
+                cfg, hw, self.alloc, dev_act, generalized=generalized,
                 ctl=ctl if ctl is not None else
                 ControllerConfig(update_every=4), drift=self.drift,
                 quant=quant, cpu=host_attn)
@@ -241,7 +244,8 @@ class ContinuousBatchingServer:
         if offload:
             from repro_torch.offload import OffloadExecutor
             self.executor = OffloadExecutor(
-                cfg, params, faults=faults, watchdog_s=watchdog_s,
+                cfg, params, prefetch_depth=prefetch_depth, faults=faults,
+                watchdog_s=watchdog_s,
                 tracer=tracer, metrics=metrics, quant=quant,
                 device=self.device)
         self._cur_tok = np.zeros((slots,), np.int32)
@@ -700,7 +704,7 @@ class ContinuousBatchingServer:
         use_cpu = self.host_attn
         specs = [[MiniBatchSpec(int(active[s].sum()),
                                 0 if use_cpu else kv_tok[s], act_tok[s],
-                                ctx_tokens=int(
+                                0, ctx_tokens=int(
                                     (kv_run[s] + act_run[s])[active[s]].mean()),
                                 cpu_host_tokens=kv_tok[s] if use_cpu else 0)]
                  for s in range(n_steps)]

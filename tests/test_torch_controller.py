@@ -56,7 +56,8 @@ def exact_fits(cfg, hw, quant=None, cpu=False):
 
 def sim_step(cfg, hw, kv, act, cpu_tok=0, quant=None, n_req=4, ctx=512):
     return pipeline.simulate_steps(cfg, hw, [[pipeline.MiniBatchSpec(
-        n_req, int(kv), int(act), ctx_tokens=ctx, cpu_host_tokens=cpu_tok)]],
+        n_req, int(kv), int(act), 0, ctx_tokens=ctx,
+        cpu_host_tokens=cpu_tok)]],
         quant=quant)[0]
 
 

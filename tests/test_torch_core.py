@@ -214,9 +214,9 @@ def test_form_minibatches_matches_reference():
 @pytest.mark.parametrize("name", NAMES)
 def test_simulate_steps_totals_match_reference(name):
     cfg, jcfg = get_config(name), j_get_config(name)
-    specs = [[pipeline.MiniBatchSpec(4, 100 + 16 * s, 60 + 8 * s,
+    specs = [[pipeline.MiniBatchSpec(4, 100 + 16 * s, 60 + 8 * s, 0,
                                      ctx_tokens=64 + s)] for s in range(5)]
-    jspecs = [[j_pipe.MiniBatchSpec(act_dev_tokens=0, **dataclasses.asdict(m))
+    jspecs = [[j_pipe.MiniBatchSpec(**dataclasses.asdict(m))
                for m in st] for st in specs]
     got = pipeline.simulate_steps(cfg, cm.H100_SXM, specs)
     want = j_pipe.simulate_steps(jcfg, j_hw(cm.H100_SXM), jspecs)
@@ -235,10 +235,10 @@ def test_cpu_lane_pricing_matches_reference(name):
         (jhw.host_flops, jhw.host_dram_bw, jhw.host_mfu)
     assert cm.cpu_attend_seconds_per_token(cfg, hw) == \
         j_cm.cpu_attend_seconds_per_token(jcfg, jhw)
-    specs = [[pipeline.MiniBatchSpec(4, 0, 60 + 8 * s, ctx_tokens=64 + s,
+    specs = [[pipeline.MiniBatchSpec(4, 0, 60 + 8 * s, 0, ctx_tokens=64 + s,
                                      cpu_host_tokens=100 + 16 * s)]
              for s in range(5)]
-    jspecs = [[j_pipe.MiniBatchSpec(act_dev_tokens=0, **dataclasses.asdict(m))
+    jspecs = [[j_pipe.MiniBatchSpec(**dataclasses.asdict(m))
                for m in st] for st in specs]
     got = pipeline.simulate_steps(cfg, hw, specs)
     want = j_pipe.simulate_steps(jcfg, jhw, jspecs)

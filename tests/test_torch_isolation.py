@@ -14,8 +14,10 @@ from repro_torch import params as P
 from repro_torch.configs import get_config
 from repro_torch.models import model as M
 from repro_torch.models import quantized_cache as QC
+from repro_torch.launch import dryrun as D
 from repro_torch.offload import host_pool as HP
 from repro_torch.offload.executor import OffloadExecutor
+from repro_torch.offload.microbench import weight_stream_microbench
 from repro_torch.serving import engine as E
 from repro_torch.serving import scheduler as S
 
@@ -23,7 +25,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_)|from\s+(jax|repro)\b(?!_))",
                        re.MULTILINE)
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TWINS = sorted((ROOT / "examples").glob("torch_*.py"))
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + TWINS
 
 
 def _modules():
@@ -68,10 +71,18 @@ def test_importing_every_port_module_loads_no_jax():
                                 S.ContinuousBatchingServer.__init__,
                                 HP.HostWeightPool.__init__,
                                 HP.HostBlockPool.__init__, HP.make_spill_pool,
-                                OffloadExecutor.__init__, QC.init_cache_q8],
+                                OffloadExecutor.__init__, QC.init_cache_q8,
+                                weight_stream_microbench, D.measure,
+                                D.measure_fit],
                          ids=lambda f: f.__qualname__)
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("path", TWINS, ids=lambda p: p.name)
+def test_example_twins_default_to_cuda(path):
+    """Each twin runs on the card unless given ``--device cpu``."""
+    assert 'add_argument("--device", default="cuda")' in path.read_text()
 
 
 @pytest.mark.parametrize("make", [

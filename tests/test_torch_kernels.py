@@ -202,15 +202,42 @@ def test_pallas_ref_drops_layernorm_bias():
     assert np.abs(got - np.asarray(dropped)).max() > 1e-2
 
 
+class Elsewhere:
+    """A tensor's face on a device that is neither the CPU, ``meta`` nor the
+    card (this build has no other device to make a real tensor on)."""
+    device = torch.device("xpu")
+    dtype = torch.float16
+    requires_grad = False
+
+    def __init__(self, shape):
+        self.shape = shape
+
+    def __getitem__(self, index):
+        return self
+
+    def dim(self):
+        return len(self.shape)
+
+
 def test_wrappers_refuse_other_devices():
-    """No silent fallback: only a CPU tensor takes the plain version."""
-    q = torch.zeros((1, 16, 2, 16), device="meta")
+    """No silent fallback: only a CPU tensor, or a ``meta`` one (shapes
+    only: the dry run's), takes the plain version; a ``meta`` tensor
+    launches nothing."""
+    q = Elsewhere((1, 16, 2, 16))
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="unsupported device"):
         hybrid_paged_attention(q, *([q] * 10))
     with pytest.raises(ValueError, match="unsupported device"):
         ssd_scan(q, q[..., 0], q[0, 0, :, 0], q[:, :, 0], q[:, :, 0])
+    m = torch.zeros((1, 16, 2, 16), device="meta")
+    before = (flash_attention.launches, ssd_scan.launches)
+    assert flash_attention(m, m, m).shape == m.shape
+    y, state = ssd_scan(m, m[..., 0], m[0, 0, :, 0], m[:, :, 0], m[:, :, 0],
+                        chunk=16)
+    assert y.device.type == state.device.type == "meta"
+    assert (y.shape, state.shape) == (m.shape, (1, 2, 16, 16))
+    assert (flash_attention.launches, ssd_scan.launches) == before
 
 
 def test_build_covers_both_sources_for_sm90a():

@@ -26,6 +26,7 @@ from repro_torch.kernels.kv_gen import ops as kv_ops
 from repro_torch.kernels.kv_gen.ops import kv_gen
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
+from test_torch_kernels import Elsewhere
 
 torch.set_num_threads(1)
 TOL = 1e-5
@@ -283,18 +284,23 @@ def test_two_pool_plain_with_empty_act_pool_reads_kv_only():
 
 
 def test_wrappers_refuse_other_devices_and_float32_on_the_card():
-    """No silent fallback: only a CPU tensor takes the plain version, and
-    the CUDA path takes float16 and bfloat16 only, and for ``kv_gen`` only
-    what the decode path gives it: a page index, RoPE tables, and rmsnorm
-    or layernorm (checked before launch)."""
-    m = torch.zeros((2, 16, 64), device="meta")
-    w = torch.zeros((64, 2, 32), device="meta")
+    """No silent fallback: only a CPU tensor, or a ``meta`` one (shapes
+    only: the dry run's), takes the plain version, and the CUDA path takes
+    float16 and bfloat16 only, and for ``kv_gen`` only what the decode path
+    gives it: a page index, RoPE tables, and rmsnorm or layernorm (checked
+    before launch)."""
+    m, w = Elsewhere((2, 16, 64)), Elsewhere((64, 2, 32))
     with pytest.raises(ValueError, match="unsupported device"):
         kv_gen(m, m[0, 0], None, w, w)
-    q = torch.zeros((1, 2, 4, 32), device="meta")
-    pool = torch.zeros((2, 16, 2, 32), device="meta")
+    q, pool = Elsewhere((1, 2, 4, 32)), Elsewhere((2, 16, 2, 32))
     with pytest.raises(ValueError, match="unsupported device"):
         hybrid_paged_attention_two_pool(q, pool, pool, pool, pool, *([q] * 3))
+    mm = torch.zeros((2, 16, 64), device="meta")
+    mw = torch.zeros((64, 2, 32), device="meta")
+    before = kv_gen.launches
+    k, v = kv_gen(mm, mm[0, 0], None, mw, mw)
+    assert k.device.type == v.device.type == "meta"
+    assert k.shape == v.shape == (2, 16, 2, 32) and kv_gen.launches == before
     ap, sc, bi, wk, wv = (t(a) for a in _pages(np.random.default_rng(6)))
     out = tuple(torch.empty((5, 16, 2, 32)) for _ in range(2))
     idx = torch.arange(5, dtype=torch.int32)

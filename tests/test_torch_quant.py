@@ -460,7 +460,7 @@ def test_quant_pricing_matches_jax(name):
         assert (mine.slope, mine.intercept) == (ref.slope, ref.intercept)
     assert cm.cpu_attend_seconds_per_token(cfg, hw, quant=q) == \
         j_cm.cpu_attend_seconds_per_token(jcfg, jhw, quant=jq)
-    specs = [[pipeline.MiniBatchSpec(2, 300 + 10 * s, 40 + s, ctx_tokens=400,
+    specs = [[pipeline.MiniBatchSpec(2, 300 + 10 * s, 40 + s, 0, ctx_tokens=400,
                                      cpu_host_tokens=50)] for s in range(3)]
     jspecs = [[j_pipe.MiniBatchSpec(2, 300 + 10 * s, 40 + s, 0, ctx_tokens=400,
                                     cpu_host_tokens=50)] for s in range(3)]
