@@ -79,7 +79,17 @@ requests on the same weights: chunks of 1 and 8 steps, int8, pool pressure
 (preemption, demotion to ACT, resume), streamed weights and the CPU lane,
 each chunk under the sync check, with tokens (each run's allowance from a
 teacher-forced run of the same server schedule), counters, leaks, launches
-and three planted faults checked.  Each path runs with the launch counts set to 0
+and three planted faults checked.  After each of OPT's and yi's engine
+serves, the shard phase serves the same trace tensor-parallel on the same
+weights (``make_shard_plan`` over ``make_test_mesh``: every position of
+the mesh on this one card): OPT on 1x2 and 2x2 meshes, yi on 1x2, each
+position's attention on the kernels at its own head counts (each such key
+held by a kernels-phase row), each position's resident bytes against its
+spec's, teacher-forced logits against the 1x1 kernel run under the rule
+max(0.25, 2 x that run's own gap to the oracle), two planted faults (a
+``wo`` partial dropped, KV-Gen on a position's own d_model slice); OPT's
+server with 4 slots and its offload executor (two weight lanes) on 1x2 as
+well.  Each path runs with the launch counts set to 0
 just before it and read just after.  One JSON line per
 phase; the line before the last lists every kernel with its launches on its
 path, error, times and bound; the last line is the device summary.  Any
@@ -118,7 +128,7 @@ from repro_torch.configs.offload import (OffloadBudget, _tight,  # noqa: E402
                                          offload_budget)
 from repro_torch.core.controller import (ControllerConfig,  # noqa: E402
                                          HybridCacheController)
-from repro_torch.core.costmodel import H100_SXM  # noqa: E402
+from repro_torch.core.costmodel import H100_SXM, scale_for_shards  # noqa: E402
 from repro_torch.core.quant import QuantConfig, kv_bytes_per_token  # noqa: E402
 from repro_torch.data.pipeline import (DataConfig, lm_batches,  # noqa: E402
                                        open_loop_trace, request_trace)
@@ -143,6 +153,7 @@ from repro_torch.kernels.ssd_scan.ref import (ssd_chunked_ref,  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import quantized_cache as QC  # noqa: E402
+from repro_torch.models import sharded as SHD  # noqa: E402
 from repro_torch.models.quant_ops import dequantize, quantize  # noqa: E402
 from repro_torch.obs import (DriftMonitor, MetricsRegistry, Tracer,  # noqa: E402
                              assert_single_rooted, validate_chrome_trace)
@@ -159,6 +170,9 @@ from repro_torch.serving.util import bucket  # noqa: E402
 from repro_torch.launch import serve as SERVE_CLI  # noqa: E402
 from repro_torch.launch import dryrun as DRY  # noqa: E402
 from repro_torch.launch import specs as SPECS  # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh  # noqa: E402
+from repro_torch.sharding import collectives as COLL  # noqa: E402
+from repro_torch.sharding import make_shard_plan  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
 # H100 SXM data sheet: dense fp16
@@ -1061,14 +1075,15 @@ def check_cross_act(cfg, B=4, dtype=torch.bfloat16):
             "bound_ms": bound_ms, "bound_by": by}
 
 
-def serve_shape(cfg, quant=None) -> dict:
+def serve_shape(cfg, quant=None, hw=H100_SXM) -> dict:
     """The shapes a serve path gives its decode kernels: the hybrid engine's
-    plan (``quant``: the int8 engine's, whose Algorithm 1 splits otherwise)
-    of the trace's first group at its last decode step (the widest),
-    computed on the host without weights.  On the fused route of an int8
-    cache the tables leave out that step's ACT-bound tokens' own rows (their
-    exact K/V are merged after the kernel)."""
-    eng = HybridServeEngine(cfg, None, mode="hybrid", hw=H100_SXM, quant=quant)
+    plan (``quant``: the int8 engine's, whose Algorithm 1 splits otherwise;
+    ``hw``: a sharded engine prices ``scale_for_shards``) of the trace's
+    first group at its last decode step (the widest), computed on the host
+    without weights.  On the fused route of an int8 cache the tables leave
+    out that step's ACT-bound tokens' own rows (their exact K/V are merged
+    after the kernel)."""
+    eng = HybridServeEngine(cfg, None, mode="hybrid", hw=hw, quant=quant)
     reqs = request_trace(cfg.vocab_size, **TRACE)
     toks, kv_keep, pbs, sched, pages_bound, act_bound = \
         eng.group_schedule(eng.plan_groups(reqs)[0])
@@ -1816,24 +1831,75 @@ def spec_key(kind, kw) -> tuple:
     if kind == "hybrid_paged_attention":
         return ("hybrid", kw["KVH"], kw["G"], kw["D"], kw["d"], dt,
                 kw["norm_type"], False, False)
+    if kind == "hybrid_paged_attention_two_pool":
+        return ("two_pool", kw["KVH"], kw["G"], kw["D"], dt, False, False)
+    if kind == "kv_gen":
+        return ("kv_gen", kw["KVH"], kw["hd"], kw["d"], dt, kw["norm_type"],
+                False, False)
     mode = (kw["H"], kw["KVH"], kw["D"], dt, kw.get("window", 0),
             kw.get("causal", True))
     return ("flash_bwd" if kind == "flash_attention_bwd" else "flash",) + mode
 
 
-def twin_kernel_rows() -> dict:
-    """Each twin spec's row (``twin_specs``), by its row list, tagged with
-    the key it holds (``twin_key``); one row per (list, key, batch,
+def twin_kernel_rows(specs=None, tag="twin_key") -> dict:
+    """Each spec's row (default ``twin_specs``), by its row list, tagged
+    with the key it holds (``tag``); one row per (list, key, batch,
     length)."""
     rows, seen = {}, set()
-    for kind, check, kw in twin_specs():
+    for kind, check, kw in twin_specs() if specs is None else specs:
         key = spec_key(kind, kw)
         at = (kind, key, kw.get("B"), kw.get("S"))
         if at in seen:
             continue
         seen.add(at)
-        rows.setdefault(kind, []).append(dict(check(**kw), twin_key=list(key)))
+        rows.setdefault(kind, []).append(dict(check(**kw), **{tag: list(key)}))
     return rows
+
+
+# the shard phase: each model's meshes (data, model), the server's and the
+# offload executor's runs (the whole trace) on OPT's first (1x2)
+SHARD_MESHES = {"opt-6.7b": ((1, 2), (2, 2)), "yi-6b": ((1, 2),)}
+SHARD_SERVER = dict(slots=4, kv_cap=512, act_cap=512, chunk_steps=4)
+SHARD_LIMIT = 0.25
+SHARD_FAULTS = ("wo_partial_dropped", "kv_gen_on_own_d_slice")
+
+
+def shard_specs() -> list:
+    """(row list, check, its arguments) at each per-position kernel key of
+    the shard phase, at the model axis 2 of its meshes: each position's
+    heads (H/2; KV heads /2 where they divide), d_model whole (the ACT rows
+    are gathered before KV-Gen), at the sharded engine's plan of the trace
+    (``serve_shape`` priced on ``scale_for_shards``).  The 2x2 mesh's
+    positions run the same keys."""
+    specs = []
+    for name in SHARD_MESHES:
+        cfg = get_config(name)
+        m = 2
+        plan = make_shard_plan(cfg, make_test_mesh(1, m, device="meta"))
+        sh = serve_shape(cfg, hw=scale_for_shards(H100_SXM,
+                                                  plan.shard_factor))
+        H = cfg.num_heads // m
+        KVH = cfg.num_kv_heads // m if cfg.num_kv_heads % m == 0 \
+            else cfg.num_kv_heads
+        dt = M.torch_dtype(cfg)
+        specs.append(("flash_attention", check_flash,
+                      dict(B=sh["B"], S=sh["prefill_len"], H=H, KVH=KVH,
+                           D=cfg.head_dim, dtype=dt)))
+        if cfg.pos_type == "rope":
+            specs += [("hybrid_paged_attention_two_pool", check_two_pool,
+                       dict(shape=sh, KVH=KVH, G=H // KVH, D=cfg.head_dim,
+                            dtype=dt)),
+                      ("kv_gen", check_kv_gen,
+                       dict(B=sh["B"], n_act=sh["act_pages_bound"],
+                            d=cfg.d_model, KVH=KVH, hd=cfg.head_dim,
+                            act_cap=sh["act_cap"], dtype=dt,
+                            norm_type=cfg.norm_type, theta=cfg.rope_theta))]
+        else:
+            specs.append(("hybrid_paged_attention", check_hybrid,
+                          dict(shape=sh, KVH=KVH, G=H // KVH, D=cfg.head_dim,
+                               d=cfg.d_model, dtype=dt,
+                               norm_type=cfg.norm_type)))
+    return specs
 
 
 def phase_kernels(results):
@@ -2005,6 +2071,12 @@ def phase_kernels(results):
         out[name] += rows
     out["twin_keys"] = sorted({tuple(c["twin_key"]) for name in KERNELS
                                for c in out[name] if "twin_key" in c})
+    # the shard phase's per-position keys (``shard_specs``), appended last;
+    # the shard phase fails if a position calls a kernel at any other key
+    for name, rows in twin_kernel_rows(shard_specs(), "shard_key").items():
+        out[name] += rows
+    out["shard_keys"] = sorted({tuple(c["shard_key"]) for name in KERNELS
+                                for c in out[name] if "shard_key" in c})
     emit(out)
     results["kernels"] = out
     # jamba's and gemma3-27b's shapes: the rows appended last
@@ -2023,6 +2095,17 @@ def phase_kernels(results):
                   f"{c['max_abs_err']} (limit {c['tol']}), faults "
                   f"{ {k: v for k, v in c.items() if k.startswith('fault')} }",
                   flush=True)
+    for name in KERNELS:
+        for c in out[name]:
+            if "shard_key" in c:
+                print(f"shard key {name} {c['dtype']} {c['shape']}: "
+                      f"{c['kernel_ms']} ms, host {c.get('kernel_host_us')} us,"
+                      f" device {c.get('kernel_device_us')} us, bound "
+                      f"{c['bound_ms']} ms ({c['bound_by']}), plain "
+                      f"{c['plain_ms']} ms, library {c['library_ms']} ms, "
+                      f"error {c['max_abs_err']} (limit {c['tol']}), faults "
+                      f"{ {k: v for k, v in c.items() if k.startswith('fault')} }",
+                      flush=True)
     # the MoE models' shapes: the last flash and second-pool rows, the last
     # two kv_gen rows (dbrx's layernorm with its bias, grok's rmsnorm)
     for name, c in (("flash_attention", own["flash_attention"][-1]),
@@ -3938,7 +4021,7 @@ def phase_telemetry(results, smi, cfg, params, sched):
 REAL_RECORD = MeasuredTimeline.record
 
 
-def record_synchronised(self, lane, tag, start, end, nbytes=0):
+def record_synchronised(self, lane, tag, start, end, nbytes=0, shard=0):
     """``MeasuredTimeline.record`` with the reference's record-time tracer
     hook carried over literally (a planted fault): each span's CUDA events
     are synchronised as the span is recorded, to hand the tracer host
@@ -3946,7 +4029,7 @@ def record_synchronised(self, lane, tag, start, end, nbytes=0):
     for t in (start, end):
         if not isinstance(t, (int, float)):
             t.synchronize()
-    REAL_RECORD(self, lane, tag, start, end, nbytes)
+    REAL_RECORD(self, lane, tag, start, end, nbytes, shard)
 
 
 def gpu_lane_x4(res):
@@ -5899,6 +5982,281 @@ def moe_offload(cfg, pool, reqs, resident, smi) -> dict:
     return run
 
 
+def shard_resident(plan, tree) -> dict:
+    """Each position's bytes of a tree of ``Sharded`` leaves, and what its
+    specs imply (``launch.dryrun.leaf_bytes`` of each leaf's global shape)."""
+    leaves = list(_leaves(tree))
+    held = [sum(x.nbytes(p) for x in leaves) for p in plan.mesh.positions]
+    spec = sum(DRY.leaf_bytes(torch.empty(x.shape, dtype=x.dtype,
+                                          device="meta"), x.spec, plan.mesh)
+               for x in leaves)
+    return {"held": held, "spec": spec}
+
+
+def shard_launches(cfg, plan, eng, reqs) -> dict:
+    """Launches of one sharded ``generate``: per layer, group and position
+    that runs the group (every model position of each data row) a flash
+    launch, and per decode step a fused one (OPT) or a second-pool and a
+    ``kv_gen`` one (RoPE)."""
+    L, runs = cfg.num_layers, plan.mesh.size
+    rope = cfg.pos_type == "rope"
+    want = {k: 0 for k in COUNTERS}
+    for g in eng.plan_groups(reqs):
+        steps = eng.group_schedule(g)[3].shape[1]
+        want["flash_attention"] += L * runs
+        if rope:
+            want["hybrid_paged_attention_two_pool"] += L * runs * steps
+            want["kv_gen"] += L * runs * steps
+        else:
+            want["hybrid_paged_attention"] += L * runs * steps
+    return want
+
+
+def shard_forced(eng, reqs, gold) -> dict:
+    """{rid: teacher-forced logits (n, V)} of the sharded engine's path over
+    each of its groups, fed the oracle's tokens."""
+    out = {}
+    for g in eng.plan_groups(reqs):
+        toks, kv_keep, pbs, sched, pb, ab = eng.group_schedule(g)
+        gold_g = torch.stack([gold[r.rid] for r in g])
+        lg = SHD.forced_logits(eng.plan, eng.params, toks, eng.kv_cap,
+                               eng.act_cap, kv_keep, pbs,
+                               torch.from_numpy(np.ascontiguousarray(
+                                   sched.T)).cuda(), gold_g, pages_bound=pb,
+                               act_pages_bound=ab, lay=eng._layout)
+        for i, r in enumerate(g):
+            out[r.rid] = lg[i].float()
+    return out
+
+
+def drop_last_partial(parts, devices):
+    """Planted fault: the ``wo`` sum without the last position's partial."""
+    return COLL.sum_model(parts[:-1], devices, kind="wo")
+
+
+def own_act_slice(parts, devices):
+    """Planted fault: KV-Gen on each position's own d_model slice of the ACT
+    rows (the others' columns zero) instead of the gathered rows."""
+    d, m = parts[0].shape[-1], len(parts)
+    return [F.pad(p, (c * d, (m - 1 - c) * d)) for c, p in enumerate(parts)]
+
+
+def phase_shard(results, smi, name, params, reqs, oracle) -> dict:
+    """Tensor-parallel serving on this card: ``name``'s trace on each mesh of
+    ``SHARD_MESHES`` (every position on cuda:0), on the serve phase's
+    weights and oracle.  Per mesh: each position's resident bytes against
+    its specs', the launches per prefill and per step (every per-position
+    call at a key a kernels-phase row held), the collective bytes, the
+    decode loop under the sync check, teacher-forced logits against the
+    phase's own 1x1 kernel run (the serve phase's engine) within max(0.25,
+    2 x that run's gap to the oracle), tokens under the exactness rule.  On
+    the first mesh two planted faults must read over the limit (a ``wo``
+    partial dropped, KV-Gen on a position's own slice), and for OPT the
+    server (4 slots) and the offload executor (one weight lane per
+    position) run there too.  -> {label: launches}."""
+    t_phase = time.perf_counter()
+    cfg = get_config(name)
+    rule, gold, ora = oracle
+    held = {tuple(k) for k in results["kernels"]["shard_keys"]}
+    one = HybridServeEngine(cfg, params, mode="hybrid", hw=H100_SXM)
+    want = {}
+    for g in one.plan_groups(reqs):
+        lg = forced_logits(one, params, cfg, g,
+                           torch.stack([gold[r.rid] for r in g]))
+        for i, r in enumerate(g):
+            want[r.rid] = lg[i].float()
+    spread = max(float(v.max()) for v in rule["hybrid"].values())
+    limit = max(SHARD_LIMIT, 2 * spread)
+    rule = dict(rule, logit_tol=limit)          # the phase's own rule
+    out = {"phase": "shard", "card": smi, "model": name,
+           "one_by_one_gap_to_oracle": spread, "logit_limit": limit,
+           "meshes": {}}
+    counts = {}
+    for shape in SHARD_MESHES[name]:
+        label = f"{shape[0]}x{shape[1]}"
+        t0 = time.perf_counter()
+        plan = make_shard_plan(cfg, make_test_mesh(*shape), params)
+        eng = HybridServeEngine(cfg, params, mode="hybrid", hw=H100_SXM,
+                                plan=plan)
+        resident = shard_resident(plan, eng.params)
+        if any(h != resident["spec"] for h in resident["held"]):
+            raise AssertionError(f"shard {name} {label}: positions hold "
+                                 f"{resident['held']} B of weights, their "
+                                 f"specs imply {resident['spec']}")
+        expect = shard_launches(cfg, plan, eng, reqs)
+        torch.cuda.synchronize()
+        reset_counts()
+        COLL.COUNTER.reset()
+        t1 = time.perf_counter()
+        with KernelCalls() as calls:
+            outs, stats = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = read_counts()
+        coll = COLL.COUNTER.read()
+        counts[label] = launches
+        if launches != expect:
+            raise AssertionError(f"shard {name} {label}: launches {launches},"
+                                 f" expected {expect}")
+        unheld = [k for k in calls.first if k not in held]
+        if unheld:
+            raise AssertionError(f"shard {name} {label}: kernel calls at keys "
+                                 f"no kernels-phase row held: {unheld}")
+        if any(p.allocated for p in eng.blockman.pools.values()):
+            raise AssertionError(f"shard {name} {label}: leaked blocks")
+        # the decode loop of group 0 under the sync check
+        g0 = eng.plan_groups(reqs)[0]
+        toks, kv_keep, pbs, sched, pb, ab = eng.group_schedule(g0)
+        curs, cache = SHD.prefill(plan, eng.params, toks, eng.kv_cap,
+                                  eng.act_cap, kv_keep, pbs, lay=eng._layout)
+        cache_res = shard_resident(plan, cache)
+        s_dev = torch.from_numpy(np.ascontiguousarray(sched.T)).cuda()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop, _ = SHD.decode_chunk(plan, eng.params, curs, cache, s_dev,
+                                       pages_bound=pb, act_pages_bound=ab,
+                                       lay=eng._layout)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        loop = loop.cpu().numpy()
+        for i, r in enumerate(g0):
+            if not np.array_equal(loop[i, :r.max_new_tokens], outs[r.rid]):
+                raise AssertionError(f"shard {name} {label}: request {r.rid}:"
+                                     f" the sync-checked loop differs")
+        del cache
+        got = shard_forced(eng, reqs, gold)
+        gap = max(float((got[r.rid] - want[r.rid]).abs().max()) for r in reqs)
+        rule[f"shard {label}"] = {r.rid: (got[r.rid] - ora[r.rid]).abs().amax(
+            -1).cpu().numpy() for r in reqs}
+        ex = exactness(rule, f"shard {label}", outs, reqs)
+        if not gap <= limit:
+            raise AssertionError(f"shard {name} {label}: teacher-forced logits"
+                                 f" {gap} from the 1x1 kernel run, limit "
+                                 f"{limit}")
+        rec = {"plan": plan.explain().splitlines()[:2],
+               "resident_weight_bytes": resident,
+               "resident_cache_bytes_group0": cache_res,
+               "launches": {k: v for k, v in launches.items() if v},
+               "launches_per_prefill_per_group": {
+                   "flash_attention": cfg.num_layers * plan.mesh.size},
+               "groups": len(eng.plan_groups(reqs)), "steps": stats.steps,
+               "device_calls": stats.device_calls, "collective_bytes": coll,
+               "collective_bytes_per_step": coll["total"] / max(stats.steps, 1),
+               "wall_s": wall, "tokens_per_s": stats.generated_tokens / wall,
+               "act_frac": eng.act_frac, "max_dlogit_vs_1x1": gap,
+               "exact_requests": ex["exact_requests"],
+               "n_requests": len(reqs), "diverged": ex["diverged"],
+               "kernel_keys": [list(k) for k in calls.first]}
+        if shape == SHARD_MESHES[name][0]:
+            faults = {}
+            g = eng.plan_groups(reqs)[:1]
+            for fault, site, fn in (("wo_partial_dropped", "_attn_sum",
+                                     drop_last_partial),
+                                    ("kv_gen_on_own_d_slice", "_act_gather",
+                                     own_act_slice)):
+                with patched(SHD, site, fn):
+                    bad = shard_forced(eng, g[0], gold)
+                faults[fault] = max(float((bad[r.rid] - want[r.rid]).abs()
+                                          .max()) for r in g[0])
+            rec["fault_dlogit"] = faults
+            if not all(v > limit for v in faults.values()):
+                raise AssertionError(f"shard {name} {label}: the limit {limit}"
+                                     f" passes a planted fault: {faults}")
+            if name == "opt-6.7b":
+                rec["server"], counts[f"{label} server"] = shard_server(
+                    cfg, params, plan, reqs, rule, label)
+                rec["offload"], counts[f"{label} offload"] = shard_offload(
+                    cfg, params, plan, reqs, outs)
+        rec["seconds"] = time.perf_counter() - t0
+        out["meshes"][label] = rec
+        print(f"shard {name} {label}: {rec['exact_requests']}/{len(reqs)} "
+              f"exact, dlogit {gap:.4f} (limit {limit:.4f}), faults "
+              f"{rec.get('fault_dlogit')}, launches {rec['launches']}, "
+              f"collective {coll['total']} B ({rec['collective_bytes_per_step']:.0f}"
+              f" a step: {coll}), resident {resident}, {wall:.2f} s wall "
+              f"({rec['tokens_per_s']:.1f} tok/s), {rec['seconds']:.1f} s",
+              flush=True)
+        del eng, plan
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    results[f"shard {name}"] = out
+    return counts
+
+
+def shard_server(cfg, params, plan, reqs, rule, label):
+    """The continuous-batching server on ``plan`` (4 slots, chunks of 4):
+    one call and one readback per admission batch and per chunk, leak-free,
+    tokens under the exactness rule of the engine's sharded run.
+    -> (record, launches)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    with ContinuousBatchingServer(cfg, params, hw=H100_SXM, plan=plan,
+                                  **SHARD_SERVER) as srv:
+        outs, st = srv.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        leak = any(p.allocated for p in srv.blockman.pools.values())
+    launches = read_counts()
+    if leak or st.device_calls != st.admission_batches + st.chunks \
+            or st.host_syncs != st.device_calls:
+        raise AssertionError(f"shard server {label}: leak {leak}, calls "
+                             f"{st.device_calls}, admissions "
+                             f"{st.admission_batches}, chunks {st.chunks}, "
+                             f"syncs {st.host_syncs}")
+    ex = exactness(rule, f"shard {label}", outs, reqs)
+    rec = {"calls": st.device_calls, "host_syncs": st.host_syncs,
+           "chunks": st.chunks, "admission_batches": st.admission_batches,
+           "wall_s": wall, "tokens_per_s": st.generated_tokens / wall,
+           "exact_requests": ex["exact_requests"],
+           "launches": {k: v for k, v in launches.items() if v}}
+    print(f"shard server {label}: {rec}", flush=True)
+    return rec, launches
+
+
+def shard_offload(cfg, params, plan, reqs, want):
+    """The offload executor on ``plan``: one weight lane per position (its
+    slice of each layer pinned on the host, its own staging ring and copy
+    stream), over the whole trace; tokens equal ``want``, the
+    device-resident sharded engine's, every lane uploads, each step's lane
+    seconds (the max over lanes) within the step.  -> (record, launches)."""
+    t0 = time.perf_counter()
+    with HybridServeEngine(cfg, params, mode="hybrid", hw=H100_SXM,
+                           plan=plan, offload=True) as eng:
+        build_s = time.perf_counter() - t0
+        pinned = eng.executor.pool.pinned
+        reset_counts()
+        t1 = time.perf_counter()
+        outs, st = eng.generate(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = read_counts()
+        lanes = eng.executor.streamer.lanes
+        uploads = [lane.uploads for lane in lanes]
+        lane_bytes = [lane.bytes_uploaded for lane in lanes]
+        steps = eng.measured_steps
+    bad = [r.rid for r in reqs if not np.array_equal(outs[r.rid],
+                                                     want[r.rid])]
+    over = [(m.pcie_busy, m.total) for m in steps
+            if not m.pcie_busy <= m.total + 1e-6]
+    if bad or not pinned or len(lanes) != plan.mesh.size \
+            or not all(uploads) or over:
+        raise AssertionError(f"shard offload: tokens differ {bad}, pinned "
+                             f"{pinned}, lanes {len(lanes)} uploads {uploads},"
+                             f" lane seconds over the step {over}")
+    rec = {"requests": len(reqs), "lanes": len(lanes), "uploads": uploads,
+           "bytes_uploaded": lane_bytes, "pool_build_s": build_s,
+           "wall_s": wall, "device_calls": st.device_calls,
+           "step_s": [m.total for m in steps],
+           "pcie_busy_s": [m.pcie_busy for m in steps],
+           "gpu_busy_s": [m.gpu_busy for m in steps],
+           "launches": {k: v for k, v in launches.items() if v}}
+    print(f"shard offload: {rec}", flush=True)
+    return rec, launches
+
+
 def serve_path(results, smi, name):
     """Serve one model through the engine, then through the
     continuous-batching server on the same weights, then its telemetry phase
@@ -5907,9 +6265,14 @@ def serve_path(results, smi, name):
     it from host memory (OPT's engine-side telemetry runs there).  -> the
     launch counts of its device-resident hybrid runs and of its host-attend
     runs, each {"fp": ..., "int8": ...}, of its scheduler runs and of its
-    telemetry runs, {run: ...}."""
+    telemetry runs, {run: ...}, and of its shard phase's runs,
+    {"<name> shard <mesh>[ server|offload]": {"fp": ...}}."""
     launches, engines, reqs, outs, oracle, q8_oracle, params = phase_serve(
         results, smi, name)
+    shard = {f"{name} shard {k}": {"fp": v} for k, v in phase_shard(
+        results, smi, name, params, reqs, oracle).items()}
+    gc.collect()
+    torch.cuda.empty_cache()
     sched_launches_, sched_ctx = phase_scheduler(results, smi,
                                                  get_config(name), params)
     tel_launches = phase_telemetry(results, smi, get_config(name), params,
@@ -5928,7 +6291,7 @@ def serve_path(results, smi, name):
     tel_launches.update(tel_offload)
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, ha_launches, sched_launches_, tel_launches
+    return launches, ha_launches, sched_launches_, tel_launches, shard
 
 
 # ----------------------------------------------------------------- train phase
@@ -6537,7 +6900,7 @@ def launch_keys(name, a, kw) -> list:
     if name == "hybrid_paged_attention_two_pool":
         B, KVH, G, D = a[0].shape
         return [(("two_pool", KVH, G, D, dt, int8, lse), {"B": B})]
-    _, _, KVH, hd = a[3].shape                                  # kv_gen
+    _, KVH, hd = a[3].shape                          # kv_gen: wk (d, KVH, hd)
     return [(("kv_gen", KVH, hd, a[0].shape[-1], str(a[3].dtype).removeprefix(
         "torch."), kw.get("norm_type", "rmsnorm"), kw.get("knorm") is not None,
         kw.get("act_scales") is not None), {"N": len(kw["page_index"])})]
@@ -6633,10 +6996,11 @@ def main() -> int:
     t0 = stage("env_and_build", t0)
     phase_kernels(results)
     t0 = stage("kernels", t0)
-    by_path, ha_path, sched_path, tel_path = {}, {}, {}, {}
+    by_path, ha_path, sched_path, tel_path, shard_path = {}, {}, {}, {}, {}
     for name in ("opt-6.7b", "yi-6b"):
-        by_path[name], ha_path[name], sched_path[name], tel_path[name] = \
-            serve_path(results, smi, name)
+        by_path[name], ha_path[name], sched_path[name], tel_path[name], \
+            shard = serve_path(results, smi, name)
+        shard_path.update(shard)
         t0 = stage(name, t0)
     by_path[GEMMA] = {"fp": phase_serve_gemma(results, smi)}
     gc.collect()
@@ -6716,7 +7080,7 @@ def main() -> int:
                "flash_attention_bwd_noncausal": (WHISPER, "train", "fp"),
                "ssd_scan_bwd": (MAMBA, "train", "fp")}
     counts = {serve: by_path, ha: ha_path, "scheduler": sched_path,
-              "telemetry": tel_path, "train": train_path}
+              "telemetry": tel_path, "train": train_path, "shard": shard_path}
     k = results["kernels"]
     rows = []
     for name, (src, tpu) in KERNELS.items():

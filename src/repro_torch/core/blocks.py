@@ -3,8 +3,9 @@
 A copy of ``repro.core.blocks`` with the offload runtime's residency moves,
 the CPU lane's ``host_attend`` tag, the quantized block layout (``quant=``:
 int8 payloads with float16 scales, priced by ``core.quant``) and the
-continuous-batching server's preemption demotion and the adaptive
-controller's capacity retags, without the sharding hooks.
+continuous-batching server's preemption demotion, the adaptive
+controller's capacity retags and the sharding hooks (per-shard block bytes
+under a model-axis factor, ``BlockManager(shard_factor=)``).
 
 Each logical block covers BLOCK_TOKENS tokens of one request's context across
 all layers, stored either as K/V tensors (KV block) or as activation
@@ -33,18 +34,26 @@ class Location(enum.Enum):
     DEVICE = "device"
 
 
-def kv_block_bytes(cfg: ModelConfig,
+def _ceil_div(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+def kv_block_bytes(cfg: ModelConfig, shards: int = 1,
                    quant: "Q.QuantConfig | None" = None) -> int:
-    """S_KV: one KV block, all layers; ``quant`` prices the 1-byte payload
-    and its scales."""
-    return BLOCK_TOKENS * Q.kv_bytes_per_token(cfg, quant) * cfg.num_layers
+    """S_KV: one KV block, all layers.  ``shards`` > 1: the per-shard slice
+    of the block under an N-way model axis (KV heads split N ways), the
+    bytes one position's lane moves per block, ceil-divided so the slices
+    cover the block.  ``quant`` prices the 1-byte payload and its scales."""
+    total = BLOCK_TOKENS * Q.kv_bytes_per_token(cfg, quant) * cfg.num_layers
+    return _ceil_div(total, shards)
 
 
-def act_block_bytes(cfg: ModelConfig,
+def act_block_bytes(cfg: ModelConfig, shards: int = 1,
                     quant: "Q.QuantConfig | None" = None) -> int:
-    """S_ACT: one ACT block, all layers (= S_KV/2 for MHA); ``quant`` as in
-    ``kv_block_bytes``."""
-    return BLOCK_TOKENS * Q.act_bytes_per_token(cfg, quant) * cfg.num_layers
+    """S_ACT: one ACT block, all layers (= S_KV/2 for MHA).  ``shards`` and
+    ``quant`` as in ``kv_block_bytes`` (ACT checkpoints split on d_model)."""
+    total = BLOCK_TOKENS * Q.act_bytes_per_token(cfg, quant) * cfg.num_layers
+    return _ceil_div(total, shards)
 
 
 @dataclass
@@ -147,9 +156,18 @@ class BlockManager:
     def __init__(self, cfg: ModelConfig, *,
                  host_kv_blocks: int, host_act_blocks: int,
                  dev_kv_blocks: int, dev_act_blocks: int,
+                 shard_factor: int = 1,
                  quant: "Q.QuantConfig | None" = None):
+        """``shard_factor``: the serving mesh's model-axis factor
+        (``ShardPlan.shard_factor``; 1 is one device).  Blocks stay logical,
+        one block spans every shard, but the per-shard byte queries
+        (``block_bytes``, ``bytes_capacity``, ``host_bytes_to_load``) divide
+        by it: each shard's lane moves its 1/N slice."""
+        if shard_factor < 1:
+            raise ValueError(f"shard_factor={shard_factor}: at least 1")
         self.cfg = cfg
         self.quant = quant
+        self.shard_factor = int(shard_factor)
         self.pools: Dict[Tuple[BlockType, Location], PhysicalPool] = {
             (BlockType.KV, Location.HOST): PhysicalPool(host_kv_blocks),
             (BlockType.ACT, Location.HOST): PhysicalPool(host_act_blocks),
@@ -305,21 +323,33 @@ class BlockManager:
         return moved
 
     # -- byte accounting ------------------------------------------------------
-    def block_bytes(self, kind: BlockType) -> int:
-        """Bytes of one block: under ``quant`` the 1-byte payload and its
-        scales, the bytes the spill arena and the host link carry."""
+    def block_bytes(self, kind: BlockType, *, per_shard: bool = True) -> int:
+        """Bytes of one block, per shard by default (what one position's
+        lane moves), the whole block with ``per_shard=False``: under
+        ``quant`` the 1-byte payload and its scales, the bytes the spill
+        arena and the host link carry."""
         f = kv_block_bytes if kind == BlockType.KV else act_block_bytes
-        return f(self.cfg, quant=self.quant)
+        return f(self.cfg, self.shard_factor if per_shard else 1,
+                 quant=self.quant)
+
+    def bytes_capacity(self, kind: BlockType, loc: Location,
+                       *, per_shard: bool = True) -> int:
+        """Byte capacity of one pool (per shard by default)."""
+        return self.pools[(kind, loc)].capacity * self.block_bytes(
+            kind, per_shard=per_shard)
 
     def explain(self) -> str:
-        """Report of the pool capacities and the block byte math (the
-        reference's, without its per-shard column)."""
+        """Report of the pool capacities and the per-shard block byte math
+        (``ShardPlan.explain``'s companion)."""
         qdesc = ("off (config dtype)" if self.quant is None else
                  f"kv={self.quant.kv_dtype} act={self.quant.act_dtype} "
                  f"scales={self.quant.scale_dtype}")
-        lines = [f"BlockManager quant={qdesc}"]
+        lines = [f"BlockManager shard_factor={self.shard_factor} "
+                 f"(per-shard bytes divide by this; 1 = single shard), "
+                 f"quant={qdesc}"]
         for (kind, loc), pool in self.pools.items():
-            tot = self.block_bytes(kind)
+            per = self.block_bytes(kind)
+            tot = self.block_bytes(kind, per_shard=False)
             extra = ""
             if self.quant is not None:
                 raw = (kv_block_bytes if kind == BlockType.KV
@@ -327,7 +357,8 @@ class BlockManager:
                 extra = f" [{raw / tot:.2f}x vs {self.cfg.dtype}]"
             lines.append(
                 f"  {loc.value:6s} {kind.value:3s}: capacity={pool.capacity} "
-                f"blocks x {tot} B{extra}, allocated={pool.allocated}")
+                f"blocks x {tot} B ({per} B/shard){extra}, "
+                f"allocated={pool.allocated}")
         return "\n".join(lines)
 
     # -- queries --------------------------------------------------------------
@@ -342,3 +373,27 @@ class BlockManager:
             "dev_blocks": sum(1 for b in t if b.location == Location.DEVICE),
             "host_attend_blocks": sum(1 for b in t if b.host_attend),
         }
+
+    def context_len(self, rid: int) -> int:
+        return sum(b.ntokens for b in self.tables[rid])
+
+    def host_bytes_to_load(self, rid: int) -> Tuple[int, int]:
+        """(kv_bytes, act_bytes) that must cross ONE shard's host link for a
+        generation step: each shard loads its 1/shard_factor slice of every
+        host block in parallel with the others; at shard_factor 1 the
+        total."""
+        cfg = self.cfg
+        kv = act = 0
+        for b in self.tables[rid]:
+            if b.location != Location.HOST:
+                continue
+            per_tok = (Q.kv_bytes_per_token(cfg, self.quant)
+                       if b.kind == BlockType.KV
+                       else Q.act_bytes_per_token(cfg, self.quant))
+            sz = _ceil_div(b.ntokens * per_tok * cfg.num_layers,
+                           self.shard_factor)
+            if b.kind == BlockType.KV:
+                kv += sz
+            else:
+                act += sz
+        return kv, act

@@ -1,8 +1,9 @@
 """Hardware spec + cost functions + sampling-based linear regression (§4.3).
 
 A copy of ``repro.core.costmodel`` (the port imports nothing from the JAX
-package) with one addition: ``H100_SXM``, the port's default target.  The
-inter-chip terms are left to the slice that uses them.
+package) with one addition: ``H100_SXM``, the port's default target.
+``scale_for_shards`` prices a tensor-parallel group as one aggregate
+machine; the inter-chip terms are left to the slice that uses them.
 ``quant=`` prices the host link's and the host lane's bytes by the quantized
 block layout (``core.quant``); ``cpu=`` adds the host-attention lane.  The
 online refit (``LaneSample``, ``fit_samples``, ``damp_fit``, ``ewma_refit``)
@@ -15,6 +16,7 @@ linear coefficients — exactly the information the paper's policy has.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Sequence, Tuple
 
@@ -97,6 +99,29 @@ H100_SXM = HardwareSpec(
     host_dram_bw=150e9,
     host_mfu=0.25,
 )
+
+
+def scale_for_shards(hw: HardwareSpec, shards: int) -> HardwareSpec:
+    """The aggregate machine a ``shards``-way tensor-parallel serving group
+    presents to the policy stack.  Compute, HBM bandwidth, device memory and
+    the host link scale with the model axis (each shard owns its lanes and
+    loads its 1/N slice of every block); host memory, the host-compute terms
+    and the per-call dispatch overhead do not (one shared host; a call is
+    paid once however many positions take part).  ``shards=1`` returns
+    ``hw`` itself."""
+    if shards < 1:
+        raise ValueError(f"shards={shards}: at least 1")
+    if shards == 1:
+        return hw
+    return dataclasses.replace(
+        hw,
+        name=f"{hw.name}-x{shards}",
+        flops=hw.flops * shards,
+        hbm_bw=hw.hbm_bw * shards,
+        host_link_bw=hw.host_link_bw * shards,
+        device_mem=hw.device_mem * shards,
+    )
+
 
 # =============================================================================
 # analytic per-operation costs (seconds)

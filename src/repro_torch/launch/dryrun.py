@@ -21,8 +21,10 @@ holds the reference's keys:
     reference's record (``tests/test_torch_dryrun.py``);
   - ``compile_seconds``: this dry run's own wall seconds;
   - ``null`` where the port measures nothing, each with its reason under
-    ``not_measured``: no collective is issued before ROADMAP queue 1, item
-    5, and there is no compiled program to read bytes or temporaries from.
+    ``not_measured``: the dry run issues no collective (the serving path
+    counts its own, ``sharding.collectives``; the dry run's count of them is
+    ROADMAP queue 1, item 5.2), and there is no compiled program to read
+    bytes or temporaries from.
 
 ``--mesh host`` is the one-card fit check (ROADMAP queue 1, item 4.3): on
 the (1, 1) mesh each record adds ``fits`` (do the arguments fit the card's
@@ -77,8 +79,8 @@ META = SP.META
 
 #: why a record's field is null: what the port cannot measure
 NOT_MEASURED = {
-    "collective_bytes": "no collective is issued: the port places nothing "
-                        f"across devices before {SHARDING}",
+    "collective_bytes": "the dry run issues no collective; counting the "
+                        f"serving seams' bytes here is {SHARDING}",
     "bytes_accessed": "no compiled program to analyse: the step runs as "
                       "eager PyTorch, and FlopCounterMode counts operations, "
                       "not bytes",

@@ -1,19 +1,30 @@
 """Production meshes (counterpart of ``repro.launch.mesh``).
 
-A mesh here is a value: its axis names and sizes, nothing placed on a
+A ``Mesh`` is a value: its axis names and sizes, nothing placed on a
 device.  It answers what the partition rules read of a mesh
 (``shape[name]``, ``axis_names``, ``size``), so ``repro_torch.sharding``
 computes the reference's specs from it; the dry run divides each leaf's
-bytes by its spec's axis sizes.  A mesh of devices that tensors are placed
-on (``make_test_mesh``) is ROADMAP queue 1, item 5.
+bytes by its spec's axis sizes.
+
+A ``DeviceMesh`` (``make_test_mesh``) is that value plus one
+``torch.device`` per position, row-major: what ``sharding.ShardPlan``
+places tensors on.  One process drives every position, as the reference's
+single controller drives its devices; positions may share a device (every
+position of a mesh on the one card of a one-card host, or on the CPU in the
+tests), and then the per-position tensors, kernels and accounting all run
+as on separate devices while a collective costs no link.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
-SHARDING = "ROADMAP queue 1, item 5 (sharding)"
+import torch
+
+#: what sharding still lacks (the int8 cache, the CPU lane, MoE and training
+#: under a plan, and the dry run's collective bytes)
+SHARDING = "ROADMAP queue 1, item 5.2 (sharding)"
 
 
 @dataclass(frozen=True)
@@ -49,7 +60,55 @@ def make_host_mesh() -> Mesh:
     return Mesh((1, 1), ("data", "model"))
 
 
-def make_test_mesh(data: int = 1, model: int = 1):
-    """A (data, model) mesh of devices that tensors are placed on: not
-    ported yet; raises."""
-    raise NotImplementedError(f"a {data}x{model} device mesh: {SHARDING}")
+class Position(NamedTuple):
+    """One mesh position: its row-major index, its coordinate along each
+    axis, and the device its tensors live on."""
+    index: int
+    coords: Tuple[int, ...]
+    device: torch.device
+
+
+@dataclass(frozen=True)
+class DeviceMesh(Mesh):
+    """A mesh whose positions each name a device (row-major)."""
+    devices: Tuple[torch.device, ...] = ()
+
+    def __post_init__(self):
+        super().__post_init__()
+        if len(self.devices) != self.size:
+            raise ValueError(f"{len(self.devices)} devices for a mesh of "
+                             f"{self.size} positions")
+
+    @property
+    def positions(self) -> Tuple[Position, ...]:
+        out, n = [], len(self.axis_sizes)
+        for i, dev in enumerate(self.devices):
+            coords, rest = [0] * n, i
+            for a in range(n - 1, -1, -1):
+                coords[a] = rest % self.axis_sizes[a]
+                rest //= self.axis_sizes[a]
+            out.append(Position(i, tuple(coords), dev))
+        return tuple(out)
+
+    def coord(self, pos: Position, axis: str) -> int:
+        return pos.coords[self.axis_names.index(axis)]
+
+
+def make_test_mesh(data: int = 1, model: int = 1,
+                   device: Optional[str] = None) -> DeviceMesh:
+    """A (data, model) mesh of devices.  ``device=None``: the positions go
+    round-robin over the CUDA devices present (all on ``cuda:0`` on a
+    one-card host; raises without one); a device name puts every position
+    there (``"cpu"`` for the tests)."""
+    n = data * model
+    if n < 1:
+        raise ValueError(f"a {data}x{model} mesh has no position")
+    if device is None:
+        count = torch.cuda.device_count()
+        if not count:
+            raise RuntimeError("make_test_mesh: no CUDA device; pass "
+                               "device='cpu' for a mesh on the host")
+        devs = tuple(torch.device("cuda", i % count) for i in range(n))
+    else:
+        devs = (torch.device(device),) * n
+    return DeviceMesh((data, model), ("data", "model"), devs)

@@ -11,9 +11,16 @@ PATH`` those of a checkpoint written by either package (``{"params":
 ...}``).  Each run prints its wall-clock tokens/s, measured on the device it
 ran on, beside the engine's simulated figure, which is priced on
 ``H100_SXM``.  ``--trace out.json`` writes a Chrome-trace file of the
-request and lane spans; ``--snapshot`` prints the metrics snapshot.  One
-device only: ``--mesh`` takes ``1,1`` and ``--explain-plan`` is refused
-(the sharded serving plan is ROADMAP queue 1, item 5).
+request and lane spans; ``--snapshot`` prints the metrics snapshot.
+
+``--mesh DATA,MODEL`` serves tensor-parallel under the ``ShardPlan`` of a
+mesh of that shape (``make_test_mesh``: its positions round-robin over the
+CUDA devices present, every position on the one card of a one-card host;
+on the CPU with ``--device cpu``); ``--explain-plan`` prints the plan's
+decision log and exits, building the weights on ``meta`` only:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch opt-6.7b \
+      --mesh 1,2 --explain-plan
 """
 from __future__ import annotations
 
@@ -27,11 +34,12 @@ from repro_torch import checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core.costmodel import H100_SXM
 from repro_torch.data import request_trace
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.launch.specs import params_shape
 from repro_torch.models import model as M
+from repro_torch.models import sharded as SHD
 from repro_torch.serving import HybridServeEngine, exact_reference_generate
-
-SHARDED = "sharded serving waits for ROADMAP queue 1, item 5"
+from repro_torch.sharding import make_shard_plan
 
 
 def device_name(device) -> str:
@@ -65,9 +73,10 @@ def main(argv=None):
                     help="decode iterations per call in the continuous "
                          "server (1 = the step server)")
     ap.add_argument("--mesh", default="1,1", metavar="DATA,MODEL",
-                    help="serving mesh shape; only 1,1 (" + SHARDED + ")")
+                    help="serving mesh shape; the ShardPlan built from it "
+                         "drives every subsystem")
     ap.add_argument("--explain-plan", action="store_true",
-                    help="refused: " + SHARDED)
+                    help="print the ShardPlan decision log and exit")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="record request-lifecycle + lane spans and export "
                          "a Chrome-trace/Perfetto JSON file")
@@ -77,10 +86,25 @@ def main(argv=None):
                     help="serve the params of this checkpoint")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "1,1" or args.explain_plan:
-        ap.error(f"--mesh {args.mesh}"
-                 + (" --explain-plan" if args.explain_plan else "")
-                 + f": the port serves on one device; {SHARDED}")
+    try:
+        data, model_ax = (int(x) for x in args.mesh.split(","))
+    except ValueError:
+        ap.error(f"--mesh {args.mesh}: DATA,MODEL, two integers")
+    cfg = get_config(args.arch)
+    plan = None
+    if (data, model_ax) != (1, 1) or args.explain_plan:
+        dev = torch.device(args.device)
+        mesh = make_test_mesh(data, model_ax, device=None if (
+            dev.type == "cuda" and dev.index is None) else args.device)
+        plan = make_shard_plan(cfg, mesh, params_shape(cfg))
+        try:
+            SHD.check_plan_supported(cfg, plan)
+        except NotImplementedError as e:
+            ap.error(f"--mesh {args.mesh}: {e}")
+        print(plan.explain() if args.explain_plan else
+              plan.explain().splitlines()[0])
+        if args.explain_plan:
+            return None, None
 
     tracer, metrics = None, None
     if args.trace or args.snapshot:
@@ -89,7 +113,6 @@ def main(argv=None):
         if args.trace:
             tracer = Tracer()
 
-    cfg = get_config(args.arch)
     if args.init:
         params = checkpoint.restore(args.init, {"params": params_shape(cfg)},
                                     device=args.device)["params"]
@@ -104,7 +127,8 @@ def main(argv=None):
         eng = ContinuousBatchingServer(cfg, params, slots=4,
                                        chunk_steps=args.chunk_steps,
                                        hw=H100_SXM, tracer=tracer,
-                                       metrics=metrics, device=args.device)
+                                       metrics=metrics, plan=plan,
+                                       device=args.device)
         print(f"continuous batching: 4 slots, chunk_steps="
               f"{args.chunk_steps}, act_frac={eng.act_frac:.2f}")
         (out, stats), wall = _wall(args.device, lambda: eng.run(reqs))
@@ -115,7 +139,7 @@ def main(argv=None):
               f"simulated on {H100_SXM.name}: {stats.throughput:.1f} tok/s")
     else:
         eng = HybridServeEngine(cfg, params, mode=args.mode, hw=H100_SXM,
-                                tracer=tracer, metrics=metrics,
+                                tracer=tracer, metrics=metrics, plan=plan,
                                 device=args.device)
         print(f"engine: mode={args.mode} host ACT:KV ratio="
               f"{eng.alloc.act_blocks}:{eng.alloc.kv_blocks} "

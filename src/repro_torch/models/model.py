@@ -1183,23 +1183,37 @@ def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
     layers.  Bounds and ``any_act`` as for ``hybrid_decode_step``.
     Quantized, the fused route's tables leave out an ACT-bound token's own
     row (its exact K/V are merged in after the kernel)."""
+    ctx = cache["kv_len"] + cache["act_len"]                   # absolute position
+    plan = hybrid_decode_plan(cfg, cache, store_act, pages_bound=pages_bound,
+                              act_pages_bound=act_pages_bound, quant=quant,
+                              any_act=any_act)
+    x = _embed_tokens(params, cfg, token)
+    if cfg.pos_type == "learned":
+        x = x + params["pos_embed"][ctx.long()][:, None]
+    return plan._replace(x=x)
+
+
+def hybrid_decode_plan(cfg: ModelConfig, cache: Cache, store_act, *,
+                       pages_bound=None, act_pages_bound=None,
+                       quant: Optional[QuantConfig] = None,
+                       any_act: bool = True) -> DecodePlan:
+    """``hybrid_decode_begin`` without the embedding (``x`` None): the ACT
+    position recorded in ``cache["act_pos"]``, the write masks, the page
+    tables and the RoPE route's inputs.  ``cfg``'s KV heads size the
+    scratch pool (a mesh position passes its own head counts)."""
     T.check_supported(cfg, "hybrid")
     _check_cache(cache, quant)
-    B = token.shape[0]
+    B = store_act.shape[0]
     kv_cap, act_cap = cache["k"].shape[2], cache["act"].shape[2]
     kv_len, act_len = cache["kv_len"], cache["act_len"]
     ctx = kv_len + act_len                                     # absolute position
-    ar = torch.arange(B, device=token.device)
+    ar = torch.arange(B, device=kv_len.device)
     ai = act_len.clamp(max=act_cap - 1).long()
     write_on = write_masks(store_act, kv_len, act_len, kv_cap, act_cap)
     # ACT tokens carry their recorded absolute positions (appends interleave);
     # a checkpoint past the ACT capacity is dropped, and so is its position
     cache["act_pos"][ar, ai] = torch.where(write_on[1], ctx,
                                            cache["act_pos"][ar, ai])
-
-    x = _embed_tokens(params, cfg, token)
-    if cfg.pos_type == "learned":
-        x = x + params["pos_embed"][ctx.long()][:, None]
     kv_new = kv_len + (~store_act).int()
     act_new = act_len + store_act.int()
     maxp = kv_cap // PAGE + act_cap // PAGE
@@ -1218,7 +1232,7 @@ def hybrid_decode_begin(params, cfg: ModelConfig, token, cache: Cache,
     tables = hybrid_page_table(kv_new.clamp(max=kv_cap),
                                act_read.clamp(max=act_cap), kv_cap, act_stride,
                                n_pages)
-    return DecodePlan(x, tables, act_kv, act_stride, act_read, exact_own,
+    return DecodePlan(None, tables, act_kv, act_stride, act_read, exact_own,
                       write_on)
 
 

@@ -1,5 +1,6 @@
-"""Host-offload runtime for one device: weight streaming overlapped with KV
-regeneration (counterpart of ``repro.offload``).
+"""Host-offload runtime: weight streaming overlapped with KV regeneration
+(counterpart of ``repro.offload``), for one device or, under a
+``ShardPlan``, one weight lane per mesh position.
 
 Pinned host pools, a double-buffered weight streamer on a CUDA copy stream,
 a cpu attention lane that attends over spilled KV blocks in place, a
@@ -13,7 +14,8 @@ from repro_torch.offload.host_attn import (HostAttnExecutor,
                                            host_flash_attention,
                                            merge_partials_torch)
 from repro_torch.offload.host_pool import (HostBlockPool, HostWeightPool,
-                                           Region, kv_region_blocks,
+                                           LaneView, Region, ShardedRegion,
+                                           ShardedSpillPool, kv_region_blocks,
                                            make_spill_pool)
-from repro_torch.offload.streamer import WeightStreamer
+from repro_torch.offload.streamer import ShardedWeightLanes, WeightStreamer
 from repro_torch.offload.timeline import MeasuredTimeline, Span

@@ -27,6 +27,15 @@ Exactness: each layer runs the functions the device-resident path runs
 so the same kernels launch and the tokens equal the device-resident path's
 at any prefetch depth, with or without spill.
 
+Under a ``ShardPlan`` (a mesh of more than one position) the executor runs
+``models.sharded``'s tensor-parallel stages instead: every position streams
+its own slice of each layer through its own lane (``ShardedWeightLanes``,
+spans stamped with the lane's shard), the resident remainder is laid out
+on the mesh, and a spilled KV region lives in one arena per model-axis
+shard (``ShardedSpillPool``): each position uploads its slice of a layer's
+region before the layer, on the compute stream, and stores its new rows
+back, per lane.  Calls and syncs are counted as on one device.
+
 Quantized cache (``quant``): the regions already hold int8 codes and float16
 scales on the device, so the spill, the per-step upload and the store-back
 move those bytes as they are, and the uploaded slot feeds the kernels' int8
@@ -37,6 +46,7 @@ rows through the cache dtype, as the kernels do.
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -44,12 +54,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import SHARDING
 from repro_torch.models import model as M
+from repro_torch.models import sharded as SHD
 from repro_torch.models import transformer as T
 from repro_torch.kernels.hybrid_attention.ref import merge_partials_torch
 from repro_torch.offload.host_attn import HostAttnExecutor, QuantPlane
-from repro_torch.offload.host_pool import HostWeightPool, Region
-from repro_torch.offload.streamer import WeightStreamer, timing_event
+from repro_torch.offload.host_pool import HostWeightPool, Region, ShardedRegion
+from repro_torch.offload.streamer import (ShardedWeightLanes, WeightStreamer,
+                                          timing_event)
+from repro_torch.sharding.plan import Sharded
 from repro_torch.offload.timeline import MeasuredTimeline
 
 Cache = Dict[str, Any]
@@ -60,15 +74,18 @@ class OffloadExecutor:
     """Executes hybrid-cache inference with host-streamed layer weights.
 
     ``params``: the port's params dict (any device), or a ``HostWeightPool``
-    already built from it, which several executors may share."""
+    already built from it, which several executors may share.  ``plan``: a
+    ``ShardPlan``; a 1x1 mesh runs as without one."""
 
     def __init__(self, cfg: ModelConfig, params, *, prefetch_depth: int = 1,
                  faults=None, watchdog_s: Optional[float] = None,
-                 tracer=None, metrics=None, quant=None, device="cuda"):
+                 tracer=None, metrics=None, quant=None, plan=None,
+                 device="cuda"):
         T.check_supported(cfg, "engine")
+        self.plan, self.device, _, _ = SHD.resolve_plan(cfg, plan, device,
+                                                        quant=quant)
         self.cfg = cfg
         self.quant = quant
-        self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.timeline = MeasuredTimeline(tracer=tracer)
         self.faults = faults
@@ -77,14 +94,26 @@ class OffloadExecutor:
         # cpu attention lane: created on the first host-attend decode
         self.host_lane: Optional[HostAttnExecutor] = None
         self.pool = params if isinstance(params, HostWeightPool) else \
-            HostWeightPool(cfg, params, device=self.device)
+            HostWeightPool(cfg, params, plan=self.plan, device=self.device)
         if self.pool.device != self.device:
             raise ValueError(f"weight pool serves {self.pool.device}, "
                              f"executor runs on {self.device}")
-        self.streamer = WeightStreamer(
-            self.pool, prefetch_depth=prefetch_depth, timeline=self.timeline,
-            faults=faults, watchdog_s=watchdog_s, metrics=metrics)
-        self.resident = self.pool.resident
+        if (self.pool.plan is None) != (self.plan is None):
+            raise ValueError("the weight pool and the executor disagree on "
+                             "the plan")
+        if self.plan is None:
+            self.streamer = WeightStreamer(
+                self.pool, prefetch_depth=prefetch_depth,
+                timeline=self.timeline, faults=faults, watchdog_s=watchdog_s,
+                metrics=metrics)
+            self.resident = self.pool.resident
+        else:
+            self.streamer = ShardedWeightLanes(
+                self.pool, self.plan, prefetch_depth=prefetch_depth,
+                timeline=self.timeline, faults=faults, watchdog_s=watchdog_s,
+                metrics=metrics)
+            self.resident = self.plan.place_params(self.pool.resident)
+            self._layout = SHD.Layout(self.plan)
         self._mirror: Dict[str, torch.Tensor] = {}   # decode_chunk's host mirror
         self.dispatches = 0                     # stages issued (as the reference)
         # blocking host waits on the device: the final tokens, a spill-out or
@@ -103,8 +132,12 @@ class OffloadExecutor:
                         act_cap: int) -> Tuple[torch.Tensor, Cache]:
         """Layer-streamed batched hybrid prefill: ``M.hybrid_prefill_batched``
         with each layer's weights arriving over the copy stream; the full
-        parameter set is never device-resident.  -> (first token (B,), cache)."""
+        parameter set is never device-resident.  -> (first token (B,), cache);
+        under a plan (each data row's first tokens, the ``Sharded`` cache)."""
         cfg = self.cfg
+        if self.plan is not None:
+            return self._prefill_sharded(tokens, kv_keep, last_pos, kv_cap,
+                                         act_cap)
         self.timeline.begin_step("prefill", now=self._now())
         pre = M.hybrid_prefill_begin(self.resident, cfg, self._as_dev(tokens),
                                      kv_cap, act_cap, kv_keep, last_pos,
@@ -316,8 +349,19 @@ class OffloadExecutor:
 
         The cache is updated in place (its KV region is freed in spill
         mode).  Returns ``(tokens (B, n_steps) int32 numpy, final cache)``.
+        Under a plan ``cur`` is each data row's tokens and ``cache`` the
+        ``Sharded`` cache of ``prefill_batched``.
         """
         cfg = self.cfg
+        if self.plan is not None:
+            if host_attn:
+                raise NotImplementedError(
+                    f"the CPU attention lane under a plan: {SHARDING}")
+            out, _ = self._decode_sharded(
+                cur, cache, np.asarray(store_sched, bool), None,
+                spill_region=spill_region, pages_bound=pages_bound,
+                act_pages_bound=act_pages_bound)
+            return out[:, :-1], dict(cache, spilled=spill_region is not None)
         L = cfg.num_layers
         sched = np.asarray(store_sched, bool)
         n_steps, B = sched.shape
@@ -463,6 +507,24 @@ class OffloadExecutor:
         -> (tokens (B, n_steps) int32 numpy with -1 at inactive entries,
             next cur (B,) int32 numpy, cache)."""
         cfg = self.cfg
+        if self.plan is not None:
+            if host_attn:
+                raise NotImplementedError(
+                    f"the CPU attention lane under a plan: {SHARDING}")
+            act_np = np.asarray(active_sched, bool)
+            kv_cap, act_cap = cache["k"].shape[2], cache["act"].shape[2]
+            kv_b = kv_cap if kv_bound is None else min(int(kv_bound), kv_cap)
+            act_b = act_cap if act_bound is None else min(int(act_bound),
+                                                          act_cap)
+            rows = SHD.rows_for(self.plan, act_np.shape[1])
+            curs = [M.upload(np.asarray(cur, np.int32)[r.bidx], r.devs[0])
+                    for r in rows]
+            out, _ = self._decode_sharded(
+                curs, cache, np.asarray(store_sched, bool) & act_np, act_np,
+                pages_bound=kv_b // PAGE + act_b // PAGE,
+                act_pages_bound=act_b // PAGE)
+            n = act_np.shape[0]
+            return out[:, :n], out[:, n], cache
         L = cfg.num_layers
         act_np = np.asarray(active_sched, bool)
         sched = np.asarray(store_sched, bool) & act_np
@@ -539,6 +601,182 @@ class OffloadExecutor:
         self.blocking_syncs += 1
         self._planes = None
         return out[:, :n_steps], out[:, n_steps], cache
+
+    # ============================================================ under a plan
+    def _prefill_sharded(self, tokens, kv_keep, last_pos, kv_cap, act_cap):
+        """``prefill_batched`` over the plan's mesh: each layer's slices
+        arrive through the positions' lanes."""
+        self.timeline.begin_step("prefill", now=self._now())
+        self.dispatches += 1
+        self.streamer.begin(range(self.cfg.num_layers))
+        t0 = [None]
+
+        def layers(i):
+            lps = self.streamer.acquire(i)
+            t0[0] = self._now()
+            return lps
+
+        def after(i):
+            self.timeline.record("gpu", "fwd", t0[0], self._now())
+            self.dispatches += 1
+            self.streamer.release(i)
+
+        curs, cache = SHD.prefill(self.plan, self.resident, tokens, kv_cap,
+                                  act_cap, kv_keep, last_pos, layers=layers,
+                                  after_layer=after, lay=self._layout)
+        self.dispatches += 1
+        self.timeline.end_step(now=self._now())
+        return curs, cache
+
+    def _spill_out_sharded(self, cache, region, rows):
+        """Each position's KV slice into its model shard's arena (the owners
+        of each slice write it once: a replicated slice from model position
+        0, a batch not split over data from data row 0), the device copies
+        freed.  -> (each position's arena views [k, v] (L, b, kv_cap, KVH_c,
+        D), the positions that store back, the KV lengths on the host)."""
+        lay = self._layout
+        regions = region.regions if isinstance(region, ShardedRegion) \
+            else [region]
+        B = cache["k"].shape[1]
+        split_b = self.plan.batch_split(B)
+        views, owners = {}, set()
+        t0 = self._now()
+        nbytes = {}
+        for r, row in enumerate(rows):
+            b0, b1 = int(row.bidx[0]), int(row.bidx[-1]) + 1
+            for c, pos in enumerate(row.pos):
+                # one arena per model shard; a single arena (the factor fell
+                # to 1) holds the shards' slices one after another
+                reg = regions[c % len(regions)] if lay.kv_split else regions[0]
+                t = cache["k"].shard(pos)
+                at = 0 if len(regions) > 1 or not lay.kv_split else \
+                    c * 2 * t.numel() * B // len(row.bidx) * t.element_size()
+                planes = []
+                for key in ("k", "v"):
+                    t = cache[key].shard(pos)
+                    shape = (t.shape[0], B) + tuple(t.shape[2:])
+                    plane = reg.view(shape, t.dtype, at)[:, b0:b1]
+                    at += math.prod(shape) * t.element_size()
+                    planes.append(plane)
+                views[pos.index] = planes
+                if (lay.kv_split or c == 0) and (split_b or r == 0):
+                    owners.add(pos.index)
+                    for plane, key in zip(planes, ("k", "v")):
+                        t = cache[key].shard(pos)
+                        plane.copy_(t, non_blocking=True)
+                        nbytes[pos.index] = nbytes.get(pos.index, 0) + \
+                            t.numel() * t.element_size()
+        end = self._now()
+        for shard, n in nbytes.items():
+            self.timeline.record("pcie_up", "st", t0, end, n, shard)
+        kv_len = cache["kv_len"].full().cpu().numpy().copy()
+        self.blocking_syncs += 1
+        for key in ("k", "v"):
+            x = cache[key]
+            cache[key] = Sharded(x.mesh, x.spec, x.shape, x.dtype,
+                                 [views[i][0 if key == "k" else 1]
+                                  for i in range(len(x.shards))])
+        return views, owners, kv_len
+
+    def _decode_sharded(self, cur, cache, sched, active, *, spill_region=None,
+                        pages_bound=None, act_pages_bound=None):
+        """The layer-streamed decode over the plan's mesh (``decode_loop``
+        and ``decode_chunk``): ``cur`` one (b,) per data row, ``sched`` (S,
+        B) host bools, ``active`` (S, B) or None.  -> ((B, S + 1) int32
+        numpy: the tokens, -1 where inactive, then the next cur;
+        the next cur per row)."""
+        plan = self.plan
+        n_steps, B = sched.shape
+        rows = SHD.rows_for(plan, B)
+        dev0 = plan.mesh.devices[0]
+        spill = spill_region is not None
+        at = {"seq": 0, "step": 0, "t0": None}     # where the loop is
+        if spill:
+            views, owners, at["kv_len"] = self._spill_out_sharded(
+                cache, spill_region, rows)
+            bufs = {i: [torch.empty_like(v[0], device=plan.mesh.devices[i])
+                        for v in views[i]] for i in views}
+        L = self.cfg.num_layers
+        self.streamer.begin([l for _ in range(n_steps) for l in range(L)])
+
+        def before_step(s):
+            at["step"] = s
+            self.timeline.begin_step("decode", now=self._now())
+            self.dispatches += 1
+
+        def layers(i):
+            lps = self.streamer.acquire(at["seq"])
+            at["t0"] = self._now()
+            return lps
+
+        def kv(i):
+            out = self._kv_upload_sharded(views, bufs, i)
+            at["t0"] = self._now()
+            return out
+
+        def after_layer(i):
+            self.timeline.record("gpu", "fwd", at["t0"], self._now())
+            self.dispatches += 1
+            if spill:
+                self._store_back_sharded(rows, views, bufs, owners, i,
+                                         at["kv_len"], sched[at["step"]])
+            self.streamer.release(at["seq"])
+            at["seq"] += 1
+
+        def after_step(s, logits):
+            self.dispatches += 1
+            if spill:
+                at["kv_len"] = at["kv_len"] + (~sched[s]).astype(
+                    at["kv_len"].dtype)
+            self.timeline.end_step(now=self._now())
+
+        both, cur = SHD.decode_chunk(
+            plan, self.resident, cur, cache, M.upload(sched, dev0),
+            None if active is None else M.upload(active, dev0),
+            pages_bound=pages_bound, act_pages_bound=act_pages_bound,
+            layers=layers, kv=kv if spill else None, before_step=before_step,
+            after_layer=after_layer, after_step=after_step, lay=self._layout)
+        out = both.cpu().numpy()
+        self.blocking_syncs += 1
+        if spill:
+            for key in ("k", "v"):
+                cache[key] = None
+        return out, cur
+
+    def _kv_upload_sharded(self, views, bufs, l: int):
+        """Each position's slice of layer ``l``'s spilled region into its
+        device buffers, on the compute stream (after that layer's last
+        store-back, which the same stream issued).  -> {position: (k, v)}."""
+        out = {}
+        for i, planes in views.items():
+            t0 = self._now()
+            for buf, plane in zip(bufs[i], planes):
+                buf.copy_(plane[l], non_blocking=True)
+            self.timeline.record("pcie", "kv", t0, self._now(),
+                                 sum(b.numel() * b.element_size()
+                                     for b in bufs[i]), i)
+            out[i] = tuple(bufs[i])
+        return out
+
+    def _store_back_sharded(self, rows, views, bufs, owners, l: int,
+                            kv_len_np, store_np) -> None:
+        """Each owner position's new K/V rows of layer ``l`` (the KV-bound
+        requests') into its arena slice, D2H and asynchronous."""
+        for row in rows:
+            for pos in row.pos:
+                if pos.index not in owners:
+                    continue
+                t0, nbytes = self._now(), 0
+                cap = views[pos.index][0].shape[2]
+                for j, b in enumerate(row.bidx):
+                    if store_np[b]:
+                        continue
+                    at = min(int(kv_len_np[b]), cap - 1)
+                    for plane, buf in zip(views[pos.index], bufs[pos.index]):
+                        plane[l, j, at].copy_(buf[j, at], non_blocking=True)
+                        nbytes += buf[j, at].numel() * buf.element_size()
+                self.timeline.record("pcie_up", "st", t0, self._now(), nbytes,
+                                     pos.index)
 
     # ================================================================== misc
     def drain_timeline(self, tag: Optional[str] = "decode"):

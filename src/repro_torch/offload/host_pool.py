@@ -17,6 +17,12 @@ Two pools, both allocated ONCE and reused across groups:
   allocated region, so spill data is written and read in place with no
   steady-state host allocation (the CPU lane reads them through ``.numpy()``).
 
+Under a ``ShardPlan`` the weight pool holds, instead of whole layers, each
+mesh position's slice of every layer under the serve specs (``lane_view``):
+each position streams only its own bytes through its own lane.  Spilled KV
+regions then live in one arena per model-axis shard (``ShardedSpillPool``,
+``make_spill_pool(shards=)``), each holding its shard's slice of every block.
+
 ``BlockManager`` (core/blocks.py) accounts the same blocks logically.
 """
 from __future__ import annotations
@@ -80,12 +86,19 @@ class HostWeightPool:
     leading axis = layer), on any device.  Each layer is copied into its
     own flat host buffer, pinned when ``device`` is CUDA; the rest of the
     tree is copied to ``device``.  Several engines may share one pool.
+
+    ``plan`` (a ``ShardPlan``): the host copy is cut per mesh position
+    instead, under the plan's serve specs with the layer dim dropped
+    (``layer_leaf_specs``); ``lane_view(i)`` is position ``i``'s slice of
+    every layer, one flat buffer per layer, with the pool's interface for
+    its ``WeightStreamer``.  No whole-layer buffer is kept then.
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
-                 device="cuda"):
+                 plan=None, device="cuda"):
         assert "layers" in params, "host offload drives uniform-family models"
         self.cfg = cfg
+        self.plan = plan
         self.device = torch.device(device)
         self.resident = {k: _to(v, self.device) for k, v in params.items()
                          if k != "layers"}
@@ -94,16 +107,23 @@ class HostWeightPool:
         self.layout = LayerLayout(first)
         self._bufs: List[torch.Tensor] = []
         self._layers: List[Dict[str, Any]] = []
+        self._lanes: List["LaneView"] = []
+        self.layer_leaf_specs: Dict[tuple, tuple] = {}
+        if plan is not None:
+            specs = plan.param_specs_for(params)["layers"]
+            for path, _ in _flatten(first):
+                self.layer_leaf_specs[path] = plan.layer_leaf_spec(
+                    _get(specs, path))
+            self._lanes = [LaneView(self, stacked, pos)
+                           for pos in plan.lane_devices()]
+            self.layer_nbytes = [sum(ln.layout.nbytes for ln in self._lanes)
+                                 ] * cfg.num_layers
+            return
         for l in range(cfg.num_layers):
             buf = host_empty(self.layout.nbytes, self.device)
-            tree = self.layout.views(buf)
-            for path, src in _flatten(_index(stacked, l)):
-                dst = tree
-                for k in path:
-                    dst = dst[k]
-                dst.copy_(src)
+            _fill(self.layout.views(buf), _index(stacked, l))
             self._bufs.append(buf)
-            self._layers.append(tree)
+            self._layers.append(self.layout.views(buf))
         self.layer_nbytes = [self.layout.nbytes] * cfg.num_layers
 
     def layer(self, l: int):
@@ -114,9 +134,62 @@ class HostWeightPool:
         """Layer ``l``'s flat host buffer (what one copy moves)."""
         return self._bufs[l]
 
+    def lane_view(self, lane: int) -> "LaneView":
+        return self._lanes[lane]
+
     @property
     def pinned(self) -> bool:
-        return all(b.is_pinned() for b in self._bufs)
+        bufs = self._bufs + [b for ln in self._lanes for b in ln._bufs]
+        return all(b.is_pinned() for b in bufs)
+
+
+class LaneView:
+    """One mesh position's slice of a ``HostWeightPool``: every layer's
+    leaves cut to the position's index (``plan.device_slices``) and packed
+    into one flat host buffer per layer; it has the pool's interface for a
+    ``WeightStreamer`` (``device``, ``layout``, ``layer``, ``buffer``,
+    ``layer_nbytes``)."""
+
+    def __init__(self, pool: HostWeightPool, stacked, pos):
+        plan = pool.plan
+        self.pos, self.device = pos, pos.device
+        first = _index(stacked, 0)
+        idx = {path: plan.device_slices(pool.layer_leaf_specs[path],
+                                        tuple(t.shape))[pos]
+               for path, t in _flatten(first)}
+        sliced = lambda tree: _tree({p: t[idx[p]] for p, t in _flatten(tree)})
+        self.layout = LayerLayout(sliced(first))
+        self._bufs, self._layers = [], []
+        for l in range(pool.cfg.num_layers):
+            buf = host_empty(self.layout.nbytes, pos.device)
+            _fill(self.layout.views(buf), sliced(_index(stacked, l)))
+            self._bufs.append(buf)
+            self._layers.append(self.layout.views(buf))
+        self.layer_nbytes = [self.layout.nbytes] * pool.cfg.num_layers
+
+    def layer(self, l: int):
+        return self._layers[l]
+
+    def buffer(self, l: int) -> torch.Tensor:
+        return self._bufs[l]
+
+
+def _fill(dst_tree, src_tree) -> None:
+    for path, src in _flatten(src_tree):
+        _get(dst_tree, path).copy_(src)
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tree(leaves: Dict[tuple, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for path, t in leaves.items():
+        _set(out, path, t)
+    return out
 
 
 def _index(tree, i):
@@ -243,14 +316,67 @@ def kv_region_blocks(B: int, kv_cap: int) -> int:
     return B * (kv_cap // BLOCK_TOKENS)
 
 
+class ShardedRegion:
+    """Per-model-shard spill regions allocated together, one per arena of a
+    ``ShardedSpillPool``."""
+
+    def __init__(self, regions: List[Region]):
+        self.regions = regions
+
+    def free(self) -> None:
+        for r in self.regions:
+            r.free()
+
+
+class ShardedSpillPool:
+    """One pinned arena per model-axis shard, each holding that shard's
+    slice of every spilled block (``kv_block_bytes(cfg, shards)`` per
+    block), so spill traffic is per lane.  ``alloc`` is all-or-nothing
+    across the arenas; the interface is ``HostBlockPool``'s."""
+
+    def __init__(self, lanes: List[HostBlockPool]):
+        assert lanes
+        self.lanes = lanes
+
+    def alloc(self, n_blocks: int) -> Optional[ShardedRegion]:
+        regions: List[Region] = []
+        for lane in self.lanes:
+            r = lane.alloc(n_blocks)
+            if r is None:
+                for got in regions:
+                    got.free()
+                return None
+            regions.append(r)
+        return ShardedRegion(regions)
+
+    @property
+    def allocated_blocks(self) -> int:
+        """Logical blocks allocated (each arena holds one slice of each)."""
+        return self.lanes[0].allocated_blocks
+
+    @property
+    def free_blocks(self) -> int:
+        return min(lane.free_blocks for lane in self.lanes)
+
+    def check_invariants(self) -> None:
+        for lane in self.lanes:
+            lane.check_invariants()
+
+
 def make_spill_pool(cfg: ModelConfig, *, max_requests: int, kv_cap: int,
-                    quant=None, device="cuda") -> HostBlockPool:
+                    shards: int = 1, quant=None, device="cuda"):
     """The engine's once-allocated KV staging pool: enough host blocks to
     back the largest group's KV region, plus one group of slack.  This is
     the *staging* arena the executor spills into, not the full Algorithm-1
     host cache.  (ACT blocks prefer device residency and are never spilled,
     so no ACT arena exists.)  ``quant`` sizes each block by the quantized
-    layout, int8 codes and float16 scales: the arena shrinks with it."""
+    layout, int8 codes and float16 scales: the arena shrinks with it.
+    ``shards`` > 1: a ``ShardedSpillPool``, one arena per model-axis shard
+    sized for its 1/N block slices."""
     kv_blocks = 2 * kv_region_blocks(max_requests, kv_cap)
-    return HostBlockPool(kv_blocks, kv_block_bytes(cfg, quant=quant),
-                         device=device)
+    if shards == 1:
+        return HostBlockPool(kv_blocks, kv_block_bytes(cfg, quant=quant),
+                             device=device)
+    return ShardedSpillPool([
+        HostBlockPool(kv_blocks, kv_block_bytes(cfg, shards, quant=quant),
+                      device=device) for _ in range(shards)])

@@ -33,8 +33,13 @@ schedule position, on the copy stream just before its weights: the
 executor's spilled-KV upload rides the same lane and the same slot
 discipline.
 
+Under a ``ShardPlan`` each mesh position has a streamer of its own
+(``ShardedWeightLanes``): its lane view of the pool, its staging ring, its
+copy stream, its ``shard`` stamped on every span and counter.  Where
+positions share a card their lanes share its host link.
+
 Robustness (the reference's ladder): ``faults`` is consulted once per issued
-copy at site ``"stage:0"``.  An injected ``copy_fail`` issues nothing and
+copy at site ``"stage:<shard>"``.  An injected ``copy_fail`` issues nothing and
 raises ``TransientCopyError`` at ``acquire``, which retries up to
 ``MAX_COPY_RETRIES`` times with exponential backoff; an injected stall or
 slowdown holds the copy's landing back by its seconds.  ``watchdog_s`` arms a
@@ -67,9 +72,6 @@ from repro_torch.offload.timeline import MeasuredTimeline
 FAULT_COUNTER_KEYS = ("watchdog_timeouts", "copy_retries", "copy_failures",
                       "sync_fallbacks", "stalls_injected")
 
-#: fault-injection site of the (single) weight lane
-STAGE_SITE = "stage:0"
-
 #: host poll interval while a watchdog waits on a landed event
 _POLL_S = 5e-5
 
@@ -91,16 +93,19 @@ def timing_event(stream=None):
 
 
 class WeightStreamer:
-    """Streams per-layer weight shards from a ``HostWeightPool``."""
+    """Streams per-layer weight shards from a ``HostWeightPool`` (or one
+    position's ``LaneView`` of it, ``shard`` its index)."""
 
     def __init__(self, pool: HostWeightPool, *, prefetch_depth: int = 1,
                  timeline: Optional[MeasuredTimeline] = None,
                  faults: Optional[FaultPlan] = None,
                  watchdog_s: Optional[float] = None,
-                 metrics: Optional[MetricsRegistry] = None):
+                 metrics: Optional[MetricsRegistry] = None, shard: int = 0):
         assert prefetch_depth >= 0
         assert watchdog_s is None or watchdog_s > 0.0
         self.pool = pool
+        self.shard = int(shard)
+        self.site = f"stage:{self.shard}"
         self.device = pool.device
         self.cuda = self.device.type == "cuda"
         self.depth = prefetch_depth
@@ -130,7 +135,7 @@ class WeightStreamer:
             self.counters: Dict[str, int] = {k: 0 for k in FAULT_COUNTER_KEYS}
         else:
             self.counters = CounterDictView(
-                metrics, "streamer_faults", labels={"shard": 0},
+                metrics, "streamer_faults", labels={"shard": self.shard},
                 keys=FAULT_COUNTER_KEYS)
 
     # ------------------------------------------------------------------ copies
@@ -139,7 +144,7 @@ class WeightStreamer:
         site: an injected copy_fail issues nothing)."""
         ready_at = 0.0
         if self.faults is not None:
-            ev = self.faults.draw(STAGE_SITE,
+            ev = self.faults.draw(self.site,
                                   kinds=("stall", "copy_fail", "slow"))
             if ev is not None:
                 if ev.kind == "copy_fail":
@@ -175,7 +180,7 @@ class WeightStreamer:
             start = time.perf_counter()
             dst.copy_(src)
             end = time.perf_counter()
-        self.timeline.record("pcie", "w", start, end, nbytes)
+        self.timeline.record("pcie", "w", start, end, nbytes, self.shard)
         self.uploads += 1
         self.bytes_uploaded += nbytes
         return end if self.cuda else None
@@ -330,3 +335,72 @@ class WeightStreamer:
     @property
     def fault_counters(self) -> Dict[str, int]:
         return dict(self.counters)
+
+
+class ShardedWeightLanes:
+    """Per-mesh-position weight lanes behind the ``WeightStreamer`` API: one
+    streamer per position of ``plan``, each with its own staging ring and
+    copy stream, staging only that position's slice of every layer
+    (``HostWeightPool.lane_view``).  ``acquire(i)`` returns every
+    position's layer tree, by position index.  Spans go into one shared
+    timeline with each lane's ``shard``, so a step's lane seconds aggregate
+    by the max across lanes."""
+
+    def __init__(self, pool: HostWeightPool, plan, *, prefetch_depth: int = 1,
+                 timeline: Optional[MeasuredTimeline] = None,
+                 faults: Optional[FaultPlan] = None,
+                 watchdog_s: Optional[float] = None,
+                 metrics: Optional[MetricsRegistry] = None):
+        self.plan, self.pool = plan, pool
+        self.timeline = timeline if timeline is not None else MeasuredTimeline()
+        self.lanes = [
+            WeightStreamer(pool.lane_view(i), prefetch_depth=prefetch_depth,
+                           timeline=self.timeline, faults=faults,
+                           watchdog_s=watchdog_s, metrics=metrics, shard=i)
+            for i in range(len(plan.lane_devices()))]
+
+    def begin(self, schedule: Sequence[int]) -> None:
+        sched = list(schedule)
+        for lane in self.lanes:
+            lane.begin(sched)
+
+    def acquire(self, i: int) -> List[dict]:
+        return [lane.acquire(i) for lane in self.lanes]
+
+    def release(self, i: int) -> None:
+        for lane in self.lanes:
+            lane.release(i)
+
+    def close(self) -> None:
+        for lane in self.lanes:
+            lane.close()
+
+    # aggregated stats (per-lane detail on .lanes)
+    @property
+    def uploads(self) -> int:
+        return sum(lane.uploads for lane in self.lanes)
+
+    @property
+    def bytes_uploaded(self) -> int:
+        return sum(lane.bytes_uploaded for lane in self.lanes)
+
+    @property
+    def peak_resident(self) -> int:
+        return max(lane.peak_resident for lane in self.lanes)
+
+    @property
+    def degraded(self) -> bool:
+        return any(lane.degraded for lane in self.lanes)
+
+    @property
+    def lane_health(self) -> str:
+        """Worst health across lanes: one degraded lane degrades the mesh."""
+        return "degraded" if self.degraded else "healthy"
+
+    @property
+    def fault_counters(self) -> Dict[str, int]:
+        agg: Dict[str, int] = {}
+        for lane in self.lanes:
+            for k, v in lane.counters.items():
+                agg[k] = agg.get(k, 0) + v
+        return agg

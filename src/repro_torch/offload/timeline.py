@@ -51,7 +51,10 @@ class Span:
     start: Stamp
     end: Stamp
     nbytes: int = 0
-    shard: int = 0            # the reference's mesh lane; one device here
+    # mesh-position lane: under a ShardPlan every position owns its weight
+    # lane, so one step's per-shard spans aggregate by MAX (the lanes run in
+    # parallel), not by sum; 0 everywhere reduces to the plain sums
+    shard: int = 0
 
     @property
     def dur(self) -> float:
@@ -165,9 +168,9 @@ class MeasuredTimeline:
 
     # ------------------------------------------------------------------ spans
     def record(self, lane: str, tag: str, start: Stamp, end: Stamp,
-               nbytes: int = 0) -> None:
+               nbytes: int = 0, shard: int = 0) -> None:
         assert lane in LANES, lane
-        span = Span(lane, tag, start, end, nbytes)
+        span = Span(lane, tag, start, end, nbytes, shard)
         with self._lock:
             if self._cur is None:           # span outside any step: open one
                 self._cur = _Step(tag="untagged", start=start)
@@ -176,7 +179,8 @@ class MeasuredTimeline:
                 self._untraced.append(span)
                 return
         if self.tracer is not None:
-            self.tracer.lane_span(lane, tag, start, end, nbytes=nbytes)
+            self.tracer.lane_span(lane, tag, start, end, nbytes=nbytes,
+                                  shard=shard)
 
     def record_event(self, name: str, n: int = 1) -> None:
         """Count a robustness event (watchdog timeout, copy retry, lane
@@ -213,21 +217,32 @@ class MeasuredTimeline:
                               if _is_event(sp.start) or _is_event(sp.end)]
         for sp in ready:
             self.tracer.lane_span(sp.lane, sp.tag, sp.start, sp.end,
-                                  nbytes=sp.nbytes)
+                                  nbytes=sp.nbytes, shard=sp.shard)
         for s in steps:
-            busy = {l: 0.0 for l in LANES}
-            tag_busy: dict = {}
+            # per-(lane, shard) and per-(tag, shard) sums, then the MAX
+            # across shards: parallel lanes, the slowest is the step's lane
+            # time.  Bytes are additive.
+            busy_s: dict = {}
+            tag_s: dict = {}
             traffic = {k: 0.0 for k in TRAFFIC_TAGS}
             finish = []
             end = s.end
             for sp in s.spans:
-                busy[sp.lane] += sp.dur
-                tag_busy[sp.tag] = tag_busy.get(sp.tag, 0.0) + sp.dur
+                busy_s[(sp.lane, sp.shard)] = \
+                    busy_s.get((sp.lane, sp.shard), 0.0) + sp.dur
+                tag_s[(sp.tag, sp.shard)] = \
+                    tag_s.get((sp.tag, sp.shard), 0.0) + sp.dur
                 cat = _TAG_TO_TRAFFIC.get(sp.tag)
                 if cat is not None:
                     traffic[cat] += sp.nbytes
                 finish.append(sp.end - s.start)
                 end = max(end, sp.end)
+            busy = {l: 0.0 for l in LANES}
+            for (l, _), v in busy_s.items():
+                busy[l] = max(busy[l], v)
+            tag_busy: dict = {}
+            for (t, _), v in tag_s.items():
+                tag_busy[t] = max(tag_busy.get(t, 0.0), v)
             out.append(MeasuredStep(
                 total=end - s.start, pcie_busy=busy["pcie"],
                 gpu_busy=busy["gpu"], cpu_busy=busy["cpu"], traffic=traffic,

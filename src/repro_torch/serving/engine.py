@@ -34,8 +34,14 @@ split re-balances as the reference's does.
 timelines (``core.controller``) and retags free host capacity toward the
 refit split; ``tracer=``/``metrics=`` record the request and server spans,
 the lane timelines and the counters (``obs``).  All of it is host-side, on
-results already read: no call and no sync is added.  Sharding is not part of
-this engine yet.
+results already read: no call and no sync is added.
+
+``plan=make_shard_plan(cfg, mesh, params)`` serves tensor-parallel over the
+plan's mesh (``models.sharded``): the weights laid out under the serve
+specs, the cache under ``plan.cache_spec``, each position's attention on the
+kernels at its head counts, and the policy stack pricing the aggregate
+machine (``costmodel.scale_for_shards``).  A group is still one prefill call
+and one decode call with one readback.
 """
 from __future__ import annotations
 
@@ -61,13 +67,15 @@ from repro_torch.core.policy import (HostAllocation, device_act_blocks,
 from repro_torch.core.costmodel import profile_cost_fns
 from repro_torch.data.pipeline import Request
 from repro_torch.models import model as M
+from repro_torch.models import sharded as SHD
 from repro_torch.models import transformer as T
 from repro_torch.obs import (NULL_TRACER, DriftMonitor, ScalarStatsView,
                              fold_timeline_metrics,
                              register_busy_fraction_collector)
 from repro_torch.serving.recovery import CapacityError
 from repro_torch.serving.util import (bucket, collect_block_metrics, pack_group,
-                                     retag_toward)
+                                     retag_toward, trace_ctx)
+from repro_torch.sharding import collectives
 
 
 class GenStats(ScalarStatsView):
@@ -116,7 +124,7 @@ class HybridServeEngine:
                  watchdog_s: Optional[float] = None, adaptive: bool = False,
                  ctl: Optional[ControllerConfig] = None, tracer=None,
                  metrics=None, quant: Optional[QuantConfig] = None,
-                 device="cuda"):
+                 plan=None, device="cuda"):
         """``params`` must already live on ``device`` (under ``offload`` they
         may live anywhere, or be a ``HostWeightPool`` shared between
         engines).
@@ -166,12 +174,14 @@ class HybridServeEngine:
             raise ValueError("the adaptive controller re-balances the hybrid "
                              "split; the kv and act baselines pin the ratio")
         T.check_supported(cfg, "engine")
+        plan, self.device, hw, shards = SHD.resolve_plan(
+            cfg, plan, device, hw, quant, host_attn)
+        self.plan = plan
         self.cfg, self.params, self.hw, self.mode = cfg, params, hw, mode
         self.quant = quant
         self.host_attn = bool(host_attn)
         self.offload = offload
         self.budget = budget if budget is not None else offload_budget(cfg)
-        self.device = torch.device(device)
         self.max_minibatch = max_minibatch
         self.kv_cap, self.act_cap = kv_cap, act_cap
         # telemetry, host-side only: NULL_TRACER is off
@@ -206,7 +216,7 @@ class HybridServeEngine:
             cfg, host_kv_blocks=max(self.alloc.kv_blocks, 1),
             host_act_blocks=max(self.alloc.act_blocks, 1),
             dev_kv_blocks=self.budget.dev_kv_blocks(cfg) if offload else 64,
-            dev_act_blocks=dev_act, quant=quant)
+            dev_act_blocks=dev_act, shard_factor=shards, quant=quant)
         self.executor = None
         self.measured_steps: List[TimelineResult] = []
         self.faults = faults
@@ -216,14 +226,17 @@ class HybridServeEngine:
             self.executor = OffloadExecutor(
                 cfg, params, prefetch_depth=self.budget.prefetch_depth,
                 faults=faults, watchdog_s=watchdog_s, tracer=tracer,
-                metrics=metrics, quant=quant, device=device)
+                metrics=metrics, quant=quant, plan=plan, device=self.device)
             self.spill_kv_pool = make_spill_pool(
                 cfg, max_requests=max_minibatch, kv_cap=kv_cap, quant=quant,
-                device=device)
+                shards=shards, device=self.device)
             # the executor owns the host copy of the layer weights and the
             # resident tree; the engine holds no reference to the caller's
             # parameters, so they can be freed from the device
             self.params = None
+        elif plan is not None:
+            self.params = plan.place_params(params)
+            self._layout = SHD.Layout(plan)
 
     def close(self) -> None:
         """Drain the offload executor's copy stream and join its cpu-lane
@@ -274,6 +287,8 @@ class HybridServeEngine:
         collect_block_metrics(reg, self.blockman, self.act_frac,
                               self.controller)
         reg.counter("arena_denials").set(self.arena_denials)
+        if self.plan is not None:
+            collectives.record(reg)
 
     def generate(self, requests: List[Request]) -> Tuple[Dict[int, np.ndarray], GenStats]:
         stats = GenStats(self.metrics)
@@ -366,6 +381,13 @@ class HybridServeEngine:
                         toks, kv_keep, pbs, kv_cap=self.kv_cap,
                         act_cap=self.act_cap)
                     stats.device_calls += self.executor.dispatches - d0
+                elif self.plan is not None:
+                    with trace_ctx(self.plan):
+                        cur, cache = SHD.prefill(
+                            self.plan, self.params, toks, self.kv_cap,
+                            self.act_cap, kv_keep, pbs, lay=self._layout)
+                        cache = self.plan.constrain_cache(cache)
+                    stats.device_calls += 1
                 else:
                     lg, cache = M.hybrid_prefill_batched(
                         self.params, cfg, torch.from_numpy(toks).to(dev),
@@ -442,6 +464,16 @@ class HybridServeEngine:
                                                        for m in measured)
                         stats.measured_cpu_busy += sum(m.cpu_busy
                                                        for m in measured)
+                    elif self.plan is not None:
+                        sched_dev = M.upload(np.ascontiguousarray(sched.T),
+                                             dev)
+                        with trace_ctx(self.plan):
+                            both, _ = SHD.decode_chunk(
+                                self.plan, self.params, cur, cache, sched_dev,
+                                pages_bound=pages_bound,
+                                act_pages_bound=act_bound, lay=self._layout)
+                        gen = both[:, :-1].cpu().numpy()
+                        stats.device_calls += 1
                     else:
                         sched_dev = torch.from_numpy(
                             np.ascontiguousarray(sched.T)).to(dev)

@@ -26,7 +26,11 @@ park, resume through a re-prefill) is ``serving.recovery``'s.
 admission and chunk spans, the lane timelines and the counters, with TTFT and
 TBT histograms.  Both are host-side, on results the chunk already read.
 
-Not here yet: sharding (ROADMAP queue 1, item 5); asking for it raises.
+``plan=`` serves tensor-parallel over a ``ShardPlan``'s mesh
+(``models.sharded``): the slot cache is laid out under ``plan.cache_spec``
+(slots over 'data' where they divide), an admission batch is prefilled by
+the data rows that own its slots, and the chunk structure (one call and one
+readback per admission batch and per chunk) holds on every mesh.
 """
 from __future__ import annotations
 
@@ -47,8 +51,8 @@ from repro_torch.core.policy import (HostAllocation, device_act_blocks,
                                      store_act_schedule)
 from repro_torch.core.quant import QuantConfig
 from repro_torch.data.pipeline import Request
-from repro_torch.launch.mesh import SHARDING
 from repro_torch.models import model as M
+from repro_torch.models import sharded as SHD
 from repro_torch.models import transformer as T
 from repro_torch.obs import (NULL_TRACER, DriftMonitor, fold_timeline_metrics,
                              register_busy_fraction_collector)
@@ -56,7 +60,8 @@ from repro_torch.serving.recovery import (CapacityError, ParkedRequest,
                                           RecoveryConfig, RecoveryStats,
                                           blocks_for_tokens, resume_cost)
 from repro_torch.serving.util import (bucket, collect_block_metrics, kv_keep_for,
-                                     pack_group, retag_toward)
+                                     pack_group, retag_toward, trace_ctx)
+from repro_torch.sharding import collectives as C
 
 
 @dataclass
@@ -186,15 +191,20 @@ class ContinuousBatchingServer:
         with ``snapshot()``).  Tokens, calls and syncs are those of a run
         without.
 
-        plan (sharding): not ported yet; raises."""
-        if plan is not None:
-            raise NotImplementedError(f"sharded serving: {SHARDING}")
+        plan=ShardPlan: tensor-parallel over the plan's mesh (``params`` on
+        any device; laid out on the positions').  The slot cache follows
+        ``plan.cache_spec``, the policy stack prices
+        ``scale_for_shards(hw, plan.shard_factor)``, and under ``offload``
+        each position streams its own weight slice.  The int8 cache and the
+        CPU lane under a plan raise ``NotImplementedError``."""
         T.check_supported(cfg, "server")
+        plan, self.device, hw, shards = SHD.resolve_plan(
+            cfg, plan, device, hw, quant, host_attn)
+        self.plan = plan
         if host_attn and not offload:
             raise ValueError("host_attn rides the offload runtime's host mirror")
         self.host_attn = bool(host_attn)
         self.quant = quant
-        self.device = torch.device(device)
         self.cfg, self.params, self.hw = cfg, params, hw
         self.n_slots, self.kv_cap, self.act_cap = slots, kv_cap, act_cap
         self.chunk_steps = max(int(chunk_steps), 1)
@@ -229,7 +239,7 @@ class ContinuousBatchingServer:
                            else 64),
             dev_act_blocks=(dev_act_blocks if dev_act_blocks is not None
                             else dev_act),
-            quant=quant)
+            shard_factor=shards, quant=quant)
         self.recovery = recovery if recovery is not None else RecoveryConfig()
         self.recovery_stats = RecoveryStats(metrics)
         self.parked: List[ParkedRequest] = []
@@ -237,8 +247,13 @@ class ContinuousBatchingServer:
         # offload: per-iteration timelines drained out of the executor per
         # chunk (keeping its span store bounded), kept for measured_steps
         self._measured: List = []
-        self.cache = M.init_hybrid_cache(cfg, slots, kv_cap, act_cap,
-                                         device=self.device, quant=quant)
+        if plan is None:
+            self.cache = M.init_hybrid_cache(cfg, slots, kv_cap, act_cap,
+                                             device=self.device, quant=quant)
+        else:
+            self._layout = SHD.Layout(plan)
+            self._rows = SHD.rows_for(plan, slots)
+            self.cache = SHD.init_cache(self._layout, slots, kv_cap, act_cap)
         self.slots = [SlotState() for _ in range(slots)]
         self.executor = None
         if offload:
@@ -246,8 +261,11 @@ class ContinuousBatchingServer:
             self.executor = OffloadExecutor(
                 cfg, params, prefetch_depth=prefetch_depth, faults=faults,
                 watchdog_s=watchdog_s,
-                tracer=tracer, metrics=metrics, quant=quant,
+                tracer=tracer, metrics=metrics, quant=quant, plan=plan,
                 device=self.device)
+        if plan is not None:
+            # admission runs the resident weights, under offload too
+            self.params = plan.place_params(params)
         self._cur_tok = np.zeros((slots,), np.int32)
 
     @property
@@ -275,6 +293,8 @@ class ContinuousBatchingServer:
         collect_block_metrics(reg, self.blockman, self.act_frac,
                               self.controller)
         reg.gauge("parked_requests").set(len(self.parked))
+        if self.plan is not None:
+            C.record(reg)
 
     def close(self) -> None:
         """Shut down the offload executor (no-op device-resident): it owns a
@@ -297,11 +317,40 @@ class ContinuousBatchingServer:
         sample of its logits, and the scatter of the new rows into the free
         slots of the server cache; the first tokens reach the host in one
         readback.  -> (k,) int32."""
+        if self.plan is not None:
+            return self._admit_sharded(tokens, kv_keep, last_pos, slot_idx)
         lg, new = M.hybrid_prefill_batched(
             self.params, self.cfg, self._as_dev(tokens), self.kv_cap,
             self.act_cap, kv_keep, last_pos, quant=self.quant)
         scatter_rows(self.cache, new, self._as_dev(slot_idx).long())
         return lg[:, -1].argmax(-1).int().cpu().numpy()
+
+    def _admit_sharded(self, tokens, kv_keep, last_pos, slot_idx) -> np.ndarray:
+        """``_admit`` over the plan's mesh: each data row prefills the
+        admitted requests whose slots it holds and scatters them into its
+        slots; the rows' first tokens are gathered for the one readback."""
+        rows, order, ins = [], [], []
+        for row in self._rows:
+            sel = np.nonzero(np.isin(slot_idx, row.bidx))[0]
+            if not len(sel):
+                continue
+            rows.append(row)
+            order.append(sel)
+            ins.append((tokens[sel], kv_keep[sel], last_pos[sel]))
+        with trace_ctx(self.plan):
+            curs, caches, _ = SHD.prefill_rows(
+                self._layout, self.params, rows, *zip(*ins),
+                kv_cap=self.kv_cap, act_cap=self.act_cap)
+            for row, sel, new in zip(rows, order, caches):
+                local = M.upload(slot_idx[sel] - row.bidx[0], row.devs[0])
+                SHD.scatter_rows(self.cache, row, new, local.long())
+        if not self.plan.batch_split(self.n_slots):
+            return curs[0].cpu().numpy()
+        dev = self.plan.mesh.devices[0]
+        got = C.all_gather(curs, 0, [dev], kind="batch")[0].cpu().numpy()
+        out = np.empty_like(got)
+        out[np.concatenate(order)] = got
+        return out
 
     def _admission_split(self, pb: int) -> Tuple[int, int]:
         """(kv_tokens, act_tokens) the admission prefill will use for a
@@ -601,6 +650,21 @@ class ContinuousBatchingServer:
             stats.device_calls += self.executor.dispatches - d0
             stats.host_syncs += self.executor.blocking_syncs - b0
             return toks, cur
+        bounds = dict(pages_bound=kv_bound // BLOCK_TOKENS
+                      + act_bound // BLOCK_TOKENS,
+                      act_pages_bound=act_bound // BLOCK_TOKENS)
+        if self.plan is not None:
+            store, act = self._as_dev(sched_t), self._as_dev(active)
+            curs = [M.upload(self._cur_tok[r.bidx], r.devs[0])
+                    for r in self._rows]
+            with trace_ctx(self.plan):
+                both, _ = SHD.decode_chunk(self.plan, self.params, curs,
+                                           self.cache, store, act,
+                                           lay=self._layout, **bounds)
+            both = both.cpu().numpy()
+            stats.device_calls += 1
+            stats.host_syncs += 1
+            return both[:, :-1], both[:, -1]
         cur, store, act = (self._as_dev(a) for a in (self._cur_tok, sched_t,
                                                       active))
         toks, cur, self.cache = M.hybrid_decode_chunk(

@@ -3,11 +3,22 @@ adaptive controller's hooks that the engine and the server share."""
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import List, Tuple
 
 import numpy as np
 
 from repro_torch.core.blocks import BLOCK_TOKENS, BlockType, Location
+
+
+def trace_ctx(plan):
+    """Context for the serving calls: installs the plan's mesh into the
+    shardhints thread-local, so ``SH.constrain`` resolves against it.
+    ``plan=None`` is a no-op: the single-device paths run as before."""
+    if plan is None:
+        return nullcontext()
+    from repro_torch.models import shardhints as SH
+    return SH.use_mesh(plan.mesh)
 
 
 def bucket(n: int, mult: int = 16) -> int:

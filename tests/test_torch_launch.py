@@ -92,6 +92,9 @@ def test_serve_cli_trace_and_wall_clock(tmp_path, capsys):
 @pytest.mark.parametrize("bad", [["--mesh", "2,2"], ["--explain-plan"]],
                          ids=["mesh", "explain-plan"])
 def test_serve_cli_refuses_a_mesh(bad, capsys):
+    """A mesh the sharded path cannot serve yet (MoE, expert-parallel) is
+    refused naming item 5.2, whether served or explained."""
+    mesh = bad if "--mesh" in bad else ["--mesh", "1,2"] + bad
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "opt-6.7b-reduced", "--device", "cpu"] + bad)
-    assert "item 5" in capsys.readouterr().err
+        serve.main(["--arch", "dbrx-132b-reduced", "--device", "cpu"] + mesh)
+    assert "item 5.2" in capsys.readouterr().err

@@ -480,8 +480,7 @@ def test_quant_pricing_matches_jax(name):
     ref = j_blocks.BlockManager(jcfg, quant=jq, **sizes).explain().splitlines()
     assert mine[0].split("quant=")[1] == ref[0].split("quant=")[1] == \
         "kv=int8 act=int8 scales=float16"
-    for a, b in zip(mine[1:], ref[1:]):      # the reference adds a per-shard column
-        assert a == b.replace(f" ({b.split('(')[1].split(')')[0]})", "")
+    assert mine[1:] == ref[1:]                # the per-shard column too
 
 
 # ------------------------------------------------------------------ engine

@@ -159,8 +159,11 @@ def test_the_mesh_reads_as_the_reference_mesh():
     assert PM.make_production_mesh() == meshes("16x16")[0]
     assert PM.make_production_mesh(multi_pod=True) == meshes("2x16x16")[0]
     assert PM.make_host_mesh().shape == {"data": 1, "model": 1}
-    with pytest.raises(NotImplementedError, match="item 5"):
-        PM.make_test_mesh(1, 2)
+    dm = PM.make_test_mesh(1, 2, device="cpu")
+    assert dm.shape == {"data": 1, "model": 2} and dm.axis_names == \
+        tuple(meshes("16x16")[1].axis_names)
+    with pytest.raises(ValueError):
+        PM.make_test_mesh(0, 2, device="cpu")
     with pytest.raises(ValueError):
         PM.Mesh((2, 2), ("data",))
 
