@@ -89,7 +89,15 @@ spec's, teacher-forced logits against the 1x1 kernel run under the rule
 max(0.25, 2 x that run's own gap to the oracle), two planted faults (a
 ``wo`` partial dropped, KV-Gen on a position's own d_model slice); OPT's
 server with 4 slots and its offload executor (two weight lanes) on 1x2 as
-well.  Each path runs with the launch counts set to 0
+well.  Beside them (``SHARD_LEGS``): the int8 cache on 1x2 for both (held
+to the single-device int8 run at the leg's own schedule; layer 0's codes
+and scales bit-equal to it; on yi a planted fault, each position's ACT
+slice quantized against its own scale), OPT's offload executor with the
+CPU lane on 1x2 over the first group, yi on 1x8 teacher-forced on the
+first group (each position's 4 query heads over their one KV head of 4
+replicated), and in the MoE phase dbrx on 1x2, expert parallel, its
+routes replayed from the single-device run (a ``wo`` partial dropped as
+the planted fault).  Each path runs with the launch counts set to 0
 just before it and read just after.  One JSON line per
 phase; the line before the last lists every kernel with its launches on its
 path, error, times and bound; the last line is the device summary.  Any
@@ -1822,20 +1830,26 @@ def twin_specs() -> list:
 
 
 def spec_key(kind, kw) -> tuple:
-    """The ``launch_keys`` key a twin spec's row holds."""
+    """The ``launch_keys`` key a twin or shard spec's row holds (its int8
+    and ``return_lse`` modes by the row list's name and ``q8``)."""
     dt = str(kw.get("dtype", torch.bfloat16)).removeprefix("torch.")
+    q8, lse = bool(kw.get("q8")), "return_lse" in kind
     if kind == "ssd_scan":
         c = kw["cfg"]
         return ("ssd", c.ssm_num_heads, c.ssm_head_dim, c.ssm_state_size,
                 c.ssm_chunk, str(M.torch_dtype(c)).removeprefix("torch."))
-    if kind == "hybrid_paged_attention":
+    if kind.startswith("hybrid_paged_attention_two_pool"):
+        return ("two_pool", kw["KVH"], kw["G"], kw["D"], dt, q8, lse)
+    if kind.startswith("hybrid_paged_attention_return_lse"):
+        dt = str(kw.get("dtype", torch.float16)).removeprefix("torch.")
         return ("hybrid", kw["KVH"], kw["G"], kw["D"], kw["d"], dt,
-                kw["norm_type"], False, False)
-    if kind == "hybrid_paged_attention_two_pool":
-        return ("two_pool", kw["KVH"], kw["G"], kw["D"], dt, False, False)
-    if kind == "kv_gen":
+                "layernorm", q8, True)
+    if kind.startswith("hybrid_paged_attention"):
+        return ("hybrid", kw["KVH"], kw["G"], kw["D"], kw["d"], dt,
+                kw["norm_type"], q8, False)
+    if kind.startswith("kv_gen"):
         return ("kv_gen", kw["KVH"], kw["hd"], kw["d"], dt, kw["norm_type"],
-                False, False)
+                False, q8)
     mode = (kw["H"], kw["KVH"], kw["D"], dt, kw.get("window", 0),
             kw.get("causal", True))
     return ("flash_bwd" if kind == "flash_attention_bwd" else "flash",) + mode
@@ -1852,7 +1866,9 @@ def twin_kernel_rows(specs=None, tag="twin_key") -> dict:
         if at in seen:
             continue
         seen.add(at)
-        rows.setdefault(kind, []).append(dict(check(**kw), **{tag: list(key)}))
+        got = check(**kw)                   # check_lse: a row per case
+        for row in got if isinstance(got, list) else [got]:
+            rows.setdefault(kind, []).append(dict(row, **{tag: list(key)}))
     return rows
 
 
@@ -1862,43 +1878,76 @@ SHARD_MESHES = {"opt-6.7b": ((1, 2), (2, 2)), "yi-6b": ((1, 2),)}
 SHARD_SERVER = dict(slots=4, kv_cap=512, act_cap=512, chunk_steps=4)
 SHARD_LIMIT = 0.25
 SHARD_FAULTS = ("wo_partial_dropped", "kv_gen_on_own_d_slice")
+# the legs of item 5.2.1-5.2.3 beside them (each on its model's serve
+# weights): the int8 cache on 1x2 (yi's with the planted ACT scale fault:
+# each position quantizing against its own slice's scale), OPT's offload
+# executor with the CPU lane on 1x2 over the serve trace's first group, yi
+# on 1x8 (4 query heads a position over the one KV head they share, of 4
+# replicated) teacher-forced on the first group, and dbrx at its serve
+# cut on 1x2 (expert parallel, 8 of 16 experts a position; the ``wo``
+# fault)
+SHARD_LEGS = {"opt-6.7b": ("1x2 int8", "1x2 cpu lane"),
+              "yi-6b": ("1x2 int8", "1x8"),
+              "dbrx-132b": ("1x2",)}
+SHARD_INT8_FAULT = "act_scale_of_own_slice"
+
+
+def leg_mesh(leg: str) -> tuple:
+    return tuple(int(x) for x in leg.split()[0].split("x"))
 
 
 def shard_specs() -> list:
     """(row list, check, its arguments) at each per-position kernel key of
-    the shard phase, at the model axis 2 of its meshes: each position's
-    heads (H/2; KV heads /2 where they divide), d_model whole (the ACT rows
-    are gathered before KV-Gen), at the sharded engine's plan of the trace
-    (``serve_shape`` priced on ``scale_for_shards``).  The 2x2 mesh's
-    positions run the same keys."""
-    specs = []
-    for name in SHARD_MESHES:
-        cfg = get_config(name)
-        m = 2
-        plan = make_shard_plan(cfg, make_test_mesh(1, m, device="meta"))
-        sh = serve_shape(cfg, hw=scale_for_shards(H100_SXM,
-                                                  plan.shard_factor))
-        H = cfg.num_heads // m
-        KVH = cfg.num_kv_heads // m if cfg.num_kv_heads % m == 0 \
-            else cfg.num_kv_heads
+    the shard phase: at each mesh's model axis, each position's attended
+    head counts (``Layout.cfg_l``), d_model whole (the ACT rows are
+    gathered before KV-Gen), at the sharded engine's plan of the trace
+    (``serve_shape`` priced on ``scale_for_shards``; the int8 legs' at the
+    int8 engine's), the int8 and ``return_lse`` modes where a leg runs
+    them.  One row per key; the 2x2 mesh's positions run the 1x2 keys."""
+    specs, keys = [], set()
+
+    def add(kind, check, kw):
+        key = (kind, spec_key(kind, kw))
+        if key not in keys:
+            keys.add(key)
+            specs.append((kind, check, kw))
+
+    legs = [(name, f"{m[0]}x{m[1]}") for name, ms in SHARD_MESHES.items()
+            for m in ms]
+    legs += [(name, leg) for name, ls in SHARD_LEGS.items() for leg in ls]
+    for name, leg in legs:
+        cfg = moe_config(name) if name in MOE_LAYERS else get_config(name)
+        plan = make_shard_plan(cfg, make_test_mesh(*leg_mesh(leg),
+                                                   device="meta"))
+        cl = SHD.Layout(plan).cfg_l
+        H, KVH = cl.num_heads, cl.num_kv_heads
+        q8 = leg.endswith("int8")
+        sh = serve_shape(cfg, QuantConfig() if q8 else None,
+                         hw=scale_for_shards(H100_SXM, plan.shard_factor))
         dt = M.torch_dtype(cfg)
-        specs.append(("flash_attention", check_flash,
-                      dict(B=sh["B"], S=sh["prefill_len"], H=H, KVH=KVH,
-                           D=cfg.head_dim, dtype=dt)))
+        add("flash_attention", check_flash,
+            dict(B=sh["B"], S=sh["prefill_len"], H=H, KVH=KVH,
+                 D=cfg.head_dim, dtype=dt))
+        sfx = "_q8" if q8 else ""
         if cfg.pos_type == "rope":
-            specs += [("hybrid_paged_attention_two_pool", check_two_pool,
-                       dict(shape=sh, KVH=KVH, G=H // KVH, D=cfg.head_dim,
-                            dtype=dt)),
-                      ("kv_gen", check_kv_gen,
-                       dict(B=sh["B"], n_act=sh["act_pages_bound"],
-                            d=cfg.d_model, KVH=KVH, hd=cfg.head_dim,
-                            act_cap=sh["act_cap"], dtype=dt,
-                            norm_type=cfg.norm_type, theta=cfg.rope_theta))]
-        else:
-            specs.append(("hybrid_paged_attention", check_hybrid,
-                          dict(shape=sh, KVH=KVH, G=H // KVH, D=cfg.head_dim,
-                               d=cfg.d_model, dtype=dt,
-                               norm_type=cfg.norm_type)))
+            add("hybrid_paged_attention_two_pool" + sfx, check_two_pool,
+                dict(shape=sh, KVH=KVH, G=H // KVH, D=cfg.head_dim, dtype=dt,
+                     q8=q8))
+            add("kv_gen" + sfx, check_kv_gen,
+                dict(B=sh["B"], n_act=sh["act_pages_bound"], d=cfg.d_model,
+                     KVH=KVH, hd=cfg.head_dim, act_cap=sh["act_cap"],
+                     dtype=dt, norm_type=cfg.norm_type, theta=cfg.rope_theta,
+                     q8=q8))
+            continue
+        add("hybrid_paged_attention" + sfx, check_hybrid,
+            dict(shape=sh, KVH=KVH, G=H // KVH, D=cfg.head_dim,
+                 d=cfg.d_model, dtype=dt, norm_type=cfg.norm_type, q8=q8))
+        if q8 or leg.endswith("cpu lane"):
+            # the int8 step's exact-row merge, or the CPU lane's device
+            # partial: the fused return_lse mode
+            add("hybrid_paged_attention_return_lse" + sfx, check_lse,
+                dict(mode="fused", shape=sh, KVH=KVH, G=H // KVH,
+                     D=cfg.head_dim, d=cfg.d_model, dtype=dt, q8=q8))
     return specs
 
 
@@ -5827,6 +5876,14 @@ def serve_moe(results, smi, name) -> dict:
             raise AssertionError(f"moe {name}: the limit or the rule passes a "
                                  f"planted fault: {faults}")
         t0 = stage("faults", t0)
+        held = {tuple(k) for k in results["kernels"]["shard_keys"]}
+        out["shard"], shard = shard_moe_leg(cfg, params, reqs, held,
+                                            SHARD_LIMIT, runs["hybrid"])
+        results.setdefault("moe_shard_launches", {})[
+            f"{name} shard 1x2"] = {"fp": shard}
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = stage("shard", t0)
         out["server"] = moe_server(cfg, params, logit_tol, smi)
         t0 = stage("server", t0)
         del eng, kv_eng
@@ -6070,7 +6127,7 @@ def phase_shard(results, smi, name, params, reqs, oracle) -> dict:
     rule = dict(rule, logit_tol=limit)          # the phase's own rule
     out = {"phase": "shard", "card": smi, "model": name,
            "one_by_one_gap_to_oracle": spread, "logit_limit": limit,
-           "meshes": {}}
+           "meshes": {}, "legs": {}}
     counts = {}
     for shape in SHARD_MESHES[name]:
         label = f"{shape[0]}x{shape[1]}"
@@ -6166,8 +6223,13 @@ def phase_shard(results, smi, name, params, reqs, oracle) -> dict:
             if name == "opt-6.7b":
                 rec["server"], counts[f"{label} server"] = shard_server(
                     cfg, params, plan, reqs, rule, label)
+                pool = HostWeightPool(cfg, params, plan=plan, device="cuda")
                 rec["offload"], counts[f"{label} offload"] = shard_offload(
-                    cfg, params, plan, reqs, outs)
+                    cfg, pool, plan, reqs, outs)
+                out["legs"]["1x2 cpu lane"], counts["1x2 cpu lane"] = \
+                    shard_cpu_lane(cfg, pool, plan, reqs, gold, want, rule,
+                                   limit, held)
+                del pool
         rec["seconds"] = time.perf_counter() - t0
         out["meshes"][label] = rec
         print(f"shard {name} {label}: {rec['exact_requests']}/{len(reqs)} "
@@ -6178,6 +6240,15 @@ def phase_shard(results, smi, name, params, reqs, oracle) -> dict:
               f"({rec['tokens_per_s']:.1f} tok/s), {rec['seconds']:.1f} s",
               flush=True)
         del eng, plan
+        gc.collect()
+        torch.cuda.empty_cache()
+    for leg in SHARD_LEGS[name]:
+        if leg.endswith("int8"):
+            out["legs"][leg], counts[leg] = shard_int8_leg(
+                cfg, params, reqs, held, limit, name == "yi-6b")
+        elif leg == "1x8":
+            out["legs"][leg], counts[leg] = shard_forced_leg(
+                cfg, params, reqs, gold, rule, limit, held, leg)
         gc.collect()
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
@@ -6216,14 +6287,14 @@ def shard_server(cfg, params, plan, reqs, rule, label):
     return rec, launches
 
 
-def shard_offload(cfg, params, plan, reqs, want):
+def shard_offload(cfg, pool, plan, reqs, want):
     """The offload executor on ``plan``: one weight lane per position (its
-    slice of each layer pinned on the host, its own staging ring and copy
-    stream), over the whole trace; tokens equal ``want``, the
+    slice of each layer pinned on the host in ``pool``, its own staging
+    ring and copy stream), over the whole trace; tokens equal ``want``, the
     device-resident sharded engine's, every lane uploads, each step's lane
     seconds (the max over lanes) within the step.  -> (record, launches)."""
     t0 = time.perf_counter()
-    with HybridServeEngine(cfg, params, mode="hybrid", hw=H100_SXM,
+    with HybridServeEngine(cfg, pool, mode="hybrid", hw=H100_SXM,
                            plan=plan, offload=True) as eng:
         build_s = time.perf_counter() - t0
         pinned = eng.executor.pool.pinned
@@ -6257,6 +6328,468 @@ def shard_offload(cfg, params, plan, reqs, want):
     return rec, launches
 
 
+def shard_checked_launches(label, want, calls, held):
+    """The launches of a leg's counted run against ``want``, and every
+    kernel call at a key a kernels-phase row held.  -> the launches."""
+    got = read_counts()
+    if got != want:
+        raise AssertionError(f"shard {label}: launches {got}, expected {want}")
+    unheld = [k for k in calls.first if k not in held]
+    if unheld:
+        raise AssertionError(f"shard {label}: kernel calls at keys no "
+                             f"kernels-phase row held: {unheld}")
+    return got
+
+
+def shard_check_resident(label, plan, tree) -> dict:
+    res = shard_resident(plan, tree)
+    if any(h != res["spec"] for h in res["held"]):
+        raise AssertionError(f"shard {label}: positions hold {res['held']} B,"
+                             f" their specs imply {res['spec']}")
+    return res
+
+
+def mesh_launches(eng, reqs, plan) -> dict:
+    """``expected_launches`` of a sharded engine: every position of every
+    data row launches each of the single-device run's kernels once."""
+    return {k: v * plan.mesh.size
+            for k, v in expected_launches(eng, reqs).items()}
+
+
+def one_at_schedule(eng, params, cfg, group, greedy_route=None,
+                    forced_route=None):
+    """The single-device kernel run at a sharded engine's own schedule of
+    ``group`` (its split, bounds and int8 plan): its greedy tokens (B, n)
+    int32 on the card, then its teacher-forced logits fed them (B, n, V);
+    ``*_route``: a ``RouteReplay`` recording each run's routing."""
+    toks, kv_keep, pbs, sched, pb, ab = eng.group_schedule(group)
+    s_dev = torch.from_numpy(np.ascontiguousarray(sched.T)).cuda()
+    with patched(L, "moe_route", greedy_route or REAL_MOE_ROUTE):
+        lg, cache = M.hybrid_prefill_batched(
+            params, cfg, torch.from_numpy(toks).cuda(), eng.kv_cap,
+            eng.act_cap, kv_keep, pbs, quant=eng.quant)
+        gen, _ = M.hybrid_decode_loop(params, cfg, lg[:, -1].argmax(-1).int(),
+                                      cache, s_dev, pages_bound=pb,
+                                      act_pages_bound=ab, quant=eng.quant,
+                                      any_act=sched.any(0))
+    del cache
+    with patched(L, "moe_route", forced_route or REAL_MOE_ROUTE):
+        want = forced_logits(eng, params, cfg, group, gen)
+    return gen, want
+
+
+def shard_forced_of(eng, group, gold):
+    """The sharded functions' teacher-forced logits over ``group`` at its
+    engine's schedule, fed ``gold`` (B, n) -> (B, n, V)."""
+    toks, kv_keep, pbs, sched, pb, ab = eng.group_schedule(group)
+    s_dev = torch.from_numpy(np.ascontiguousarray(sched.T)).cuda()
+    return SHD.forced_logits(eng.plan, eng.params, toks, eng.kv_cap,
+                             eng.act_cap, kv_keep, pbs, s_dev, gold,
+                             pages_bound=pb, act_pages_bound=ab,
+                             any_act=sched.any(0), lay=eng._layout)
+
+
+def shard_sync_loop(eng, group, label):
+    """The sharded prefill, then the decode loop of ``group`` under the sync
+    check ("error": no host sync inside it).  -> (tokens (B, n) numpy, the
+    cache, its resident bytes against the specs')."""
+    toks, kv_keep, pbs, sched, pb, ab = eng.group_schedule(group)
+    curs, cache = SHD.prefill(eng.plan, eng.params, toks, eng.kv_cap,
+                              eng.act_cap, kv_keep, pbs, lay=eng._layout)
+    res = shard_check_resident(f"{label} cache", eng.plan, cache)
+    s_dev = torch.from_numpy(np.ascontiguousarray(sched.T)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loop, _ = SHD.decode_chunk(eng.plan, eng.params, curs, cache, s_dev,
+                                   pages_bound=pb, act_pages_bound=ab,
+                                   any_act=sched.any(0), lay=eng._layout)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return loop.cpu().numpy(), cache, res
+
+
+def leg_rule(reqs, ref_toks, want, got, limit, label) -> dict:
+    """The exactness rule of a leg held to a 1x1 run: ``ref_toks`` its
+    greedy tokens and ``want`` its teacher-forced logits fed them (the
+    margins), ``got`` the leg's fed the same (the per-step gaps)."""
+    margin = {}
+    for r in reqs:
+        top2 = want[r.rid].topk(2, dim=-1).values
+        margin[r.rid] = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    return {"oracle": ref_toks, "margin": margin, "logit_tol": limit,
+            label: {r.rid: (got[r.rid] - want[r.rid]).abs().amax(-1).cpu()
+                    .numpy() for r in reqs}}
+
+
+def scale_of_own_slice(parts, devices):
+    """Planted fault: each position quantizes its slice of the ACT rows
+    against its own slice's scale (no max over the row)."""
+    return list(parts)
+
+
+def shard_int8_leg(cfg, params, reqs, held, limit, plant):
+    """The int8 cache on 1x2 (``QuantConfig()``; K/V codes and scales split
+    with the heads, the ACT codes over d_model with one scale per whole row,
+    the codes gathered for KV-Gen): the trace through the engine, launches
+    at held keys (the int8 modes; the fused route's exact-row merges as
+    int8 ``return_lse`` launches), collective bytes by kind, resident bytes
+    of the weights and of group 0's cache, the decode loop under the sync
+    check, layer 0's ACT codes and scales after the prefill bit-equal to
+    the single-device run's (every plane's equality and the codes off in
+    each recorded), and each group held to the single-device kernel
+    run at the leg's own schedule (the same int8 plan): teacher-forced
+    logits within ``limit``, tokens under the exactness rule.  ``plant``:
+    the ACT scale of each position's own slice must read over the limit.
+    -> (record, launches)."""
+    t0 = time.perf_counter()
+    label = f"{cfg.name} 1x2 int8"
+    q = QuantConfig()
+    plan = make_shard_plan(cfg, make_test_mesh(1, 2), params)
+    eng = HybridServeEngine(cfg, params, mode="hybrid", hw=H100_SXM, quant=q,
+                            plan=plan)
+    resident = shard_check_resident(label, plan, eng.params)
+    want_launches = mesh_launches(eng, reqs, plan)
+    torch.cuda.synchronize()
+    reset_counts()
+    COLL.COUNTER.reset()
+    t1 = time.perf_counter()
+    with KernelCalls() as calls:
+        outs, stats = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    coll = COLL.COUNTER.read()
+    launches = shard_checked_launches(label, want_launches, calls, held)
+    if any(p.allocated for p in eng.blockman.pools.values()):
+        raise AssertionError(f"shard {label}: leaked blocks")
+    groups = eng.plan_groups(reqs)
+    g0 = groups[0]
+    loop, cache, cache_res = shard_sync_loop(eng, g0, label)
+    for i, r in enumerate(g0):
+        if not np.array_equal(loop[i, :r.max_new_tokens], outs[r.rid]):
+            raise AssertionError(f"shard {label}: request {r.rid}: the "
+                                 "sync-checked loop differs")
+    del cache
+    # layer 0's planes after the prefill: the rows every mesh computes alike
+    toks, kv_keep, pbs, *_ = eng.group_schedule(g0)
+    _, cache = SHD.prefill(plan, eng.params, toks, eng.kv_cap, eng.act_cap,
+                           kv_keep, pbs, lay=eng._layout)
+    _, one = M.hybrid_prefill_batched(params, cfg, torch.from_numpy(toks)
+                                      .cuda(), eng.kv_cap, eng.act_cap,
+                                      kv_keep, pbs, quant=q)
+    planes = M.region_planes(one)
+    layer0 = {k: bool(torch.equal(cache[k].full()[0], one[k][0]))
+              for k in planes}
+    codes_off = {k: int((cache[k].full() != one[k]).sum()) for k in planes}
+    del cache, one
+    # layer 0's ACT rows are the embedding on every mesh: its codes and
+    # scales must be equal; its K/V come from column slices of wk/wv, which
+    # cuBLAS may sum in another order than the whole product (recorded)
+    if not (layer0["act"] and layer0["act_s"]):
+        raise AssertionError(f"shard {label}: layer 0's ACT codes or scales "
+                             f"differ from the single-device run's: {layer0}")
+    ref_toks, want, got = {}, {}, {}
+    for g in groups:
+        gen, w = one_at_schedule(eng, params, cfg, g)
+        lg = shard_forced_of(eng, g, gen)
+        for i, r in enumerate(g):
+            ref_toks[r.rid] = gen[i, :r.max_new_tokens].cpu().numpy()
+            want[r.rid], got[r.rid] = w[i].float(), lg[i].float()
+    rule = leg_rule(reqs, ref_toks, want, got, limit, "leg")
+    ex = exactness(rule, "leg", outs, reqs)
+    gap = max(float(v.max()) for v in rule["leg"].values())
+    if not gap <= limit:
+        raise AssertionError(f"shard {label}: teacher-forced logits {gap} "
+                             f"from the 1x1 int8 run, limit {limit}")
+    faults = {}
+    if plant:
+        gold = torch.stack([torch.from_numpy(ref_toks[r.rid]).cuda()
+                            for r in g0])
+        with patched(SHD, "_act_scale_max", scale_of_own_slice):
+            bad = shard_forced_of(eng, g0, gold)
+        faults[SHARD_INT8_FAULT] = max(float((bad[i].float() - want[r.rid])
+                                             .abs().max())
+                                       for i, r in enumerate(g0))
+        if not faults[SHARD_INT8_FAULT] > limit:
+            raise AssertionError(f"shard {label}: the limit {limit} passes "
+                                 f"a planted fault: {faults}")
+    rec = {"plan": plan.explain().splitlines()[:2],
+           "resident_weight_bytes": resident,
+           "resident_cache_bytes_group0": cache_res,
+           "launches": {k: v for k, v in launches.items() if v},
+           "groups": len(groups), "steps": stats.steps,
+           "device_calls": stats.device_calls, "collective_bytes": coll,
+           "collective_bytes_per_step": coll["total"] / max(stats.steps, 1),
+           "wall_s": wall, "tokens_per_s": stats.generated_tokens / wall,
+           "act_frac": eng.act_frac, "layer0_bit_equal": layer0,
+           "codes_off_after_prefill": codes_off,
+           "max_dlogit_vs_1x1_int8": gap, "logit_limit": limit,
+           "exact_requests": ex["exact_requests"], "n_requests": len(reqs),
+           "diverged": ex["diverged"], "fault_dlogit": faults,
+           "kernel_keys": [list(k) for k in calls.first],
+           "seconds": time.perf_counter() - t0}
+    print(f"shard {label}: {rec['exact_requests']}/{len(reqs)} exact, dlogit "
+          f"{gap:.4f} (limit {limit:.4f}), faults {faults}, launches "
+          f"{rec['launches']}, collective {coll}, layer 0 {layer0}, codes off "
+          f"{codes_off}, resident {resident}, {wall:.2f} s wall, "
+          f"{rec['seconds']:.1f} s", flush=True)
+    del eng
+    return rec, launches
+
+
+def shard_path_forced(eng, group, gold):
+    """Teacher-forced logits of a sharded engine's own path over ``group``
+    (the offload executor and its CPU lane's merge included): one
+    ``generate`` with ``SHD.argmax_rows`` wrapped to record each step's
+    logits and hand the path ``gold``'s next token (B, n) in place of its
+    argmax.  -> (B, n, V).  One data row."""
+    real, seen = SHD.argmax_rows, []
+
+    def forced(lay, row, logits):
+        seen.append(SHD.full_logits(lay, row, logits)[:, -1].float())
+        nxt = gold[:, min(len(seen), gold.shape[1]) - 1].int()
+        return [nxt.to(d)[:, None] for d in row.devs]
+
+    with patched(SHD, "argmax_rows", forced):
+        eng.generate(group)
+    return torch.stack(seen[:gold.shape[1]], 1)
+
+
+def shard_cpu_lane(cfg, pool, plan, reqs, gold, want, rule, limit, held):
+    """OPT's offload executor on 1x2 with the CPU lane, over the serve
+    trace's first group under the tight budget (its KV region spilled to
+    one arena a model shard): each position's device partial (the fused
+    ``return_lse`` mode at its 16 heads) merged with the host's partial
+    over its heads of its arena slice.  Launches at held keys, no KV upload
+    (the lane attends in place), the CPU lane busy, the executor's host
+    waits (one a layer for the queries, and the spill and readback), the
+    path's teacher-forced logits (the merge included) within ``limit`` of
+    the 1x1 kernel run, tokens under the exactness rule.
+    -> (record, launches)."""
+    t0 = time.perf_counter()
+    label = f"{cfg.name} 1x2 cpu lane"
+    with HybridServeEngine(cfg, pool, mode="hybrid", hw=H100_SXM, plan=plan,
+                           offload=True, host_attn=True,
+                           budget=_tight(cfg)) as eng:
+        group = eng.plan_groups(reqs)[0]
+        if not spills(eng, group):
+            raise AssertionError(f"shard {label}: the group does not spill")
+        want_launches = mesh_launches(eng, group, plan)
+        syncs0 = eng.executor.blocking_syncs
+        reset_counts()
+        t1 = time.perf_counter()
+        with KernelCalls() as calls:
+            outs, st = eng.generate(group)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = shard_checked_launches(label, want_launches, calls, held)
+        syncs = eng.executor.blocking_syncs - syncs0
+        kv_load = sum(m.traffic["kv_load"] for m in eng.measured_steps)
+        gold_g = torch.stack([gold[r.rid] for r in group])
+        got = shard_path_forced(eng, group, gold_g)
+        fallbacks = eng.executor.host_lane.fault_counters["sync_fallbacks"]
+    gaps = {r.rid: (got[i] - want[r.rid]).abs().amax(-1) for i, r in
+            enumerate(group)}
+    gap = max(float(v.max()) for v in gaps.values())
+    rule = dict(rule, logit_tol=limit)
+    rule["leg"] = {r.rid: gaps[r.rid].cpu().numpy() for r in group}
+    ex = exactness(rule, "leg", outs, group)
+    L = cfg.num_layers
+    steps = st.steps
+    want_syncs = steps * L + 2
+    checks = {"spilled": True, "no_kv_upload": kv_load == 0,
+              "cpu_lane_busy": st.measured_cpu_busy > 0,
+              "no_fallback": fallbacks == 0,
+              "host_waits": syncs == want_syncs,
+              "logits_within_limit": gap <= limit}
+    rec = {"requests": [r.rid for r in group], "steps": steps,
+           "launches": {k: v for k, v in launches.items() if v},
+           "wall_s": wall, "host_waits": syncs, "host_waits_expected":
+           want_syncs, "cpu_busy_s": st.measured_cpu_busy,
+           "kv_load_bytes": kv_load, "max_dlogit_vs_1x1": gap,
+           "logit_limit": limit, "exact_requests": ex["exact_requests"],
+           "diverged": ex["diverged"], "checks": checks,
+           "kernel_keys": [list(k) for k in calls.first],
+           "seconds": time.perf_counter() - t0}
+    print(f"shard {label}: {rec}", flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"shard {label} failed {checks}: {rec}")
+    return rec, launches
+
+
+def shard_forced_leg(cfg, params, reqs, gold, rule, limit, held, leg):
+    """yi on 1x8 (``leg``): 4 query heads a position over the one KV head
+    they share of 4 replicated (``Layout.kv_slice``), ``wk``/``wv`` gathered
+    to whole heads, over the serve trace's first group: the teacher-forced
+    run's launches (a flash launch a layer and position per prefill, a
+    second-pool and a ``kv_gen`` one a layer and position per step) at held
+    keys, its logits within ``limit`` of the single-device kernel run at
+    the same schedule, collective bytes by kind, resident bytes, and the
+    greedy decode loop under the sync check, its tokens under the
+    exactness rule.  -> (record, launches)."""
+    t0 = time.perf_counter()
+    label = f"{cfg.name} {leg}"
+    plan = make_shard_plan(cfg, make_test_mesh(*leg_mesh(leg)), params)
+    eng = HybridServeEngine(cfg, params, mode="hybrid", hw=H100_SXM,
+                            plan=plan)
+    resident = shard_check_resident(label, plan, eng.params)
+    group = eng.plan_groups(reqs)[0]
+    gold_g = torch.stack([gold[r.rid] for r in group])
+    want = forced_logits(eng, params, cfg, group, gold_g)
+    n = gold_g.shape[1]
+    L, size = cfg.num_layers, plan.mesh.size
+    want_launches = {k: 0 for k in COUNTERS}
+    want_launches.update({"flash_attention": L * size,
+                          "hybrid_paged_attention_two_pool": L * size * (n - 1),
+                          "kv_gen": L * size * (n - 1)})
+    torch.cuda.synchronize()
+    reset_counts()
+    COLL.COUNTER.reset()
+    t1 = time.perf_counter()
+    with KernelCalls() as calls:
+        got = shard_forced_of(eng, group, gold_g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    coll = COLL.COUNTER.read()
+    launches = shard_checked_launches(label, want_launches, calls, held)
+    gaps = {r.rid: (got[i].float() - want[i].float()).abs().amax(-1)
+            for i, r in enumerate(group)}
+    gap = max(float(v.max()) for v in gaps.values())
+    loop, cache, cache_res = shard_sync_loop(eng, group, label)
+    del cache
+    outs = {r.rid: loop[i, :r.max_new_tokens] for i, r in enumerate(group)}
+    rule = dict(rule, logit_tol=limit)
+    rule["leg"] = {rid: v.cpu().numpy() for rid, v in gaps.items()}
+    ex = exactness(rule, "leg", outs, group)
+    if not gap <= limit:
+        raise AssertionError(f"shard {label}: teacher-forced logits {gap} "
+                             f"from the 1x1 kernel run, limit {limit}")
+    lay = eng._layout
+    rec = {"plan": plan.explain().splitlines()[:2],
+           "heads_a_position": lay.cfg_l.num_heads,
+           "kv_head_of_position": lay.kv0,
+           "resident_weight_bytes": resident,
+           "resident_cache_bytes_group0": cache_res,
+           "launches": {k: v for k, v in launches.items() if v},
+           "forced_steps": n - 1, "forced_wall_s": wall,
+           "collective_bytes": coll, "max_dlogit_vs_1x1": gap,
+           "logit_limit": limit, "exact_requests": ex["exact_requests"],
+           "n_requests": len(group), "diverged": ex["diverged"],
+           "kernel_keys": [list(k) for k in calls.first],
+           "seconds": time.perf_counter() - t0}
+    print(f"shard {label}: {rec}", flush=True)
+    del eng
+    return rec, launches
+
+
+class ShardReplay(RouteReplay):
+    """``RouteReplay`` whose replay hands each recorded dispatch to the
+    ``m`` positions of a data row in turn: every position routes the row's
+    tokens, in the single-device run's dispatch order."""
+
+    def __init__(self, recorded: RouteReplay, m: int):
+        super().__init__()
+        self.idx, self.m, self.calls = recorded.idx, m, 0
+        self.replay()
+
+    def __call__(self, router, x, **kw):
+        r = super().__call__(router, x, **kw)
+        self.calls += 1
+        if self.calls % self.m:
+            self.pos -= 1
+        return r
+
+
+def shard_moe_leg(cfg, params, reqs, held, limit, resident_toks):
+    """dbrx at its serve cut on 1x2, expert parallel (8 of 16 experts a
+    position; the router replicated, every position routing all its row's
+    tokens in the single-device run's dispatch groups; the gated sums
+    summed over the row in float32): the trace through the engine, launches
+    at held keys, collective bytes by kind (``moe`` the expert sums),
+    resident bytes.  Per group, at the leg's own schedule: the
+    single-device kernel run's greedy tokens and its teacher-forced logits
+    fed them, each with its routes recorded; the leg's teacher-forced
+    logits with the forced routes replayed (rounding alone swaps experts at
+    router near-ties: the gap then reads the arithmetic) within ``limit``,
+    and its greedy loop under the sync check with the greedy routes
+    replayed, tokens under the exactness rule.  The free-running engine's
+    agreement with the device-resident run ``resident_toks`` is printed.
+    The ``wo`` sum without a position's partial must read over the limit.
+    -> (record, launches)."""
+    t0 = time.perf_counter()
+    label = f"{cfg.name} 1x2"
+    plan = make_shard_plan(cfg, make_test_mesh(1, 2), params)
+    eng = HybridServeEngine(cfg, params, mode="hybrid", hw=H100_SXM,
+                            plan=plan)
+    resident = shard_check_resident(label, plan, eng.params)
+    want_launches = mesh_launches(eng, reqs, plan)
+    torch.cuda.synchronize()
+    reset_counts()
+    COLL.COUNTER.reset()
+    t1 = time.perf_counter()
+    with KernelCalls() as calls:
+        outs, stats = eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    coll = COLL.COUNTER.read()
+    launches = shard_checked_launches(label, want_launches, calls, held)
+    if any(p.allocated for p in eng.blockman.pools.values()):
+        raise AssertionError(f"shard {label}: leaked blocks")
+    groups = eng.plan_groups(reqs)
+    ref_toks, want, got, loops, cache_res = {}, {}, {}, {}, None
+    replays = {}
+    for gi, g in enumerate(groups):
+        g_rec, f_rec = RouteReplay(), RouteReplay()
+        gen, w = one_at_schedule(eng, params, cfg, g, g_rec, f_rec)
+        with patched(L, "moe_route", ShardReplay(f_rec, plan.model_shards)):
+            lg = shard_forced_of(eng, g, gen)
+        with patched(L, "moe_route", ShardReplay(g_rec, plan.model_shards)):
+            loop, cache, res = shard_sync_loop(eng, g, label)
+        del cache
+        cache_res = cache_res or res
+        replays[gi] = (f_rec, gen)
+        for i, r in enumerate(g):
+            ref_toks[r.rid] = gen[i, :r.max_new_tokens].cpu().numpy()
+            loops[r.rid] = loop[i, :r.max_new_tokens]
+            want[r.rid], got[r.rid] = w[i].float(), lg[i].float()
+    rule = leg_rule(reqs, ref_toks, want, got, limit, "leg")
+    ex = exactness(rule, "leg", loops, reqs)
+    gap = max(float(v.max()) for v in rule["leg"].values())
+    if not gap <= limit:
+        raise AssertionError(f"shard {label}: teacher-forced logits {gap} "
+                             f"from the 1x1 run, limit {limit}")
+    f_rec, gen = replays[0]
+    with patched(L, "moe_route", ShardReplay(f_rec, plan.model_shards)), \
+            patched(SHD, "_attn_sum", drop_last_partial):
+        bad = shard_forced_of(eng, groups[0], gen)
+    faults = {"wo_partial_dropped": max(
+        float((bad[i].float() - want[r.rid]).abs().max())
+        for i, r in enumerate(groups[0]))}
+    if not faults["wo_partial_dropped"] > limit:
+        raise AssertionError(f"shard {label}: the limit {limit} passes a "
+                             f"planted fault: {faults}")
+    rec = {"plan": plan.explain().splitlines()[:2],
+           "experts_a_position": eng._layout.cfg.moe_num_experts
+           // plan.model_shards, "resident_weight_bytes": resident,
+           "resident_cache_bytes_group0": cache_res,
+           "launches": {k: v for k, v in launches.items() if v},
+           "groups": len(groups), "steps": stats.steps,
+           "collective_bytes": coll,
+           "collective_bytes_per_step": coll["total"] / max(stats.steps, 1),
+           "wall_s": wall, "tokens_per_s": stats.generated_tokens / wall,
+           "max_dlogit_vs_1x1_routes_replayed": gap, "logit_limit": limit,
+           "exact_requests_routes_replayed": ex["exact_requests"],
+           "n_requests": len(reqs), "diverged": ex["diverged"],
+           "free_running_agreement_with_1x1": agreement(
+               outs, resident_toks, reqs),
+           "fault_dlogit": faults,
+           "kernel_keys": [list(k) for k in calls.first],
+           "seconds": time.perf_counter() - t0}
+    print(f"shard {label}: {rec}", flush=True)
+    del eng
+    return rec, launches
+
+
 def serve_path(results, smi, name):
     """Serve one model through the engine, then through the
     continuous-batching server on the same weights, then its telemetry phase
@@ -6269,8 +6802,9 @@ def serve_path(results, smi, name):
     {"<name> shard <mesh>[ server|offload]": {"fp": ...}}."""
     launches, engines, reqs, outs, oracle, q8_oracle, params = phase_serve(
         results, smi, name)
-    shard = {f"{name} shard {k}": {"fp": v} for k, v in phase_shard(
-        results, smi, name, params, reqs, oracle).items()}
+    shard = {f"{name} shard {k}": {"int8" if k.endswith("int8") else "fp": v}
+             for k, v in phase_shard(results, smi, name, params, reqs,
+                                     oracle).items()}
     gc.collect()
     torch.cuda.empty_cache()
     sched_launches_, sched_ctx = phase_scheduler(results, smi,
@@ -7021,6 +7555,7 @@ def main() -> int:
     t0 = stage(JAMBA, t0)
     for name, n in phase_serve_moe(results, smi).items():
         by_path[name] = {"fp": n}
+    shard_path.update(results.pop("moe_shard_launches"))
     t0 = stage("moe", t0)
     by_path.update(phase_serve_frontends(results, smi))
     t0 = stage("frontends", t0)

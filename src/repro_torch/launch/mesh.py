@@ -22,8 +22,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-#: what sharding still lacks (the int8 cache, the CPU lane, MoE and training
-#: under a plan, and the dry run's collective bytes)
+#: what sharding still lacks (training under a plan, the dry run's collective
+#: bytes, one layer body)
 SHARDING = "ROADMAP queue 1, item 5.2 (sharding)"
 
 

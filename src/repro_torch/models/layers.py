@@ -11,7 +11,7 @@ dispatch are plain torch, as the reference has no kernel for them.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -207,12 +207,14 @@ class MoeRoute(NamedTuple):
 
 
 def moe_route(router, x, *, num_experts: int, top_k: int,
-              capacity_factor: float) -> MoeRoute:
+              capacity_factor: float, groups: Optional[int] = None) -> MoeRoute:
     """x (T, d): float32 router softmax, top-k gates renormalised;
-    ``_moe_groups(T)`` groups of contiguous tokens, each sorting its (token,
-    choice) pairs by expert (stable) and ranking them within their expert."""
+    ``_moe_groups(T)`` groups of contiguous tokens (``groups`` of them where
+    given: a data row's share of the whole batch's groups), each sorting
+    its (token, choice) pairs by expert (stable) and ranking them within
+    their expert."""
     T, d = x.shape
-    G = _moe_groups(T)
+    G = _moe_groups(T) if groups is None else int(groups)
     Tg = T // G
     logits = x.reshape(G, Tg, d).float() @ router.float()
     probs = torch.softmax(logits, dim=-1)                       # (G, Tg, E)
@@ -237,9 +239,11 @@ def moe_dropped(route: MoeRoute, top_k: int):
 
 
 def moe_ffn(params, x, *, num_experts: int, top_k: int,
-            capacity_factor: float = 1.25, ffn_type: str = "gated_silu"):
+            capacity_factor: float = 1.25, ffn_type: str = "gated_silu",
+            groups: Optional[int] = None):
     """Token-choice MoE with group-local, sort-based capacity dispatch.
     x (T, d) flattened tokens -> (y (T, d) in x's dtype, Switch aux loss).
+    ``groups``: as ``moe_route`` takes it.
 
     The reference's semantics (``moe_route``): a pair ranked at or past
     the capacity C is dropped, a zero row whose gate is not renormalised
@@ -251,39 +255,57 @@ def moe_ffn(params, x, *, num_experts: int, top_k: int,
     T, d = x.shape
     E, k = num_experts, top_k
     r = moe_route(params["router"], x, num_experts=E, top_k=k,
-                  capacity_factor=capacity_factor)
-    G, Tk = r.order.shape
-    Tg, C, dev = Tk // k, r.C, x.device
-
-    # slot c of expert e in group g: the pair at sorted position
-    # starts[g, e] + c when c < counts[g, e], else a zero row
-    c = torch.arange(C, device=dev)
-    posn = (r.starts[:, :, None] + c).clamp(0, Tk - 1).reshape(G, E * C)
-    tok = (r.order // k).gather(1, posn).reshape(G, E, C) \
-        + (torch.arange(G, device=dev) * Tg)[:, None, None]
-    valid = c < r.counts[:, :, None]                            # (G, E, C)
-    buf = x[tok.transpose(0, 1)].masked_fill(
-        ~valid.transpose(0, 1)[..., None], 0).reshape(E, G * C, d)
-
-    h = torch.bmm(buf, params["we1"])                           # (E, G*C, f)
-    if ffn_type.startswith("gated"):
-        h = _act(h, ffn_type) * torch.bmm(buf, params["we3"])
-    else:
-        h = _act(h, ffn_type)
-    out = torch.bmm(h, params["we2"]).reshape(E * G * C, d)
-    out = torch.cat([out, out.new_zeros((1, d))])               # the drop row
-
-    g_idx = torch.arange(G, device=dev)[:, None]
-    row = torch.where(r.rank < C, (r.sorted_e * G + g_idx) * C + r.rank,
-                      E * G * C)
-    y_pairs = out[row.gather(1, _inverse(r.order))].reshape(G, Tg, k, d)
-    y = (r.gate.to(x.dtype).float()[..., None] * y_pairs.float()).sum(2)
-
+                  capacity_factor=capacity_factor, groups=groups)
+    y = moe_experts(params, x, r, top_k=k, ffn_type=ffn_type)
     # load-balance auxiliary loss (Switch-style, group-averaged)
+    G, Tk = r.order.shape
     frac_tokens = r.counts.float().sum(0) / max(G * Tk, 1)
     frac_prob = r.probs.mean(dim=(0, 1))
     aux = E * (frac_tokens * frac_prob).sum()
     return y.reshape(T, d).to(x.dtype), aux
+
+
+def moe_experts(params, x, r: MoeRoute, *, top_k: int, ffn_type: str,
+                expert0: int = 0):
+    """The expert FFNs of a routed ``x`` (T, d) and each token's gated sum
+    of its pairs' outputs: (G, Tg, d) float32.  ``params``' ``we1``/``we3``/
+    ``we2`` hold experts ``[expert0, expert0 + E_l)`` (all of them on one
+    device; a mesh position's own under expert parallelism, whose pairs of
+    other experts add zero, as a dropped pair does), each at its whole
+    d_ff or a slice of it (tensor parallel on d_ff: the sum is a partial
+    over the slice)."""
+    E = r.counts.shape[1]
+    E_l, d = params["we1"].shape[0], x.shape[1]
+    k = top_k
+    G, Tk = r.order.shape
+    Tg, C, dev = Tk // k, r.C, x.device
+    ex = slice(expert0, expert0 + E_l)
+
+    # slot c of expert e in group g: the pair at sorted position
+    # starts[g, e] + c when c < counts[g, e], else a zero row
+    c = torch.arange(C, device=dev)
+    posn = (r.starts[:, ex, None] + c).clamp(0, Tk - 1).reshape(G, E_l * C)
+    tok = (r.order // k).gather(1, posn).reshape(G, E_l, C) \
+        + (torch.arange(G, device=dev) * Tg)[:, None, None]
+    valid = c < r.counts[:, ex, None]                           # (G, E_l, C)
+    buf = x[tok.transpose(0, 1)].masked_fill(
+        ~valid.transpose(0, 1)[..., None], 0).reshape(E_l, G * C, d)
+
+    h = torch.bmm(buf, params["we1"])                         # (E_l, G*C, f)
+    if ffn_type.startswith("gated"):
+        h = _act(h, ffn_type) * torch.bmm(buf, params["we3"])
+    else:
+        h = _act(h, ffn_type)
+    out = torch.bmm(h, params["we2"]).reshape(E_l * G * C, d)
+    out = torch.cat([out, out.new_zeros((1, d))])               # the drop row
+
+    g_idx = torch.arange(G, device=dev)[:, None]
+    e_l = r.sorted_e - expert0
+    held = (r.rank < C) if E_l == E else \
+        (r.rank < C) & (e_l >= 0) & (e_l < E_l)
+    row = torch.where(held, (e_l * G + g_idx) * C + r.rank, E_l * G * C)
+    y_pairs = out[row.gather(1, _inverse(r.order))].reshape(G, Tg, k, d)
+    return (r.gate.to(x.dtype).float()[..., None] * y_pairs.float()).sum(2)
 
 
 # --------------------------------------------------------------------------- mamba2 SSD

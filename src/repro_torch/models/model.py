@@ -1009,7 +1009,8 @@ def _write_new(kc, vc, ac, k, v, act_in, kv_len, act_len, store_act,
     requests write K/V and which a checkpoint, when the step has them
     already (``DecodePlan.write_on``).  ``scales`` (ks, vs, as), the
     regions' sidecars of a quantized cache: the row is written as codes,
-    and its scale beside it."""
+    and its scale beside it (``act_in`` may come encoded, as ``_put``
+    takes it)."""
     ar = torch.arange(kc.shape[0], device=kc.device)
     ki = kv_len.clamp(max=kc.shape[1] - 1).long()
     ai = act_len.clamp(max=ac.shape[1] - 1).long()
@@ -1030,9 +1031,12 @@ def write_masks(store_act, kv_len, act_len, kv_cap: int, act_cap: int):
 def _put(region, scales, ar, idx, row, on) -> None:
     """Write ``row`` (B, ...) at ``idx`` of ``region`` (B, cap, ...) for the
     requests where ``on`` (B,) holds, in the region's format: int8 codes
-    with their scales written into ``scales``."""
-    m = on.view(-1, *(1,) * (row.dim() - 1))
-    for plane, new in zip((region, scales), _encode(row, region.dtype)):
+    with their scales written into ``scales``.  ``row`` may come encoded
+    already, as (codes, scales) (a mesh position's slice of an ACT row,
+    quantized against the whole row's scale)."""
+    enc = row if isinstance(row, tuple) else _encode(row, region.dtype)
+    m = on.view(-1, *(1,) * (enc[0].dim() - 1))
+    for plane, new in zip((region, scales), enc):
         if new is not None:
             plane[ar, idx] = torch.where(m, new, plane[ar, idx])
 

@@ -24,11 +24,24 @@ from repro_torch.core.quant import SCALE_FLOOR, QuantConfig
 def quantize(x, dim: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (..., D) -> (int8 codes (..., D), float16 scales (..., 1)) with one
     absmax scale per slice along ``dim``."""
-    x32 = x.float()
-    amax = x32.abs().amax(dim, keepdim=True)
-    scale = torch.clamp(amax / 127.0, min=SCALE_FLOOR).to(torch.float16)
-    q = torch.clamp(torch.round(x32 / scale.float()), -127, 127)
-    return q.to(torch.int8), scale
+    scale = absmax_scale(x, dim)
+    return quantize_at(x, scale), scale
+
+
+def absmax_scale(x, dim: int = -1) -> torch.Tensor:
+    """The float16 scale (..., 1) of each slice of ``x`` along ``dim``: its
+    float32 absmax over 127, floored at ``SCALE_FLOOR``.  Monotone in the
+    absmax, so the max of the scales of a row's pieces is the row's scale,
+    bit for bit (the sharded path's shared ACT scale)."""
+    amax = x.float().abs().amax(dim, keepdim=True)
+    return torch.clamp(amax / 127.0, min=SCALE_FLOOR).to(torch.float16)
+
+
+def quantize_at(x, scale) -> torch.Tensor:
+    """The int8 codes of ``x`` against the float16 ``scale`` (broadcast):
+    round half to even, clipped to +-127."""
+    q = torch.clamp(torch.round(x.float() / scale.float()), -127, 127)
+    return q.to(torch.int8)
 
 
 def dequantize(q, scale, dtype=torch.float32) -> torch.Tensor:

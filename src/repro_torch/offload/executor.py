@@ -33,8 +33,13 @@ its own slice of each layer through its own lane (``ShardedWeightLanes``,
 spans stamped with the lane's shard), the resident remainder is laid out
 on the mesh, and a spilled KV region lives in one arena per model-axis
 shard (``ShardedSpillPool``): each position uploads its slice of a layer's
-region before the layer, on the compute stream, and stores its new rows
-back, per lane.  Calls and syncs are counted as on one device.
+region (codes and scales in an int8 cache) before the layer, on the compute
+stream, and stores its new rows back, per lane.  With the CPU lane each
+position's device partial attends over its new row and the ACT region, the
+host attends over that position's heads of its arena slice (or of its
+slice of the chunk's host mirror, pulled once per position), and the two
+merge before the position's ``wo`` partial (``_ShardedHostLane``).  Calls
+and syncs are counted as on one device for each data row.
 
 Quantized cache (``quant``): the regions already hold int8 codes and float16
 scales on the device, so the spill, the per-step upload and the store-back
@@ -54,7 +59,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import SHARDING
 from repro_torch.models import model as M
 from repro_torch.models import sharded as SHD
 from repro_torch.models import transformer as T
@@ -113,7 +117,7 @@ class OffloadExecutor:
                 timeline=self.timeline, faults=faults, watchdog_s=watchdog_s,
                 metrics=metrics)
             self.resident = self.plan.place_params(self.pool.resident)
-            self._layout = SHD.Layout(self.plan)
+            self._layout = SHD.Layout(self.plan, quant)
         self._mirror: Dict[str, torch.Tensor] = {}   # decode_chunk's host mirror
         self.dispatches = 0                     # stages issued (as the reference)
         # blocking host waits on the device: the final tokens, a spill-out or
@@ -354,13 +358,12 @@ class OffloadExecutor:
         """
         cfg = self.cfg
         if self.plan is not None:
-            if host_attn:
-                raise NotImplementedError(
-                    f"the CPU attention lane under a plan: {SHARDING}")
+            if host_attn and spill_region is None:
+                raise ValueError("host_attn requires a spilled KV region")
             out, _ = self._decode_sharded(
                 cur, cache, np.asarray(store_sched, bool), None,
-                spill_region=spill_region, pages_bound=pages_bound,
-                act_pages_bound=act_pages_bound)
+                spill_region=spill_region, host_attn=host_attn,
+                pages_bound=pages_bound, act_pages_bound=act_pages_bound)
             return out[:, :-1], dict(cache, spilled=spill_region is not None)
         L = cfg.num_layers
         sched = np.asarray(store_sched, bool)
@@ -508,9 +511,6 @@ class OffloadExecutor:
             next cur (B,) int32 numpy, cache)."""
         cfg = self.cfg
         if self.plan is not None:
-            if host_attn:
-                raise NotImplementedError(
-                    f"the CPU attention lane under a plan: {SHARDING}")
             act_np = np.asarray(active_sched, bool)
             kv_cap, act_cap = cache["k"].shape[2], cache["act"].shape[2]
             kv_b = kv_cap if kv_bound is None else min(int(kv_bound), kv_cap)
@@ -521,6 +521,7 @@ class OffloadExecutor:
                     for r in rows]
             out, _ = self._decode_sharded(
                 curs, cache, np.asarray(store_sched, bool) & act_np, act_np,
+                host_attn=host_attn, kv_bound=kv_b,
                 pages_bound=kv_b // PAGE + act_b // PAGE,
                 act_pages_bound=act_b // PAGE)
             n = act_np.shape[0]
@@ -629,12 +630,15 @@ class OffloadExecutor:
         return curs, cache
 
     def _spill_out_sharded(self, cache, region, rows):
-        """Each position's KV slice into its model shard's arena (the owners
-        of each slice write it once: a replicated slice from model position
-        0, a batch not split over data from data row 0), the device copies
-        freed.  -> (each position's arena views [k, v] (L, b, kv_cap, KVH_c,
-        D), the positions that store back, the KV lengths on the host)."""
+        """Each position's KV slice (every KV plane: codes and scales in an
+        int8 cache) into its model shard's arena (the owners of each slice
+        write it once: a replicated slice from model position 0, a batch
+        not split over data from data row 0), the device copies freed.
+        -> (each position's arena views in ``M.kv_planes`` order (L, b,
+        kv_cap, KVH_c, D or 1), the positions that store back, the KV
+        lengths on the host)."""
         lay = self._layout
+        keys = M.kv_planes(cache)
         regions = region.regions if isinstance(region, ShardedRegion) \
             else [region]
         B = cache["k"].shape[1]
@@ -644,15 +648,17 @@ class OffloadExecutor:
         nbytes = {}
         for r, row in enumerate(rows):
             b0, b1 = int(row.bidx[0]), int(row.bidx[-1]) + 1
+            # the whole batch's bytes of one position's slice of every plane
+            whole = sum(cache[key].shard(row.pos[0]).numel() * B
+                        // len(row.bidx) * cache[key].dtype.itemsize
+                        for key in keys)
             for c, pos in enumerate(row.pos):
                 # one arena per model shard; a single arena (the factor fell
                 # to 1) holds the shards' slices one after another
                 reg = regions[c % len(regions)] if lay.kv_split else regions[0]
-                t = cache["k"].shard(pos)
-                at = 0 if len(regions) > 1 or not lay.kv_split else \
-                    c * 2 * t.numel() * B // len(row.bidx) * t.element_size()
+                at = 0 if len(regions) > 1 or not lay.kv_split else c * whole
                 planes = []
-                for key in ("k", "v"):
+                for key in keys:
                     t = cache[key].shard(pos)
                     shape = (t.shape[0], B) + tuple(t.shape[2:])
                     plane = reg.view(shape, t.dtype, at)[:, b0:b1]
@@ -661,7 +667,7 @@ class OffloadExecutor:
                 views[pos.index] = planes
                 if (lay.kv_split or c == 0) and (split_b or r == 0):
                     owners.add(pos.index)
-                    for plane, key in zip(planes, ("k", "v")):
+                    for plane, key in zip(planes, keys):
                         t = cache[key].shard(pos)
                         plane.copy_(t, non_blocking=True)
                         nbytes[pos.index] = nbytes.get(pos.index, 0) + \
@@ -671,32 +677,72 @@ class OffloadExecutor:
             self.timeline.record("pcie_up", "st", t0, end, n, shard)
         kv_len = cache["kv_len"].full().cpu().numpy().copy()
         self.blocking_syncs += 1
-        for key in ("k", "v"):
+        for j, key in enumerate(keys):
             x = cache[key]
             cache[key] = Sharded(x.mesh, x.spec, x.shape, x.dtype,
-                                 [views[i][0 if key == "k" else 1]
-                                  for i in range(len(x.shards))])
+                                 [views[i][j] for i in range(len(x.shards))])
         return views, owners, kv_len
 
+    def _mirror_out_sharded(self, cache, kv_b: int):
+        """The chunk's host mirror under a plan: each position's rows [0,
+        kv_b) of every KV plane pulled once into host buffers the executor
+        keeps (pinned on the card), one span per position.  -> (each
+        position's mirror planes, the KV lengths on the host)."""
+        views = {}
+        t0 = self._now()
+        for pos in self.plan.mesh.positions:
+            planes, nbytes = [], 0
+            for key in M.kv_planes(cache):
+                t = cache[key].shard(pos)
+                buf = self._mirror.get((key, pos.index))
+                if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                    buf = torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=self.cuda)
+                    self._mirror[(key, pos.index)] = buf
+                plane = buf[:, :, :kv_b]
+                plane.copy_(t[:, :, :kv_b], non_blocking=True)
+                planes.append(plane)
+                nbytes += plane.numel() * plane.element_size()
+            views[pos.index] = planes
+            self.timeline.record("pcie", "mirror", t0, self._now(), nbytes,
+                                 pos.index)
+        kv_len = cache["kv_len"].full().cpu().numpy().copy()
+        self.blocking_syncs += 1
+        return views, kv_len
+
     def _decode_sharded(self, cur, cache, sched, active, *, spill_region=None,
+                        host_attn: bool = False, kv_bound=None,
                         pages_bound=None, act_pages_bound=None):
         """The layer-streamed decode over the plan's mesh (``decode_loop``
         and ``decode_chunk``): ``cur`` one (b,) per data row, ``sched`` (S,
-        B) host bools, ``active`` (S, B) or None.  -> ((B, S + 1) int32
-        numpy: the tokens, -1 where inactive, then the next cur;
-        the next cur per row)."""
+        B) host bools, ``active`` (S, B) or None.  ``host_attn``: the CPU
+        lane attends over each position's heads of the spilled arena
+        (``decode_loop``) or of the chunk's host mirror up to ``kv_bound``
+        (``decode_chunk``).  -> ((B, S + 1) int32 numpy: the tokens, -1
+        where inactive, then the next cur; the next cur per row)."""
         plan = self.plan
         n_steps, B = sched.shape
         rows = SHD.rows_for(plan, B)
         dev0 = plan.mesh.devices[0]
         spill = spill_region is not None
         at = {"seq": 0, "step": 0, "t0": None}     # where the loop is
+        host = None
         if spill:
             views, owners, at["kv_len"] = self._spill_out_sharded(
                 cache, spill_region, rows)
-            bufs = {i: [torch.empty_like(v[0], device=plan.mesh.devices[i])
-                        for v in views[i]] for i in views}
+            if not host_attn:
+                bufs = {i: [torch.empty_like(v[0], device=plan.mesh.devices[i])
+                            for v in views[i]] for i in views}
         L = self.cfg.num_layers
+        if host_attn:
+            if not spill:
+                self.timeline.begin_step("mirror", now=self._now())
+                views, at["kv_len"] = self._mirror_out_sharded(cache,
+                                                               kv_bound)
+                self.timeline.end_step(now=self._now())
+                owners = set(views)
+            host = _ShardedHostLane(self, views, owners, at, sched, active,
+                                    rows, cache, mirror=not spill)
         self.streamer.begin([l for _ in range(n_steps) for l in range(L)])
 
         def before_step(s):
@@ -717,7 +763,7 @@ class OffloadExecutor:
         def after_layer(i):
             self.timeline.record("gpu", "fwd", at["t0"], self._now())
             self.dispatches += 1
-            if spill:
+            if spill and host is None:
                 self._store_back_sharded(rows, views, bufs, owners, i,
                                          at["kv_len"], sched[at["step"]])
             self.streamer.release(at["seq"])
@@ -725,28 +771,31 @@ class OffloadExecutor:
 
         def after_step(s, logits):
             self.dispatches += 1
-            if spill:
-                at["kv_len"] = at["kv_len"] + (~sched[s]).astype(
-                    at["kv_len"].dtype)
+            if spill or host is not None:
+                at["kv_len"] = at["kv_len"] + (~sched[s] if active is None
+                                               else ~sched[s] & active[s])
             self.timeline.end_step(now=self._now())
 
         both, cur = SHD.decode_chunk(
             plan, self.resident, cur, cache, M.upload(sched, dev0),
             None if active is None else M.upload(active, dev0),
             pages_bound=pages_bound, act_pages_bound=act_pages_bound,
-            layers=layers, kv=kv if spill else None, before_step=before_step,
-            after_layer=after_layer, after_step=after_step, lay=self._layout)
+            any_act=sched.any(1), layers=layers,
+            kv=kv if spill and host is None else None, host=host,
+            before_step=before_step, after_layer=after_layer,
+            after_step=after_step, lay=self._layout)
         out = both.cpu().numpy()
         self.blocking_syncs += 1
         if spill:
-            for key in ("k", "v"):
+            for key in M.kv_planes(cache):
                 cache[key] = None
         return out, cur
 
     def _kv_upload_sharded(self, views, bufs, l: int):
         """Each position's slice of layer ``l``'s spilled region into its
         device buffers, on the compute stream (after that layer's last
-        store-back, which the same stream issued).  -> {position: (k, v)}."""
+        store-back, which the same stream issued).  -> {position: its KV
+        planes}."""
         out = {}
         for i, planes in views.items():
             t0 = self._now()
@@ -758,10 +807,17 @@ class OffloadExecutor:
             out[i] = tuple(bufs[i])
         return out
 
-    def _store_back_sharded(self, rows, views, bufs, owners, l: int,
-                            kv_len_np, store_np) -> None:
-        """Each owner position's new K/V rows of layer ``l`` (the KV-bound
-        requests') into its arena slice, D2H and asynchronous."""
+    def _store_back_sharded(self, rows, views, new, owners, l: int,
+                            kv_len_np, skip_np, one_page: bool = False):
+        """Each owner position's new K/V rows of layer ``l`` (the requests
+        not ``skip_np``: the KV-bound ones) into its host planes (the arena
+        slice, or the chunk's mirror), D2H and asynchronous.  ``new[p]``:
+        position ``p``'s device planes, with request j's new row at its
+        ``kv_len`` (the uploaded layer buffers) or, ``one_page``, at 0 (the
+        CPU lane's one-page region).  -> the event after the last copy (on
+        the card; None on the CPU), what the next step's host job of the
+        layer waits on."""
+        end = None
         for row in rows:
             for pos in row.pos:
                 if pos.index not in owners:
@@ -769,14 +825,17 @@ class OffloadExecutor:
                 t0, nbytes = self._now(), 0
                 cap = views[pos.index][0].shape[2]
                 for j, b in enumerate(row.bidx):
-                    if store_np[b]:
+                    if skip_np[b]:
                         continue
-                    at = min(int(kv_len_np[b]), cap - 1)
-                    for plane, buf in zip(views[pos.index], bufs[pos.index]):
-                        plane[l, j, at].copy_(buf[j, at], non_blocking=True)
-                        nbytes += buf[j, at].numel() * buf.element_size()
-                self.timeline.record("pcie_up", "st", t0, self._now(), nbytes,
+                    dst = min(int(kv_len_np[b]), cap - 1)
+                    src = 0 if one_page else dst
+                    for plane, buf in zip(views[pos.index], new[pos.index]):
+                        plane[l, j, dst].copy_(buf[j, src], non_blocking=True)
+                        nbytes += buf[j, src].numel() * buf.element_size()
+                end = self._now()
+                self.timeline.record("pcie_up", "st", t0, end, nbytes,
                                      pos.index)
+        return end if self.cuda else None
 
     # ================================================================== misc
     def drain_timeline(self, tag: Optional[str] = "decode"):
@@ -806,3 +865,99 @@ class OffloadExecutor:
     def fault_counters(self) -> Dict[str, int]:
         """Cumulative robustness counters of the weight lane."""
         return self.streamer.fault_counters
+
+
+class _ShardedHostLane:
+    """The CPU attention lane of ``OffloadExecutor._decode_sharded``, as
+    ``models.sharded.step_layer`` drives it: each position's new K/V row
+    goes to a one-page device region of its own (and, over the server's
+    chunk, into the cache too), its queries cross to the host once a layer
+    for the whole row, the lane attends over the position's heads of its
+    host planes (``views``: the spilled arena's slices, or the chunk's
+    mirror), and after the layer the owners store the new rows back.  Only
+    the queries, the partials' statistics and the new rows cross the
+    link."""
+
+    def __init__(self, ex: OffloadExecutor, views, owners, at, sched, active,
+                 rows, cache, *, mirror: bool):
+        self.ex, self.views, self.owners, self.at = ex, views, owners, at
+        self.sched, self.active, self.rows = sched, active, rows
+        self.write_cache = mirror
+        self.lane = ex._ensure_host_lane()
+        lay = ex._layout
+        self.lay = lay
+        # one page of each KV plane per position, in the cache's format
+        self._own = {}
+        for row in rows:
+            for pos, dev in zip(row.pos, row.devs):
+                self._own[pos.index] = [torch.zeros(
+                    (len(row.bidx), PAGE, lay.kvh_cache,
+                     1 if key.endswith("_s") else ex.cfg.head_dim),
+                    dtype=cache[key].dtype, device=dev)
+                    for key in M.kv_planes(cache)]
+        self._stored = [None] * ex.cfg.num_layers
+        self._q = {}
+
+    def own(self, row, c):
+        return self._own[row.pos[c].index]
+
+    def queries(self, row, i, qs):
+        """Each position's query (b, 1, H_c, D) to the host: copied
+        non-blocking (into pinned buffers on the card), then one wait for
+        the whole row."""
+        ex = self.ex
+        for pos, q in zip(row.pos, qs):
+            if ex.cuda:
+                buf = self._q.get(pos.index)
+                if buf is None or buf.shape != q.shape:
+                    buf = self._q[pos.index] = torch.empty(
+                        q.shape, dtype=q.dtype, pin_memory=True)
+                buf.copy_(q, non_blocking=True)
+            else:
+                self._q[pos.index] = q
+        if ex.cuda:
+            timing_event().synchronize()
+        ex.blocking_syncs += 1
+        ex.dispatches += 2          # the device partials and the merges
+
+    def _lengths(self, row):
+        s, kv_len = self.at["step"], self.at["kv_len"]
+        n = kv_len[row.bidx]
+        if self.active is not None:
+            n = np.where(self.active[s][row.bidx], n, 0)
+        return n
+
+    def partial(self, row, c, i):
+        """Position ``c``'s host partial over its attended KV heads of layer
+        ``i``'s host rows -> (o, m, l) on its device."""
+        lay, ex = self.lay, self.ex
+        pos, dev = row.pos[c], row.devs[c]
+        planes = [p[i] for p in self.views[pos.index]]
+        if lay.kv_slice:
+            h = lay.kv0[c]
+            planes = [p[..., h:h + 1, :] for p in planes]
+        if len(planes) == 2:
+            hk, hv = planes
+        else:
+            dt = T.torch_dtype(ex.cfg)
+            hk, hv = QuantPlane(planes[0], planes[2], dt), \
+                QuantPlane(planes[1], planes[3], dt)
+        cl = lay.cfg_l
+        q = self._q[pos.index].float().cpu().numpy()
+        q = q.reshape(q.shape[0], cl.num_kv_heads,
+                      cl.num_heads // cl.num_kv_heads, cl.head_dim)
+        job = self.lane.submit(q, hk, hv, self._lengths(row),
+                               after=self._stored[i])
+        return tuple(torch.from_numpy(a).to(dev)
+                     for a in self.lane.collect(job))
+
+    def store(self, row, i):
+        """The row's new K/V rows of layer ``i`` back into the owners' host
+        planes (after the layer: the arena, or the chunk's mirror)."""
+        s = self.at["step"]
+        skip = self.sched[s] if self.active is None else \
+            self.sched[s] | ~self.active[s]
+        ev = self.ex._store_back_sharded(
+            [row], self.views, self._own, self.owners, i, self.at["kv_len"],
+            skip, one_page=True)
+        self._stored[i] = ev

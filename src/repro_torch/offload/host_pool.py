@@ -91,7 +91,9 @@ class HostWeightPool:
     instead, under the plan's serve specs with the layer dim dropped
     (``layer_leaf_specs``); ``lane_view(i)`` is position ``i``'s slice of
     every layer, one flat buffer per layer, with the pool's interface for
-    its ``WeightStreamer``.  No whole-layer buffer is kept then.
+    its ``WeightStreamer``.  No whole-layer buffer is kept then, and the
+    pool serves position 0's device (what ``models.sharded.resolve_plan``
+    gives its executor: ``cuda:0`` where ``device`` says ``cuda``).
     """
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *,
@@ -99,7 +101,11 @@ class HostWeightPool:
         assert "layers" in params, "host offload drives uniform-family models"
         self.cfg = cfg
         self.plan = plan
-        self.device = torch.device(device)
+        self.device = torch.device(device) if plan is None else \
+            plan.mesh.devices[0]
+        if self.device.type != torch.device(device).type:
+            raise ValueError(f"a pool for {device} under a plan on "
+                             f"{self.device}")
         self.resident = {k: _to(v, self.device) for k, v in params.items()
                          if k != "layers"}
         stacked = params["layers"]

@@ -13,9 +13,15 @@ regimes on the same decode workload with the same stages:
     overlapped with compute.
 
 If the runtime overlaps at all, ``overlap_s < stream_s + compute_s``
-(strictly) — the benchmark reports the saving and the achieved overlap
-efficiency ``(stream_s + compute_s - overlap_s) / min(stream_s,
-compute_s)`` (1.0 = the shorter lane is fully hidden).
+(strictly) — the benchmark reports the saving, the median over the reps of
+each rep's ``stream + compute - overlap`` (the three regimes of one rep run
+back to back), and the achieved overlap efficiency, read from the
+overlapped run's own timeline: the compute lane's busy time inside the copy
+lane's busy intervals over the shorter lane's busy time (1.0 = the shorter
+lane is fully hidden), the median over the reps.  Differences of separate
+wall times would carry the noise of three runs into a ratio over the
+shorter lane; the spans carry none of it, and a synchronous lane's spans
+never overlap.
 
 On the card each regime is timed by CUDA events: one on the compute stream
 before it (the copy stream waits on it) and one after the compute stream
@@ -102,6 +108,14 @@ def _timed(ex: OffloadExecutor, fn: Callable[[], object]) -> float:
     return start.elapsed_time(end) / 1e3
 
 
+def _hidden_share(steps) -> float:
+    """The compute lane's busy seconds inside the copy lane's busy intervals
+    over the shorter lane's busy seconds, summed over the measured steps."""
+    lanes = min(sum(m.pcie_busy for m in steps),
+                sum(m.gpu_busy for m in steps))
+    return sum(m.gpu_hidden for m in steps) / max(lanes, 1e-12)
+
+
 def weight_stream_microbench(cfg: Optional[ModelConfig] = None, *,
                              B: int = 2, S: int = 64, kv_cap: int = 128,
                              act_cap: int = 128, n_steps: int = 6,
@@ -111,8 +125,10 @@ def weight_stream_microbench(cfg: Optional[ModelConfig] = None, *,
     overlap_efficiency / weight_bytes_streamed / prefetch_depth.
 
     Each regime is measured ``reps`` times and the MIN reported: any other
-    load only ever inflates a time.  ``cfg`` defaults to ``bench_config()``,
-    its weights drawn from ``seed`` on ``device``."""
+    load only ever inflates a time.  ``saving_s`` and
+    ``overlap_efficiency`` are medians over the reps of each rep's own
+    (module docstring).  ``cfg`` defaults to ``bench_config()``, its
+    weights drawn from ``seed`` on ``device``."""
     if cfg is None:
         cfg = bench_config()
     ex = OffloadExecutor(cfg, M.init_params(cfg, seed=seed, device=device),
@@ -133,26 +149,25 @@ def weight_stream_microbench(cfg: Optional[ModelConfig] = None, *,
         cur, cache = _fresh_state(ex, B, S, kv_cap, act_cap, seed)
         ex.decode_loop(cur, cache, sched)
         dev_layers = [_to(ex.pool.layer(l), ex.device) for l in range(Lc)]
-        stream_ts, compute_ts, overlap_ts = [], [], []
+        stream_ts, compute_ts, overlap_ts, hidden = [], [], [], []
         for _ in range(reps):
             stream_ts.append(_timed(ex, stream_only))
             cur, cache = _fresh_state(ex, B, S, kv_cap, act_cap, seed)
             compute_ts.append(_timed(ex, lambda: _compute_only(
                 ex, cur, cache, sched, dev_layers)))
             cur, cache = _fresh_state(ex, B, S, kv_cap, act_cap, seed)
+            ex.drain_timeline(None)
             overlap_ts.append(_timed(ex, lambda: ex.decode_loop(cur, cache,
                                                                 sched)))
-        stream_s = float(np.min(stream_ts))
-        compute_s = float(np.min(compute_ts))
-        overlap_s = float(np.min(overlap_ts))
-        saving = stream_s + compute_s - overlap_s
+            hidden.append(_hidden_share(ex.drain_timeline("decode")))
+        saving = np.median(np.asarray(stream_ts) + np.asarray(compute_ts)
+                           - np.asarray(overlap_ts))
         return {
-            "stream_s": stream_s,
-            "compute_s": compute_s,
-            "overlap_s": overlap_s,
-            "saving_s": saving,
-            "overlap_efficiency": saving / max(min(stream_s, compute_s),
-                                               1e-12),
+            "stream_s": float(np.min(stream_ts)),
+            "compute_s": float(np.min(compute_ts)),
+            "overlap_s": float(np.min(overlap_ts)),
+            "saving_s": float(saving),
+            "overlap_efficiency": float(np.median(hidden)),
             "weight_bytes_streamed": float(sum(ex.pool.layer_nbytes)
                                            * n_steps),
             "prefetch_depth": float(prefetch_depth),

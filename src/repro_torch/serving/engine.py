@@ -41,7 +41,10 @@ plan's mesh (``models.sharded``): the weights laid out under the serve
 specs, the cache under ``plan.cache_spec``, each position's attention on the
 kernels at its head counts, and the policy stack pricing the aggregate
 machine (``costmodel.scale_for_shards``).  A group is still one prefill call
-and one decode call with one readback.
+and one decode call with one readback.  Every combination the single-device
+engine serves, a plan serves: the int8 cache, the offload runtime with its
+CPU lane, the MoE models (expert parallel where the experts divide the
+model axis) and every head layout.
 """
 from __future__ import annotations
 
@@ -175,7 +178,7 @@ class HybridServeEngine:
                              "split; the kv and act baselines pin the ratio")
         T.check_supported(cfg, "engine")
         plan, self.device, hw, shards = SHD.resolve_plan(
-            cfg, plan, device, hw, quant, host_attn)
+            cfg, plan, device, hw, quant)
         self.plan = plan
         self.cfg, self.params, self.hw, self.mode = cfg, params, hw, mode
         self.quant = quant
@@ -236,7 +239,7 @@ class HybridServeEngine:
             self.params = None
         elif plan is not None:
             self.params = plan.place_params(params)
-            self._layout = SHD.Layout(plan)
+            self._layout = SHD.Layout(plan, quant)
 
     def close(self) -> None:
         """Drain the offload executor's copy stream and join its cpu-lane
@@ -471,7 +474,8 @@ class HybridServeEngine:
                             both, _ = SHD.decode_chunk(
                                 self.plan, self.params, cur, cache, sched_dev,
                                 pages_bound=pages_bound,
-                                act_pages_bound=act_bound, lay=self._layout)
+                                act_pages_bound=act_bound,
+                                any_act=sched.any(0), lay=self._layout)
                         gen = both[:, :-1].cpu().numpy()
                         stats.device_calls += 1
                     else:

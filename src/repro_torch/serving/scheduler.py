@@ -29,8 +29,9 @@ TBT histograms.  Both are host-side, on results the chunk already read.
 ``plan=`` serves tensor-parallel over a ``ShardPlan``'s mesh
 (``models.sharded``): the slot cache is laid out under ``plan.cache_spec``
 (slots over 'data' where they divide), an admission batch is prefilled by
-the data rows that own its slots, and the chunk structure (one call and one
-readback per admission batch and per chunk) holds on every mesh.
+the data rows that own its slots (an MoE model's rows each prefill all of
+it: its dispatch groups span the batch), and the chunk structure (one call
+and one readback per admission batch and per chunk) holds on every mesh.
 """
 from __future__ import annotations
 
@@ -195,11 +196,14 @@ class ContinuousBatchingServer:
         any device; laid out on the positions').  The slot cache follows
         ``plan.cache_spec``, the policy stack prices
         ``scale_for_shards(hw, plan.shard_factor)``, and under ``offload``
-        each position streams its own weight slice.  The int8 cache and the
-        CPU lane under a plan raise ``NotImplementedError``."""
+        each position streams its own weight slice.  Every combination
+        above serves under a plan: the int8 cache (its scale planes laid
+        out with their payloads), the CPU lane (a host mirror per
+        position), MoE (each data row prefills the whole admission batch,
+        whose dispatch groups it shares)."""
         T.check_supported(cfg, "server")
         plan, self.device, hw, shards = SHD.resolve_plan(
-            cfg, plan, device, hw, quant, host_attn)
+            cfg, plan, device, hw, quant)
         self.plan = plan
         if host_attn and not offload:
             raise ValueError("host_attn rides the offload runtime's host mirror")
@@ -251,7 +255,7 @@ class ContinuousBatchingServer:
             self.cache = M.init_hybrid_cache(cfg, slots, kv_cap, act_cap,
                                              device=self.device, quant=quant)
         else:
-            self._layout = SHD.Layout(plan)
+            self._layout = SHD.Layout(plan, quant)
             self._rows = SHD.rows_for(plan, slots)
             self.cache = SHD.init_cache(self._layout, slots, kv_cap, act_cap)
         self.slots = [SlotState() for _ in range(slots)]
@@ -328,22 +332,31 @@ class ContinuousBatchingServer:
     def _admit_sharded(self, tokens, kv_keep, last_pos, slot_idx) -> np.ndarray:
         """``_admit`` over the plan's mesh: each data row prefills the
         admitted requests whose slots it holds and scatters them into its
-        slots; the rows' first tokens are gathered for the one readback."""
+        slots; the rows' first tokens are gathered for the one readback.
+        An MoE model's rows each prefill the whole admission batch (its
+        dispatch groups span the batch, fault N) and scatter their own."""
         rows, order, ins = [], [], []
+        whole = self.cfg.is_moe and self.plan.batch_split(self.n_slots)
         for row in self._rows:
             sel = np.nonzero(np.isin(slot_idx, row.bidx))[0]
             if not len(sel):
                 continue
             rows.append(row)
             order.append(sel)
-            ins.append((tokens[sel], kv_keep[sel], last_pos[sel]))
+            ins.append((tokens, kv_keep, last_pos) if whole else
+                       (tokens[sel], kv_keep[sel], last_pos[sel]))
         with trace_ctx(self.plan):
             curs, caches, _ = SHD.prefill_rows(
                 self._layout, self.params, rows, *zip(*ins),
                 kv_cap=self.kv_cap, act_cap=self.act_cap)
             for row, sel, new in zip(rows, order, caches):
+                if whole:
+                    new = [SHD.select_rows(n, M.upload(sel, d).long())
+                           for n, d in zip(new, row.devs)]
                 local = M.upload(slot_idx[sel] - row.bidx[0], row.devs[0])
                 SHD.scatter_rows(self.cache, row, new, local.long())
+        if whole:
+            return curs[0].cpu().numpy()
         if not self.plan.batch_split(self.n_slots):
             return curs[0].cpu().numpy()
         dev = self.plan.mesh.devices[0]
@@ -660,6 +673,7 @@ class ContinuousBatchingServer:
             with trace_ctx(self.plan):
                 both, _ = SHD.decode_chunk(self.plan, self.params, curs,
                                            self.cache, store, act,
+                                           any_act=sched_t.any(1),
                                            lay=self._layout, **bounds)
             both = both.cpu().numpy()
             stats.device_calls += 1

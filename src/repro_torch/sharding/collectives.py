@@ -1,6 +1,6 @@
 """The collectives between mesh positions of the single-controller serving
-path: a sum over the model axis, an all-gather along a dimension, and the
-vocabulary argmax.  The reference has no counterpart: XLA inserts its
+path: a sum over the model axis, an elementwise max over it, an all-gather
+along a dimension, and the vocabulary argmax.  The reference has no counterpart: XLA inserts its
 collectives.
 
 A call takes one tensor per position (in the order of ``devices``) and
@@ -12,8 +12,8 @@ from the device.
 
 Each call adds the bytes a ring algorithm would move between the positions
 (summed over positions) to ``COUNTER``, whether or not the positions share a
-device: a sum of n bytes over m positions 2(m-1)n, an all-gather of m parts
-of n bytes (m-1)mn.  The tracer and the metrics registry read it
+device: a sum or a max of n bytes over m positions 2(m-1)n, an all-gather of
+m parts of n bytes (m-1)mn.  The tracer and the metrics registry read it
 (``record``)."""
 from __future__ import annotations
 
@@ -72,6 +72,19 @@ def sum_model(parts: Sequence[torch.Tensor], devices,
     acc = parts[0]
     for p in parts[1:]:
         acc = acc + p.to(acc.device)
+    m = len(parts)
+    if m > 1:
+        COUNTER.add(kind, 2 * (m - 1) * _nbytes(parts[0]))
+    return _fan_out(acc, devices)
+
+
+def max_model(parts: Sequence[torch.Tensor], devices,
+              kind: str = "max") -> List[torch.Tensor]:
+    """All-reduce: the elementwise max of the positions' parts, on every
+    position (exact in any order)."""
+    acc = parts[0]
+    for p in parts[1:]:
+        acc = torch.maximum(acc, p.to(acc.device))
     m = len(parts)
     if m > 1:
         COUNTER.add(kind, 2 * (m - 1) * _nbytes(parts[0]))

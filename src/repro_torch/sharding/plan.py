@@ -170,7 +170,10 @@ class ShardPlan:
 
     # ------------------------------------------------------------ cache specs
     def cache_spec(self, key: str, shape) -> Spec:
-        """Hybrid-cache leaf spec (serving layout; no sequence sharding)."""
+        """Hybrid-cache leaf spec (serving layout; no sequence sharding).
+        An int8 cache's scale planes go with their payloads: ``k_s``/``v_s``
+        split with the KV heads, ``act_s`` (one scale per whole ACT row)
+        replicated over 'model'."""
         shp = tuple(shape)
         b = "data" if self.data_shards > 1 else None
         t = "model" if self.model_shards > 1 else None
@@ -179,10 +182,13 @@ class ShardPlan:
             return ax if (ax is not None and size % _axis_size(self.mesh, ax)
                           == 0) else None
 
-        if key in ("k", "v"):            # (L, B, S, KVH, D)
+        b = b if self.batch_split(shp[0 if len(shp) < 4 else 1]) else None
+        if key in ("k", "v", "k_s", "v_s"):   # (L, B, S, KVH, D or 1)
             return (None, fit(shp[1], b), None, fit(shp[3], t), None)
         if key == "act":                 # (L, B, S, d_model)
             return (None, fit(shp[1], b), None, fit(shp[3], t))
+        if key == "act_s":               # (L, B, S, 1): one scale per row
+            return (None, fit(shp[1], b), None, None)
         if key == "act_pos":             # (B, act_cap)
             return (fit(shp[0], b), None)
         if key in ("kv_len", "act_len"):  # (B,)
@@ -191,8 +197,14 @@ class ShardPlan:
 
     def batch_split(self, B: int) -> bool:
         """Whether a batch of ``B`` rows splits over 'data' (the cache
-        spec's ``fit``); otherwise every data row holds all of it."""
-        return self.data_shards > 1 and B % self.data_shards == 0
+        spec's ``fit``); otherwise every data row holds all of it.  An MoE
+        model splits only over a data axis that divides 32: its capacity
+        groups are ``_moe_groups`` of the whole batch's tokens (fault N),
+        and only then does each data row hold whole groups."""
+        d = self.data_shards
+        if self.cfg.is_moe and 32 % d:
+            return False
+        return d > 1 and B % d == 0
 
     # -------------------------------------------------------------- placement
     def param_specs_for(self, params):

@@ -92,9 +92,22 @@ def test_serve_cli_trace_and_wall_clock(tmp_path, capsys):
 @pytest.mark.parametrize("bad", [["--mesh", "2,2"], ["--explain-plan"]],
                          ids=["mesh", "explain-plan"])
 def test_serve_cli_refuses_a_mesh(bad, capsys):
-    """A mesh the sharded path cannot serve yet (MoE, expert-parallel) is
-    refused naming item 5.2, whether served or explained."""
+    """An MoE model, refused under a mesh until item 5.2.3, now serves on
+    one (expert parallel, token-exact with ``--verify``) and explains its
+    plan (the experts split over 'model'); a family the engine does not
+    serve is refused under a mesh, whether served or explained."""
     mesh = bad if "--mesh" in bad else ["--mesh", "1,2"] + bad
+    if "--explain-plan" in bad:
+        assert serve.main(["--arch", "dbrx-132b-reduced", "--device", "cpu"]
+                          + mesh) == (None, None)
+        assert "layers/ffn/we1[1]" in capsys.readouterr().out
+    else:
+        serve.main(["--arch", "dbrx-132b-reduced", "--device", "cpu",
+                    "--requests", "2", "--gen-tokens", "3", "--verify"]
+                   + mesh)
+        assert "token-exact vs full-KV reference: True" in \
+            capsys.readouterr().out
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "dbrx-132b-reduced", "--device", "cpu"] + mesh)
-    assert "item 5.2" in capsys.readouterr().err
+        serve.main(["--arch", "mamba2-2.7b-reduced", "--device", "cpu"]
+                   + mesh)
+    assert "not served by" in capsys.readouterr().err

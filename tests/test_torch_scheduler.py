@@ -147,14 +147,18 @@ def test_refusals():
     srv = ContinuousBatchingServer(cfg, tp, device="cpu", adaptive=True)
     assert srv.controller is not None and srv.controller.ctl.update_every == 4
     assert set(srv.snapshot()) == {"predictor_drift"}
-    # under a plan, the int8 cache is item 5.2's
+    # under a plan the int8 cache is served (item 5.2.1); a format the
+    # cache does not store is refused there as on one device
     from repro_torch.core.quant import QuantConfig
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.sharding import make_shard_plan
     plan = make_shard_plan(cfg, make_test_mesh(1, 2, device="cpu"), tp)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    srv = ContinuousBatchingServer(cfg, tp, device="cpu", plan=plan,
+                                   quant=QuantConfig())
+    assert srv.cache["act"].dtype == torch.int8
+    with pytest.raises(ValueError, match="int8 codes"):
         ContinuousBatchingServer(cfg, tp, device="cpu", plan=plan,
-                                 quant=QuantConfig())
+                                 quant=QuantConfig(kv_dtype="fp8"))
     with pytest.raises(ValueError, match="host_attn"):
         ContinuousBatchingServer(cfg, tp, device="cpu", host_attn=True)
     # the windowed and ssm families, as the reference's assert refuses them

@@ -42,6 +42,7 @@ from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import sharded as SHD
 from repro_torch.models import transformer as T
+from repro_torch.offload.host_pool import HostWeightPool
 from repro_torch.obs import (MetricsRegistry, Tracer, assert_single_rooted,
                              validate_chrome_trace)
 from repro_torch.serving import ContinuousBatchingServer, HybridServeEngine
@@ -184,6 +185,23 @@ def test_offload_per_shard_lanes_soak():
         assert all(p.allocated == 0 for p in srv.blockman.pools.values())
 
 
+def test_a_shared_pool_serves_the_plans_device():
+    """A ``HostWeightPool`` built for a plan and handed to the engine serves
+    position 0's device, as its executor does: on the card a mesh names
+    ``cuda:0`` where the caller says ``cuda``; here the mesh names ``cpu:0``
+    where the pool is asked for ``cpu``."""
+    cfg, tp, _, _, reqs, _, ref = setup("opt-6.7b-reduced")
+    plan = make_shard_plan(cfg, make_test_mesh(1, 2, device="cpu:0"), tp)
+    pool = HostWeightPool(cfg, tp, plan=plan, device="cpu")
+    assert pool.device == plan.mesh.devices[0] == torch.device("cpu", 0)
+    with HybridServeEngine(cfg, pool, offload=True, plan=plan) as eng:
+        assert eng.executor.pool is pool
+        out, _ = eng.generate(reqs[:2])
+    assert_tokens(out, reqs[:2], ref)
+    with pytest.raises(ValueError, match="under a plan"):
+        HostWeightPool(cfg, tp, plan=plan, device="meta")
+
+
 def test_trace_sharded_timelines_complete():
     """A traced 1x2 offload server: lane spans on shards {0, 1}, every
     request's span tree complete and single-rooted, the measured timelines
@@ -272,17 +290,29 @@ def test_sharded_prefill_and_decode_read_no_device_value(monkeypatch):
 
 
 def test_unsupported_combinations_name_item_5_2():
+    """What a plan refused until item 5.2.1-5.2.3 (the int8 cache, the CPU
+    lane, MoE) now builds under it: the engine, the server and the offload
+    executor take each (``test_torch_shard_configs.py`` and
+    ``test_torch_shard_moe.py`` serve them).  A family the engine does not
+    serve is still refused under a plan, as without one."""
     cfg, tp, *_ = setup("opt-6.7b-reduced")
     plan = plan_for(cfg, tp, (1, 2))
     for kw in (dict(quant=QuantConfig()), dict(offload=True, host_attn=True)):
-        with pytest.raises(NotImplementedError, match="item 5.2"):
-            HybridServeEngine(cfg, tp, plan=plan, **kw)
-    with pytest.raises(NotImplementedError, match="item 5.2"):
-        ContinuousBatchingServer(cfg, tp, plan=plan, quant=QuantConfig())
+        with HybridServeEngine(cfg, tp, plan=plan, **kw) as eng:
+            assert eng.plan is plan
+    with ContinuousBatchingServer(cfg, tp, plan=plan, quant=QuantConfig(),
+                                  offload=True, host_attn=True) as srv:
+        assert srv.executor.plan is plan
+        assert srv.cache["act_s"].spec == (None, None, None, None)
+        assert srv.cache["k_s"].spec == (None, None, None, "model", None)
     moe = get_config("dbrx-132b-reduced")
-    mp = T.init_params(moe, 0, device="meta")
-    with pytest.raises(NotImplementedError, match="item 5.2"):
-        HybridServeEngine(moe, mp, plan=plan_for(moe, mp, (1, 2)))
+    mp = T.init_params(moe, 0, device="cpu")
+    assert HybridServeEngine(moe, mp, plan=plan_for(moe, mp, (1, 2))).plan
+    ssm = get_config("mamba2-2.7b-reduced")
+    sp = T.init_params(ssm, 0, device="meta")
+    with pytest.raises(NotImplementedError, match="not served by"):
+        HybridServeEngine(ssm, sp, plan=make_shard_plan(
+            ssm, make_test_mesh(1, 2, device="meta"), sp))
 
 
 def test_serve_cli_on_a_mesh(capsys):
